@@ -1,0 +1,68 @@
+"""Dense O(N^2) neighbour search into fixed-capacity padded [N, K] lists
+(port of gamd_tpu/neighbors/dense.py: dense_neighbor_list, refresh_mask;
+build_nbrs is the k_model rule of gamd_tpu/md/simulate.py:94-112).
+
+Row i holds up to K neighbours of atom i, nearest first; padded slots point
+at atom i itself so gathers stay in bounds, and the mask zeroes them. When a
+row has more than K atoms in range the farthest are dropped and the
+overflow flag says so.
+"""
+
+import torch
+
+from gamd_tpu_torch.core import space
+
+
+def dense_neighbor_list(pos, box, cutoff, k_max):
+    """Padded neighbour list from all-pairs minimum-image distances.
+
+    Returns idx [N, K] int32 (padded slots hold the row index), mask [N, K]
+    bool, and overflow, a 0-d bool tensor on pos's device (read it on the
+    host only when needed: reading it waits for the device).
+    """
+    n = pos.shape[0]
+    d2 = space.pairwise_distance2(pos, box)
+    # No self edges: the reference's add_self_loop is a silent no-op.
+    within = (d2 < cutoff * cutoff) & ~torch.eye(n, dtype=torch.bool,
+                                                  device=pos.device)
+    overflow = torch.any(torch.sum(within, dim=1) > k_max)
+
+    d2_masked = torch.where(within, d2, torch.inf)
+    k_eff = min(k_max, n)
+    neg, idx = torch.topk(-d2_masked, k_eff, dim=1)
+    mask = neg > -torch.inf
+    row = torch.arange(n, device=pos.device)[:, None]
+    idx = torch.where(mask, idx, row)
+    if k_eff < k_max:
+        pad = k_max - k_eff
+        idx = torch.cat([idx, row.expand(n, pad)], dim=1)
+        mask = torch.cat([mask, torch.zeros((n, pad), dtype=torch.bool,
+                                            device=pos.device)], dim=1)
+    return idx.to(torch.int32), mask, overflow
+
+
+def build_nbrs(pos, system, k_model=None):
+    """The list a simulation chunk reuses: built at cutoff + skin with the
+    system's capacity, then cut to the nearest k_model slots (when k_model
+    is given and smaller). Lists are distance-sorted, so the nearest k
+    slots are a valid smaller working set; if a dropped slot is live at
+    build time (a cutoff + skin neighbour would be lost for the chunk),
+    overflow is flagged so the caller reruns with a larger k_model.
+
+    Returns idx [N, k] int32 (contiguous), mask [N, k] bool and the 0-d
+    bool overflow tensor.
+    """
+    idx, mask, ovf = dense_neighbor_list(
+        pos, system.box, system.cutoff + system.skin, system.nbr_capacity)
+    if k_model is not None and k_model < idx.shape[-1]:
+        ovf = ovf | torch.any(mask[:, k_model:])
+        idx = idx[:, :k_model].contiguous()
+        mask = mask[:, :k_model].contiguous()
+    return idx, mask, ovf
+
+
+def refresh_mask(pos, box, cutoff, idx, mask):
+    """Re-validate a stale list against current positions: the index set
+    (built at cutoff + skin) is kept, only the true-cutoff mask is redone."""
+    rel = space.min_image(pos[idx.long()] - pos[:, None, :], box)
+    return mask & (torch.sum(rel * rel, dim=-1) < cutoff * cutoff)

@@ -1,0 +1,386 @@
+"""Whole-model GAMD forward, positions to forces: the host side of
+gamd_tpu/ops/pallas_model.py and the wrapper of its Hopper kernel.
+
+* MegaParams / pack_params re-pack a GAMDNet parameter tree (layer axes
+  stacked, eval BatchNorm folded into the node-norm affine, force
+  denormalisation folded into the decoder's last affine).
+* encode_edges / node_norm / conv_apply / decode_nodes / reference_forward
+  are the kernel's plain PyTorch version (tanh-gelu, as the kernel).
+* mega_forward runs csrc/mega_forward.cu on a CUDA tensor and the plain
+  version on a CPU tensor. It counts its kernel launches in
+  `mega_forward.launches`.
+"""
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gamd_tpu_torch.core import space
+
+#: Every feature width the CUDA kernel takes (encoder, hidden, edge, node).
+KERNEL_WIDTH = 128
+
+
+def _gelu_tanh(x):
+    c = math.sqrt(2.0 / math.pi)
+    return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x * x * x)))
+
+
+def _silu(x):
+    return x * torch.sigmoid(x)
+
+
+_ACTS = {"gelu": _gelu_tanh, "silu": _silu}
+
+
+class MegaParams(NamedTuple):
+    """GAMDNet weights re-packed for the kernel (layer axes stacked).
+
+    The JAX package's bf16 src-affine prepack (w_src3) is a TPU workaround
+    and has no counterpart here.
+    """
+
+    # encoder
+    centers: torch.Tensor    # [1, 128] RBF centres (zero-padded)
+    w_geo: torch.Tensor      # [8, H]: rows 0-2 unit, 3 std-dist, 4 bond
+    w_rbf: torch.Tensor      # [128, H] (rows >= n_rbf are zero)
+    b0: torch.Tensor         # [1, H]
+    w1: torch.Tensor         # [H, H]
+    b1: torch.Tensor         # [1, H]
+    w2: torch.Tensor         # [H, E]
+    b2: torch.Tensor         # [1, E]
+    eln_s: torch.Tensor      # [1, E] edge LayerNorm scale
+    eln_b: torch.Tensor      # [1, E]
+    # conv layers (leading axis L)
+    nln_s: torch.Tensor      # [L, 1, D] node norm scale (LN) / folded BN a
+    nln_b: torch.Tensor      # [L, 1, D]
+    w_src: torch.Tensor      # [L, D, H]
+    b_src: torch.Tensor      # [L, 1, H]
+    w_dst: torch.Tensor      # [L, D, H]
+    b_dst: torch.Tensor      # [L, 1, H]
+    w_e1: torch.Tensor       # [L, E, H]
+    b_e1: torch.Tensor       # [L, 1, H]
+    w_e2: torch.Tensor       # [L, H, H]
+    b_e2: torch.Tensor       # [L, 1, H]
+    w_t1: torch.Tensor       # [L, H, H]
+    b_t1: torch.Tensor       # [L, 1, H]
+    w_t2: torch.Tensor       # [L, H, D]
+    b_t2: torch.Tensor       # [L, 1, D]
+    w_pd: torch.Tensor       # [L, D, H]
+    b_pd: torch.Tensor       # [L, 1, H]
+    w_pe: torch.Tensor       # [L, D, H]
+    b_pe: torch.Tensor       # [L, 1, H]
+    w_p: torch.Tensor        # [L, H, D]
+    b_p: torch.Tensor        # [L, 1, D]
+    # decoder (final affine may fold force denormalisation)
+    wd0: torch.Tensor        # [D, H]
+    bd0: torch.Tensor        # [1, H]
+    wd1: torch.Tensor        # [H, 128] (cols 0-2 live)
+    bd1: torch.Tensor        # [1, 128]
+
+
+def pack_params(params, cfg, batch_stats=None, force_std=None,
+                force_mean=None, unit: float = 1.0, device="cpu"):
+    """Re-pack a parameter tree (flax layout; numpy or torch leaves) into
+    float32 MegaParams on `device`.
+
+    With force_std/force_mean the decoder's last affine absorbs
+    `pred * std + mean` and the `unit` conversion. With BatchNorm
+    (use_layer_norm=False) the eval normalisation folds into the per-feature
+    affine: a = scale/sqrt(var+eps), b = bias - mean*a.
+    """
+    f32 = lambda a: np.asarray(a, np.float32)
+    row = lambda a: f32(a).reshape(1, -1)
+    h_dim = cfg.hidden_dim
+    n_rbf = cfg.n_rbf if cfg.expand_edge else 0
+
+    w0 = f32(params["edge_encoder_w0"])       # [3+1+n_rbf(+1 bond), H]
+    w_geo = np.zeros((8, h_dim), np.float32)
+    w_geo[:4] = w0[:4]
+    if w0.shape[0] > 4 + n_rbf:               # trailing bond-channel row
+        w_geo[4] = w0[4 + n_rbf]
+    w_rbf = np.zeros((128, h_dim), np.float32)
+    w_rbf[:n_rbf] = w0[4:4 + n_rbf]
+    centers = np.zeros((1, 128), np.float32)
+    if n_rbf:
+        centers[0, :n_rbf] = np.linspace(cfg.rbf_low, cfg.rbf_high, n_rbf)
+
+    gc = params["graph_conv"]
+    ln_s, ln_b = [], []
+    for layer in range(cfg.conv_layers):
+        norm = gc[f"norm_{layer}"]
+        if cfg.use_layer_norm:
+            ln_s.append(row(norm["scale"]))
+            ln_b.append(row(norm["bias"]))
+        else:
+            stats = batch_stats["graph_conv"][f"norm_{layer}"]
+            a = f32(norm["scale"]) / np.sqrt(f32(stats["var"]) + 1e-5)
+            ln_s.append(row(a))
+            ln_b.append(row(f32(norm["bias"]) - f32(stats["mean"]) * a))
+
+    def stack(fn):
+        return np.stack([fn(gc[f"conv_{l}"]) for l in range(cfg.conv_layers)])
+
+    dec = params["graph_decoder"]
+    wd1 = f32(dec["Dense_1"]["kernel"])       # [H, 3]
+    bd1 = f32(dec["Dense_1"]["bias"])         # [3]
+    if force_std is not None:
+        scale = np.float32(force_std) * np.float32(unit)
+        wd1 = wd1 * scale
+        bd1 = bd1 * scale + np.float32(force_mean) * np.float32(unit)
+    wd1_pad = np.zeros((h_dim, 128), np.float32)
+    wd1_pad[:, :3] = wd1
+    bd1_pad = np.zeros((1, 128), np.float32)
+    bd1_pad[0, :3] = bd1
+
+    packed = dict(
+        centers=centers, w_geo=w_geo, w_rbf=w_rbf,
+        b0=row(params["edge_encoder_b0"]),
+        w1=f32(params["edge_encoder_w1"]),
+        b1=row(params["edge_encoder_b1"]),
+        w2=f32(params["edge_encoder_w2"]),
+        b2=row(params["edge_encoder_b2"]),
+        eln_s=row(params["edge_ln_scale"]),
+        eln_b=row(params["edge_ln_bias"]),
+        nln_s=np.stack(ln_s), nln_b=np.stack(ln_b),
+        w_src=stack(lambda c: f32(c["src_affine"]["kernel"])),
+        b_src=stack(lambda c: row(c["src_affine"]["bias"])),
+        w_dst=stack(lambda c: f32(c["dst_affine"]["kernel"])),
+        b_dst=stack(lambda c: row(c["dst_affine"]["bias"])),
+        w_e1=stack(lambda c: f32(c["edge_affine_w1"])),
+        b_e1=stack(lambda c: row(c["edge_affine_b1"])),
+        w_e2=stack(lambda c: f32(c["edge_affine_w2"])),
+        b_e2=stack(lambda c: row(c["edge_affine_b2"])),
+        w_t1=stack(lambda c: f32(c["theta_edge_w1"])),
+        b_t1=stack(lambda c: row(c["theta_edge_b1"])),
+        w_t2=stack(lambda c: f32(c["theta_edge_w2"])),
+        b_t2=stack(lambda c: row(c["theta_edge_b2"])),
+        w_pd=stack(lambda c: f32(c["phi_dst_w"])),
+        b_pd=stack(lambda c: row(c["phi_dst_b"])),
+        w_pe=stack(lambda c: f32(c["phi_edge_w"])),
+        b_pe=stack(lambda c: row(c["phi_edge_b"])),
+        w_p=stack(lambda c: f32(c["phi_w"])),
+        b_p=stack(lambda c: row(c["phi_b"])),
+        wd0=f32(dec["Dense_0"]["kernel"]),
+        bd0=row(dec["Dense_0"]["bias"]),
+        wd1=wd1_pad, bd1=bd1_pad,
+    )
+    return MegaParams(**{k: torch.as_tensor(np.ascontiguousarray(v),
+                                            device=device)
+                         for k, v in packed.items()})
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version over MegaParams: the kernel's reference.
+# ---------------------------------------------------------------------------
+
+def encode_edges(mp: MegaParams, unit, std_dist, bond, mlp_act="gelu",
+                 rbf_gap=0.025):
+    """unit [..,3], std_dist [..], bond [..] or None -> e [.., E]."""
+    act = _ACTS[mlp_act]
+    gamma = 1.0 / rbf_gap
+    diff = std_dist[..., None] - mp.centers[0]
+    z = torch.exp(-gamma * diff * diff) @ mp.w_rbf
+    z = (z + unit[..., 0:1] * mp.w_geo[0:1] + unit[..., 1:2] * mp.w_geo[1:2]
+         + unit[..., 2:3] * mp.w_geo[2:3]
+         + std_dist[..., None] * mp.w_geo[3:4] + mp.b0[0])
+    if bond is not None:
+        z = z + bond[..., None] * mp.w_geo[4:5]
+    z = act(act(z) @ mp.w1 + mp.b1[0]) @ mp.w2 + mp.b2[0]
+    mean = torch.mean(z, dim=-1, keepdim=True)
+    zc = z - mean
+    var = torch.mean(zc * zc, dim=-1, keepdim=True)
+    return (zc * torch.rsqrt(var + 1e-6)) * mp.eln_s[0] + mp.eln_b[0]
+
+
+def node_norm(mp: MegaParams, layer, h, use_ln=True):
+    if use_ln:
+        mean = torch.mean(h, dim=-1, keepdim=True)
+        hc = h - mean
+        var = torch.mean(hc * hc, dim=-1, keepdim=True)
+        h = hc * torch.rsqrt(var + 1e-6)
+    return h * mp.nln_s[layer, 0] + mp.nln_b[layer, 0]
+
+
+def conv_apply(mp: MegaParams, layer, h_own, hn_own, hn_env, e, idx, mask,
+               conv_act="silu"):
+    """One EdgeGatedConv over a padded list whose indices point into an
+    environment array (hn_env; equal to hn_own on one device)."""
+    act = _ACTS[conv_act]
+    idx = idx.long()
+    src_env = hn_env @ mp.w_src[layer] + mp.b_src[layer, 0]
+    dst = hn_own @ mp.w_dst[layer] + mp.b_dst[layer, 0]
+    z = act(e @ mp.w_e1[layer] + mp.b_e1[layer, 0]) @ mp.w_e2[layer] \
+        + mp.b_e2[layer, 0]
+    z = z + src_env[idx] + dst[:, None, :]
+    z = act(act(z) @ mp.w_t1[layer] + mp.b_t1[layer, 0]) @ mp.w_t2[layer] \
+        + mp.b_t2[layer, 0]
+    agg = torch.sum(torch.where(mask[..., None], hn_env[idx] * z, 0.0), dim=1)
+    pre = hn_own @ mp.w_pd[layer] + mp.b_pd[layer, 0] \
+        + agg @ mp.w_pe[layer] + mp.b_pe[layer, 0]
+    return h_own + act(pre) @ mp.w_p[layer] + mp.b_p[layer, 0]
+
+
+def decode_nodes(mp: MegaParams, h, mlp_act="gelu"):
+    act = _ACTS[mlp_act]
+    z = act(h @ mp.wd0 + mp.bd0[0])
+    return (z @ mp.wd1 + mp.bd1[0])[..., :3]
+
+
+def reference_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
+                      length_mean, length_std, bond=None, rbf_gap=0.025,
+                      flip_dir=False, use_ln=True, conv_act="silu",
+                      mlp_act="gelu", n_layers=None):
+    """Single-system [N, ...] plain version of mega_forward (fp32,
+    tanh-gelu; see models.gnn.GAMDNet for the erf-gelu model)."""
+    nbr = pos[idx.long()]
+    rel = space.min_image(nbr - pos[:, None, :], box)
+    dist = torch.sqrt(torch.sum(rel * rel, dim=-1))
+    unit = rel / (dist[..., None] + 1e-8)
+    if flip_dir:
+        unit = -unit
+    std = (dist - length_mean) / length_std
+    mask = build_mask if cutoff is None else (
+        build_mask & (dist * dist < cutoff * cutoff))
+    e = encode_edges(mp, unit, std, bond, mlp_act, rbf_gap)
+    h = h0
+    n_layers = mp.w_src.shape[0] if n_layers is None else n_layers
+    for layer in range(n_layers):
+        hn = node_norm(mp, layer, h, use_ln)
+        h = conv_apply(mp, layer, h, hn, hn, e, idx, mask, conv_act)
+    return decode_nodes(mp, h, mlp_act)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel (csrc/mega_forward.cu) and its wrapper.
+# ---------------------------------------------------------------------------
+
+class _MegaWeights(ctypes.Structure):
+    """Mirror of the C struct MegaWeights: one device pointer per field of
+    MegaParams, in the same order."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in MegaParams._fields]
+
+
+#: Edges per block of the kernel's edge stages (csrc/mega_forward.cu KC).
+EDGE_CHUNK = 16
+
+
+def declare(lib):
+    """Set argtypes/restype of the library's C entry."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gamd_mega_forward.argtypes = [
+        p, p, p, p, ctypes.POINTER(_MegaWeights),     # pos idx bmask h0 w
+        i, i, i, i, i,                                # n k layers ln flip
+        f, f, f, f, f,                                # box cut2 lm ls gamma
+        p, p, p, p, p, p, p, p,                       # scratch + out
+        p]                                            # stream
+    lib.gamd_mega_forward.restype = ctypes.c_int
+
+
+def _expected_shapes(n_layers):
+    w, L = KERNEL_WIDTH, n_layers
+    shapes = {"centers": (1, 128), "w_geo": (8, w), "w_rbf": (128, w),
+              "wd1": (w, 128), "bd1": (1, 128)}
+    for name in MegaParams._fields:
+        if name in shapes:
+            continue
+        if name.startswith("w"):
+            shapes[name] = (L, w, w) if name not in ("w1", "w2", "wd0") \
+                else (w, w)
+        elif name in ("b0", "b1", "b2", "eln_s", "eln_b", "bd0"):
+            shapes[name] = (1, w)
+        else:
+            shapes[name] = (L, 1, w)
+    return shapes
+
+
+def _check(name, t, device, dtype, shape):
+    if not isinstance(t, torch.Tensor) or t.device != device \
+            or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        got = (f"{tuple(t.shape)} {t.dtype} on {t.device}, contiguous="
+               f"{t.is_contiguous()}") if isinstance(t, torch.Tensor) \
+            else type(t).__name__
+        raise ValueError(f"mega_forward: {name} must be a contiguous "
+                         f"{dtype} tensor of shape {tuple(shape)} on "
+                         f"{device}; got {got}")
+
+
+def mega_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
+                 length_mean, length_std, bond=None, rbf_gap=0.025,
+                 flip_dir=False, use_ln=True, conv_act="silu",
+                 mlp_act="gelu"):
+    """Forces [N, 3] from wrapped positions, one system.
+
+    Args:
+        pos:  [N, 3] float32 wrapped positions.
+        idx:  [N, K] int32 padded neighbour ids (build-time list).
+        build_mask: [N, K] bool validity at build time; the forward
+              intersects it with the true-cutoff test from `pos`
+              (cutoff=None passes it through).
+        h0:   [N, D] float32 initial node features.
+        mp:   MegaParams from pack_params, on pos's device.
+        box, cutoff, length_mean, length_std: Python floats.
+
+    A CPU `pos` runs reference_forward. A CUDA `pos` launches the kernel
+    (LJ: no bond channel, silu conv / gelu MLP, every width 128) or raises.
+    """
+    if pos.device.type == "cpu":
+        return reference_forward(pos, idx, build_mask, h0, mp, box, cutoff,
+                                 length_mean, length_std, bond, rbf_gap,
+                                 flip_dir, use_ln, conv_act, mlp_act)
+    if pos.device.type != "cuda":
+        raise ValueError(f"mega_forward runs on cuda or cpu, not "
+                         f"{pos.device}")
+    if bond is not None or conv_act != "silu" or mlp_act != "gelu":
+        raise NotImplementedError(
+            "the CUDA mega_forward takes the LJ model: no bond channel, "
+            "silu conv and gelu MLP activations")
+    dev = pos.device
+    n = pos.shape[0]
+    k = idx.shape[-1]
+    n_layers = mp.w_src.shape[0]
+    _check("pos", pos, dev, torch.float32, (n, 3))
+    _check("idx", idx, dev, torch.int32, (n, k))
+    _check("build_mask", build_mask, dev, torch.bool, (n, k))
+    _check("h0", h0, dev, torch.float32, (n, KERNEL_WIDTH))
+    for name, shape in _expected_shapes(n_layers).items():
+        _check(f"mp.{name}", getattr(mp, name), dev, torch.float32, shape)
+
+    from gamd_tpu_torch.ops.build import load_library
+    lib = load_library()
+    w = KERNEL_WIDTH
+    n_chunk = -(-k // EDGE_CHUNK)
+    f32 = dict(device=dev, dtype=torch.float32)
+    e = torch.empty((n * k, w), **f32)
+    live = torch.empty((n * k,), **f32)
+    h = torch.empty((n, w), **f32)
+    hn = torch.empty((n, w), **f32)
+    src = torch.empty((n, w), **f32)
+    dst = torch.empty((n, w), **f32)
+    aggp = torch.empty((n, n_chunk, w), **f32)
+    out = torch.empty((n, 3), **f32)
+    weights = _MegaWeights(*[t.data_ptr() for t in mp])
+    cutoff2 = math.inf if cutoff is None else float(cutoff) ** 2
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.gamd_mega_forward(
+        pos.data_ptr(), idx.data_ptr(), build_mask.data_ptr(),
+        h0.data_ptr(), ctypes.byref(weights),
+        n, k, n_layers, int(use_ln), int(flip_dir),
+        float(box), cutoff2, float(length_mean), float(length_std),
+        1.0 / rbf_gap,
+        e.data_ptr(), live.data_ptr(), h.data_ptr(), hn.data_ptr(),
+        src.data_ptr(), dst.data_ptr(), aggp.data_ptr(), out.data_ptr(),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"mega_forward: CUDA launch failed with "
+                           f"cudaError {err}")
+    mega_forward.launches += 1
+    return out
+
+
+mega_forward.launches = 0

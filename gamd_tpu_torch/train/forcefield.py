@@ -1,0 +1,116 @@
+"""A GAMD model as a force provider for md.simulate.Simulation (port of
+gamd_tpu/train/forcefield.py::GNNForceField: the eager force_fn and the
+megakernel force path, LJ).
+
+megastep_fn, banded_force_fn, predict and the analytic long-range channel
+come with later slices and raise NotImplementedError here.
+"""
+
+import torch
+
+from gamd_tpu_torch.core.config import ModelConfig, SystemConfig
+from gamd_tpu_torch.core.device import resolve_device
+from gamd_tpu_torch.models.gnn import GAMDNet
+from gamd_tpu_torch.models.normalizer import denormalize
+from gamd_tpu_torch.ops.mega import mega_forward, pack_params
+from gamd_tpu_torch.train.state import ForceFieldState
+
+
+class GNNForceField:
+    """Trained (or seeded) GAMD weights wrapped as a force provider.
+
+    Args:
+        state: ForceFieldState (params, batch_stats, force/length stats).
+        system: SystemConfig (box, cutoff, species, units).
+        model_cfg: architecture of the weights.
+        device: "cuda" unless the caller asks for the CPU; raises if CUDA
+            is asked for and absent.
+    """
+
+    def __init__(self, state: ForceFieldState, system: SystemConfig,
+                 model_cfg: ModelConfig, device="cuda"):
+        self.device = resolve_device(device)
+        if system.species != "lj" or system.has_bonds:
+            raise NotImplementedError("the port's water slice is not done "
+                                      "yet: GNNForceField takes LJ systems")
+        if getattr(model_cfg, "longrange", ""):
+            raise NotImplementedError("the analytic long-range channel comes "
+                                      "with the port's water slice")
+        self.system = system
+        self.model_cfg = model_cfg
+        self.params = state.params
+        self.batch_stats = state.batch_stats
+        self.force_stat = state.force_stat
+        self.length_stat = state.length_stat
+        self.model = GAMDNet(model_cfg).load_params(
+            state.params, state.batch_stats).to(self.device).eval()
+
+    def _length_scale(self):
+        return (self.length_stat.safe_mean,
+                max(self.length_stat.std, 1e-12))
+
+    @torch.no_grad()
+    def _forward(self, pos, idx, mask, box):
+        """Normalised force prediction for one frame."""
+        mean, std = self._length_scale()
+        return self.model(pos[None], idx[None], mask[None], box, mean,
+                          std)[0]
+
+    def force_fn(self, megakernel: bool = False):
+        """(pos, idx, mask) -> force in kJ/mol/A, for md.simulate.Simulation.
+
+        megakernel=True returns the ops.mega path: positions to forces in
+        one CUDA forward (plain version on the CPU), with the true-cutoff
+        mask refresh inside (the closure carries handles_refresh=True, so
+        Simulation passes the build-time mask) and the force
+        denormalisation folded into the decoder weights.
+        """
+        unit = self.system.force_unit_to_internal
+        if megakernel:
+            return self._megakernel_force_fn(unit)
+
+        def fn(pos, idx, mask):
+            pred = self._forward(pos, idx, mask, self.system.box)
+            return denormalize(pred, self.force_stat) * unit
+        return fn
+
+    def _node_h0(self):
+        """Initial node features [N, D]: the LJ embedding on every atom."""
+        emb = torch.as_tensor(self.params["node_emb"], dtype=torch.float32,
+                              device=self.device)
+        return emb.expand(self.system.n_atoms,
+                          self.model_cfg.encoding_size).contiguous()
+
+    def _megakernel_force_fn(self, unit):
+        cfg = self.model_cfg
+        system = self.system
+        mp = pack_params(self.params, cfg, batch_stats=self.batch_stats,
+                         force_std=max(self.force_stat.std, 1e-12),
+                         force_mean=self.force_stat.safe_mean, unit=unit,
+                         device=self.device)
+        h0 = self._node_h0()
+        length_mean, length_std = self._length_scale()
+
+        @torch.no_grad()
+        def fn(pos, idx, mask):
+            return mega_forward(
+                pos, idx, mask, h0, mp, system.box, system.cutoff,
+                length_mean, length_std, rbf_gap=cfg.rbf_gap,
+                flip_dir=cfg.flip_dir, use_ln=cfg.use_layer_norm,
+                conv_act=cfg.conv_activation, mlp_act=cfg.mlp_activation)
+
+        fn.handles_refresh = True     # true-cutoff mask redone in the kernel
+        return fn
+
+    def megastep_fn(self, *args, **kwargs):
+        raise NotImplementedError("megastep_fn (mega_md_steps, a whole "
+                                  "BAOAB window in one kernel) is the "
+                                  "port's slice 2")
+
+    def banded_force_fn(self, *args, **kwargs):
+        raise NotImplementedError("banded_force_fn comes with the port's "
+                                  "large-N slice")
+
+    def predict(self, *args, **kwargs):
+        raise NotImplementedError("predict comes with the port's LJ "
+                                  "deployment slice (evaluate / run_md)")
