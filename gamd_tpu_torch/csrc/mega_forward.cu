@@ -41,16 +41,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// One device pointer per field of gamd_tpu_torch.ops.mega.MegaParams, in
-// the same order (the ctypes Structure _MegaWeights mirrors it).
-struct MegaWeights {
-  const float *centers, *w_geo, *w_rbf, *b0, *w1, *b1, *w2, *b2, *eln_s,
-      *eln_b;
-  const float *nln_s, *nln_b, *w_src, *b_src, *w_dst, *b_dst, *w_e1, *b_e1,
-      *w_e2, *b_e2, *w_t1, *b_t1, *w_t2, *b_t2, *w_pd, *b_pd, *w_pe, *b_pe,
-      *w_p, *b_p;
-  const float *wd0, *bd0, *wd1, *bd1;
-};
+#include "mega.cuh"
 
 namespace {
 

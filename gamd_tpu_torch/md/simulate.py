@@ -5,8 +5,11 @@ A run is a loop over chunks: each chunk rebuilds the padded neighbour list
 at cutoff + skin, draws the chunk's thermostat noise in one call, and
 advances `rebuild_every` BAOAB steps reusing the list (Verlet-skin reuse;
 the true-cutoff mask is redone every force call, in the force kernel when
-the force function `handles_refresh`). Capacity overflow is OR-ed on the
-device and read on the host once per run.
+the force function `handles_refresh`). With a `megastep_fn` a chunk is one
+call of it instead (GNNForceField.megastep_fn: the whole window in one
+CUDA library call), seeded from the state's generator on the device.
+Capacity overflow is OR-ed on the device and read on the host once per
+run.
 """
 
 import math
@@ -45,6 +48,10 @@ class Simulation:
         md: MDConfig (integrator, dt, thermostat, rebuild cadence, seed).
         k_model: keep the nearest k_model slots of each built list; if a
             dropped slot is live at build time the run reports overflow.
+        megastep_fn: a fused window, (pos, vel, force, idx, mask, seed, *,
+            n_steps, c1, hdt, c2col, masses) -> (pos, vel, force, ke), e.g.
+            GNNForceField.megastep_fn(); Langevin only. force_fn then gives
+            the initial force only.
         device: where the state lives; "cuda" unless the caller asks for
             the CPU.
     """
@@ -55,13 +62,13 @@ class Simulation:
                  device="cuda"):
         if system.box is None:
             raise ValueError("Simulation requires a fixed box")
+        if megastep_fn is not None and md.integrator != "langevin":
+            raise ValueError("megastep_fn supports the langevin integrator "
+                             f"only, not {md.integrator!r}")
         if md.integrator != "langevin":
             raise NotImplementedError(
                 f"integrator {md.integrator!r}: the port runs 'langevin' so "
                 "far; the others come with a later slice")
-        if megastep_fn is not None:
-            raise NotImplementedError("megastep_fn (mega_md_steps) is the "
-                                      "port's slice 2")
         self.device = resolve_device(device)
         self.force_fn = force_fn
         self.system = system
@@ -72,6 +79,9 @@ class Simulation:
         self.dt = md.dt_fs * units.FS
         self.ndf = 3 * system.n_atoms
         self.friction = md.friction_per_ps / units.PS
+        self.megastep_fn = megastep_fn
+        if megastep_fn is not None:
+            self._window_constants = self._baoab_constants()
 
     def _baoab_constants(self):
         """(c1, half dt, per-atom noise amplitude [N]) of a BAOAB step."""
@@ -125,6 +135,8 @@ class Simulation:
     def _chunk(self, state, n_steps: int):
         """One neighbour-rebuild chunk of n_steps; returns (state, overflow
         flag, [n_steps] KE) with everything left on the device."""
+        if self.megastep_fn is not None:
+            return self._mega_chunk(state, n_steps)
         idx, mask, ovf = self._build_nbrs(space.wrap(state.pos,
                                                      self.system.box))
         _, step_fn = self._integrator(self._force_with(idx, mask))
@@ -135,6 +147,21 @@ class Simulation:
             state = step_fn(state, noise[step])
             ke.append(integ.kinetic_energy(state.vel, self.masses))
         return state, ovf, torch.stack(ke)
+
+    def _mega_chunk(self, state, n_steps: int):
+        """The chunk as one megastep_fn call: the window starts from the
+        wrapped positions, and its seed is drawn from state.rng on the
+        device (no host sync)."""
+        posw = space.wrap(state.pos, self.system.box)
+        idx, mask, ovf = self._build_nbrs(posw)
+        seed = torch.randint(0, 2**31 - 1, (1,), generator=state.rng,
+                             device=self.device, dtype=torch.int32)
+        c1, hdt, c2col = self._window_constants
+        pos, vel, force, ke = self.megastep_fn(
+            posw, state.vel, state.force, idx, mask, seed, n_steps=n_steps,
+            c1=c1, hdt=hdt, c2col=c2col, masses=self.masses)
+        return integ.LangevinState(pos=pos, vel=vel, force=force,
+                                   rng=state.rng), ovf, ke
 
     def run(self, state, n_steps: int) -> RunResult:
         """Advance n_steps: full chunks of md.rebuild_every steps, then a

@@ -1,5 +1,6 @@
 """Streaming normalisation statistics, eval side (port of
-gamd_tpu/models/normalizer.py: RunningStat, init_stat, denormalize).
+gamd_tpu/models/normalizer.py: RunningStat, init_stat, stat_from_values,
+denormalize).
 
 The moments are plain Python floats: the port reads them once, when a force
 field is built, and never updates them (training is a later slice).
@@ -7,6 +8,8 @@ field is built, and never updates them (training is a later slice).
 
 import math
 from typing import NamedTuple
+
+import numpy as np
 
 
 class RunningStat(NamedTuple):
@@ -32,6 +35,15 @@ class RunningStat(NamedTuple):
 
 def init_stat() -> RunningStat:
     return RunningStat(count=0.0, mean=0.0, m2=0.0)
+
+
+def stat_from_values(mean, var, count=1.0) -> RunningStat:
+    """A stat from persisted scaler.npz mean and variance, with the JAX
+    package's float32 arithmetic (m2 = var * count in float32)."""
+    count, mean, var = (np.float32(count), np.float32(mean),
+                        np.float32(var))
+    return RunningStat(count=float(count), mean=float(mean),
+                       m2=float(var * count))
 
 
 def denormalize(values, stat: RunningStat):

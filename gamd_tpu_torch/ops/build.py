@@ -2,8 +2,9 @@
 it with ctypes (no PyTorch headers, no torch.utils.cpp_extension, no ninja).
 
 The library goes to build/gamd_tpu_torch/ at the repository root, named by
-a hash of the sources and flags, so an edited source builds anew and an
-unchanged one is reused. It is built at first use, never at import.
+a hash of the sources, headers and flags, so an edited source or header
+builds anew and an unchanged one is reused. It is built at first use,
+never at import.
 """
 
 import functools
@@ -34,12 +35,15 @@ def find_nvcc() -> str:
 
 
 def sources():
+    """The translation units nvcc compiles into the library."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def library_path() -> Path:
+    """The library's path, named by a hash of the flags and of every source
+    and header under csrc/, so that an edited header builds anew too."""
     digest = hashlib.sha256()
-    for src in sources():
+    for src in sorted([*sources(), *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

@@ -9,6 +9,11 @@ gamd_tpu/ops/pallas_model.py and the wrapper of its Hopper kernel.
 * mega_forward runs csrc/mega_forward.cu on a CUDA tensor and the plain
   version on a CPU tensor. It counts its kernel launches in
   `mega_forward.launches`.
+* md_steps_reference is the plain version of a whole BAOAB Langevin window
+  with that forward inside (gamd_tpu/ops/pallas_model.py::mega_md_steps);
+  mega_md_steps runs it as csrc/mega_md_steps.cu on a CUDA tensor, one
+  library call per window, and counts its calls in
+  `mega_md_steps.launches`.
 """
 
 import ctypes
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 
 from gamd_tpu_torch.core import space
+from gamd_tpu_torch.ops.philox import philox_normal
 
 #: Every feature width the CUDA kernel takes (encoder, hidden, edge, node).
 KERNEL_WIDTH = 128
@@ -254,8 +260,42 @@ def reference_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
     return decode_nodes(mp, h, mlp_act)
 
 
+def md_steps_reference(pos, vel, force, idx, build_mask, h0,
+                       mp: MegaParams, box, cutoff, length_mean, length_std,
+                       masses, *, n_steps: int, c1, hdt, c2col, seed,
+                       bond=None, rbf_gap=0.025, flip_dir=False, use_ln=True,
+                       conv_act="silu", mlp_act="gelu"):
+    """Plain version of a fused MD window, one system: n_steps of BAOAB
+    Langevin (B A O A, force, B) as gamd_tpu/ops/pallas_model.py:815-827,
+    with the noise of ops.philox.philox_normal(seed, step, N) and the force
+    of reference_forward on the unwrapped positions (the window never
+    wraps). Returns (pos', vel', force', ke [n_steps]) with ke = 1/2 sum m
+    v^2 after each step."""
+    n = pos.shape[0]
+    dev = pos.device
+    as_col = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                       device=dev).reshape(-1, 1)
+    m = as_col(masses)
+    invm = 1.0 / m
+    c2 = as_col(c2col)
+    x, v, f = pos, vel, force
+    kes = []
+    for step in range(n_steps):
+        v = v + hdt * invm * f                                   # B
+        x = x + hdt * v                                          # A
+        v = c1 * v + c2 * philox_normal(seed, step, n, device=dev)  # O
+        x = x + hdt * v                                          # A
+        f = reference_forward(x, idx, build_mask, h0, mp, box, cutoff,
+                              length_mean, length_std, bond, rbf_gap,
+                              flip_dir, use_ln, conv_act, mlp_act)
+        v = v + hdt * invm * f                                   # B
+        kes.append(0.5 * torch.sum(m * v * v))
+    return x, v, f, torch.stack(kes)
+
+
 # ---------------------------------------------------------------------------
-# The CUDA kernel (csrc/mega_forward.cu) and its wrapper.
+# The CUDA kernels (csrc/mega_forward.cu, csrc/mega_md_steps.cu) and their
+# wrappers.
 # ---------------------------------------------------------------------------
 
 class _MegaWeights(ctypes.Structure):
@@ -270,15 +310,26 @@ EDGE_CHUNK = 16
 
 
 def declare(lib):
-    """Set argtypes/restype of the library's C entry."""
+    """Set argtypes/restype of the library's C entries."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    weights = ctypes.POINTER(_MegaWeights)
     lib.gamd_mega_forward.argtypes = [
-        p, p, p, p, ctypes.POINTER(_MegaWeights),     # pos idx bmask h0 w
+        p, p, p, p, weights,                          # pos idx bmask h0 w
         i, i, i, i, i,                                # n k layers ln flip
         f, f, f, f, f,                                # box cut2 lm ls gamma
         p, p, p, p, p, p, p, p,                       # scratch + out
         p]                                            # stream
     lib.gamd_mega_forward.restype = ctypes.c_int
+    lib.gamd_mega_md_steps.argtypes = [
+        p, p, p, p, p, p, weights,                    # pos vel f idx bm h0 w
+        p, p, p,                                      # seed masses c2col
+        i, i, i, i, i,                                # n k layers ln flip
+        f, f, f, f, f,                                # box cut2 lm ls gamma
+        i, f, f,                                      # n_steps c1 hdt
+        p, p, p, p, p, p, p,                          # forward scratch
+        p, p, p, p,                                   # pos vel force ke out
+        p]                                            # stream
+    lib.gamd_mega_md_steps.restype = ctypes.c_int
 
 
 def _expected_shapes(n_layers):
@@ -298,16 +349,60 @@ def _expected_shapes(n_layers):
     return shapes
 
 
-def _check(name, t, device, dtype, shape):
+def _check(fn, name, t, device, dtype, shape):
     if not isinstance(t, torch.Tensor) or t.device != device \
             or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous():
         got = (f"{tuple(t.shape)} {t.dtype} on {t.device}, contiguous="
                f"{t.is_contiguous()}") if isinstance(t, torch.Tensor) \
             else type(t).__name__
-        raise ValueError(f"mega_forward: {name} must be a contiguous "
+        raise ValueError(f"{fn}: {name} must be a contiguous "
                          f"{dtype} tensor of shape {tuple(shape)} on "
                          f"{device}; got {got}")
+
+
+def _check_forward(fn, pos, idx, build_mask, h0, mp, bond, conv_act,
+                   mlp_act):
+    """The checks both kernels make of the forward's inputs on a CUDA
+    device; returns the library's forward arguments that follow from them
+    as (n, k, n_layers, weights struct)."""
+    if pos.device.type != "cuda":
+        raise ValueError(f"{fn} runs on cuda or cpu, not {pos.device}")
+    if bond is not None or conv_act != "silu" or mlp_act != "gelu":
+        raise NotImplementedError(
+            f"the CUDA {fn} takes the LJ model: no bond channel, silu conv "
+            "and gelu MLP activations")
+    dev = pos.device
+    n = pos.shape[0]
+    k = idx.shape[-1]
+    n_layers = mp.w_src.shape[0]
+    _check(fn, "pos", pos, dev, torch.float32, (n, 3))
+    _check(fn, "idx", idx, dev, torch.int32, (n, k))
+    _check(fn, "build_mask", build_mask, dev, torch.bool, (n, k))
+    _check(fn, "h0", h0, dev, torch.float32, (n, KERNEL_WIDTH))
+    for name, shape in _expected_shapes(n_layers).items():
+        _check(fn, f"mp.{name}", getattr(mp, name), dev, torch.float32,
+               shape)
+    return n, k, n_layers, _MegaWeights(*[t.data_ptr() for t in mp])
+
+
+def _forward_scratch(n, k, device):
+    """Scratch of one forward (e, live, h, hn, src, dst, aggp), made with
+    torch.empty: the kernels allocate nothing."""
+    w = KERNEL_WIDTH
+    f32 = dict(device=device, dtype=torch.float32)
+    return (torch.empty((n * k, w), **f32), torch.empty((n * k,), **f32),
+            torch.empty((n, w), **f32), torch.empty((n, w), **f32),
+            torch.empty((n, w), **f32), torch.empty((n, w), **f32),
+            torch.empty((n, -(-k // EDGE_CHUNK), w), **f32))
+
+
+def _scalars(box, cutoff, length_mean, length_std, rbf_gap):
+    """(box, cutoff^2, length mean, length std, RBF gamma) as the library
+    takes them."""
+    cutoff2 = math.inf if cutoff is None else float(cutoff) ** 2
+    return (float(box), cutoff2, float(length_mean), float(length_std),
+            1.0 / rbf_gap)
 
 
 def mega_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
@@ -333,49 +428,21 @@ def mega_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
         return reference_forward(pos, idx, build_mask, h0, mp, box, cutoff,
                                  length_mean, length_std, bond, rbf_gap,
                                  flip_dir, use_ln, conv_act, mlp_act)
-    if pos.device.type != "cuda":
-        raise ValueError(f"mega_forward runs on cuda or cpu, not "
-                         f"{pos.device}")
-    if bond is not None or conv_act != "silu" or mlp_act != "gelu":
-        raise NotImplementedError(
-            "the CUDA mega_forward takes the LJ model: no bond channel, "
-            "silu conv and gelu MLP activations")
-    dev = pos.device
-    n = pos.shape[0]
-    k = idx.shape[-1]
-    n_layers = mp.w_src.shape[0]
-    _check("pos", pos, dev, torch.float32, (n, 3))
-    _check("idx", idx, dev, torch.int32, (n, k))
-    _check("build_mask", build_mask, dev, torch.bool, (n, k))
-    _check("h0", h0, dev, torch.float32, (n, KERNEL_WIDTH))
-    for name, shape in _expected_shapes(n_layers).items():
-        _check(f"mp.{name}", getattr(mp, name), dev, torch.float32, shape)
+    n, k, n_layers, weights = _check_forward(
+        "mega_forward", pos, idx, build_mask, h0, mp, bond, conv_act,
+        mlp_act)
 
     from gamd_tpu_torch.ops.build import load_library
     lib = load_library()
-    w = KERNEL_WIDTH
-    n_chunk = -(-k // EDGE_CHUNK)
-    f32 = dict(device=dev, dtype=torch.float32)
-    e = torch.empty((n * k, w), **f32)
-    live = torch.empty((n * k,), **f32)
-    h = torch.empty((n, w), **f32)
-    hn = torch.empty((n, w), **f32)
-    src = torch.empty((n, w), **f32)
-    dst = torch.empty((n, w), **f32)
-    aggp = torch.empty((n, n_chunk, w), **f32)
-    out = torch.empty((n, 3), **f32)
-    weights = _MegaWeights(*[t.data_ptr() for t in mp])
-    cutoff2 = math.inf if cutoff is None else float(cutoff) ** 2
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _forward_scratch(n, k, pos.device)
+    out = torch.empty((n, 3), device=pos.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
     err = lib.gamd_mega_forward(
         pos.data_ptr(), idx.data_ptr(), build_mask.data_ptr(),
         h0.data_ptr(), ctypes.byref(weights),
         n, k, n_layers, int(use_ln), int(flip_dir),
-        float(box), cutoff2, float(length_mean), float(length_std),
-        1.0 / rbf_gap,
-        e.data_ptr(), live.data_ptr(), h.data_ptr(), hn.data_ptr(),
-        src.data_ptr(), dst.data_ptr(), aggp.data_ptr(), out.data_ptr(),
-        stream)
+        *_scalars(box, cutoff, length_mean, length_std, rbf_gap),
+        *[t.data_ptr() for t in scratch], out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"mega_forward: CUDA launch failed with "
                            f"cudaError {err}")
@@ -384,3 +451,81 @@ def mega_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
 
 
 mega_forward.launches = 0
+
+
+def mega_md_steps(pos, vel, force, idx, build_mask, h0, mp: MegaParams,
+                  box, cutoff, length_mean, length_std, masses, *,
+                  n_steps: int, c1, hdt, c2col, seed, bond=None,
+                  rbf_gap=0.025, flip_dir=False, use_ln=True,
+                  conv_act="silu", mlp_act="gelu", edge_hilo=False,
+                  ablate=()):
+    """A whole BAOAB Langevin window of n_steps with the forward inside,
+    one system (gamd_tpu/ops/pallas_model.py::mega_md_steps).
+
+    Args:
+        pos/vel/force: [N, 3] float32 state; positions need not be wrapped
+            (the forward takes minimum images) and are not wrapped here.
+        idx/build_mask/h0/mp/box/cutoff/length_mean/length_std: as
+            mega_forward; the list is fixed for the window.
+        masses: [N] float32 (internal units).
+        c1: exp(-gamma dt); hdt: dt / 2 (Python floats); c2col: [N] float32
+            noise amplitude sigma * sqrt(1 - c1^2), zero for no noise.
+        seed: 1-element int32 tensor on the state's device, the Philox key
+            of the window's noise; it is passed by pointer and never read
+            on the host.
+
+    Returns (pos', vel', force', ke [n_steps]). A CPU `pos` runs
+    md_steps_reference. A CUDA `pos` makes one call of
+    csrc/mega_md_steps.cu (LJ as mega_forward) or raises. A replica axis,
+    edge_hilo and ablate are refused on both.
+    """
+    if pos.ndim != 2:
+        raise NotImplementedError(
+            "mega_md_steps takes one system [N, 3]: the replica axis comes "
+            "with the port's replicas slice (init_replicas / run_replicas)")
+    if edge_hilo or ablate:
+        raise NotImplementedError(
+            "edge_hilo and ablate are TPU precision / benchmark switches "
+            "that the port's mega_md_steps does not take")
+    if pos.device.type == "cpu":
+        return md_steps_reference(
+            pos, vel, force, idx, build_mask, h0, mp, box, cutoff,
+            length_mean, length_std, masses, n_steps=n_steps, c1=c1,
+            hdt=hdt, c2col=c2col, seed=seed, bond=bond, rbf_gap=rbf_gap,
+            flip_dir=flip_dir, use_ln=use_ln, conv_act=conv_act,
+            mlp_act=mlp_act)
+    fn = "mega_md_steps"
+    n, k, n_layers, weights = _check_forward(
+        fn, pos, idx, build_mask, h0, mp, bond, conv_act, mlp_act)
+    dev = pos.device
+    _check(fn, "vel", vel, dev, torch.float32, (n, 3))
+    _check(fn, "force", force, dev, torch.float32, (n, 3))
+    _check(fn, "masses", masses, dev, torch.float32, (n,))
+    _check(fn, "c2col", c2col, dev, torch.float32, (n,))
+    _check(fn, "seed", seed, dev, torch.int32, (1,))
+    if int(n_steps) < 1:
+        raise ValueError(f"{fn}: n_steps must be at least 1")
+
+    from gamd_tpu_torch.ops.build import load_library
+    lib = load_library()
+    scratch = _forward_scratch(n, k, dev)
+    outs = [torch.empty((n, 3), device=dev, dtype=torch.float32)
+            for _ in range(3)]
+    ke = torch.empty((int(n_steps),), device=dev, dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.gamd_mega_md_steps(
+        pos.data_ptr(), vel.data_ptr(), force.data_ptr(), idx.data_ptr(),
+        build_mask.data_ptr(), h0.data_ptr(), ctypes.byref(weights),
+        seed.data_ptr(), masses.data_ptr(), c2col.data_ptr(),
+        n, k, n_layers, int(use_ln), int(flip_dir),
+        *_scalars(box, cutoff, length_mean, length_std, rbf_gap),
+        int(n_steps), float(c1), float(hdt),
+        *[t.data_ptr() for t in scratch], *[t.data_ptr() for t in outs],
+        ke.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
+    mega_md_steps.launches += 1
+    return (*outs, ke)
+
+
+mega_md_steps.launches = 0

@@ -1,13 +1,22 @@
-"""Where the time of the port's LJ-258 MD step goes on the card.
+"""Where the time of the port's LJ-258 MD step goes on the card, on both
+paths: per step (one mega_forward per force call) and megastep (one
+mega_md_steps call per 20-step window).
 
-Runs the first slice (GAMD-small, seeded weights, Langevin at 100 K, K=64
-built and sliced to 48, rebuild every 20 steps) after a warm-up, times a
-window of 40 steps on the host clock without the profiler, then runs the
-same 40 steps from the same state again traced with torch.profiler.
-Prints the card line, then one JSON line: device time per kernel name
-(summed over the traced window, with launch counts), wall time per step
-of both windows, and the device's idle share of each window (1 - device
-time / wall time; the profiler's own host cost inflates the traced one).
+For each path it runs the slice (GAMD-small, seeded weights, Langevin at
+100 K, K=64 built and sliced to 48, rebuild every 20 steps) after a
+warm-up, times 40 steps (two windows) on the host clock without the
+profiler, then runs the same 40 steps from the same state again traced
+with torch.profiler. Prints the card line, then one JSON line per path:
+device time per kernel name (summed over the traced window, with launch
+counts), wall time per step of both windows, the device's idle share of
+each window (1 - device time / wall time; the profiler's own host cost
+inflates the traced one), and the gaps between consecutive device
+activities of the traced window: per step in all, split at 20 us into
+short ones (the device's own turnaround from one queued launch to the
+next) and long ones (the device waiting for the host), with the long
+ones counted by the activities on either side. On the megastep path it
+also gives the host time of each window call of the untraced run (the
+call returns once its launches are queued).
 
     python3 -m gamd_tpu_torch.tools.profile_step
 
@@ -16,17 +25,19 @@ Needs a CUDA card; it raises without one.
 
 import json
 import re
-import subprocess
 import time
 
+import numpy as np
 import torch
 
+from gamd_tpu_torch.core.device import card_line
 from gamd_tpu_torch.md.simulate import Simulation
-from gamd_tpu_torch.ops.mega import mega_forward
+from gamd_tpu_torch.ops.mega import mega_forward, mega_md_steps
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
 from gamd_tpu_torch.train.forcefield import GNNForceField
 
 STEPS = 40    # steps per window: two neighbour-rebuild chunks
+SHORT_GAP_US = 20.0
 
 
 def short_name(kernel: str) -> str:
@@ -40,36 +51,42 @@ def short_name(kernel: str) -> str:
     return f"{base}[{ops[-1]}]" if ops else (base or kernel[:60])
 
 
-def _simulation(dev):
+def _simulation(dev, megastep: bool):
     sl = lj_slice(dev)
     ff = GNNForceField(sl.state, sl.system, sl.model_cfg, device=dev)
     sim = Simulation(ff.force_fn(megakernel=True), sl.system, sl.md,
-                     k_model=K_MODEL, device=dev)
+                     k_model=K_MODEL,
+                     megastep_fn=ff.megastep_fn() if megastep else None,
+                     device=dev)
     return sim, sl.pos
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_step needs a CUDA card")
-    dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
-    print(card, flush=True)
-
-    sim, pos = _simulation(dev)
+def profile(dev, megastep: bool) -> dict:
+    """The breakdown of one path (see the module docstring)."""
+    sim, pos = _simulation(dev, megastep)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     state = sim.run(sim.init_state(pos, rng=gen), STEPS).state  # warm-up
     rng_state = gen.get_state()
+    enqueue = []      # host seconds of each window call (megastep path)
+    if megastep:
+        window = sim.megastep_fn
+
+        def timed_window(*args, **kwargs):
+            t = time.perf_counter()
+            out = window(*args, **kwargs)
+            enqueue.append(time.perf_counter() - t)
+            return out
+        sim.megastep_fn = timed_window
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sim.run(state, STEPS)
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
+    if megastep:
+        sim.megastep_fn = window
     gen.set_state(rng_state)
-    launches = mega_forward.launches
+    launches = mega_forward.launches, mega_md_steps.launches
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -88,25 +105,57 @@ def main():
                                        {"us": 0.0, "count": 0})
             entry["us"] += dev_us
             entry["count"] += evt.count
+    spans = sorted((e.time_range.start, e.time_range.end, short_name(e.name))
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    gaps = [max(0.0, b[0] - a[1]) for a, b in zip(spans, spans[1:])]
+    short = [g for g in gaps if g < SHORT_GAP_US]
+    sites = {}        # long gaps by the activities on either side
+    for a, b, g in zip(spans, spans[1:], gaps):
+        if g >= SHORT_GAP_US:
+            site = sites.setdefault(f"{a[2]} -> {b[2]}", [0, 0.0])
+            site[0] += 1
+            site[1] += g
     total = sum(k["us"] for k in kernels.values())
     if total <= 0:
         raise RuntimeError("torch.profiler saw no device time on this "
                            "machine; time with CUDA events instead")
     ranked = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["us"]))
-    result = {
-        "card": card,
+    return {
+        "path": "megastep" if megastep else "per_step",
         "steps": STEPS,
-        "force_calls": mega_forward.launches - launches,
+        "force_calls": mega_forward.launches - launches[0],
+        "window_calls": mega_md_steps.launches - launches[1],
         "device_us_per_step": total / STEPS,
         "wall_ms_per_step": wall_plain * 1e3 / STEPS,
         "device_idle_share": 1.0 - total / (wall_plain * 1e6),
         "wall_ms_per_step_traced": wall * 1e3 / STEPS,
         "device_idle_share_traced": 1.0 - total / (wall * 1e6),
+        "gap_us_per_step": sum(gaps) / STEPS,
+        "short_gap_us_per_step": sum(short) / STEPS,
+        "short_gaps": len(short),
+        "short_gap_median_us": float(np.median(short)) if short else 0.0,
+        "long_gap_us_per_step": (sum(gaps) - sum(short)) / STEPS,
+        "long_gaps": len(gaps) - len(short),
+        "long_gap_sites": {k: [n, round(us, 1)] for k, (n, us) in sorted(
+            sites.items(), key=lambda kv: -kv[1][1])[:8]},
+        "host_enqueue_ms_per_window": (
+            [round(t * 1e3, 3) for t in enqueue] if megastep else None),
         "kernels_us_per_step": {k: round(v["us"] / STEPS, 3)
                                 for k, v in ranked.items()},
         "kernel_launches": {k: v["count"] for k, v in ranked.items()},
     }
-    print(json.dumps(result), flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA card")
+    dev = torch.device("cuda")
+    card = card_line()
+    print(card, flush=True)
+    for megastep in (False, True):
+        print(json.dumps({"card": card, **profile(dev, megastep)}),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
 """A GAMD model as a force provider for md.simulate.Simulation (port of
-gamd_tpu/train/forcefield.py::GNNForceField: the eager force_fn and the
-megakernel force path, LJ).
+gamd_tpu/train/forcefield.py::GNNForceField: the eager force_fn, the
+megakernel force path and the fused MD window megastep_fn, LJ).
 
-megastep_fn, banded_force_fn, predict and the analytic long-range channel
-come with later slices and raise NotImplementedError here.
+banded_force_fn, predict and the analytic long-range channel come with
+later slices and raise NotImplementedError here.
 """
 
 import torch
@@ -12,7 +12,7 @@ from gamd_tpu_torch.core.config import ModelConfig, SystemConfig
 from gamd_tpu_torch.core.device import resolve_device
 from gamd_tpu_torch.models.gnn import GAMDNet
 from gamd_tpu_torch.models.normalizer import denormalize
-from gamd_tpu_torch.ops.mega import mega_forward, pack_params
+from gamd_tpu_torch.ops.mega import mega_forward, mega_md_steps, pack_params
 from gamd_tpu_torch.train.state import ForceFieldState
 
 
@@ -65,9 +65,9 @@ class GNNForceField:
         Simulation passes the build-time mask) and the force
         denormalisation folded into the decoder weights.
         """
-        unit = self.system.force_unit_to_internal
         if megakernel:
-            return self._megakernel_force_fn(unit)
+            return self._megakernel_force_fn()
+        unit = self.system.force_unit_to_internal
 
         def fn(pos, idx, mask):
             pred = self._forward(pos, idx, mask, self.system.box)
@@ -81,13 +81,24 @@ class GNNForceField:
         return emb.expand(self.system.n_atoms,
                           self.model_cfg.encoding_size).contiguous()
 
-    def _megakernel_force_fn(self, unit):
+    def _kernel_params(self, path):
+        """MegaParams with the force denormalisation and the unit folded in,
+        after the refusals the kernel paths share with the JAX package."""
+        cfg = self.model_cfg
+        if self.system.box is None or not cfg.expand_edge \
+                or cfg.update_edge:
+            raise ValueError(f"the {path} path requires a fixed scalar box, "
+                             "expand_edge=True, update_edge=False")
+        return pack_params(self.params, cfg, batch_stats=self.batch_stats,
+                           force_std=max(self.force_stat.std, 1e-12),
+                           force_mean=self.force_stat.safe_mean,
+                           unit=self.system.force_unit_to_internal,
+                           device=self.device)
+
+    def _megakernel_force_fn(self):
         cfg = self.model_cfg
         system = self.system
-        mp = pack_params(self.params, cfg, batch_stats=self.batch_stats,
-                         force_std=max(self.force_stat.std, 1e-12),
-                         force_mean=self.force_stat.safe_mean, unit=unit,
-                         device=self.device)
+        mp = self._kernel_params("megakernel")
         h0 = self._node_h0()
         length_mean, length_std = self._length_scale()
 
@@ -102,10 +113,38 @@ class GNNForceField:
         fn.handles_refresh = True     # true-cutoff mask redone in the kernel
         return fn
 
-    def megastep_fn(self, *args, **kwargs):
-        raise NotImplementedError("megastep_fn (mega_md_steps, a whole "
-                                  "BAOAB window in one kernel) is the "
-                                  "port's slice 2")
+    def megastep_fn(self):
+        """Fused MD window for Simulation(megastep_fn=...): (pos, vel,
+        force, idx, mask, seed, *, n_steps, c1, hdt, c2col, masses) ->
+        (pos', vel', force', ke [n_steps]).
+
+        One call of ops.mega.mega_md_steps runs the whole neighbour-reuse
+        window of BAOAB Langevin steps (one CUDA library call on the card,
+        the plain version on the CPU), with the weights packed once here
+        and the force denormalisation folded into the decoder.
+        """
+        cfg = self.model_cfg
+        system = self.system
+        if getattr(cfg, "longrange", ""):
+            raise ValueError("a megastep window cannot add the analytic "
+                             "long-range term between steps; use the "
+                             "per-step force_fn paths")
+        mp = self._kernel_params("megastep")
+        h0 = self._node_h0()
+        length_mean, length_std = self._length_scale()
+
+        @torch.no_grad()
+        def fn(pos, vel, force, idx, mask, seed, *, n_steps, c1, hdt,
+               c2col, masses):
+            return mega_md_steps(
+                pos, vel, force, idx, mask, h0, mp, system.box,
+                system.cutoff, length_mean, length_std, masses,
+                n_steps=n_steps, c1=c1, hdt=hdt, c2col=c2col, seed=seed,
+                rbf_gap=cfg.rbf_gap, flip_dir=cfg.flip_dir,
+                use_ln=cfg.use_layer_norm, conv_act=cfg.conv_activation,
+                mlp_act=cfg.mlp_activation)
+
+        return fn
 
     def banded_force_fn(self, *args, **kwargs):
         raise NotImplementedError("banded_force_fn comes with the port's "

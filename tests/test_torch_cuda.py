@@ -1,5 +1,6 @@
-"""The CUDA kernel mega_forward against its plain PyTorch version, on a
-Hopper card (capability 9.x). Without one every test here skips.
+"""The CUDA kernels mega_forward and mega_md_steps against their plain
+PyTorch versions, on a Hopper card (capability 9.x). Without one every test
+here skips.
 
 On the card (which has no JAX) run this file without the JAX package's
 conftest:  python -m pytest --noconftest -p no:cacheprovider
@@ -14,14 +15,21 @@ import numpy as np
 import pytest
 import torch
 
-from gamd_tpu_torch.core.config import ModelConfig, get_preset
-from gamd_tpu_torch.neighbors.dense import dense_neighbor_list
-from gamd_tpu_torch.ops.mega import mega_forward, pack_params, \
-    reference_forward
+from gamd_tpu_torch.core.config import MDConfig, ModelConfig, get_preset
+from gamd_tpu_torch.md.simulate import Simulation
+from gamd_tpu_torch.neighbors.dense import build_nbrs, dense_neighbor_list
+from gamd_tpu_torch.ops.mega import (md_steps_reference, mega_forward,
+                                     mega_md_steps, pack_params,
+                                     reference_forward)
+from gamd_tpu_torch.physics.lennard_jones import lj_fluid_box
+from gamd_tpu_torch.train.checkpoint import load_self_describing
+from gamd_tpu_torch.train.forcefield import GNNForceField
 from gamd_tpu_torch.train.state import init_params
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOX = 12.0
 TOLERANCE = 5e-3      # max |dF| / std(F), the reference's fp32 tolerance
+WINDOW_ATOL = 2e-4    # pos (A) and vel (A/t0), the reference's megastep atol
 
 
 @pytest.fixture
@@ -87,3 +95,126 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         mega_forward(pos, idx, mask, h0, mp, *rest,
                      bond=torch.zeros_like(mask, dtype=torch.float32))
     assert mega_forward.launches == before
+
+
+def _window_constants(dev, n, temperature):
+    """(c1, hdt, c2col [N], masses [N]) of an LJ Simulation at 2 fs and
+    25/ps on `dev`."""
+    system = get_preset("lj", n_atoms=n, box=BOX, cutoff=4.2)
+    md = MDConfig(integrator="langevin", temperature=temperature)
+    sim = Simulation(lambda p, i, m: p, system, md, device=dev)
+    c1, hdt, c2col = sim._baoab_constants()
+    return c1, hdt, c2col.contiguous(), sim.masses
+
+
+def _compare_windows(args, vel, force, masses, consts, steps, seed):
+    """The kernel window and the plain window from the same inputs; returns
+    (max |dx|, max |dv|, kernel outputs)."""
+    pos, idx, mask, h0, mp, box, cutoff, lm, ls = args
+    c1, hdt, c2col = consts
+    kw = dict(n_steps=steps, c1=c1, hdt=hdt, c2col=c2col,
+              seed=torch.tensor([seed], dtype=torch.int32,
+                                device=pos.device))
+    before = mega_md_steps.launches
+    out = mega_md_steps(pos, vel, force, idx, mask, h0, mp, box, cutoff, lm,
+                        ls, masses, **kw)
+    ref = md_steps_reference(pos, vel, force, idx, mask, h0, mp, box,
+                             cutoff, lm, ls, masses, **kw)
+    torch.cuda.synchronize()
+    assert mega_md_steps.launches == before + 1
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    torch.testing.assert_close(out[3], ref[3], rtol=1e-4, atol=0)
+    return (float((out[0] - ref[0]).abs().max()),
+            float((out[1] - ref[1]).abs().max()), out)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 100.0])
+def test_window_kernel_matches_plain_version(cuda, temperature):
+    """A ragged N (66) and a K that is not a multiple of 16 (20), 8 steps,
+    noise off (0 K) and on (100 K): pos and vel within 2e-4, ke within
+    rtol 1e-4 of the plain window on the same inputs."""
+    n = 66
+    args = _case(cuda, n, 20)
+    vel = 0.1 * torch.randn((n, 3), device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(3))
+    force = reference_forward(*args).contiguous()
+    c1, hdt, c2col, masses = _window_constants(cuda, n, temperature)
+    dx, dv, out = _compare_windows(args, vel, force, masses,
+                                   (c1, hdt, c2col), 8, seed=77)
+    assert dx <= WINDOW_ATOL and dv <= WINDOW_ATOL
+    assert float((out[0] - args[0]).abs().max()) > 1e-3
+
+
+def test_window_at_full_width_with_trained_weights(cuda):
+    """One 20-step window at 100 K on LJ-258 with the trained GAMD-small
+    weights of results/ckpts/lj_relabel_latest.msgpack (K=96 built, the
+    nearest 48 kept), through GNNForceField.megastep_fn: pos and vel within
+    2e-4 of the plain window, ke within rtol 1e-4."""
+    state, model_cfg, system = load_self_describing(os.path.join(
+        REPO, "results", "ckpts", "lj_relabel_latest.msgpack"))
+    ff = GNNForceField(state, system, model_cfg, device=cuda)
+    _, lattice = lj_fluid_box(system.n_atoms, 0.5)
+    pos = torch.as_tensor(np.mod(lattice + np.random.default_rng(0).normal(
+        0.0, 0.05, lattice.shape), system.box).astype(np.float32),
+        device=cuda)
+    idx, mask, ovf = build_nbrs(pos, system, 48)
+    assert not bool(ovf)
+    force = ff.force_fn(megakernel=True)(pos, idx, mask)
+    md = MDConfig(integrator="langevin", temperature=100.0)
+    sim = Simulation(lambda p, i, m: p, system, md, device=cuda)
+    c1, hdt, c2col = sim._baoab_constants()
+    vel = 0.1 * torch.randn((system.n_atoms, 3), device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(5))
+    seed = torch.tensor([9], dtype=torch.int32, device=cuda)
+    kw = dict(n_steps=20, c1=c1, hdt=hdt, c2col=c2col.contiguous(),
+              masses=sim.masses)
+    before = mega_md_steps.launches
+    out = ff.megastep_fn()(pos, vel, force, idx, mask, seed, **kw)
+    torch.cuda.synchronize()
+    assert mega_md_steps.launches == before + 1
+    mp = pack_params(state.params, model_cfg,
+                     force_std=state.force_stat.std,
+                     force_mean=state.force_stat.safe_mean,
+                     unit=system.force_unit_to_internal, device=cuda)
+    h0 = torch.as_tensor(state.params["node_emb"], device=cuda).expand(
+        system.n_atoms, model_cfg.encoding_size).contiguous()
+    ref = md_steps_reference(
+        pos, vel, force, idx, mask, h0, mp, system.box, system.cutoff,
+        state.length_stat.safe_mean, state.length_stat.std, sim.masses,
+        n_steps=20, c1=c1, hdt=hdt, c2col=c2col, seed=seed)
+    assert float((out[0] - ref[0]).abs().max()) <= WINDOW_ATOL
+    assert float((out[1] - ref[1]).abs().max()) <= WINDOW_ATOL
+    torch.testing.assert_close(out[3], ref[3], rtol=1e-4, atol=0)
+
+
+def test_window_rejects_what_it_does_not_take(cuda):
+    """The window's own input checks on the card; nothing launches."""
+    pos, idx, mask, h0, mp, *rest = _case(cuda, 64, 16)
+    c1, hdt, c2col, masses = _window_constants(cuda, 64, 100.0)
+    vel = torch.zeros_like(pos)
+    seed = torch.tensor([1], dtype=torch.int32, device=cuda)
+    kw = dict(n_steps=2, c1=c1, hdt=hdt, c2col=c2col, seed=seed)
+    before = mega_md_steps.launches
+    with pytest.raises(ValueError, match="seed"):
+        mega_md_steps(pos, vel, vel, idx, mask, h0, mp, *rest, masses,
+                      **{**kw, "seed": seed.long()})
+    with pytest.raises(ValueError, match="seed"):
+        mega_md_steps(pos, vel, vel, idx, mask, h0, mp, *rest, masses,
+                      **{**kw, "seed": seed.cpu()})
+    with pytest.raises(ValueError, match="c2col"):
+        mega_md_steps(pos, vel, vel, idx, mask, h0, mp, *rest, masses,
+                      **{**kw, "c2col": c2col[:10].contiguous()})
+    with pytest.raises(ValueError, match="masses"):
+        mega_md_steps(pos, vel, vel, idx, mask, h0, mp, *rest,
+                      masses.double(), **kw)
+    with pytest.raises(ValueError, match="vel"):
+        mega_md_steps(pos, vel.t().contiguous().t(), vel, idx, mask, h0,
+                      mp, *rest, masses, **kw)
+    with pytest.raises(ValueError, match="idx"):
+        mega_md_steps(pos, vel, vel, idx.long(), mask, h0, mp, *rest,
+                      masses, **kw)
+    with pytest.raises(NotImplementedError):
+        mega_md_steps(pos, vel, vel, idx, mask, h0, mp, *rest, masses,
+                      bond=torch.zeros_like(mask, dtype=torch.float32),
+                      **kw)
+    assert mega_md_steps.launches == before

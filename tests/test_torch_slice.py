@@ -126,17 +126,19 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_left_out_paths_name_their_slice():
+    """banded_force_fn and predict raise NotImplementedError naming the
+    slice they come with; megastep_fn (slice 2) is in, and Simulation
+    refuses it under an integrator other than Langevin."""
     system = tcfg.get_preset("lj", **SYSTEM)
     ff = GNNForceField(_port_state(_jax_state()), system,
                        tcfg.ModelConfig(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ff.megastep_fn()
     for fn in (ff.banded_force_fn, ff.predict):
         with pytest.raises(NotImplementedError, match="slice"):
             fn()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        Simulation(ff.force_fn(), system, tcfg.MDConfig(**MD),
-                   megastep_fn=lambda *a: a, device="cpu")
+    with pytest.raises(ValueError, match="langevin"):
+        Simulation(ff.force_fn(), system,
+                   tcfg.MDConfig(**{**MD, "integrator": "nose_hoover"}),
+                   megastep_fn=ff.megastep_fn(), device="cpu")
 
 
 def test_mega_forward_rejects_other_devices():
