@@ -4,7 +4,11 @@ Drives the port's two paths of GNN-driven BAOAB Langevin MD of the
 258-atom LJ fluid with the full-width GAMD-small model (seeded, untrained
 weights): per step, every force call through the hand-written CUDA kernel
 mega_forward; megastep, every 20-step window through the hand-written CUDA
-kernel mega_md_steps (Philox noise and the forward inside). Phases, one
+kernel mega_md_steps (Philox noise and the forward inside). Then its
+training path: LJ-258 training steps of GAMD-small (use_pallas, as
+`train_gamd.py --system lj --use_pallas --use_layer_norm --relabel`), every
+conv layer's edge pipeline through the hand-written CUDA kernel pair
+conv_msg_gather (forward) and conv_msg_gather_bwd (backward). Phases, one
 flushed line or more each:
 
   0. card (nvidia-smi name and power limit), torch and nvcc versions;
@@ -16,7 +20,19 @@ flushed line or more each:
      start frame, noise off and on;
   5. the megastep path: Simulation(..., megastep_fn=ff.megastep_fn()),
      20 warm-up and 400 timed steps, with the kernels' launch counts;
-  6. the kernels line (JSON), then the result line (JSON) last.
+  6. conv_msg_gather against its plain version on layer 0's real inputs
+     (start frame) and layer 1's (a displaced frame, after one conv layer,
+     whose rows differ) at the training slice's shapes (N=258, K=96,
+     widths 128), timed on layer 0's;
+  7. conv_msg_gather_bwd against autograd through the plain version on
+     the same two inputs, with a seeded cotangent, all 12 grads;
+  8. one training step, kernel path against plain path, from the same
+     seeded state and generator: the same augmented positions, loss,
+     grads and parameters after Adam;
+  9. the training path: 30 steps on 4 relabelled frames through the
+     kernel pair (and the plain path, for its time), with the launch
+     counts, the loss of each step and the loss falling;
+ 10. the kernels line (JSON), then the result line (JSON) last.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 card; without one it exits non-zero and prints no result. Any failed check
@@ -36,13 +52,20 @@ from gamd_tpu_torch.core import space
 from gamd_tpu_torch.core.device import card_line
 from gamd_tpu_torch.md.integrators import maxwell_boltzmann_velocities
 from gamd_tpu_torch.md.simulate import Simulation
+from gamd_tpu_torch.models.normalizer import init_stat, update_stat
 from gamd_tpu_torch.neighbors.dense import build_nbrs, refresh_mask
 from gamd_tpu_torch.ops import build
+from gamd_tpu_torch.ops.conv_gather import (batched_reference,
+                                            fused_conv_gather_message)
 from gamd_tpu_torch.ops.mega import (md_steps_reference, mega_forward,
                                      mega_md_steps, pack_params,
                                      reference_forward)
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
+from gamd_tpu_torch.tools.lj_train_slice import lj_train_slice
 from gamd_tpu_torch.train.forcefield import GNNForceField
+from gamd_tpu_torch.train.loop import (edge_distances, make_train_step,
+                                       search_batch)
+from gamd_tpu_torch.train.state import create_train_state
 
 DEADLINE_S = 600          # the whole script, build included
 WARMUP_STEPS = 20
@@ -51,6 +74,14 @@ TOLERANCE = 5e-3          # max |F_kernel - F_plain| / std(F_plain)
 WINDOW_ATOL = 2e-4        # max |dx| (A) and |dv| (A/t0), kernel vs plain
 WINDOW_KE_RTOL = 1e-4     # ke per step, kernel vs plain
 T_BAND = 10.0             # |mean T - 100 K| of the megastep path
+TRAIN_STEPS = 30          # steps of the training path
+CONV_RTOL = 1e-4          # max |d agg| / max |agg|, kernel vs plain
+CONV_GRAD_RTOL = 1e-3     # per grad: max |d| / max |grad|, kernel vs plain
+PARAM_ATOL = 1e-5         # training step, kernel vs plain: at least
+PARAM_SHARE = 0.999       # this share of parameters within PARAM_ATOL, and
+                          # all within 2 * lr (Adam on a rounding-level grad)
+GRAD_NAMES = ("e", "hn", "src_nodes", "dst_code",
+              "w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4")
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -105,6 +136,34 @@ def forward_flops(edges, n, n_rbf, model_cfg):
     return 2.0 * (edges * per_edge + n * per_node)
 
 
+def roofline(flops, nbytes):
+    """(least ms, "operations" or "bytes"): `flops` against the fp32 peak,
+    `nbytes` against HBM, the larger of the two."""
+    t_ops = flops / FP32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def conv_flops(live_edges, width=128):
+    """fp32 operations of one conv layer's edge pipeline over `live_edges`
+    edges: four width x width products (2 per multiply-add) and the gated
+    masked sum; activations not counted."""
+    return live_edges * (4 * 2 * width * width + 2 * width)
+
+
+def conv_bytes(n, k, width=128, backward=False):
+    """Bytes the kernel pair must move, each input read and each output
+    written once: e, idx, mask, hn, src, dst and the weights in, agg out;
+    the backward also reads the cotangent and writes ge, the three node
+    grads and the weight grads."""
+    weights = 4 * (4 * width * width + 4 * width)
+    nodes = 4 * n * width
+    io = 4 * n * k * width + 5 * n * k + 3 * nodes + weights
+    if backward:
+        return io + nodes + 4 * n * k * width + 3 * nodes + weights
+    return io + nodes
+
+
 def bound(flops, n, k, mp, model_cfg, state_io=False):
     """(least ms, "operations" or "bytes") of one forward, or with
     state_io of one MD window, on this card: `flops` against the fp32
@@ -116,9 +175,235 @@ def bound(flops, n, k, mp, model_cfg, state_io=False):
         + n * model_cfg.encoding_size * 4 + n * 3 * 4
     if state_io:
         io_bytes += 2 * n * 3 * 4 + 2 * n * 4 + 4 + 3 * n * 3 * 4
-    t_ops = flops / FP32_FLOPS * 1e3
-    t_bytes = (weight_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return roofline(flops, weight_bytes + io_bytes)
+
+
+def conv_inputs(dev):
+    """The conv kernel pair's real inputs at the training slice, from
+    init_params(seed=0) GAMD-small, the dense list at 7.5 A with K=96 and
+    the edge-length scaler fitted on the frame: layer 0's on the start
+    frame (the encoded edges, hn, src and dst codes; every row of hn is the
+    node embedding) and layer 1's on frame 1 (the lattice displaced by
+    0.1 A, after one conv layer, so that rows differ). Returns (args,
+    live edges) for each."""
+    sl = lj_train_slice(dev)
+    system = sl.system
+    model = create_train_state(sl.model_cfg, system, sl.train_cfg, 1,
+                               seed=0, device=dev).model
+    cases = []
+    for frame, layer in ((0, 0), (1, 1)):
+        pos = space.wrap(sl.batches[frame]["pos"], system.box)
+        idx, mask, ovf = search_batch(pos, system.box, system.cutoff,
+                                      system.nbr_capacity)
+        require(not bool(ovf), "neighbour overflow at the training frame")
+        stat = update_stat(init_stat(dev), edge_distances(pos, idx,
+                                                          system.box),
+                           mask=mask)
+        block = model.graph_conv
+        with torch.no_grad():
+            e = model.encode_edges(pos, idx, system.box, stat.safe_mean,
+                                   stat.std)
+            h = model.node_emb.expand(1, system.n_atoms, -1)
+            for below in range(layer):
+                h = getattr(block, f"conv_{below}")(
+                    h, getattr(block, f"norm_{below}")(h), e, idx, mask)
+            conv = getattr(block, f"conv_{layer}")
+            hn = getattr(block, f"norm_{layer}")(h)
+            src, dst = conv.src_affine(hn), conv.dst_affine(hn)
+        weights = [t.detach() for t in (
+            conv.edge_affine_w1, conv.edge_affine_b1, conv.edge_affine_w2,
+            conv.edge_affine_b2, conv.theta_edge_w1, conv.theta_edge_b1,
+            conv.theta_edge_w2, conv.theta_edge_b2)]
+        cases.append(((e, idx, mask, hn, src, dst, *weights),
+                      int(mask.sum())))
+    return cases
+
+
+def grads_of(fn, args, g):
+    """(out, the 12 grads of sum(out * g)) with respect to e, hn, src, dst
+    and the 8 weights, and the leaves, for timing the backward again."""
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (args[0], *args[3:])]
+    e, hn, src, dst, *ws = leaves
+    out = fn(e, args[1], args[2], hn, src, dst, *ws)
+    return out, leaves, torch.autograd.grad(out, leaves, g,
+                                            retain_graph=True)
+
+
+def train_steps(dev, use_pallas, n_steps):
+    """n_steps of the training slice on the kernel or plain path from
+    create_train_state(seed=0), cycling over the 4 frames; returns (state,
+    per-step metrics, seconds, the slice)."""
+    sl = lj_train_slice(dev, use_pallas=use_pallas)
+    state = create_train_state(sl.model_cfg, sl.system, sl.train_cfg,
+                               len(sl.batches), seed=0, device=dev)
+    step = make_train_step(state.model, sl.system, sl.train_cfg,
+                           relabel_fn=sl.relabel_fn)
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        state, m = step(state, sl.batches[i % len(sl.batches)])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    return state, metrics, time.perf_counter() - t0, sl
+
+
+def training_phases(dev, card):
+    """Phases 6-9 (module docstring). Returns the two kernels' entries of
+    the kernels line."""
+    fused = fused_conv_gather_message
+
+    # -- phase 6: the forward kernel against its plain version ----------
+    cases = conv_inputs(dev)
+    fwd_err = 0.0
+    for layer, (case, case_live) in enumerate(cases):
+        hn = case[3]
+        spread = float((hn - hn[:, :1]).abs().max())
+        with torch.no_grad():
+            before = fused.launches
+            agg = fused(*case)
+            torch.cuda.synchronize()
+            require(fused.launches == before + 1, "conv_msg_gather did not "
+                    "launch")
+            ref = batched_reference(*case)
+        err = float((agg - ref).abs().max())
+        scale = float(ref.abs().max())
+        require(bool(torch.isfinite(agg).all()), "non-finite agg")
+        n, k = case[1].shape[1:]
+        say(f"phase 6: conv_msg_gather vs plain at N={n} K={k} width 128 "
+            f"({case_live} live edges of {n * k} slots), layer {layer} of "
+            f"the training slice (max |hn - hn[0]| over rows {spread:.3e}): "
+            f"max |d agg| {err:.3e}, max |agg| {scale:.3e} (tolerance "
+            f"{CONV_RTOL} x max)")
+        require(err <= CONV_RTOL * scale,
+                f"conv_msg_gather disagrees: {err} vs {scale}")
+        fwd_err = max(fwd_err, err)
+    require(spread > 1e-2, "layer 1's rows are nearly identical: the "
+            "check cannot see a gather from the wrong node")
+    (args, live), _ = cases
+    n, k = args[1].shape[1:]
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: fused(*args))
+        fwd_plain_ms = time_ms(lambda: batched_reference(*args))
+    fwd_bound, fwd_by = roofline(conv_flops(live), conv_bytes(n, k))
+    say(f"phase 6: conv_msg_gather {fwd_ms:.4f} ms/call, plain "
+        f"{fwd_plain_ms:.4f} ms/call, bound {fwd_bound:.4f} ms ({fwd_by}; "
+        f"{conv_flops(live) / 1e9:.4f} GFLOP for {live} live edges), "
+        f"kernel at {fwd_bound / fwd_ms:.2%} of it; CUDA events, median of "
+        f"20 [{card}]")
+
+    # -- phase 7: the backward kernel against autograd through plain -----
+    bwd_err = 0.0
+    for layer, (case, _) in enumerate(cases):
+        g = torch.randn((1, n, case[3].shape[-1]), device=dev,
+                        generator=torch.Generator(dev).manual_seed(7))
+        before = fused.backward_launches
+        out_k, leaves_k, grads_k = grads_of(fused, case, g)
+        torch.cuda.synchronize()
+        require(fused.backward_launches == before + 1,
+                "conv_msg_gather_bwd did not launch")
+        out_p, leaves_p, grads_p = grads_of(batched_reference, case, g)
+        for name, a, b in zip(GRAD_NAMES, grads_k, grads_p):
+            err, mx = float((a - b).abs().max()), float(b.abs().max())
+            say(f"phase 7: layer {layer} grad {name:9s} {tuple(a.shape)}: "
+                f"max |d| {err:.3e}, max |grad| {mx:.3e}")
+            require(bool(torch.isfinite(a).all()), f"non-finite grad {name}")
+            require(err <= CONV_GRAD_RTOL * mx,
+                    f"conv_msg_gather_bwd disagrees on {name}: {err} vs "
+                    f"{mx}")
+            bwd_err = max(bwd_err, err)
+        if layer == 0:      # timed on layer 0's inputs
+            timed = (out_k, leaves_k, out_p, leaves_p, g)
+    out_k, leaves_k, out_p, leaves_p, g = timed
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out_k, leaves_k, g,
+                                                 retain_graph=True))
+    bwd_plain_ms = time_ms(lambda: torch.autograd.grad(out_p, leaves_p, g,
+                                                       retain_graph=True))
+    bwd_flops = 3 * conv_flops(live)
+    bwd_bound, bwd_by = roofline(bwd_flops, conv_bytes(n, k, backward=True))
+    say(f"phase 7: conv_msg_gather_bwd {bwd_ms:.4f} ms/call (with the "
+        f"wrapper's source sort and weight transposes), plain autograd "
+        f"{bwd_plain_ms:.4f} ms/call, bound {bwd_bound:.4f} ms ({bwd_by}; "
+        f"{bwd_flops / 1e9:.4f} GFLOP: recompute, input and weight grads), "
+        f"kernel at {bwd_bound / bwd_ms:.2%} of it (tolerance "
+        f"{CONV_GRAD_RTOL} x max per grad); CUDA events, median of 20 "
+        f"[{card}]")
+    del out_k, out_p, leaves_k, leaves_p, grads_k, grads_p, timed
+
+    # -- phase 8: one training step, kernel path against plain path ------
+    runs = {flag: train_steps(dev, flag, 1) for flag in (True, False)}
+    (sk, mk, _, sl), (sp, mp_, _, _) = runs[True], runs[False]
+    mk, mp_ = mk[0], mp_[0]
+    require(torch.equal(mk["pos"], mp_["pos"]),
+            "the two paths drew different augmentations")
+    loss_rel = abs(float(mk["loss"]) - float(mp_["loss"])) \
+        / abs(float(mp_["loss"]))
+    grad_rel = max(
+        float((a.grad - b.grad).abs().max()) / float(b.grad.abs().max())
+        for a, b in zip(sk.model.parameters(), sp.model.parameters()))
+    diffs = torch.cat([(a - b).detach().abs().reshape(-1) for a, b in
+                       zip(sk.model.parameters(), sp.model.parameters())])
+    share = float((diffs <= PARAM_ATOL).float().mean())
+    say(f"phase 8: one training step, kernel vs plain path, same seed: "
+        f"augmented positions identical; loss {float(mk['loss']):.6f} vs "
+        f"{float(mp_['loss']):.6f} (rel {loss_rel:.3e}); worst grad max |d| "
+        f"/ max |grad| {grad_rel:.3e}; params after Adam: "
+        f"{share:.5%} within {PARAM_ATOL}, max |d| "
+        f"{float(diffs.max()):.3e} (bound 2 lr = {2 * sl.train_cfg.lr})")
+    require(loss_rel <= 1e-4, "the two paths' losses disagree")
+    require(grad_rel <= CONV_GRAD_RTOL, "the two paths' grads disagree")
+    require(share >= PARAM_SHARE and float(diffs.max())
+            <= 2 * sl.train_cfg.lr, "the two paths' parameters disagree")
+    del runs, sk, sp
+
+    # -- phase 9: the training path --------------------------------------
+    fused.launches = fused.backward_launches = 0
+    state, metrics, seconds, sl = train_steps(dev, True, TRAIN_STEPS)
+    train_launches = (fused.launches, fused.backward_launches)
+    _, plain_metrics, plain_seconds, _ = train_steps(dev, False,
+                                                     TRAIN_STEPS)
+    losses = [float(m["loss"]) for m in metrics]
+    layers = sl.model_cfg.conv_layers
+    require(all(np.isfinite(float(v)) for m in metrics
+                for key, v in m.items() if key != "pos"),
+            "non-finite training metrics")
+    require(not any(bool(m["nbr_overflow"]) for m in metrics),
+            "neighbour overflow in training")
+    require(train_launches == (layers * TRAIN_STEPS, layers * TRAIN_STEPS),
+            f"launches {train_launches}: want {layers} forward and "
+            f"{layers} backward per step")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    say(f"phase 9: training path, {TRAIN_STEPS} steps (LJ-258, GAMD-small "
+        f"use_pallas, LayerNorm, K={sl.system.nbr_capacity}, 4 frames, "
+        f"rotation, jitter, dropout, relabel): kernel path "
+        f"{seconds * 1e3 / TRAIN_STEPS:.3f} ms/step, plain path "
+        f"{plain_seconds * 1e3 / TRAIN_STEPS:.3f} ms/step; launches "
+        f"(forward, backward) {train_launches}; loss first 5 {first:.5f}, "
+        f"last 5 {last:.5f} [{card}]")
+    say("phase 9: loss per step " + " ".join(f"{x:.5f}" for x in losses))
+    say("phase 9: plain path loss per step " + " ".join(
+        f"{float(m['loss']):.5f}" for m in plain_metrics))
+    require(last < first, "the training loss did not fall")
+
+    common = {"route": "cuda", "library_ms": None}
+    return [{
+        "name": "conv_msg_gather", **common,
+        "source": "gamd_tpu_torch/csrc/conv_msg_gather.cu",
+        "replaces": "gamd_tpu/ops/pallas_mp.py:370",
+        "launches": train_launches[0],
+        "launches_by_path": {"train": train_launches[0]},
+        "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+        "bound_ms": fwd_bound, "bound_by": fwd_by,
+    }, {
+        "name": "conv_msg_gather_bwd", **common,
+        "source": "gamd_tpu_torch/csrc/conv_msg_gather_bwd.cu",
+        "replaces": "gamd_tpu/ops/pallas_mp.py:530",
+        "launches": train_launches[1],
+        "launches_by_path": {"train": train_launches[1]},
+        "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+        "bound_ms": bwd_bound, "bound_by": bwd_by,
+    }]
 
 
 def main():
@@ -355,11 +640,14 @@ def main():
     require(abs(mean_t - md.temperature) <= T_BAND,
             f"mean temperature {mean_t} K outside 100 +- {T_BAND} K")
 
-    # -- phase 6: kernels line, result line ------------------------------
+    conv_kernels = training_phases(dev, card)
+
+    # -- phase 10: kernels line, result line ------------------------------
     by_path = {name: {"per_step": per_step_launches[name],
                       "megastep": mega_launches[name]}
                for name in per_step_launches}
-    say('kernels: ["mega_forward", "mega_md_steps"]')
+    say('kernels: ["mega_forward", "mega_md_steps", "conv_msg_gather", '
+        '"conv_msg_gather_bwd"]')
     say(json.dumps({"kernels": [{
         "name": "mega_forward",
         "route": "cuda",
@@ -386,8 +674,8 @@ def main():
         "bound_ms": window_bound_ms,
         "bound_by": window_bound_by,
         "library_ms": None,
-    }]}))
-    say(f"phase 6: total {time.perf_counter() - t_start:.1f} s")
+    }, *conv_kernels]}))
+    say(f"phase 10: total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

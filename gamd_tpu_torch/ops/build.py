@@ -1,5 +1,7 @@
 """Build the port's CUDA sources with nvcc into one shared library and load
 it with ctypes (no PyTorch headers, no torch.utils.cpp_extension, no ninja).
+Each source compiles in its own nvcc process, all started together, and
+one more nvcc links the objects.
 
 The library goes to build/gamd_tpu_torch/ at the repository root, named by
 a hash of the sources, headers and flags, so an edited source or header
@@ -18,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gamd_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -50,8 +52,18 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgamd_tpu_torch_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands at once; their (returncode, output) in order."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    return [(proc.returncode, out) for proc, out in zip(procs, outs)]
+
+
 def build() -> dict:
-    """Compile the sources if the hashed library is missing.
+    """Compile the sources if the hashed library is missing: one nvcc per
+    source, all at once, then one link.
 
     Returns {"path", "seconds", "built", "log"}; `log` holds nvcc's
     ptxas report (registers, shared memory, spills) when it built.
@@ -60,19 +72,29 @@ def build() -> dict:
     if path.exists():
         return {"path": str(path), "seconds": 0.0, "built": False, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{path.stem}.{os.getpid()}"
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources()]]
+    nvcc = find_nvcc()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(sources(), objs)]
+    link = [nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objs]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        results = _run_all(compiles)
+        if all(rc == 0 for rc, _ in results):
+            results += _run_all([link])
+        for cmd, (rc, out) in zip([*compiles, link], results):
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                                   f"{out}")
+        os.replace(tmp, path)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
-    return {"path": str(path), "seconds": seconds, "built": True,
-            "log": proc.stdout + proc.stderr}
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return {"path": str(path), "seconds": time.perf_counter() - t0,
+            "built": True, "log": "".join(out for _, out in results)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,8 +102,9 @@ def load_library():
     """The loaded library (built first if needed), with argtypes set."""
     import ctypes
 
-    from gamd_tpu_torch.ops import mega
+    from gamd_tpu_torch.ops import conv_gather, mega
 
     lib = ctypes.CDLL(build()["path"])
     mega.declare(lib)
+    conv_gather.declare(lib)
     return lib

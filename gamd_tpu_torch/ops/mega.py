@@ -423,7 +423,12 @@ def mega_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
 
     A CPU `pos` runs reference_forward. A CUDA `pos` launches the kernel
     (LJ: no bond channel, silu conv / gelu MLP, every width 128) or raises.
+    A replica axis is refused on both.
     """
+    if pos.ndim != 2:
+        raise NotImplementedError(
+            "mega_forward takes one system [N, 3]: the replica axis comes "
+            "with the port's replicas slice (init_replicas / run_replicas)")
     if pos.device.type == "cpu":
         return reference_forward(pos, idx, build_mask, h0, mp, box, cutoff,
                                  length_mean, length_std, bond, rbf_gap,

@@ -1,5 +1,6 @@
 """The thermostat noise of a fused MD window, plain version: Philox4x32-10
-and Box-Muller, exactly as csrc/mega_md_steps.cu draws them in the kernel.
+and Box-Muller, as csrc/mega_md_steps.cu draws them in the kernel (the same
+words; the float transforms here in float64, rounded once to float32).
 
 It takes the place of gamd_tpu/ops/pallas_model.py::_mega_md_kernel's
 hash_bits / gaussian (the TPU's on-core PRNG has no Hopper counterpart).
@@ -15,6 +16,12 @@ Words are int64 tensors holding 32-bit values. The 32x32-bit products of a
 round do not fit in int64 (both multipliers exceed 2^31), so one factor is
 split into 16-bit halves and the high and low words are put together
 exactly.
+
+The log, sqrt, cos and sin run in float64: in float32 the CPU results
+varied in the last bit with the worker thread that computed a chunk (once
+a JAX computation had run in the process), so one seed did not always give
+the same draws. The kernel's float32 transforms differ from these by about
+1e-6 at most.
 """
 
 import math
@@ -58,8 +65,8 @@ def philox4x32(counter, key):
 
 
 def _uniforms(w):
-    """(u1 in (0, 1], u2 in [0, 1)) float32 from 32-bit words."""
-    top = (w >> 8).to(torch.float32)
+    """(u1 in (0, 1], u2 in [0, 1)) float64 (exact) from 32-bit words."""
+    top = (w >> 8).to(torch.float64)
     return (top + 1.0) * 2.0 ** -24, top * 2.0 ** -24
 
 
@@ -84,7 +91,6 @@ def philox_normal(seed, step, n: int, device=None):
     _, u2b = _uniforms(w[:, 3])
     ra = torch.sqrt(-2.0 * torch.log(u1a))
     rb = torch.sqrt(-2.0 * torch.log(u1b))
-    ta = torch.tensor(_TWO_PI, dtype=torch.float32, device=device) * u2a
-    tb = torch.tensor(_TWO_PI, dtype=torch.float32, device=device) * u2b
+    ta, tb = _TWO_PI * u2a, _TWO_PI * u2b
     return torch.stack([ra * torch.cos(ta), ra * torch.sin(ta),
-                        rb * torch.cos(tb)], dim=-1)
+                        rb * torch.cos(tb)], dim=-1).to(torch.float32)

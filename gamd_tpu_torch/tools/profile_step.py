@@ -51,6 +51,30 @@ def short_name(kernel: str) -> str:
     return f"{base}[{ops[-1]}]" if ops else (base or kernel[:60])
 
 
+def on_device(evt) -> bool:
+    """A device activity of a profiler run (a kernel, copy or memset); user
+    annotations such as Optimizer.step's, which span other kernels and the
+    gaps between them, are not."""
+    return evt.device_type == torch.autograd.DeviceType.CUDA \
+        and not getattr(evt, "is_user_annotation", False)
+
+
+def kernel_times(prof) -> dict:
+    """{short name: {"us": device time summed, "count": launches}} of the
+    device activities a torch.profiler run saw."""
+    kernels = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.cuda_time_total
+        if on_device(evt) and dev_us > 0:
+            entry = kernels.setdefault(short_name(evt.key),
+                                       {"us": 0.0, "count": 0})
+            entry["us"] += dev_us
+            entry["count"] += evt.count
+    return kernels
+
+
 def _simulation(dev, megastep: bool):
     sl = lj_slice(dev)
     ff = GNNForceField(sl.state, sl.system, sl.model_cfg, device=dev)
@@ -95,19 +119,9 @@ def profile(dev, megastep: bool) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    kernels = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.cuda_time_total
-        if evt.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
-            entry = kernels.setdefault(short_name(evt.key),
-                                       {"us": 0.0, "count": 0})
-            entry["us"] += dev_us
-            entry["count"] += evt.count
+    kernels = kernel_times(prof)
     spans = sorted((e.time_range.start, e.time_range.end, short_name(e.name))
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   for e in prof.events() if on_device(e))
     gaps = [max(0.0, b[0] - a[1]) for a, b in zip(spans, spans[1:])]
     short = [g for g in gaps if g < SHORT_GAP_US]
     sites = {}        # long gaps by the activities on either side

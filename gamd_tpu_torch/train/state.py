@@ -1,14 +1,24 @@
-"""Weight carrier of the port (in place of gamd_tpu/train/state.py's flax
-TrainState): parameters in the flax tree layout as nested dicts of float32
-numpy arrays, plus the normaliser statistics a force field needs.
+"""Training state and weight carrier of the port (gamd_tpu/train/state.py).
+
+* ForceFieldState carries weights to a force field: parameters in the flax
+  tree layout as nested dicts of float32 numpy arrays, plus the normaliser
+  statistics.
+* TrainState is what a train step updates: the GAMDNet module, its Adam
+  optimizer and staircase lr schedule, the streaming force and edge-length
+  stats (0-d tensors on the device), a torch.Generator on the device for
+  every random draw of a step, and the step count.
 """
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
+import torch
 
-from gamd_tpu_torch.core.config import ModelConfig, SystemConfig
-from gamd_tpu_torch.models.normalizer import RunningStat, init_stat
+from gamd_tpu_torch.core.config import ModelConfig, SystemConfig, TrainConfig
+from gamd_tpu_torch.core.device import resolve_device
+from gamd_tpu_torch.models.gnn import GAMDNet
+from gamd_tpu_torch.models.normalizer import (RunningStat, as_floats,
+                                              init_stat)
 
 
 class ForceFieldState(NamedTuple):
@@ -16,6 +26,68 @@ class ForceFieldState(NamedTuple):
     batch_stats: Any             # {} for LayerNorm models
     force_stat: RunningStat      # force scaler moments
     length_stat: RunningStat     # edge-length scaler moments
+
+
+class TrainState(NamedTuple):
+    model: GAMDNet
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LambdaLR
+    force_stat: RunningStat          # streaming force scaler (tensors)
+    length_stat: RunningStat         # streaming edge-length scaler
+    generator: torch.Generator       # every random draw of a step
+    step: int
+
+    def to_forcefield_state(self) -> ForceFieldState:
+        """The trained weights, BatchNorm running stats and scalers as a
+        ForceFieldState for GNNForceField (reads the stats on the host)."""
+        params, batch_stats = self.model.export_params()
+        return ForceFieldState(params=params, batch_stats=batch_stats,
+                               force_stat=as_floats(self.force_stat),
+                               length_stat=as_floats(self.length_stat))
+
+
+def lr_factor(train_cfg: TrainConfig, steps_per_epoch: int):
+    """t -> lr multiplier of update t (counting from 0): optax's staircase
+    exponential_decay, gamma ** (t // (steps_per_epoch * lr_step_epochs))
+    with gamma = lr_total_decay ** (lr_step_epochs / max_epoch), the
+    reference's StepLR (gamd_tpu/train/state.py:33-44)."""
+    epochs = max(train_cfg.max_epoch, 1)
+    gamma = train_cfg.lr_total_decay ** (train_cfg.lr_step_epochs / epochs)
+    period = max(steps_per_epoch * train_cfg.lr_step_epochs, 1)
+    return lambda t: gamma ** (t // period)
+
+
+def make_optimizer(params, train_cfg: TrainConfig, steps_per_epoch: int):
+    """(Adam over `params` at train_cfg.lr, eps 1e-8 as optax.adam, and a
+    LambdaLR of lr_factor). Step the scheduler after every optimizer step,
+    so update t runs at lr * lr_factor(t), as optax's count."""
+    optimizer = torch.optim.Adam(params, lr=train_cfg.lr, betas=(0.9, 0.999),
+                                 eps=1e-8)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lr_factor(train_cfg, steps_per_epoch))
+    return optimizer, scheduler
+
+
+def create_train_state(model_cfg: ModelConfig, system: SystemConfig,
+                       train_cfg: TrainConfig, steps_per_epoch: int,
+                       seed: Optional[int] = None, device="cuda"
+                       ) -> TrainState:
+    """A fresh TrainState on `device` (CUDA unless the caller asks for the
+    CPU): init_params(seed) weights, Adam with the staircase schedule,
+    empty scalers, and a generator on the device seeded with `seed`
+    (train_cfg.seed when None)."""
+    dev = resolve_device(device)
+    seed = train_cfg.seed if seed is None else seed
+    weights = init_params(model_cfg, system, seed=seed)
+    model = GAMDNet(model_cfg).load_params(
+        weights.params, weights.batch_stats).to(dev)
+    optimizer, scheduler = make_optimizer(model.parameters(), train_cfg,
+                                          steps_per_epoch)
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(seed)
+    return TrainState(model=model, optimizer=optimizer, scheduler=scheduler,
+                      force_stat=init_stat(dev), length_stat=init_stat(dev),
+                      generator=generator, step=0)
 
 
 def _lecun_normal(rng, fan_in, fan_out):

@@ -1,6 +1,7 @@
-"""The CUDA kernels mega_forward and mega_md_steps against their plain
-PyTorch versions, on a Hopper card (capability 9.x). Without one every test
-here skips.
+"""The CUDA kernels mega_forward, mega_md_steps and the conv-message pair
+(conv_msg_gather forward and backward) against their plain PyTorch
+versions, on a Hopper card (capability 9.x). Without one every test here
+skips.
 
 On the card (which has no JAX) run this file without the JAX package's
 conftest:  python -m pytest --noconftest -p no:cacheprovider
@@ -18,6 +19,8 @@ import torch
 from gamd_tpu_torch.core.config import MDConfig, ModelConfig, get_preset
 from gamd_tpu_torch.md.simulate import Simulation
 from gamd_tpu_torch.neighbors.dense import build_nbrs, dense_neighbor_list
+from gamd_tpu_torch.ops.conv_gather import (batched_reference,
+                                            fused_conv_gather_message)
 from gamd_tpu_torch.ops.mega import (md_steps_reference, mega_forward,
                                      mega_md_steps, pack_params,
                                      reference_forward)
@@ -218,3 +221,88 @@ def test_window_rejects_what_it_does_not_take(cuda):
                       bond=torch.zeros_like(mask, dtype=torch.float32),
                       **kw)
     assert mega_md_steps.launches == before
+
+
+def _conv_inputs(dev, b, n, k, seed=0):
+    """e, idx, mask, hn, src_nodes, dst_code [B, N, ...] and the 8 weights
+    at width 128 on `dev`, drawn as tests/test_ops.py draws them."""
+    rng = np.random.RandomState(seed)
+    w = 128
+    t = lambda a: torch.as_tensor(a, device=dev)
+    f32 = lambda *s, scale: t(rng.randn(*s).astype(np.float32) * scale)
+    inputs = [f32(b, n, k, w, scale=0.3),
+              t(rng.randint(0, n, (b, n, k)).astype(np.int32)),
+              t(rng.rand(b, n, k) > 0.3),
+              f32(b, n, w, scale=0.5), f32(b, n, w, scale=0.5),
+              f32(b, n, w, scale=0.3)]
+    weights = [f32(*s, scale=0.08) for s in
+               [(w, w), (w,), (w, w), (w,), (w, w), (w,), (w, w), (w,)]]
+    return inputs, weights
+
+
+def _conv_run(fn, inputs, weights, g):
+    """fn's output and the grads of sum(out * g) for e, hn, src, dst and the
+    8 weights."""
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (inputs[0], *inputs[3:], *weights)]
+    e, hn, src, dst, *ws = leaves
+    out = fn(e, inputs[1], inputs[2], hn, src, dst, *ws)
+    return out.detach(), torch.autograd.grad(out, leaves, g)
+
+
+@pytest.mark.parametrize("b,n,k", [
+    (1, 66, 20),      # ragged edge chunk (K=20 is 16 + 4)
+    (2, 66, 20),      # a batch: one graph of B*N nodes, summed weight grads
+    (1, 258, 96),     # the training slice's shape
+])
+def test_conv_gather_kernels_match_plain_version(cuda, b, n, k):
+    """Forward within 1e-4 of max |agg|, each of the 12 grads within 1e-3
+    of its tensor's max |.|, against autograd through the plain version on
+    the same card; one forward and one backward launch."""
+    inputs, weights = _conv_inputs(cuda, b, n, k, seed=n + k + b)
+    g = torch.randn((b, n, 128), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    launches = (fused_conv_gather_message.launches,
+                fused_conv_gather_message.backward_launches)
+    out, grads = _conv_run(fused_conv_gather_message, inputs, weights, g)
+    ref, ref_grads = _conv_run(batched_reference, inputs, weights, g)
+    torch.cuda.synchronize()
+    assert (fused_conv_gather_message.launches - launches[0],
+            fused_conv_gather_message.backward_launches - launches[1]) \
+        == (1, 1)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    for a, r in zip(grads, ref_grads):
+        assert a.shape == r.shape and bool(torch.isfinite(a).all())
+        assert float((a - r).abs().max()) <= 1e-3 * float(r.abs().max())
+
+
+def test_conv_gather_kernels_are_run_to_run_identical(cuda):
+    """No atomics: two runs give bitwise the same forward and grads."""
+    inputs, weights = _conv_inputs(cuda, 2, 66, 20, seed=5)
+    g = torch.randn((2, 66, 128), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(2))
+    first = _conv_run(fused_conv_gather_message, inputs, weights, g)
+    second = _conv_run(fused_conv_gather_message, inputs, weights, g)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+
+
+def test_conv_gather_rejects_what_it_does_not_take(cuda):
+    """The entry's input checks on the card; nothing launches."""
+    (e, idx, mask, hn, src, dst), ws = _conv_inputs(cuda, 1, 32, 16)
+    before = fused_conv_gather_message.launches
+    with pytest.raises(ValueError, match="idx"):
+        fused_conv_gather_message(e, idx.long(), mask, hn, src, dst, *ws)
+    with pytest.raises(ValueError, match="mask"):
+        fused_conv_gather_message(e, idx, mask.int(), hn, src, dst, *ws)
+    with pytest.raises(ValueError, match=": e must"):
+        fused_conv_gather_message(e[..., :64], idx, mask, hn, src, dst, *ws)
+    with pytest.raises(ValueError, match="hn"):
+        fused_conv_gather_message(e, idx, mask, hn.transpose(1, 2)
+                                  .contiguous().transpose(1, 2), src, dst,
+                                  *ws)
+    with pytest.raises(ValueError, match="w1"):
+        fused_conv_gather_message(e, idx, mask, hn, src, dst, ws[0].cpu(),
+                                  *ws[1:])
+    assert fused_conv_gather_message.launches == before

@@ -22,8 +22,8 @@ from gamd_tpu_torch.core import config as tcfg
 from gamd_tpu_torch.md.simulate import Simulation
 from gamd_tpu_torch.ops.mega import mega_forward
 from gamd_tpu_torch.train.forcefield import GNNForceField
-from gamd_tpu_torch.train.state import (ForceFieldState, params_from_jax,
-                                        stat_from_jax)
+from gamd_tpu_torch.train.state import (ForceFieldState, init_params,
+                                        params_from_jax, stat_from_jax)
 
 BOX = 12.0
 SMALL = dict(encoding_size=32, hidden_dim=32, edge_embedding_dim=32,
@@ -145,3 +145,21 @@ def test_mega_forward_rejects_other_devices():
     x = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         mega_forward(x, None, None, None, None, BOX, None, 0.0, 1.0)
+
+
+def test_megakernel_force_fn_refuses_a_replica_axis():
+    """force_fn(megakernel=True) on a [R=2, 258, 3] pos raises the
+    replicas-slice NotImplementedError (the JAX force_fn takes [R, N, 3];
+    the port's kernel takes one system), before any other check."""
+    system = tcfg.get_preset("lj")
+    cfg = tcfg.lj_model_config()
+    ff = GNNForceField(init_params(cfg, system, seed=0), system, cfg,
+                       device="cpu")
+    pos = torch.zeros((2, system.n_atoms, 3))
+    idx = torch.zeros((2, system.n_atoms, 48), dtype=torch.int32)
+    mask = torch.zeros((2, system.n_atoms, 48), dtype=torch.bool)
+    with pytest.raises(NotImplementedError, match="replicas slice"):
+        ff.force_fn(megakernel=True)(pos, idx, mask)
+    with pytest.raises(NotImplementedError, match="replicas slice"):
+        mega_forward(torch.zeros((2, 4, 3), device="meta"), None, None,
+                     None, None, BOX, None, 0.0, 1.0)
