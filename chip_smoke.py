@@ -8,8 +8,14 @@ kernel mega_md_steps (Philox noise and the forward inside). Then its
 training path: LJ-258 training steps of GAMD-small (use_pallas, as
 `train_gamd.py --system lj --use_pallas --use_layer_norm --relabel`), every
 conv layer's edge pipeline through the hand-written CUDA kernel pair
-conv_msg_gather (forward) and conv_msg_gather_bwd (backward). Phases, one
-flushed line or more each:
+conv_msg_gather (forward) and conv_msg_gather_bwd (backward). Then its
+LJ deployment on the committed checkpoint results/ckpts/
+lj_relabel_latest.msgpack (trained LJ-258 GAMD-small; cutoff 7.5 A, skin
+1.25 A, K=96): GNNForceField with use_pallas and use_pallas_encoder, whose
+edges come from the hand-written CUDA kernel edge_encoder and whose conv
+layers go through conv_msg_gather, for predict / predict_batch and MD, and
+the port's run_md and analyze_rollout CLIs. Phases, one flushed line or
+more each:
 
   0. card (nvidia-smi name and power limit), torch and nvcc versions;
   1. build the CUDA sources with nvcc (or reuse the hashed library);
@@ -32,7 +38,22 @@ flushed line or more each:
   9. the training path: 30 steps on 4 relabelled frames through the
      kernel pair (and the plain path, for its time), with the launch
      counts, the loss of each step and the loss falling;
- 10. the kernels line (JSON), then the result line (JSON) last.
+ 10. edge_encoder against its plain version on LJ-258 frames with the
+     checkpoint's weights and list (K=96): one frame with cutoff=None and
+     with the 7.5 A cutoff, and 16 frames in one call against 16 calls;
+ 11. the deployment force path: force_fn on the card against the same force
+     field on the CPU (plain versions), predict and predict_batch (40
+     frames at batch size 16) against per-frame predict, and the force
+     MAE against the classical LJ labels, on frames of a classical
+     Langevin run (the port's LJ forces) from the FIRE-minimised lattice;
+ 12. the deployment MD path: Simulation(ff.force_fn()) with the trained
+     weights, 20 warm-up and 400 timed Langevin steps at 100 K, 25/ps,
+     with the kernels' launch counts and the band on mean T;
+ 13. the port CLIs in process: tools.run_md (--megastep, 2000 steps;
+     --use_pallas, 200 steps) and tools.analyze_rollout (--megastep, 4000
+     steps, --classical_baseline --pe) against phase 11's classical frames
+     as ground truth: thermo log format, RDF, temperature, PE;
+ 14. the kernels line (JSON), then the result line (JSON) last.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 card; without one it exits non-zero and prints no result. Any failed check
@@ -41,27 +62,39 @@ raises, and a hang ends with a traceback at the deadline.
 
 import faulthandler
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from gamd_tpu_torch.core import space
+from gamd_tpu_torch.core.config import MDConfig
 from gamd_tpu_torch.core.device import card_line
 from gamd_tpu_torch.md.integrators import maxwell_boltzmann_velocities
 from gamd_tpu_torch.md.simulate import Simulation
 from gamd_tpu_torch.models.normalizer import init_stat, update_stat
-from gamd_tpu_torch.neighbors.dense import build_nbrs, refresh_mask
+from gamd_tpu_torch.neighbors.dense import (build_nbrs, dense_neighbor_list,
+                                            refresh_mask)
 from gamd_tpu_torch.ops import build
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
+from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
+                                        fused_edge_encoder)
 from gamd_tpu_torch.ops.mega import (md_steps_reference, mega_forward,
                                      mega_md_steps, pack_params,
                                      reference_forward)
+from gamd_tpu_torch.physics.lennard_jones import (lj_fluid_box, lj_force_fn,
+                                                  lj_forces_dense)
+from gamd_tpu_torch.physics.minimize import fire_minimize
+from gamd_tpu_torch.tools import analyze_rollout, run_md
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
 from gamd_tpu_torch.tools.lj_train_slice import lj_train_slice
+from gamd_tpu_torch.train.checkpoint import load_self_describing
 from gamd_tpu_torch.train.forcefield import GNNForceField
 from gamd_tpu_torch.train.loop import (edge_distances, make_train_step,
                                        search_batch)
@@ -82,6 +115,17 @@ PARAM_SHARE = 0.999       # this share of parameters within PARAM_ATOL, and
                           # all within 2 * lr (Adam on a rounding-level grad)
 GRAD_NAMES = ("e", "hn", "src_nodes", "dst_code",
               "w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4")
+CKPT = os.path.join("results", "ckpts", "lj_relabel_latest.msgpack")
+ENCODER_RTOL = 1e-4       # max |de| / max |e|, kernel vs plain
+ENCODER_BATCH = 16        # frames of the batched encoder call (predict_batch)
+PREDICT_FRAMES, PREDICT_BATCH = 40, 16   # predict_batch's pad path (40 % 16)
+PREDICT_RTOL = 1e-5       # predict_batch vs per-frame predict, / std(F)
+DEPLOY_STEPS = 400        # timed steps of the deployment MD path
+CLASSICAL_EQUIL, CLASSICAL_STEPS = 1000, 2000   # ground-truth run: 100 frames
+RUN_MD_STEPS = {"--megastep": 2000, "--use_pallas": 200}   # phase 13's runs
+ANALYZE_STEPS = 4000      # analyze_rollout's rollout (200 windows)
+THERMO_HEADER = ('#"Step"\t"Time (ps)"\t"Kinetic Energy (kJ/mole)"\t'
+                 '"Temperature (K)"')
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -406,6 +450,332 @@ def training_phases(dev, card):
     }]
 
 
+def encoder_bound(live_edges, n, k, n_rbf, width=128):
+    """(least ms, "operations" or "bytes") of one edge_encoder call on one
+    frame: the three encoder products over the live edges (2 per
+    multiply-add), against e written in fp32 for every slot, the live mask
+    written, and pos, idx, the build mask and the weights read once."""
+    flops = 2.0 * live_edges * ((4 + n_rbf) * width + width * width
+                                + width * width)
+    weights = 4 * ((4 + n_rbf) * width + 2 * width * width + 5 * width)
+    nbytes = 4 * n * k * width + n * k + 4 * n * 3 + 4 * n * k + n * k \
+        + weights
+    return roofline(flops, nbytes), flops
+
+
+def classical_frames(dev, system):
+    """Frames of a classical LJ run with the port's forces: the FCC lattice
+    minimised by 1000 FIRE steps (as run_md starts), then BAOAB Langevin at
+    the system's temperature and 25/ps, CLASSICAL_EQUIL steps discarded and
+    one wrapped frame every 20 steps of CLASSICAL_STEPS kept."""
+    _, lattice = lj_fluid_box(system.n_atoms, 0.5)
+    pos, _ = fire_minimize(lambda p: lj_forces_dense(p, system.box),
+                           torch.as_tensor(lattice, device=dev),
+                           n_steps=1000)
+    md = MDConfig(integrator="langevin", temperature=system.temperature,
+                  dt_fs=system.dt_fs, friction_per_ps=25.0,
+                  rebuild_every=20)
+    sim = Simulation(lj_force_fn(system.box), system, md, device=dev)
+    state = sim.init_state(pos, rng=torch.Generator(dev).manual_seed(3))
+    equil = sim.run(state, CLASSICAL_EQUIL)
+    run = sim.run(equil.state, CLASSICAL_STEPS)
+    require(not equil.overflow and not run.overflow,
+            "neighbour overflow in the classical run")
+    temps = run.thermo.temperature
+    return run.positions, float(temps.mean())
+
+
+def encoder_phase(dev, card, state, model_cfg, system):
+    """Phase 10 (module docstring). Returns the kernel's entry fields."""
+    fused = fused_edge_encoder
+    p = state.params
+    weights = [torch.as_tensor(p[name], device=dev) for name in (
+        "edge_encoder_w0", "edge_encoder_b0", "edge_encoder_w1",
+        "edge_encoder_b1", "edge_encoder_w2", "edge_encoder_b2",
+        "edge_ln_scale", "edge_ln_bias")]
+    kw = dict(rbf_low=model_cfg.rbf_low, rbf_high=model_cfg.rbf_high,
+              rbf_gap=model_cfg.rbf_gap, flip_dir=model_cfg.flip_dir)
+    scales = (state.length_stat.safe_mean, max(state.length_stat.std, 1e-12))
+    _, lattice = lj_fluid_box(system.n_atoms, 0.5)
+    rng = np.random.default_rng(10)
+    frames = lattice[None] + rng.normal(0.0, 0.1, (ENCODER_BATCH,
+                                                   *lattice.shape))
+    pos = space.wrap(torch.as_tensor(frames.astype(np.float32), device=dev),
+                     system.box)
+    lists = [build_nbrs(f, system) for f in pos]
+    require(not any(bool(t[2]) for t in lists),
+            "neighbour overflow at the encoder's frames")
+    idx = torch.stack([t[0] for t in lists])
+    mask = torch.stack([t[1] for t in lists])
+    n, k = idx.shape[1:]
+
+    def call(fn, b, cutoff):
+        sl = slice(0, b)
+        return fn(pos[sl], idx[sl], mask[sl], system.box, cutoff, *scales,
+                  *weights, **kw)
+
+    err_max = 0.0
+    for cutoff in (None, system.cutoff):
+        before = fused.launches
+        e, live = call(fused, 1, cutoff)
+        torch.cuda.synchronize()
+        require(fused.launches == before + 1, "edge_encoder did not launch")
+        e_ref, live_ref = call(edge_encoder_reference, 1, cutoff)
+        err, scale = float((e - e_ref).abs().max()), float(e_ref.abs().max())
+        require(bool(torch.isfinite(e).all()), "non-finite e")
+        require(torch.equal(live, live_ref), f"live masks differ (cutoff "
+                f"{cutoff})")
+        say(f"phase 10: edge_encoder vs plain at N={n} K={k} width "
+            f"{e.shape[-1]}, cutoff {cutoff} ({int(live.sum())} live of "
+            f"{n * k} slots, build mask {int(mask[0].sum())}): max |de| "
+            f"{err:.3e}, max |e| {scale:.3e} (tolerance {ENCODER_RTOL} x "
+            "max), live masks identical")
+        require(err <= ENCODER_RTOL * scale,
+                f"edge_encoder disagrees: {err} vs {scale}")
+        err_max = max(err_max, err)
+    live_edges = int(live.sum())          # the frame at the 7.5 A cutoff
+
+    before = fused.launches
+    e_b, live_b = call(fused, ENCODER_BATCH, system.cutoff)
+    singles = [fused(pos[f], idx[f], mask[f], system.box, system.cutoff,
+                     *scales, *weights, **kw) for f in range(ENCODER_BATCH)]
+    torch.cuda.synchronize()
+    require(fused.launches == before + 1 + ENCODER_BATCH,
+            "edge_encoder did not launch")
+    e_bref, live_bref = call(edge_encoder_reference, ENCODER_BATCH,
+                             system.cutoff)
+    vs_single = max(float((e_b[f] - s[0]).abs().max())
+                    for f, s in enumerate(singles))
+    same_live = all(torch.equal(live_b[f], s[1])
+                    for f, s in enumerate(singles))
+    err_b = float((e_b - e_bref).abs().max())
+    scale_b = float(e_bref.abs().max())
+    say(f"phase 10: edge_encoder B={ENCODER_BATCH} in one call vs "
+        f"{ENCODER_BATCH} single-frame calls: max |de| {vs_single:.3e}, "
+        f"live masks identical {same_live}; vs plain: max |de| {err_b:.3e}"
+        f", max |e| {scale_b:.3e}")
+    require(same_live and torch.equal(live_b, live_bref),
+            "batched live masks differ")
+    require(vs_single <= ENCODER_RTOL * scale_b
+            and err_b <= ENCODER_RTOL * scale_b,
+            "the batched call disagrees with single calls or plain")
+    err_max = max(err_max, err_b)
+
+    ms = time_ms(lambda: call(fused, 1, system.cutoff))
+    plain_ms = time_ms(lambda: call(edge_encoder_reference, 1,
+                                    system.cutoff))
+    batch_ms = time_ms(lambda: call(fused, ENCODER_BATCH, system.cutoff))
+    (bound_ms, bound_by), flops = encoder_bound(live_edges, n, k,
+                                                model_cfg.n_rbf)
+    say(f"phase 10: edge_encoder {ms:.4f} ms/call (B=1), {batch_ms:.4f} "
+        f"ms/call (B={ENCODER_BATCH}), plain {plain_ms:.4f} ms/call (B=1), "
+        f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.4f} GFLOP for "
+        f"{live_edges} live edges, e fp32 for {n * k} slots), kernel at "
+        f"{bound_ms / ms:.2%} of it; CUDA events, median of 20 [{card}]")
+    return {"max_abs_err": err_max, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def deployment_phases(dev, card):
+    """Phases 10-13 (module docstring). Returns (the edge_encoder entry of
+    the kernels line, launches by path of the deployment's runs)."""
+    state, model_cfg, system = load_self_describing(
+        CKPT, use_pallas=True, use_pallas_encoder=True)
+    require(model_cfg.hidden_dim == model_cfg.edge_embedding_dim
+            == model_cfg.encoding_size == 128 and model_cfg.conv_layers == 4,
+            f"the checkpoint is not GAMD-small: {model_cfg}")
+    kernel = encoder_phase(dev, card, state, model_cfg, system)
+    unit = system.force_unit_to_internal
+    enc, conv = fused_edge_encoder, fused_conv_gather_message
+    launches = {}
+
+    # -- phase 11: the deployment force path --------------------------------
+    t0 = time.perf_counter()
+    traj, t_classical = classical_frames(dev, system)
+    say(f"phase 11: classical run (port LJ forces, 1000 FIRE steps, "
+        f"{CLASSICAL_EQUIL} + {CLASSICAL_STEPS} Langevin steps, 25/ps): "
+        f"{traj.shape[0]} frames, mean T {t_classical:.2f} K, "
+        f"{time.perf_counter() - t0:.1f} s")
+    ff = GNNForceField(state, system, model_cfg, device=dev)
+    ff_cpu = GNNForceField(state, system, model_cfg, device="cpu")
+    pos = traj[-1]
+    idx, mask, _ = dense_neighbor_list(pos, system.box, system.cutoff,
+                                       system.nbr_capacity)
+    before = (enc.launches, conv.launches)
+    f_card = ff.force_fn()(pos, idx, mask)
+    torch.cuda.synchronize()
+    per_call = (enc.launches - before[0], conv.launches - before[1])
+    f_cpu = ff_cpu.force_fn()(pos.cpu(), idx.cpu(), mask.cpu())
+    err = float((f_card.cpu() - f_cpu).abs().max())
+    scale = float(f_cpu.std())
+    say(f"phase 11: force_fn (use_pallas, use_pallas_encoder) on the card "
+        f"vs on the CPU (plain versions), trained LJ-258: max |dF| "
+        f"{err:.3e} kJ/mol/A, std(F) {scale:.3e} (tolerance {TOLERANCE} x "
+        f"std); launches per force call: edge_encoder {per_call[0]}, "
+        f"conv_msg_gather {per_call[1]}")
+    require(per_call == (1, model_cfg.conv_layers),
+            f"launches per force call {per_call}")
+    require(err < TOLERANCE * scale, "the card's forces disagree")
+
+    sel = np.round(np.linspace(0, traj.shape[0] - 1,
+                               PREDICT_FRAMES)).astype(int)
+    frames = traj[torch.as_tensor(sel, device=dev)]
+    one = ff.predict(frames[0])
+    t0 = time.perf_counter()
+    batch = ff.predict_batch(frames, batch_size=PREDICT_BATCH)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    singles = torch.stack([ff.predict(f) for f in frames])
+    labels = lj_forces_dense(frames, system.box) / unit     # kJ/mol/nm
+    scale_ds = float(labels.std())
+    vs_single = float((batch - singles).abs().max())
+    mae = float((batch - labels).abs().mean())
+    mean_label = float(labels.abs().mean())
+    require(bool(torch.isfinite(batch).all()) and batch.shape
+            == (PREDICT_FRAMES, system.n_atoms, 3), "predict_batch output")
+    require(torch.equal(one, singles[0]), "predict is not deterministic")
+    say(f"phase 11: predict_batch of {PREDICT_FRAMES} frames at batch size "
+        f"{PREDICT_BATCH} ({batch_s:.3f} s) vs per-frame predict: max |dF| "
+        f"{vs_single:.3e} kJ/mol/nm, std(F_label) {scale_ds:.3e} "
+        f"(tolerance {PREDICT_RTOL} x std); force MAE vs LJ labels "
+        f"{mae:.4f} kJ/mol/nm, mean |F_label| {mean_label:.4f} "
+        f"(relative MAE {mae / mean_label:.4f}) [{card}]")
+    require(vs_single <= PREDICT_RTOL * scale_ds,
+            "predict_batch disagrees with predict")
+    require(mae < mean_label, "the force MAE is not below mean |F_label|")
+
+    # -- phase 12: the deployment MD path ------------------------------------
+    md = MDConfig(integrator="langevin", temperature=system.temperature,
+                  dt_fs=system.dt_fs, friction_per_ps=25.0,
+                  rebuild_every=20)
+    sim = Simulation(ff.force_fn(), system, md, device=dev)
+    gen = torch.Generator(dev).manual_seed(4)
+    enc.launches = conv.launches = 0
+    mega_forward.launches = mega_md_steps.launches = 0
+    st = sim.init_state(pos, rng=gen)
+    warm = sim.run(st, WARMUP_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sim.run(warm.state, DEPLOY_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    deploy = {"edge_encoder": enc.launches,
+              "conv_msg_gather": conv.launches,
+              "mega_forward": mega_forward.launches,
+              "mega_md_steps": mega_md_steps.launches}
+    launches["deploy_md"] = deploy
+    calls = 1 + WARMUP_STEPS + DEPLOY_STEPS
+    temps = res.thermo.temperature
+    mean_t = float(temps.mean())
+    require(bool(torch.isfinite(res.state.pos).all())
+            and bool(torch.isfinite(temps).all()), "non-finite MD state")
+    require(not warm.overflow and not res.overflow,
+            "neighbour overflow (deployment MD)")
+    require(deploy == {"edge_encoder": calls,
+                       "conv_msg_gather": model_cfg.conv_layers * calls,
+                       "mega_forward": 0, "mega_md_steps": 0},
+            f"launches {deploy} for {calls} force calls")
+    say(f"phase 12: deployment MD (trained LJ-258 GAMD-small, "
+        f"use_pallas_encoder, K={system.nbr_capacity} at cutoff + skin "
+        f"{system.cutoff + system.skin:.2f} A), {DEPLOY_STEPS} Langevin "
+        f"steps in {seconds:.4f} s = {DEPLOY_STEPS / seconds:.1f} steps/s; "
+        f"mean T {mean_t:.2f} K (band 100 +- {T_BAND} K); launches "
+        f"{deploy} for {calls} force calls [{card}]")
+    require(abs(mean_t - md.temperature) <= T_BAND,
+            f"mean temperature {mean_t} K outside 100 +- {T_BAND} K")
+
+    # -- phase 13: the port CLIs ---------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        gt = os.path.join(tmp, "gt")
+        os.mkdir(gt)
+        for t, frame in enumerate(traj.cpu().numpy()):
+            np.savez(os.path.join(gt, f"data_0_{200 + t}.npz"), pos=frame)
+        steps = RUN_MD_STEPS["--megastep"]
+        runs = [("--megastep", steps, "run_md_megastep",
+                 ("mega_md_steps", steps // 20))]
+        steps = RUN_MD_STEPS["--use_pallas"]
+        runs.append(("--use_pallas", steps, "run_md_use_pallas",
+                     ("conv_msg_gather", model_cfg.conv_layers * (steps + 1))))
+        for flag, steps, name, (kernel_name, expected) in runs:
+            log = os.path.join(tmp, f"{name}.txt")
+            out = os.path.join(tmp, f"{name}.npy")
+            enc.launches = conv.launches = 0
+            mega_forward.launches = mega_md_steps.launches = 0
+            t0 = time.perf_counter()
+            run_md.main(["--ckpt", CKPT, flag, "--steps", str(steps),
+                         "--log", log, "--out_traj", out])
+            seconds = time.perf_counter() - t0
+            counts = {"edge_encoder": enc.launches,
+                      "conv_msg_gather": conv.launches,
+                      "mega_forward": mega_forward.launches,
+                      "mega_md_steps": mega_md_steps.launches}
+            launches[name] = counts
+            lines = open(log).read().splitlines()
+            temps = [float(line.split("\t")[3]) for line in lines[1:]]
+            final = np.load(out)
+            say(f"phase 13: run_md --ckpt {CKPT} {flag} --steps {steps}: "
+                f"{seconds:.1f} s with the FIRE start; {len(lines) - 1} "
+                f"thermo rows, last T {temps[-1]:.2f} K, mean "
+                f"{np.mean(temps):.2f} K; launches {counts}")
+            require(lines[0] == THERMO_HEADER
+                    and len(lines) == 1 + steps // 100,
+                    f"thermo log format ({flag})")
+            require(all(math.isfinite(t) for t in temps)
+                    and final.shape == (system.n_atoms, 3)
+                    and np.isfinite(final).all(), f"run_md output ({flag})")
+            require(counts[kernel_name] == expected,
+                    f"launches {counts} ({flag})")
+
+        report_path = os.path.join(tmp, "report.json")
+        enc.launches = conv.launches = 0
+        mega_forward.launches = mega_md_steps.launches = 0
+        t0 = time.perf_counter()
+        analyze_rollout.main([
+            "--ckpt", CKPT, "--data_dir", gt, "--integrator", "langevin",
+            "--friction", "25", "--megastep", "--steps", str(ANALYZE_STEPS),
+            "--classical_baseline", "--pe", "--json_out", report_path])
+        seconds = time.perf_counter() - t0
+        launches["analyze_rollout_megastep"] = {
+            "mega_forward": mega_forward.launches,
+            "mega_md_steps": mega_md_steps.launches}
+        with open(report_path) as f:
+            report = json.load(f)
+        with open(report_path + "_pe.tsv") as f:
+            pe_rows = len(f.read().splitlines()) - 1
+    bin_width = system.box / 2 / len(report["r"])
+    keys = ("rdf_l2", "rdf_l2_vs_classical_rollout", "rdf_peak_pos_gnn",
+            "rdf_peak_pos_gt", "rdf_peak_gnn", "rdf_peak_gt",
+            "rdf_peak_classical_rollout", "temperature_mean",
+            "classical_temperature_mean", "pe_gnn_mean_kj_mol",
+            "pe_classical_mean_kj_mol", "pe_gnn_std_kj_mol",
+            "pe_classical_std_kj_mol", "pe_gnn_drift_kj_mol_ps",
+            "diffusion_m2_s", "classical_diffusion_m2_s", "n_rollout_frames",
+            "n_gt_frames")
+    say(f"phase 13: analyze_rollout --megastep --steps {ANALYZE_STEPS} "
+        f"--classical_baseline --pe ({seconds:.1f} s; ground truth: phase "
+        f"11's {traj.shape[0]} classical frames; {pe_rows} PE rows): "
+        + ", ".join(f"{key} {report.get(key)}" for key in keys)
+        + f"; launches {launches['analyze_rollout_megastep']} [{card}]")
+    require(all(math.isfinite(v) for v in report.values()
+                if isinstance(v, float)), "non-finite report values")
+    require(abs(report["rdf_peak_pos_gnn"] - report["rdf_peak_pos_gt"])
+            <= bin_width * 1.001,
+            "the GNN's RDF peak is more than one bin from the classical one")
+    require(abs(report["temperature_mean"] - system.temperature) <= T_BAND,
+            "analyze_rollout's mean temperature is outside the band")
+    require(launches["analyze_rollout_megastep"]["mega_md_steps"]
+            == ANALYZE_STEPS // 20,
+            "analyze_rollout did not run the megastep kernel")
+
+    entry = {"name": "edge_encoder", "route": "cuda",
+             "source": "gamd_tpu_torch/csrc/edge_encoder.cu",
+             "replaces": "gamd_tpu/ops/pallas_encoder.py:46",
+             "launches": deploy["edge_encoder"],
+             "launches_by_path": {"deploy_md": deploy["edge_encoder"]},
+             **kernel, "library_ms": None}
+    return entry, launches
+
+
 def main():
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     if not torch.cuda.is_available():
@@ -641,13 +1011,23 @@ def main():
             f"mean temperature {mean_t} K outside 100 +- {T_BAND} K")
 
     conv_kernels = training_phases(dev, card)
+    encoder_kernel, deploy_launches = deployment_phases(dev, card)
 
-    # -- phase 10: kernels line, result line ------------------------------
+    # -- phase 14: kernels line, result line ------------------------------
     by_path = {name: {"per_step": per_step_launches[name],
                       "megastep": mega_launches[name]}
                for name in per_step_launches}
+    for path, counts in deploy_launches.items():
+        for name in by_path:
+            if counts.get(name):
+                by_path[name][path] = counts[name]
+    conv_by_path = conv_kernels[0]["launches_by_path"]
+    for path, counts in deploy_launches.items():
+        if counts.get("conv_msg_gather"):
+            conv_by_path[path] = counts["conv_msg_gather"]
+    conv_kernels[0]["launches"] = sum(conv_by_path.values())
     say('kernels: ["mega_forward", "mega_md_steps", "conv_msg_gather", '
-        '"conv_msg_gather_bwd"]')
+        '"conv_msg_gather_bwd", "edge_encoder"]')
     say(json.dumps({"kernels": [{
         "name": "mega_forward",
         "route": "cuda",
@@ -674,8 +1054,8 @@ def main():
         "bound_ms": window_bound_ms,
         "bound_by": window_bound_by,
         "library_ms": None,
-    }, *conv_kernels]}))
-    say(f"phase 10: total {time.perf_counter() - t_start:.1f} s")
+    }, *conv_kernels, encoder_kernel]}))
+    say(f"phase 14: total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,8 @@
 // _forward_body, lines 291-600), reached through mega_forward there. It
 // computes the same function: min-image geometry in round form, the live
 // mask (build mask and d^2 < cutoff^2), RBF + rank-1 geometric terms into
-// the tanh-gelu encoder MLP and the edge LayerNorm, L edge-gated conv layers
+// the tanh-gelu encoder MLP and the edge LayerNorm (encode_kernel, in
+// encode.cuh, shared with edge_encoder.cu), L edge-gated conv layers
 // (pre-norm LayerNorm or folded BatchNorm, silu), and the tanh-gelu decoder
 // whose last affine already holds the force denormalisation.
 //
@@ -41,116 +42,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "encode.cuh"
 #include "mega.cuh"
 #include "tile.cuh"
 
 namespace {
 
 constexpr int NB = 8;    // atoms per block in the node stages
-constexpr float LN_EPS = 1e-6f;
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float c = 0.7978845608028654f;   // sqrt(2/pi)
-  return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
-}
-
-// Per-row LayerNorm over the W channels (no affine): two-pass mean and
-// variance, x * rsqrt(var + 1e-6).
-template <int M>
-__device__ __forceinline__ void layer_norm(float (&x)[M], float* red) {
-  float s[M];
-#pragma unroll
-  for (int m = 0; m < M; ++m) s[m] = x[m];
-  block_sum<M>(s, red);
-#pragma unroll
-  for (int m = 0; m < M; ++m) x[m] -= s[m] * (1.0f / W);
-#pragma unroll
-  for (int m = 0; m < M; ++m) s[m] = x[m] * x[m];
-  block_sum<M>(s, red);
-#pragma unroll
-  for (int m = 0; m < M; ++m) x[m] *= rsqrtf(s[m] * (1.0f / W) + LN_EPS);
-}
-
-// Encoder. grid (ceil(K/KC), N), block W: one chunk of KC edges of atom i.
-// Writes e [N*K, W] and live [N*K] (1.0 / 0.0).
-__global__ void __launch_bounds__(W)
-encode_kernel(const float* __restrict__ pos, const int* __restrict__ idx,
-              const uint8_t* __restrict__ bmask, MegaWeights p, int n, int k,
-              int flip_dir, float box, float cutoff2, float length_mean,
-              float length_std, float gamma, float* __restrict__ e_out,
-              float* __restrict__ live_out) {
-  __shared__ __align__(16) float buf[W * KC];
-  __shared__ float geo[4][KC];            // ux, uy, uz, standardised dist
-  __shared__ float red[NWARP * KC];
-  const int i = blockIdx.y, k0 = blockIdx.x * KC, c = threadIdx.x;
-
-  if (c < KC) {
-    const int kk = k0 + c;
-    float ux = 0.f, uy = 0.f, uz = 0.f, sd = 0.f;
-    if (kk < k) {
-      const int j = idx[i * k + kk];
-      float rx = pos[3 * j + 0] - pos[3 * i + 0];
-      float ry = pos[3 * j + 1] - pos[3 * i + 1];
-      float rz = pos[3 * j + 2] - pos[3 * i + 2];
-      rx -= box * rintf(rx / box);
-      ry -= box * rintf(ry / box);
-      rz -= box * rintf(rz / box);
-      const float d2 = rx * rx + ry * ry + rz * rz;
-      const float dist = sqrtf(d2);
-      const float inv = (flip_dir ? -1.0f : 1.0f) / (dist + 1e-8f);
-      ux = rx * inv;
-      uy = ry * inv;
-      uz = rz * inv;
-      sd = (dist - length_mean) / length_std;
-      live_out[i * k + kk] = (bmask[i * k + kk] && d2 < cutoff2) ? 1.f : 0.f;
-    }
-    geo[0][c] = ux;
-    geo[1][c] = uy;
-    geo[2][c] = uz;
-    geo[3][c] = sd;
-  }
-  __syncthreads();
-
-  // RBF tile: row c holds exp(-gamma (std_m - centre_c)^2) for every edge m.
-  {
-    const float cc = p.centers[c];
-    float r[KC];
-#pragma unroll
-    for (int m = 0; m < KC; ++m) {
-      const float d = geo[3][m] - cc;
-      r[m] = expf(-gamma * d * d);
-    }
-    store_tile<KC>(buf, r);
-  }
-  __syncthreads();
-
-  float acc[KC];
-  matmul_tile<KC>(buf, p.w_rbf, 0.f, acc);
-  {
-    const float g0 = p.w_geo[c], g1 = p.w_geo[W + c], g2 = p.w_geo[2 * W + c];
-    const float g3 = p.w_geo[3 * W + c], bb = p.b0[c];
-#pragma unroll
-    for (int m = 0; m < KC; ++m)
-      acc[m] = gelu_tanh(acc[m] + geo[0][m] * g0 + geo[1][m] * g1 +
-                         geo[2][m] * g2 + geo[3][m] * g3 + bb);
-  }
-  __syncthreads();
-  store_tile<KC>(buf, acc);
-  __syncthreads();
-  matmul_tile<KC>(buf, p.w1, p.b1[c], acc);
-#pragma unroll
-  for (int m = 0; m < KC; ++m) acc[m] = gelu_tanh(acc[m]);
-  __syncthreads();
-  store_tile<KC>(buf, acc);
-  __syncthreads();
-  matmul_tile<KC>(buf, p.w2, p.b2[c], acc);
-  layer_norm<KC>(acc, red);
-
-  const float s = p.eln_s[c], b = p.eln_b[c];
-#pragma unroll
-  for (int m = 0; m < KC; ++m)
-    if (k0 + m < k) e_out[(size_t)(i * k + k0 + m) * W + c] = acc[m] * s + b;
-}
 
 // Node stage of one layer. grid ceil(N/NB), block W.
 // hn = norm(h) * s + b; src = hn @ w_src + b; dst = hn @ w_dst + b.
@@ -338,9 +236,11 @@ extern "C" int gamd_mega_forward(
   const dim3 edge_grid(n_chunk, n);
   cudaError_t err;
 
-  encode_kernel<<<edge_grid, W, 0, s>>>(pos, idx, bmask, p, n, k, flip_dir,
-                                        box, cutoff2, length_mean, length_std,
-                                        gamma, e, live);
+  const EncoderWeights enc{p.centers, p.w_geo, p.w_rbf, p.b0, p.w1,
+                           p.b1, p.w2, p.b2, p.eln_s, p.eln_b};
+  encode_kernel<float><<<edge_grid, W, 0, s>>>(
+      pos, idx, bmask, enc, W, n, k, flip_dir, box, cutoff2, length_mean,
+      length_std, gamma, e, live);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   err = cudaMemcpyAsync(h, h0, sizeof(float) * n * W,
                         cudaMemcpyDeviceToDevice, s);

@@ -1,5 +1,6 @@
 """GNN-driven MD loop on torch (port of gamd_tpu/md/simulate.py: Thermo,
-RunResult and Simulation for the Langevin integrator).
+RunResult and Simulation for the Langevin integrator, with run and
+run_segmented).
 
 A run is a loop over chunks: each chunk rebuilds the padded neighbour list
 at cutoff + skin, draws the chunk's thermostat noise in one call, and
@@ -183,3 +184,24 @@ class Simulation:
         return RunResult(state=state, thermo=thermo,
                          overflow=bool(any_ovf.item()),
                          positions=torch.stack(samples))
+
+    def run_segmented(self, state, n_steps: int,
+                      segment: int = 10000) -> RunResult:
+        """Advance n_steps as runs of at most `segment` steps, one after
+        the other; thermo and positions are concatenated and the overflow
+        flags OR-ed (gamd_tpu/md/simulate.py:265-290)."""
+        results = []
+        done = 0
+        while done < n_steps:
+            chunk = min(segment, n_steps - done)
+            result = self.run(state, chunk)
+            state = result.state
+            results.append(result)
+            done += chunk
+        thermo = Thermo(
+            kinetic_energy=torch.cat([r.thermo.kinetic_energy
+                                      for r in results]),
+            temperature=torch.cat([r.thermo.temperature for r in results]))
+        return RunResult(state=state, thermo=thermo,
+                         overflow=any(r.overflow for r in results),
+                         positions=torch.cat([r.positions for r in results]))

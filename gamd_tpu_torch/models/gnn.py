@@ -14,7 +14,11 @@ Parameter names and layouts follow the flax tree (`load_params` and
 LayerNorm eps is 1e-6, as in flax. With cfg.use_pallas the edge pipeline of
 every conv layer runs through ops.conv_gather.fused_conv_gather_message
 (the CUDA kernel pair on the card); the node update stays plain torch, as
-in JAX. In train mode (forward(..., train=True, generator=g)) BatchNorm
+in JAX. With cfg.use_pallas and cfg.use_pallas_encoder, in eval with a
+scalar box, the encoded edges come from ops.encoder.fused_edge_encoder (the
+CUDA edge_encoder on the card) as in JAX (gamd_tpu/models/gnn.py:296-308):
+that encoder's gelu is the tanh form, and its live mask is the given mask
+passed through. In train mode (forward(..., train=True, generator=g)) BatchNorm
 uses and updates batch statistics as flax does, and edge dropout and
 drop_edge draw from `generator`. The water variant (one-hot node encoder,
 bond channel) comes with the water slice.
@@ -29,6 +33,7 @@ from gamd_tpu_torch.core import space
 from gamd_tpu_torch.core.config import ModelConfig
 from gamd_tpu_torch.models.mlp import MLP, Dense, get_activation
 from gamd_tpu_torch.ops.conv_gather import fused_conv_gather_message
+from gamd_tpu_torch.ops.encoder import fused_edge_encoder
 
 LN_EPS = 1e-6     # flax nn.LayerNorm default
 BN_EPS = 1e-5     # torch BatchNorm1d default, as the JAX model
@@ -284,8 +289,22 @@ class GAMDNet(nn.Module):
 
         train=True: BatchNorm on batch statistics (running stats updated),
         edge dropout and drop_edge, both drawn from `generator`."""
-        e = self.encode_edges(pos, idx, box, length_mean, length_std, train,
-                              generator)
+        cfg = self.cfg
+        scalar_box = box.ndim == 0 if torch.is_tensor(box) \
+            else np.ndim(box) == 0
+        if cfg.use_pallas and cfg.use_pallas_encoder and not train \
+                and scalar_box:
+            e, mask = fused_edge_encoder(
+                pos, idx, mask, box, None, length_mean, length_std,
+                self.edge_encoder_w0, self.edge_encoder_b0,
+                self.edge_encoder_w1, self.edge_encoder_b1,
+                self.edge_encoder_w2, self.edge_encoder_b2,
+                self.edge_ln_scale, self.edge_ln_bias, rbf_low=cfg.rbf_low,
+                rbf_high=cfg.rbf_high, rbf_gap=cfg.rbf_gap,
+                flip_dir=cfg.flip_dir)
+        else:
+            e = self.encode_edges(pos, idx, box, length_mean, length_std,
+                                  train, generator)
         b, n, _ = pos.shape
         h = self.node_emb.expand(b, n, self.cfg.encoding_size)
         h = self.graph_conv(h, e, idx, mask, train, generator)

@@ -102,9 +102,10 @@ def load_library():
     """The loaded library (built first if needed), with argtypes set."""
     import ctypes
 
-    from gamd_tpu_torch.ops import conv_gather, mega
+    from gamd_tpu_torch.ops import conv_gather, encoder, mega
 
     lib = ctypes.CDLL(build()["path"])
     mega.declare(lib)
     conv_gather.declare(lib)
+    encoder.declare(lib)
     return lib

@@ -1,9 +1,14 @@
-"""Where the time of the port's LJ-258 MD step goes on the card, on both
+"""Where the time of the port's LJ-258 MD step goes on the card, on three
 paths: per step (one mega_forward per force call) and megastep (one
-mega_md_steps call per 20-step window).
+mega_md_steps call per 20-step window), both on the slice (GAMD-small,
+seeded weights, Langevin at 100 K, K=64 built and sliced to 48, rebuild
+every 20 steps); and deploy, the LJ deployment (the trained weights of
+results/ckpts/lj_relabel_latest.msgpack on the eager use_pallas +
+use_pallas_encoder path: one edge_encoder and four conv_msg_gather
+launches per force call, K=96 at 7.5 + 1.25 A, Langevin at 100 K and
+25/ps, rebuild every 20 steps).
 
-For each path it runs the slice (GAMD-small, seeded weights, Langevin at
-100 K, K=64 built and sliced to 48, rebuild every 20 steps) after a
+For each path it runs from the slice's start frame after a
 warm-up, times 40 steps (two windows) on the host clock without the
 profiler, then runs the same 40 steps from the same state again traced
 with torch.profiler. Prints the card line, then one JSON line per path:
@@ -30,13 +35,18 @@ import time
 import numpy as np
 import torch
 
+from gamd_tpu_torch.core.config import MDConfig
 from gamd_tpu_torch.core.device import card_line
 from gamd_tpu_torch.md.simulate import Simulation
+from gamd_tpu_torch.ops.encoder import fused_edge_encoder
 from gamd_tpu_torch.ops.mega import mega_forward, mega_md_steps
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
+from gamd_tpu_torch.train.checkpoint import load_self_describing
 from gamd_tpu_torch.train.forcefield import GNNForceField
 
 STEPS = 40    # steps per window: two neighbour-rebuild chunks
+PATHS = ("per_step", "megastep", "deploy")
+CKPT = "results/ckpts/lj_relabel_latest.msgpack"   # the deploy path's weights
 SHORT_GAP_US = 20.0
 
 
@@ -75,19 +85,29 @@ def kernel_times(prof) -> dict:
     return kernels
 
 
-def _simulation(dev, megastep: bool):
+def _simulation(dev, path: str):
     sl = lj_slice(dev)
+    if path == "deploy":
+        state, model_cfg, system = load_self_describing(
+            CKPT, use_pallas=True, use_pallas_encoder=True)
+        ff = GNNForceField(state, system, model_cfg, device=dev)
+        md = MDConfig(integrator="langevin", temperature=system.temperature,
+                      dt_fs=system.dt_fs, friction_per_ps=25.0,
+                      rebuild_every=20)
+        return Simulation(ff.force_fn(), system, md, device=dev), sl.pos
     ff = GNNForceField(sl.state, sl.system, sl.model_cfg, device=dev)
     sim = Simulation(ff.force_fn(megakernel=True), sl.system, sl.md,
                      k_model=K_MODEL,
-                     megastep_fn=ff.megastep_fn() if megastep else None,
+                     megastep_fn=(ff.megastep_fn() if path == "megastep"
+                                  else None),
                      device=dev)
     return sim, sl.pos
 
 
-def profile(dev, megastep: bool) -> dict:
+def profile(dev, path: str) -> dict:
     """The breakdown of one path (see the module docstring)."""
-    sim, pos = _simulation(dev, megastep)
+    megastep = path == "megastep"
+    sim, pos = _simulation(dev, path)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     state = sim.run(sim.init_state(pos, rng=gen), STEPS).state  # warm-up
@@ -110,7 +130,8 @@ def profile(dev, megastep: bool) -> dict:
     if megastep:
         sim.megastep_fn = window
     gen.set_state(rng_state)
-    launches = mega_forward.launches, mega_md_steps.launches
+    launches = (mega_forward.launches + fused_edge_encoder.launches,
+                mega_md_steps.launches)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -136,9 +157,10 @@ def profile(dev, megastep: bool) -> dict:
                            "machine; time with CUDA events instead")
     ranked = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["us"]))
     return {
-        "path": "megastep" if megastep else "per_step",
+        "path": path,
         "steps": STEPS,
-        "force_calls": mega_forward.launches - launches[0],
+        "force_calls": (mega_forward.launches + fused_edge_encoder.launches
+                        - launches[0]),
         "window_calls": mega_md_steps.launches - launches[1],
         "device_us_per_step": total / STEPS,
         "wall_ms_per_step": wall_plain * 1e3 / STEPS,
@@ -167,9 +189,8 @@ def main():
     dev = torch.device("cuda")
     card = card_line()
     print(card, flush=True)
-    for megastep in (False, True):
-        print(json.dumps({"card": card, **profile(dev, megastep)}),
-              flush=True)
+    for path in PATHS:
+        print(json.dumps({"card": card, **profile(dev, path)}), flush=True)
 
 
 if __name__ == "__main__":

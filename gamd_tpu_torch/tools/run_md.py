@@ -1,0 +1,198 @@
+"""GNN-driven NVT molecular dynamics rollout: the port of scripts/run_md.py,
+with the same flags and defaults.
+
+The port runs the LJ system with the Langevin integrator, from a
+checkpoint (self-describing envelope, or a legacy one with the
+architecture flags) or from seeded weights, on the eager force path,
+`--use_pallas` (every conv layer through the CUDA conv-message kernel),
+`--megakernel` (mega_forward per force call) or `--megastep` (one
+mega_md_steps call per neighbour-reuse window). Water and DFT (`--system`
+tip3p / tip4p / dft), `--banded` and the other integrators raise
+NotImplementedError naming the slice of the port that brings them.
+
+It runs on the CUDA card; `--cpu` runs the plain PyTorch versions on the
+CPU instead. Example:
+
+    python3 -m gamd_tpu_torch.tools.run_md --system lj \\
+        --ckpt results/ckpts/lj_relabel_latest.msgpack --megastep \\
+        --steps 25000 --log log_nvt_gnn_langevin_lj.txt
+"""
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+#: Each refusal names the ROADMAP item (Queue 1) of the slice that ports it.
+WATER_DFT = "the water and DFT deployment (ROADMAP Queue 1 item 5)"
+INTEGRATORS = "the remaining integrators (ROADMAP Queue 1 item 3)"
+LARGE_N = "the large-N banded path (ROADMAP Queue 1 item 6)"
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--system", default="lj",
+                        choices=["lj", "tip3p", "tip4p", "dft"])
+    parser.add_argument("--n_atoms", default=None, type=int,
+                        help="dft rollout: atoms in the fixed-volume water "
+                             "box (default 774, the reference's 2 nm box)")
+    parser.add_argument("--ckpt", required=False, default=None,
+                        help="msgpack checkpoint (seeded weights if omitted)")
+    parser.add_argument("--init_pos", default=None,
+                        help=".npy initial positions (angstrom); "
+                             "default: the FIRE-minimised lattice")
+    parser.add_argument("--integrator", default="langevin",
+                        choices=["langevin", "nose_hoover", "nve", "andersen"])
+    parser.add_argument("--steps", default=25000, type=int)
+    parser.add_argument("--temperature", default=None, type=float)
+    parser.add_argument("--friction", default=None, type=float,
+                        help="1/ps collision rate")
+    parser.add_argument("--dt", default=2.0, type=float, help="fs")
+    parser.add_argument("--rebuild_every", default=20, type=int)
+    parser.add_argument("--report_every", default=100, type=int)
+    parser.add_argument("--log", default="log_nvt_gnn.txt")
+    parser.add_argument("--out_traj", default=None,
+                        help="optional .npy to save final positions")
+    # Architecture fallbacks for LEGACY checkpoints (envelope checkpoints
+    # embed their config and ignore these).
+    parser.add_argument("--encoding_size", default=128, type=int)
+    parser.add_argument("--hidden_dim", default=128, type=int)
+    parser.add_argument("--edge_embedding_dim", default=128, type=int)
+    parser.add_argument("--conv_layer", default=4, type=int)
+    parser.add_argument("--use_layer_norm", default=True,
+                        action=argparse.BooleanOptionalAction,
+                        help="legacy-checkpoint fallback: LayerNorm (default)"
+                             " vs BatchNorm (--no-use_layer_norm)")
+    parser.add_argument("--use_pallas", action="store_true",
+                        help="every conv layer through the CUDA "
+                             "conv-message kernel")
+    parser.add_argument("--megakernel", action="store_true",
+                        help="whole-model CUDA forward per force call")
+    parser.add_argument("--megastep", action="store_true",
+                        help="whole neighbour-reuse window per CUDA call"
+                             " (fastest path; langevin only)")
+    parser.add_argument("--banded", action="store_true",
+                        help="large-N banded force path (not ported yet)")
+    parser.add_argument("--k_model", default=None, type=int,
+                        help="slice the distance-sorted neighbour list to "
+                             "this K for the force model (overflow-guarded)")
+    parser.add_argument("--rigid", default=True,
+                        action=argparse.BooleanOptionalAction,
+                        help="water systems: SETTLE rigid-monomer rollout "
+                             "(not ported yet)")
+    parser.add_argument("--seed", default=0, type=int)
+    parser.add_argument("--cpu", action="store_true",
+                        help="run the plain PyTorch versions on the CPU")
+    return parser
+
+
+def refuse_unported(system, integrator):
+    """NotImplementedError for what the port does not run yet."""
+    if system != "lj":
+        raise NotImplementedError(f"--system {system}: comes with {WATER_DFT}")
+    if integrator != "langevin":
+        raise NotImplementedError(
+            f"--integrator {integrator}: comes with {INTEGRATORS}")
+
+
+def load_force_field(args, device, **model_overrides):
+    """(GNNForceField, SystemConfig) from --ckpt, or seeded weights
+    (init_params(seed=0)) with the fallback architecture on the LJ preset;
+    `model_overrides` (runtime switches such as use_pallas) apply to both."""
+    from gamd_tpu_torch.core.config import ModelConfig, get_preset
+    from gamd_tpu_torch.train.checkpoint import load_self_describing
+    from gamd_tpu_torch.train.forcefield import GNNForceField
+    from gamd_tpu_torch.train.state import init_params
+
+    fallback_cfg = ModelConfig(
+        encoding_size=args.encoding_size, hidden_dim=args.hidden_dim,
+        edge_embedding_dim=args.edge_embedding_dim,
+        conv_layers=args.conv_layer, use_layer_norm=args.use_layer_norm)
+    if args.ckpt:
+        state, model_cfg, system = load_self_describing(
+            args.ckpt, fallback_model_cfg=fallback_cfg,
+            fallback_system=get_preset(args.system), **model_overrides)
+        print(f"Loaded {args.ckpt}")
+    else:
+        system = get_preset(args.system)
+        model_cfg = dataclasses.replace(fallback_cfg, **model_overrides)
+        state = init_params(model_cfg, system, seed=0)
+    return GNNForceField(state, system, model_cfg, device=device), system
+
+
+def pin_fp32():
+    """fp32 products on the card: no TF32 (the physics must not round to
+    three digits)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def synchronize(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    refuse_unported(args.system, args.integrator)
+    if args.banded:
+        raise NotImplementedError(f"--banded: comes with {LARGE_N}")
+
+    from gamd_tpu_torch.core.config import MDConfig
+    from gamd_tpu_torch.core.device import resolve_device
+    from gamd_tpu_torch.md.reporters import StateReporter
+    from gamd_tpu_torch.md.simulate import Simulation
+    from gamd_tpu_torch.physics import lennard_jones as lj
+    from gamd_tpu_torch.physics.minimize import fire_minimize
+
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    pin_fp32()
+    ff, system = load_force_field(args, device, use_pallas=args.use_pallas)
+
+    if args.init_pos:
+        pos = torch.as_tensor(np.load(args.init_pos).astype(np.float32),
+                              device=device)
+    else:
+        _, lattice = lj.lj_fluid_box(system.n_atoms, 0.5)
+        pos, _ = fire_minimize(lambda p: lj.lj_forces_dense(p, system.box),
+                               torch.as_tensor(lattice, device=device),
+                               n_steps=1000)
+
+    md = MDConfig(
+        integrator=args.integrator, n_steps=args.steps,
+        temperature=args.temperature or system.temperature,
+        dt_fs=args.dt,
+        friction_per_ps=args.friction or system.friction_per_ps,
+        rebuild_every=args.rebuild_every, report_every=args.report_every,
+        seed=args.seed)
+    megastep_fn = ff.megastep_fn() if args.megastep else None
+    sim = Simulation(
+        ff.force_fn(megakernel=args.megakernel or args.megastep), system,
+        md, k_model=args.k_model, megastep_fn=megastep_fn, device=device)
+    rng = torch.Generator(device=device)
+    rng.manual_seed(args.seed)
+    st = sim.init_state(pos, rng=rng)
+
+    print(f"Simulating {system.n_atoms} atoms, {args.steps} steps "
+          f"({args.integrator}, T={md.temperature} K) on {device}")
+    t0 = time.perf_counter()
+    result = sim.run_segmented(st, args.steps)
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    print(f"{args.steps} steps in {wall:.2f} s "
+          f"({args.steps / wall:.0f} steps/s)")
+    if result.overflow:
+        print("WARNING: neighbor capacity overflow — increase nbr_capacity")
+
+    StateReporter(args.log, report_interval=args.report_every,
+                  dt_fs=args.dt).write(result.thermo)
+    print(f"Thermo log: {args.log}")
+    if args.out_traj:
+        np.save(args.out_traj, result.state.pos.cpu().numpy())
+
+
+if __name__ == "__main__":
+    main()

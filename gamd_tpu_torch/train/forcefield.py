@@ -1,18 +1,22 @@
 """A GAMD model as a force provider for md.simulate.Simulation (port of
 gamd_tpu/train/forcefield.py::GNNForceField: the eager force_fn, the
-megakernel force path and the fused MD window megastep_fn, LJ).
+megakernel force path, the fused MD window megastep_fn and the offline
+predict / predict_batch, LJ).
 
-banded_force_fn, predict and the analytic long-range channel come with
-later slices and raise NotImplementedError here.
+banded_force_fn and the analytic long-range channel come with later slices
+and raise NotImplementedError here.
 """
 
 import torch
 
+from gamd_tpu_torch.core import space
 from gamd_tpu_torch.core.config import ModelConfig, SystemConfig
 from gamd_tpu_torch.core.device import resolve_device
 from gamd_tpu_torch.models.gnn import GAMDNet
 from gamd_tpu_torch.models.normalizer import denormalize
+from gamd_tpu_torch.neighbors.dense import dense_neighbor_list
 from gamd_tpu_torch.ops.mega import mega_forward, mega_md_steps, pack_params
+from gamd_tpu_torch.train.loop import search_batch
 from gamd_tpu_torch.train.state import ForceFieldState
 
 
@@ -150,6 +154,41 @@ class GNNForceField:
         raise NotImplementedError("banded_force_fn comes with the port's "
                                   "large-N slice")
 
-    def predict(self, *args, **kwargs):
-        raise NotImplementedError("predict comes with the port's LJ "
-                                  "deployment slice (evaluate / run_md)")
+    @torch.no_grad()
+    def predict(self, pos, box=None):
+        """Forces [N, 3] of one frame in DATASET units (kJ/mol/nm for LJ):
+        positions wrapped, the dense list at the system's cutoff (no skin),
+        the model forward and the force denormalisation, with no unit
+        conversion (force_fn returns kJ/mol/A)."""
+        box = self.system.box if box is None else box
+        pos = space.wrap(torch.as_tensor(pos, dtype=torch.float32,
+                                         device=self.device), box)
+        idx, mask, _ = dense_neighbor_list(pos, box, self.system.cutoff,
+                                           self.system.nbr_capacity)
+        return denormalize(self._forward(pos, idx, mask, box),
+                           self.force_stat)
+
+    @torch.no_grad()
+    def predict_batch(self, pos_all, batch_size: int = 16):
+        """Forces [M, N, 3] in dataset units of M frames [M, N, 3] (fixed
+        box): batches of batch_size frames, each one [B, N, K] forward, the
+        last batch padded by repeating the last frame and the result
+        trimmed to M."""
+        if self.system.box is None:
+            raise ValueError("predict_batch requires a fixed box")
+        box = self.system.box
+        pos_all = torch.as_tensor(pos_all, dtype=torch.float32,
+                                  device=self.device)
+        m = pos_all.shape[0]
+        pad = -(-m // batch_size) * batch_size - m
+        if pad:
+            pos_all = torch.cat([pos_all, pos_all[-1:].expand(pad, -1, -1)])
+        mean, std = self._length_scale()
+        out = []
+        for batch in pos_all.split(batch_size):
+            posw = space.wrap(batch, box)
+            idx, mask, _ = search_batch(posw, box, self.system.cutoff,
+                                        self.system.nbr_capacity)
+            pred = self.model(posw, idx, mask, box, mean, std)
+            out.append(denormalize(pred, self.force_stat))
+        return torch.cat(out)[:m]

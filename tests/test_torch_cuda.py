@@ -1,7 +1,7 @@
-"""The CUDA kernels mega_forward, mega_md_steps and the conv-message pair
-(conv_msg_gather forward and backward) against their plain PyTorch
-versions, on a Hopper card (capability 9.x). Without one every test here
-skips.
+"""The CUDA kernels mega_forward, mega_md_steps, the conv-message pair
+(conv_msg_gather forward and backward) and edge_encoder against their
+plain PyTorch versions, on a Hopper card (capability 9.x). Without one
+every test here skips.
 
 On the card (which has no JAX) run this file without the JAX package's
 conftest:  python -m pytest --noconftest -p no:cacheprovider
@@ -21,6 +21,8 @@ from gamd_tpu_torch.md.simulate import Simulation
 from gamd_tpu_torch.neighbors.dense import build_nbrs, dense_neighbor_list
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
+from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
+                                        fused_edge_encoder)
 from gamd_tpu_torch.ops.mega import (md_steps_reference, mega_forward,
                                      mega_md_steps, pack_params,
                                      reference_forward)
@@ -306,3 +308,106 @@ def test_conv_gather_rejects_what_it_does_not_take(cuda):
         fused_conv_gather_message(e, idx, mask, hn, src, dst, ws[0].cpu(),
                                   *ws[1:])
     assert fused_conv_gather_message.launches == before
+
+
+def _encoder_inputs(dev, b, n, k, seed=0):
+    """b frames of n atoms in the BOX, their lists (built at 5.0 A, the
+    encoder's cutoff 4.2 A refines them) and seeded encoder weights [44,
+    128], [128], ... on `dev`."""
+    rng = np.random.default_rng(seed)
+    pos = torch.as_tensor(rng.uniform(0, BOX, (b, n, 3)).astype(np.float32),
+                          device=dev)
+    lists = [dense_neighbor_list(p, BOX, 5.0, k) for p in pos]
+    idx = torch.stack([t[0] for t in lists])
+    mask = torch.stack([t[1] for t in lists])
+    w = lambda *s: torch.as_tensor(
+        (rng.standard_normal(s) * 0.1).astype(np.float32), device=dev)
+    weights = [w(44, 128), w(128), w(128, 128), w(128), w(128, 128),
+               w(128), 1.0 + w(128), w(128)]
+    return pos, idx, mask, weights
+
+
+@pytest.mark.parametrize("b,n,k,cutoff,flip", [
+    (1, 64, 16, None, False),   # one slot chunk, the mask passed through
+    (1, 66, 20, 4.2, False),    # a ragged chunk, the cutoff refines
+    (4, 64, 16, 4.2, True),     # a batch of frames (grid z), flip_dir
+    (4, 66, 20, None, False),
+])
+def test_encoder_kernel_matches_plain_version(cuda, b, n, k, cutoff, flip):
+    """e within 1e-4 of max |e| on every slot (fp32 both; the kernel's RBF
+    product and LayerNorm sum in another order), the live masks equal,
+    and each frame of a batch equal to that frame alone."""
+    pos, idx, mask, weights = _encoder_inputs(cuda, b, n, k)
+    args = (pos, idx, mask, BOX, cutoff, 4.0, 1.2, *weights)
+    before = fused_edge_encoder.launches
+    e, live = fused_edge_encoder(*args, flip_dir=flip)
+    torch.cuda.synchronize()
+    assert fused_edge_encoder.launches == before + 1
+    e_ref, live_ref = edge_encoder_reference(*args, flip_dir=flip)
+    assert e.shape == (b, n, k, 128) and e.dtype == torch.float32
+    assert torch.equal(live, live_ref)
+    if cutoff is None:
+        assert torch.equal(live, mask)
+    scale = float(e_ref.abs().max())
+    assert float((e - e_ref).abs().max()) <= 1e-4 * scale
+    for f in range(b):
+        e_f, live_f = fused_edge_encoder(pos[f], idx[f], mask[f], BOX,
+                                         cutoff, 4.0, 1.2, *weights,
+                                         flip_dir=flip)
+        assert torch.equal(e_f, e[f]) and torch.equal(live_f, live[f])
+
+
+def test_encoder_rejects_what_it_does_not_take(cuda):
+    """The entry's input checks on the card; nothing launches."""
+    pos, idx, mask, weights = _encoder_inputs(cuda, 1, 32, 16)
+    rest = (BOX, None, 4.0, 1.2)
+    before = fused_edge_encoder.launches
+    with pytest.raises(ValueError, match="idx"):
+        fused_edge_encoder(pos, idx.long(), mask, *rest, *weights)
+    with pytest.raises(ValueError, match="build_mask"):
+        fused_edge_encoder(pos, idx, mask.int(), *rest, *weights)
+    with pytest.raises(ValueError, match="w0"):
+        fused_edge_encoder(pos, idx, mask, *rest,
+                           torch.zeros((140, 128), device=cuda), *weights[1:])
+    with pytest.raises(ValueError, match="w1"):
+        fused_edge_encoder(pos, idx, mask, *rest, weights[0], weights[1],
+                           weights[2][:, :64].contiguous(), *weights[3:])
+    assert fused_edge_encoder.launches == before
+
+
+def test_deployment_force_path_with_trained_weights(cuda):
+    """The trained LJ-258 GAMD-small force field of
+    results/ckpts/lj_relabel_latest.msgpack on the use_pallas_encoder
+    path: one edge_encoder and four conv_msg_gather launches per force
+    call, forces within 5e-3 std(F) of the same force field on the CPU
+    (plain versions), and predict_batch of 5 frames at batch size 2 (the
+    pad path) within 1e-5 std(F) of predict frame by frame."""
+    path = os.path.join(REPO, "results", "ckpts",
+                        "lj_relabel_latest.msgpack")
+    state, model_cfg, system = load_self_describing(
+        path, use_pallas=True, use_pallas_encoder=True)
+    ff = GNNForceField(state, system, model_cfg, device=cuda)
+    ff_cpu = GNNForceField(state, system, model_cfg, device="cpu")
+    _, lattice = lj_fluid_box(system.n_atoms, 0.5)
+    rng = np.random.default_rng(1)
+    frames = (lattice[None] + rng.normal(0.0, 0.1, (5, *lattice.shape))) \
+        .astype(np.float32)
+    pos = torch.as_tensor(np.mod(frames[0], system.box), device=cuda)
+    idx, mask, ovf = dense_neighbor_list(pos, system.box, system.cutoff,
+                                         system.nbr_capacity)
+    assert not bool(ovf)
+    enc, conv = fused_edge_encoder.launches, \
+        fused_conv_gather_message.launches
+    f = ff.force_fn()(pos, idx, mask)
+    torch.cuda.synchronize()
+    assert fused_edge_encoder.launches == enc + 1
+    assert fused_conv_gather_message.launches == conv + 4
+    f_cpu = ff_cpu.force_fn()(pos.cpu(), idx.cpu(), mask.cpu())
+    scale = float(f_cpu.std())
+    assert float((f.cpu() - f_cpu).abs().max()) < TOLERANCE * scale
+    batch = ff.predict_batch(frames, batch_size=2)
+    assert batch.shape == (5, system.n_atoms, 3)
+    for i in range(5):
+        single = ff.predict(frames[i])
+        assert float((batch[i] - single).abs().max()) <= 1e-5 * scale \
+            / system.force_unit_to_internal

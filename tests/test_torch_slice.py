@@ -126,15 +126,17 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_left_out_paths_name_their_slice():
-    """banded_force_fn and predict raise NotImplementedError naming the
-    slice they come with; megastep_fn (slice 2) is in, and Simulation
-    refuses it under an integrator other than Langevin."""
+    """banded_force_fn raises NotImplementedError naming the slice it
+    comes with; predict (slice 4) and megastep_fn (slice 2) are in, and
+    Simulation refuses megastep_fn under an integrator other than
+    Langevin."""
     system = tcfg.get_preset("lj", **SYSTEM)
     ff = GNNForceField(_port_state(_jax_state()), system,
                        tcfg.ModelConfig(**SMALL), device="cpu")
-    for fn in (ff.banded_force_fn, ff.predict):
-        with pytest.raises(NotImplementedError, match="slice"):
-            fn()
+    with pytest.raises(NotImplementedError, match="slice"):
+        ff.banded_force_fn()
+    pos = np.random.RandomState(3).uniform(0, BOX, (64, 3))
+    assert ff.predict(pos.astype(np.float32)).shape == (64, 3)
     with pytest.raises(ValueError, match="langevin"):
         Simulation(ff.force_fn(), system,
                    tcfg.MDConfig(**{**MD, "integrator": "nose_hoover"}),
