@@ -14,8 +14,11 @@ lj_relabel_latest.msgpack (trained LJ-258 GAMD-small; cutoff 7.5 A, skin
 1.25 A, K=96): GNNForceField with use_pallas and use_pallas_encoder, whose
 edges come from the hand-written CUDA kernel edge_encoder and whose conv
 layers go through conv_msg_gather, for predict / predict_batch and MD, and
-the port's run_md and analyze_rollout CLIs. Phases, one flushed line or
-more each:
+the port's run_md and analyze_rollout CLIs. Then its large-N path:
+x-sorted frames whose conv layers read their source rows from per-tile
+bands through the hand-written CUDA kernel banded_msg
+(GNNForceField.banded_force_fn, the cell list, run_md --banded and
+bench_large). Phases, one flushed line or more each:
 
   0. card (nvidia-smi name and power limit), torch and nvcc versions;
   1. build the CUDA sources with nvcc (or reuse the hashed library);
@@ -53,7 +56,22 @@ more each:
      --use_pallas, 200 steps) and tools.analyze_rollout (--megastep, 4000
      steps, --classical_baseline --pe) against phase 11's classical frames
      as ground truth: thermo log format, RDF, temperature, PE;
- 14. the kernels line (JSON), then the result line (JSON) last.
+ 14. banded_msg against its plain version at N=10,000 (tools/
+     bench_large.py's LJ fluid at reduced density 0.5, displaced by a
+     seeded 0.1 A jitter; seeded GAMD-small; the cell list at 8.0 A with
+     K=96; the auto band 2,304) on the real inputs of layers 0 and 1, timed
+     on layer 0's; and a band too narrow: the flag set, the forces NaN;
+ 15. GNNForceField.banded_force_fn against reference_forward on the card
+     on the same frame and list, at N=10,000;
+ 16. the large-N MD path: Simulation(ff.banded_force_fn(), ...,
+     nbr_method="cell") at N=4,096 and 10,000, 20 warm-up and 100 timed
+     Langevin steps at 100 K, with banded_msg's launch counts;
+ 17. the entry points: tools.run_md --banded (200 steps, the committed
+     checkpoint, N=258 on the dense list), its forces at the last frame
+     against the checkpoint's eager force_fn, and tools.bench_large
+     (classical LJ at N=10,000; GNN-MD cell-list at N=4,096; GNN-MD
+     banded at N=4,096 and 10,000);
+ 18. the kernels line (JSON), then the result line (JSON) last.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 card; without one it exits non-zero and prints no result. Any failed check
@@ -80,7 +98,8 @@ from gamd_tpu_torch.md.simulate import Simulation
 from gamd_tpu_torch.models.normalizer import init_stat, update_stat
 from gamd_tpu_torch.neighbors.dense import (build_nbrs, dense_neighbor_list,
                                             refresh_mask)
-from gamd_tpu_torch.ops import build
+from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
+from gamd_tpu_torch.ops import banded, build
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
@@ -91,7 +110,9 @@ from gamd_tpu_torch.ops.mega import (md_steps_reference, mega_forward,
 from gamd_tpu_torch.physics.lennard_jones import (lj_fluid_box, lj_force_fn,
                                                   lj_forces_dense)
 from gamd_tpu_torch.physics.minimize import fire_minimize
-from gamd_tpu_torch.tools import analyze_rollout, run_md
+from gamd_tpu_torch.tools import analyze_rollout, bench_large, run_md
+from gamd_tpu_torch.tools.bench_large import (LARGE_MD, banded_layer_inputs,
+                                              lj_large, seeded_force_field)
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
 from gamd_tpu_torch.tools.lj_train_slice import lj_train_slice
 from gamd_tpu_torch.train.checkpoint import load_self_describing
@@ -124,6 +145,12 @@ DEPLOY_STEPS = 400        # timed steps of the deployment MD path
 CLASSICAL_EQUIL, CLASSICAL_STEPS = 1000, 2000   # ground-truth run: 100 frames
 RUN_MD_STEPS = {"--megastep": 2000, "--use_pallas": 200}   # phase 13's runs
 ANALYZE_STEPS = 4000      # analyze_rollout's rollout (200 windows)
+LARGE_N = (4096, 10_000)  # atoms of the large-N MD runs (phase 16)
+LARGE_K = 96              # bench_large's K at 7.5 + 0.5 A
+LARGE_STEPS = 100         # timed steps of each large-N MD run
+RUN_MD_BANDED_STEPS = 200  # phase 17's run_md --banded
+BENCH_LARGE_ARGV = ["--sizes", "10000", "--gnn_size", "4096",
+                    "--gnn_banded_sizes", "4096", "10000", "--steps", "80"]
 THERMO_HEADER = ('#"Step"\t"Time (ps)"\t"Kinetic Energy (kJ/mole)"\t'
                  '"Temperature (K)"')
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
@@ -776,6 +803,212 @@ def deployment_phases(dev, card):
     return entry, launches
 
 
+def banded_bytes(n, k, rows, n_tiles, width=128):
+    """Bytes banded_msg must move, each input read and each output written
+    once: e, idx_loc, mask, lo, the extended node array [rows, 2 width],
+    dst and the weights in, agg out."""
+    weights = 4 * (4 * width * width + 4 * width)
+    return 4 * n * k * width + 5 * n * k + 4 * n_tiles \
+        + 4 * rows * 2 * width + 2 * 4 * n * width + weights
+
+
+def large_frame(dev, n, seed):
+    """bench_large's LJ fluid of n atoms displaced by a seeded 0.1 A
+    jitter, its cell list at cutoff + skin (K=96) and the seeded
+    GAMD-small force field."""
+    system, lattice = lj_large(n, LARGE_K, dev)
+    jitter = np.random.default_rng(seed).normal(0.0, 0.1, lattice.shape)
+    pos = torch.remainder(lattice + torch.as_tensor(
+        jitter.astype(np.float32), device=dev), system.box)
+    idx, mask, ovf = cell_list_neighbor_list(
+        pos, system.box, system.cutoff + system.skin, LARGE_K)
+    require(not bool(ovf), f"cell-list overflow at the N={n} frame")
+    return pos, idx, mask, seeded_force_field(system, dev)
+
+
+def large_n_phases(dev, card):
+    """Phases 14-17 (module docstring). Returns (the banded_msg entry of
+    the kernels line, its launches by path)."""
+    call = banded.banded_conv_message
+    n = LARGE_N[-1]
+
+    # -- phase 14: banded_msg against its plain version --------------------
+    pos, idx, mask, ff = large_frame(dev, n, seed=14)
+    err_max = 0.0
+    for layer in (0, 1):
+        args = banded_layer_inputs(ff, pos, idx, mask, layer)
+        e, idx_loc, mask_s, lo, nodes, dst, _, mp, band, tile_n = args
+        before = call.launches
+        agg = call(*args)
+        torch.cuda.synchronize()
+        require(call.launches == before + 1, "banded_msg did not launch")
+        weights = banded.layer_weights(mp, layer)
+        ref = banded.banded_msg_reference(e, idx_loc, mask_s, lo, nodes,
+                                          dst, *weights, tile_n=tile_n)
+        err, scale = float((agg - ref).abs().max()), float(ref.abs().max())
+        live = int(mask_s.sum())
+        spread = float((nodes[:n, :128] - nodes[:1, :128]).abs().max())
+        require(bool(torch.isfinite(agg).all()), "non-finite banded agg")
+        say(f"phase 14: banded_msg vs plain at N={n} K={LARGE_K} band "
+            f"{band} tile {tile_n}, layer {layer} of a displaced frame "
+            f"({live} live edges of {n * LARGE_K} slots; max |hn - hn[0]| "
+            f"over rows {spread:.3e}): max |d agg| {err:.3e}, max |agg| "
+            f"{scale:.3e} (tolerance {CONV_RTOL} x max)")
+        require(err <= CONV_RTOL * scale,
+                f"banded_msg disagrees: {err} vs {scale}")
+        err_max = max(err_max, err)
+        if layer == 0:
+            timed = args, weights, live
+    require(spread > 1e-2, "layer 1's rows are nearly identical: the check "
+            "cannot see a read from the wrong row")
+    args, weights, live = timed
+    with torch.no_grad():
+        ms = time_ms(lambda: call(*args))
+        plain_ms = time_ms(lambda: banded.banded_msg_reference(
+            *args[:6], *weights, tile_n=args[9]))
+    nodes, lo = args[4], args[3]
+    bound_ms, bound_by = roofline(
+        conv_flops(live), banded_bytes(n, LARGE_K, nodes.shape[0],
+                                       lo.shape[0]))
+    say(f"phase 14: banded_msg {ms:.4f} ms/call, plain {plain_ms:.4f} "
+        f"ms/call, bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{conv_flops(live) / 1e9:.4f} GFLOP for {live} live edges), "
+        f"kernel at {bound_ms / ms:.2%} of it; CUDA events, median of 20 "
+        f"[{card}]")
+    # The same list in a band too narrow: the flag, and NaN forces.
+    _, _, flag = banded.band_layout(banded.sort_by_x(pos, idx)[2], args[2],
+                                    n, 256, args[9])
+    f_narrow = ff.banded_force_fn(band=256)(pos, idx, mask)
+    say(f"phase 14: band 256 (too narrow): overflow flag {bool(flag)}, "
+        f"forces all NaN {bool(torch.isnan(f_narrow).all())}")
+    require(bool(flag) and bool(torch.isnan(f_narrow).all()),
+            "a band overflow did not poison the forces")
+    del args, timed, f_narrow
+
+    # -- phase 15: the banded force path against the plain forward ---------
+    fn = ff.banded_force_fn()
+    system, cfg = ff.system, ff.model_cfg
+    before = call.launches
+    f = fn(pos, idx, mask)
+    torch.cuda.synchronize()
+    per_call = call.launches - before
+    ref = reference_forward(pos, idx, mask, ff._node_h0(),
+                            ff._kernel_params("banded"), system.box,
+                            system.cutoff, *ff._length_scale(),
+                            rbf_gap=cfg.rbf_gap)
+    err, scale = float((f - ref).abs().max()), float(ref.std())
+    say(f"phase 15: banded_force_fn (band {fn.banded_band}) vs "
+        f"reference_forward on the card, N={n}, seeded GAMD-small: max |dF| "
+        f"{err:.3e}, std(F) {scale:.3e}, ratio {err / scale:.3e} "
+        f"(tolerance {TOLERANCE}); {per_call} banded_msg launches per call")
+    require(bool(torch.isfinite(f).all()), "non-finite banded forces")
+    require(per_call == cfg.conv_layers, f"{per_call} launches per call")
+    require(err <= TOLERANCE * scale, "the banded forces disagree")
+    del f, ref
+
+    # -- phase 16: the large-N MD path -------------------------------------
+    launches = {}
+    for size in LARGE_N:
+        system, pos = lj_large(size, LARGE_K, dev)
+        bfn = seeded_force_field(system, dev).banded_force_fn()
+        sim = Simulation(bfn, system, LARGE_MD, nbr_method="cell",
+                         device=dev)
+        call.launches = 0
+        mega_forward.launches = mega_md_steps.launches = 0
+        st = sim.init_state(pos, rng=torch.Generator(dev).manual_seed(16))
+        warm = sim.run(st, WARMUP_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sim.run(warm.state, LARGE_STEPS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        calls = 1 + WARMUP_STEPS + LARGE_STEPS
+        launches[f"large_n_md_{size}"] = call.launches
+        temps = res.thermo.temperature
+        mean_t = float(temps.mean())
+        sps = LARGE_STEPS / seconds
+        say(f"phase 16: large-N MD N={size} (band {bfn.banded_band}, cell "
+            f"list K={LARGE_K}, rebuild every {LARGE_MD.rebuild_every}): "
+            f"{LARGE_STEPS} Langevin steps in {seconds:.4f} s = {sps:.2f} "
+            f"steps/s, {sps * size:.0f} atom-steps/s; mean T {mean_t:.2f} K "
+            f"(band 100 +- {T_BAND} K); banded_msg launches {call.launches} "
+            f"for {calls} force calls [{card}]")
+        require(not warm.overflow and not res.overflow,
+                f"neighbour overflow (large-N MD, N={size})")
+        require(bool(torch.isfinite(res.state.pos).all())
+                and bool(torch.isfinite(res.state.force).all()),
+                f"non-finite large-N MD state (N={size})")
+        require(call.launches == cfg.conv_layers * calls
+                and mega_forward.launches == mega_md_steps.launches == 0,
+                f"launches {call.launches} for {calls} force calls")
+        require(abs(mean_t - LARGE_MD.temperature) <= T_BAND,
+                f"mean temperature {mean_t} K outside 100 +- {T_BAND} K")
+        del sim, st, warm, res
+
+    # -- phase 17: the entry points ----------------------------------------
+    state, model_cfg, system = load_self_describing(
+        CKPT, use_pallas=True, use_pallas_encoder=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "run_md_banded.txt")
+        out = os.path.join(tmp, "run_md_banded.npy")
+        call.launches = 0
+        t0 = time.perf_counter()
+        run_md.main(["--ckpt", CKPT, "--banded", "--steps",
+                     str(RUN_MD_BANDED_STEPS), "--log", log, "--out_traj",
+                     out])
+        seconds = time.perf_counter() - t0
+        launches["run_md_banded"] = call.launches
+        lines = open(log).read().splitlines()
+        final = np.load(out)
+    temps = [float(line.split("\t")[3]) for line in lines[1:]]
+    require(lines[0] == THERMO_HEADER
+            and len(lines) == 1 + RUN_MD_BANDED_STEPS // 100,
+            "thermo log format (--banded)")
+    require(all(math.isfinite(t) for t in temps)
+            and final.shape == (system.n_atoms, 3)
+            and np.isfinite(final).all(), "run_md --banded output")
+    require(call.launches == model_cfg.conv_layers
+            * (RUN_MD_BANDED_STEPS + 1), f"launches {call.launches} "
+            "(run_md --banded)")
+    ff = GNNForceField(state, system, model_cfg, device=dev)
+    pos = space.wrap(torch.as_tensor(final, device=dev), system.box)
+    idx, mask, _ = build_nbrs(pos, system)
+    f_banded = ff.banded_force_fn()(pos, idx, mask)
+    f_eager = ff.force_fn()(pos, idx, refresh_mask(pos, system.box,
+                                                   system.cutoff, idx, mask))
+    err, scale = float((f_banded - f_eager).abs().max()), \
+        float(f_eager.std())
+    say(f"phase 17: run_md --ckpt {CKPT} --banded --steps "
+        f"{RUN_MD_BANDED_STEPS}: {seconds:.1f} s with the FIRE start; "
+        f"{len(lines) - 1} thermo rows, mean T {np.mean(temps):.2f} K; "
+        f"banded_msg launches {launches['run_md_banded']}; at its last "
+        f"frame banded vs "
+        f"eager force_fn (use_pallas_encoder) max |dF| {err:.3e}, std(F) "
+        f"{scale:.3e}, ratio {err / scale:.3e} (tolerance {TOLERANCE})")
+    require(err <= TOLERANCE * scale,
+            "run_md --banded's forces disagree with the eager force field")
+
+    call.launches = 0
+    t0 = time.perf_counter()
+    rows = bench_large.main(BENCH_LARGE_ARGV)
+    seconds = time.perf_counter() - t0
+    launches["bench_large"] = call.launches
+    say(f"phase 17: bench_large {' '.join(BENCH_LARGE_ARGV)}: {len(rows)} "
+        f"rows in {seconds:.1f} s, banded_msg launches {call.launches} "
+        f"[{card}]")
+    require(len(rows) == 4 and not any("error" in row for row in rows),
+            f"bench_large rows {rows}")
+
+    return {"name": "banded_msg", "route": "cuda",
+            "source": "gamd_tpu_torch/csrc/banded_msg.cu",
+            "replaces": "gamd_tpu/ops/banded.py:58",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": err_max, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
 def main():
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     if not torch.cuda.is_available():
@@ -1012,8 +1245,9 @@ def main():
 
     conv_kernels = training_phases(dev, card)
     encoder_kernel, deploy_launches = deployment_phases(dev, card)
+    banded_kernel = large_n_phases(dev, card)
 
-    # -- phase 14: kernels line, result line ------------------------------
+    # -- phase 18: kernels line, result line ------------------------------
     by_path = {name: {"per_step": per_step_launches[name],
                       "megastep": mega_launches[name]}
                for name in per_step_launches}
@@ -1027,7 +1261,7 @@ def main():
             conv_by_path[path] = counts["conv_msg_gather"]
     conv_kernels[0]["launches"] = sum(conv_by_path.values())
     say('kernels: ["mega_forward", "mega_md_steps", "conv_msg_gather", '
-        '"conv_msg_gather_bwd", "edge_encoder"]')
+        '"conv_msg_gather_bwd", "edge_encoder", "banded_msg"]')
     say(json.dumps({"kernels": [{
         "name": "mega_forward",
         "route": "cuda",
@@ -1054,8 +1288,8 @@ def main():
         "bound_ms": window_bound_ms,
         "bound_by": window_bound_by,
         "library_ms": None,
-    }, *conv_kernels, encoder_kernel]}))
-    say(f"phase 14: total {time.perf_counter() - t_start:.1f} s")
+    }, *conv_kernels, encoder_kernel, banded_kernel]}))
+    say(f"phase 18: total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

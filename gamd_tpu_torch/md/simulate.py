@@ -3,10 +3,11 @@ RunResult and Simulation for the Langevin integrator, with run and
 run_segmented).
 
 A run is a loop over chunks: each chunk rebuilds the padded neighbour list
-at cutoff + skin, draws the chunk's thermostat noise in one call, and
-advances `rebuild_every` BAOAB steps reusing the list (Verlet-skin reuse;
-the true-cutoff mask is redone every force call, in the force kernel when
-the force function `handles_refresh`). With a `megastep_fn` a chunk is one
+at cutoff + skin (the dense search, or the cell list for large N), draws
+the chunk's thermostat noise in one call, and advances `rebuild_every`
+BAOAB steps reusing the list (Verlet-skin reuse; the true-cutoff mask is
+redone every force call, in the force kernel when the force function
+`handles_refresh`). With a `megastep_fn` a chunk is one
 call of it instead (GNNForceField.megastep_fn: the whole window in one
 CUDA library call), seeded from the state's generator on the device.
 Capacity overflow is OR-ed on the device and read on the host once per
@@ -23,6 +24,7 @@ from gamd_tpu_torch.core.config import MDConfig, SystemConfig
 from gamd_tpu_torch.core.device import resolve_device
 from gamd_tpu_torch.md import integrators as integ
 from gamd_tpu_torch.neighbors import dense
+from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
 
 
 class Thermo(NamedTuple):
@@ -47,6 +49,8 @@ class Simulation:
             force [N,3] in kJ/mol/A, e.g. GNNForceField.force_fn(...).
         system: SystemConfig (box, cutoff, skin, capacity, masses).
         md: MDConfig (integrator, dt, thermostat, rebuild cadence, seed).
+        nbr_method: "dense" (all-pairs search) or "cell" (the cell list,
+            for large N; the box must be at least 3 build radii wide).
         k_model: keep the nearest k_model slots of each built list; if a
             dropped slot is live at build time the run reports overflow.
         megastep_fn: a fused window, (pos, vel, force, idx, mask, seed, *,
@@ -58,11 +62,13 @@ class Simulation:
     """
 
     def __init__(self, force_fn: Callable, system: SystemConfig,
-                 md: MDConfig, k_model: Optional[int] = None,
-                 megastep_fn=None,
+                 md: MDConfig, nbr_method: str = "dense",
+                 k_model: Optional[int] = None, megastep_fn=None,
                  device="cuda"):
         if system.box is None:
             raise ValueError("Simulation requires a fixed box")
+        if nbr_method not in ("dense", "cell"):
+            raise ValueError(f"unknown neighbor method {nbr_method!r}")
         if megastep_fn is not None and md.integrator != "langevin":
             raise ValueError("megastep_fn supports the langevin integrator "
                              f"only, not {md.integrator!r}")
@@ -74,6 +80,7 @@ class Simulation:
         self.force_fn = force_fn
         self.system = system
         self.md = md
+        self.nbr_method = nbr_method
         self.k_model = k_model
         self.masses = torch.as_tensor(system.atom_masses(),
                                       device=self.device)
@@ -94,7 +101,13 @@ class Simulation:
     # -- neighbour plumbing -------------------------------------------------
 
     def _build_nbrs(self, pos):
-        return dense.build_nbrs(pos, self.system, self.k_model)
+        sysc = self.system
+        if self.nbr_method == "dense":
+            return dense.build_nbrs(pos, sysc, self.k_model)
+        idx, mask, ovf = cell_list_neighbor_list(
+            pos, float(sysc.box), float(sysc.cutoff + sysc.skin),
+            sysc.nbr_capacity)
+        return dense.keep_nearest(idx, mask, ovf, self.k_model)
 
     def _force_with(self, idx, mask):
         box = self.system.box

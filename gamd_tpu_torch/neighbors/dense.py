@@ -54,6 +54,13 @@ def build_nbrs(pos, system, k_model=None):
     """
     idx, mask, ovf = dense_neighbor_list(
         pos, system.box, system.cutoff + system.skin, system.nbr_capacity)
+    return keep_nearest(idx, mask, ovf, k_model)
+
+
+def keep_nearest(idx, mask, ovf, k_model=None):
+    """The nearest k_model slots of a distance-sorted list (all of it when
+    k_model is None or not smaller), with overflow also flagged when a
+    dropped slot is live. Returns contiguous idx and mask, and ovf."""
     if k_model is not None and k_model < idx.shape[-1]:
         ovf = ovf | torch.any(mask[:, k_model:])
         idx = idx[:, :k_model].contiguous()

@@ -1,12 +1,15 @@
-"""Where the time of the port's LJ-258 MD step goes on the card, on three
-paths: per step (one mega_forward per force call) and megastep (one
+"""Where the time of the port's MD step goes on the card, on four paths:
+per step (one mega_forward per force call) and megastep (one
 mega_md_steps call per 20-step window), both on the slice (GAMD-small,
 seeded weights, Langevin at 100 K, K=64 built and sliced to 48, rebuild
 every 20 steps); and deploy, the LJ deployment (the trained weights of
 results/ckpts/lj_relabel_latest.msgpack on the eager use_pallas +
 use_pallas_encoder path: one edge_encoder and four conv_msg_gather
 launches per force call, K=96 at 7.5 + 1.25 A, Langevin at 100 K and
-25/ps, rebuild every 20 steps).
+25/ps, rebuild every 20 steps); and banded, the large-N path at N=10,000
+(tools/bench_large.py's LJ fluid and seeded GAMD-small on
+GNNForceField.banded_force_fn: four banded_msg launches per force call,
+the cell list at 7.5 + 0.5 A with K=96, rebuilt every 20 steps).
 
 For each path it runs from the slice's start frame after a
 warm-up, times 40 steps (two windows) on the host clock without the
@@ -21,7 +24,11 @@ short ones (the device's own turnaround from one queued launch to the
 next) and long ones (the device waiting for the host), with the long
 ones counted by the activities on either side. On the megastep path it
 also gives the host time of each window call of the untraced run (the
-call returns once its launches are queued).
+call returns once its launches are queued). On the banded path it also
+gives the banded_msg kernel's device time per step (its edge stage and
+chunk sums) and the cell list's time per rebuild (CUDA events, median of
+10 builds at the start frame), whose PyTorch kernels the breakdown
+otherwise mixes with the model's.
 
     python3 -m gamd_tpu_torch.tools.profile_step
 
@@ -38,15 +45,19 @@ import torch
 from gamd_tpu_torch.core.config import MDConfig
 from gamd_tpu_torch.core.device import card_line
 from gamd_tpu_torch.md.simulate import Simulation
+from gamd_tpu_torch.ops.banded import banded_conv_message
 from gamd_tpu_torch.ops.encoder import fused_edge_encoder
 from gamd_tpu_torch.ops.mega import mega_forward, mega_md_steps
+from gamd_tpu_torch.tools.bench_large import (LARGE_MD, lj_large,
+                                              seeded_force_field)
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
 from gamd_tpu_torch.train.checkpoint import load_self_describing
 from gamd_tpu_torch.train.forcefield import GNNForceField
 
 STEPS = 40    # steps per window: two neighbour-rebuild chunks
-PATHS = ("per_step", "megastep", "deploy")
+PATHS = ("per_step", "megastep", "deploy", "banded")
 CKPT = "results/ckpts/lj_relabel_latest.msgpack"   # the deploy path's weights
+BANDED_N, BANDED_K = 10_000, 96                    # the banded path's system
 SHORT_GAP_US = 20.0
 
 
@@ -57,6 +68,9 @@ def short_name(kernel: str) -> str:
     name = name[5:] if name.startswith("void ") else name
     base = re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1].strip()
     rest = name[len(name.split("<", 1)[0]):]
+    rows = re.search(r"\b(GatherRows|BandRows)\b", rest)
+    if rows:            # edge_msg_kernel's two instances
+        return f"{base}[{rows.group(1)}]"
     ops = re.findall(r"(\w+_kernel_cuda|\w+Functor|\w+_cuda_out)", rest)
     return f"{base}[{ops[-1]}]" if ops else (base or kernel[:60])
 
@@ -86,6 +100,11 @@ def kernel_times(prof) -> dict:
 
 
 def _simulation(dev, path: str):
+    if path == "banded":
+        system, pos = lj_large(BANDED_N, BANDED_K, dev)
+        ff = seeded_force_field(system, dev)
+        return Simulation(ff.banded_force_fn(), system, LARGE_MD,
+                          nbr_method="cell", device=dev), pos
     sl = lj_slice(dev)
     if path == "deploy":
         state, model_cfg, system = load_self_describing(
@@ -131,7 +150,7 @@ def profile(dev, path: str) -> dict:
         sim.megastep_fn = window
     gen.set_state(rng_state)
     launches = (mega_forward.launches + fused_edge_encoder.launches,
-                mega_md_steps.launches)
+                mega_md_steps.launches, banded_conv_message.launches)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -156,12 +175,22 @@ def profile(dev, path: str) -> dict:
         raise RuntimeError("torch.profiler saw no device time on this "
                            "machine; time with CUDA events instead")
     ranked = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["us"]))
+    banded = {}
+    if path == "banded":
+        banded_us = sum(v["us"] for k, v in kernels.items()
+                        if k in ("edge_msg_kernel[BandRows]",
+                                 "chunk_sum_kernel"))
+        banded = {"banded_msg_us_per_step": banded_us / STEPS,
+                  "cell_list_ms_per_build": cell_list_ms(sim, pos),
+                  "rebuild_every": sim.md.rebuild_every}
     return {
         "path": path,
         "steps": STEPS,
         "force_calls": (mega_forward.launches + fused_edge_encoder.launches
                         - launches[0]),
         "window_calls": mega_md_steps.launches - launches[1],
+        "banded_msg_launches": banded_conv_message.launches - launches[2],
+        **banded,
         "device_us_per_step": total / STEPS,
         "wall_ms_per_step": wall_plain * 1e3 / STEPS,
         "device_idle_share": 1.0 - total / (wall_plain * 1e6),
@@ -181,6 +210,22 @@ def profile(dev, path: str) -> dict:
                                 for k, v in ranked.items()},
         "kernel_launches": {k: v["count"] for k, v in ranked.items()},
     }
+
+
+def cell_list_ms(sim, pos) -> float:
+    """Median of 10 neighbour-list builds of `sim` at `pos` (the cell list
+    at cutoff + skin), in ms by CUDA events, after one untimed build."""
+    sim._build_nbrs(pos)
+    times = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sim._build_nbrs(pos)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def main():

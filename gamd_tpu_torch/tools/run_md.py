@@ -5,10 +5,12 @@ The port runs the LJ system with the Langevin integrator, from a
 checkpoint (self-describing envelope, or a legacy one with the
 architecture flags) or from seeded weights, on the eager force path,
 `--use_pallas` (every conv layer through the CUDA conv-message kernel),
-`--megakernel` (mega_forward per force call) or `--megastep` (one
-mega_md_steps call per neighbour-reuse window). Water and DFT (`--system`
-tip3p / tip4p / dft), `--banded` and the other integrators raise
-NotImplementedError naming the slice of the port that brings them.
+`--megakernel` (mega_forward per force call), `--megastep` (one
+mega_md_steps call per neighbour-reuse window) or `--banded` (the large-N
+path: x-sorted frames, every conv layer through the CUDA banded_msg
+kernel, the cell-list search above 1,024 atoms). Water and DFT (`--system`
+tip3p / tip4p / dft) and the other integrators raise NotImplementedError
+naming the slice of the port that brings them.
 
 It runs on the CUDA card; `--cpu` runs the plain PyTorch versions on the
 CPU instead. Example:
@@ -28,7 +30,6 @@ import torch
 #: Each refusal names the ROADMAP item (Queue 1) of the slice that ports it.
 WATER_DFT = "the water and DFT deployment (ROADMAP Queue 1 item 5)"
 INTEGRATORS = "the remaining integrators (ROADMAP Queue 1 item 3)"
-LARGE_N = "the large-N banded path (ROADMAP Queue 1 item 6)"
 
 
 def build_parser():
@@ -74,7 +75,9 @@ def build_parser():
                         help="whole neighbour-reuse window per CUDA call"
                              " (fastest path; langevin only)")
     parser.add_argument("--banded", action="store_true",
-                        help="large-N banded force path (not ported yet)")
+                        help="x-sorted banded-gather force path for large N "
+                             "(ops/banded.py; fixed scalar box; uses the "
+                             "cell-list neighbour search above 1,024 atoms)")
     parser.add_argument("--k_model", default=None, type=int,
                         help="slice the distance-sorted neighbour list to "
                              "this K for the force model (overflow-guarded)")
@@ -138,8 +141,9 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(args.system, args.integrator)
-    if args.banded:
-        raise NotImplementedError(f"--banded: comes with {LARGE_N}")
+    if args.banded and (args.megakernel or args.megastep):
+        parser.error("--banded is an alternative force path to "
+                     "--megakernel/--megastep")
 
     from gamd_tpu_torch.core.config import MDConfig
     from gamd_tpu_torch.core.device import resolve_device
@@ -169,9 +173,21 @@ def main(argv=None):
         rebuild_every=args.rebuild_every, report_every=args.report_every,
         seed=args.seed)
     megastep_fn = ff.megastep_fn() if args.megastep else None
-    sim = Simulation(
-        ff.force_fn(megakernel=args.megakernel or args.megastep), system,
-        md, k_model=args.k_model, megastep_fn=megastep_fn, device=device)
+    nbr_method = "dense"
+    if args.banded:
+        if system.nbr_capacity < 96:
+            # Thermal LJ at rho* = 0.5 peaks near 66 in-radius neighbours
+            # at the preset skin: 64 saturates.
+            system = dataclasses.replace(system, nbr_capacity=96)
+        force_fn = ff.banded_force_fn()
+        # The cell list only where the box is at least 4 cells wide; dense
+        # top-K is the right search at small N anyway.
+        nbr_method = "cell" if system.n_atoms > 1024 else "dense"
+    else:
+        force_fn = ff.force_fn(megakernel=args.megakernel or args.megastep)
+    sim = Simulation(force_fn, system, md, nbr_method=nbr_method,
+                     k_model=args.k_model, megastep_fn=megastep_fn,
+                     device=device)
     rng = torch.Generator(device=device)
     rng.manual_seed(args.seed)
     st = sim.init_state(pos, rng=rng)

@@ -1,10 +1,10 @@
 """A GAMD model as a force provider for md.simulate.Simulation (port of
 gamd_tpu/train/forcefield.py::GNNForceField: the eager force_fn, the
-megakernel force path, the fused MD window megastep_fn and the offline
-predict / predict_batch, LJ).
+megakernel force path, the large-N banded force path, the fused MD window
+megastep_fn and the offline predict / predict_batch, LJ).
 
-banded_force_fn and the analytic long-range channel come with later slices
-and raise NotImplementedError here.
+The analytic long-range channel comes with the water slice and raises
+NotImplementedError here.
 """
 
 import torch
@@ -15,6 +15,7 @@ from gamd_tpu_torch.core.device import resolve_device
 from gamd_tpu_torch.models.gnn import GAMDNet
 from gamd_tpu_torch.models.normalizer import denormalize
 from gamd_tpu_torch.neighbors.dense import dense_neighbor_list
+from gamd_tpu_torch.ops.banded import make_banded_force_fn
 from gamd_tpu_torch.ops.mega import mega_forward, mega_md_steps, pack_params
 from gamd_tpu_torch.train.loop import search_batch
 from gamd_tpu_torch.train.state import ForceFieldState
@@ -150,9 +151,35 @@ class GNNForceField:
 
         return fn
 
-    def banded_force_fn(self, *args, **kwargs):
-        raise NotImplementedError("banded_force_fn comes with the port's "
-                                  "large-N slice")
+    def banded_force_fn(self, band: int = None, tile_n: int = 64):
+        """(pos, idx, mask) -> force for LARGE N: x-sorted frames whose conv
+        layers read their source rows from per-tile bands (ops.banded; the
+        CUDA kernel banded_msg on the card, its plain version on the CPU).
+        The true-cutoff mask refresh is inside (handles_refresh) and the
+        force denormalisation and unit are folded into the decoder, as on
+        the megakernel path. The closure carries the band as
+        `banded_band`."""
+        cfg = self.model_cfg
+        system = self.system
+        mp = self._kernel_params("banded")
+        length_mean, length_std = self._length_scale()
+        fn0 = make_banded_force_fn(
+            mp, system.box, system.cutoff, system.n_atoms, self._node_h0(),
+            length_mean, length_std, band=band, tile_n=tile_n,
+            flip_dir=cfg.flip_dir, use_ln=cfg.use_layer_norm,
+            mlp_act=cfg.mlp_activation)
+
+        @torch.no_grad()
+        def fn(pos, idx, mask):
+            f, ovf = fn0(pos, idx, mask)
+            # The force contract has no overflow channel; a band overflow
+            # (a tile's neighbour arc wider than the band) would silently
+            # drop real edges, so poison the output instead, on the device.
+            return torch.where(ovf, torch.nan, 1.0) * f
+
+        fn.handles_refresh = True
+        fn.banded_band = fn0.banded_band
+        return fn
 
     @torch.no_grad()
     def predict(self, pos, box=None):

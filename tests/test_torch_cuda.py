@@ -1,7 +1,7 @@
 """The CUDA kernels mega_forward, mega_md_steps, the conv-message pair
-(conv_msg_gather forward and backward) and edge_encoder against their
-plain PyTorch versions, on a Hopper card (capability 9.x). Without one
-every test here skips.
+(conv_msg_gather forward and backward), edge_encoder and banded_msg
+against their plain PyTorch versions, on a Hopper card (capability 9.x).
+Without one every test here skips.
 
 On the card (which has no JAX) run this file without the JAX package's
 conftest:  python -m pytest --noconftest -p no:cacheprovider
@@ -18,7 +18,9 @@ import torch
 
 from gamd_tpu_torch.core.config import MDConfig, ModelConfig, get_preset
 from gamd_tpu_torch.md.simulate import Simulation
+from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
 from gamd_tpu_torch.neighbors.dense import build_nbrs, dense_neighbor_list
+from gamd_tpu_torch.ops import banded
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
@@ -27,6 +29,8 @@ from gamd_tpu_torch.ops.mega import (md_steps_reference, mega_forward,
                                      mega_md_steps, pack_params,
                                      reference_forward)
 from gamd_tpu_torch.physics.lennard_jones import lj_fluid_box
+from gamd_tpu_torch.tools.bench_large import (banded_layer_inputs, lj_large,
+                                              seeded_force_field)
 from gamd_tpu_torch.train.checkpoint import load_self_describing
 from gamd_tpu_torch.train.forcefield import GNNForceField
 from gamd_tpu_torch.train.state import init_params
@@ -411,3 +415,101 @@ def test_deployment_force_path_with_trained_weights(cuda):
         single = ff.predict(frames[i])
         assert float((batch[i] - single).abs().max()) <= 1e-5 * scale \
             / system.force_unit_to_internal
+
+
+def _banded_case(dev, n, seed=0):
+    """bench_large's LJ fluid of n atoms displaced by a seeded 0.1 A
+    jitter, its list at 8.0 A (K=96; the cell list above 1,024 atoms) and
+    the seeded GAMD-small force field, on `dev`."""
+    system, lattice = lj_large(n, 96, dev)
+    rng = np.random.default_rng(seed)
+    pos = torch.remainder(lattice + torch.as_tensor(
+        rng.normal(0.0, 0.1, lattice.shape).astype(np.float32), device=dev),
+        system.box)
+    search = cell_list_neighbor_list if n > 1024 else dense_neighbor_list
+    idx, mask, ovf = search(pos, system.box, system.cutoff + system.skin, 96)
+    assert not bool(ovf)
+    return pos, idx, mask, seeded_force_field(system, dev)
+
+
+@pytest.mark.parametrize("n,layer", [
+    (258, 1),      # band capped at round_up(N, 16) = 272; N % 16 != 0
+    (1000, 0),     # a partial last tile; arcs start below row 0
+    (4096, 1),     # the auto band 1,280, the cell list
+])
+def test_banded_msg_matches_plain_version(cuda, n, layer):
+    """banded_msg within 1e-4 of max |agg| of its plain version on the
+    real inputs of one layer of the seeded force field, one launch; and
+    the plain version equal to the conv-message reference on the sorted
+    gather it stands for."""
+    pos, idx, mask, ff = _banded_case(cuda, n, seed=n)
+    args = banded_layer_inputs(ff, pos, idx, mask, layer)
+    e, idx_loc, mask_s, lo, nodes, dst, _, mp, band, tile_n = args
+    before = banded.banded_conv_message.launches
+    agg = banded.banded_conv_message(*args)
+    torch.cuda.synchronize()
+    assert banded.banded_conv_message.launches == before + 1
+    weights = banded.layer_weights(mp, layer)
+    ref = banded.banded_msg_reference(e, idx_loc, mask_s, lo, nodes, dst,
+                                      *weights, tile_n=tile_n)
+    assert agg.shape == ref.shape == (n, 128)
+    assert bool(torch.isfinite(agg).all())
+    assert float((agg - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    np_rows = -(-n // 16) * 16
+    rows = lo.long().repeat_interleave(tile_n)[:n, None] + idx_loc.long()
+    assert int(rows.max()) < np_rows + band == nodes.shape[0]
+
+
+def test_banded_msg_is_run_to_run_identical(cuda):
+    """No atomics: two launches give bitwise the same agg."""
+    pos, idx, mask, ff = _banded_case(cuda, 1000, seed=3)
+    args = banded_layer_inputs(ff, pos, idx, mask, 0)
+    first = banded.banded_conv_message(*args)
+    second = banded.banded_conv_message(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_banded_msg_rejects_what_it_does_not_take(cuda):
+    """The wrapper's input checks on the card; nothing launches."""
+    pos, idx, mask, ff = _banded_case(cuda, 1000, seed=4)
+    e, idx_loc, mask_s, lo, nodes, dst, layer, mp, band, tile_n = \
+        banded_layer_inputs(ff, pos, idx, mask, 0)
+    call = banded.banded_conv_message
+    before = call.launches
+    with pytest.raises(ValueError, match="idx_loc"):
+        call(e, idx_loc.long(), mask_s, lo, nodes, dst, layer, mp, band,
+             tile_n)
+    with pytest.raises(ValueError, match="lo"):
+        call(e, idx_loc, mask_s, lo[:-1].contiguous(), nodes, dst, layer,
+             mp, band, tile_n)
+    with pytest.raises(ValueError, match="nodes"):
+        call(e, idx_loc, mask_s, lo, nodes[:-1].contiguous(), dst, layer,
+             mp, band, tile_n)
+    with pytest.raises(ValueError, match=": e must"):
+        call(e[..., :64].contiguous(), idx_loc, mask_s, lo, nodes, dst,
+             layer, mp, band, tile_n)
+    assert call.launches == before
+
+
+def test_banded_force_path_on_the_card(cuda):
+    """GNNForceField.banded_force_fn at N=4,096 (the cell list, auto band
+    1,280): four banded_msg launches per force call, forces within 5e-3
+    std(F) of reference_forward on the same card and frame; a band too
+    narrow gives NaN everywhere."""
+    pos, idx, mask, ff = _banded_case(cuda, 4096, seed=5)
+    fn = ff.banded_force_fn()
+    assert fn.banded_band == 1280
+    before = banded.banded_conv_message.launches
+    f = fn(pos, idx, mask)
+    torch.cuda.synchronize()
+    assert banded.banded_conv_message.launches == before + 4
+    system, cfg = ff.system, ff.model_cfg
+    ref = reference_forward(pos, idx, mask, ff._node_h0(),
+                            ff._kernel_params("banded"), system.box,
+                            system.cutoff, *ff._length_scale(),
+                            rbf_gap=cfg.rbf_gap)
+    scale = float(ref.std())
+    assert float((f - ref).abs().max()) <= TOLERANCE * scale
+    assert bool(torch.isnan(ff.banded_force_fn(band=256)(pos, idx,
+                                                         mask)).all())

@@ -592,7 +592,6 @@ def test_run_md_cli_seeded_weights_and_fire_start(tmp_path):
 @pytest.mark.parametrize("argv,names", [
     (["--system", "tip3p"], "Queue 1 item 5"),
     (["--integrator", "nose_hoover"], "Queue 1 item 3"),
-    (["--banded"], "Queue 1 item 6"),
 ])
 def test_run_md_cli_refuses_what_later_slices_bring(argv, names):
     with pytest.raises(NotImplementedError, match=names):

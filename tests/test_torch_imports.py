@@ -10,6 +10,11 @@ import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "ninja", "gamd_tpu")
+#: The large-N slice's modules, which the probe must have imported.
+NEW_IN_SLICE_5 = ("gamd_tpu_torch.neighbors.cell_list",
+                  "gamd_tpu_torch.neighbors.search",
+                  "gamd_tpu_torch.ops.banded",
+                  "gamd_tpu_torch.tools.bench_large")
 
 PROBE = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
@@ -28,6 +33,7 @@ PROBE = textwrap.dedent("""
         gamd_tpu_torch.__path__, "gamd_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    print(" ".join(names))
     import chip_smoke
     assert callable(chip_smoke.main)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -44,6 +50,8 @@ def test_port_and_chip_smoke_import_without_jax_or_msgpack():
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[-2])
     assert n_modules >= 13, out.stdout
+    for name in NEW_IN_SLICE_5:
+        assert name in out.stdout, (name, out.stdout)
 
 
 def test_probe_refuses_a_blocked_import():
