@@ -18,7 +18,12 @@ the port's run_md and analyze_rollout CLIs. Then its large-N path:
 x-sorted frames whose conv layers read their source rows from per-tile
 bands through the hand-written CUDA kernel banded_msg
 (GNNForceField.banded_force_fn, the cell list, run_md --banded and
-bench_large). Phases, one flushed line or more each:
+bench_large). Then its thermostat integrators: Nose-Hoover chain MD, each
+chain half-step one launch of the hand-written CUDA kernel nhc_half_step
+(the per-step path, analyze_rollout's default NHC rollout on the
+checkpoint, run_md, run_recorded), the chain probe's two forms
+(tools/probe_nhc_kernel.py), Andersen and NVE. Phases, one flushed line or
+more each:
 
   0. card (nvidia-smi name and power limit), torch and nvcc versions;
   1. build the CUDA sources with nvcc (or reuse the hashed library);
@@ -71,13 +76,35 @@ bench_large). Phases, one flushed line or more each:
      against the checkpoint's eager force_fn, and tools.bench_large
      (classical LJ at N=10,000; GNN-MD cell-list at N=4,096; GNN-MD
      banded at N=4,096 and 10,000);
- 18. the kernels line (JSON), then the result line (JSON) last.
+ 18. nhc_half_step against its plain version at N=258, N=10,000 and
+     N=258 with R=3 chains (M=10, n_c = n_ys = 5, 100 K, 25/ps, 2 fs, a
+     seeded chain): one half-step and 20 consecutive ones, a repeat bit
+     for bit, ke2 given equal to ke2 summed, M=17 refused, and the times;
+ 19. tools.probe_nhc_kernel in process: both forms of nhc_chain_probe
+     (scalar, warp) at reps 3 against the plain chain and microseconds
+     per half-step at reps 400;
+ 20. the NHC per-step path: Simulation(ff.force_fn(megakernel=True)) with
+     nose_hoover on the slice, 20 warm-up and 200 timed steps: one
+     mega_forward and two nhc_half_step launches a step;
+ 21. tools.analyze_rollout with its default integrator (nose_hoover)
+     --megakernel --steps 4000 --classical_baseline --pe on the
+     checkpoint against phase 11's classical frames: mean T, the RDF peak
+     against the classical NHC baseline's, PE, the bath energies of the
+     final state;
+ 22. tools.run_md --integrator nose_hoover --use_pallas, 200 steps;
+ 23. Andersen, 400 steps on the checkpoint (eager kernel path): mean T;
+ 24. NVE on the port's classical LJ forces (shifted to zero at the list's
+     7.5 A cutoff), 1,000 steps: the relative drift of the total energy;
+ 25. Simulation.run_recorded under NHC on classical LJ-258, 10 frames
+     every 20 steps: frame 0 is the start, the shapes, finite values;
+ 26. the kernels line (JSON), then the result line (JSON) last.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 card; without one it exits non-zero and prints no result. Any failed check
 raises, and a hang ends with a traceback at the deadline.
 """
 
+import dataclasses
 import faulthandler
 import json
 import math
@@ -90,16 +117,17 @@ import time
 import numpy as np
 import torch
 
-from gamd_tpu_torch.core import space
+from gamd_tpu_torch.core import space, units
 from gamd_tpu_torch.core.config import MDConfig
 from gamd_tpu_torch.core.device import card_line
+from gamd_tpu_torch.md import integrators as integ
 from gamd_tpu_torch.md.integrators import maxwell_boltzmann_velocities
 from gamd_tpu_torch.md.simulate import Simulation
 from gamd_tpu_torch.models.normalizer import init_stat, update_stat
 from gamd_tpu_torch.neighbors.dense import (build_nbrs, dense_neighbor_list,
                                             refresh_mask)
 from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
-from gamd_tpu_torch.ops import banded, build
+from gamd_tpu_torch.ops import banded, build, nhc
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
@@ -107,10 +135,13 @@ from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
 from gamd_tpu_torch.ops.mega import (md_steps_reference, mega_forward,
                                      mega_md_steps, pack_params,
                                      reference_forward)
-from gamd_tpu_torch.physics.lennard_jones import (lj_fluid_box, lj_force_fn,
+from gamd_tpu_torch.physics.lennard_jones import (LJParams, lj_energy_dense,
+                                                  lj_fluid_box, lj_force_fn,
                                                   lj_forces_dense)
 from gamd_tpu_torch.physics.minimize import fire_minimize
-from gamd_tpu_torch.tools import analyze_rollout, bench_large, run_md
+from gamd_tpu_torch.physics.rdf import radial_distribution
+from gamd_tpu_torch.tools import (analyze_rollout, bench_large,
+                                  probe_nhc_kernel, run_md)
 from gamd_tpu_torch.tools.bench_large import (LARGE_MD, banded_layer_inputs,
                                               lj_large, seeded_force_field)
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
@@ -151,6 +182,12 @@ LARGE_STEPS = 100         # timed steps of each large-N MD run
 RUN_MD_BANDED_STEPS = 200  # phase 17's run_md --banded
 BENCH_LARGE_ARGV = ["--sizes", "10000", "--gnn_size", "4096",
                     "--gnn_banded_sizes", "4096", "10000", "--steps", "80"]
+NHC_SHAPES = ((258, None), (10_000, None), (258, 3))   # phase 18's (N, R)
+NHC_RTOL = 1e-5           # max |d| / max |x| per tensor, kernel vs plain
+NHC_CHAIN_CALLS = 20      # consecutive half-steps, each side its own state
+NHC_ANALYZE_STEPS = 4000  # phase 21's per-step NHC rollout
+ANDERSEN_STEPS, NVE_STEPS = 400, 1000   # phases 23 and 24
+RECORD_FRAMES, RECORD_INTERVAL = 10, 20  # phase 25
 THERMO_HEADER = ('#"Step"\t"Time (ps)"\t"Kinetic Energy (kJ/mole)"\t'
                  '"Temperature (K)"')
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
@@ -605,7 +642,8 @@ def encoder_phase(dev, card, state, model_cfg, system):
 
 def deployment_phases(dev, card):
     """Phases 10-13 (module docstring). Returns (the edge_encoder entry of
-    the kernels line, launches by path of the deployment's runs)."""
+    the kernels line, launches by path of the deployment's runs, phase 11's
+    classical frames)."""
     state, model_cfg, system = load_self_describing(
         CKPT, use_pallas=True, use_pallas_encoder=True)
     require(model_cfg.hidden_dim == model_cfg.edge_embedding_dim
@@ -800,7 +838,7 @@ def deployment_phases(dev, card):
              "launches": deploy["edge_encoder"],
              "launches_by_path": {"deploy_md": deploy["edge_encoder"]},
              **kernel, "library_ms": None}
-    return entry, launches
+    return entry, launches, traj
 
 
 def banded_bytes(n, k, rows, n_tiles, width=128):
@@ -1009,6 +1047,452 @@ def large_n_phases(dev, card):
             "library_ms": None}
 
 
+def nhc_case(dev, n, r, m=10, seed=18):
+    """Phase 18's inputs: thermal argon velocities at 100 K ([r,] n, 3,
+    10% hot), a seeded chain ([r,] m) and the chain's constants of the MD
+    path (100 K, 25 / ps, 2 fs, n_c = n_ys = 5, ndf = 3n)."""
+    rng = np.random.default_rng(seed)
+    lead = () if r is None else (r,)
+    kt = units.KB * 100.0
+    freq = 25.0 / units.PS
+    vel = np.sqrt(kt * 1.1 / 39.948) * rng.standard_normal((*lead, n, 3))
+    chain = (rng.normal(0, 0.1, (*lead, m)), rng.normal(0, 0.5, (*lead, m)),
+             -freq**2 + rng.normal(0, 1.0, (*lead, m)))
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    ndf = 3 * n
+    return {"vel": f32(vel), "chain": tuple(f32(c) for c in chain),
+            "masses": f32(np.full(n, 39.948)), "kt": kt, "ndf": ndf,
+            "q": integ.nhc_masses(kt, freq, m, ndf, dev),
+            "wdts": integ.nhc_schedule(2.0 * units.FS, 5,
+                                       integ._YS_WEIGHTS[5], dev)}
+
+
+def nhc_args(case, vel, chain):
+    return (vel, *chain, case["masses"], case["kt"], case["ndf"], case["q"],
+            case["wdts"])
+
+
+def chain_ops(m, n_sub):
+    """fp32 operations of one chain half-step (nhc.cuh, each exp counted as
+    one): 18 M - 2 a substep, 2 for the first g[0]."""
+    return n_sub * (18 * m - 2) + 2
+
+
+def nhc_half_step_bound(n, r, m, n_sub):
+    """(least ms, bound by, FLOP) of one nhc_half_step call: v read and
+    written, the masses, the chain read and written, q and the schedule,
+    against the sum of m v^2 (3 FLOP a component), the scaling and the
+    chains' operations at the fp32 peak."""
+    nbytes = 4 * (2 * r * n * 3 + n + 6 * r * m + m + n_sub)
+    flops = r * (3 * n * 3 + 3 * n + chain_ops(m, n_sub))
+    return (*roofline(flops, nbytes), flops)
+
+
+def rel_errors(out, ref):
+    """max |a - b| / max |b| of each pair of tensors."""
+    return [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(out, ref)]
+
+
+def nhc_kernel_phases(dev, card):
+    """Phases 18-19 (module docstring). Returns the kernels-line entries of
+    nhc_half_step and the two forms of nhc_chain_probe (launches filled in
+    by the paths that run them)."""
+    call = nhc.nhc_half_step
+    m, n_sub = 10, 25
+
+    # -- phase 18: nhc_half_step against its plain version -----------------
+    shapes = {}
+    err_max = 0.0
+    for n, r in NHC_SHAPES:
+        case = nhc_case(dev, n, r, m)
+        args = nhc_args(case, case["vel"], case["chain"])
+        before = call.launches
+        out = call(*args)
+        torch.cuda.synchronize()
+        require(call.launches == before + 1, "nhc_half_step did not launch")
+        ref = nhc.nhc_half_step_reference(*args)
+        one = rel_errors(out, ref)
+        require(all(bool(torch.isfinite(t).all()) for t in out),
+                "non-finite nhc_half_step output")
+        again = call(*args)
+        repeat = all(torch.equal(a, b) for a, b in zip(out, again))
+        ke2 = nhc.twice_kinetic_energy(case["vel"], case["masses"])
+        given = call(*args, ke2=ke2)
+        given_same = all(torch.equal(a, b) for a, b in zip(given, out))
+        k_state = p_state = (case["vel"], *case["chain"])
+        for _ in range(NHC_CHAIN_CALLS):
+            k_state = call(*nhc_args(case, k_state[0], k_state[1:]))
+            p_state = nhc.nhc_half_step_reference(
+                *nhc_args(case, p_state[0], p_state[1:]))
+        chained = rel_errors(k_state, p_state)
+        abs_err = max(float((a - b).abs().max())
+                      for a, b in zip((*out, *k_state), (*ref, *p_state)))
+        err_max = max(err_max, abs_err)
+        label = f"N={n}" + ("" if r is None else f" R={r}")
+        say(f"phase 18: nhc_half_step vs plain at {label}, M={m}, "
+            f"{n_sub} substeps: max |d| / max (vel, xi, vxi, g) one call "
+            + " ".join(f"{e:.3e}" for e in one) + f"; after "
+            f"{NHC_CHAIN_CALLS} consecutive calls "
+            + " ".join(f"{e:.3e}" for e in chained)
+            + f" (tolerance {NHC_RTOL}); repeat bit for bit {repeat}; "
+            f"ke2 given = computed bit for bit {given_same}")
+        require(max(one + chained) <= NHC_RTOL,
+                f"nhc_half_step disagrees with its plain version ({label})")
+        require(repeat, f"nhc_half_step does not repeat ({label})")
+        require(given_same, f"nhc_half_step with ke2 given differs ({label})")
+        ms = time_ms(lambda: call(*args))
+        plain_ms = time_ms(lambda: nhc.nhc_half_step_reference(*args),
+                           reps=3)
+        bound_ms, bound_by, flops = nhc_half_step_bound(
+            n, 1 if r is None else r, m, n_sub)
+        shapes[label] = {"ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+        say(f"phase 18: nhc_half_step at {label} {ms:.4f} ms/call, plain "
+            f"{plain_ms:.4f} ms/call (median of 3), bound {bound_ms:.6f} ms "
+            f"({bound_by}; {flops} FLOP, of them {chain_ops(m, n_sub)} a "
+            f"chain in one dependent sequence with {n_sub * (2 * m - 1)} "
+            f"expf); CUDA events, median of 20 [{card}]")
+    long_case = nhc_case(dev, 258, None, m=17)
+    before = call.launches
+    try:
+        call(*nhc_args(long_case, long_case["vel"], long_case["chain"]))
+        refused = False
+    except ValueError as exc:
+        refused = "M=17" in str(exc)
+    say(f"phase 18: M=17 refused {refused}, launches {call.launches - before}")
+    require(refused and call.launches == before, "M > 16 was not refused")
+
+    # -- phase 19: the probe, both forms ------------------------------------
+    nhc.nhc_chain_probe.launches = dict.fromkeys(nhc.FORMS, 0)
+    t0 = time.perf_counter()
+    results = probe_nhc_kernel.main(["--reps", "400"])
+    seconds = time.perf_counter() - t0
+    probe_launches = dict(nhc.nhc_chain_probe.launches)
+    say(f"phase 19: tools.probe_nhc_kernel --reps 400 in process "
+        f"({seconds:.1f} s): " + "; ".join(
+            f"{form} parity {res['parity_err']:.3e}, "
+            f"{res['us_per_half_step']:.3f} us per half-step"
+            for form, res in results.items())
+        + f" (parity tolerance {probe_nhc_kernel.PARITY_ATOL}); launches "
+        f"{probe_launches} [{card}]")
+    require(all(res["parity_err"] <= probe_nhc_kernel.PARITY_ATOL
+                for res in results.values()),
+            "a probe form disagrees with the plain chain")
+    inputs = probe_nhc_kernel.probe_inputs(dev)
+    keys = ("xi", "vxi", "g", "ke2", "q", "kt", "ndf", "wdts")
+    args = [inputs[k] for k in keys]
+    reps = probe_nhc_kernel.PARITY_REPS
+
+    def plain():
+        return nhc.nhc_probe_reference(*args[:3], args[3].reshape(()),
+                                       *args[4:], reps)
+
+    ref = plain()
+    plain_ms = time_ms(plain, reps=3)
+    probe_bound = roofline(reps * (chain_ops(m, n_sub) + 2),
+                           4 * (6 * m + m + n_sub + 1 + 2))
+    probes = []
+    for form, res in results.items():
+        out = probe_nhc_kernel.run_form(inputs, form, reps)
+        err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+        ms = time_ms(lambda: probe_nhc_kernel.run_form(inputs, form, reps))
+        say(f"phase 19: nhc_chain_probe {form} at reps {reps}: max |d| vs "
+            f"plain {err:.3e}, {ms:.4f} ms/call, plain {plain_ms:.4f} "
+            f"ms/call, bound {probe_bound[0]:.3e} ms ({probe_bound[1]}) "
+            f"[{card}]")
+        probes.append({
+            "name": f"nhc_chain_probe:{form}", "route": "cuda",
+            "source": "gamd_tpu_torch/csrc/nhc_chain.cu",
+            "replaces": ("scripts/probe_nhc_kernel.py:77" if form == "scalar"
+                         else "scripts/probe_nhc_kernel.py:112"),
+            "launches_by_path": {"probe_nhc_kernel": probe_launches[form]},
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": probe_bound[0], "bound_by": probe_bound[1],
+            "library_ms": None, "reps": reps,
+            "us_per_half_step_reps_400": res["us_per_half_step"],
+            "parity_vs_probe_reference": res["parity_err"]})
+    md_shape = shapes["N=258"]
+    half_step = {"name": "nhc_half_step", "route": "cuda",
+                 "source": "gamd_tpu_torch/csrc/nhc_chain.cu",
+                 "replaces": "scripts/probe_nhc_kernel.py:77",
+                 "launches_by_path": {}, "max_abs_err": err_max,
+                 **md_shape, "library_ms": None, "shapes": shapes}
+    return [half_step, *probes]
+
+
+class RunSpy:
+    """Records every Simulation.run_segmented call's (simulation, result)
+    while it is entered, so that a CLI's final state can be checked."""
+
+    def __enter__(self):
+        self.calls = []
+        self.original = original = Simulation.run_segmented
+
+        def spy(sim, state, n_steps, segment=10000):
+            result = original(sim, state, n_steps, segment)
+            self.calls.append((sim, result))
+            return result
+
+        Simulation.run_segmented = spy
+        return self
+
+    def __exit__(self, *exc):
+        Simulation.run_segmented = self.original
+
+
+def count_launches():
+    """The launch counts of every kernel on the integrator paths."""
+    return {"mega_forward": mega_forward.launches,
+            "edge_encoder": fused_edge_encoder.launches,
+            "conv_msg_gather": fused_conv_gather_message.launches,
+            "nhc_half_step": nhc.nhc_half_step.launches}
+
+
+def zero_launches():
+    mega_forward.launches = fused_edge_encoder.launches = 0
+    fused_conv_gather_message.launches = nhc.nhc_half_step.launches = 0
+
+
+def integrator_phases(dev, card, traj, langevin_sps):
+    """Phases 20-25 (module docstring). `traj` are phase 11's classical
+    frames, `langevin_sps` phase 3's per-step Langevin steps/s. Returns
+    the launches of every kernel by path."""
+    launches = {}
+    nhc_calls = nhc.nhc_half_step
+
+    # -- phase 20: the NHC per-step path -------------------------------------
+    system, model_cfg, md, state, pos = lj_slice(dev, seed=0)
+    md_nhc = dataclasses.replace(md, integrator="nose_hoover")
+    ff = GNNForceField(state, system, model_cfg, device=dev)
+    sim = Simulation(ff.force_fn(megakernel=True), system, md_nhc,
+                     k_model=K_MODEL, device=dev)
+    zero_launches()
+    st = sim.init_state(pos, rng=torch.Generator(dev).manual_seed(1))
+    warm = sim.run(st, WARMUP_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sim.run(warm.state, PER_STEP_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches["nhc_per_step"] = counts = count_launches()
+    steps = WARMUP_STEPS + PER_STEP_STEPS
+    temps = res.thermo.temperature
+    sps = PER_STEP_STEPS / seconds
+    require(bool(torch.isfinite(res.state.pos).all())
+            and bool(torch.isfinite(temps).all()), "non-finite NHC state")
+    require(not warm.overflow and not res.overflow,
+            "neighbour overflow (NHC per-step)")
+    require(counts["mega_forward"] == 1 + steps
+            and counts["nhc_half_step"] == 2 * steps,
+            f"launches {counts} for {steps} NHC steps")
+    bath_ke, bath_pe = integ.nhc_bath_energies(
+        res.state, md_nhc.temperature, sim.friction, sim.ndf)
+    say(f"phase 20: NHC per-step path, {PER_STEP_STEPS} nose_hoover steps "
+        f"(LJ-258, seeded GAMD-small, K={K_MODEL}, 100 K, 2 fs, 25/ps, "
+        f"M={md_nhc.chain_length}, n_c={md_nhc.chain_mts}, "
+        f"n_ys={md_nhc.chain_ys}) in {seconds:.4f} s = {sps:.1f} steps/s "
+        f"(Langevin per-step, phase 3: {langevin_sps:.1f}); mean T "
+        f"{float(temps.mean()):.2f} K (seeded weights: no band); bath KE "
+        f"{float(bath_ke):.4f}, PE {float(bath_pe):.4f} kJ/mol; launches "
+        f"{counts} for {steps} steps [{card}]")
+    del sim, st, warm, res
+
+    # -- phase 21: the NHC deployment ----------------------------------------
+    state, model_cfg, system = load_self_describing(
+        CKPT, use_pallas=True, use_pallas_encoder=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        gt = os.path.join(tmp, "gt")
+        os.mkdir(gt)
+        for t, frame in enumerate(traj.cpu().numpy()):
+            np.savez(os.path.join(gt, f"data_0_{200 + t}.npz"), pos=frame)
+        report_path = os.path.join(tmp, "report.json")
+        zero_launches()
+        t0 = time.perf_counter()
+        with RunSpy() as spy:
+            report = analyze_rollout.main([
+                "--ckpt", CKPT, "--data_dir", gt, "--megakernel", "--steps",
+                str(NHC_ANALYZE_STEPS), "--classical_baseline", "--pe",
+                "--json_out", report_path])
+        seconds = time.perf_counter() - t0
+        launches["analyze_rollout_nhc"] = counts = count_launches()
+    (sim_gnn, res_gnn), (sim_cl, res_cl) = spy.calls
+    n_equil = int(len(res_gnn.positions) * 0.3)
+    r, g_cl = radial_distribution(res_cl.positions[n_equil:], system.box)
+    peak_cl = float(r[g_cl.argmax()])
+    bin_width = system.box / 2 / len(r)
+    bath = integ.nhc_bath_energies(res_gnn.state, system.temperature,
+                                   sim_gnn.friction, sim_gnn.ndf)
+    keys = ("rdf_l2", "rdf_l2_vs_classical_rollout", "rdf_peak_pos_gnn",
+            "rdf_peak_pos_gt", "rdf_peak_gnn", "rdf_peak_classical_rollout",
+            "temperature_mean", "classical_temperature_mean",
+            "pe_gnn_mean_kj_mol", "pe_classical_mean_kj_mol",
+            "pe_gnn_drift_kj_mol_ps", "diffusion_m2_s",
+            "classical_diffusion_m2_s", "rollout_steps_per_s_incl_compile")
+    say(f"phase 21: analyze_rollout (default integrator "
+        f"{sim_gnn.md.integrator}) --megakernel --steps {NHC_ANALYZE_STEPS} "
+        f"--classical_baseline --pe on {CKPT} ({seconds:.1f} s; ground "
+        f"truth: phase 11's {traj.shape[0]} classical frames): "
+        + ", ".join(f"{key} {report.get(key)}" for key in keys)
+        + f"; classical NHC rollout's RDF peak at {peak_cl:.4f} A; bath KE "
+        f"{float(bath[0]):.4f}, PE {float(bath[1]):.4f} kJ/mol; launches "
+        f"{counts} [{card}]")
+    require(sim_gnn.md.integrator == sim_cl.md.integrator == "nose_hoover",
+            "analyze_rollout's default integrator is not nose_hoover")
+    require(all(math.isfinite(v) for v in report.values()
+                if isinstance(v, float)), "non-finite report values")
+    require(abs(report["temperature_mean"] - system.temperature) <= T_BAND,
+            "the NHC rollout's mean temperature is outside the band")
+    require(abs(report["rdf_peak_pos_gnn"] - peak_cl) <= bin_width * 1.001,
+            "the GNN's RDF peak is more than one bin from the classical NHC "
+            "baseline's")
+    require(all(math.isfinite(float(b)) for b in bath),
+            "non-finite bath energies")
+    require(counts["mega_forward"] == 1 + NHC_ANALYZE_STEPS
+            and counts["nhc_half_step"] == 4 * NHC_ANALYZE_STEPS,
+            f"launches {counts}: want one forward a step and two chain "
+            "half-steps a step of each rollout")
+    del spy, sim_gnn, res_gnn, sim_cl, res_cl
+
+    # -- phase 22: run_md under NHC on the eager kernel path -----------------
+    steps = RUN_MD_STEPS["--use_pallas"]
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "run_md_nhc.txt")
+        out = os.path.join(tmp, "run_md_nhc.npy")
+        zero_launches()
+        t0 = time.perf_counter()
+        run_md.main(["--ckpt", CKPT, "--integrator", "nose_hoover",
+                     "--use_pallas", "--steps", str(steps), "--log", log,
+                     "--out_traj", out])
+        seconds = time.perf_counter() - t0
+        launches["run_md_nhc_use_pallas"] = counts = count_launches()
+        lines = open(log).read().splitlines()
+        final = np.load(out)
+    temps = [float(line.split("\t")[3]) for line in lines[1:]]
+    say(f"phase 22: run_md --ckpt {CKPT} --integrator nose_hoover "
+        f"--use_pallas --steps {steps}: {seconds:.1f} s with the FIRE start; "
+        f"{len(lines) - 1} thermo rows, mean T {np.mean(temps):.2f} K; "
+        f"launches {counts} [{card}]")
+    require(lines[0] == THERMO_HEADER and len(lines) == 1 + steps // 100,
+            "thermo log format (nose_hoover)")
+    require(all(math.isfinite(t) for t in temps)
+            and final.shape == (system.n_atoms, 3)
+            and np.isfinite(final).all(), "run_md output (nose_hoover)")
+    require(counts["conv_msg_gather"] == model_cfg.conv_layers * (steps + 1)
+            and counts["nhc_half_step"] == 2 * steps,
+            f"launches {counts} (run_md nose_hoover)")
+
+    # -- phase 23: Andersen on the checkpoint --------------------------------
+    ff = GNNForceField(state, system, model_cfg, device=dev)
+    md_and = MDConfig(integrator="andersen", temperature=system.temperature,
+                      dt_fs=system.dt_fs, friction_per_ps=25.0,
+                      rebuild_every=20)
+    sim = Simulation(ff.force_fn(), system, md_and, device=dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = sim.run(sim.init_state(traj[-1],
+                                 rng=torch.Generator(dev).manual_seed(23)),
+                  ANDERSEN_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches["andersen_deploy_md"] = counts = count_launches()
+    mean_t = float(res.thermo.temperature[ANDERSEN_STEPS // 2:].mean())
+    say(f"phase 23: Andersen on the checkpoint (use_pallas_encoder), "
+        f"{ANDERSEN_STEPS} steps at 25/ps in {seconds:.2f} s = "
+        f"{ANDERSEN_STEPS / seconds:.1f} steps/s; mean T of the second half "
+        f"{mean_t:.2f} K (band 100 +- {T_BAND} K); launches {counts} [{card}]")
+    require(not res.overflow and bool(torch.isfinite(res.state.pos).all()),
+            "Andersen run: overflow or non-finite state")
+    require(abs(mean_t - system.temperature) <= T_BAND,
+            f"Andersen mean temperature {mean_t} K outside the band")
+    del sim, res
+
+    # -- phase 24: NVE on the classical LJ forces ----------------------------
+    # The LJ potential shifted to zero at the list's 7.5 A cutoff, so that
+    # the forces the list sees are those of the energy measured.
+    lj_cut = LJParams(cutoff=system.cutoff)
+    md_nve = MDConfig(integrator="nve", temperature=system.temperature,
+                      dt_fs=system.dt_fs, rebuild_every=20)
+    sim = Simulation(lj_force_fn(system.box, lj_cut), system, md_nve,
+                     device=dev)
+    st = sim.init_state(traj[-1], rng=torch.Generator(dev).manual_seed(24))
+
+    def total_energy(s):
+        return float(integ.kinetic_energy(s.vel, sim.masses)) + float(
+            lj_energy_dense(space.wrap(s.pos, system.box), system.box,
+                            lj_cut))
+
+    energies = [total_energy(st)]
+    t0 = time.perf_counter()
+    for _ in range(10):
+        run = sim.run(st, NVE_STEPS // 10)
+        require(not run.overflow, "neighbour overflow (NVE)")
+        st = run.state
+        energies.append(total_energy(st))
+    seconds = time.perf_counter() - t0
+    drift = (energies[-1] - energies[0]) / abs(energies[0])
+    spread = (max(energies) - min(energies)) / abs(energies[0])
+    say(f"phase 24: NVE, classical LJ-258 (shifted at {system.cutoff} A), "
+        f"{NVE_STEPS} velocity-Verlet steps of 2 fs from phase 11's last "
+        f"frame ({seconds:.2f} s): total energy "
+        f"{energies[0]:.4f} -> {energies[-1]:.4f} kJ/mol, relative drift "
+        f"{drift:.3e}, spread {spread:.3e} over 11 samples [{card}]")
+    require(all(math.isfinite(e) for e in energies),
+            "non-finite NVE total energy")
+
+    # -- phase 25: run_recorded ----------------------------------------------
+    md_rec = MDConfig(integrator="nose_hoover",
+                      temperature=system.temperature, dt_fs=system.dt_fs,
+                      friction_per_ps=25.0, rebuild_every=20)
+    sim = Simulation(lj_force_fn(system.box), system, md_rec, device=dev)
+    st = sim.init_state(traj[-1], rng=torch.Generator(dev).manual_seed(25))
+    zero_launches()
+    t0 = time.perf_counter()
+    final, ovf, f_pos, f_vel, f_force, f_temp = sim.run_recorded(
+        st, RECORD_FRAMES, RECORD_INTERVAL,
+        lambda p: lj_forces_dense(p, system.box))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches["run_recorded_nhc"] = counts = count_launches()
+    n = system.n_atoms
+    say(f"phase 25: run_recorded, NHC classical LJ-258, {RECORD_FRAMES} "
+        f"frames every {RECORD_INTERVAL} steps ({seconds:.2f} s): shapes "
+        f"{tuple(f_pos.shape)} {tuple(f_vel.shape)} {tuple(f_force.shape)} "
+        f"{tuple(f_temp.shape)}, frame 0 = start "
+        f"{torch.equal(f_pos[0], space.wrap(st.pos, system.box))} / "
+        f"{torch.equal(f_vel[0], st.vel)}, T "
+        + " ".join(f"{float(t):.1f}" for t in f_temp)
+        + f" K; launches {counts} [{card}]")
+    require(f_pos.shape == f_vel.shape == f_force.shape
+            == (RECORD_FRAMES, n, 3) and f_temp.shape == (RECORD_FRAMES,),
+            "run_recorded shapes")
+    require(torch.equal(f_pos[0], space.wrap(st.pos, system.box))
+            and torch.equal(f_vel[0], st.vel),
+            "run_recorded's frame 0 is not the initial state")
+    require(not ovf and all(bool(torch.isfinite(t).all()) for t in (
+        f_pos, f_vel, f_force, f_temp, final.pos)),
+        "run_recorded: overflow or non-finite values")
+    require(counts["nhc_half_step"] == 2 * RECORD_FRAMES * RECORD_INTERVAL,
+            f"launches {counts} (run_recorded)")
+    return launches
+
+
+def merge_launches(entries, runs):
+    """Adds each run's non-zero counts ({path: {kernel name: count}}) to
+    the entries' launches_by_path, keeping a path an entry already has,
+    and sets each entry's launches to the sum over its paths."""
+    by_name = {entry["name"]: entry for entry in entries}
+    for path, counts in runs.items():
+        for name, count in counts.items():
+            if count and name in by_name:
+                by_name[name]["launches_by_path"].setdefault(path, count)
+    for entry in entries:
+        entry["launches"] = sum(entry["launches_by_path"].values())
+
+
 def main():
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     if not torch.cuda.is_available():
@@ -1115,6 +1599,7 @@ def main():
     res = sim.run(warm.state, PER_STEP_STEPS)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    per_step_sps = PER_STEP_STEPS / seconds
     per_step_launches = {"mega_forward": mega_forward.launches,
                          "mega_md_steps": mega_md_steps.launches}
     force_calls = 1 + WARMUP_STEPS + PER_STEP_STEPS
@@ -1244,30 +1729,20 @@ def main():
             f"mean temperature {mean_t} K outside 100 +- {T_BAND} K")
 
     conv_kernels = training_phases(dev, card)
-    encoder_kernel, deploy_launches = deployment_phases(dev, card)
+    encoder_kernel, deploy_launches, traj = deployment_phases(dev, card)
     banded_kernel = large_n_phases(dev, card)
+    nhc_kernels = nhc_kernel_phases(dev, card)
+    integrator_launches = integrator_phases(dev, card, traj, per_step_sps)
 
-    # -- phase 18: kernels line, result line ------------------------------
+    # -- phase 26: kernels line, result line ------------------------------
     by_path = {name: {"per_step": per_step_launches[name],
                       "megastep": mega_launches[name]}
                for name in per_step_launches}
-    for path, counts in deploy_launches.items():
-        for name in by_path:
-            if counts.get(name):
-                by_path[name][path] = counts[name]
-    conv_by_path = conv_kernels[0]["launches_by_path"]
-    for path, counts in deploy_launches.items():
-        if counts.get("conv_msg_gather"):
-            conv_by_path[path] = counts["conv_msg_gather"]
-    conv_kernels[0]["launches"] = sum(conv_by_path.values())
-    say('kernels: ["mega_forward", "mega_md_steps", "conv_msg_gather", '
-        '"conv_msg_gather_bwd", "edge_encoder", "banded_msg"]')
-    say(json.dumps({"kernels": [{
+    kernels = [{
         "name": "mega_forward",
         "route": "cuda",
         "source": "gamd_tpu_torch/csrc/mega_forward.cu",
         "replaces": "gamd_tpu/ops/pallas_model.py:677",
-        "launches": sum(by_path["mega_forward"].values()),
         "launches_by_path": by_path["mega_forward"],
         "max_abs_err": max_err,
         "ms": kernel_ms,
@@ -1280,7 +1755,6 @@ def main():
         "route": "cuda",
         "source": "gamd_tpu_torch/csrc/mega_md_steps.cu",
         "replaces": "gamd_tpu/ops/pallas_model.py:707",
-        "launches": sum(by_path["mega_md_steps"].values()),
         "launches_by_path": by_path["mega_md_steps"],
         "max_abs_err": window_err,
         "ms": window_ms,
@@ -1288,8 +1762,11 @@ def main():
         "bound_ms": window_bound_ms,
         "bound_by": window_bound_by,
         "library_ms": None,
-    }, *conv_kernels, encoder_kernel, banded_kernel]}))
-    say(f"phase 18: total {time.perf_counter() - t_start:.1f} s")
+    }, *conv_kernels, encoder_kernel, banded_kernel, *nhc_kernels]
+    merge_launches(kernels, {**deploy_launches, **integrator_launches})
+    say("kernels: " + json.dumps([k["name"] for k in kernels]))
+    say(json.dumps({"kernels": kernels}))
+    say(f"phase 26: total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,13 +1,14 @@
 """GNN-driven MD loop on torch (port of gamd_tpu/md/simulate.py: Thermo,
-RunResult and Simulation for the Langevin integrator, with run and
-run_segmented).
+RunResult and Simulation for the nve, langevin, nose_hoover and andersen
+integrators, with run, run_segmented and run_recorded).
 
 A run is a loop over chunks: each chunk rebuilds the padded neighbour list
 at cutoff + skin (the dense search, or the cell list for large N), draws
-the chunk's thermostat noise in one call, and advances `rebuild_every`
-BAOAB steps reusing the list (Verlet-skin reuse; the true-cutoff mask is
-redone every force call, in the force kernel when the force function
-`handles_refresh`). With a `megastep_fn` a chunk is one
+the chunk's thermostat noise in one call (Langevin: one normal block;
+Andersen: one uniform and one normal block; NVE and NHC draw none), and
+advances `rebuild_every` steps reusing the list (Verlet-skin reuse; the
+true-cutoff mask is redone every force call, in the force kernel when the
+force function `handles_refresh`). With a `megastep_fn` a chunk is one
 call of it instead (GNNForceField.megastep_fn: the whole window in one
 CUDA library call), seeded from the state's generator on the device.
 Capacity overflow is OR-ed on the device and read on the host once per
@@ -26,6 +27,9 @@ from gamd_tpu_torch.md import integrators as integ
 from gamd_tpu_torch.neighbors import dense
 from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
 
+INTEGRATORS = ("nve", "langevin", "nose_hoover", "andersen")
+STOCHASTIC = ("langevin", "andersen")     # states that carry a generator
+
 
 class Thermo(NamedTuple):
     """Per-step thermodynamic log."""
@@ -35,20 +39,23 @@ class Thermo(NamedTuple):
 
 
 class RunResult(NamedTuple):
-    state: integ.LangevinState     # final integrator state
+    state: NamedTuple              # final integrator state
     thermo: Thermo
     overflow: bool                 # neighbour capacity exceeded at a rebuild
     positions: torch.Tensor = None  # [n_chunks, N, 3] wrapped, one per chunk
 
 
 class Simulation:
-    """Langevin MD of a periodic particle system with a given force model.
+    """NVE/NVT MD of a periodic particle system with a given force model.
 
     Args:
         force_fn: (pos_wrapped [N,3], idx [N,K] int32, mask [N,K] bool) ->
             force [N,3] in kJ/mol/A, e.g. GNNForceField.force_fn(...).
         system: SystemConfig (box, cutoff, skin, capacity, masses).
-        md: MDConfig (integrator, dt, thermostat, rebuild cadence, seed).
+        md: MDConfig (integrator: nve, langevin, nose_hoover or andersen;
+            dt; thermostat: friction_per_ps is Langevin's friction, the NHC
+            frequency and Andersen's collision rate, and chain_length,
+            chain_mts and chain_ys shape the chain; rebuild cadence; seed).
         nbr_method: "dense" (all-pairs search) or "cell" (the cell list,
             for large N; the box must be at least 3 build radii wide).
         k_model: keep the nearest k_model slots of each built list; if a
@@ -72,10 +79,8 @@ class Simulation:
         if megastep_fn is not None and md.integrator != "langevin":
             raise ValueError("megastep_fn supports the langevin integrator "
                              f"only, not {md.integrator!r}")
-        if md.integrator != "langevin":
-            raise NotImplementedError(
-                f"integrator {md.integrator!r}: the port runs 'langevin' so "
-                "far; the others come with a later slice")
+        if md.integrator not in INTEGRATORS:
+            raise ValueError(f"unknown integrator {md.integrator!r}")
         self.device = resolve_device(device)
         self.force_fn = force_fn
         self.system = system
@@ -126,14 +131,26 @@ class Simulation:
         return force
 
     def _integrator(self, force):
-        return integ.baoab_langevin(force, self.dt, self.masses,
-                                    self.md.temperature,
-                                    friction=self.friction)
+        md = self.md
+        if md.integrator == "nve":
+            return integ.velocity_verlet(force, self.dt, self.masses)
+        if md.integrator == "langevin":
+            return integ.baoab_langevin(force, self.dt, self.masses,
+                                        md.temperature,
+                                        friction=self.friction)
+        if md.integrator == "nose_hoover":
+            return integ.nose_hoover_chain(
+                force, self.dt, self.masses, md.temperature,
+                frequency=self.friction, chain_length=md.chain_length,
+                n_c=md.chain_mts, n_ys=md.chain_ys, ndf=self.ndf)
+        return integ.andersen(force, self.dt, self.masses, md.temperature,
+                              collision_rate=self.friction)
 
     def init_state(self, pos, vel=None, rng: torch.Generator = None):
         """Initial state; velocities default to Maxwell-Boltzmann drawn from
-        `rng` (default: a generator on the device seeded with md.seed),
-        which then carries the thermostat noise stream."""
+        `rng` (default: a generator on the device seeded with md.seed).
+        Under Langevin and Andersen the generator then carries the
+        thermostat noise stream; NVE and NHC states hold none."""
         if rng is None:
             rng = torch.Generator(device=self.device)
             rng.manual_seed(self.md.seed)
@@ -144,7 +161,22 @@ class Simulation:
         vel = torch.as_tensor(vel, dtype=torch.float32, device=self.device)
         idx, mask, _ = self._build_nbrs(space.wrap(pos, self.system.box))
         init_fn, _ = self._integrator(self._force_with(idx, mask))
-        return init_fn(pos, vel, rng)
+        if self.md.integrator in STOCHASTIC:
+            return init_fn(pos, vel, rng)
+        return init_fn(pos, vel)
+
+    def _chunk_noise(self, state, n_steps: int):
+        """The chunk's thermostat noise, one block per kind, drawn from
+        state.rng: [n_steps] per-step arguments of step_fn, or None."""
+        shape = (n_steps, self.system.n_atoms, 3)
+        if self.md.integrator == "langevin":
+            return torch.randn(shape, generator=state.rng,
+                               device=self.device)
+        if self.md.integrator == "andersen":
+            u = torch.rand(shape, generator=state.rng, device=self.device)
+            xi = torch.randn(shape, generator=state.rng, device=self.device)
+            return list(zip(u, xi))
+        return None
 
     def _chunk(self, state, n_steps: int):
         """One neighbour-rebuild chunk of n_steps; returns (state, overflow
@@ -154,11 +186,11 @@ class Simulation:
         idx, mask, ovf = self._build_nbrs(space.wrap(state.pos,
                                                      self.system.box))
         _, step_fn = self._integrator(self._force_with(idx, mask))
-        noise = torch.randn((n_steps, self.system.n_atoms, 3),
-                            generator=state.rng, device=self.device)
+        noise = self._chunk_noise(state, n_steps)
         ke = []
         for step in range(n_steps):
-            state = step_fn(state, noise[step])
+            state = step_fn(state) if noise is None else \
+                step_fn(state, noise[step])
             ke.append(integ.kinetic_energy(state.vel, self.masses))
         return state, ovf, torch.stack(ke)
 
@@ -218,3 +250,36 @@ class Simulation:
         return RunResult(state=state, thermo=thermo,
                          overflow=any(r.overflow for r in results),
                          positions=torch.cat([r.positions for r in results]))
+
+    def run_recorded(self, state, n_frames: int, record_interval: int,
+                     record_force):
+        """Frames every `record_interval` steps, for dataset generation
+        (gamd_tpu/md/simulate.py:292-339): frame t is recorded before the
+        state advances (frame 0 is the initial state), then the state
+        advances record_interval steps in chunks of the largest divisor of
+        record_interval that is at most md.rebuild_every.
+
+        `record_force(pos_wrapped) -> [N, 3]` computes the recorded force
+        (e.g. the classical dense potential). Returns (final state,
+        overflow, pos [F, N, 3] wrapped, vel [F, N, 3], force [F, N, 3],
+        temperature [F] at the last step before each next frame).
+        """
+        rebuild = max(1, min(self.md.rebuild_every, record_interval))
+        while record_interval % rebuild:
+            rebuild -= 1
+        n_chunks = record_interval // rebuild
+        box = self.system.box
+        any_ovf = torch.zeros((), dtype=torch.bool, device=self.device)
+        pos, vel, force, ke = [], [], [], []
+        for _ in range(n_frames):
+            posw = space.wrap(state.pos, box)
+            pos.append(posw)
+            vel.append(state.vel)
+            force.append(record_force(posw))
+            for _ in range(n_chunks):
+                state, ovf, chunk_ke = self._chunk(state, rebuild)
+                any_ovf |= ovf
+            ke.append(chunk_ke[-1])
+        temp = 2.0 * torch.stack(ke) / (self.ndf * units.KB)
+        return (state, bool(any_ovf.item()), torch.stack(pos),
+                torch.stack(vel), torch.stack(force), temp)

@@ -102,11 +102,12 @@ def load_library():
     """The loaded library (built first if needed), with argtypes set."""
     import ctypes
 
-    from gamd_tpu_torch.ops import banded, conv_gather, encoder, mega
+    from gamd_tpu_torch.ops import banded, conv_gather, encoder, mega, nhc
 
     lib = ctypes.CDLL(build()["path"])
     mega.declare(lib)
     conv_gather.declare(lib)
     encoder.declare(lib)
     banded.declare(lib)
+    nhc.declare(lib)
     return lib

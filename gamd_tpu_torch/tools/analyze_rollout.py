@@ -7,18 +7,19 @@ ground-truth frame and compares the radial distribution function,
 temperature, self-diffusion and (with --pe) the classical potential
 energy along the trajectory with the ground truth and, with
 --classical_baseline, with a classical rollout of the same length from the
-same start (the port's LJ forces). The port runs LJ with
-`--integrator langevin` (the JAX CLI's default, nose_hoover, and the other
-integrators raise NotImplementedError, as do the water systems) on the
-eager, `--use_pallas`, `--megakernel` and `--megastep` force paths.
+same start (the port's LJ forces). The port runs LJ with any integrator
+(the default, as the JAX CLI's, is nose_hoover, whose chain half-steps go
+through the CUDA nhc_half_step kernel; the water systems raise
+NotImplementedError) on the eager, `--use_pallas` and `--megakernel`
+force paths, and with `--integrator langevin` on `--megastep`.
 
 It runs on the CUDA card; `--cpu` runs the plain PyTorch versions on the
 CPU instead. Example:
 
     python3 -m gamd_tpu_torch.tools.analyze_rollout --system lj \\
         --ckpt results/ckpts/lj_relabel_latest.msgpack \\
-        --data_dir md_dataset/lj_data --integrator langevin --friction 25 \\
-        --megastep --steps 10000 --classical_baseline --pe \\
+        --data_dir md_dataset/lj_data --megakernel --steps 10000 \\
+        --classical_baseline --pe \\
         --json_out rdf_report.json
 """
 
@@ -139,7 +140,9 @@ def write_pe_tsv(path, pe_gnn, pe_cl, n_equil, sample_ps):
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(args.system, args.integrator)
+    refuse_unported(args.system)
+    if args.megastep and args.integrator != "langevin":
+        parser.error("--megastep requires --integrator langevin")
 
     from gamd_tpu_torch.core.config import MDConfig
     from gamd_tpu_torch.core.device import resolve_device

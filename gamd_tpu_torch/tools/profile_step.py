@@ -1,4 +1,4 @@
-"""Where the time of the port's MD step goes on the card, on four paths:
+"""Where the time of the port's MD step goes on the card, on five paths:
 per step (one mega_forward per force call) and megastep (one
 mega_md_steps call per 20-step window), both on the slice (GAMD-small,
 seeded weights, Langevin at 100 K, K=64 built and sliced to 48, rebuild
@@ -9,7 +9,10 @@ launches per force call, K=96 at 7.5 + 1.25 A, Langevin at 100 K and
 25/ps, rebuild every 20 steps); and banded, the large-N path at N=10,000
 (tools/bench_large.py's LJ fluid and seeded GAMD-small on
 GNNForceField.banded_force_fn: four banded_msg launches per force call,
-the cell list at 7.5 + 0.5 A with K=96, rebuilt every 20 steps).
+the cell list at 7.5 + 0.5 A with K=96, rebuilt every 20 steps); and nhc,
+the per-step path under the Nose-Hoover chain (the slice's system and
+weights, nose_hoover at 100 K and 25/ps with M=10, n_c = n_ys = 5: one
+mega_forward and two nhc_half_step launches a step).
 
 For each path it runs from the slice's start frame after a
 warm-up, times 40 steps (two windows) on the host clock without the
@@ -35,6 +38,7 @@ otherwise mixes with the model's.
 Needs a CUDA card; it raises without one.
 """
 
+import dataclasses
 import json
 import re
 import time
@@ -48,6 +52,7 @@ from gamd_tpu_torch.md.simulate import Simulation
 from gamd_tpu_torch.ops.banded import banded_conv_message
 from gamd_tpu_torch.ops.encoder import fused_edge_encoder
 from gamd_tpu_torch.ops.mega import mega_forward, mega_md_steps
+from gamd_tpu_torch.ops.nhc import nhc_half_step
 from gamd_tpu_torch.tools.bench_large import (LARGE_MD, lj_large,
                                               seeded_force_field)
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
@@ -55,7 +60,7 @@ from gamd_tpu_torch.train.checkpoint import load_self_describing
 from gamd_tpu_torch.train.forcefield import GNNForceField
 
 STEPS = 40    # steps per window: two neighbour-rebuild chunks
-PATHS = ("per_step", "megastep", "deploy", "banded")
+PATHS = ("per_step", "megastep", "deploy", "banded", "nhc")
 CKPT = "results/ckpts/lj_relabel_latest.msgpack"   # the deploy path's weights
 BANDED_N, BANDED_K = 10_000, 96                    # the banded path's system
 SHORT_GAP_US = 20.0
@@ -115,7 +120,9 @@ def _simulation(dev, path: str):
                       rebuild_every=20)
         return Simulation(ff.force_fn(), system, md, device=dev), sl.pos
     ff = GNNForceField(sl.state, sl.system, sl.model_cfg, device=dev)
-    sim = Simulation(ff.force_fn(megakernel=True), sl.system, sl.md,
+    md = dataclasses.replace(sl.md, integrator="nose_hoover") \
+        if path == "nhc" else sl.md
+    sim = Simulation(ff.force_fn(megakernel=True), sl.system, md,
                      k_model=K_MODEL,
                      megastep_fn=(ff.megastep_fn() if path == "megastep"
                                   else None),
@@ -150,7 +157,8 @@ def profile(dev, path: str) -> dict:
         sim.megastep_fn = window
     gen.set_state(rng_state)
     launches = (mega_forward.launches + fused_edge_encoder.launches,
-                mega_md_steps.launches, banded_conv_message.launches)
+                mega_md_steps.launches, banded_conv_message.launches,
+                nhc_half_step.launches)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -190,6 +198,7 @@ def profile(dev, path: str) -> dict:
                         - launches[0]),
         "window_calls": mega_md_steps.launches - launches[1],
         "banded_msg_launches": banded_conv_message.launches - launches[2],
+        "nhc_half_step_launches": nhc_half_step.launches - launches[3],
         **banded,
         "device_us_per_step": total / STEPS,
         "wall_ms_per_step": wall_plain * 1e3 / STEPS,

@@ -1,16 +1,18 @@
 """GNN-driven NVT molecular dynamics rollout: the port of scripts/run_md.py,
 with the same flags and defaults.
 
-The port runs the LJ system with the Langevin integrator, from a
+The port runs the LJ system with any of the four integrators (langevin,
+nose_hoover, nve, andersen), from a
 checkpoint (self-describing envelope, or a legacy one with the
 architecture flags) or from seeded weights, on the eager force path,
 `--use_pallas` (every conv layer through the CUDA conv-message kernel),
 `--megakernel` (mega_forward per force call), `--megastep` (one
 mega_md_steps call per neighbour-reuse window) or `--banded` (the large-N
 path: x-sorted frames, every conv layer through the CUDA banded_msg
-kernel, the cell-list search above 1,024 atoms). Water and DFT (`--system`
-tip3p / tip4p / dft) and the other integrators raise NotImplementedError
-naming the slice of the port that brings them.
+kernel, the cell-list search above 1,024 atoms); `--megastep` takes
+langevin only. Under nose_hoover every chain half-step goes through the
+CUDA nhc_half_step kernel. Water and DFT (`--system` tip3p / tip4p / dft)
+raise NotImplementedError naming the slice of the port that brings them.
 
 It runs on the CUDA card; `--cpu` runs the plain PyTorch versions on the
 CPU instead. Example:
@@ -27,9 +29,8 @@ import time
 import numpy as np
 import torch
 
-#: Each refusal names the ROADMAP item (Queue 1) of the slice that ports it.
+#: The refusal names the ROADMAP item (Queue 1) of the slice that ports it.
 WATER_DFT = "the water and DFT deployment (ROADMAP Queue 1 item 5)"
-INTEGRATORS = "the remaining integrators (ROADMAP Queue 1 item 3)"
 
 
 def build_parser():
@@ -91,13 +92,10 @@ def build_parser():
     return parser
 
 
-def refuse_unported(system, integrator):
+def refuse_unported(system):
     """NotImplementedError for what the port does not run yet."""
     if system != "lj":
         raise NotImplementedError(f"--system {system}: comes with {WATER_DFT}")
-    if integrator != "langevin":
-        raise NotImplementedError(
-            f"--integrator {integrator}: comes with {INTEGRATORS}")
 
 
 def load_force_field(args, device, **model_overrides):
@@ -140,10 +138,12 @@ def synchronize(device):
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(args.system, args.integrator)
+    refuse_unported(args.system)
     if args.banded and (args.megakernel or args.megastep):
         parser.error("--banded is an alternative force path to "
                      "--megakernel/--megastep")
+    if args.megastep and args.integrator != "langevin":
+        parser.error("--megastep requires --integrator langevin")
 
     from gamd_tpu_torch.core.config import MDConfig
     from gamd_tpu_torch.core.device import resolve_device

@@ -1,6 +1,7 @@
 """The CUDA kernels mega_forward, mega_md_steps, the conv-message pair
-(conv_msg_gather forward and backward), edge_encoder and banded_msg
-against their plain PyTorch versions, on a Hopper card (capability 9.x).
+(conv_msg_gather forward and backward), edge_encoder, banded_msg,
+nhc_half_step and nhc_chain_probe (both forms) against their plain
+PyTorch versions, on a Hopper card (capability 9.x).
 Without one every test here skips.
 
 On the card (which has no JAX) run this file without the JAX package's
@@ -16,11 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from gamd_tpu_torch.core import units
 from gamd_tpu_torch.core.config import MDConfig, ModelConfig, get_preset
+from gamd_tpu_torch.md import integrators as integ
 from gamd_tpu_torch.md.simulate import Simulation
 from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
 from gamd_tpu_torch.neighbors.dense import build_nbrs, dense_neighbor_list
-from gamd_tpu_torch.ops import banded
+from gamd_tpu_torch.ops import banded, nhc
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
@@ -29,6 +32,7 @@ from gamd_tpu_torch.ops.mega import (md_steps_reference, mega_forward,
                                      mega_md_steps, pack_params,
                                      reference_forward)
 from gamd_tpu_torch.physics.lennard_jones import lj_fluid_box
+from gamd_tpu_torch.tools import probe_nhc_kernel
 from gamd_tpu_torch.tools.bench_large import (banded_layer_inputs, lj_large,
                                               seeded_force_field)
 from gamd_tpu_torch.train.checkpoint import load_self_describing
@@ -513,3 +517,143 @@ def test_banded_force_path_on_the_card(cuda):
     assert float((f - ref).abs().max()) <= TOLERANCE * scale
     assert bool(torch.isnan(ff.banded_force_fn(band=256)(pos, idx,
                                                          mask)).all())
+
+
+# -- the Nose-Hoover chain ---------------------------------------------------
+
+NHC_RTOL = 1e-5    # kernel vs plain: max |d| / max |x| of each tensor
+
+
+def _nhc_case(dev, n, r=None, m=10, seed=0):
+    """Thermal argon velocities at 100 K ([r,] n, 3, slightly hot), a seeded
+    chain ([r,] m) and the chain's constants at 25 / ps, dt 2 fs."""
+    rng = np.random.default_rng(seed)
+    lead = () if r is None else (r,)
+    kt = units.KB * 100.0
+    vel = np.sqrt(kt * 1.1 / 39.948) * rng.standard_normal((*lead, n, 3))
+    chain = [rng.normal(0, 0.1, (*lead, m)), rng.normal(0, 0.5, (*lead, m)),
+             -6.25 + rng.normal(0, 1.0, (*lead, m))]
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    ndf = 3 * n
+    return dict(vel=f32(vel), xi=f32(chain[0]), vxi=f32(chain[1]),
+                g=f32(chain[2]), masses=f32(np.full(n, 39.948)), kt=kt,
+                ndf=ndf, q=integ.nhc_masses(kt, 2.5, m, ndf, dev),
+                wdts=integ.nhc_schedule(0.02, 5, integ._YS_WEIGHTS[5], dev))
+
+
+def _nhc_args(case, vel, chain):
+    return (vel, *chain, case["masses"], case["kt"], case["ndf"], case["q"],
+            case["wdts"])
+
+
+@pytest.mark.parametrize("n,r", [(258, None), (10_000, None), (258, 3)])
+def test_nhc_half_step_matches_plain_version(cuda, n, r):
+    """One launch per half-step; vel, xi, vxi and g within NHC_RTOL of each
+    tensor's max of the plain version after one half-step and after 20
+    consecutive ones (each side threading its own state); ke2 given as the
+    plain version sums it gives the same outputs bit for bit."""
+    case = _nhc_case(cuda, n, r)
+    chain = (case["xi"], case["vxi"], case["g"])
+    before = nhc.nhc_half_step.launches
+    out = nhc.nhc_half_step(*_nhc_args(case, case["vel"], chain))
+    torch.cuda.synchronize()
+    assert nhc.nhc_half_step.launches == before + 1
+    ref = nhc.nhc_half_step_reference(*_nhc_args(case, case["vel"], chain))
+    for a, b in zip(out, ref):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= NHC_RTOL * float(b.abs().max())
+    ke2 = nhc.twice_kinetic_energy(case["vel"], case["masses"])
+    given = nhc.nhc_half_step(*_nhc_args(case, case["vel"], chain), ke2=ke2)
+    assert all(torch.equal(a, b) for a, b in zip(given, out))
+    k_state = p_state = (case["vel"], *chain)
+    for _ in range(20):
+        k_state = nhc.nhc_half_step(*_nhc_args(case, k_state[0],
+                                               k_state[1:]))
+        p_state = nhc.nhc_half_step_reference(*_nhc_args(case, p_state[0],
+                                                         p_state[1:]))
+    for a, b in zip(k_state, p_state):
+        assert float((a - b).abs().max()) <= NHC_RTOL * float(b.abs().max())
+
+
+def test_nhc_half_step_is_run_to_run_identical(cuda):
+    """A fixed-order sum of m v^2 and one thread on the chain: two launches
+    give bitwise the same outputs."""
+    case = _nhc_case(cuda, 10_000, seed=1)
+    args = _nhc_args(case, case["vel"], (case["xi"], case["vxi"],
+                                         case["g"]))
+    first, second = nhc.nhc_half_step(*args), nhc.nhc_half_step(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_nhc_half_step_rejects_what_it_does_not_take(cuda):
+    """The wrapper's input checks on the card (M > 16, types, shapes);
+    nothing launches."""
+    call = nhc.nhc_half_step
+    before = call.launches
+    long_case = _nhc_case(cuda, 64, m=17)
+    with pytest.raises(ValueError, match="M=17"):
+        call(*_nhc_args(long_case, long_case["vel"], (
+            long_case["xi"], long_case["vxi"], long_case["g"])))
+    case = _nhc_case(cuda, 64)
+    chain = (case["xi"], case["vxi"], case["g"])
+    with pytest.raises(ValueError, match="vel"):
+        call(*_nhc_args(case, case["vel"].double(), chain))
+    with pytest.raises(ValueError, match="masses"):
+        call(case["vel"], *chain, case["masses"][:-1], case["kt"],
+             case["ndf"], case["q"], case["wdts"])
+    with pytest.raises(ValueError, match="xi"):
+        call(*_nhc_args(case, case["vel"], (case["xi"][None],) + chain[1:]))
+    with pytest.raises(ValueError, match="ke2"):
+        call(*_nhc_args(case, case["vel"], chain),
+             ke2=torch.ones(1, device=cuda))
+    assert call.launches == before
+
+
+@pytest.mark.parametrize("form", ["scalar", "warp"])
+def test_nhc_chain_probe_matches_plain_version(cuda, form):
+    """The probe's kernel of each form at reps 3 and 50 against the plain
+    chain: the chain, the product of the scales and the last ke2 within
+    NHC_RTOL of each one's max; at reps 3 within the probe's 1e-4 of its
+    reference; two launches equal bit for bit."""
+    inputs = probe_nhc_kernel.probe_inputs(cuda)
+    keys = ("xi", "vxi", "g", "ke2", "q", "kt", "ndf", "wdts")
+    args = [inputs[k] for k in keys]
+    for reps in (3, 50):
+        before = nhc.nhc_chain_probe.launches[form]
+        out = nhc.nhc_chain_probe(*args, reps=reps, form=form)
+        torch.cuda.synchronize()
+        assert nhc.nhc_chain_probe.launches[form] == before + 1
+        ref = nhc.nhc_probe_reference(*args[:3], args[3].reshape(()),
+                                      *args[4:], reps)
+        for a, b in zip(out, ref):
+            assert float((a - b).abs().max()) <= NHC_RTOL * max(
+                float(b.abs().max()), 1.0)
+    out = nhc.nhc_chain_probe(*args, reps=3, form=form)
+    again = nhc.nhc_chain_probe(*args, reps=3, form=form)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert probe_nhc_kernel.parity_error(
+        out, probe_nhc_kernel.reference(inputs, 3)) \
+        <= probe_nhc_kernel.PARITY_ATOL
+
+
+def test_nose_hoover_simulation_on_the_card(cuda):
+    """Simulation under nose_hoover with classical LJ-258 forces: two
+    nhc_half_step launches a step, and 40 steps within 1e-4 A of the same
+    run on the CPU (plain chain)."""
+    system = get_preset("lj")
+    md = MDConfig(integrator="nose_hoover", rebuild_every=20)
+    _, lattice = lj_fluid_box(system.n_atoms, 0.5)
+    vel = np.sqrt(units.KB * 100.0 / 39.948) * np.random.default_rng(
+        2).standard_normal(lattice.shape)
+    from gamd_tpu_torch.physics.lennard_jones import lj_force_fn
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        sim = Simulation(lj_force_fn(system.box), system, md, device=dev)
+        before = nhc.nhc_half_step.launches
+        res = sim.run(sim.init_state(lattice, vel=vel.astype(np.float32)),
+                      40)
+        runs[dev.type] = (res, nhc.nhc_half_step.launches - before)
+    assert runs["cuda"][1] == 80 and runs["cpu"][1] == 0
+    np.testing.assert_allclose(runs["cuda"][0].state.pos.cpu().numpy(),
+                               runs["cpu"][0].state.pos.numpy(), atol=1e-4)

@@ -591,17 +591,37 @@ def test_run_md_cli_seeded_weights_and_fire_start(tmp_path):
 
 @pytest.mark.parametrize("argv,names", [
     (["--system", "tip3p"], "Queue 1 item 5"),
-    (["--integrator", "nose_hoover"], "Queue 1 item 3"),
 ])
 def test_run_md_cli_refuses_what_later_slices_bring(argv, names):
     with pytest.raises(NotImplementedError, match=names):
         run_md.main(argv + ["--cpu"])
 
 
+@pytest.mark.parametrize("integrator", ["nose_hoover", "nve", "andersen"])
+def test_run_md_cli_runs_every_integrator(tmp_path, small_ckpt, integrator):
+    """run_md --cpu --integrator {nose_hoover, nve, andersen} on the small
+    checkpoint: the thermo log and the final frame, finite; --megastep
+    takes langevin only, as in the JAX CLI."""
+    ckpt, init = small_ckpt
+    log, traj = tmp_path / "log.txt", tmp_path / "traj.npy"
+    run_md.main(["--ckpt", ckpt, "--init_pos", init, "--integrator",
+                 integrator, "--steps", "20", "--report_every", "10",
+                 "--log", str(log), "--out_traj", str(traj), "--cpu"])
+    lines = log.read_text().splitlines()
+    assert lines[0] == THERMO_HEADER and len(lines) == 3
+    temps = [float(line.split("\t")[3]) for line in lines[1:]]
+    assert all(math.isfinite(t) and 0 < t < 1000 for t in temps)
+    final = np.load(traj)
+    assert final.shape == (N_LJ, 3) and np.isfinite(final).all()
+    with pytest.raises(SystemExit):
+        run_md.main(["--ckpt", ckpt, "--integrator", integrator,
+                     "--megastep", "--cpu"])
+
+
 def test_analyze_rollout_cli_on_cpu(tmp_path, small_ckpt):
     """analyze_rollout --cpu on a ground-truth directory of classical
     frames: the JAX CLI's report keys, finite values, the PE TSV, and the
-    default integrator (nose_hoover) refused."""
+    default integrator (nose_hoover) running and reporting."""
     ckpt, init = small_ckpt
     data = tmp_path / "gt"
     data.mkdir()
@@ -628,6 +648,8 @@ def test_analyze_rollout_cli_on_cpu(tmp_path, small_ckpt):
         '#"Frame"', '"Time (ps)"', '"Classical PE on GNN traj (kJ/mole)"',
         '"Classical PE on classical traj (kJ/mole)"']
     assert len(pe) == 21
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        analyze_rollout.main(["--ckpt", ckpt, "--data_dir", str(data),
-                              "--cpu"])
+    nhc_report = analyze_rollout.main([
+        "--ckpt", ckpt, "--data_dir", str(data), "--steps", "40",
+        "--equil_fraction", "0", "--cpu"])
+    assert nhc_report["n_rollout_frames"] == 2
+    assert all(math.isfinite(v) for v in nhc_report.values())

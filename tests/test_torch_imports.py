@@ -10,11 +10,14 @@ import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "ninja", "gamd_tpu")
-#: The large-N slice's modules, which the probe must have imported.
-NEW_IN_SLICE_5 = ("gamd_tpu_torch.neighbors.cell_list",
-                  "gamd_tpu_torch.neighbors.search",
-                  "gamd_tpu_torch.ops.banded",
-                  "gamd_tpu_torch.tools.bench_large")
+#: Modules of the later slices (large N; the integrators and the NHC
+#: kernel), which the probe must have imported.
+NEW_IN_SLICES = ("gamd_tpu_torch.neighbors.cell_list",
+                 "gamd_tpu_torch.neighbors.search",
+                 "gamd_tpu_torch.ops.banded",
+                 "gamd_tpu_torch.tools.bench_large",
+                 "gamd_tpu_torch.ops.nhc",
+                 "gamd_tpu_torch.tools.probe_nhc_kernel")
 
 PROBE = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
@@ -50,7 +53,7 @@ def test_port_and_chip_smoke_import_without_jax_or_msgpack():
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[-2])
     assert n_modules >= 13, out.stdout
-    for name in NEW_IN_SLICE_5:
+    for name in NEW_IN_SLICES:
         assert name in out.stdout, (name, out.stdout)
 
 
