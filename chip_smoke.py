@@ -22,8 +22,13 @@ bench_large). Then its thermostat integrators: Nose-Hoover chain MD, each
 chain half-step one launch of the hand-written CUDA kernel nhc_half_step
 (the per-step path, analyze_rollout's default NHC rollout on the
 checkpoint, run_md, run_recorded), the chain probe's two forms
-(tools/probe_nhc_kernel.py), Andersen and NVE. Phases, one flushed line or
-more each:
+(tools/probe_nhc_kernel.py), Andersen and NVE. Then the rest of its
+message-passing op library (ops/message.py), each entry point a
+hand-written CUDA kernel: pallas_gather_multiply_aggregate (gather_agg),
+fused_edge_mlp_aggregate (edge_mlp_agg), fused_conv_message (conv_msg) and
+fused_conv_layer (conv_layer), driven through GAMDNet's forward with every
+conv layer in one form of the library (tools/op_library.py). Phases, one
+flushed line or more each:
 
   0. card (nvidia-smi name and power limit), torch and nvcc versions;
   1. build the CUDA sources with nvcc (or reuse the hashed library);
@@ -97,7 +102,27 @@ more each:
      7.5 A cutoff), 1,000 steps: the relative drift of the total energy;
  25. Simulation.run_recorded under NHC on classical LJ-258, 10 frames
      every 20 steps: frame 0 is the start, the shapes, finite values;
- 26. the kernels line (JSON), then the result line (JSON) last.
+ 26. the op-library path: GAMD-small (seeded, plain-path model) on the
+     training slice's frame 1 (N=258, K=96, widths 128), one forward with
+     every conv layer through each form of tools/op_library.py
+     (gather_aggregate, edge_mlp_aggregate, conv_message, conv_layer)
+     against the model's plain forward, with the four kernels' launch
+     counts (one per layer in its form);
+ 27. gather_agg, edge_mlp_agg, conv_msg and conv_layer against their plain
+     versions on phase 6's two layers' real inputs (h_src = hn[idx],
+     src_code = src[idx], edge_pre = edge_affine(e) + src_code + dst, the
+     gate theta(edge_pre)); conv_msg bit for bit equal to
+     conv_msg_gather, edge_mlp_agg(edge_pre) and gather_agg(hn, gate) equal
+     to that agg, conv_layer equal to GAMDNet's own layer on the plain path
+     and, with a bf16 e, to its plain version;
+ 28. the gradients of edge_mlp_agg, conv_msg and conv_layer (autograd
+     Functions whose backward recomputes through the plain version, as
+     JAX's custom_vjp) against autograd through the plain version, with a
+     seeded cotangent, on both layers; gather_agg's refusal of an input
+     that requires grad;
+ 29. the four kernels' times at layer 0's inputs against their plain
+     versions and bounds, and their device time (torch.profiler);
+ 30. the kernels line (JSON), then the result line (JSON) last.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 card; without one it exits non-zero and prints no result. Any failed check
@@ -114,8 +139,11 @@ import sys
 import tempfile
 import time
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from gamd_tpu_torch.core import space, units
 from gamd_tpu_torch.core.config import MDConfig
@@ -127,7 +155,7 @@ from gamd_tpu_torch.models.normalizer import init_stat, update_stat
 from gamd_tpu_torch.neighbors.dense import (build_nbrs, dense_neighbor_list,
                                             refresh_mask)
 from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
-from gamd_tpu_torch.ops import banded, build, nhc
+from gamd_tpu_torch.ops import banded, build, message, nhc
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
@@ -141,11 +169,12 @@ from gamd_tpu_torch.physics.lennard_jones import (LJParams, lj_energy_dense,
 from gamd_tpu_torch.physics.minimize import fire_minimize
 from gamd_tpu_torch.physics.rdf import radial_distribution
 from gamd_tpu_torch.tools import (analyze_rollout, bench_large,
-                                  probe_nhc_kernel, run_md)
+                                  op_library, probe_nhc_kernel, run_md)
 from gamd_tpu_torch.tools.bench_large import (LARGE_MD, banded_layer_inputs,
                                               lj_large, seeded_force_field)
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
 from gamd_tpu_torch.tools.lj_train_slice import lj_train_slice
+from gamd_tpu_torch.tools.profile_step import kernel_times
 from gamd_tpu_torch.train.checkpoint import load_self_describing
 from gamd_tpu_torch.train.forcefield import GNNForceField
 from gamd_tpu_torch.train.loop import (edge_distances, make_train_step,
@@ -188,6 +217,9 @@ NHC_CHAIN_CALLS = 20      # consecutive half-steps, each side its own state
 NHC_ANALYZE_STEPS = 4000  # phase 21's per-step NHC rollout
 ANDERSEN_STEPS, NVE_STEPS = 400, 1000   # phases 23 and 24
 RECORD_FRAMES, RECORD_INTERVAL = 10, 20  # phase 25
+OP_FORCE_RTOL = 1e-4      # op-library forms vs the plain forward, / std(F)
+OP_AGG_RTOL = 1e-5        # staged forms vs conv_msg_gather's agg, / max
+OP_GRAD_RTOL = 1e-5       # per grad: max |d| / max |grad|, Function vs plain
 THERMO_HEADER = ('#"Step"\t"Time (ps)"\t"Kinetic Energy (kJ/mole)"\t'
                  '"Temperature (K)"')
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
@@ -286,14 +318,23 @@ def bound(flops, n, k, mp, model_cfg, state_io=False):
     return roofline(flops, weight_bytes + io_bytes)
 
 
+class ConvCase(NamedTuple):
+    """One conv layer's real inputs (batch of one graph)."""
+    args: tuple          # e, idx, mask, hn, src, dst and the 8 edge weights
+    live: int            # live edges
+    h: torch.Tensor      # the layer's input [1, N, D], its residual
+    phi: list            # phi_dst, phi_edge, phi weights and biases
+    frame: tuple         # (pos [1, N, 3], length mean, length std)
+
+
 def conv_inputs(dev):
     """The conv kernel pair's real inputs at the training slice, from
     init_params(seed=0) GAMD-small, the dense list at 7.5 A with K=96 and
     the edge-length scaler fitted on the frame: layer 0's on the start
     frame (the encoded edges, hn, src and dst codes; every row of hn is the
     node embedding) and layer 1's on frame 1 (the lattice displaced by
-    0.1 A, after one conv layer, so that rows differ). Returns (args,
-    live edges) for each."""
+    0.1 A, after one conv layer, so that rows differ). Returns a ConvCase
+    for each."""
     sl = lj_train_slice(dev)
     system = sl.system
     model = create_train_state(sl.model_cfg, system, sl.train_cfg, 1,
@@ -322,8 +363,12 @@ def conv_inputs(dev):
             conv.edge_affine_w1, conv.edge_affine_b1, conv.edge_affine_w2,
             conv.edge_affine_b2, conv.theta_edge_w1, conv.theta_edge_b1,
             conv.theta_edge_w2, conv.theta_edge_b2)]
-        cases.append(((e, idx, mask, hn, src, dst, *weights),
-                      int(mask.sum())))
+        phi = [t.detach() for t in (conv.phi_dst_w, conv.phi_dst_b,
+                                    conv.phi_edge_w, conv.phi_edge_b,
+                                    conv.phi_w, conv.phi_b)]
+        cases.append(ConvCase((e, idx, mask, hn, src, dst, *weights),
+                              int(mask.sum()), h, phi,
+                              (pos, stat.safe_mean, stat.std)))
     return cases
 
 
@@ -365,7 +410,7 @@ def training_phases(dev, card):
     # -- phase 6: the forward kernel against its plain version ----------
     cases = conv_inputs(dev)
     fwd_err = 0.0
-    for layer, (case, case_live) in enumerate(cases):
+    for layer, (case, case_live, *_) in enumerate(cases):
         hn = case[3]
         spread = float((hn - hn[:, :1]).abs().max())
         with torch.no_grad():
@@ -389,7 +434,7 @@ def training_phases(dev, card):
         fwd_err = max(fwd_err, err)
     require(spread > 1e-2, "layer 1's rows are nearly identical: the "
             "check cannot see a gather from the wrong node")
-    (args, live), _ = cases
+    (args, live, *_), _ = cases
     n, k = args[1].shape[1:]
     with torch.no_grad():
         fwd_ms = time_ms(lambda: fused(*args))
@@ -403,7 +448,7 @@ def training_phases(dev, card):
 
     # -- phase 7: the backward kernel against autograd through plain -----
     bwd_err = 0.0
-    for layer, (case, _) in enumerate(cases):
+    for layer, (case, *_) in enumerate(cases):
         g = torch.randn((1, n, case[3].shape[-1]), device=dev,
                         generator=torch.Generator(dev).manual_seed(7))
         before = fused.backward_launches
@@ -1480,6 +1525,258 @@ def integrator_phases(dev, card, traj, langevin_sps):
     return launches
 
 
+def op_bound(op, live, n, k, width=128):
+    """(least ms, "operations" or "bytes", FLOP) of one op-library call on
+    one graph: the products over the live edges (2 per multiply-add; for
+    conv_layer also its three node products), against each input read once
+    (per-slot inputs and ids at the live slots only, the mask in full, the
+    node arrays and weights) and the output written once."""
+    w = width
+    slot, node = 4 * live * w, 4 * n * w
+    mats = lambda count: 4 * count * (w * w + w)
+    if op == "gather_agg":
+        flops = 2.0 * live * w
+        nbytes = slot + 4 * live + n * k + 2 * node
+    elif op == "edge_mlp_agg":
+        flops = live * (2.0 * 2 * w * w + 2 * w)
+        nbytes = 2 * slot + n * k + mats(2) + node
+    elif op == "conv_msg":
+        flops = float(conv_flops(live, w))
+        nbytes = 3 * slot + n * k + mats(4) + 2 * node
+    else:
+        flops = conv_flops(live, w) + 3 * 2.0 * n * w * w
+        nbytes = slot + 4 * live + n * k + mats(7) + 5 * node
+    return (*roofline(flops, nbytes), flops)
+
+
+def op_inputs(case):
+    """The op library's inputs on one graph of a ConvCase, flat in each
+    entry's argument order, {op: (inputs, kernel, plain)}: the conv
+    pair's own e, idx, mask, hn, src, dst and weights, and from them
+    h_src = hn[idx], src_code = src[idx], edge_pre = edge_affine(e) +
+    src_code + dst and the gate theta(edge_pre)."""
+    e, idx, mask, hn, src, dst = (t[0] for t in case.args[:6])
+    w8 = list(case.args[6:])
+    w1, b1, w2, b2, w3, b3, w4, b4 = w8
+    with torch.no_grad():
+        rows = idx.long()
+        h_src, src_code = hn[rows], src[rows]
+        edge_pre = F.silu(e @ w1 + b1) @ w2 + b2 + src_code + dst[:, None]
+        gate = F.silu(F.silu(edge_pre) @ w3 + b3) @ w4 + b4
+    h = case.h[0].contiguous()
+    return {
+        "gather_agg": ((hn, gate, idx, mask),
+                       message.pallas_gather_multiply_aggregate,
+                       message.gather_multiply_aggregate),
+        "edge_mlp_agg": ((edge_pre, h_src, mask, w3, b3, w4, b4),
+                         message.fused_edge_mlp_aggregate,
+                         message._fused_reference),
+        "conv_msg": ((e, h_src, src_code, dst, mask, *w8),
+                     message.fused_conv_message,
+                     message._conv_msg_reference),
+        "conv_layer": ((e, idx, mask, h, hn, src, dst, *w8, *case.phi),
+                       lambda *a: message.fused_conv_layer(*a[:7], a[7:]),
+                       message._conv_layer_plain),
+    }
+
+
+OP_ENTRIES = {"gather_agg": message.pallas_gather_multiply_aggregate,
+              "edge_mlp_agg": message.fused_edge_mlp_aggregate,
+              "conv_msg": message.fused_conv_message,
+              "conv_layer": message.fused_conv_layer}
+OP_SOURCES = {"gather_agg": ("gather_agg.cu", 49),
+              "edge_mlp_agg": ("edge_mlp_agg.cu", 104),
+              "conv_msg": ("conv_msg.cu", 212),
+              "conv_layer": ("conv_layer.cu", 735)}
+
+
+def device_us(fn, calls=20):
+    """(device time of fn's kernels per call in us, {kernel: us per call})
+    by torch.profiler over `calls` calls after one untraced call; (None,
+    {}) where the profiler saw no device time."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {name: t["us"] / calls for name, t in kernel_times(prof).items()}
+    return (sum(times.values()) or None), times
+
+
+def op_library_phases(dev, card):
+    """Phases 26-29 (module docstring). Returns the four kernels' entries
+    of the kernels line."""
+    cases = conv_inputs(dev)
+    sl = lj_train_slice(dev, use_pallas=False)
+    plain_model = create_train_state(sl.model_cfg, sl.system, sl.train_cfg,
+                                     1, seed=0, device=dev).model
+    layers = sl.model_cfg.conv_layers
+
+    # -- phase 26: the op-library path ---------------------------------------
+    pos, mean, std = cases[1].frame
+    idx, mask = cases[1].args[1][0], cases[1].args[2][0]
+    box = sl.system.box
+    with torch.no_grad():
+        want = plain_model(pos, idx[None], mask[None], box, mean, std)[0]
+    scale = float(want.std())
+    for entry in OP_ENTRIES.values():
+        entry.launches = 0
+    path = {}
+    for form in op_library.FORMS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = op_library.forward(plain_model, pos[0], idx, mask, box, mean,
+                                 std, form)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        err = float((got - want).abs().max())
+        require(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+                f"op library form {form}: non-finite or misshapen forces")
+        say(f"phase 26: GAMD-small forward (LJ-258 frame 1, K={idx.shape[1]}"
+            f", {layers} layers) with every conv layer through {form}: max "
+            f"|dF| {err:.3e} against the model's plain forward, std(F) "
+            f"{scale:.3e} (tolerance {OP_FORCE_RTOL} x std), "
+            f"{seconds * 1e3:.3f} ms")
+        require(err <= OP_FORCE_RTOL * scale,
+                f"op library form {form} disagrees: {err} vs {scale}")
+    launches = {name: entry.launches for name, entry in OP_ENTRIES.items()}
+    say(f"phase 26: launches {launches} for one forward in each form "
+        f"[{card}]")
+    require(launches == {name: layers for name in OP_ENTRIES},
+            f"launches {launches}: want {layers} of each kernel")
+
+    # -- phase 27: each kernel against its plain version ---------------------
+    errs = {name: 0.0 for name in OP_ENTRIES}
+    for layer, case in enumerate(cases):
+        ops = op_inputs(case)
+        n, k = case.args[1].shape[1:]
+        outs = {}
+        for name, (inputs, kernel, plain) in ops.items():
+            entry = OP_ENTRIES[name]
+            before = entry.launches
+            with torch.no_grad():
+                out = kernel(*inputs)
+                torch.cuda.synchronize()
+                ref = plain(*inputs)
+            require(entry.launches == before + 1, f"{name} did not launch")
+            require(bool(torch.isfinite(out).all()), f"non-finite {name}")
+            err = float((out - ref).abs().max())
+            kind = "std" if name == "conv_layer" else "max |out|"
+            scale = float(ref.std() if name == "conv_layer"
+                          else ref.abs().max())
+            say(f"phase 27: {name} vs plain at N={n} K={k} width 128, "
+                f"layer {layer} ({case.live} live edges): max |d| "
+                f"{err:.3e}, {kind} {scale:.3e} (tolerance {CONV_RTOL} x "
+                f"{kind})")
+            require(err <= CONV_RTOL * scale, f"{name} disagrees: {err} vs "
+                    f"{scale}")
+            errs[name] = max(errs[name], err)
+            outs[name] = out
+        with torch.no_grad():
+            agg = fused_conv_gather_message(*case.args)[0]
+            e, idx_l, mask_l, h, hn, src, dst = ops["conv_layer"][0][:7]
+            own = getattr(plain_model.graph_conv, f"conv_{layer}")(
+                h[None], hn[None], e[None], idx_l[None], mask_l[None])[0]
+            layer_inputs = ops["conv_layer"][0]
+            bf16 = (e.to(torch.bfloat16), *layer_inputs[1:])
+            out_bf16 = ops["conv_layer"][1](*bf16)
+            ref_bf16 = ops["conv_layer"][2](*bf16)
+        torch.cuda.synchronize()
+        same = torch.equal(outs["conv_msg"], agg)
+        scale = float(agg.abs().max())
+        vs_agg = {name: float((outs[name] - agg).abs().max())
+                  for name in ("edge_mlp_agg", "gather_agg")}
+        own_err = float((outs["conv_layer"] - own).abs().max())
+        own_std = float(own.std())
+        bf16_err = float((out_bf16 - ref_bf16).abs().max())
+        say(f"phase 27: layer {layer}: conv_msg bit for bit equal to "
+            f"conv_msg_gather {same}; edge_mlp_agg(edge_pre) and "
+            f"gather_agg(hn, theta(edge_pre)) against that agg: max |d| "
+            f"{vs_agg['edge_mlp_agg']:.3e} and {vs_agg['gather_agg']:.3e}, "
+            f"max |agg| {scale:.3e} (tolerance {OP_AGG_RTOL} x max); "
+            f"conv_layer against GAMDNet's own layer on the plain path: max "
+            f"|d| {own_err:.3e}, std {own_std:.3e} (tolerance {CONV_RTOL} x "
+            f"std); with a bf16 e against its plain version: max |d| "
+            f"{bf16_err:.3e}")
+        require(same, "conv_msg and conv_msg_gather differ")
+        require(max(vs_agg.values()) <= OP_AGG_RTOL * scale,
+                f"the staged forms disagree with agg: {vs_agg}")
+        require(own_err <= CONV_RTOL * own_std,
+                "conv_layer disagrees with GAMDNet's layer")
+        require(bf16_err <= CONV_RTOL * float(ref_bf16.std()),
+                "conv_layer disagrees with its plain version on a bf16 e")
+
+    # -- phase 28: gradients through the three autograd Functions ------------
+    for layer, case in enumerate(cases):
+        ops = op_inputs(case)
+        n = case.args[1].shape[1]
+        g = torch.randn((n, 128), device=dev,
+                        generator=torch.Generator(dev).manual_seed(28))
+        for name in ("edge_mlp_agg", "conv_msg", "conv_layer"):
+            inputs, kernel, plain = ops[name]
+            grads = []
+            for fn in (kernel, plain):
+                leaves = [t.detach().clone().requires_grad_(
+                    t.is_floating_point()) for t in inputs]
+                out = fn(*leaves)
+                grads.append(torch.autograd.grad(
+                    out, [t for t in leaves if t.requires_grad], g))
+            worst = max(float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(*grads))
+            say(f"phase 28: layer {layer} {name}: {len(grads[0])} grads of "
+                f"sum(out * g) against autograd through the plain version, "
+                f"worst max |d| / max |grad| {worst:.3e} (tolerance "
+                f"{OP_GRAD_RTOL})")
+            require(all(bool(torch.isfinite(a).all()) for a in grads[0]),
+                    f"non-finite {name} grads")
+            require(worst <= OP_GRAD_RTOL, f"{name} grads disagree")
+        table, gate, idx_g, mask_g = ops["gather_agg"][0]
+        try:
+            message.pallas_gather_multiply_aggregate(
+                table.detach().clone().requires_grad_(), gate, idx_g, mask_g)
+            refused = False
+        except ValueError:
+            refused = True
+        require(refused, "gather_agg took an input that requires grad")
+    say("phase 28: gather_agg refuses an input that requires grad, as JAX "
+        "defines no VJP for it")
+
+    # -- phase 29: times at layer 0's inputs ---------------------------------
+    ops = op_inputs(cases[0])
+    n, k = cases[0].args[1].shape[1:]
+    live = cases[0].live
+    kernels = []
+    for name, (inputs, kernel, plain) in ops.items():
+        with torch.no_grad():
+            ms = time_ms(lambda: kernel(*inputs))
+            plain_ms = time_ms(lambda: plain(*inputs))
+            dev_us, by_kernel = device_us(lambda: kernel(*inputs))
+        bound_ms, bound_by, flops = op_bound(name, live, n, k)
+        say(f"phase 29: {name} {ms:.4f} ms/call, plain {plain_ms:.4f} "
+            f"ms/call, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{flops / 1e9:.4f} GFLOP for {live} live edges), kernel at "
+            f"{bound_ms / ms:.2%} of it; CUDA events, median of 20 [{card}]")
+        say(f"phase 29: {name} device time "
+            + ("not measured (the profiler saw none)" if dev_us is None
+               else f"{dev_us:.2f} us/call: " + ", ".join(
+                   f"{kname} {us:.2f}" for kname, us in by_kernel.items()))
+            + " (torch.profiler, 20 calls)")
+        src, line = OP_SOURCES[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"gamd_tpu_torch/csrc/{src}",
+            "replaces": f"gamd_tpu/ops/pallas_mp.py:{line}",
+            "launches_by_path": {"op_library": launches[name]},
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "device_us": dev_us})
+    return kernels
+
+
 def merge_launches(entries, runs):
     """Adds each run's non-zero counts ({path: {kernel name: count}}) to
     the entries' launches_by_path, keeping a path an entry already has,
@@ -1733,8 +2030,9 @@ def main():
     banded_kernel = large_n_phases(dev, card)
     nhc_kernels = nhc_kernel_phases(dev, card)
     integrator_launches = integrator_phases(dev, card, traj, per_step_sps)
+    op_kernels = op_library_phases(dev, card)
 
-    # -- phase 26: kernels line, result line ------------------------------
+    # -- phase 30: kernels line, result line ------------------------------
     by_path = {name: {"per_step": per_step_launches[name],
                       "megastep": mega_launches[name]}
                for name in per_step_launches}
@@ -1762,11 +2060,12 @@ def main():
         "bound_ms": window_bound_ms,
         "bound_by": window_bound_by,
         "library_ms": None,
-    }, *conv_kernels, encoder_kernel, banded_kernel, *nhc_kernels]
+    }, *conv_kernels, encoder_kernel, banded_kernel, *nhc_kernels,
+        *op_kernels]
     merge_launches(kernels, {**deploy_launches, **integrator_launches})
     say("kernels: " + json.dumps([k["name"] for k in kernels]))
     say(json.dumps({"kernels": kernels}))
-    say(f"phase 26: total {time.perf_counter() - t_start:.1f} s")
+    say(f"phase 30: total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,10 @@
 // The gated edge message of one conv layer, shared by conv_msg_gather.cu
-// (source rows gathered by node id) and banded_msg.cu (source rows read
-// from a tile's band of the x-sorted frame). Per row i and slot k, with
-// r = rows.row(i, i*K + k) the source row:
+// and conv_layer.cu (source rows gathered by node id), banded_msg.cu
+// (source rows read from a tile's band of the x-sorted frame), conv_msg.cu
+// (rows gathered beforehand) and edge_mlp_agg.cu (no edge affine). Per row
+// i and slot k, with r = rows.row(i, i*K + k) the source row:
 //   z  = silu(e[i,k] @ W1 + b1) @ W2 + b2 + src[r] + dst[i]
+//        (with kEdgeAffine false: z = e[i,k], the summed pre-activation)
 //   m  = silu(silu(z) @ W3 + b3) @ W4 + b4
 //   aggp[i][chunk] = sum over the chunk's slots with mask[i,k] of hn[r] * m
 // A masked slot contributes exactly 0, whatever its message.
@@ -40,6 +42,33 @@ struct GatherRows {
   }
 };
 
+// GatherRows under JAX's rule for an id out of range (jnp indexing): a
+// negative id counts from the end, then ids clamp into [0, n). Any id is
+// then safe to read, which a masked slot's need not be.
+struct ClampedRows {
+  const int* idx;
+  const float* hn;
+  const float* src;
+  int n;
+  static constexpr int stride = W;
+  __device__ __forceinline__ int row(int, size_t slot) const {
+    int j = idx[slot];
+    if (j < 0) j += n;
+    return min(max(j, 0), n - 1);
+  }
+};
+
+// Rows gathered beforehand: hn and src are [M*K, W] (h_src and src_code),
+// and slot (i, k) reads row i*K + k.
+struct PreRows {
+  const float* hn;
+  const float* src;
+  static constexpr int stride = W;
+  __device__ __forceinline__ int row(int, size_t slot) const {
+    return static_cast<int>(slot);
+  }
+};
+
 // Source rows of a band: nodes is [rows, 2W] = [hn | src] of the x-sorted
 // frame (extended by a replica of its head rows), and slot (i, k) reads
 // row lo[i / tile_n] + idx_loc[i*K + k].
@@ -55,8 +84,10 @@ struct BandRows {
   }
 };
 
-// grid (ceil(K/KC), M), block W: one chunk of KC slots of row i.
-template <class Rows>
+// grid (ceil(K/KC), M), block W: one chunk of KC slots of row i. With
+// kEdgeAffine false, e holds z itself and W1, b1, W2, b2, dst and rows.src
+// are not read.
+template <class Rows, bool kEdgeAffine = true>
 __global__ void __launch_bounds__(W)
 edge_msg_kernel(const float* __restrict__ e, const uint8_t* __restrict__ mask,
                 const float* __restrict__ dst, ConvWeights p, int k,
@@ -81,30 +112,37 @@ edge_msg_kernel(const float* __restrict__ e, const uint8_t* __restrict__ mask,
     *out = 0.f;
     return;
   }
-  {
-    float x[KC];
-#pragma unroll
-    for (int m = 0; m < KC; ++m)
-      x[m] = (k0 + m < k) ? e[(row0 + m) * W + c] : 0.f;
-    store_tile<KC>(buf_a, x);
-  }
-  __syncthreads();
-
   float acc[KC];
-  matmul_tile<KC>(buf_a, p.w1, p.b1[c], acc);
+  if constexpr (kEdgeAffine) {
+    {
+      float x[KC];
 #pragma unroll
-  for (int m = 0; m < KC; ++m) acc[m] = silu(acc[m]);
-  store_tile<KC>(buf_b, acc);
-  __syncthreads();
-  matmul_tile<KC>(buf_b, p.w2, p.b2[c], acc);
-  {
-    const float dc = dst[(size_t)i * W + c];
+      for (int m = 0; m < KC; ++m)
+        x[m] = (k0 + m < k) ? e[(row0 + m) * W + c] : 0.f;
+      store_tile<KC>(buf_a, x);
+    }
+    __syncthreads();
+
+    matmul_tile<KC>(buf_a, p.w1, p.b1[c], acc);
+#pragma unroll
+    for (int m = 0; m < KC; ++m) acc[m] = silu(acc[m]);
+    store_tile<KC>(buf_b, acc);
+    __syncthreads();
+    matmul_tile<KC>(buf_b, p.w2, p.b2[c], acc);
+    {
+      const float dc = dst[(size_t)i * W + c];
+#pragma unroll
+      for (int m = 0; m < KC; ++m)
+        acc[m] = silu(acc[m] + rows.src[(size_t)idx_s[m] * Rows::stride + c]
+                      + dc);
+    }
+  } else {
 #pragma unroll
     for (int m = 0; m < KC; ++m)
-      acc[m] = silu(acc[m] + rows.src[(size_t)idx_s[m] * Rows::stride + c]
-                    + dc);
+      acc[m] = silu((k0 + m < k) ? e[(row0 + m) * W + c] : 0.f);
   }
-  // buf_a was last read before the barrier above: free to overwrite.
+  // buf_a was last read before a barrier above (or never): free to
+  // overwrite.
   store_tile<KC>(buf_a, acc);
   __syncthreads();
   matmul_tile<KC>(buf_a, p.w3, p.b3[c], acc);

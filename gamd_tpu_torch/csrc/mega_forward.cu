@@ -7,8 +7,10 @@
 // mask (build mask and d^2 < cutoff^2), RBF + rank-1 geometric terms into
 // the tanh-gelu encoder MLP and the edge LayerNorm (encode_kernel, in
 // encode.cuh, shared with edge_encoder.cu), L edge-gated conv layers
-// (pre-norm LayerNorm or folded BatchNorm, silu), and the tanh-gelu decoder
-// whose last affine already holds the force denormalisation.
+// (pre-norm LayerNorm or folded BatchNorm, silu; the node update,
+// update_kernel in node_update.cuh, is shared with conv_layer.cu), and the
+// tanh-gelu decoder whose last affine already holds the force
+// denormalisation.
 //
 // What bounds it on this card: per force call at LJ-258 (N=258, K=48,
 // every width 128, L=4, 40 RBF centres) the edge MLPs take about 300k
@@ -44,11 +46,10 @@
 
 #include "encode.cuh"
 #include "mega.cuh"
+#include "node_update.cuh"
 #include "tile.cuh"
 
 namespace {
-
-constexpr int NB = 8;    // atoms per block in the node stages
 
 // Node stage of one layer. grid ceil(N/NB), block W.
 // hn = norm(h) * s + b; src = hn @ w_src + b; dst = hn @ w_dst + b.
@@ -147,49 +148,6 @@ edge_kernel(const float* __restrict__ e, const float* __restrict__ live,
   aggp[((size_t)i * gridDim.x + blockIdx.x) * W + c] = s;
 }
 
-// Node update of one layer. grid ceil(N/NB), block W.
-//   agg = sum over chunks of aggp; h += silu(hn @ w_pd + b + agg @ w_pe + b)
-//   @ w_p + b
-__global__ void __launch_bounds__(W)
-update_kernel(float* __restrict__ h, const float* __restrict__ hn,
-              const float* __restrict__ aggp, int n_chunk, MegaWeights p,
-              int layer, int n) {
-  __shared__ __align__(16) float buf_h[W * NB];
-  __shared__ __align__(16) float buf_g[W * NB];
-  const int a0 = blockIdx.x * NB, c = threadIdx.x;
-  const int lw = layer * W * W, lb = layer * W;
-
-  {
-    float x[NB], g[NB];
-#pragma unroll
-    for (int m = 0; m < NB; ++m) {
-      x[m] = 0.f;
-      g[m] = 0.f;
-      if (a0 + m < n) {
-        x[m] = hn[(a0 + m) * W + c];
-        const float* ap = aggp + (size_t)(a0 + m) * n_chunk * W + c;
-        for (int q = 0; q < n_chunk; ++q) g[m] += ap[q * W];
-      }
-    }
-    store_tile<NB>(buf_h, x);
-    store_tile<NB>(buf_g, g);
-  }
-  __syncthreads();
-
-  float acc[NB], acc2[NB];
-  matmul_tile<NB>(buf_h, p.w_pd + lw, p.b_pd[lb + c], acc);
-  matmul_tile<NB>(buf_g, p.w_pe + lw, p.b_pe[lb + c], acc2);
-#pragma unroll
-  for (int m = 0; m < NB; ++m) acc[m] = silu(acc[m] + acc2[m]);
-  __syncthreads();
-  store_tile<NB>(buf_h, acc);
-  __syncthreads();
-  matmul_tile<NB>(buf_h, p.w_p + lw, p.b_p[lb + c], acc);
-#pragma unroll
-  for (int m = 0; m < NB; ++m)
-    if (a0 + m < n) h[(a0 + m) * W + c] += acc[m];
-}
-
 // Decoder. grid ceil(N/NB), block W.
 //   f = gelu(h @ wd0 + bd0) @ wd1[:, :3] + bd1[:3]
 __global__ void __launch_bounds__(W)
@@ -251,7 +209,10 @@ extern "C" int gamd_mega_forward(
     edge_kernel<<<edge_grid, W, 0, s>>>(e, live, idx, hn, src, dst, p, layer,
                                         n, k, aggp);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    update_kernel<<<n_blk, W, 0, s>>>(h, hn, aggp, n_chunk, p, layer, n);
+    const int lw = layer * W * W, lb = layer * W;
+    const UpdateWeights upd{p.w_pd + lw, p.b_pd + lb, p.w_pe + lw,
+                            p.b_pe + lb, p.w_p + lw, p.b_p + lb};
+    update_kernel<<<n_blk, W, 0, s>>>(h, hn, aggp, n_chunk, upd, n, h);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   decode_kernel<<<n_blk, W, 0, s>>>(h, p, n, out);

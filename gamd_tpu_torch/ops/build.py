@@ -102,7 +102,8 @@ def load_library():
     """The loaded library (built first if needed), with argtypes set."""
     import ctypes
 
-    from gamd_tpu_torch.ops import banded, conv_gather, encoder, mega, nhc
+    from gamd_tpu_torch.ops import (banded, conv_gather, encoder, mega,
+                                    message, nhc)
 
     lib = ctypes.CDLL(build()["path"])
     mega.declare(lib)
@@ -110,4 +111,5 @@ def load_library():
     encoder.declare(lib)
     banded.declare(lib)
     nhc.declare(lib)
+    message.declare(lib)
     return lib

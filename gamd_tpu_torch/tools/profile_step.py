@@ -73,8 +73,9 @@ def short_name(kernel: str) -> str:
     name = name[5:] if name.startswith("void ") else name
     base = re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1].strip()
     rest = name[len(name.split("<", 1)[0]):]
-    rows = re.search(r"\b(GatherRows|BandRows)\b", rest)
-    if rows:            # edge_msg_kernel's two instances
+    rows = re.search(r"\b(GatherRows|BandRows|ClampedRows|PreRows)\b",
+                     rest)
+    if rows:            # edge_msg_kernel's instances
         return f"{base}[{rows.group(1)}]"
     ops = re.findall(r"(\w+_kernel_cuda|\w+Functor|\w+_cuda_out)", rest)
     return f"{base}[{ops[-1]}]" if ops else (base or kernel[:60])

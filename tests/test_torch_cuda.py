@@ -1,6 +1,7 @@
 """The CUDA kernels mega_forward, mega_md_steps, the conv-message pair
 (conv_msg_gather forward and backward), edge_encoder, banded_msg,
-nhc_half_step and nhc_chain_probe (both forms) against their plain
+nhc_half_step, nhc_chain_probe (both forms) and the op library's
+gather_agg, edge_mlp_agg, conv_msg and conv_layer against their plain
 PyTorch versions, on a Hopper card (capability 9.x).
 Without one every test here skips.
 
@@ -23,7 +24,7 @@ from gamd_tpu_torch.md import integrators as integ
 from gamd_tpu_torch.md.simulate import Simulation
 from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
 from gamd_tpu_torch.neighbors.dense import build_nbrs, dense_neighbor_list
-from gamd_tpu_torch.ops import banded, nhc
+from gamd_tpu_torch.ops import banded, message, nhc
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
@@ -657,3 +658,149 @@ def test_nose_hoover_simulation_on_the_card(cuda):
     assert runs["cuda"][1] == 80 and runs["cpu"][1] == 0
     np.testing.assert_allclose(runs["cuda"][0].state.pos.cpu().numpy(),
                                runs["cpu"][0].state.pos.numpy(), atol=1e-4)
+
+
+def _op_inputs(dev, n, k, seed=0, d=128):
+    """Seeded inputs of the op library on `dev`, drawn as
+    tests/test_ops.py draws them: per slot e, h_src, src_code [N, K, 128]
+    (gate [N, K, d]), idx [N, K] int32, mask, per node h, hn, src_nodes,
+    dst_code [N, 128] (table [N, d]) and the 14 layer weights."""
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    f = lambda *s, scale: t((rng.randn(*s) * scale).astype(np.float32))
+    x = dict(e=f(n, k, 128, scale=0.3), h_src=f(n, k, 128, scale=0.3),
+             src_code=f(n, k, 128, scale=0.3), gate=f(n, k, d, scale=1.0),
+             idx=t(rng.randint(0, n, (n, k)).astype(np.int32)),
+             mask=t(rng.rand(n, k) > 0.3), h=f(n, 128, scale=0.5),
+             hn=f(n, 128, scale=0.5), src_nodes=f(n, 128, scale=0.5),
+             dst_code=f(n, 128, scale=0.3), table=f(n, d, scale=1.0))
+    ws = [f(128, scale=0.08) if name.startswith("b")
+          else f(128, 128, scale=0.08) for name in message.LAYER_WEIGHTS]
+    return x, ws
+
+
+def _op_call(op, x, ws, fn=None):
+    """The entry point of `op` (or its plain version, fn="plain") on x."""
+    plain = fn == "plain"
+    if op == "gather_agg":
+        f = (message.gather_multiply_aggregate if plain
+             else message.pallas_gather_multiply_aggregate)
+        return f(x["table"], x["gate"], x["idx"], x["mask"])
+    if op == "edge_mlp_agg":
+        f = message._fused_reference if plain \
+            else message.fused_edge_mlp_aggregate
+        return f(x["e"], x["h_src"], x["mask"], *ws[4:8])
+    if op == "conv_msg":
+        f = message._conv_msg_reference if plain \
+            else message.fused_conv_message
+        return f(x["e"], x["h_src"], x["src_code"], x["dst_code"],
+                 x["mask"], *ws[:8])
+    f = message._conv_layer_reference if plain else message.fused_conv_layer
+    return f(x["e"], x["idx"], x["mask"], x["h"], x["hn"], x["src_nodes"],
+             x["dst_code"], ws)
+
+
+_OP_ENTRY = {"gather_agg": message.pallas_gather_multiply_aggregate,
+             "edge_mlp_agg": message.fused_edge_mlp_aggregate,
+             "conv_msg": message.fused_conv_message,
+             "conv_layer": message.fused_conv_layer}
+
+
+@pytest.mark.parametrize("op", list(_OP_ENTRY))
+@pytest.mark.parametrize("n,k,d", [(66, 20, 128), (258, 96, 200)])
+def test_op_kernels_match_plain_version(cuda, op, n, k, d):
+    """Each op-library kernel within 1e-4 of its plain version (max |out|;
+    conv_layer: std(out)), one launch; a ragged edge chunk (K=20), the
+    training slice's shape, and a gather_agg width past one block
+    (D=200). Masked slots holding NaN and ids out of range give the same
+    bits as clean ones."""
+    x, ws = _op_inputs(cuda, n, k, seed=n + k, d=d)
+    entry = _OP_ENTRY[op]
+    before = entry.launches
+    with torch.no_grad():
+        out = _op_call(op, x, ws)
+        ref = _op_call(op, x, ws, "plain")
+    torch.cuda.synchronize()
+    assert entry.launches == before + 1
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    scale = ref.std() if op == "conv_layer" else ref.abs().max()
+    assert float((out - ref).abs().max()) <= 1e-4 * float(scale)
+
+    dirty = dict(x)
+    masked = ~x["mask"]
+    for name in ("e", "h_src", "src_code", "gate"):
+        dirty[name] = torch.where(masked[..., None], float("nan"), x[name])
+    wild = torch.tensor([-1, -n, -n - 1, n, 10 ** 6, -10 ** 6],
+                        dtype=torch.int32, device=cuda)
+    fill = wild[torch.arange(int(masked.sum()), device=cuda) % 6]
+    dirty["idx"] = x["idx"].masked_scatter(masked, fill)
+    with torch.no_grad():
+        again = _op_call(op, dirty, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+
+
+def test_conv_message_equals_conv_gather_bit_for_bit(cuda):
+    """fused_conv_message on rows gathered at idx and
+    fused_conv_gather_message run the same edge stage: the same bits."""
+    x, ws = _op_inputs(cuda, 258, 96, seed=4)
+    rows = x["idx"].long()
+    with torch.no_grad():
+        pre = message.fused_conv_message(
+            x["e"], x["hn"][rows].contiguous(),
+            x["src_nodes"][rows].contiguous(), x["dst_code"], x["mask"],
+            *ws[:8])
+        gathered = fused_conv_gather_message(
+            x["e"][None], x["idx"][None], x["mask"][None], x["hn"][None],
+            x["src_nodes"][None], x["dst_code"][None], *ws[:8])[0]
+    torch.cuda.synchronize()
+    assert torch.equal(pre, gathered)
+
+
+@pytest.mark.parametrize("op", ["edge_mlp_agg", "conv_msg", "conv_layer"])
+def test_op_kernel_gradients_match_plain_autograd(cuda, op):
+    """The KernelFunction backward on the card (autograd through the plain
+    version) against autograd through the plain version itself: every
+    float input's gradient of sum(out * g) within 1e-5 of its max."""
+    x, ws = _op_inputs(cuda, 66, 20, seed=7)
+    g = torch.randn((66, 128), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(3))
+    names = {"edge_mlp_agg": ("e", "h_src"),
+             "conv_msg": ("e", "h_src", "src_code", "dst_code"),
+             "conv_layer": ("e", "h", "hn", "src_nodes", "dst_code")}[op]
+    grads = []
+    for fn in (None, "plain"):
+        xs = {**x, **{name: x[name].clone().requires_grad_()
+                      for name in names}}
+        wl = [w.clone().requires_grad_() for w in ws]
+        out = _op_call(op, xs, wl, fn)
+        leaves = [xs[name] for name in names] + [
+            w for w in wl if w.grad_fn is None]
+        grads.append(torch.autograd.grad(out, leaves, g, allow_unused=True))
+    for a, b in zip(*grads):
+        if b is None:
+            assert a is None
+            continue
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_op_kernels_reject_what_they_do_not_take(cuda):
+    """The entries' checks on the card: width 64, int64 ids, a CPU weight,
+    gather_agg inputs that require grad; nothing launches."""
+    x, ws = _op_inputs(cuda, 32, 16)
+    counts = [entry.launches for entry in _OP_ENTRY.values()]
+    with pytest.raises(ValueError, match="edge_pre"):
+        message.fused_edge_mlp_aggregate(x["e"][..., :64].contiguous(),
+                                         x["h_src"], x["mask"], *ws[4:8])
+    with pytest.raises(ValueError, match="w1"):
+        message.fused_conv_message(x["e"], x["h_src"], x["src_code"],
+                                   x["dst_code"], x["mask"], ws[0].cpu(),
+                                   *ws[1:8])
+    with pytest.raises(ValueError, match="idx"):
+        message.fused_conv_layer(x["e"], x["idx"].long(), x["mask"], x["h"],
+                                 x["hn"], x["src_nodes"], x["dst_code"], ws)
+    with pytest.raises(ValueError, match="no gradient"):
+        message.pallas_gather_multiply_aggregate(
+            x["table"].requires_grad_(), x["gate"], x["idx"], x["mask"])
+    assert [entry.launches for entry in _OP_ENTRY.values()] == counts

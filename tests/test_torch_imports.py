@@ -11,13 +11,16 @@ import textwrap
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "ninja", "gamd_tpu")
 #: Modules of the later slices (large N; the integrators and the NHC
-#: kernel), which the probe must have imported.
+#: kernel; the op library), which the probe must have imported.
 NEW_IN_SLICES = ("gamd_tpu_torch.neighbors.cell_list",
                  "gamd_tpu_torch.neighbors.search",
                  "gamd_tpu_torch.ops.banded",
                  "gamd_tpu_torch.tools.bench_large",
                  "gamd_tpu_torch.ops.nhc",
-                 "gamd_tpu_torch.tools.probe_nhc_kernel")
+                 "gamd_tpu_torch.tools.probe_nhc_kernel",
+                 "gamd_tpu_torch.ops.aggregate",
+                 "gamd_tpu_torch.ops.message",
+                 "gamd_tpu_torch.tools.op_library")
 
 PROBE = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
