@@ -27,8 +27,12 @@ message-passing op library (ops/message.py), each entry point a
 hand-written CUDA kernel: pallas_gather_multiply_aggregate (gather_agg),
 fused_edge_mlp_aggregate (edge_mlp_agg), fused_conv_message (conv_msg) and
 fused_conv_layer (conv_layer), driven through GAMDNet's forward with every
-conv layer in one form of the library (tools/op_library.py). Phases, one
-flushed line or more each:
+conv layer in one form of the library (tools/op_library.py). Then its
+tensor-core probes, each product an mma.sync in a hand-written CUDA
+kernel: tools/bench_mxu.py (scripts/bench_mxu.py's loop kernel, five stage
+bodies through mxu_loop) and tools/probe_gather.py (scripts/probe_gather.py's
+one-hot gathers, five forms through onehot_gather). Phases, one flushed
+line or more each:
 
   0. card (nvidia-smi name and power limit), torch and nvcc versions;
   1. build the CUDA sources with nvcc (or reuse the hashed library);
@@ -122,7 +126,23 @@ flushed line or more each:
      that requires grad;
  29. the four kernels' times at layer 0's inputs against their plain
      versions and bounds, and their device time (torch.profiler);
- 30. the kernels line (JSON), then the result line (JSON) last.
+ 30. tools.bench_mxu in process at its defaults (iters 200, tile_n 16,
+     k 48, n 258): each stage's us/iter and TFLOP/s, the calibration line
+     (required OK), the launches by body, and cuBLAS on the same bf16
+     four-product chain, gather_mm's two products and repeat_interleave
+     (iters calls replayed from a CUDA graph: the library times);
+ 31. each mxu_loop body against its plain version at iters 2 on the
+     tool's inputs (gather_mm and repeat bit for bit), repeating bit for
+     bit, and the plain versions' times at the tool's iters;
+ 32. tools.probe_gather in process at its defaults (iters 2000): every
+     one-hot variant status OK with its carry equal to iters sum T[idx]
+     (1e-5), the launches by form, and the library times: the same
+     products by cuBLAS and torch.index_select(tbl, 0, idx);
+ 33. each one-hot form against its plain version at iters 2: the gathered
+     rows (the last product) bit for bit and equal to T[idx], the carry
+     within 1e-5 of iters sum |T[idx]| (int8 x int8 exact), repeating bit
+     for bit; the plain versions' times at iters 2000;
+ 34. the kernels line (JSON), then the result line (JSON) last.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 card; without one it exits non-zero and prints no result. Any failed check
@@ -155,7 +175,8 @@ from gamd_tpu_torch.models.normalizer import init_stat, update_stat
 from gamd_tpu_torch.neighbors.dense import (build_nbrs, dense_neighbor_list,
                                             refresh_mask)
 from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
-from gamd_tpu_torch.ops import banded, build, message, nhc
+from gamd_tpu_torch.ops import (banded, build, gather_probe, message,
+                                mxu_probe, nhc)
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
@@ -168,8 +189,9 @@ from gamd_tpu_torch.physics.lennard_jones import (LJParams, lj_energy_dense,
                                                   lj_forces_dense)
 from gamd_tpu_torch.physics.minimize import fire_minimize
 from gamd_tpu_torch.physics.rdf import radial_distribution
-from gamd_tpu_torch.tools import (analyze_rollout, bench_large,
-                                  op_library, probe_nhc_kernel, run_md)
+from gamd_tpu_torch.tools import (analyze_rollout, bench_large, bench_mxu,
+                                  op_library, probe_gather,
+                                  probe_nhc_kernel, run_md)
 from gamd_tpu_torch.tools.bench_large import (LARGE_MD, banded_layer_inputs,
                                               lj_large, seeded_force_field)
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
@@ -222,8 +244,12 @@ OP_AGG_RTOL = 1e-5        # staged forms vs conv_msg_gather's agg, / max
 OP_GRAD_RTOL = 1e-5       # per grad: max |d| / max |grad|, Function vs plain
 THERMO_HEADER = ('#"Step"\t"Time (ps)"\t"Kinetic Energy (kJ/mole)"\t'
                  '"Temperature (K)"')
+PROBE_CARRY_RTOL = 1e-5   # one-hot carry vs plain, / (iters sum |T[idx]|)
+PROBE_CHECK_ITERS = 2     # phases 31 and 33
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -244,10 +270,10 @@ def nvcc_release():
     return out.stdout.strip().splitlines()[-1]
 
 
-def time_ms(fn, reps=20):
+def time_ms(fn, reps=20, warmup=3):
     """Median of `reps` single-call device times (CUDA events), in ms, after
-    3 untimed calls."""
-    for _ in range(3):
+    `warmup` untimed calls."""
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -276,10 +302,11 @@ def forward_flops(edges, n, n_rbf, model_cfg):
     return 2.0 * (edges * per_edge + n * per_node)
 
 
-def roofline(flops, nbytes):
-    """(least ms, "operations" or "bytes"): `flops` against the fp32 peak,
-    `nbytes` against HBM, the larger of the two."""
-    t_ops = flops / FP32_FLOPS * 1e3
+def roofline(flops, nbytes, rate=FP32_FLOPS):
+    """(least ms, "operations" or "bytes"): `flops` against `rate` (the
+    fp32 peak unless given), `nbytes` against HBM, the larger of the
+    two."""
+    t_ops = flops / rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1777,6 +1804,278 @@ def op_library_phases(dev, card):
     return kernels
 
 
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def mxu_bound(body, inputs, k, iters):
+    """(least ms, bound_by) of one mxu_loop call of `iters` iterations: the
+    products' FLOP at the dense bf16 rate (repeat: its 4 fp32 operations an
+    output element an iteration, at the fp32 rate), against the inputs and
+    the salt read once and the carry written once."""
+    rows = mxu_probe.output_rows(body, inputs, k)
+    width = mxu_probe.PEAK_N if body == "peak" else mxu_probe.WIDTH
+    nbytes = tensor_bytes(*inputs) + 8 * 128 * 4 + rows * width * 4
+    if body == "repeat":
+        return roofline(iters * 4.0 * rows * width, nbytes)
+    n_pad = inputs[1].shape[0] if body.startswith("gather") else 0
+    flops = iters * bench_mxu.flops_per_iter(body, rows, n_pad)
+    return roofline(flops, nbytes, BF16_FLOPS)
+
+
+def onehot_bound(form, x, iters):
+    """(least ms, bound_by, GFLOP an iteration) of one onehot_gather call:
+    the one-hot products (2 per multiply-add over rows x width x 256) at the
+    dense bf16 rate, int8 x int8 at the int8 rate, against idx, the table
+    (and starts) read once and the carry written once."""
+    rows, n_pad = x["idx"].shape[0], x["tbl"].shape[0]
+    width = gather_probe.band_of(form) or n_pad
+    flops = 2.0 * rows * width * gather_probe.LANES
+    rate = INT8_OPS if form == "int8_int8" else BF16_FLOPS
+    inputs = [t for t in (x["idx"], x["tbl"], x["starts"]) if t is not None]
+    return (*roofline(iters * flops, tensor_bytes(*inputs) + 8 * 128 * 4,
+                      rate), flops / 1e9)
+
+
+def library_ms(fn, iters):
+    """Device time (ms) of `iters` calls of fn, the same work as one probe
+    call of `iters` iterations: captured once in a CUDA graph and replayed
+    (CUDA events, median of 3), so that the host's ~20 us a PyTorch call
+    does not enter."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return time_ms(graph.replay, reps=3, warmup=1)
+
+
+def mxu_probe_phases(dev, card):
+    """Phases 30-31 (module docstring). Returns the kernels-line entries of
+    mxu_loop's five bodies and the launches of mega_forward in
+    bench_mxu's forward stage."""
+    args = bench_mxu.parse_args([])
+    iters = args.iters
+
+    # -- phase 30: tools.bench_mxu at its defaults --------------------------
+    mxu_probe.mxu_loop.launches = dict.fromkeys(mxu_probe.BODIES, 0)
+    fwd_before = mega_forward.launches
+    t0 = time.perf_counter()
+    res = bench_mxu.main([])
+    seconds = time.perf_counter() - t0
+    launches = dict(mxu_probe.mxu_loop.launches)
+    fwd_launches = mega_forward.launches - fwd_before
+    cal = res["calibration"]
+    say(f"phase 30: tools.bench_mxu in process at its defaults "
+        f"({seconds:.1f} s): calibration per-iter(quarter)/per-iter(full) "
+        f"{cal['ratio']:.4f}, peak {cal['peak_tflops']:.2f} TFLOP/s "
+        f"[{cal['tag']}]; forward {res['forward']['us_per_call']:.2f} "
+        f"us/call; launches {launches}, mega_forward {fwd_launches} "
+        f"[{card}]")
+    require(cal["tag"] == "OK", f"bench_mxu calibration: {cal}")
+    require(all(launches[body] > 0 for body in mxu_probe.BODIES),
+            f"a body did not launch: {launches}")
+    require(fwd_launches > 0, "the forward stage did not launch")
+    stages = bench_mxu.stage_inputs(args, dev)
+    a, w = stages["peak"][1]
+    oh, nh, nl = stages["gather_mm"][1]
+    dst, = stages["repeat"][1]
+
+    def chain():
+        x = a
+        for _ in range(4):
+            x = torch.matmul(x, w)
+        return x
+
+    libs = {"peak": library_ms(chain, iters),
+            "gather_mm": library_ms(
+                lambda: (torch.matmul(oh, nh), torch.matmul(oh, nl)), iters),
+            "repeat": library_ms(
+                lambda: torch.repeat_interleave(
+                    dst, args.k, dim=0, output_size=dst.shape[0] * args.k),
+                iters)}
+    peak_flops = bench_mxu.flops_per_iter("peak", mxu_probe.PEAK_N, 0)
+    say(f"phase 30: cuBLAS (torch.matmul, bf16) on the same four-product "
+        f"chain: {libs['peak'] * 1e3 / iters:.2f} us/iter, "
+        f"{peak_flops * iters / (libs['peak'] * 1e-3) / 1e12:.2f} TFLOP/s "
+        f"(the kernel {res['stages']['peak']['us_per_iter']:.2f} us/iter, "
+        f"{res['stages']['peak']['tflops']:.2f} TFLOP/s on "
+        f"{res['stages']['peak']['blocks']} blocks); gather_mm's two "
+        f"products {libs['gather_mm'] * 1e3 / iters:.2f} us/iter; "
+        f"repeat_interleave {libs['repeat'] * 1e3 / iters:.2f} us/iter "
+        f"({iters} calls replayed from a CUDA graph, CUDA events, median "
+        f"of 3) [{card}]")
+
+    # -- phase 31: each body's kernel against its plain version --------------
+    salt = torch.randn((8, 128), device=dev,
+                       generator=torch.Generator(dev).manual_seed(31))
+    errs = dict.fromkeys(mxu_probe.BODIES, 0.0)
+    for label, (body, inputs, k) in stages.items():
+        out = mxu_probe.mxu_loop(body, inputs, salt, PROBE_CHECK_ITERS, k)
+        again = mxu_probe.mxu_loop(body, inputs, salt, PROBE_CHECK_ITERS, k)
+        torch.cuda.synchronize()
+        ref = mxu_probe.mxu_loop_reference(body, inputs, salt,
+                                           PROBE_CHECK_ITERS, k)
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        say(f"phase 31: mxu_loop {label} ({body}, {tuple(out.shape)}) vs "
+            f"plain at iters {PROBE_CHECK_ITERS}: max |d| {err:.3e}, max "
+            f"|out| {scale:.3e} (tolerance {bench_mxu.KERNEL_RTOL[body]} x "
+            f"max); repeat bit for bit {torch.equal(out, again)}")
+        require(bool(torch.isfinite(out).all()) and out.shape == ref.shape,
+                f"mxu_loop {label}: non-finite or misshapen carry")
+        require(err <= bench_mxu.KERNEL_RTOL[body] * scale,
+                f"mxu_loop {label} disagrees with its plain version")
+        require(torch.equal(out, again), f"mxu_loop {label} does not repeat")
+        errs[body] = max(errs[body], err)
+    kernels = []
+    body_lines = {"peak": 150, "gather_mm": 185, "gather_full": 215,
+                  "edge_mlp": 247, "repeat": 264}
+    for body in mxu_probe.BODIES:
+        _, inputs, k = stages[body]
+        stage = res["stages"][body]
+        plain_ms = time_ms(lambda: mxu_probe.mxu_loop_reference(
+            body, inputs, salt, iters, k), reps=3, warmup=1)
+        bound_ms, bound_by = mxu_bound(body, inputs, k, iters)
+        say(f"phase 31: mxu_loop {body} {stage['ms']:.4f} ms/call at iters "
+            f"{iters} ({stage['us_per_iter']:.3f} us/iter), plain "
+            f"{plain_ms:.4f} ms/call (median of 3), bound {bound_ms:.4f} ms "
+            f"({bound_by}), kernel at {bound_ms / stage['ms']:.2%} of it "
+            f"[{card}]")
+        kernels.append({
+            "name": f"mxu_loop:{body}", "route": "cuda",
+            "source": "gamd_tpu_torch/csrc/mxu_probe.cu",
+            "replaces": "scripts/bench_mxu.py:91",
+            "body": f"scripts/bench_mxu.py:{body_lines[body]}",
+            "launches_by_path": {"bench_mxu": launches[body]},
+            "max_abs_err": errs[body], "ms": stage["ms"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": libs.get(body),
+            "iters": iters, "us_per_iter": stage["us_per_iter"],
+            "tflops": stage["tflops"], "blocks": stage["blocks"]})
+    kernels[1]["us_per_iter_8M"] = res["stages"]["gather_mm_8M"]["us_per_iter"]
+    return kernels, fwd_launches
+
+
+def gather_probe_phases(dev, card):
+    """Phases 32-33 (module docstring). Returns the kernels-line entries of
+    onehot_gather's five forms."""
+    iters = probe_gather.parse_args([]).iters
+
+    # -- phase 32: tools.probe_gather at its defaults -----------------------
+    gather_probe.onehot_gather.launches = dict.fromkeys(gather_probe.FORMS, 0)
+    t0 = time.perf_counter()
+    res = probe_gather.main([])
+    seconds = time.perf_counter() - t0
+    launches = dict(gather_probe.onehot_gather.launches)
+    lines = {form: res[key] for key, _, form in probe_gather.VARIANTS
+             if form is not None}
+    say(f"phase 32: tools.probe_gather in process at its defaults "
+        f"({seconds:.1f} s): " + "; ".join(
+            f"{form} {line['per_edge_stream_us']:.3f} us/iter, calib "
+            f"{line['calib_ratio']:.3f} {line['status']}, parity "
+            f"{line['parity']:.2e}" for form, line in lines.items())
+        + f"; launches {launches} [{card}]")
+    require(all(line["status"] == "OK" for line in lines.values()),
+            "a one-hot variant's loop collapsed")
+    require(all(line["parity"] <= PROBE_CARRY_RTOL
+                for line in lines.values()),
+            "a one-hot variant's carry is not iters sum T[idx]")
+    require(all(launches[form] > 0 for form in gather_probe.FORMS),
+            f"a form did not launch: {launches}")
+    idx, tbl = probe_gather.probe_inputs()
+    xs = {form: probe_gather.form_inputs(form, idx, tbl, dev)
+          for form in gather_probe.FORMS}
+
+    def onehot_of(x, form):
+        """The one-hot products of one iteration as cuBLAS calls."""
+        rows = x["idx"][:, 0].long()
+        band = gather_probe.band_of(form)
+        if band is None:
+            oh = (torch.arange(x["tbl"].shape[0], device=dev)[None]
+                  == rows[:, None]).to(x["tbl"].dtype)
+            if form == "int8_int8":
+                return lambda: torch._int_mm(oh, x["tbl"])
+            return lambda: torch.matmul(oh, x["tbl"])
+        n = x["starts"].shape[0]
+        size = rows.shape[0] // n
+        tiles = [((torch.arange(band, device=dev)[None]
+                   == rows[t * size:(t + 1) * size, None] - s)
+                  .to(torch.bfloat16), x["tbl"][s:s + band])
+                 for t, s in enumerate(x["starts"].tolist())]
+        return lambda: [torch.matmul(o, t) for o, t in tiles]
+
+    libs = {}
+    for form, x in xs.items():
+        try:
+            libs[form] = library_ms(onehot_of(x, form), iters)
+        except (RuntimeError, AttributeError) as exc:   # torch._int_mm
+            libs[form] = None
+            say(f"phase 32: {form}: no library time ({exc})")
+    flat = xs["bf16"]["idx"][:, 0].long()
+    index_ms = library_ms(
+        lambda: torch.index_select(xs["bf16"]["tbl"], 0, flat), iters)
+    say(f"phase 32: the same products by cuBLAS (torch.matmul; int8 x int8 "
+        f"by torch._int_mm): " + ", ".join(
+            f"{form} {'none' if ms is None else f'{ms * 1e3 / iters:.3f}'}"
+            f" us/iter" for form, ms in libs.items())
+        + f"; torch.index_select(tbl, 0, idx) {index_ms * 1e3 / iters:.3f} "
+        f"us/iter ({iters} calls replayed from a CUDA graph, CUDA events, "
+        f"median of 3) [{card}]")
+
+    # -- phase 33: each form against its plain version -----------------------
+    kernels = []
+    replaces = {"bf16": 66, "int8_bf16": 84, "int8_int8": 84,
+                "band256": 113, "band208": 113}
+    for form, x in xs.items():
+        out, g = probe_gather.call(x, form, PROBE_CHECK_ITERS, product=True)
+        again = probe_gather.call(x, form, PROBE_CHECK_ITERS)
+        torch.cuda.synchronize()
+        ref, g_ref = gather_probe.onehot_gather_reference(
+            x["idx"], x["tbl"], PROBE_CHECK_ITERS, form, x["starts"],
+            product=True)
+        rows_equal = torch.equal(g, g_ref) and torch.equal(
+            g, x["tbl"].float()[x["idx"][:, 0].long()])
+        err = float((out - ref).abs().max())
+        _, scale = probe_gather.gathered(x)
+        tol = (0.0 if form == "int8_int8"
+               else PROBE_CARRY_RTOL * PROBE_CHECK_ITERS * scale)
+        say(f"phase 33: onehot_gather {form} vs plain at iters "
+            f"{PROBE_CHECK_ITERS}: gathered rows [{g.shape[0]}, "
+            f"{g.shape[1]}] bit for bit {rows_equal}; carry |d| {err:.3e} "
+            f"(tolerance {tol:.3e}: {PROBE_CARRY_RTOL} x iters sum "
+            f"|T[idx]|); repeat bit for bit {torch.equal(out, again)}")
+        require(rows_equal, f"onehot_gather {form} gathered the wrong rows")
+        require(err <= tol, f"onehot_gather {form} carry disagrees")
+        require(torch.equal(out, again), f"onehot_gather {form} repeats not")
+        line = lines[form]
+        plain_ms = time_ms(lambda: gather_probe.onehot_gather_reference(
+            x["idx"], x["tbl"], iters, form, x["starts"]), reps=1, warmup=1)
+        bound_ms, bound_by, gflop = onehot_bound(form, x, iters)
+        say(f"phase 33: onehot_gather {form} {line['ms']:.4f} ms/call at "
+            f"iters {iters} ({line['per_edge_stream_us']:.3f} us/iter), "
+            f"plain {plain_ms:.4f} ms/call (one call), bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {gflop:.4f} GFLOP an "
+            f"iteration), kernel at {bound_ms / line['ms']:.2%} of it "
+            f"[{card}]")
+        kernels.append({
+            "name": f"onehot_gather:{form}", "route": "cuda",
+            "source": "gamd_tpu_torch/csrc/onehot_gather.cu",
+            "replaces": f"scripts/probe_gather.py:{replaces[form]}",
+            "launches_by_path": {"probe_gather": launches[form]},
+            "max_abs_err": err, "ms": line["ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": libs[form], "index_select_ms": index_ms,
+            "iters": iters, "us_per_iter": line["per_edge_stream_us"],
+            "calib_ratio": line["calib_ratio"]})
+    return kernels
+
+
 def merge_launches(entries, runs):
     """Adds each run's non-zero counts ({path: {kernel name: count}}) to
     the entries' launches_by_path, keeping a path an entry already has,
@@ -2031,11 +2330,14 @@ def main():
     nhc_kernels = nhc_kernel_phases(dev, card)
     integrator_launches = integrator_phases(dev, card, traj, per_step_sps)
     op_kernels = op_library_phases(dev, card)
+    mxu_kernels, bench_mxu_forwards = mxu_probe_phases(dev, card)
+    gather_kernels = gather_probe_phases(dev, card)
 
-    # -- phase 30: kernels line, result line ------------------------------
+    # -- phase 34: kernels line, result line ------------------------------
     by_path = {name: {"per_step": per_step_launches[name],
                       "megastep": mega_launches[name]}
                for name in per_step_launches}
+    by_path["mega_forward"]["bench_mxu"] = bench_mxu_forwards
     kernels = [{
         "name": "mega_forward",
         "route": "cuda",
@@ -2061,11 +2363,11 @@ def main():
         "bound_by": window_bound_by,
         "library_ms": None,
     }, *conv_kernels, encoder_kernel, banded_kernel, *nhc_kernels,
-        *op_kernels]
+        *op_kernels, *mxu_kernels, *gather_kernels]
     merge_launches(kernels, {**deploy_launches, **integrator_launches})
     say("kernels: " + json.dumps([k["name"] for k in kernels]))
     say(json.dumps({"kernels": kernels}))
-    say(f"phase 30: total {time.perf_counter() - t_start:.1f} s")
+    say(f"phase 34: total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

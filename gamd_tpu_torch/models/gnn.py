@@ -22,6 +22,20 @@ passed through. In train mode (forward(..., train=True, generator=g)) BatchNorm
 uses and updates batch statistics as flax does, and edge dropout and
 drop_edge draw from `generator`. The water variant (one-hot node encoder,
 bond channel) comes with the water slice.
+
+cfg.compute_dtype="bfloat16" is JAX's mixed-precision policy
+(gamd_tpu/models/gnn.py:273-363) on the plain path: the parameters stay
+float32 and are cast where JAX casts them. The encoder MLP, the src/dst
+affines, the edge pipeline, the node update and the decoder compute in
+bf16 (each product a bf16 matmul, each sum and activation rounded to
+bf16); the norms take their statistics in float32 and return float32, as
+flax's LayerNorm and BatchNorm do under a bf16 input with float32 scale
+and bias (the parameter-free edge LayerNorm returns bf16, which the
+float32 edge scale and bias then promote); the gated sum over neighbours
+is float32 (float32 hn times bf16 e_emb), the residual stream h is bf16,
+and the output float32. The kernel paths compute in float32 and refuse
+it: use_pallas (with or without use_pallas_encoder) here, the
+megakernel, megastep and banded force paths in train.forcefield.
 """
 
 import numpy as np
@@ -39,6 +53,29 @@ LN_EPS = 1e-6     # flax nn.LayerNorm default
 BN_EPS = 1e-5     # torch BatchNorm1d default, as the JAX model
 BN_MOMENTUM = 0.9  # flax momentum (torch BatchNorm1d's 0.1)
 DROP_EDGE_KEEP = 0.8  # per-layer Bernoulli keep of drop_edge (gnn.py:159-165)
+#: ModelConfig.compute_dtype -> the torch dtype the plain path computes in
+#: (None: float32 throughout).
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: ModelConfig):
+    """The torch compute dtype of cfg.compute_dtype (None for float32);
+    raises for a dtype the port does not take."""
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r}: the port takes "
+            f"{sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[cfg.compute_dtype]
+
+
+def _caster(dtype):
+    """x -> x in `dtype` (identity for None)."""
+    return (lambda x: x) if dtype is None else (lambda x: x.to(dtype))
+
+
+def _wide(x):
+    """x in float32 if it is bf16, else as it is (float32 or float64)."""
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 def rbf_expand(d, low=0.0, high=1.0, gap=0.025):
@@ -66,7 +103,8 @@ def edge_geometry(pos, idx, box, flip_dir=False):
 
 
 class LayerNorm(nn.Module):
-    """flax-named LayerNorm (`scale`, `bias`), eps 1e-6."""
+    """flax-named LayerNorm (`scale`, `bias`), eps 1e-6; a bf16 input is
+    normalised in float32 and the output is float32, as flax's."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -74,7 +112,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x, train: bool = False):
-        return F.layer_norm(x, x.shape[-1:], self.scale, self.bias, LN_EPS)
+        return F.layer_norm(_wide(x), x.shape[-1:], self.scale, self.bias,
+                            LN_EPS)
 
 
 class BatchNorm(nn.Module):
@@ -85,7 +124,8 @@ class BatchNorm(nn.Module):
     biased variance over every axis but the last (E[x^2] - E[x]^2, clipped
     at 0: flax's use_fast_variance) and updates the running stats to
     0.9 * old + 0.1 * batch, variance biased (F.batch_norm would store the
-    unbiased one)."""
+    unbiased one). A bf16 input is normalised in float32 and the output is
+    float32, as flax's."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -95,6 +135,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(dim))
 
     def forward(self, x, train: bool = False):
+        x = _wide(x)
         if train:
             axes = tuple(range(x.ndim - 1))
             mean = torch.mean(x, dim=axes)
@@ -121,11 +162,12 @@ class EdgeGatedConv(nn.Module):
 
     def __init__(self, node_dim: int, hidden_dim: int, edge_dim: int,
                  activation: str = "silu", drop_edge: bool = False,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, dtype=None):
         super().__init__()
-        self.act = get_activation(activation)
+        self.act = get_activation(activation, dtype)
         self.drop_edge = drop_edge
         self.use_pallas = use_pallas
+        self.dtype = dtype
         p = lambda *shape: nn.Parameter(torch.zeros(*shape))
         nd, hd = node_dim, hidden_dim
         self.edge_affine_w1, self.edge_affine_b1 = p(edge_dim, hd), p(hd)
@@ -135,8 +177,8 @@ class EdgeGatedConv(nn.Module):
         self.phi_dst_w, self.phi_dst_b = p(nd, hd), p(hd)
         self.phi_edge_w, self.phi_edge_b = p(nd, hd), p(hd)
         self.phi_w, self.phi_b = p(hd, nd), p(nd)
-        self.src_affine = Dense(nd, hd)
-        self.dst_affine = Dense(nd, hd)
+        self.src_affine = Dense(nd, hd, dtype)
+        self.dst_affine = Dense(nd, hd, dtype)
 
     def forward(self, h_raw, hn, e, idx, mask, train: bool = False,
                 generator=None):
@@ -150,6 +192,7 @@ class EdgeGatedConv(nn.Module):
         if self.drop_edge and train:
             mask = mask & _bernoulli(mask.shape, DROP_EDGE_KEEP, mask.device,
                                      generator)
+        cd = _caster(self.dtype)
         if self.use_pallas:
             agg = fused_conv_gather_message(
                 e, idx, mask, hn, src_nodes, dst_code,
@@ -158,25 +201,30 @@ class EdgeGatedConv(nn.Module):
                 self.theta_edge_w1, self.theta_edge_b1,
                 self.theta_edge_w2, self.theta_edge_b2)
         else:
-            edge_code = act(e @ self.edge_affine_w1 + self.edge_affine_b1) \
-                @ self.edge_affine_w2 + self.edge_affine_b2
+            edge_code = act(cd(e) @ cd(self.edge_affine_w1)
+                            + cd(self.edge_affine_b1)) \
+                @ cd(self.edge_affine_w2) + cd(self.edge_affine_b2)
             pre = edge_code + gather_nodes(src_nodes, idx) \
                 + dst_code[:, :, None]
-            e_emb = act(act(pre) @ self.theta_edge_w1 + self.theta_edge_b1) \
-                @ self.theta_edge_w2 + self.theta_edge_b2
+            e_emb = act(act(pre) @ cd(self.theta_edge_w1)
+                        + cd(self.theta_edge_b1)) \
+                @ cd(self.theta_edge_w2) + cd(self.theta_edge_b2)
             msg = gather_nodes(hn, idx) * e_emb
             agg = torch.sum(torch.where(mask[..., None], msg, 0.0), dim=2)
-        delta = act(hn @ self.phi_dst_w + self.phi_dst_b
-                    + agg @ self.phi_edge_w + self.phi_edge_b) \
-            @ self.phi_w + self.phi_b
-        return h_raw + delta
+        delta = act(cd(hn) @ cd(self.phi_dst_w) + cd(self.phi_dst_b)
+                    + cd(agg) @ cd(self.phi_edge_w) + cd(self.phi_edge_b)) \
+            @ cd(self.phi_w) + cd(self.phi_b)
+        if self.dtype is None:
+            return h_raw + delta
+        # Unrounded: ConvBlock rounds it for the residual stream.
+        return h_raw.float() + delta.float()
 
 
 class ConvBlock(nn.Module):
     """Pre-norm residual stack: h = conv(norm(h)) + h, per layer; children
     named norm_{l} and conv_{l} as in flax."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, dtype=None):
         super().__init__()
         self.n_layers = cfg.conv_layers
         d = cfg.encoding_size
@@ -186,13 +234,19 @@ class ConvBlock(nn.Module):
             self.add_module(f"conv_{layer}", EdgeGatedConv(
                 d, cfg.hidden_dim, cfg.edge_embedding_dim,
                 cfg.conv_activation, drop_edge=cfg.drop_edge,
-                use_pallas=cfg.use_pallas))
+                use_pallas=cfg.use_pallas, dtype=dtype))
 
     def forward(self, h, e, idx, mask, train: bool = False, generator=None):
+        """Under a bf16 compute dtype each layer's sum h + delta reaches the
+        next norm in float32 and the residual stream in bf16, as in the
+        jitted JAX model, where XLA keeps the sum in float32 inside the
+        fusion that feeds the norm."""
+        norm_in = h
         for layer in range(self.n_layers):
-            hn = getattr(self, f"norm_{layer}")(h, train)
-            h = getattr(self, f"conv_{layer}")(h, hn, e, idx, mask, train,
-                                               generator)
+            hn = getattr(self, f"norm_{layer}")(norm_in, train)
+            norm_in = getattr(self, f"conv_{layer}")(h, hn, e, idx, mask,
+                                                     train, generator)
+            h = norm_in.to(h.dtype)
         return h
 
 
@@ -213,6 +267,14 @@ class GAMDNet(nn.Module):
         if cfg.update_edge or not cfg.expand_edge:
             raise NotImplementedError(
                 "update_edge / expand_edge=False are not ported")
+        self.dtype = compute_dtype(cfg)
+        if self.dtype is not None and cfg.use_pallas:
+            which = ("use_pallas and use_pallas_encoder (the conv kernel "
+                     "pair and edge_encoder)" if cfg.use_pallas_encoder
+                     else "use_pallas (the conv kernel pair)")
+            raise NotImplementedError(
+                f"compute_dtype={cfg.compute_dtype!r} runs on the plain "
+                f"path only: {which} compute in float32")
         self.cfg = cfg
         h, e = cfg.hidden_dim, cfg.edge_embedding_dim
         in_feats = 3 + 1 + cfg.n_rbf
@@ -223,10 +285,11 @@ class GAMDNet(nn.Module):
         self.edge_ln_scale = nn.Parameter(torch.ones(e))
         self.edge_ln_bias = p(e)
         self.node_emb = p(1, cfg.encoding_size)
-        self.graph_conv = ConvBlock(cfg)
+        self.graph_conv = ConvBlock(cfg, self.dtype)
         self.graph_decoder = MLP(cfg.encoding_size, cfg.out_feats,
                                  hidden_dim=h, hidden_layer=2,
-                                 activation=cfg.mlp_activation)
+                                 activation=cfg.mlp_activation,
+                                 dtype=self.dtype)
 
     @torch.no_grad()
     def load_params(self, params, batch_stats=None):
@@ -265,17 +328,19 @@ class GAMDNet(nn.Module):
         expansion, the edge LayerNorm, and in train mode edge dropout
         cfg.dropout (inverse-scaled, as flax) drawn from `generator`."""
         cfg = self.cfg
-        act = get_activation(cfg.mlp_activation)
+        act = get_activation(cfg.mlp_activation, self.dtype)
         unit, dist = edge_geometry(pos, idx, box, flip_dir=cfg.flip_dir)
         std_dist = (dist - length_mean) / length_std
         feats = torch.cat([unit, std_dist[..., None],
                            rbf_expand(std_dist, cfg.rbf_low, cfg.rbf_high,
                                       cfg.rbf_gap)], dim=-1)
-        z = act(feats @ self.edge_encoder_w0 + self.edge_encoder_b0)
-        z = act(z @ self.edge_encoder_w1 + self.edge_encoder_b1)
-        e = z @ self.edge_encoder_w2 + self.edge_encoder_b2
-        e = F.layer_norm(e, e.shape[-1:], eps=LN_EPS) * self.edge_ln_scale \
-            + self.edge_ln_bias
+        cd = _caster(self.dtype)
+        z = act(cd(feats) @ cd(self.edge_encoder_w0)
+                + cd(self.edge_encoder_b0))
+        z = act(z @ cd(self.edge_encoder_w1) + cd(self.edge_encoder_b1))
+        e = z @ cd(self.edge_encoder_w2) + cd(self.edge_encoder_b2)
+        e = F.layer_norm(_wide(e), e.shape[-1:], eps=LN_EPS).to(e.dtype) \
+            * self.edge_ln_scale + self.edge_ln_bias
         if train and cfg.dropout > 0.0:
             keep_prob = 1.0 - cfg.dropout
             keep = _bernoulli(e.shape, keep_prob, e.device, generator)
@@ -306,6 +371,7 @@ class GAMDNet(nn.Module):
             e = self.encode_edges(pos, idx, box, length_mean, length_std,
                                   train, generator)
         b, n, _ = pos.shape
-        h = self.node_emb.expand(b, n, self.cfg.encoding_size)
+        h = _caster(self.dtype)(
+            self.node_emb.expand(b, n, self.cfg.encoding_size))
         h = self.graph_conv(h, e, idx, mask, train, generator)
-        return self.graph_decoder(h)
+        return _wide(self.graph_decoder(h))

@@ -102,8 +102,9 @@ def load_library():
     """The loaded library (built first if needed), with argtypes set."""
     import ctypes
 
-    from gamd_tpu_torch.ops import (banded, conv_gather, encoder, mega,
-                                    message, nhc)
+    from gamd_tpu_torch.ops import (banded, conv_gather, encoder,
+                                    gather_probe, mega, message, mxu_probe,
+                                    nhc)
 
     lib = ctypes.CDLL(build()["path"])
     mega.declare(lib)
@@ -112,4 +113,6 @@ def load_library():
     banded.declare(lib)
     nhc.declare(lib)
     message.declare(lib)
+    mxu_probe.declare(lib)
+    gather_probe.declare(lib)
     return lib

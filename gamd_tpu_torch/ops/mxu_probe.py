@@ -1,0 +1,251 @@
+"""The tensor-core probe's loop: the plain versions of the five stage
+bodies of scripts/bench_mxu.py and the wrapper of their Hopper kernel,
+csrc/mxu_probe.cu.
+
+Each body is one stage of the megakernel's forward at the LJ-258 shapes,
+run `iters` times with the accumulator carried from iteration to
+iteration and returned after the loop (bench_mxu.py::loop_kernel):
+
+* "peak" (peak_body, bench_mxu.py:150): a, w [512, 512] bf16; four chained
+  bf16 products with fp32 accumulation, each rounded to bf16, then
+  acc * 0.5 + x;
+* "gather_mm" (gmm_body :185): a prebuilt bf16 one-hot [rows, n_pad] times
+  the hi and lo node tables nh, nl [n_pad, 128] bf16;
+* "gather_full" (gfull_body :215): the one-hot built from idx [rows, 1]
+  int32, the two gathers, and the hi/lo source affine with ws [128, 128]
+  fp32 split into bf16 hi and lo;
+* "edge_mlp" (emlp_body :247): e [rows, 128] bf16 through four products
+  with bf16(w), w [128, 128] fp32, and silu;
+* "repeat" (rep_body :264): dst [tile_n, 128] fp32 broadcast k times along
+  the rows.
+
+Every body reads the carry through a keep-alive term scaled by 1e-30 and
+the salt [8, 128] fp32 (salt[0, 0]), as JAX's: numerically void, it keeps
+each iteration dependent on the last. The plain versions read JAX's global
+acc[0:1, :] (acc[0, 0]); the kernel's blocks each read their own tile's
+first row. They agree because the term rounds away.
+
+The plain versions compute each bf16 product as a float32 matmul of
+bf16-valued tensors (exact products, float32 sums; TF32 off on the card)
+and round to bf16 where JAX's .astype(bf16) rounds. mxu_loop is the entry:
+a CPU tensor runs the plain version; a CUDA tensor makes one launch of
+loop_kernel<Body> or raises, counted in mxu_loop.launches[body].
+"""
+
+import contextlib
+import ctypes
+
+import torch
+
+from gamd_tpu_torch.ops.mega import _check
+
+#: Bodies, by their code in the C entry.
+BODIES = {"peak": 0, "gather_mm": 1, "gather_full": 2, "edge_mlp": 3,
+          "repeat": 4}
+#: Output rows of one block and threads of a block of the kernel.
+BLOCK_ROWS, THREADS = 32, 256
+PEAK_N = 512     # the peak chain's [512, 512]
+WIDTH = 128      # every other stage's width
+KEEP = 1e-30     # the keep-alive scale
+
+
+def _bf(t):
+    """t rounded to bf16, as float32."""
+    return t.to(torch.bfloat16).float()
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """float32 matmuls in full float32 on the card (TF32 off) while
+    entered; the setting before is restored."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _keep_bf16(acc, salt):
+    """bf16(acc[0:1] 1e-30) + bf16(salt[0, 0] 1e-30), rounded to bf16."""
+    return _bf(_bf(acc[0:1] * KEEP) + _bf(salt[0, 0] * KEEP))
+
+
+def peak_reference(a, w, salt, iters):
+    """Plain peak_body loop: [512, 512] fp32."""
+    a32, w32 = a.float(), w.float()
+    acc = torch.zeros((PEAK_N, PEAK_N), device=a.device)
+    with fp32_matmul():
+        for _ in range(iters):
+            x = _bf(a32 + _keep_bf16(acc, salt))
+            for _ in range(4):
+                x = _bf(x @ w32)
+            acc = acc * 0.5 + x
+    return acc
+
+
+def gather_mm_reference(onehot, nh, nl, salt, iters):
+    """Plain gmm_body loop: [rows, 128] fp32."""
+    oh, nh32, nl32 = onehot.float(), nh.float(), nl.float()
+    acc = torch.zeros((onehot.shape[0], WIDTH), device=onehot.device)
+    with fp32_matmul():
+        for _ in range(iters):
+            nh_eff = _bf(nh32 + _keep_bf16(acc, salt))
+            acc = acc * 0.5 + oh @ nh_eff + oh @ nl32
+    return acc
+
+
+def gather_full_reference(idx, nh, nl, ws, salt, iters):
+    """Plain gfull_body loop: [rows, 128] fp32."""
+    nh32, nl32 = nh.float(), nl.float()
+    iota = torch.arange(nh.shape[0], device=idx.device)[None, :]
+    ws_hi = _bf(ws)
+    ws_lo = _bf(ws - ws_hi)
+    acc = torch.zeros((idx.shape[0], WIDTH), device=idx.device)
+    with fp32_matmul():
+        for _ in range(iters):
+            shift = (acc[0, 0] * KEEP + salt[0, 0] * KEEP).to(torch.int32)
+            oh = (iota == idx + shift).float()
+            ghi, glo = oh @ nh32, oh @ nl32
+            src = (_bf(ghi) @ ws_hi + _bf(ghi) @ ws_lo) + _bf(glo) @ ws_hi
+            acc = acc * 0.5 + src + ghi + glo
+    return acc
+
+
+def _silu(x):
+    return x * torch.sigmoid(x)
+
+
+def edge_mlp_reference(e, w, salt, iters):
+    """Plain emlp_body loop: [rows, 128] fp32."""
+    e32, wb = e.float(), _bf(w)
+
+    def mm(x):
+        return _bf(x) @ wb
+
+    acc = torch.zeros((e.shape[0], WIDTH), device=e.device)
+    with fp32_matmul():
+        for _ in range(iters):
+            x = e32 + acc[0:1] * KEEP + salt[0, 0] * KEEP
+            z = _silu(mm(x))
+            z = mm(z)
+            z = _silu(mm(_silu(z)))
+            z = mm(z)
+            acc = acc * 0.5 + z
+    return acc
+
+
+def repeat_reference(dst, k, salt, iters):
+    """Plain rep_body loop: [tile_n k, 128] fp32."""
+    acc = torch.zeros((dst.shape[0] * k, WIDTH), device=dst.device)
+    for _ in range(iters):
+        acc = acc * 0.5 + torch.repeat_interleave(
+            dst + acc[0:1] * KEEP + salt[0, 0] * KEEP, k, dim=0)
+    return acc
+
+
+def mxu_loop_reference(body, inputs, salt, iters, k=1):
+    """The plain version of mxu_loop."""
+    if body == "peak":
+        return peak_reference(*inputs, salt, iters)
+    if body == "gather_mm":
+        return gather_mm_reference(*inputs, salt, iters)
+    if body == "gather_full":
+        return gather_full_reference(*inputs, salt, iters)
+    if body == "edge_mlp":
+        return edge_mlp_reference(*inputs, salt, iters)
+    return repeat_reference(*inputs, k, salt, iters)
+
+
+def output_rows(body, inputs, k=1):
+    """Rows of the body's carry."""
+    if body == "peak":
+        return PEAK_N
+    if body == "repeat":
+        return inputs[0].shape[0] * k
+    return inputs[0].shape[0]
+
+
+def declare(lib):
+    """Set argtypes/restype of the library's probe-loop entry."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gamd_mxu_loop.argtypes = [i, p, p, p, p, p,      # body, in0-3, salt
+                                  i, i, i, i, p, p]      # rows n_pad k iters
+    lib.gamd_mxu_loop.restype = ctypes.c_int              # out, stream
+
+
+def _expected(body, inputs, k):
+    """{name: (dtype, shape)} of the body's inputs, and (rows, n_pad)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    if body == "peak":
+        shape = (PEAK_N, PEAK_N)
+        return [("a", bf, shape), ("w", bf, shape)], PEAK_N, 0
+    if body == "repeat":
+        tile_n = inputs[0].shape[0] if inputs[0].ndim == 2 else 0
+        return [("dst", f32, (tile_n, WIDTH))], tile_n * k, 0
+    rows = inputs[0].shape[0] if inputs[0].ndim == 2 else 0
+    if body == "edge_mlp":
+        return [("e", bf, (rows, WIDTH)), ("w", f32, (WIDTH, WIDTH))], \
+            rows, 0
+    n_pad = inputs[1].shape[0] if inputs[1].ndim == 2 else 0
+    table = (n_pad, WIDTH)
+    head = (("onehot", bf, (rows, n_pad)) if body == "gather_mm"
+            else ("idx", torch.int32, (rows, 1)))
+    tail = [] if body == "gather_mm" else [("ws", f32, (WIDTH, WIDTH))]
+    return [head, ("nh", bf, table), ("nl", bf, table), *tail], rows, n_pad
+
+
+def mxu_loop(body, inputs, salt, iters, k=1):
+    """`iters` iterations of one stage body; the carry after the loop.
+
+    Args:
+        body: one of BODIES.
+        inputs: the body's tensors, in the order of the module docstring
+            (peak (a, w); gather_mm (onehot, nh, nl); gather_full (idx,
+            nh, nl, ws); edge_mlp (e, w); repeat (dst,)).
+        salt: [8, 128] float32; salt[0, 0] enters the keep-alive term.
+        iters: iterations in the call (>= 0).
+        k: the repeat body's broadcast factor.
+
+    Returns [512, 512] (peak) or [rows, 128] float32. A CPU `salt` runs
+    the plain version; a CUDA `salt` makes one launch of
+    csrc/mxu_probe.cu's loop kernel for the body (rows a multiple of 32,
+    n_pad of 32) or raises.
+    """
+    fn = "mxu_loop"
+    if body not in BODIES:
+        raise ValueError(f"{fn}: body must be one of {sorted(BODIES)}, not "
+                         f"{body!r}")
+    if int(iters) < 0:
+        raise ValueError(f"{fn}: iters must be >= 0, not {iters}")
+    if salt.device.type == "cpu":
+        return mxu_loop_reference(body, inputs, salt, int(iters), k)
+    if salt.device.type != "cuda":
+        raise ValueError(f"{fn} runs on cuda or cpu, not {salt.device}")
+    dev = salt.device
+    _check(fn, "salt", salt, dev, torch.float32, (8, WIDTH))
+    specs, rows, n_pad = _expected(body, inputs, int(k))
+    if len(inputs) != len(specs):
+        raise ValueError(f"{fn}: {body} takes {len(specs)} inputs "
+                         f"{[name for name, *_ in specs]}, not "
+                         f"{len(inputs)}")
+    for (name, dtype, shape), t in zip(specs, inputs):
+        _check(fn, name, t, dev, dtype, shape)
+    if rows <= 0 or rows % BLOCK_ROWS or n_pad % BLOCK_ROWS:
+        raise ValueError(f"{fn}: {body} needs rows a positive multiple of "
+                         f"{BLOCK_ROWS} and n_pad a multiple of {BLOCK_ROWS};"
+                         f" got rows {rows}, n_pad {n_pad}")
+    width = PEAK_N if body == "peak" else WIDTH
+    out = torch.empty((rows, width), device=dev, dtype=torch.float32)
+    ptrs = [t.data_ptr() for t in inputs] + [None] * (4 - len(inputs))
+    from gamd_tpu_torch.ops.build import load_library
+    err = load_library().gamd_mxu_loop(
+        BODIES[body], *ptrs, salt.data_ptr(), rows, n_pad, int(k),
+        int(iters), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
+    mxu_loop.launches[body] += 1
+    return out
+
+
+mxu_loop.launches = dict.fromkeys(BODIES, 0)

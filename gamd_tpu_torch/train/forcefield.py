@@ -88,12 +88,18 @@ class GNNForceField:
 
     def _kernel_params(self, path):
         """MegaParams with the force denormalisation and the unit folded in,
-        after the refusals the kernel paths share with the JAX package."""
+        after the refusals the kernel paths share with the JAX package, and
+        a compute dtype other than float32, which the kernels would
+        ignore."""
         cfg = self.model_cfg
         if self.system.box is None or not cfg.expand_edge \
                 or cfg.update_edge:
             raise ValueError(f"the {path} path requires a fixed scalar box, "
                              "expand_edge=True, update_edge=False")
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"the {path} path computes in float32: compute_dtype="
+                f"{cfg.compute_dtype!r} runs on the plain force_fn only")
         return pack_params(self.params, cfg, batch_stats=self.batch_stats,
                            force_std=max(self.force_stat.std, 1e-12),
                            force_mean=self.force_stat.safe_mean,

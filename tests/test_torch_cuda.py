@@ -1,7 +1,8 @@
 """The CUDA kernels mega_forward, mega_md_steps, the conv-message pair
 (conv_msg_gather forward and backward), edge_encoder, banded_msg,
-nhc_half_step, nhc_chain_probe (both forms) and the op library's
-gather_agg, edge_mlp_agg, conv_msg and conv_layer against their plain
+nhc_half_step, nhc_chain_probe (both forms), the op library's
+gather_agg, edge_mlp_agg, conv_msg and conv_layer, and the probes'
+mxu_loop (five bodies) and onehot_gather (five forms) against their plain
 PyTorch versions, on a Hopper card (capability 9.x).
 Without one every test here skips.
 
@@ -24,7 +25,7 @@ from gamd_tpu_torch.md import integrators as integ
 from gamd_tpu_torch.md.simulate import Simulation
 from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
 from gamd_tpu_torch.neighbors.dense import build_nbrs, dense_neighbor_list
-from gamd_tpu_torch.ops import banded, message, nhc
+from gamd_tpu_torch.ops import banded, gather_probe, message, mxu_probe, nhc
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
@@ -33,7 +34,7 @@ from gamd_tpu_torch.ops.mega import (md_steps_reference, mega_forward,
                                      mega_md_steps, pack_params,
                                      reference_forward)
 from gamd_tpu_torch.physics.lennard_jones import lj_fluid_box
-from gamd_tpu_torch.tools import probe_nhc_kernel
+from gamd_tpu_torch.tools import bench_mxu, probe_gather, probe_nhc_kernel
 from gamd_tpu_torch.tools.bench_large import (banded_layer_inputs, lj_large,
                                               seeded_force_field)
 from gamd_tpu_torch.train.checkpoint import load_self_describing
@@ -804,3 +805,98 @@ def test_op_kernels_reject_what_they_do_not_take(cuda):
         message.pallas_gather_multiply_aggregate(
             x["table"].requires_grad_(), x["gate"], x["idx"], x["mask"])
     assert [entry.launches for entry in _OP_ENTRY.values()] == counts
+
+
+def _mxu_stages(dev):
+    return bench_mxu.stage_inputs(bench_mxu.parse_args([]), dev)
+
+
+@pytest.mark.parametrize("label", ["peak", "gather_mm", "gather_mm_8M",
+                                   "gather_full", "edge_mlp", "repeat"])
+def test_mxu_loop_matches_plain_version(cuda, label):
+    """Each body at bench_mxu.py's default shapes, iters 2 and 3, a
+    seeded salt: one launch, finite, within bench_mxu.KERNEL_RTOL of the
+    plain loop."""
+    body, inputs, k = _mxu_stages(cuda)[label]
+    salt = torch.randn((8, 128), device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(1))
+    for iters in (2, 3):
+        before = mxu_probe.mxu_loop.launches[body]
+        out = mxu_probe.mxu_loop(body, inputs, salt, iters, k)
+        torch.cuda.synchronize()
+        assert mxu_probe.mxu_loop.launches[body] == before + 1
+        ref = mxu_probe.mxu_loop_reference(body, inputs, salt, iters, k)
+        assert bool(torch.isfinite(out).all()) and out.shape == ref.shape
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        assert err <= bench_mxu.KERNEL_RTOL[body] * scale, (label, err)
+
+
+def test_mxu_loop_is_run_to_run_identical(cuda):
+    stages = _mxu_stages(cuda)
+    salt = torch.zeros((8, 128), device=cuda)
+    for body, inputs, k in stages.values():
+        a = mxu_probe.mxu_loop(body, inputs, salt, 4, k)
+        b = mxu_probe.mxu_loop(body, inputs, salt, 4, k)
+        assert torch.equal(a, b), body
+
+
+def test_mxu_loop_rejects_what_it_does_not_take(cuda):
+    """An fp32 peak operand, 40 rows (not a multiple of 32), a CPU salt
+    with CUDA inputs: refused, nothing launches."""
+    stages = _mxu_stages(cuda)
+    salt = torch.zeros((8, 128), device=cuda)
+    counts = dict(mxu_probe.mxu_loop.launches)
+    a, w = stages["peak"][1]
+    with pytest.raises(ValueError, match="a must be"):
+        mxu_probe.mxu_loop("peak", (a.float(), w), salt, 2)
+    e, w1 = stages["edge_mlp"][1]
+    with pytest.raises(ValueError, match="multiple of 32"):
+        mxu_probe.mxu_loop("edge_mlp", (e[:40].contiguous(), w1), salt, 2)
+    with pytest.raises(ValueError, match="body"):
+        mxu_probe.mxu_loop("conv", (e, w1), salt, 2)
+    assert mxu_probe.mxu_loop.launches == counts
+
+
+@pytest.mark.parametrize("form", list(gather_probe.FORMS))
+def test_onehot_gather_matches_plain_version(cuda, form):
+    """Each form at probe_gather.py's inputs, iters 2: one launch, the
+    gathered rows (the last product) bit for bit equal to the plain
+    version's, the carry within 1e-5 of iters sum |T[idx]| (exact for
+    int8 x int8), and equal to iters sum T[idx]."""
+    idx, tbl = probe_gather.probe_inputs()
+    x = probe_gather.form_inputs(form, idx, tbl, cuda)
+    before = gather_probe.onehot_gather.launches[form]
+    out, g = probe_gather.call(x, form, 2, product=True)
+    torch.cuda.synchronize()
+    assert gather_probe.onehot_gather.launches[form] == before + 1
+    ref, g_ref = gather_probe.onehot_gather_reference(
+        x["idx"], x["tbl"], 2, form, x["starts"], product=True)
+    assert torch.equal(g, g_ref)
+    assert torch.equal(g, x["tbl"].float()[x["idx"][:, 0].long()])
+    total, scale = probe_gather.gathered(x)
+    tol = 0.0 if form == "int8_int8" else 1e-5 * 2 * scale
+    assert float((out - ref).abs().max()) <= tol
+    assert abs(float(out[0, 0]) - 2 * total) <= max(tol, 1e-5 * 2 * scale)
+    assert bool((out == out[0, 0]).all())
+    again = probe_gather.call(x, form, 2)
+    assert torch.equal(again, out)
+
+
+def test_onehot_gather_rejects_what_it_does_not_take(cuda):
+    """int64 ids, a float32 table, starts on a full form, 40 rows: refused,
+    nothing launches."""
+    idx, tbl = probe_gather.probe_inputs()
+    x = probe_gather.form_inputs("bf16", idx, tbl, cuda)
+    counts = dict(gather_probe.onehot_gather.launches)
+    with pytest.raises(ValueError, match="idx"):
+        gather_probe.onehot_gather(x["idx"].long(), x["tbl"], 2, "bf16")
+    with pytest.raises(ValueError, match="tbl"):
+        gather_probe.onehot_gather(x["idx"], x["tbl"].float(), 2, "bf16")
+    with pytest.raises(ValueError, match="starts"):
+        gather_probe.onehot_gather(x["idx"], x["tbl"], 2, "bf16",
+                                   starts=x["idx"][:8, 0].contiguous())
+    with pytest.raises(ValueError, match="multiple of 32"):
+        gather_probe.onehot_gather(x["idx"][:40].contiguous(), x["tbl"], 2,
+                                   "bf16")
+    assert gather_probe.onehot_gather.launches == counts

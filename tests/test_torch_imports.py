@@ -11,7 +11,8 @@ import textwrap
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "ninja", "gamd_tpu")
 #: Modules of the later slices (large N; the integrators and the NHC
-#: kernel; the op library), which the probe must have imported.
+#: kernel; the op library; the tensor-core probes), which the probe must
+#: have imported.
 NEW_IN_SLICES = ("gamd_tpu_torch.neighbors.cell_list",
                  "gamd_tpu_torch.neighbors.search",
                  "gamd_tpu_torch.ops.banded",
@@ -20,7 +21,11 @@ NEW_IN_SLICES = ("gamd_tpu_torch.neighbors.cell_list",
                  "gamd_tpu_torch.tools.probe_nhc_kernel",
                  "gamd_tpu_torch.ops.aggregate",
                  "gamd_tpu_torch.ops.message",
-                 "gamd_tpu_torch.tools.op_library")
+                 "gamd_tpu_torch.tools.op_library",
+                 "gamd_tpu_torch.ops.mxu_probe",
+                 "gamd_tpu_torch.ops.gather_probe",
+                 "gamd_tpu_torch.tools.bench_mxu",
+                 "gamd_tpu_torch.tools.probe_gather")
 
 PROBE = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
