@@ -31,8 +31,12 @@ conv layer in one form of the library (tools/op_library.py). Then its
 tensor-core probes, each product an mma.sync in a hand-written CUDA
 kernel: tools/bench_mxu.py (scripts/bench_mxu.py's loop kernel, five stage
 bodies through mxu_loop) and tools/probe_gather.py (scripts/probe_gather.py's
-one-hot gathers, five forms through onehot_gather). Phases, one flushed
-line or more each:
+one-hot gathers, five forms through onehot_gather), whose lane, sublane and
+transpose forms are the hand-written CUDA kernels lane_gather (two widths),
+sublane_gather and transpose_probe. Then its replica path: R=8 LJ-258
+systems in one call of mega_forward and of mega_md_steps,
+Simulation.run_replicas under megastep Langevin and per-step NHC, and
+tools/bench_replicas.py. Phases, one flushed line or more each:
 
   0. card (nvidia-smi name and power limit), torch and nvcc versions;
   1. build the CUDA sources with nvcc (or reuse the hashed library);
@@ -142,7 +146,28 @@ line or more each:
      rows (the last product) bit for bit and equal to T[idx], the carry
      within 1e-5 of iters sum |T[idx]| (int8 x int8 exact), repeating bit
      for bit; the plain versions' times at iters 2000;
- 34. the kernels line (JSON), then the result line (JSON) last.
+ 34. the lane, sublane and transpose forms of phase 32's run: each loop
+     live (status OK, collapse ratio 2.8-5.2), its carry iters x its sum
+     (1e-5), its launches, and at iters 2 against its plain version on the
+     card: the last result ([256, 13056], [13056, 256] or [384, 256]) bit
+     for bit, the carry within 1e-5 of iters x one iteration's sum of
+     magnitudes, a repeat bit for bit; the times beside the plain
+     version's, the library's (torch.gather, index_select, one copy of 34
+     transposed views, iters calls replayed from a CUDA graph) and the
+     bound;
+ 35. mega_forward on 8 LJ-258 frames [8, 258, 3] (the start frame and 7
+     jittered copies, each with its own list) in one launch against 8
+     single launches (bit for bit counted) and the plain version, each
+     within 5e-3 std(F); the times against the single call's;
+ 36. mega_md_steps at R=8, one 20-step window noise off and on, against
+     the plain window at R=8 (2e-4 in x and v, KE rtol 1e-4), replica 0
+     bit for bit the single-system window of its inputs; the times;
+ 37. Simulation.run_replicas at R=8, megastep Langevin and per-step NHC
+     (force_fn(megakernel=True)), 20 warm-up and 200 timed steps: the
+     aggregate steps/s, the launches (one window or one forward a step for
+     all replicas), the shapes, replicas apart, the Langevin mean T;
+ 38. tools.bench_replicas 8 100 in process under each integrator;
+ 39. the kernels line (JSON), then the result line (JSON) last.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 card; without one it exits non-zero and prints no result. Any failed check
@@ -190,10 +215,11 @@ from gamd_tpu_torch.physics.lennard_jones import (LJParams, lj_energy_dense,
 from gamd_tpu_torch.physics.minimize import fire_minimize
 from gamd_tpu_torch.physics.rdf import radial_distribution
 from gamd_tpu_torch.tools import (analyze_rollout, bench_large, bench_mxu,
-                                  op_library, probe_gather,
+                                  bench_replicas, op_library, probe_gather,
                                   probe_nhc_kernel, run_md)
 from gamd_tpu_torch.tools.bench_large import (LARGE_MD, banded_layer_inputs,
                                               lj_large, seeded_force_field)
+from gamd_tpu_torch.tools.bench_mxu import graph_ms
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
 from gamd_tpu_torch.tools.lj_train_slice import lj_train_slice
 from gamd_tpu_torch.tools.profile_step import kernel_times
@@ -245,7 +271,10 @@ OP_GRAD_RTOL = 1e-5       # per grad: max |d| / max |grad|, Function vs plain
 THERMO_HEADER = ('#"Step"\t"Time (ps)"\t"Kinetic Energy (kJ/mole)"\t'
                  '"Temperature (K)"')
 PROBE_CARRY_RTOL = 1e-5   # one-hot carry vs plain, / (iters sum |T[idx]|)
-PROBE_CHECK_ITERS = 2     # phases 31 and 33
+PROBE_CHECK_ITERS = 2     # phases 31, 33 and 34
+REPLICAS = 8              # phases 35-38
+REPLICA_STEPS = 200       # timed steps of each run_replicas path (phase 37)
+BENCH_REPLICAS_STEPS = 100  # phase 38's n_steps
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
@@ -1837,24 +1866,6 @@ def onehot_bound(form, x, iters):
                       rate), flops / 1e9)
 
 
-def library_ms(fn, iters):
-    """Device time (ms) of `iters` calls of fn, the same work as one probe
-    call of `iters` iterations: captured once in a CUDA graph and replayed
-    (CUDA events, median of 3), so that the host's ~20 us a PyTorch call
-    does not enter."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    return time_ms(graph.replay, reps=3, warmup=1)
-
-
 def mxu_probe_phases(dev, card):
     """Phases 30-31 (module docstring). Returns the kernels-line entries of
     mxu_loop's five bodies and the launches of mega_forward in
@@ -1892,10 +1903,10 @@ def mxu_probe_phases(dev, card):
             x = torch.matmul(x, w)
         return x
 
-    libs = {"peak": library_ms(chain, iters),
-            "gather_mm": library_ms(
+    libs = {"peak": graph_ms(chain, iters),
+            "gather_mm": graph_ms(
                 lambda: (torch.matmul(oh, nh), torch.matmul(oh, nl)), iters),
-            "repeat": library_ms(
+            "repeat": graph_ms(
                 lambda: torch.repeat_interleave(
                     dst, args.k, dim=0, output_size=dst.shape[0] * args.k),
                 iters)}
@@ -1969,12 +1980,18 @@ def gather_probe_phases(dev, card):
 
     # -- phase 32: tools.probe_gather at its defaults -----------------------
     gather_probe.onehot_gather.launches = dict.fromkeys(gather_probe.FORMS, 0)
+    gather_probe.lane_gather.launches = dict.fromkeys(
+        gather_probe.LANE_WIDTHS, 0)
+    gather_probe.sublane_gather.launches = 0
+    gather_probe.transpose_probe.launches = 0
     t0 = time.perf_counter()
     res = probe_gather.main([])
     seconds = time.perf_counter() - t0
     launches = dict(gather_probe.onehot_gather.launches)
-    lines = {form: res[key] for key, _, form in probe_gather.VARIANTS
-             if form is not None}
+    form_launches = {form: probe_gather.launches(form)
+                     for form in probe_gather.GATHER_FORMS}
+    all_lines = {form: res[key] for key, _, form in probe_gather.VARIANTS}
+    lines = {form: all_lines[form] for form in gather_probe.FORMS}
     say(f"phase 32: tools.probe_gather in process at its defaults "
         f"({seconds:.1f} s): " + "; ".join(
             f"{form} {line['per_edge_stream_us']:.3f} us/iter, calib "
@@ -2013,12 +2030,12 @@ def gather_probe_phases(dev, card):
     libs = {}
     for form, x in xs.items():
         try:
-            libs[form] = library_ms(onehot_of(x, form), iters)
+            libs[form] = graph_ms(onehot_of(x, form), iters)
         except (RuntimeError, AttributeError) as exc:   # torch._int_mm
             libs[form] = None
             say(f"phase 32: {form}: no library time ({exc})")
     flat = xs["bf16"]["idx"][:, 0].long()
-    index_ms = library_ms(
+    index_ms = graph_ms(
         lambda: torch.index_select(xs["bf16"]["tbl"], 0, flat), iters)
     say(f"phase 32: the same products by cuBLAS (torch.matmul; int8 x int8 "
         f"by torch._int_mm): " + ", ".join(
@@ -2042,7 +2059,7 @@ def gather_probe_phases(dev, card):
         rows_equal = torch.equal(g, g_ref) and torch.equal(
             g, x["tbl"].float()[x["idx"][:, 0].long()])
         err = float((out - ref).abs().max())
-        _, scale = probe_gather.gathered(x)
+        _, scale = probe_gather.gathered(x, form)
         tol = (0.0 if form == "int8_int8"
                else PROBE_CARRY_RTOL * PROBE_CHECK_ITERS * scale)
         say(f"phase 33: onehot_gather {form} vs plain at iters "
@@ -2073,7 +2090,327 @@ def gather_probe_phases(dev, card):
             "library_ms": libs[form], "index_select_ms": index_ms,
             "iters": iters, "us_per_iter": line["per_edge_stream_us"],
             "calib_ratio": line["calib_ratio"]})
+    return kernels, all_lines, form_launches
+
+
+def form_bound(form, x, iters):
+    """(least ms, bound_by) of one call of a lane, sublane or transpose
+    form: one fp32 addition for each of the 256 x 13,056 values an
+    iteration (the transpose: 34 x 256 x 384) at the fp32 rate, against
+    the indices and the table read once and the carry written once."""
+    values = probe_gather.N_BLOCKS * probe_gather.EB * probe_gather.LANES
+    inputs = [t for t in (x["idx"], x["tbl"]) if t is not None]
+    return roofline(iters * values, tensor_bytes(*inputs) + 8 * 128 * 4)
+
+
+def plain_call(x, form, iters, product=False):
+    """The plain version of a lane, sublane or transpose form on x."""
+    if form in probe_gather.LANE_FORMS:
+        return gather_probe.lane_gather_reference(
+            x["idx"], x["tbl"], iters, probe_gather.LANE_FORMS[form],
+            product)
+    if form == "sublane":
+        return gather_probe.sublane_gather_reference(x["idx"], x["tbl"],
+                                                     iters, product)
+    return gather_probe.transpose_probe_reference(
+        x["tbl"], iters, probe_gather.N_BLOCKS, product)
+
+
+def gather_form_phase(dev, card, lines, launches):
+    """Phase 34 (module docstring), on phase 32's tool lines and launches.
+    Returns the kernels-line entries of the four forms."""
+    idx, tbl = probe_gather.probe_inputs()
+    replaces = {"lane384": 147, "lane128x3": 147, "sublane": 178,
+                "transpose": 196}
+    say(f"phase 34: tools.probe_gather's lane, sublane and transpose "
+        f"forms: " + "; ".join(
+            f"{form} {lines[form]['per_edge_stream_us']:.4f} us/iter, "
+            f"calib {lines[form]['calib_ratio']:.3f} "
+            f"{lines[form]['status']}, parity {lines[form]['parity']:.2e}, "
+            f"library {lines[form]['library_us_per_iter']:.4f} us/iter"
+            for form in probe_gather.GATHER_FORMS)
+        + f"; launches {launches} [{card}]")
+    require(all(lines[form]["status"] == "OK"
+                for form in probe_gather.GATHER_FORMS),
+            "a lane, sublane or transpose loop collapsed")
+    require(all(lines[form]["parity"] <= PROBE_CARRY_RTOL
+                for form in probe_gather.GATHER_FORMS),
+            "a lane, sublane or transpose carry is not iters x its sum")
+    require(all(launches[form] > 0 for form in probe_gather.GATHER_FORMS),
+            f"a form did not launch: {launches}")
+    kernels = []
+    for form in probe_gather.GATHER_FORMS:
+        x = probe_gather.form_inputs(form, idx, tbl, dev)
+        out, g = probe_gather.call(x, form, PROBE_CHECK_ITERS, product=True)
+        again = probe_gather.call(x, form, PROBE_CHECK_ITERS)
+        torch.cuda.synchronize()
+        ref, g_ref = plain_call(x, form, PROBE_CHECK_ITERS, product=True)
+        torch.cuda.synchronize()
+        same = torch.equal(g, g_ref)
+        err = float((out - ref).abs().max())
+        _, scale = probe_gather.gathered(x, form)
+        tol = PROBE_CARRY_RTOL * PROBE_CHECK_ITERS * scale
+        say(f"phase 34: {form} vs plain at iters {PROBE_CHECK_ITERS}: "
+            f"result {list(g.shape)} bit for bit {same}; carry |d| "
+            f"{err:.3e} (tolerance {tol:.3e}: {PROBE_CARRY_RTOL} x iters "
+            f"x one iteration's sum of magnitudes); repeat bit for bit "
+            f"{torch.equal(out, again)}")
+        require(same, f"{form}: the result differs from its plain version")
+        require(err <= tol, f"{form}: the carry disagrees")
+        require(torch.equal(out, again), f"{form}: a repeat differs")
+        line = lines[form]
+        iters = line["iters"]
+        plain_ms = time_ms(lambda: plain_call(x, form, iters), reps=1,
+                           warmup=1)
+        bound_ms, bound_by = form_bound(form, x, iters)
+        say(f"phase 34: {form} {line['ms']:.4f} ms/call at iters {iters} "
+            f"({line['per_edge_stream_us']:.4f} us/iter, collapse ratio "
+            f"{line['calib_ratio']:.3f}), plain {plain_ms:.4f} ms/call "
+            f"(one call), library {line['library']} "
+            f"{line['library_ms']:.4f} ms for the same work, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), kernel at "
+            f"{bound_ms / line['ms']:.2%} of it [{card}]")
+        kernels.append({
+            "name": ("lane_gather:" + str(probe_gather.LANE_FORMS[form])
+                     if form in probe_gather.LANE_FORMS
+                     else {"sublane": "sublane_gather",
+                           "transpose": "transpose_probe"}[form]),
+            "route": "cuda",
+            "source": "gamd_tpu_torch/csrc/gather_forms.cu",
+            "replaces": f"scripts/probe_gather.py:{replaces[form]}",
+            "launches_by_path": {"probe_gather": launches[form]},
+            "max_abs_err": err, "ms": line["ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": line["library_ms"], "library": line["library"],
+            "iters": iters, "us_per_iter": line["per_edge_stream_us"],
+            "calib_ratio": line["calib_ratio"]})
     return kernels
+
+
+def replica_frames(pos, box, r):
+    """r LJ-258 frames: the start frame and r - 1 copies of it displaced by
+    a seeded 0.05 A jitter, wrapped, [r, N, 3]."""
+    gen = np.random.default_rng(35)
+    frames = [pos] + [space.wrap(pos + torch.as_tensor(
+        gen.normal(0.0, 0.05, pos.shape).astype(np.float32),
+        device=pos.device), box) for _ in range(r - 1)]
+    return torch.stack(frames)
+
+
+def replica_phases(dev, card, single_ms, single_window_ms):
+    """Phases 35-38 (module docstring). `single_ms` and `single_window_ms`
+    are phase 2's and 4's single-system times. Returns the R=8 figures of
+    mega_forward and mega_md_steps and the launches of every kernel by
+    path."""
+    system, model_cfg, md, state, pos = lj_slice(dev, seed=0)
+    n = system.n_atoms
+    mp = pack_params(state.params, model_cfg, force_std=state.force_stat.std,
+                     force_mean=state.force_stat.safe_mean,
+                     unit=system.force_unit_to_internal, device=dev)
+    h0 = torch.as_tensor(state.params["node_emb"], device=dev).expand(
+        n, model_cfg.encoding_size).contiguous()
+    frames = replica_frames(pos, system.box, REPLICAS)
+    idx, mask, ovf = build_nbrs(frames, system, K_MODEL)
+    require(not bool(ovf), "neighbour overflow in the replica frames")
+    h0_r = h0.expand(REPLICAS, -1, -1).contiguous()
+    scalars = (system.box, system.cutoff, state.length_stat.safe_mean,
+               state.length_stat.std)
+    args = (frames, idx, mask, h0_r, mp, *scalars)
+    kw = dict(rbf_gap=model_cfg.rbf_gap)
+
+    # -- phase 35: mega_forward at R=8 against 8 single calls -------------
+    before = mega_forward.launches
+    out = mega_forward(*args, **kw)
+    torch.cuda.synchronize()
+    require(mega_forward.launches == before + 1,
+            "mega_forward at R=8 is not one launch")
+    require(out.shape == frames.shape and bool(torch.isfinite(out).all()),
+            f"R=8 forces of shape {tuple(out.shape)} or not finite")
+    ref = reference_forward(*args, **kw)
+    bitwise, errs = [], []
+    for r in range(REPLICAS):
+        one = mega_forward(frames[r], idx[r], mask[r], h0, mp, *scalars,
+                           **kw)
+        scale_r = float(ref[r].abs().std())
+        bitwise.append(torch.equal(out[r], one))
+        errs.append(max(float((out[r] - one).abs().max()),
+                        float((out[r] - ref[r]).abs().max())) / scale_r)
+    torch.cuda.synchronize()
+    max_err = float((out - ref).abs().max())
+    say(f"phase 35: mega_forward at R={REPLICAS} (LJ-258 frames, K="
+        f"{K_MODEL}) in one launch vs {REPLICAS} single launches: bit for "
+        f"bit {sum(bitwise)} of {REPLICAS}; max |dF| / std(F) against the "
+        f"single calls and the plain version {max(errs):.3e} (tolerance "
+        f"{TOLERANCE})")
+    require(max(errs) < TOLERANCE,
+            "an R=8 replica disagrees with its single call or plain version")
+    live = [int(refresh_mask(frames[r], system.box, system.cutoff, idx[r],
+                             mask[r]).sum()) for r in range(REPLICAS)]
+    needed = sum(forward_flops(e, n, model_cfg.n_rbf, model_cfg)
+                 for e in live)
+    r_ms = time_ms(lambda: mega_forward(*args, **kw))
+    r_plain_ms = time_ms(lambda: reference_forward(*args, **kw), reps=5,
+                         warmup=1)
+    r_bound_ms, r_bound_by = bound(needed, REPLICAS * n, K_MODEL, mp,
+                                   model_cfg)
+    say(f"phase 35: mega_forward at R={REPLICAS} {r_ms:.4f} ms/call "
+        f"({r_ms / REPLICAS:.4f} ms a replica; single {single_ms:.4f}: "
+        f"{REPLICAS * single_ms / r_ms:.2f}x the throughput), plain "
+        f"{r_plain_ms:.4f} ms/call, bound {r_bound_ms:.4f} ms "
+        f"({r_bound_by}; {needed / 1e9:.4f} GFLOP for {sum(live)} live "
+        f"edges), kernel at {r_bound_ms / r_ms:.2%} of it; CUDA events "
+        f"[{card}]")
+    forward_r8 = {"replicas": REPLICAS, "ms": r_ms, "plain_ms": r_plain_ms,
+                  "bound_ms": r_bound_ms, "bound_by": r_bound_by,
+                  "max_abs_err": max_err,
+                  "bit_for_bit_replicas": sum(bitwise)}
+
+    # -- phase 36: the R=8 window against its plain version ---------------
+    sim = Simulation(lambda p, i, m: p, system, md, device=dev)
+    c1, hdt, c2col = sim._baoab_constants()
+    c2col = c2col.contiguous()
+    vel = maxwell_boltzmann_velocities(torch.Generator(dev).manual_seed(36),
+                                       sim.masses, md.temperature,
+                                       n_replicas=REPLICAS)
+    seed = torch.tensor([20261017], dtype=torch.int32, device=dev)
+    n_win = md.rebuild_every
+    wargs = (frames, vel, out, idx, mask, h0_r, mp, *scalars, sim.masses)
+    results = {}
+    for label, amp in (("noise off", torch.zeros_like(c2col)),
+                       ("noise on", c2col)):
+        wkw = dict(n_steps=n_win, c1=c1, hdt=hdt, c2col=amp, seed=seed,
+                   **kw)
+        before = mega_md_steps.launches
+        w_out = mega_md_steps(*wargs, **wkw)
+        torch.cuda.synchronize()
+        require(mega_md_steps.launches == before + 1,
+                f"the R=8 window is not one call ({label})")
+        w_ref = md_steps_reference(*wargs, **wkw)
+        one = mega_md_steps(frames[0], vel[0], out[0].contiguous(), idx[0],
+                            mask[0], h0, mp, *scalars, sim.masses, **wkw)
+        torch.cuda.synchronize()
+        require(all(bool(torch.isfinite(t).all()) for t in w_out),
+                f"non-finite R=8 window ({label})")
+        require(w_out[3].shape == (REPLICAS, n_win),
+                f"R=8 ke of shape {tuple(w_out[3].shape)}")
+        dx = float((w_out[0] - w_ref[0]).abs().max())
+        dv = float((w_out[1] - w_ref[1]).abs().max())
+        dke = float(((w_out[3] - w_ref[3]).abs() / w_ref[3].abs()).max())
+        same0 = all(torch.equal(a[0], b) for a, b in zip(w_out, one))
+        say(f"phase 36: R={REPLICAS} window vs plain, {label}, {n_win} "
+            f"steps: max |dx| {dx:.3e} A, max |dv| {dv:.3e} A/t0 "
+            f"(tolerance {WINDOW_ATOL}), max ke rel {dke:.3e} (tolerance "
+            f"{WINDOW_KE_RTOL}); replica 0 bit for bit the single-system "
+            f"window: {same0}")
+        require(dx <= WINDOW_ATOL and dv <= WINDOW_ATOL,
+                f"the R=8 window disagrees with its plain version ({label})")
+        require(dke <= WINDOW_KE_RTOL, f"R=8 window KE disagrees ({label})")
+        require(same0, f"replica 0 of the R=8 window is not the single "
+                f"window ({label})")
+        results[label] = (w_out, max(dx, dv), wkw)
+    apart = float((results["noise on"][0][0][0]
+                   - results["noise on"][0][0][1]).abs().max())
+    wkw = results["noise on"][2]
+    w_ms = time_ms(lambda: mega_md_steps(*wargs, **wkw), reps=10)
+    w_plain_ms = time_ms(lambda: md_steps_reference(*wargs, **wkw), reps=2,
+                         warmup=1)
+    w_bound_ms, w_bound_by = bound(n_win * needed, REPLICAS * n, K_MODEL, mp,
+                                   model_cfg, state_io=True)
+    say(f"phase 36: mega_md_steps at R={REPLICAS} {w_ms:.4f} ms/window "
+        f"({REPLICAS * n_win / w_ms * 1e3:.1f} replica-steps/s; single "
+        f"window {single_window_ms:.4f} ms: "
+        f"{REPLICAS * single_window_ms / w_ms:.2f}x the throughput), plain {w_plain_ms:.4f} ms/window, bound "
+        f"{w_bound_ms:.4f} ms ({w_bound_by}), kernel at "
+        f"{w_bound_ms / w_ms:.2%} of it; replicas 0 and 1 end "
+        f"{apart:.3e} A apart [{card}]")
+    window_r8 = {"replicas": REPLICAS, "ms": w_ms, "plain_ms": w_plain_ms,
+                 "bound_ms": w_bound_ms, "bound_by": w_bound_by,
+                 "max_abs_err": max(r[1] for r in results.values())}
+
+    # -- phase 37: run_replicas, megastep Langevin and per-step NHC --------
+    ff = GNNForceField(state, system, model_cfg, device=dev)
+    launches = {}
+    for path, integrator in (("replicas_megastep", "langevin"),
+                             ("replicas_nhc", "nose_hoover")):
+        md_r = dataclasses.replace(md, integrator=integrator)
+        sim = Simulation(ff.force_fn(megakernel=True), system, md_r,
+                         k_model=K_MODEL, device=dev,
+                         megastep_fn=(ff.megastep_fn()
+                                      if integrator == "langevin" else None))
+        states = sim.init_replicas(pos, REPLICAS,
+                                   rng=torch.Generator(dev).manual_seed(37))
+        mega_forward.launches = mega_md_steps.launches = 0
+        nhc.nhc_half_step.launches = 0
+        warm = sim.run_replicas(states, WARMUP_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sim.run_replicas(warm.state, REPLICA_STEPS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {"mega_forward": mega_forward.launches,
+                  "mega_md_steps": mega_md_steps.launches,
+                  "nhc_half_step": nhc.nhc_half_step.launches}
+        launches[path] = counts
+        steps = WARMUP_STEPS + REPLICA_STEPS
+        want = ({"mega_forward": 0, "mega_md_steps": steps // md.rebuild_every,
+                 "nhc_half_step": 0} if integrator == "langevin" else
+                {"mega_forward": steps, "mega_md_steps": 0,
+                 "nhc_half_step": 2 * steps})
+        temps = res.thermo.temperature
+        mean_t = float(temps.mean())
+        p = res.state.pos
+        spread = min(float((p[r] - p[r + 1]).abs().max())
+                     for r in range(REPLICAS - 1))
+        say(f"phase 37: run_replicas {integrator} R={REPLICAS} "
+            f"({'megastep' if integrator == 'langevin' else 'per step'}), "
+            f"{REPLICA_STEPS} steps in {seconds:.4f} s = "
+            f"{REPLICAS * REPLICA_STEPS / seconds:.1f} aggregate steps/s "
+            f"({REPLICA_STEPS / seconds:.1f} a replica); mean T "
+            f"{mean_t:.2f} K, per replica {float(temps.mean(1).min()):.2f}-"
+            f"{float(temps.mean(1).max()):.2f} K; thermo "
+            f"{list(temps.shape)}, positions {list(res.positions.shape)}; "
+            f"replicas at least {spread:.3e} A apart; launches {counts} "
+            f"[{card}]")
+        require(counts == want, f"launches {counts}, want {want}")
+        require(temps.shape == (REPLICAS, REPLICA_STEPS)
+                and res.positions.shape[:2] == (REPLICAS, REPLICA_STEPS
+                                                // md.rebuild_every),
+                "run_replicas result shapes")
+        require(bool(torch.isfinite(p).all())
+                and bool(torch.isfinite(temps).all()),
+                f"non-finite replica run ({integrator})")
+        require(not warm.overflow and not res.overflow,
+                f"neighbour overflow ({integrator} replicas)")
+        require(spread > 1e-3, f"replicas did not diverge ({integrator})")
+        if integrator == "langevin":
+            require(abs(mean_t - md.temperature) <= T_BAND,
+                    f"R=8 mean temperature {mean_t} K outside the band")
+
+    # -- phase 38: tools.bench_replicas -------------------------------------
+    argv = [str(REPLICAS), str(BENCH_REPLICAS_STEPS)]
+    for integrator in ("langevin", "nose_hoover"):
+        os.environ["GAMD_BENCH_INTEGRATOR"] = integrator
+        mega_forward.launches = mega_md_steps.launches = 0
+        nhc.nhc_half_step.launches = 0
+        try:
+            t0 = time.perf_counter()
+            line = bench_replicas.main(argv)
+        finally:
+            del os.environ["GAMD_BENCH_INTEGRATOR"]
+        counts = {"mega_forward": mega_forward.launches,
+                  "mega_md_steps": mega_md_steps.launches,
+                  "nhc_half_step": nhc.nhc_half_step.launches}
+        launches[f"bench_replicas_{integrator}"] = counts
+        say(f"phase 38: tools.bench_replicas {' '.join(argv)} "
+            f"(GAMD_BENCH_INTEGRATOR={integrator}) in process "
+            f"({time.perf_counter() - t0:.1f} s): {json.dumps(line)}; "
+            f"launches {counts} [{card}]")
+        require(line["value"] > 0 and line["per_replica"] > 0,
+                "bench_replicas printed no rate")
+        key = "mega_md_steps" if integrator == "langevin" else "mega_forward"
+        require(counts[key] > 0, f"bench_replicas {integrator}: {key} did "
+                "not launch")
+    return forward_r8, window_r8, launches
 
 
 def merge_launches(entries, runs):
@@ -2331,9 +2668,13 @@ def main():
     integrator_launches = integrator_phases(dev, card, traj, per_step_sps)
     op_kernels = op_library_phases(dev, card)
     mxu_kernels, bench_mxu_forwards = mxu_probe_phases(dev, card)
-    gather_kernels = gather_probe_phases(dev, card)
+    gather_kernels, probe_lines, form_launches = gather_probe_phases(dev,
+                                                                     card)
+    form_kernels = gather_form_phase(dev, card, probe_lines, form_launches)
+    forward_r8, window_r8, replica_launches = replica_phases(
+        dev, card, kernel_ms, window_ms)
 
-    # -- phase 34: kernels line, result line ------------------------------
+    # -- phase 39: kernels line, result line ------------------------------
     by_path = {name: {"per_step": per_step_launches[name],
                       "megastep": mega_launches[name]}
                for name in per_step_launches}
@@ -2350,6 +2691,7 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "r8": forward_r8,
     }, {
         "name": "mega_md_steps",
         "route": "cuda",
@@ -2362,12 +2704,14 @@ def main():
         "bound_ms": window_bound_ms,
         "bound_by": window_bound_by,
         "library_ms": None,
+        "r8": window_r8,
     }, *conv_kernels, encoder_kernel, banded_kernel, *nhc_kernels,
-        *op_kernels, *mxu_kernels, *gather_kernels]
-    merge_launches(kernels, {**deploy_launches, **integrator_launches})
+        *op_kernels, *mxu_kernels, *gather_kernels, *form_kernels]
+    merge_launches(kernels, {**deploy_launches, **integrator_launches,
+                             **replica_launches})
     say("kernels: " + json.dumps([k["name"] for k in kernels]))
     say(json.dumps({"kernels": kernels}))
-    say(f"phase 34: total {time.perf_counter() - t_start:.1f} s")
+    say(f"phase 39: total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,7 +19,7 @@ def wrap(pos, box):
 
 
 def pairwise_distance2(pos, box):
-    """All-pairs squared minimum-image distances [N, N]; row i holds the
-    displacements pos[j] - pos[i]."""
-    dr = min_image(pos[None, :, :] - pos[:, None, :], box)
+    """All-pairs squared minimum-image distances [..., N, N] of pos
+    [..., N, 3]; row i holds the displacements pos[j] - pos[i]."""
+    dr = min_image(pos[..., None, :, :] - pos[..., :, None, :], box)
     return torch.sum(dr * dr, dim=-1)

@@ -17,11 +17,12 @@ struct MegaWeights {
   const float *wd0, *bd0, *wd1, *bd1;
 };
 
-// All launches of one forward on `stream` (positions to forces `out`).
-// Returns 0, or the first non-zero cudaError_t seen.
+// All launches of one forward of r replicas of n atoms on `stream`
+// (positions to forces `out`, every array replica-major). Returns 0, or the
+// first non-zero cudaError_t seen.
 extern "C" int gamd_mega_forward(
     const float* pos, const int* idx, const uint8_t* bmask, const float* h0,
-    const MegaWeights* weights, int n, int k, int n_layers, int use_ln,
+    const MegaWeights* weights, int r, int n, int k, int n_layers, int use_ln,
     int flip_dir, float box, float cutoff2, float length_mean,
     float length_std, float gamma, float* e, float* live, float* h, float* hn,
     float* src, float* dst, float* aggp, float* out, void* stream);

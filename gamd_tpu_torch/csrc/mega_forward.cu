@@ -10,7 +10,13 @@
 // (pre-norm LayerNorm or folded BatchNorm, silu; the node update,
 // update_kernel in node_update.cuh, is shared with conv_layer.cu), and the
 // tanh-gelu decoder whose last affine already holds the force
-// denormalisation.
+// denormalisation. Like the TPU kernel (grid = replicas), it takes R
+// independent systems in one call: the edge stages (encoder, edge stage)
+// put the replica on grid axis z with pointer offsets by r, and the node
+// stages (norm codes, update, decoder), which gather nothing, run over all
+// R x N atoms as one axis. Every atom's arithmetic is the same whichever
+// block holds it, so each replica's forces equal those of a single call
+// on that replica bit for bit.
 //
 // What bounds it on this card: per force call at LJ-258 (N=258, K=48,
 // every width 128, L=4, 40 RBF centres) the edge MLPs take about 300k
@@ -86,8 +92,9 @@ node_kernel(const float* __restrict__ h, MegaWeights p, int layer, int n,
     if (a0 + m < n) dst_out[(a0 + m) * W + c] = acc[m];
 }
 
-// Edge stage of one layer. grid (ceil(K/KC), N), block W: one chunk of KC
-// edges of atom i.
+// Edge stage of one layer. grid (ceil(K/KC), N, R), block W: one chunk of
+// KC edges of atom i of replica blockIdx.z (idx holds per-replica indices
+// in [0, N)).
 //   z = silu(e @ w_e1 + b) @ w_e2 + b + src[idx] + dst[i]
 //   g = silu(silu(z) @ w_t1 + b) @ w_t2 + b
 //   aggp[i, chunk] = sum over live edges of hn[idx] * g
@@ -103,6 +110,14 @@ edge_kernel(const float* __restrict__ e, const float* __restrict__ live,
   __shared__ float live_s[KC];
   const int i = blockIdx.y, k0 = blockIdx.x * KC, c = threadIdx.x;
   const int lw = layer * W * W, lb = layer * W;
+  const size_t rep = blockIdx.z;
+  e += rep * n * k * W;
+  live += rep * n * k;
+  idx += rep * n * k;
+  hn += rep * n * W;
+  src += rep * n * W;
+  dst += rep * n * W;
+  aggp += rep * n * gridDim.x * W;
 
   if (c < KC) {
     const int kk = k0 + c;
@@ -179,19 +194,21 @@ decode_kernel(const float* __restrict__ h, MegaWeights p, int n,
 
 }  // namespace
 
-// All launches of one forward on `stream`. Returns 0, or the first
-// non-zero cudaError_t seen after a launch or the h0 copy.
+// All launches of one forward of r replicas of n atoms on `stream`
+// (arrays [r, n, ...], replica-major). Returns 0, or the first non-zero
+// cudaError_t seen after a launch or the h0 copy.
 extern "C" int gamd_mega_forward(
     const float* pos, const int* idx, const uint8_t* bmask, const float* h0,
-    const MegaWeights* weights, int n, int k, int n_layers, int use_ln,
+    const MegaWeights* weights, int r, int n, int k, int n_layers, int use_ln,
     int flip_dir, float box, float cutoff2, float length_mean,
     float length_std, float gamma, float* e, float* live, float* h, float* hn,
     float* src, float* dst, float* aggp, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const MegaWeights p = *weights;
   const int n_chunk = (k + KC - 1) / KC;
-  const int n_blk = (n + NB - 1) / NB;
-  const dim3 edge_grid(n_chunk, n);
+  const int atoms = r * n;                 // the node stages' one axis
+  const int n_blk = (atoms + NB - 1) / NB;
+  const dim3 edge_grid(n_chunk, n, r);
   cudaError_t err;
 
   const EncoderWeights enc{p.centers, p.w_geo, p.w_rbf, p.b0, p.w1,
@@ -200,11 +217,12 @@ extern "C" int gamd_mega_forward(
       pos, idx, bmask, enc, W, n, k, flip_dir, box, cutoff2, length_mean,
       length_std, gamma, e, live);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemcpyAsync(h, h0, sizeof(float) * n * W,
+  err = cudaMemcpyAsync(h, h0, sizeof(float) * atoms * W,
                         cudaMemcpyDeviceToDevice, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   for (int layer = 0; layer < n_layers; ++layer) {
-    node_kernel<<<n_blk, W, 0, s>>>(h, p, layer, n, use_ln, hn, src, dst);
+    node_kernel<<<n_blk, W, 0, s>>>(h, p, layer, atoms, use_ln, hn, src,
+                                    dst);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     edge_kernel<<<edge_grid, W, 0, s>>>(e, live, idx, hn, src, dst, p, layer,
                                         n, k, aggp);
@@ -212,10 +230,10 @@ extern "C" int gamd_mega_forward(
     const int lw = layer * W * W, lb = layer * W;
     const UpdateWeights upd{p.w_pd + lw, p.b_pd + lb, p.w_pe + lw,
                             p.b_pe + lb, p.w_p + lw, p.b_p + lb};
-    update_kernel<<<n_blk, W, 0, s>>>(h, hn, aggp, n_chunk, upd, n, h);
+    update_kernel<<<n_blk, W, 0, s>>>(h, hn, aggp, n_chunk, upd, atoms, h);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
-  decode_kernel<<<n_blk, W, 0, s>>>(h, p, n, out);
+  decode_kernel<<<n_blk, W, 0, s>>>(h, p, atoms, out);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   return 0;
 }

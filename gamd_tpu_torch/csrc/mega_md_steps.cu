@@ -3,23 +3,27 @@
 // after n_steps and the kinetic energy of every step out, in one host call.
 //
 // Replaces gamd_tpu/ops/pallas_model.py::_mega_md_kernel (line 707,
-// pallas_call at line 952), reached through mega_md_steps there. Each step
-// is the same as there and as md/integrators.py::baoab_langevin:
+// pallas_call at line 952), reached through mega_md_steps there. Like the
+// TPU kernel (grid = replicas), a call advances R independent systems of
+// N atoms that share the weights, masses and noise amplitudes; each has
+// its own list, state and kinetic energies. Each step is the same as
+// there and as md/integrators.py::baoab_langevin:
 //   B  v += hdt f / m
 //   A  x += hdt v
 //   O  v  = c1 v + c2col xi        (xi standard normal)
 //   A  x += hdt v
 //      f  = forward(x)              (gamd_mega_forward, mega_forward.cu)
 //   B  v += hdt f / m
-//      ke[s] = 1/2 sum m v^2
+//      ke[r, s] = 1/2 sum m v^2 over replica r's atoms
 // Positions are not wrapped inside the window; the forward takes minimum
 // images. The TPU kernel draws xi from the core's own PRNG, which Hopper
-// lacks: here it is Philox4x32-10 (Random123) with key (seed, replica 0)
-// and counter (atom, step, 0, 0), the four words of one call going through
-// Box-Muller to the atom's x, y (cos, sin of one pair) and z (cos of the
-// other pair). gamd_tpu_torch/ops/philox.py draws the same numbers on the
-// host. The seed is read from device memory, so drawing a window's seed
-// never waits for the device.
+// lacks: here it is Philox4x32-10 (Random123) with key (seed, 0) and
+// counter (atom, step, replica, 0), the four words of one call going
+// through Box-Muller to the atom's x, y (cos, sin of one pair) and z (cos
+// of the other pair); replica 0 draws what a single system draws.
+// gamd_tpu_torch/ops/philox.py draws the same numbers on the host. The
+// seed is read from device memory, so drawing a window's seed never waits
+// for the device.
 //
 // What bounds it on this card: the window is the forward n_steps times.
 // At LJ-258 (N=258, K=48, widths 128, 4 layers) a step's forward needs
@@ -30,11 +34,14 @@
 //
 // What the design does about it, for now: nothing beyond fewer host round
 // trips. The host call runs the window on PyTorch's current stream with no
-// host sync: per step a baoab_open kernel (B A O A and the Philox draw), the
-// 14 launches of the forward writing straight into the force buffer, and a
-// baoab_close kernel (the last B and the KE, summed in a fixed order by one
-// block) -- 16 launches and one copy a step. No atomics, so the result is
-// the same from run to run; no allocation, as the host passes every buffer.
+// host sync: per step a baoab_open kernel (B A O A and the Philox draw, over
+// all R x N atoms), the 14 launches of the forward writing straight into
+// the force buffer, and a baoab_close kernel (the last B and the KE, one
+// block a replica summing its atoms in a fixed order) -- 16 launches and
+// one copy a step, whatever R. Every atom's arithmetic is the same at any
+// R, so replica 0 of a call equals a single-system call bit for bit. No
+// atomics, so the result is the same from run to run; no allocation, as
+// the host passes every buffer.
 // Capturing the window as a CUDA graph, one persistent launch with a
 // grid-wide sync, skipping dead slots and wgmma with bf16 edges are later
 // work. gamd_mega_md_steps returns the first non-zero cudaError_t.
@@ -76,19 +83,21 @@ __device__ __forceinline__ float half_open_unit(uint32_t w) {
   return static_cast<float>(w >> 8) * 0x1p-24f;
 }
 
-// B A O A of one step for every atom. grid ceil(N/128), block 128.
+// B A O A of one step for every atom of every replica. grid
+// ceil(R*N/128), block 128: thread i takes atom i % N of replica i / N.
 __global__ void __launch_bounds__(OPEN_THREADS)
 baoab_open_kernel(float* __restrict__ pos, float* __restrict__ vel,
                   const float* __restrict__ force,
                   const float* __restrict__ masses,
                   const float* __restrict__ c2col,
-                  const int* __restrict__ seed, int n, int step, float c1,
-                  float hdt) {
+                  const int* __restrict__ seed, int r, int n, int step,
+                  float c1, float hdt) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  if (i >= r * n) return;
+  const int rep = i / n, a = i - rep * n;
   const uint4 w = philox4x32_10(
-      make_uint4(static_cast<uint32_t>(i), static_cast<uint32_t>(step), 0u,
-                 0u),
+      make_uint4(static_cast<uint32_t>(a), static_cast<uint32_t>(step),
+                 static_cast<uint32_t>(rep), 0u),
       make_uint2(static_cast<uint32_t>(seed[0]), 0u));
   const float ra = sqrtf(-2.0f * logf(open_unit(w.x)));
   const float rb = sqrtf(-2.0f * logf(open_unit(w.z)));
@@ -96,8 +105,8 @@ baoab_open_kernel(float* __restrict__ pos, float* __restrict__ vel,
   const float tb = TWO_PI * half_open_unit(w.w);
   const float xi[3] = {ra * cosf(ta), ra * sinf(ta), rb * cosf(tb)};
 
-  const float invm = 1.0f / masses[i];
-  const float c2 = c2col[i];
+  const float invm = 1.0f / masses[a];
+  const float c2 = c2col[a];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     float v = vel[3 * i + d] + hdt * invm * force[3 * i + d];   // B
@@ -109,14 +118,17 @@ baoab_open_kernel(float* __restrict__ pos, float* __restrict__ vel,
   }
 }
 
-// The last B of one step and its kinetic energy. One block of 256 threads
-// walks all atoms (thread t takes atoms t, t + 256, ...) and sums in a
-// fixed order: the same result every run.
+// The last B of one step and its kinetic energy, one block of 256 threads
+// a replica (grid R): block r walks replica r's atoms (thread t takes
+// atoms t, t + 256, ...) and sums in a fixed order into ke[r * n_steps +
+// step]: the same result every run.
 __global__ void __launch_bounds__(CLOSE_THREADS)
 baoab_close_kernel(float* __restrict__ vel, const float* __restrict__ force,
                    const float* __restrict__ masses, int n, float hdt,
-                   float* __restrict__ ke_step) {
+                   int n_steps, int step, float* __restrict__ ke) {
   __shared__ float red[CLOSE_THREADS / 32];
+  vel += (size_t)blockIdx.x * 3 * n;
+  force += (size_t)blockIdx.x * 3 * n;
   float acc = 0.f;
   for (int i = threadIdx.x; i < n; i += CLOSE_THREADS) {
     const float m = masses[i];
@@ -137,28 +149,31 @@ baoab_close_kernel(float* __restrict__ vel, const float* __restrict__ force,
     float s = 0.f;
 #pragma unroll
     for (int q = 0; q < CLOSE_THREADS / 32; ++q) s += red[q];
-    *ke_step = 0.5f * s;
+    ke[blockIdx.x * n_steps + step] = 0.5f * s;
   }
 }
 
 }  // namespace
 
-// n_steps of the window on `stream`. pos0/vel0/f0 are read once and copied
-// into pos/vel/force, which then carry the state; ke gets n_steps values.
-// e..aggp are the forward's scratch (see gamd_mega_forward). Returns 0, or
-// the first non-zero cudaError_t seen after a copy or a launch.
+// n_steps of the window for r replicas of n atoms on `stream` (state
+// arrays [r, n, 3]; masses and c2col [n], shared). pos0/vel0/f0 are read
+// once and copied into pos/vel/force, which then carry the state; ke gets
+// [r, n_steps] values. e..aggp are the forward's scratch (see
+// gamd_mega_forward). Returns 0, or the first non-zero cudaError_t seen
+// after a copy or a launch.
 extern "C" int gamd_mega_md_steps(
     const float* pos0, const float* vel0, const float* f0, const int* idx,
     const uint8_t* bmask, const float* h0, const MegaWeights* weights,
-    const int* seed, const float* masses, const float* c2col, int n, int k,
+    const int* seed, const float* masses, const float* c2col, int r, int n,
+    int k,
     int n_layers, int use_ln, int flip_dir, float box, float cutoff2,
     float length_mean, float length_std, float gamma, int n_steps, float c1,
     float hdt, float* e, float* live, float* h, float* hn, float* src,
     float* dst, float* aggp, float* pos, float* vel, float* force, float* ke,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t state_bytes = sizeof(float) * 3 * n;
-  const int open_blocks = (n + OPEN_THREADS - 1) / OPEN_THREADS;
+  const size_t state_bytes = sizeof(float) * 3 * r * n;
+  const int open_blocks = (r * n + OPEN_THREADS - 1) / OPEN_THREADS;
   cudaError_t err;
   if ((err = cudaMemcpyAsync(pos, pos0, state_bytes, cudaMemcpyDeviceToDevice,
                              s)) != cudaSuccess ||
@@ -169,15 +184,15 @@ extern "C" int gamd_mega_md_steps(
     return static_cast<int>(err);
   for (int step = 0; step < n_steps; ++step) {
     baoab_open_kernel<<<open_blocks, OPEN_THREADS, 0, s>>>(
-        pos, vel, force, masses, c2col, seed, n, step, c1, hdt);
+        pos, vel, force, masses, c2col, seed, r, n, step, c1, hdt);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     const int fwd = gamd_mega_forward(
-        pos, idx, bmask, h0, weights, n, k, n_layers, use_ln, flip_dir, box,
+        pos, idx, bmask, h0, weights, r, n, k, n_layers, use_ln, flip_dir, box,
         cutoff2, length_mean, length_std, gamma, e, live, h, hn, src, dst,
         aggp, force, stream);
     if (fwd != 0) return fwd;
-    baoab_close_kernel<<<1, CLOSE_THREADS, 0, s>>>(vel, force, masses, n, hdt,
-                                                   ke + step);
+    baoab_close_kernel<<<r, CLOSE_THREADS, 0, s>>>(vel, force, masses, n, hdt,
+                                                   n_steps, step, ke);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

@@ -7,8 +7,11 @@ nose_hoover_chain, nhc_bath_energies) and andersen).
 Units: angstrom, amu, kJ/mol, t0 = 0.1 ps (see core.units); dt is in t0.
 Random numbers come from an explicit torch.Generator on the state's device.
 Every factory returns (init_fn, step_fn); step_fn(state) is one full MD
-step. The NHC half-step runs through ops.nhc.nhc_half_step: the CUDA kernel
-on a CUDA tensor, its plain version on the CPU.
+step. The step functions are elementwise in atoms, so a state with a
+leading replica axis ([R, N, 3]; NHC chains [R, M]) advances R replicas
+in lockstep, as the JAX package's run_replicas does. The NHC half-step
+runs through ops.nhc.nhc_half_step: the CUDA kernel on a CUDA tensor,
+its plain version on the CPU.
 """
 
 import functools
@@ -52,21 +55,25 @@ class AndersenState(NamedTuple):
 
 
 def kinetic_energy(vel, masses):
-    """0.5 * sum m v^2 in kJ/mol (0-d tensor)."""
-    return 0.5 * torch.sum(masses[:, None] * vel * vel)
+    """0.5 * sum m v^2 in kJ/mol over the atoms: 0-d for vel [N, 3], [R]
+    for replicas [R, N, 3] (the sum over axes (1, 2) of JAX's run)."""
+    return 0.5 * torch.sum(masses[:, None] * vel * vel, dim=(-2, -1))
 
 
 def temperature(vel, masses, ndf=None):
-    """Instantaneous temperature (K): 2 KE / (ndf kB)."""
+    """Instantaneous temperature (K): 2 KE / (ndf kB), per replica."""
     if ndf is None:
-        ndf = vel.shape[0] * 3
+        ndf = vel.shape[-2] * 3
     return 2.0 * kinetic_energy(vel, masses) / (ndf * units.KB)
 
 
-def maxwell_boltzmann_velocities(rng: torch.Generator, masses, temp_k):
-    """Velocities [N, 3] (A/t0) from the Maxwell-Boltzmann distribution."""
+def maxwell_boltzmann_velocities(rng: torch.Generator, masses, temp_k,
+                                 n_replicas=None):
+    """Velocities [N, 3] (A/t0) from the Maxwell-Boltzmann distribution;
+    [n_replicas, N, 3] in one draw when n_replicas is given."""
     sigma = torch.sqrt(units.KB * temp_k / masses)[:, None]
-    return sigma * torch.randn((masses.shape[0], 3), generator=rng,
+    lead = () if n_replicas is None else (int(n_replicas),)
+    return sigma * torch.randn((*lead, masses.shape[0], 3), generator=rng,
                                device=masses.device, dtype=masses.dtype)
 
 

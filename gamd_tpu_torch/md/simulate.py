@@ -1,6 +1,7 @@
 """GNN-driven MD loop on torch (port of gamd_tpu/md/simulate.py: Thermo,
 RunResult and Simulation for the nve, langevin, nose_hoover and andersen
-integrators, with run, run_segmented and run_recorded).
+integrators, with run, run_segmented and run_recorded; independent
+replicas with init_replicas and run_replicas; the one-call simulate()).
 
 A run is a loop over chunks: each chunk rebuilds the padded neighbour list
 at cutoff + skin (the dense search, or the cell list for large N), draws
@@ -13,6 +14,13 @@ call of it instead (GNNForceField.megastep_fn: the whole window in one
 CUDA library call), seeded from the state's generator on the device.
 Capacity overflow is OR-ed on the device and read on the host once per
 run.
+
+Replicas are R independent copies of the system stepped in lockstep: every
+state tensor carries a leading replica axis ([R, N, 3]; NHC chains
+[R, M]), each replica has its own neighbour list, and a chunk's noise is
+one block (n_steps, R, N, 3) for all of them. A force function that
+`handles_refresh` (the megakernel) gets the whole [R, N, 3] stack in one
+call; any other is called once per replica.
 """
 
 import math
@@ -39,6 +47,9 @@ class Thermo(NamedTuple):
 
 
 class RunResult(NamedTuple):
+    """run_replicas gives every field a leading replica axis: thermo
+    [R, steps], positions [R, n_chunks, N, 3]."""
+
     state: NamedTuple              # final integrator state
     thermo: Thermo
     overflow: bool                 # neighbour capacity exceeded at a rebuild
@@ -66,12 +77,20 @@ class Simulation:
             the initial force only.
         device: where the state lives; "cuda" unless the caller asks for
             the CPU.
+        constraint: rigid-water constraints (SETTLE, RATTLE) come with the
+            port's water slice (ROADMAP Queue 1 item 5): anything but None
+            raises NotImplementedError, constrained NHC replicas included.
     """
 
     def __init__(self, force_fn: Callable, system: SystemConfig,
                  md: MDConfig, nbr_method: str = "dense",
                  k_model: Optional[int] = None, megastep_fn=None,
-                 device="cuda"):
+                 device="cuda", constraint=None):
+        if constraint is not None:
+            raise NotImplementedError(
+                "constraints (and constrained NHC replicas, JAX's vmapped "
+                "run) come with the port's water slice: ROADMAP Queue 1 "
+                "item 5")
         if system.box is None:
             raise ValueError("Simulation requires a fixed box")
         if nbr_method not in ("dense", "cell"):
@@ -106,9 +125,16 @@ class Simulation:
     # -- neighbour plumbing -------------------------------------------------
 
     def _build_nbrs(self, pos):
+        """The chunk's list of positions [N, 3]; of replicas [R, N, 3], each
+        replica's own [R, N, K] and one overflow flag for all (JAX maps its
+        search over the replica axis)."""
         sysc = self.system
         if self.nbr_method == "dense":
             return dense.build_nbrs(pos, sysc, self.k_model)
+        if pos.ndim == 3:
+            lists = [self._build_nbrs(p) for p in pos]
+            idx, mask, ovf = (torch.stack(t) for t in zip(*lists))
+            return idx, mask, torch.any(ovf)
         idx, mask, ovf = cell_list_neighbor_list(
             pos, float(sysc.box), float(sysc.cutoff + sysc.skin),
             sysc.nbr_capacity)
@@ -128,6 +154,20 @@ class Simulation:
             live = dense.refresh_mask(posw, box, self.system.cutoff, idx,
                                       mask)
             return self.force_fn(posw, idx, live)
+        return force
+
+    def _batched_force(self, idx, mask):
+        """(pos [R, N, 3]) -> [R, N, 3] given per-replica lists [R, N, K]
+        (gamd_tpu/md/simulate.py:343-358): a force function that
+        handles_refresh gets the whole stack and the raw build-time masks;
+        any other is called once per replica with its own refreshed mask,
+        which is what JAX's vmap computes."""
+        if getattr(self.force_fn, "handles_refresh", False):
+            return self._force_with(idx, mask)
+        singles = [self._force_with(i, m) for i, m in zip(idx, mask)]
+
+        def force(pos):
+            return torch.stack([f(p) for f, p in zip(singles, pos)])
         return force
 
     def _integrator(self, force):
@@ -165,10 +205,50 @@ class Simulation:
             return init_fn(pos, vel, rng)
         return init_fn(pos, vel)
 
+    def init_replicas(self, pos, n_replicas: int,
+                      rng: torch.Generator = None):
+        """Replica state from one configuration (gamd_tpu/md/simulate.py:
+        360-394): identical positions, independent Maxwell-Boltzmann
+        velocities, every state tensor with a leading replica axis.
+
+        Under NHC each replica is init_state's with its own generator,
+        seeded by a draw from `rng` (JAX splits its key into one per
+        replica), its own list and force and a chain [R, M]. Otherwise the
+        velocities [R, N, 3] are one draw from `rng` (default: a generator
+        on the device seeded with md.seed), which then carries the noise
+        stream of all replicas under Langevin and Andersen; the start list
+        is built once and shared, the forces taken in one batched call.
+        """
+        if rng is None:
+            rng = torch.Generator(device=self.device)
+            rng.manual_seed(self.md.seed)
+        pos = torch.as_tensor(pos, dtype=torch.float32, device=self.device)
+        r = int(n_replicas)
+        if self.md.integrator == "nose_hoover":
+            seeds = torch.randint(0, 2**62, (r,), generator=rng,
+                                  device=self.device).tolist()
+            states = [self.init_state(
+                pos, rng=torch.Generator(device=self.device).manual_seed(s))
+                for s in seeds]
+            return type(states[0])(*[torch.stack(f) for f in zip(*states)])
+        vel = integ.maxwell_boltzmann_velocities(
+            rng, self.masses, self.md.temperature, n_replicas=r)
+        pos_r = pos.expand(r, -1, -1).contiguous()
+        idx, mask, _ = self._build_nbrs(space.wrap(pos, self.system.box))
+        force = self._batched_force(
+            idx.expand(r, -1, -1).contiguous(),
+            mask.expand(r, -1, -1).contiguous())(pos_r)
+        if self.md.integrator == "nve":
+            return integ.NVEState(pos=pos_r, vel=vel, force=force)
+        state_type = (integ.AndersenState if self.md.integrator == "andersen"
+                      else integ.LangevinState)
+        return state_type(pos=pos_r, vel=vel, force=force, rng=rng)
+
     def _chunk_noise(self, state, n_steps: int):
         """The chunk's thermostat noise, one block per kind, drawn from
-        state.rng: [n_steps] per-step arguments of step_fn, or None."""
-        shape = (n_steps, self.system.n_atoms, 3)
+        state.rng: [n_steps] per-step arguments of step_fn, or None. A
+        replica state draws (n_steps, R, N, 3) blocks."""
+        shape = (n_steps, *state.pos.shape[:-2], self.system.n_atoms, 3)
         if self.md.integrator == "langevin":
             return torch.randn(shape, generator=state.rng,
                                device=self.device)
@@ -180,12 +260,15 @@ class Simulation:
 
     def _chunk(self, state, n_steps: int):
         """One neighbour-rebuild chunk of n_steps; returns (state, overflow
-        flag, [n_steps] KE) with everything left on the device."""
+        flag, [n_steps] KE, or [n_steps, R] for replicas) with everything
+        left on the device."""
         if self.megastep_fn is not None:
             return self._mega_chunk(state, n_steps)
         idx, mask, ovf = self._build_nbrs(space.wrap(state.pos,
                                                      self.system.box))
-        _, step_fn = self._integrator(self._force_with(idx, mask))
+        force = (self._batched_force if state.pos.ndim == 3
+                 else self._force_with)(idx, mask)
+        _, step_fn = self._integrator(force)
         noise = self._chunk_noise(state, n_steps)
         ke = []
         for step in range(n_steps):
@@ -197,7 +280,7 @@ class Simulation:
     def _mega_chunk(self, state, n_steps: int):
         """The chunk as one megastep_fn call: the window starts from the
         wrapped positions, and its seed is drawn from state.rng on the
-        device (no host sync)."""
+        device (no host sync), one seed for all replicas."""
         posw = space.wrap(state.pos, self.system.box)
         idx, mask, ovf = self._build_nbrs(posw)
         seed = torch.randint(0, 2**31 - 1, (1,), generator=state.rng,
@@ -207,7 +290,7 @@ class Simulation:
             posw, state.vel, state.force, idx, mask, seed, n_steps=n_steps,
             c1=c1, hdt=hdt, c2col=c2col, masses=self.masses)
         return integ.LangevinState(pos=pos, vel=vel, force=force,
-                                   rng=state.rng), ovf, ke
+                                   rng=state.rng), ovf, ke.movedim(-1, 0)
 
     def run(self, state, n_steps: int) -> RunResult:
         """Advance n_steps: full chunks of md.rebuild_every steps, then a
@@ -229,6 +312,22 @@ class Simulation:
         return RunResult(state=state, thermo=thermo,
                          overflow=bool(any_ovf.item()),
                          positions=torch.stack(samples))
+
+    def run_replicas(self, states, n_steps: int) -> RunResult:
+        """Advance a replica state (init_replicas) n_steps in lockstep, as
+        run does one system (gamd_tpu/md/simulate.py:486-506); the
+        megakernel force and megastep window take all replicas in one
+        call. Every RunResult field gains a leading replica axis: thermo
+        [R, steps], positions [R, n_chunks, N, 3]."""
+        if states.pos.ndim != 3:
+            raise ValueError("run_replicas takes a replica state [R, N, 3] "
+                             "(init_replicas); use run for one system")
+        res = self.run(states, n_steps)
+        thermo = Thermo(kinetic_energy=res.thermo.kinetic_energy.t(),
+                        temperature=res.thermo.temperature.t())
+        return RunResult(state=res.state, thermo=thermo,
+                         overflow=res.overflow,
+                         positions=res.positions.transpose(0, 1))
 
     def run_segmented(self, state, n_steps: int,
                       segment: int = 10000) -> RunResult:
@@ -283,3 +382,13 @@ class Simulation:
         temp = 2.0 * torch.stack(ke) / (self.ndf * units.KB)
         return (state, bool(any_ovf.item()), torch.stack(pos),
                 torch.stack(vel), torch.stack(force), temp)
+
+
+def simulate(force_fn, system: SystemConfig, md: MDConfig, pos, vel=None,
+             rng: torch.Generator = None, nbr_method: str = "dense",
+             device="cuda") -> RunResult:
+    """One call: a Simulation's init_state and md.n_steps of run
+    (gamd_tpu/md/simulate.py:509-514)."""
+    sim = Simulation(force_fn, system, md, nbr_method=nbr_method,
+                     device=device)
+    return sim.run(sim.init_state(pos, vel=vel, rng=rng), md.n_steps)

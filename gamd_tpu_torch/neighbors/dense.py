@@ -5,7 +5,9 @@ build_nbrs is the k_model rule of gamd_tpu/md/simulate.py:94-112).
 Row i holds up to K neighbours of atom i, nearest first; padded slots point
 at atom i itself so gathers stay in bounds, and the mask zeroes them. When a
 row has more than K atoms in range the farthest are dropped and the
-overflow flag says so.
+overflow flag says so. The search and build_nbrs also take replicas
+[R, N, 3] and give each its own list [R, N, K] (JAX's run_replicas maps
+its single-system search over the replica axis), in one pass.
 """
 
 import torch
@@ -18,26 +20,30 @@ def dense_neighbor_list(pos, box, cutoff, k_max):
 
     Returns idx [N, K] int32 (padded slots hold the row index), mask [N, K]
     bool, and overflow, a 0-d bool tensor on pos's device (read it on the
-    host only when needed: reading it waits for the device).
+    host only when needed: reading it waits for the device). Replicas
+    [R, N, 3] give [R, N, K] lists (indices within the replica) and one
+    flag for all.
     """
-    n = pos.shape[0]
+    n = pos.shape[-2]
+    lead = tuple(pos.shape[:-2])
     d2 = space.pairwise_distance2(pos, box)
     # No self edges: the reference's add_self_loop is a silent no-op.
     within = (d2 < cutoff * cutoff) & ~torch.eye(n, dtype=torch.bool,
                                                   device=pos.device)
-    overflow = torch.any(torch.sum(within, dim=1) > k_max)
+    overflow = torch.any(torch.sum(within, dim=-1) > k_max)
 
     d2_masked = torch.where(within, d2, torch.inf)
     k_eff = min(k_max, n)
-    neg, idx = torch.topk(-d2_masked, k_eff, dim=1)
+    neg, idx = torch.topk(-d2_masked, k_eff, dim=-1)
     mask = neg > -torch.inf
     row = torch.arange(n, device=pos.device)[:, None]
     idx = torch.where(mask, idx, row)
     if k_eff < k_max:
         pad = k_max - k_eff
-        idx = torch.cat([idx, row.expand(n, pad)], dim=1)
-        mask = torch.cat([mask, torch.zeros((n, pad), dtype=torch.bool,
-                                            device=pos.device)], dim=1)
+        idx = torch.cat([idx, row.expand(*lead, n, pad)], dim=-1)
+        mask = torch.cat([mask, torch.zeros((*lead, n, pad),
+                                            dtype=torch.bool,
+                                            device=pos.device)], dim=-1)
     return idx.to(torch.int32), mask, overflow
 
 
@@ -50,7 +56,8 @@ def build_nbrs(pos, system, k_model=None):
     overflow is flagged so the caller reruns with a larger k_model.
 
     Returns idx [N, k] int32 (contiguous), mask [N, k] bool and the 0-d
-    bool overflow tensor.
+    bool overflow tensor ([R, N, k] lists and one flag for replicas
+    [R, N, 3]).
     """
     idx, mask, ovf = dense_neighbor_list(
         pos, system.box, system.cutoff + system.skin, system.nbr_capacity)
@@ -62,9 +69,9 @@ def keep_nearest(idx, mask, ovf, k_model=None):
     k_model is None or not smaller), with overflow also flagged when a
     dropped slot is live. Returns contiguous idx and mask, and ovf."""
     if k_model is not None and k_model < idx.shape[-1]:
-        ovf = ovf | torch.any(mask[:, k_model:])
-        idx = idx[:, :k_model].contiguous()
-        mask = mask[:, :k_model].contiguous()
+        ovf = ovf | torch.any(mask[..., k_model:])
+        idx = idx[..., :k_model].contiguous()
+        mask = mask[..., :k_model].contiguous()
     return idx, mask, ovf
 
 

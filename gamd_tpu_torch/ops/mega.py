@@ -14,6 +14,10 @@ gamd_tpu/ops/pallas_model.py and the wrapper of its Hopper kernel.
   mega_md_steps runs it as csrc/mega_md_steps.cu on a CUDA tensor, one
   library call per window, and counts its calls in
   `mega_md_steps.launches`.
+
+All of them take one system ([N, 3] positions) or R independent replicas
+([R, N, 3], with [R, N, K] lists and [R, N, D] h0), as the JAX kernels'
+replica grid does; one call covers all replicas.
 """
 
 import ctypes
@@ -240,8 +244,15 @@ def reference_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
                       length_mean, length_std, bond=None, rbf_gap=0.025,
                       flip_dir=False, use_ln=True, conv_act="silu",
                       mlp_act="gelu", n_layers=None):
-    """Single-system [N, ...] plain version of mega_forward (fp32,
-    tanh-gelu; see models.gnn.GAMDNet for the erf-gelu model)."""
+    """Plain version of mega_forward (fp32, tanh-gelu; see models.gnn.
+    GAMDNet for the erf-gelu model): one system [N, ...], or replicas
+    [R, N, ...], each replica on its own."""
+    if pos.ndim == 3:
+        return torch.stack([reference_forward(
+            pos[r], idx[r], build_mask[r], h0[r], mp, box, cutoff,
+            length_mean, length_std, None if bond is None else bond[r],
+            rbf_gap, flip_dir, use_ln, conv_act, mlp_act, n_layers)
+            for r in range(pos.shape[0])])
     nbr = pos[idx.long()]
     rel = space.min_image(nbr - pos[:, None, :], box)
     dist = torch.sqrt(torch.sum(rel * rel, dim=-1))
@@ -265,14 +276,16 @@ def md_steps_reference(pos, vel, force, idx, build_mask, h0,
                        masses, *, n_steps: int, c1, hdt, c2col, seed,
                        bond=None, rbf_gap=0.025, flip_dir=False, use_ln=True,
                        conv_act="silu", mlp_act="gelu"):
-    """Plain version of a fused MD window, one system: n_steps of BAOAB
-    Langevin (B A O A, force, B) as gamd_tpu/ops/pallas_model.py:815-827,
-    with the noise of ops.philox.philox_normal(seed, step, N) and the force
-    of reference_forward on the unwrapped positions (the window never
-    wraps). Returns (pos', vel', force', ke [n_steps]) with ke = 1/2 sum m
-    v^2 after each step."""
-    n = pos.shape[0]
+    """Plain version of a fused MD window: n_steps of BAOAB Langevin (B A
+    O A, force, B) as gamd_tpu/ops/pallas_model.py:815-827, with the noise
+    of ops.philox.philox_normal(seed, step, N, replica=r) and the force of
+    reference_forward on the unwrapped positions (the window never wraps).
+    One system [N, 3] or replicas [R, N, 3] (masses and c2col [N] shared).
+    Returns (pos', vel', force', ke) with ke = 1/2 sum m v^2 after each
+    step, [n_steps] (or [R, n_steps])."""
+    n = pos.shape[-2]
     dev = pos.device
+    reps = range(pos.shape[0]) if pos.ndim == 3 else None
     as_col = lambda a: torch.as_tensor(a, dtype=torch.float32,
                                        device=dev).reshape(-1, 1)
     m = as_col(masses)
@@ -283,14 +296,17 @@ def md_steps_reference(pos, vel, force, idx, build_mask, h0,
     for step in range(n_steps):
         v = v + hdt * invm * f                                   # B
         x = x + hdt * v                                          # A
-        v = c1 * v + c2 * philox_normal(seed, step, n, device=dev)  # O
+        xi = philox_normal(seed, step, n, device=dev) if reps is None \
+            else torch.stack([philox_normal(seed, step, n, device=dev,
+                                            replica=r) for r in reps])
+        v = c1 * v + c2 * xi                                     # O
         x = x + hdt * v                                          # A
         f = reference_forward(x, idx, build_mask, h0, mp, box, cutoff,
                               length_mean, length_std, bond, rbf_gap,
                               flip_dir, use_ln, conv_act, mlp_act)
         v = v + hdt * invm * f                                   # B
-        kes.append(0.5 * torch.sum(m * v * v))
-    return x, v, f, torch.stack(kes)
+        kes.append(0.5 * torch.sum(m * v * v, dim=(-2, -1)))
+    return x, v, f, torch.stack(kes, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +331,7 @@ def declare(lib):
     weights = ctypes.POINTER(_MegaWeights)
     lib.gamd_mega_forward.argtypes = [
         p, p, p, p, weights,                          # pos idx bmask h0 w
-        i, i, i, i, i,                                # n k layers ln flip
+        i, i, i, i, i, i,                             # r n k layers ln flip
         f, f, f, f, f,                                # box cut2 lm ls gamma
         p, p, p, p, p, p, p, p,                       # scratch + out
         p]                                            # stream
@@ -323,7 +339,7 @@ def declare(lib):
     lib.gamd_mega_md_steps.argtypes = [
         p, p, p, p, p, p, weights,                    # pos vel f idx bm h0 w
         p, p, p,                                      # seed masses c2col
-        i, i, i, i, i,                                # n k layers ln flip
+        i, i, i, i, i, i,                             # r n k layers ln flip
         f, f, f, f, f,                                # box cut2 lm ls gamma
         i, f, f,                                      # n_steps c1 hdt
         p, p, p, p, p, p, p,                          # forward scratch
@@ -364,8 +380,9 @@ def _check(fn, name, t, device, dtype, shape):
 def _check_forward(fn, pos, idx, build_mask, h0, mp, bond, conv_act,
                    mlp_act):
     """The checks both kernels make of the forward's inputs on a CUDA
-    device; returns the library's forward arguments that follow from them
-    as (n, k, n_layers, weights struct)."""
+    device (one system [N, ...] or R replicas [R, N, ...], the same R on
+    pos, idx, build_mask and h0); returns the library's forward arguments
+    that follow from them as (r, n, k, n_layers, weights struct)."""
     if pos.device.type != "cuda":
         raise ValueError(f"{fn} runs on cuda or cpu, not {pos.device}")
     if bond is not None or conv_act != "silu" or mlp_act != "gelu":
@@ -373,28 +390,36 @@ def _check_forward(fn, pos, idx, build_mask, h0, mp, bond, conv_act,
             f"the CUDA {fn} takes the LJ model: no bond channel, silu conv "
             "and gelu MLP activations")
     dev = pos.device
-    n = pos.shape[0]
+    if pos.ndim not in (2, 3):
+        raise ValueError(f"{fn}: pos must be [N, 3] or [R, N, 3], not "
+                         f"{tuple(pos.shape)}")
+    lead = tuple(pos.shape[:-2])
+    n = pos.shape[-2]
     k = idx.shape[-1]
     n_layers = mp.w_src.shape[0]
-    _check(fn, "pos", pos, dev, torch.float32, (n, 3))
-    _check(fn, "idx", idx, dev, torch.int32, (n, k))
-    _check(fn, "build_mask", build_mask, dev, torch.bool, (n, k))
-    _check(fn, "h0", h0, dev, torch.float32, (n, KERNEL_WIDTH))
+    _check(fn, "pos", pos, dev, torch.float32, (*lead, n, 3))
+    _check(fn, "idx", idx, dev, torch.int32, (*lead, n, k))
+    _check(fn, "build_mask", build_mask, dev, torch.bool, (*lead, n, k))
+    _check(fn, "h0", h0, dev, torch.float32, (*lead, n, KERNEL_WIDTH))
     for name, shape in _expected_shapes(n_layers).items():
         _check(fn, f"mp.{name}", getattr(mp, name), dev, torch.float32,
                shape)
-    return n, k, n_layers, _MegaWeights(*[t.data_ptr() for t in mp])
+    r = lead[0] if lead else 1
+    if r < 1:
+        raise ValueError(f"{fn}: no replicas in pos {tuple(pos.shape)}")
+    return r, n, k, n_layers, _MegaWeights(*[t.data_ptr() for t in mp])
 
 
-def _forward_scratch(n, k, device):
-    """Scratch of one forward (e, live, h, hn, src, dst, aggp), made with
-    torch.empty: the kernels allocate nothing."""
+def _forward_scratch(r, n, k, device):
+    """Scratch of one forward of r replicas (e, live, h, hn, src, dst,
+    aggp), made with torch.empty: the kernels allocate nothing."""
     w = KERNEL_WIDTH
+    a = r * n
     f32 = dict(device=device, dtype=torch.float32)
-    return (torch.empty((n * k, w), **f32), torch.empty((n * k,), **f32),
-            torch.empty((n, w), **f32), torch.empty((n, w), **f32),
-            torch.empty((n, w), **f32), torch.empty((n, w), **f32),
-            torch.empty((n, -(-k // EDGE_CHUNK), w), **f32))
+    return (torch.empty((a * k, w), **f32), torch.empty((a * k,), **f32),
+            torch.empty((a, w), **f32), torch.empty((a, w), **f32),
+            torch.empty((a, w), **f32), torch.empty((a, w), **f32),
+            torch.empty((a, -(-k // EDGE_CHUNK), w), **f32))
 
 
 def _scalars(box, cutoff, length_mean, length_std, rbf_gap):
@@ -409,43 +434,40 @@ def mega_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
                  length_mean, length_std, bond=None, rbf_gap=0.025,
                  flip_dir=False, use_ln=True, conv_act="silu",
                  mlp_act="gelu"):
-    """Forces [N, 3] from wrapped positions, one system.
+    """Forces [N, 3] (or [R, N, 3]) from wrapped positions.
 
     Args:
-        pos:  [N, 3] float32 wrapped positions.
-        idx:  [N, K] int32 padded neighbour ids (build-time list).
-        build_mask: [N, K] bool validity at build time; the forward
-              intersects it with the true-cutoff test from `pos`
+        pos:  [N, 3] or [R, N, 3] float32 wrapped positions (R
+              independent replicas, one call).
+        idx:  [N, K] / [R, N, K] int32 padded neighbour ids (build-time
+              lists, indices within the replica).
+        build_mask: [N, K] / [R, N, K] bool validity at build time; the
+              forward intersects it with the true-cutoff test from `pos`
               (cutoff=None passes it through).
-        h0:   [N, D] float32 initial node features.
+        h0:   [N, D] / [R, N, D] float32 initial node features.
         mp:   MegaParams from pack_params, on pos's device.
         box, cutoff, length_mean, length_std: Python floats.
 
     A CPU `pos` runs reference_forward. A CUDA `pos` launches the kernel
     (LJ: no bond channel, silu conv / gelu MLP, every width 128) or raises.
-    A replica axis is refused on both.
     """
-    if pos.ndim != 2:
-        raise NotImplementedError(
-            "mega_forward takes one system [N, 3]: the replica axis comes "
-            "with the port's replicas slice (init_replicas / run_replicas)")
     if pos.device.type == "cpu":
         return reference_forward(pos, idx, build_mask, h0, mp, box, cutoff,
                                  length_mean, length_std, bond, rbf_gap,
                                  flip_dir, use_ln, conv_act, mlp_act)
-    n, k, n_layers, weights = _check_forward(
+    r, n, k, n_layers, weights = _check_forward(
         "mega_forward", pos, idx, build_mask, h0, mp, bond, conv_act,
         mlp_act)
 
     from gamd_tpu_torch.ops.build import load_library
     lib = load_library()
-    scratch = _forward_scratch(n, k, pos.device)
-    out = torch.empty((n, 3), device=pos.device, dtype=torch.float32)
+    scratch = _forward_scratch(r, n, k, pos.device)
+    out = torch.empty(pos.shape, device=pos.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     err = lib.gamd_mega_forward(
         pos.data_ptr(), idx.data_ptr(), build_mask.data_ptr(),
         h0.data_ptr(), ctypes.byref(weights),
-        n, k, n_layers, int(use_ln), int(flip_dir),
+        r, n, k, n_layers, int(use_ln), int(flip_dir),
         *_scalars(box, cutoff, length_mean, length_std, rbf_gap),
         *[t.data_ptr() for t in scratch], out.data_ptr(), stream)
     if err != 0:
@@ -464,30 +486,27 @@ def mega_md_steps(pos, vel, force, idx, build_mask, h0, mp: MegaParams,
                   rbf_gap=0.025, flip_dir=False, use_ln=True,
                   conv_act="silu", mlp_act="gelu", edge_hilo=False,
                   ablate=()):
-    """A whole BAOAB Langevin window of n_steps with the forward inside,
-    one system (gamd_tpu/ops/pallas_model.py::mega_md_steps).
+    """A whole BAOAB Langevin window of n_steps with the forward inside
+    (gamd_tpu/ops/pallas_model.py::mega_md_steps).
 
     Args:
-        pos/vel/force: [N, 3] float32 state; positions need not be wrapped
-            (the forward takes minimum images) and are not wrapped here.
+        pos/vel/force: [N, 3] or [R, N, 3] float32 state (R independent
+            replicas, one call); positions need not be wrapped (the
+            forward takes minimum images) and are not wrapped here.
         idx/build_mask/h0/mp/box/cutoff/length_mean/length_std: as
             mega_forward; the list is fixed for the window.
         masses: [N] float32 (internal units).
         c1: exp(-gamma dt); hdt: dt / 2 (Python floats); c2col: [N] float32
             noise amplitude sigma * sqrt(1 - c1^2), zero for no noise.
         seed: 1-element int32 tensor on the state's device, the Philox key
-            of the window's noise; it is passed by pointer and never read
-            on the host.
+            of the window's noise (replica r draws with counter word 2 =
+            r); it is passed by pointer and never read on the host.
 
-    Returns (pos', vel', force', ke [n_steps]). A CPU `pos` runs
-    md_steps_reference. A CUDA `pos` makes one call of
-    csrc/mega_md_steps.cu (LJ as mega_forward) or raises. A replica axis,
-    edge_hilo and ablate are refused on both.
+    Returns (pos', vel', force', ke [n_steps] or [R, n_steps]). A CPU
+    `pos` runs md_steps_reference. A CUDA `pos` makes one call of
+    csrc/mega_md_steps.cu (LJ as mega_forward) or raises. edge_hilo and
+    ablate are refused on both.
     """
-    if pos.ndim != 2:
-        raise NotImplementedError(
-            "mega_md_steps takes one system [N, 3]: the replica axis comes "
-            "with the port's replicas slice (init_replicas / run_replicas)")
     if edge_hilo or ablate:
         raise NotImplementedError(
             "edge_hilo and ablate are TPU precision / benchmark switches "
@@ -500,11 +519,11 @@ def mega_md_steps(pos, vel, force, idx, build_mask, h0, mp: MegaParams,
             flip_dir=flip_dir, use_ln=use_ln, conv_act=conv_act,
             mlp_act=mlp_act)
     fn = "mega_md_steps"
-    n, k, n_layers, weights = _check_forward(
+    r, n, k, n_layers, weights = _check_forward(
         fn, pos, idx, build_mask, h0, mp, bond, conv_act, mlp_act)
     dev = pos.device
-    _check(fn, "vel", vel, dev, torch.float32, (n, 3))
-    _check(fn, "force", force, dev, torch.float32, (n, 3))
+    _check(fn, "vel", vel, dev, torch.float32, tuple(pos.shape))
+    _check(fn, "force", force, dev, torch.float32, tuple(pos.shape))
     _check(fn, "masses", masses, dev, torch.float32, (n,))
     _check(fn, "c2col", c2col, dev, torch.float32, (n,))
     _check(fn, "seed", seed, dev, torch.int32, (1,))
@@ -513,16 +532,17 @@ def mega_md_steps(pos, vel, force, idx, build_mask, h0, mp: MegaParams,
 
     from gamd_tpu_torch.ops.build import load_library
     lib = load_library()
-    scratch = _forward_scratch(n, k, dev)
-    outs = [torch.empty((n, 3), device=dev, dtype=torch.float32)
+    scratch = _forward_scratch(r, n, k, dev)
+    outs = [torch.empty(pos.shape, device=dev, dtype=torch.float32)
             for _ in range(3)]
-    ke = torch.empty((int(n_steps),), device=dev, dtype=torch.float32)
+    ke = torch.empty((*pos.shape[:-2], int(n_steps)), device=dev,
+                     dtype=torch.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.gamd_mega_md_steps(
         pos.data_ptr(), vel.data_ptr(), force.data_ptr(), idx.data_ptr(),
         build_mask.data_ptr(), h0.data_ptr(), ctypes.byref(weights),
         seed.data_ptr(), masses.data_ptr(), c2col.data_ptr(),
-        n, k, n_layers, int(use_ln), int(flip_dir),
+        r, n, k, n_layers, int(use_ln), int(flip_dir),
         *_scalars(box, cutoff, length_mean, length_std, rbf_gap),
         int(n_steps), float(c1), float(hdt),
         *[t.data_ptr() for t in scratch], *[t.data_ptr() for t in outs],

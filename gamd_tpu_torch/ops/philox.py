@@ -6,8 +6,9 @@ It takes the place of gamd_tpu/ops/pallas_model.py::_mega_md_kernel's
 hash_bits / gaussian (the TPU's on-core PRNG has no Hopper counterpart).
 The layout, shared with the kernel:
 
-* key = (seed, replica 0), counter = (atom, step, 0, 0): one Philox call
-  gives the 4 words w0..w3 of one atom at one step of the window;
+* key = (seed, 0), counter = (atom, step, replica, 0): one Philox call
+  gives the 4 words w0..w3 of one atom of one replica at one step of the
+  window (replica 0 draws what a single system draws);
 * u1 = ((w >> 8) + 1) * 2^-24 in (0, 1], u2 = (w >> 8) * 2^-24;
 * (w0, w1) give the x and y normals as r cos(2 pi u2), r sin(2 pi u2) with
   r = sqrt(-2 ln u1); (w2, w3) give the z normal, the cosine one.
@@ -70,10 +71,11 @@ def _uniforms(w):
     return (top + 1.0) * 2.0 ** -24, top * 2.0 ** -24
 
 
-def philox_normal(seed, step, n: int, device=None):
-    """[n, 3] float32 standard normals of atoms 0..n-1 at window step
-    `step`, from the window's seed (a Python int or a 1-element int32
-    tensor; a tensor stays on its device and is never read on the host)."""
+def philox_normal(seed, step, n: int, device=None, replica: int = 0):
+    """[n, 3] float32 standard normals of atoms 0..n-1 of replica
+    `replica` at window step `step`, from the window's seed (a Python int
+    or a 1-element int32 tensor; a tensor stays on its device and is never
+    read on the host)."""
     if isinstance(seed, torch.Tensor):
         device = seed.device if device is None else device
         key0 = seed.reshape(()).to(device=device, dtype=torch.int64)
@@ -81,8 +83,9 @@ def philox_normal(seed, step, n: int, device=None):
         key0 = torch.tensor(int(seed), dtype=torch.int64, device=device)
     atoms = torch.arange(n, dtype=torch.int64, device=device)
     zero = torch.zeros_like(atoms)
-    counter = torch.stack([atoms, torch.full_like(atoms, int(step)), zero,
-                           zero], dim=-1)
+    counter = torch.stack([atoms, torch.full_like(atoms, int(step)),
+                           torch.full_like(atoms, int(replica)), zero],
+                          dim=-1)
     key = torch.stack([key0 & _MASK32, torch.zeros_like(key0)])
     w = philox4x32(counter, key)
     u1a, _ = _uniforms(w[:, 0])

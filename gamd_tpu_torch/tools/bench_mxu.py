@@ -60,6 +60,7 @@ PARITY_RTOL = 1e-5
 KERNEL_RTOL = {"peak": 1e-2, "gather_mm": 0.0, "gather_full": 1e-5,
                "edge_mlp": 1e-2, "repeat": 0.0}
 TIMED_CALLS = 5
+SPIN_CYCLES = 2_000_000   # the spin before each timed call (~1 ms)
 FORWARD_CALLS = 20
 
 
@@ -123,19 +124,42 @@ def salts(label, device):
 def call_ms(fn, make_args, calls=TIMED_CALLS):
     """Median of `calls` single-call device times (CUDA events, ms), each
     call with fresh arguments made before its start event, after one
-    untimed call."""
+    untimed call. A spin kernel (torch.cuda._sleep, about a millisecond)
+    keeps the card busy while the host records the start event and issues
+    the call, so that the host's time in the wrapper (tens of us: checks,
+    allocations, ctypes) does not enter the interval."""
     fn(*make_args())
     times = []
     for _ in range(calls):
         args = make_args()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn(*args)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, calls):
+    """Device time (ms) of `calls` calls of fn, the same work as one probe
+    call of `calls` iterations: captured once in a CUDA graph and replayed
+    (CUDA events, median of 3 after one untimed replay), so that the
+    host's ~20 us a PyTorch call does not enter. The library yardstick of
+    a probe form."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return call_ms(graph.replay, tuple, calls=3)
 
 
 def time_stage(label, body, inputs, k, iters, device):

@@ -1,4 +1,4 @@
-"""Where the time of the port's MD step goes on the card, on five paths:
+"""Where the time of the port's MD step goes on the card, on six paths:
 per step (one mega_forward per force call) and megastep (one
 mega_md_steps call per 20-step window), both on the slice (GAMD-small,
 seeded weights, Langevin at 100 K, K=64 built and sliced to 48, rebuild
@@ -12,7 +12,10 @@ GNNForceField.banded_force_fn: four banded_msg launches per force call,
 the cell list at 7.5 + 0.5 A with K=96, rebuilt every 20 steps); and nhc,
 the per-step path under the Nose-Hoover chain (the slice's system and
 weights, nose_hoover at 100 K and 25/ps with M=10, n_c = n_ys = 5: one
-mega_forward and two nhc_half_step launches a step).
+mega_forward and two nhc_half_step launches a step); and replicas, the
+megastep path with 8 replicas of the slice in lockstep (init_replicas and
+run: one mega_md_steps call a window for all of them; a step is one step
+of every replica).
 
 For each path it runs from the slice's start frame after a
 warm-up, times 40 steps (two windows) on the host clock without the
@@ -60,7 +63,8 @@ from gamd_tpu_torch.train.checkpoint import load_self_describing
 from gamd_tpu_torch.train.forcefield import GNNForceField
 
 STEPS = 40    # steps per window: two neighbour-rebuild chunks
-PATHS = ("per_step", "megastep", "deploy", "banded", "nhc")
+PATHS = ("per_step", "megastep", "deploy", "banded", "nhc", "replicas")
+REPLICAS = 8                                       # the replicas path's R
 CKPT = "results/ckpts/lj_relabel_latest.msgpack"   # the deploy path's weights
 BANDED_N, BANDED_K = 10_000, 96                    # the banded path's system
 SHORT_GAP_US = 20.0
@@ -125,7 +129,8 @@ def _simulation(dev, path: str):
         if path == "nhc" else sl.md
     sim = Simulation(ff.force_fn(megakernel=True), sl.system, md,
                      k_model=K_MODEL,
-                     megastep_fn=(ff.megastep_fn() if path == "megastep"
+                     megastep_fn=(ff.megastep_fn()
+                                  if path in ("megastep", "replicas")
                                   else None),
                      device=dev)
     return sim, sl.pos
@@ -133,11 +138,13 @@ def _simulation(dev, path: str):
 
 def profile(dev, path: str) -> dict:
     """The breakdown of one path (see the module docstring)."""
-    megastep = path == "megastep"
+    megastep = path in ("megastep", "replicas")
     sim, pos = _simulation(dev, path)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    state = sim.run(sim.init_state(pos, rng=gen), STEPS).state  # warm-up
+    start = (sim.init_replicas(pos, REPLICAS, rng=gen) if path == "replicas"
+             else sim.init_state(pos, rng=gen))
+    state = sim.run(start, STEPS).state                         # warm-up
     rng_state = gen.get_state()
     enqueue = []      # host seconds of each window call (megastep path)
     if megastep:
@@ -194,6 +201,7 @@ def profile(dev, path: str) -> dict:
                   "rebuild_every": sim.md.rebuild_every}
     return {
         "path": path,
+        "replicas": REPLICAS if path == "replicas" else 1,
         "steps": STEPS,
         "force_calls": (mega_forward.launches + fused_edge_encoder.launches
                         - launches[0]),

@@ -65,7 +65,8 @@ class GNNForceField:
         """(pos, idx, mask) -> force in kJ/mol/A, for md.simulate.Simulation.
 
         megakernel=True returns the ops.mega path: positions to forces in
-        one CUDA forward (plain version on the CPU), with the true-cutoff
+        one CUDA forward (plain version on the CPU; positions [N, 3], or
+        [R, N, 3] replicas with [R, N, K] lists), with the true-cutoff
         mask refresh inside (the closure carries handles_refresh=True, so
         Simulation passes the build-time mask) and the force
         denormalisation folded into the decoder weights.
@@ -106,17 +107,33 @@ class GNNForceField:
                            unit=self.system.force_unit_to_internal,
                            device=self.device)
 
+    def _replica_h0(self):
+        """h0 for positions [N, 3] or [R, N, 3]: the [N, D] rows, or them
+        broadcast to [R, N, D] (made once per R and kept), as JAX's force
+        paths broadcast them (gamd_tpu/train/forcefield.py:161-163)."""
+        h0 = self._node_h0()
+        by_r = {}
+
+        def of(pos):
+            if pos.ndim != 3:
+                return h0
+            r = pos.shape[0]
+            if r not in by_r:
+                by_r[r] = h0.expand(r, -1, -1).contiguous()
+            return by_r[r]
+        return of
+
     def _megakernel_force_fn(self):
         cfg = self.model_cfg
         system = self.system
         mp = self._kernel_params("megakernel")
-        h0 = self._node_h0()
+        h0_of = self._replica_h0()
         length_mean, length_std = self._length_scale()
 
         @torch.no_grad()
         def fn(pos, idx, mask):
             return mega_forward(
-                pos, idx, mask, h0, mp, system.box, system.cutoff,
+                pos, idx, mask, h0_of(pos), mp, system.box, system.cutoff,
                 length_mean, length_std, rbf_gap=cfg.rbf_gap,
                 flip_dir=cfg.flip_dir, use_ln=cfg.use_layer_norm,
                 conv_act=cfg.conv_activation, mlp_act=cfg.mlp_activation)
@@ -127,7 +144,8 @@ class GNNForceField:
     def megastep_fn(self):
         """Fused MD window for Simulation(megastep_fn=...): (pos, vel,
         force, idx, mask, seed, *, n_steps, c1, hdt, c2col, masses) ->
-        (pos', vel', force', ke [n_steps]).
+        (pos', vel', force', ke [n_steps]); a state with a leading replica
+        axis [R, N, 3] runs all replicas in one call (ke [R, n_steps]).
 
         One call of ops.mega.mega_md_steps runs the whole neighbour-reuse
         window of BAOAB Langevin steps (one CUDA library call on the card,
@@ -141,14 +159,14 @@ class GNNForceField:
                              "long-range term between steps; use the "
                              "per-step force_fn paths")
         mp = self._kernel_params("megastep")
-        h0 = self._node_h0()
+        h0_of = self._replica_h0()
         length_mean, length_std = self._length_scale()
 
         @torch.no_grad()
         def fn(pos, vel, force, idx, mask, seed, *, n_steps, c1, hdt,
                c2col, masses):
             return mega_md_steps(
-                pos, vel, force, idx, mask, h0, mp, system.box,
+                pos, vel, force, idx, mask, h0_of(pos), mp, system.box,
                 system.cutoff, length_mean, length_std, masses,
                 n_steps=n_steps, c1=c1, hdt=hdt, c2col=c2col, seed=seed,
                 rbf_gap=cfg.rbf_gap, flip_dir=cfg.flip_dir,

@@ -1,9 +1,11 @@
-"""The CUDA kernels mega_forward, mega_md_steps, the conv-message pair
-(conv_msg_gather forward and backward), edge_encoder, banded_msg,
-nhc_half_step, nhc_chain_probe (both forms), the op library's
-gather_agg, edge_mlp_agg, conv_msg and conv_layer, and the probes'
-mxu_loop (five bodies) and onehot_gather (five forms) against their plain
-PyTorch versions, on a Hopper card (capability 9.x).
+"""The CUDA kernels mega_forward and mega_md_steps (one system and R
+replicas), the conv-message pair (conv_msg_gather forward and backward),
+edge_encoder, banded_msg, nhc_half_step, nhc_chain_probe (both forms), the
+op library's gather_agg, edge_mlp_agg, conv_msg and conv_layer, and the
+probes' mxu_loop (five bodies), onehot_gather (five forms), lane_gather
+(two widths), sublane_gather and transpose_probe against their plain
+PyTorch versions, on a Hopper card (capability 9.x); Simulation's replica
+path on the card.
 Without one every test here skips.
 
 On the card (which has no JAX) run this file without the JAX package's
@@ -548,7 +550,8 @@ def _nhc_args(case, vel, chain):
             case["wdts"])
 
 
-@pytest.mark.parametrize("n,r", [(258, None), (10_000, None), (258, 3)])
+@pytest.mark.parametrize("n,r", [(258, None), (10_000, None), (258, 3),
+                                 (258, 8)])
 def test_nhc_half_step_matches_plain_version(cuda, n, r):
     """One launch per half-step; vel, xi, vxi and g within NHC_RTOL of each
     tensor's max of the plain version after one half-step and after 20
@@ -874,7 +877,7 @@ def test_onehot_gather_matches_plain_version(cuda, form):
         x["idx"], x["tbl"], 2, form, x["starts"], product=True)
     assert torch.equal(g, g_ref)
     assert torch.equal(g, x["tbl"].float()[x["idx"][:, 0].long()])
-    total, scale = probe_gather.gathered(x)
+    total, scale = probe_gather.gathered(x, form)
     tol = 0.0 if form == "int8_int8" else 1e-5 * 2 * scale
     assert float((out - ref).abs().max()) <= tol
     assert abs(float(out[0, 0]) - 2 * total) <= max(tol, 1e-5 * 2 * scale)
@@ -900,3 +903,137 @@ def test_onehot_gather_rejects_what_it_does_not_take(cuda):
         gather_probe.onehot_gather(x["idx"][:40].contiguous(), x["tbl"], 2,
                                    "bf16")
     assert gather_probe.onehot_gather.launches == counts
+
+
+# -- slice 9: the lane, sublane and transpose forms; the replica axis --------
+
+@pytest.mark.parametrize("form", list(probe_gather.GATHER_FORMS))
+def test_gather_form_matches_plain_version(cuda, form):
+    """Each form of gather_forms.cu at probe_gather.py's inputs, iters 2:
+    one launch; the last result ([256, 13056] lane, [13056, 256] sublane,
+    [384, 256] transpose) bit for bit its plain version's; the carry within
+    1e-5 of iters x one iteration's sum of magnitudes; a repeat bit for
+    bit."""
+    idx, tbl = probe_gather.probe_inputs()
+    x = probe_gather.form_inputs(form, idx, tbl, cuda)
+    before = probe_gather.launches(form)
+    out, g = probe_gather.call(x, form, 2, product=True)
+    torch.cuda.synchronize()
+    assert probe_gather.launches(form) == before + 1
+    x_cpu = probe_gather.form_inputs(form, idx, tbl, "cpu")
+    ref, g_ref = probe_gather.call(x_cpu, form, 2, product=True)
+    assert torch.equal(g.cpu(), g_ref)
+    total, scale = probe_gather.gathered(x_cpu, form)
+    assert float((out.cpu() - ref).abs().max()) <= 1e-5 * 2 * scale
+    assert abs(float(out[0, 0]) - 2 * total) <= 1e-5 * 2 * scale
+    assert bool((out == out[0, 0]).all())
+    assert torch.equal(probe_gather.call(x, form, 2), out)
+
+
+def test_gather_forms_reject_what_they_do_not_take(cuda):
+    """A ragged stream (100 rows), a bf16 table, int64 ids, a transposed
+    table whose width is not a multiple of 32: refused, nothing
+    launches."""
+    idx, tbl = probe_gather.probe_inputs()
+    lane = probe_gather.form_inputs("lane384", idx, tbl, cuda)
+    sub = probe_gather.form_inputs("sublane", idx, tbl, cuda)
+    counts = [probe_gather.launches(f) for f in probe_gather.GATHER_FORMS]
+    with pytest.raises(ValueError, match="multiple of 256"):
+        gather_probe.lane_gather(lane["idx"][:100].contiguous(),
+                                 lane["tbl"], 2)
+    with pytest.raises(ValueError, match="tblt"):
+        gather_probe.lane_gather(lane["idx"], lane["tbl"].bfloat16(), 2)
+    with pytest.raises(ValueError, match="idx"):
+        gather_probe.sublane_gather(sub["idx"].long(), sub["tbl"], 2)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        gather_probe.sublane_gather(sub["idx"][:100].contiguous(),
+                                    sub["tbl"], 2)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        gather_probe.transpose_probe(lane["tbl"][:, :200].contiguous(), 2)
+    assert [probe_gather.launches(f)
+            for f in probe_gather.GATHER_FORMS] == counts
+
+
+def _replica_case(dev, r=3):
+    """The case frame shifted by 0, 1.7, 3.4 ... A, each with its own list
+    (N=66, K=20: ragged node blocks and edge chunks)."""
+    pos, _, _, h0, mp, box, cutoff, lm, ls = _case(dev, 66, 20)
+    frames = torch.stack([torch.remainder(pos + 1.7 * i, box)
+                          for i in range(r)])
+    idx, mask, _ = dense_neighbor_list(frames, box, 5.0, 20)
+    return (frames, idx, mask, h0.expand(r, -1, -1).contiguous(), mp, box,
+            cutoff, lm, ls)
+
+
+def test_mega_forward_replica_axis_matches_single_calls(cuda):
+    """R=3 replicas in one launch: each replica bit for bit its own
+    single-system launch, all within 5e-3 std(F) of reference_forward."""
+    args = _replica_case(cuda)
+    pos, idx, mask, h0, mp, *rest = args
+    before = mega_forward.launches
+    out = mega_forward(*args)
+    torch.cuda.synchronize()
+    assert mega_forward.launches == before + 1 and out.shape == pos.shape
+    for r in range(pos.shape[0]):
+        one = mega_forward(pos[r], idx[r], mask[r], h0[r].contiguous(), mp,
+                           *rest)
+        assert torch.equal(out[r], one), r
+    ref = reference_forward(*args)
+    assert float((out - ref).abs().max()) < TOLERANCE * float(
+        ref.abs().std())
+
+
+@pytest.mark.parametrize("temperature", [0.0, 100.0])
+def test_window_replica_axis(cuda, temperature):
+    """An R=3 window of 8 steps, noise off and on: pos and vel within 2e-4
+    of the plain window at R=3, ke [3, 8] within rtol 1e-4; replica 0 bit
+    for bit the single-system window of replica 0's inputs and seed."""
+    args = _replica_case(cuda)
+    pos = args[0]
+    vel = 0.1 * torch.randn(pos.shape, device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(3))
+    force = reference_forward(*args).contiguous()
+    c1, hdt, c2col, masses = _window_constants(cuda, pos.shape[1],
+                                               temperature)
+    dx, dv, out = _compare_windows(args, vel, force, masses,
+                                   (c1, hdt, c2col), 8, seed=77)
+    assert dx <= WINDOW_ATOL and dv <= WINDOW_ATOL
+    assert out[3].shape == (3, 8)
+    single = tuple(a[0].contiguous() if isinstance(a, torch.Tensor) and
+                   a.ndim == 3 else a for a in args)
+    one = mega_md_steps(
+        single[0], vel[0].contiguous(), force[0].contiguous(), *single[1:],
+        masses, n_steps=8, c1=c1, hdt=hdt, c2col=c2col,
+        seed=torch.tensor([77], dtype=torch.int32, device=cuda))
+    for a, b in zip(out, one):
+        assert torch.equal(a[0], b)
+
+
+@pytest.mark.parametrize("integrator", ["langevin", "nose_hoover"])
+def test_run_replicas_on_the_card(cuda, integrator):
+    """Simulation.run_replicas at R=4 on LJ-64 with a seeded GAMD (widths
+    128, 2 layers): the megastep window (Langevin) or per-step NHC through
+    force_fn(megakernel=True), one launch a window or force call for all
+    replicas, finite, replicas apart."""
+    system = get_preset("lj", n_atoms=64, box=lj_fluid_box(64, 0.5)[0],
+                        cutoff=6.0, skin=0.5, nbr_capacity=48)
+    cfg = ModelConfig(conv_layers=2, use_layer_norm=True)
+    ff = GNNForceField(init_params(cfg, system, seed=0), system, cfg,
+                       device=cuda)
+    md = MDConfig(integrator=integrator, temperature=100.0,
+                  friction_per_ps=25.0, rebuild_every=5)
+    sim = Simulation(ff.force_fn(megakernel=True), system, md,
+                     megastep_fn=(ff.megastep_fn()
+                                  if integrator == "langevin" else None),
+                     device=cuda)
+    states = sim.init_replicas(lj_fluid_box(64, 0.5)[1], 4,
+                               rng=torch.Generator(cuda).manual_seed(1))
+    before = mega_forward.launches, mega_md_steps.launches
+    res = sim.run_replicas(states, 10)
+    torch.cuda.synchronize()
+    launches = (mega_forward.launches - before[0],
+                mega_md_steps.launches - before[1])
+    assert launches == ((0, 2) if integrator == "langevin" else (10, 0))
+    assert res.thermo.temperature.shape == (4, 10)
+    assert bool(torch.isfinite(res.state.pos).all())
+    assert float((res.state.pos[0] - res.state.pos[1]).abs().max()) > 1e-3

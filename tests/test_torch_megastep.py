@@ -299,8 +299,10 @@ def test_megastep_and_per_step_paths_agree():
 def test_megastep_refusals():
     """megastep_fn refuses a box that is not fixed, expand_edge=False,
     update_edge=True and a long-range channel; Simulation refuses a
-    megastep_fn under another integrator; mega_md_steps refuses a replica
-    axis, edge_hilo and ablate."""
+    megastep_fn under another integrator; mega_md_steps refuses edge_hilo
+    and ablate, and takes the replica axis it once refused: an R=2 window
+    gives each replica its single-system window (pos, vel, force bit for
+    bit on the CPU, ke [R, steps] within 1e-6)."""
     state = _port_state(_jax_state())
     cfg = tcfg.ModelConfig(**SMALL)
     free = tcfg.get_preset("lj", **{**SYSTEM, "box": None})
@@ -321,13 +323,24 @@ def test_megastep_refusals():
                    megastep_fn=ff.megastep_fn(), device="cpu")
 
     _, tmp, pos, vel, idx, mask, h0 = _window_inputs()
-    args = (_t(pos)[None].repeat(2, 1, 1), _t(vel), _t(vel), _t(idx),
-            _t(mask), _t(h0), tmp, BOX, CUTOFF, 4.0, 1.5,
-            torch.full((N,), MASS))
+    pos2 = np.mod(pos + 1.7, BOX).astype(np.float32)
+    idx2, mask2, _ = dense_neighbor_list(jnp.asarray(pos2), BOX,
+                                         CUTOFF + SKIN, K)
+    two = lambda a, b: torch.stack([_t(a), _t(b)])
+    args_r = (two(pos, pos2), two(vel, -vel), two(vel, vel), two(idx, idx2),
+              two(mask, mask2), two(h0, h0), tmp, BOX, CUTOFF, 4.0, 1.5,
+              torch.full((N,), MASS))
     kw = dict(n_steps=2, c1=0.9, hdt=0.01, c2col=torch.zeros(N), seed=1)
-    with pytest.raises(NotImplementedError, match="replicas slice"):
-        tmega.mega_md_steps(*args, **kw)
-    args = (_t(pos),) + args[1:]
+    out_r = tmega.mega_md_steps(*args_r, **kw)
+    assert out_r[3].shape == (2, 2)
+    for r in range(2):
+        one = tmega.mega_md_steps(*[a[r] for a in args_r[:6]],
+                                  *args_r[6:], **kw)
+        for got, ref in zip(out_r[:3], one[:3]):
+            assert torch.equal(got[r], ref)
+        torch.testing.assert_close(out_r[3][r], one[3], rtol=1e-6, atol=0.0)
+    args = (_t(pos), _t(vel), _t(vel), _t(idx), _t(mask), _t(h0), tmp, BOX,
+            CUTOFF, 4.0, 1.5, torch.full((N,), MASS))
     with pytest.raises(NotImplementedError, match="edge_hilo"):
         tmega.mega_md_steps(*args, **kw, edge_hilo=True)
     with pytest.raises(NotImplementedError, match="ablate"):

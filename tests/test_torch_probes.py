@@ -1,9 +1,10 @@
 """The port's tensor-core probes against the JAX package's probe scripts
 (CPU): each stage body of scripts/bench_mxu.py's loop kernel and each
-one-hot form of scripts/probe_gather.py, run as the scripts define them
-(Pallas in interpret mode), against the plain versions of
-ops.mxu_probe.mxu_loop and ops.gather_probe.onehot_gather; the two port
-tools with --cpu; the launch counters. The CUDA kernels themselves are
+one-hot, lane, sublane and transpose form of scripts/probe_gather.py, run
+as the scripts define them (Pallas in interpret mode), against the plain
+versions of ops.mxu_probe.mxu_loop and ops.gather_probe's onehot_gather,
+lane_gather, sublane_gather and transpose_probe; the two port tools with
+--cpu; the launch counters. The CUDA kernels themselves are
 held against the plain versions in tests/test_torch_cuda.py and
 chip_smoke.py, on the card.
 
@@ -176,12 +177,93 @@ def test_onehot_form_matches_probe_gather_script(form):
     x = probe_gather.form_inputs(form, idx, tbl, "cpu")
     ref = _jax_onehot_call(script, form, 2, x)
     out = probe_gather.call(x, form, 2).numpy()
-    _, scale = probe_gather.gathered(x)
+    _, scale = probe_gather.gathered(x, form)
     if form == "int8_int8":
         assert np.array_equal(out, ref)
     else:
         assert np.abs(out - ref).max() <= 1e-5 * 2 * scale
     assert np.all(out == out[0, 0])
+
+
+def _jax_gather_form_call(script, form, iters):
+    """probe_gather.py's pallas_call for a lane, sublane or transpose form,
+    in interpret mode, on the script's own inputs (idxb, the 8-fold repeat
+    of each block's indices, and the table and its transpose); returns the
+    carry [8, 128]."""
+    full = pl.BlockSpec(memory_space=pltpu.VMEM)
+    out_sd = jax.ShapeDtypeStruct((8, 128), jnp.float32)
+    idx, tbl = probe_gather.probe_inputs()
+    idxb = jnp.asarray(np.repeat(idx.reshape(script.N_BLOCKS, script.EB), 8,
+                                 axis=0))
+    tblt = jnp.asarray(np.ascontiguousarray(tbl.T[:, :script.N_PAD]))
+    if form in probe_gather.LANE_FORMS:
+        kern = functools.partial(script.kernel_lane, iters=iters,
+                                 width=probe_gather.LANE_FORMS[form])
+        args = (idxb, tblt)
+    elif form == "sublane":
+        kern = functools.partial(script.kernel_sublane, iters=iters)
+        args = (idxb, jnp.asarray(tbl))
+    else:
+        kern = functools.partial(script.kernel_transpose, iters=iters)
+        args = (tblt,)
+    fn = pl.pallas_call(kern, out_shape=out_sd, in_specs=[full] * len(args),
+                        out_specs=full, interpret=True)
+    return np.asarray(fn(*args))
+
+
+@pytest.mark.parametrize("form", list(probe_gather.GATHER_FORMS))
+def test_gather_form_matches_probe_gather_script(form):
+    """The lane (both widths), sublane and transpose forms' plain versions
+    at iters 2 on the script's inputs: the carry within 1e-5 of iters x
+    the sum of the magnitudes of one iteration's result (iters sum |T[idx]|,
+    or 34 sums of |T| for the transpose) of the script's kernel in
+    interpret mode, which sums the same fp32 values in another order; every
+    carry element the total."""
+    script = _load_script("probe_gather")
+    assert (script.EB, script.N_BLOCKS) == (probe_gather.EB,
+                                            probe_gather.N_BLOCKS)
+    idx, tbl = probe_gather.probe_inputs()
+    x = probe_gather.form_inputs(form, idx, tbl, "cpu")
+    ref = _jax_gather_form_call(script, form, 2)
+    out = probe_gather.call(x, form, 2).numpy()
+    _, scale = probe_gather.gathered(x, form)
+    assert out.shape == ref.shape == (8, 128)
+    assert np.abs(out - ref).max() <= 1e-5 * 2 * scale
+    assert np.all(out == out[0, 0])
+
+
+def test_gather_form_products_are_numpy_indexing():
+    """product=True returns the last iteration's result, bit for bit the
+    numpy gather or transpose of the script's table: TT[:, idx] for both
+    lane widths, T[idx] for the sublane form, TT.T for the transpose."""
+    idx, tbl = probe_gather.probe_inputs()
+    tblt = np.ascontiguousarray(tbl.T)
+    expected = {"lane384": tblt[:, idx[:, 0]], "lane128x3": tblt[:, idx[:, 0]],
+                "sublane": tbl[idx[:, 0]], "transpose": tblt.T}
+    for form, want in expected.items():
+        x = probe_gather.form_inputs(form, idx, tbl, "cpu")
+        _, g = probe_gather.call(x, form, 1, product=True)
+        assert g.dtype == torch.float32 and g.shape == want.shape, form
+        assert np.array_equal(g.numpy(), want), form
+
+
+def test_gather_form_wrappers_refuse_what_they_do_not_take():
+    """A lane width other than 384 or 128, width 128 on a table that is not
+    384 wide, negative iters, no transposes, a device other than cuda or
+    cpu."""
+    idx, tbl = probe_gather.probe_inputs()
+    x = probe_gather.form_inputs("lane384", idx, tbl, "cpu")
+    with pytest.raises(ValueError, match="width"):
+        gather_probe.lane_gather(x["idx"], x["tbl"], 2, width=256)
+    with pytest.raises(ValueError, match="n_pad 384"):
+        gather_probe.lane_gather(x["idx"], x["tbl"][:, :256], 2, width=128)
+    with pytest.raises(ValueError, match="iters"):
+        gather_probe.sublane_gather(x["idx"], torch.as_tensor(tbl), -1)
+    with pytest.raises(ValueError, match="copies"):
+        gather_probe.transpose_probe(x["tbl"], 2, copies=0)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        gather_probe.transpose_probe(torch.zeros((256, 384), device="meta"),
+                                     2)
 
 
 def test_probe_gather_inputs_are_the_scripts():
@@ -222,31 +304,36 @@ def test_bench_mxu_cpu_run(capsys):
 
 
 def test_probe_gather_cpu_run(capsys):
-    """`probe_gather --cpu --iters 2`: one JSON line per variant, the five
-    one-hot forms status OK on parity, the four forms of slice 9 the
-    script's error shape, the SUMMARY line last; no kernel launches."""
-    before = dict(gather_probe.onehot_gather.launches)
+    """`probe_gather --cpu --iters 2`: one JSON line per variant, all nine
+    status OK on parity (the four forms of slice 9, once printed as "not
+    ported yet", included), the SUMMARY line last; no kernel launches."""
+    before = (dict(gather_probe.onehot_gather.launches),
+              dict(gather_probe.lane_gather.launches),
+              gather_probe.sublane_gather.launches,
+              gather_probe.transpose_probe.launches)
     res = probe_gather.main(["--cpu", "--iters", "2"])
     lines = capsys.readouterr().out.strip().splitlines()
     variants = [json.loads(line) for line in lines if line.startswith("{")]
     assert len(variants) == 9 == len(res)
     for key, _, form in probe_gather.VARIANTS:
-        if form is None:
-            assert res[key]["error"] == probe_gather.NOT_PORTED
-            assert "parity" not in res[key]
-        else:
-            assert res[key]["status"] == "OK", res[key]
+        assert res[key]["status"] == "OK", res[key]
+        assert "error" not in res[key]
     assert "int8" in res["onehot_int8_mixed"]["note"]
     assert lines[-1].startswith("SUMMARY ")
     assert set(json.loads(lines[-1][8:])) == {
         key for key, _, _ in probe_gather.VARIANTS}
-    assert gather_probe.onehot_gather.launches == before
+    assert (dict(gather_probe.onehot_gather.launches),
+            dict(gather_probe.lane_gather.launches),
+            gather_probe.sublane_gather.launches,
+            gather_probe.transpose_probe.launches) == before
 
 
 def test_launch_counters_are_keyed_by_body_and_form():
     assert set(mxu_probe.mxu_loop.launches) == set(mxu_probe.BODIES)
     assert set(gather_probe.onehot_gather.launches) == set(
         gather_probe.FORMS)
+    assert set(gather_probe.lane_gather.launches) == set(
+        gather_probe.LANE_WIDTHS)
 
 
 def test_probe_entries_refuse_unknown_bodies_and_forms():

@@ -20,10 +20,11 @@ from gamd_tpu.train.state import build_model, create_train_state
 
 from gamd_tpu_torch.core import config as tcfg
 from gamd_tpu_torch.md.simulate import Simulation
+from gamd_tpu_torch.neighbors.dense import dense_neighbor_list
 from gamd_tpu_torch.ops.mega import mega_forward
 from gamd_tpu_torch.train.forcefield import GNNForceField
-from gamd_tpu_torch.train.state import (ForceFieldState, init_params,
-                                        params_from_jax, stat_from_jax)
+from gamd_tpu_torch.train.state import (ForceFieldState, params_from_jax,
+                                        stat_from_jax)
 
 BOX = 12.0
 SMALL = dict(encoding_size=32, hidden_dim=32, edge_embedding_dim=32,
@@ -146,18 +147,25 @@ def test_mega_forward_rejects_other_devices():
 
 
 def test_megakernel_force_fn_refuses_a_replica_axis():
-    """force_fn(megakernel=True) on a [R=2, 258, 3] pos raises the
-    replicas-slice NotImplementedError (the JAX force_fn takes [R, N, 3];
-    the port's kernel takes one system), before any other check."""
-    system = tcfg.get_preset("lj")
-    cfg = tcfg.lj_model_config()
-    ff = GNNForceField(init_params(cfg, system, seed=0), system, cfg,
-                       device="cpu")
-    pos = torch.zeros((2, system.n_atoms, 3))
-    idx = torch.zeros((2, system.n_atoms, 48), dtype=torch.int32)
-    mask = torch.zeros((2, system.n_atoms, 48), dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="replicas slice"):
-        ff.force_fn(megakernel=True)(pos, idx, mask)
-    with pytest.raises(NotImplementedError, match="replicas slice"):
+    """The replica axis, once refused here, is taken: force_fn(megakernel=
+    True) on [R=2, N, 3] positions with per-replica lists gives each
+    replica's single-system forces, bit for bit on the CPU (the JAX
+    force_fn takes [R, N, 3] the same way); mega_forward on another device
+    still raises, replica axis or not."""
+    system = tcfg.get_preset("lj", **SYSTEM)
+    ff = GNNForceField(_port_state(_jax_state()), system,
+                       tcfg.ModelConfig(**SMALL), device="cpu")
+    fn = ff.force_fn(megakernel=True)
+    rng = np.random.RandomState(5)
+    pos = torch.as_tensor(rng.uniform(0, BOX, (2, 64, 3)).astype(np.float32))
+    lists = [dense_neighbor_list(p, BOX, 5.0, 16) for p in pos]
+    idx = torch.stack([ll[0] for ll in lists])
+    mask = torch.stack([ll[1] for ll in lists])
+    out = fn(pos, idx, mask)
+    assert out.shape == (2, 64, 3)
+    for r in range(2):
+        assert torch.equal(out[r], fn(pos[r], idx[r], mask[r]))
+    assert not torch.equal(out[0], out[1])
+    with pytest.raises(ValueError, match="cuda or cpu"):
         mega_forward(torch.zeros((2, 4, 3), device="meta"), None, None,
                      None, None, BOX, None, 0.0, 1.0)
