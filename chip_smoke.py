@@ -40,7 +40,10 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
 
   0. card (nvidia-smi name and power limit), torch and nvcc versions;
   1. build the CUDA sources with nvcc (or reuse the hashed library);
-  2. mega_forward against its plain PyTorch version at full width;
+  2. mega_forward against its plain PyTorch version at full width; its
+     bound on the tensor cores (the edge products as three bf16 passes
+     at 989 TFLOP/s, the rest as fp32 at 67) beside the fp32 CUDA-core
+     bound of the same function;
   3. the per-step path: Simulation(GNNForceField.force_fn(megakernel=True)),
      20 warm-up and 200 timed steps, with the kernels' launch counts;
   4. mega_md_steps against its plain version: one 20-step window from the
@@ -167,7 +170,15 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
      aggregate steps/s, the launches (one window or one forward a step for
      all replicas), the shapes, replicas apart, the Langevin mean T;
  38. tools.bench_replicas 8 100 in process under each integrator;
- 39. the kernels line (JSON), then the result line (JSON) last.
+ 39. the forward's live-edge layout: its first stage alone (mega_layout,
+     one launch) at phase 2's frame and phase 35's 8 frames, equal to
+     live_edge_layout exactly (offsets, counts, totals, the compacted
+     slots), with the 64-row tiles it cuts;
+ 40. the forward's per-stage device time (torch.profiler, each kernel's
+     exclusive time grouped by stage, tools/profile_step.py's
+     FORWARD_STAGES) and its launches a forward, at R=1 and R=8, for
+     mega_forward calls and a mega_md_steps window;
+ 41. the kernels line (JSON), then the result line (JSON) last.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 card; without one it exits non-zero and prints no result. Any failed check
@@ -206,8 +217,9 @@ from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
                                         fused_edge_encoder)
-from gamd_tpu_torch.ops.mega import (md_steps_reference, mega_forward,
-                                     mega_md_steps, pack_params,
+from gamd_tpu_torch.ops.mega import (layout_tiles, live_edge_layout,
+                                     md_steps_reference, mega_forward,
+                                     mega_layout, mega_md_steps, pack_params,
                                      reference_forward)
 from gamd_tpu_torch.physics.lennard_jones import (LJParams, lj_energy_dense,
                                                   lj_fluid_box, lj_force_fn,
@@ -222,7 +234,10 @@ from gamd_tpu_torch.tools.bench_large import (LARGE_MD, banded_layer_inputs,
 from gamd_tpu_torch.tools.bench_mxu import graph_ms
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
 from gamd_tpu_torch.tools.lj_train_slice import lj_train_slice
-from gamd_tpu_torch.tools.profile_step import kernel_times
+from gamd_tpu_torch.tools.profile_step import (FORWARD_STAGES,
+                                               device_spans,
+                                               exclusive_times,
+                                               forward_stages, kernel_times)
 from gamd_tpu_torch.train.checkpoint import load_self_describing
 from gamd_tpu_torch.train.forcefield import GNNForceField
 from gamd_tpu_torch.train.loop import (edge_distances, make_train_step,
@@ -331,6 +346,23 @@ def forward_flops(edges, n, n_rbf, model_cfg):
     return 2.0 * (edges * per_edge + n * per_node)
 
 
+def forward_ops(edges, n, n_rbf, model_cfg):
+    """(tensor-core FLOP, fp32 FLOP) of one forward as mega_forward computes
+    it over `edges` live edges and n atoms: the edge-level products (the
+    RBF over n_rbf rows, the encoder's two, four a layer) as three bf16
+    passes each (bf16 x 3, csrc/edge_tc.cuh), and on the CUDA cores the
+    rank-1 geometric terms, the gated product and the node-level products
+    (2 operations per multiply-add)."""
+    d, h, e = (model_cfg.encoding_size, model_cfg.hidden_dim,
+               model_cfg.edge_embedding_dim)
+    layers = model_cfg.conv_layers
+    products = n_rbf * h + h * h + h * e \
+        + layers * (e * h + h * h + h * h + h * d)
+    per_node = layers * (2 * d * h + 2 * d * h + h * d) + d * h + h * 3
+    return (2.0 * 3 * edges * products,
+            2.0 * (edges * (4 * h + layers * d) + n * per_node))
+
+
 def roofline(flops, nbytes, rate=FP32_FLOPS):
     """(least ms, "operations" or "bytes"): `flops` against `rate` (the
     fp32 peak unless given), `nbytes` against HBM, the larger of the
@@ -360,18 +392,36 @@ def conv_bytes(n, k, width=128, backward=False):
     return io + nodes
 
 
-def bound(flops, n, k, mp, model_cfg, state_io=False):
-    """(least ms, "operations" or "bytes") of one forward, or with
-    state_io of one MD window, on this card: `flops` against the fp32
-    peak, and each input read once plus each output written once against
-    HBM (a window also reads velocities, forces, masses, noise amplitudes
-    and the seed, and writes positions, velocities, forces and the KE)."""
+def forward_bytes(n, k, mp, model_cfg, state_io=False):
+    """Bytes one forward, or with state_io one MD window, must move: each
+    input read once and each output written once (a window also reads
+    velocities, forces, masses, noise amplitudes and the seed, and writes
+    positions, velocities, forces and the KE)."""
     weight_bytes = sum(t.numel() * t.element_size() for t in mp)
     io_bytes = n * 3 * 4 + n * k * (4 + 1) \
         + n * model_cfg.encoding_size * 4 + n * 3 * 4
     if state_io:
         io_bytes += 2 * n * 3 * 4 + 2 * n * 4 + 4 + 3 * n * 3 * 4
-    return roofline(flops, weight_bytes + io_bytes)
+    return weight_bytes + io_bytes
+
+
+def bound(flops, n, k, mp, model_cfg, state_io=False):
+    """(least ms, "operations" or "bytes") of one forward, or with
+    state_io of one MD window, on the fp32 CUDA cores: `flops` against the
+    fp32 peak, forward_bytes against HBM."""
+    return roofline(flops, forward_bytes(n, k, mp, model_cfg, state_io))
+
+
+def tc_bound(ops, n, k, mp, model_cfg, state_io=False):
+    """(least ms, "operations" or "bytes") of one forward, or with
+    state_io of one MD window, as the kernel computes it: `ops` =
+    (tensor-core FLOP, fp32 FLOP) from forward_ops, the first against the
+    bf16 tensor peak and the second against the fp32 peak (their times
+    add), forward_bytes against HBM; the larger."""
+    t_ops = (ops[0] / BF16_FLOPS + ops[1] / FP32_FLOPS) * 1e3
+    t_bytes = forward_bytes(n, k, mp, model_cfg, state_io) \
+        / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 class ConvCase(NamedTuple):
@@ -2246,20 +2296,19 @@ def replica_phases(dev, card, single_ms, single_window_ms):
             "an R=8 replica disagrees with its single call or plain version")
     live = [int(refresh_mask(frames[r], system.box, system.cutoff, idx[r],
                              mask[r]).sum()) for r in range(REPLICAS)]
-    needed = sum(forward_flops(e, n, model_cfg.n_rbf, model_cfg)
-                 for e in live)
+    ops = forward_ops(sum(live), REPLICAS * n, model_cfg.n_rbf, model_cfg)
     r_ms = time_ms(lambda: mega_forward(*args, **kw))
     r_plain_ms = time_ms(lambda: reference_forward(*args, **kw), reps=5,
                          warmup=1)
-    r_bound_ms, r_bound_by = bound(needed, REPLICAS * n, K_MODEL, mp,
-                                   model_cfg)
+    r_bound_ms, r_bound_by = tc_bound(ops, REPLICAS * n, K_MODEL, mp,
+                                      model_cfg)
     say(f"phase 35: mega_forward at R={REPLICAS} {r_ms:.4f} ms/call "
         f"({r_ms / REPLICAS:.4f} ms a replica; single {single_ms:.4f}: "
         f"{REPLICAS * single_ms / r_ms:.2f}x the throughput), plain "
         f"{r_plain_ms:.4f} ms/call, bound {r_bound_ms:.4f} ms "
-        f"({r_bound_by}; {needed / 1e9:.4f} GFLOP for {sum(live)} live "
-        f"edges), kernel at {r_bound_ms / r_ms:.2%} of it; CUDA events "
-        f"[{card}]")
+        f"({r_bound_by}; {ops[0] / 1e9:.4f} GFLOP bf16 x 3 and "
+        f"{ops[1] / 1e9:.4f} GFLOP fp32 for {sum(live)} live edges), kernel "
+        f"at {r_bound_ms / r_ms:.2%} of it; CUDA events [{card}]")
     forward_r8 = {"replicas": REPLICAS, "ms": r_ms, "plain_ms": r_plain_ms,
                   "bound_ms": r_bound_ms, "bound_by": r_bound_by,
                   "max_abs_err": max_err,
@@ -2314,8 +2363,9 @@ def replica_phases(dev, card, single_ms, single_window_ms):
     w_ms = time_ms(lambda: mega_md_steps(*wargs, **wkw), reps=10)
     w_plain_ms = time_ms(lambda: md_steps_reference(*wargs, **wkw), reps=2,
                          warmup=1)
-    w_bound_ms, w_bound_by = bound(n_win * needed, REPLICAS * n, K_MODEL, mp,
-                                   model_cfg, state_io=True)
+    w_bound_ms, w_bound_by = tc_bound((n_win * ops[0], n_win * ops[1]),
+                                      REPLICAS * n, K_MODEL, mp, model_cfg,
+                                      state_io=True)
     say(f"phase 36: mega_md_steps at R={REPLICAS} {w_ms:.4f} ms/window "
         f"({REPLICAS * n_win / w_ms * 1e3:.1f} replica-steps/s; single "
         f"window {single_window_ms:.4f} ms: "
@@ -2413,6 +2463,107 @@ def replica_phases(dev, card, single_ms, single_window_ms):
     return forward_r8, window_r8, launches
 
 
+def stage_profile(fn, calls):
+    """{stage: device us a call} of the forward's kernels (profile_step.
+    FORWARD_STAGES; exclusive times, since programmatic dependent launch
+    overlaps a kernel's span with the one before it), their launches a
+    call and their device us a call, from a torch.profiler run of `calls`
+    calls of fn."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels, _ = exclusive_times(device_spans(prof))
+    stages = forward_stages(kernels, calls)
+    forward = [k for k in kernels if k in FORWARD_STAGES]
+    require(stages, "torch.profiler saw no device time of the forward")
+    return (stages, sum(kernels[k]["count"] for k in forward) / calls,
+            sum(stages.values()))
+
+
+def forward_stage_phases(dev, card):
+    """Phases 39-40 (module docstring). Returns the stage breakdowns,
+    {"R=1": {...}, "R=8": {...}}."""
+    system, model_cfg, md, state, pos = lj_slice(dev, seed=0)
+    n = system.n_atoms
+    mp = pack_params(state.params, model_cfg, force_std=state.force_stat.std,
+                     force_mean=state.force_stat.safe_mean,
+                     unit=system.force_unit_to_internal, device=dev)
+    h0 = torch.as_tensor(state.params["node_emb"], device=dev).expand(
+        n, model_cfg.encoding_size).contiguous()
+    scalars = (system.box, system.cutoff, state.length_stat.safe_mean,
+               state.length_stat.std)
+    cases = {}
+    for r, p in ((1, pos), (REPLICAS, replica_frames(pos, system.box,
+                                                      REPLICAS))):
+        idx, mask, ovf = build_nbrs(p, system, K_MODEL)
+        require(not bool(ovf), f"neighbour overflow at R={r}")
+        cases[r] = (p, idx, mask,
+                    h0 if r == 1 else h0.expand(r, -1, -1).contiguous())
+
+    # -- phase 39: the live-edge layout against its plain version ---------
+    for r, (p, idx, mask, _) in cases.items():
+        before = mega_layout.launches
+        got = mega_layout(p, idx, mask, system.box, system.cutoff)
+        want = live_edge_layout(p, idx, mask, system.box, system.cutoff)
+        torch.cuda.synchronize()
+        require(mega_layout.launches == before + 1,
+                "the layout kernel did not launch once")
+        totals = want.total.tolist()
+        same = (torch.equal(got.offset, want.offset)
+                and torch.equal(got.count, want.count)
+                and torch.equal(got.total, want.total)
+                and all(torch.equal(got.slot[q, :t], want.slot[q, :t])
+                        for q, t in enumerate(totals)))
+        tiles = layout_tiles(want)
+        say(f"phase 39: live-edge layout at R={r} (LJ-258, K={K_MODEL}): "
+            f"the layout kernel equal to live_edge_layout: {same} "
+            f"(offsets, counts, totals {totals}, compacted slots); "
+            f"{sum(totals)} live of {r * n * K_MODEL} slots in {len(tiles)} "
+            f"tiles of at most 64 rows, none across a replica")
+        require(same, f"the device layout differs from the plain one at "
+                f"R={r}")
+
+    # -- phase 40: per-stage device time, launches a forward --------------
+    sim = Simulation(lambda p, i, m: p, system, md, device=dev)
+    c1, hdt, c2col = sim._baoab_constants()
+    n_win = md.rebuild_every
+    seed = torch.tensor([40], dtype=torch.int32, device=dev)
+    stages = {}
+    for r, (p, idx, mask, hh) in cases.items():
+        args = (p, idx, mask, hh, mp, *scalars)
+        kw = dict(rbf_gap=model_cfg.rbf_gap)
+        f_stages, f_launches, f_us = stage_profile(
+            lambda: mega_forward(*args, **kw), 10)
+        vel = maxwell_boltzmann_velocities(
+            torch.Generator(dev).manual_seed(40), sim.masses,
+            md.temperature, n_replicas=None if r == 1 else r)
+        force = mega_forward(*args, **kw)
+        w_stages, w_launches, w_us = stage_profile(
+            lambda: mega_md_steps(p, vel, force, idx, mask, hh, mp, *scalars,
+                                  sim.masses, n_steps=n_win, c1=c1, hdt=hdt,
+                                  c2col=c2col.contiguous(), seed=seed, **kw),
+            1)
+        w_stages = {k: v / n_win for k, v in w_stages.items()}
+        stages[f"R={r}"] = {
+            "forward_stage_us": f_stages, "forward_device_us": f_us,
+            "forward_launches": f_launches,
+            "window_stage_us_per_step": w_stages,
+            "window_device_us_per_step": w_us / n_win,
+            "window_forward_launches_per_step": w_launches / n_win}
+        say(f"phase 40: forward at R={r}: {f_us:.2f} us of device time and "
+            f"{f_launches:g} launches a mega_forward call, by stage "
+            f"{json.dumps(f_stages)}; in a {n_win}-step mega_md_steps "
+            f"window {w_us / n_win:.2f} us and {w_launches / n_win:g} "
+            f"forward launches a step, by stage "
+            f"{json.dumps({k: round(v, 3) for k, v in w_stages.items()})} "
+            f"(torch.profiler) [{card}]")
+    return stages
+
+
 def merge_launches(entries, runs):
     """Adds each run's non-zero counts ({path: {kernel name: count}}) to
     the entries' launches_by_path, keeping a path an entry already has,
@@ -2501,22 +2652,27 @@ def main():
             f"kernel disagrees with its plain version: {max_err} vs {scale}")
     kernel_ms = time_ms(kernel)
     plain_ms = time_ms(plain)
-    # The bound counts the work the forces need: live edges only (dead
+    # Both bounds count the work the forces need: live edges only (dead
     # slots are masked out of every sum) over the n_rbf live RBF rows. The
-    # kernel computes every slot over the 128 zero-padded rows; that count
-    # is printed beside it, as work a better kernel would skip.
+    # kernel's bound counts its edge products as the three bf16 passes it
+    # runs on the tensor cores; the fp32 one, the same function on the
+    # CUDA cores (the route of the fp32 kernel it replaced), is printed
+    # beside it.
     needed = forward_flops(live_edges, system.n_atoms, model_cfg.n_rbf,
                            model_cfg)
-    padded = forward_flops(system.n_atoms * K_MODEL, system.n_atoms,
-                           mp.w_rbf.shape[0], model_cfg)
-    bound_ms, bound_by = bound(needed, system.n_atoms, K_MODEL, mp,
-                               model_cfg)
+    ops = forward_ops(live_edges, system.n_atoms, model_cfg.n_rbf,
+                      model_cfg)
+    bound_ms, bound_by = tc_bound(ops, system.n_atoms, K_MODEL, mp,
+                                  model_cfg)
+    fp32_ms, _ = bound(needed, system.n_atoms, K_MODEL, mp, model_cfg)
     say(f"phase 2: mega_forward {kernel_ms:.4f} ms/call, plain version "
         f"{plain_ms:.4f} ms/call, bound {bound_ms:.4f} ms ({bound_by}; "
-        f"{needed / 1e9:.4f} GFLOP needed for {live_edges} live edges, "
-        f"kernel at {bound_ms / kernel_ms:.2%} of it; it computes "
-        f"{padded / 1e9:.4f} GFLOP over all slots); CUDA events, "
-        f"median of 20 [{card}]")
+        f"{ops[0] / 1e9:.4f} GFLOP of bf16 x 3 edge products at "
+        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s and {ops[1] / 1e9:.4f} GFLOP fp32 "
+        f"at {FP32_FLOPS / 1e12:.0f}, for {live_edges} live edges), kernel "
+        f"at {bound_ms / kernel_ms:.2%} of it; fp32 CUDA-core bound of the "
+        f"same function {fp32_ms:.4f} ms ({needed / 1e9:.4f} GFLOP); CUDA "
+        f"events, median of 20 [{card}]")
 
     # -- phase 3: the per-step path ---------------------------------------
     ff = GNNForceField(state, system, model_cfg)
@@ -2615,15 +2771,18 @@ def main():
     window_ms = time_ms(lambda: mega_md_steps(*window_args, **wkw), reps=10)
     window_plain_ms = time_ms(
         lambda: md_steps_reference(*window_args, **wkw), reps=10)
-    window_bound_ms, window_bound_by = bound(n_win * needed, system.n_atoms,
-                                             K_MODEL, mp, model_cfg,
-                                             state_io=True)
+    window_bound_ms, window_bound_by = tc_bound(
+        (n_win * ops[0], n_win * ops[1]), system.n_atoms, K_MODEL, mp,
+        model_cfg, state_io=True)
+    window_fp32_ms, _ = bound(n_win * needed, system.n_atoms, K_MODEL, mp,
+                              model_cfg, state_io=True)
     say(f"phase 4: mega_md_steps {window_ms:.4f} ms/window ("
         f"{window_ms / n_win:.4f} ms/step), plain version "
         f"{window_plain_ms:.4f} ms/window, bound {window_bound_ms:.4f} ms "
-        f"({window_bound_by}; {n_win} x {needed / 1e9:.4f} GFLOP at the "
-        f"start frame), kernel at {window_bound_ms / window_ms:.2%} of it; "
-        f"CUDA events, median of 10 [{card}]")
+        f"({window_bound_by}; {n_win} x the start frame's {ops[0] / 1e9:.4f}"
+        f" GFLOP bf16 x 3 and {ops[1] / 1e9:.4f} GFLOP fp32), kernel at "
+        f"{window_bound_ms / window_ms:.2%} of it; fp32 CUDA-core bound "
+        f"{window_fp32_ms:.4f} ms; CUDA events, median of 10 [{card}]")
 
     # -- phase 5: the megastep path --------------------------------------
     gen.manual_seed(1)
@@ -2673,8 +2832,9 @@ def main():
     form_kernels = gather_form_phase(dev, card, probe_lines, form_launches)
     forward_r8, window_r8, replica_launches = replica_phases(
         dev, card, kernel_ms, window_ms)
+    stages = forward_stage_phases(dev, card)
 
-    # -- phase 39: kernels line, result line ------------------------------
+    # -- phase 41: kernels line, result line ------------------------------
     by_path = {name: {"per_step": per_step_launches[name],
                       "megastep": mega_launches[name]}
                for name in per_step_launches}
@@ -2692,6 +2852,7 @@ def main():
         "bound_by": bound_by,
         "library_ms": None,
         "r8": forward_r8,
+        "stages": stages,
     }, {
         "name": "mega_md_steps",
         "route": "cuda",
@@ -2711,7 +2872,7 @@ def main():
                              **replica_launches})
     say("kernels: " + json.dumps([k["name"] for k in kernels]))
     say(json.dumps({"kernels": kernels}))
-    say(f"phase 39: total {time.perf_counter() - t_start:.1f} s")
+    say(f"phase 41: total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,12 +19,12 @@
 //
 // What the design does about it, for now: the edge stage is edge_msg.cuh's
 // edge_msg_kernel with the gathered rows clamped (ClampedRows), and the
-// node update is node_update.cuh's update_kernel, mega_forward.cu's own,
-// which adds each row's chunk partials in a fixed order and writes h + the
-// update into a new array (the JAX function returns a new array; h is not
-// touched). The TPU kernel's one-hot MXU gathers, hi/lo bf16 split, bf16
-// products and node-table padding have no counterpart: Hopper reads rows
-// natively and the products are fp32 FMAs. Two launches a call.
+// node update is node_update.cuh's update_kernel, which adds each row's
+// chunk partials in a fixed order and writes h + the update into a new
+// array (the JAX function returns a new array; h is not touched). The TPU
+// kernel's one-hot MXU gathers, hi/lo bf16 split, bf16 products and
+// node-table padding have no counterpart: Hopper reads rows natively and
+// the products are fp32 FMAs. Two launches a call.
 //
 // The host allocates every buffer with torch.empty and launches on
 // PyTorch's current stream; gamd_conv_layer returns the first non-zero

@@ -17,10 +17,11 @@
 // operations-bound.
 //
 // What the design does about it, for now: the edge stage is
-// edge_msg.cuh's edge_msg_kernel (mega_forward.cu's edge stage with the
-// mask given instead of computed), with the source rows gathered by node
-// id. Hopper reads rows natively, so the TPU kernel's one-hot MXU gathers,
-// hi/lo bf16 split and VMEM-resident node table have no counterpart. Each
+// edge_msg.cuh's edge_msg_kernel (the fp32 edge stage the whole-model
+// forward used before its tensor-core redesign, with the mask given), with
+// the source rows gathered by node id. Hopper reads rows natively, so the
+// TPU kernel's one-hot MXU gathers, hi/lo bf16 split and VMEM-resident
+// node table have no counterpart. Each
 // block writes one partial sum per chunk of 16 slots; chunk_sum_kernel
 // adds a row's chunks in a fixed order: no atomics, the same result from
 // run to run. wgmma, TMA and bf16 operands are later work. Two launches a

@@ -6,8 +6,7 @@
 //
 // Replaces gamd_tpu/ops/pallas_encoder.py::_encoder_kernel (line 46,
 // pallas_call at line 199), which the JAX model runs per frame under vmap.
-// The device code is encode.cuh's encode_kernel, the same code that
-// mega_forward.cu launches as its first stage; what it computes, and its
+// The device code is encode.cuh's encode_kernel; what it computes, and its
 // precision (fp32 CUDA-core FMAs, no TF32, fp32 out), is written there.
 // Here the frame is grid z and idx holds per-frame indices, so B frames
 // are one launch; the RBF product runs over the model's own n_rbf rows of

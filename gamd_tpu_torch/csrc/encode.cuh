@@ -1,7 +1,7 @@
-// The edge featurisation and encoder, positions to the edge embedding:
-// device code shared by mega_forward.cu (the whole-model forward's first
-// stage) and edge_encoder.cu (the standalone, batched entry of
-// gamd_tpu_torch.ops.encoder.fused_edge_encoder).
+// The edge featurisation and encoder, positions to the edge embedding: the
+// device code of edge_encoder.cu (the standalone, batched entry of
+// gamd_tpu_torch.ops.encoder.fused_edge_encoder), and the gelu and
+// LayerNorm helpers that mega_forward.cu's tensor-core stages share.
 //
 // It computes the function of gamd_tpu/ops/pallas_encoder.py::
 // _encoder_kernel (line 46) for every slot, dead ones included: gather
@@ -17,9 +17,7 @@
 // The TPU kernel's bf16 operands and bf16 output, its one-hot hi/lo
 // gathers and its zero-padding of the RBF rows to 128 are TPU choices, not
 // part of the function. The RBF product runs over `n_rbf` weight rows:
-// mega_forward passes its packed weights, whose w_rbf is zero-padded to
-// 128 rows (ops/mega.py::pack_params), and so still multiplies by the
-// padding; edge_encoder.cu passes the model's own w0 rows and n_rbf = 40.
+// edge_encoder.cu passes the model's own w0 rows and n_rbf = 40.
 
 #pragma once
 
@@ -66,8 +64,8 @@ __device__ __forceinline__ void layer_norm(float (&x)[M], float* red) {
 
 // Encoder. grid (ceil(K/KC), N, B), block W: one chunk of KC slots of atom
 // i of frame blockIdx.z. idx holds per-frame indices in [0, N). Writes e
-// [B*N*K, W] and live [B*N*K] (1 / 0 as LiveT: float for mega_forward's
-// edge stages, uint8_t for a torch.bool tensor).
+// [B*N*K, W] and live [B*N*K] (1 / 0 as LiveT: uint8_t for a torch.bool
+// tensor).
 template <typename LiveT>
 __global__ void __launch_bounds__(W)
 encode_kernel(const float* __restrict__ pos, const int* __restrict__ idx,

@@ -12,7 +12,7 @@
 //   A  x += hdt v
 //   O  v  = c1 v + c2col xi        (xi standard normal)
 //   A  x += hdt v
-//      f  = forward(x)              (gamd_mega_forward, mega_forward.cu)
+//      f  = forward(x)              (mega_forward_run, mega_forward.cu)
 //   B  v += hdt f / m
 //      ke[r, s] = 1/2 sum m v^2 over replica r's atoms
 // Positions are not wrapped inside the window; the forward takes minimum
@@ -26,25 +26,29 @@
 // for the device.
 //
 // What bounds it on this card: the window is the forward n_steps times.
-// At LJ-258 (N=258, K=48, widths 128, 4 layers) a step's forward needs
-// about 3.48 GFLOP for the live edges of a 100 K frame, so a 20-step window
-// needs about 70 GFLOP, about 1.04 ms at the 67 TFLOP/s fp32 peak:
-// operations-bound. The integrator moves about 20 KB a step (positions,
-// velocities, forces, masses), nothing next to that.
+// At LJ-258 (N=258, K=48, widths 128, 4 layers) a step's forward needs,
+// for the live edges of a 100 K frame, about 9.9 GFLOP of edge products as
+// three bf16 tensor-core passes (989 TFLOP/s) and about 0.2 GFLOP of fp32
+// node products and epilogues (67 TFLOP/s): about 13 us, so about 0.26 ms
+// for a 20-step window, operations-bound. The integrator moves about 20 KB
+// a step (positions, velocities, forces, masses), nothing next to that.
 //
-// What the design does about it, for now: nothing beyond fewer host round
-// trips. The host call runs the window on PyTorch's current stream with no
-// host sync: per step a baoab_open kernel (B A O A and the Philox draw, over
-// all R x N atoms), the 14 launches of the forward writing straight into
-// the force buffer, and a baoab_close kernel (the last B and the KE, one
-// block a replica summing its atoms in a fixed order) -- 16 launches and
-// one copy a step, whatever R. Every atom's arithmetic is the same at any
-// R, so replica 0 of a call equals a single-system call bit for bit. No
-// atomics, so the result is the same from run to run; no allocation, as
-// the host passes every buffer.
-// Capturing the window as a CUDA graph, one persistent launch with a
-// grid-wide sync, skipping dead slots and wgmma with bf16 edges are later
-// work. gamd_mega_md_steps returns the first non-zero cudaError_t.
+// What the design does about it: the forward is mega_forward.cu's (live
+// edges only, the edge products on the tensor cores, fused node stages);
+// its edge-stage weights are split into bf16 hi/lo once a window
+// (mega_split_weights), not once a step. The host call runs the window on
+// PyTorch's current stream with no host sync: the split, then per step a
+// baoab_open kernel (B A O A and the Philox draw, over all R x N atoms),
+// the 12 launches of the forward writing straight into the force buffer,
+// and a baoab_close kernel (the last B and the KE, one block a replica
+// summing its atoms in a fixed order) -- 14 launches a step, whatever R.
+// Every atom's arithmetic is the same at any R, so replica 0 of a call
+// equals a single-system call bit for bit. No atomics, so the result is
+// the same from run to run; no allocation, as the host passes every
+// buffer. What bounds it instead is what bounds the forward (latency:
+// dependent launches, one warpgroup a tile). Capturing the window as a
+// CUDA graph or one persistent launch is later work. gamd_mega_md_steps
+// returns the first non-zero cudaError_t.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -158,19 +162,17 @@ baoab_close_kernel(float* __restrict__ vel, const float* __restrict__ force,
 // n_steps of the window for r replicas of n atoms on `stream` (state
 // arrays [r, n, 3]; masses and c2col [n], shared). pos0/vel0/f0 are read
 // once and copied into pos/vel/force, which then carry the state; ke gets
-// [r, n_steps] values. e..aggp are the forward's scratch (see
-// gamd_mega_forward). Returns 0, or the first non-zero cudaError_t seen
-// after a copy or a launch.
+// [r, n_steps] values. scratch is the forward's (see mega.cuh). Returns 0,
+// or the first non-zero error code seen after a copy, a launch or the
+// weight split (mega_split_weights).
 extern "C" int gamd_mega_md_steps(
     const float* pos0, const float* vel0, const float* f0, const int* idx,
     const uint8_t* bmask, const float* h0, const MegaWeights* weights,
     const int* seed, const float* masses, const float* c2col, int r, int n,
-    int k,
-    int n_layers, int use_ln, int flip_dir, float box, float cutoff2,
-    float length_mean, float length_std, float gamma, int n_steps, float c1,
-    float hdt, float* e, float* live, float* h, float* hn, float* src,
-    float* dst, float* aggp, float* pos, float* vel, float* force, float* ke,
-    void* stream) {
+    int k, int n_layers, int n_rbf, int use_ln, int flip_dir, float box,
+    float cutoff2, float length_mean, float length_std, float gamma,
+    int n_steps, float c1, float hdt, const MegaScratch* scratch, float* pos,
+    float* vel, float* force, float* ke, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t state_bytes = sizeof(float) * 3 * r * n;
   const int open_blocks = (r * n + OPEN_THREADS - 1) / OPEN_THREADS;
@@ -182,14 +184,17 @@ extern "C" int gamd_mega_md_steps(
       (err = cudaMemcpyAsync(force, f0, state_bytes, cudaMemcpyDeviceToDevice,
                              s)) != cudaSuccess)
     return static_cast<int>(err);
+  CUtensorMap map;
+  const int split = mega_split_weights(weights, n_layers, scratch, &map, s);
+  if (split != 0) return split;
   for (int step = 0; step < n_steps; ++step) {
     baoab_open_kernel<<<open_blocks, OPEN_THREADS, 0, s>>>(
         pos, vel, force, masses, c2col, seed, r, n, step, c1, hdt);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    const int fwd = gamd_mega_forward(
-        pos, idx, bmask, h0, weights, r, n, k, n_layers, use_ln, flip_dir, box,
-        cutoff2, length_mean, length_std, gamma, e, live, h, hn, src, dst,
-        aggp, force, stream);
+    const int fwd = mega_forward_run(
+        pos, idx, bmask, h0, weights, &map, r, n, k, n_layers, n_rbf, use_ln,
+        flip_dir, box, cutoff2, length_mean, length_std, gamma, scratch,
+        force, s);
     if (fwd != 0) return fwd;
     baoab_close_kernel<<<r, CLOSE_THREADS, 0, s>>>(vel, force, masses, n, hdt,
                                                    n_steps, step, ke);

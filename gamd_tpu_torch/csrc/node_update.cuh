@@ -1,6 +1,5 @@
-// The node update of one conv layer, shared by mega_forward.cu (each layer
-// of the whole-model forward, in place) and conv_layer.cu (one layer, into
-// a new array): with agg[i] the sum of row i's per-chunk partials aggp,
+// The node update of one conv layer, conv_layer.cu's (one layer, into a new
+// array): with agg[i] the sum of row i's per-chunk partials aggp,
 //   h_out = h_in + silu(hn @ Wpd + bpd + agg @ Wpe + bpe) @ Wp + bp
 // One thread per channel, NB rows a block; the chunks are added in a fixed
 // order, so the result does not vary from run to run.

@@ -1,5 +1,6 @@
-// Device helpers shared by the port's edge kernels (mega_forward.cu,
-// conv_msg_gather.cu, conv_msg_gather_bwd.cu): one thread per output
+// Device helpers shared by the port's CUDA-core kernels (conv_msg_gather.cu,
+// conv_msg_gather_bwd.cu, the edge message, the encoder, the node stages
+// of mega_forward.cu): one thread per output
 // channel of a 128-wide layer, activations of a tile of M rows held in
 // shared memory feature-major ([W][M]), fp32 FMAs, fixed summation order.
 

@@ -21,6 +21,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gamd_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: libcuda, for cuTensorMapEncodeTiled (mega_forward.cu's TMA map).
+LINK_FLAGS = ("-lcuda",)
 
 
 def find_nvcc() -> str:
@@ -48,7 +50,7 @@ def library_path() -> Path:
     for src in sorted([*sources(), *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libgamd_tpu_torch_{digest.hexdigest()[:16]}.so"
 
 
@@ -78,7 +80,8 @@ def build() -> dict:
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
     compiles = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
                 for src, obj in zip(sources(), objs)]
-    link = [nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objs]]
+    link = [nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objs],
+            *LINK_FLAGS]
     t0 = time.perf_counter()
     try:
         results = _run_all(compiles)

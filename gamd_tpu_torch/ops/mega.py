@@ -5,7 +5,15 @@ gamd_tpu/ops/pallas_model.py and the wrapper of its Hopper kernel.
   stacked, eval BatchNorm folded into the node-norm affine, force
   denormalisation folded into the decoder's last affine).
 * encode_edges / node_norm / conv_apply / decode_nodes / reference_forward
-  are the kernel's plain PyTorch version (tanh-gelu, as the kernel).
+  are the kernel's plain PyTorch version (tanh-gelu, as the kernel). Their
+  edge-level products (the encoder's three, each layer's four) go through
+  `_edge_mm`, a plain product; split_bf16_matmul is the kernel's bf16 x 3
+  tensor-core arithmetic in plain PyTorch, which a test puts in its place.
+* live_edge_layout is the plain version of the kernel's live-edge layout
+  (the live slots of each replica compacted atom-major, per-atom offsets
+  and counts); mega_layout runs the kernel's layout stage alone on a CUDA
+  tensor (counted in `mega_layout.launches`) and live_edge_layout on a
+  CPU tensor.
 * mega_forward runs csrc/mega_forward.cu on a CUDA tensor and the plain
   version on a CPU tensor. It counts its kernel launches in
   `mega_forward.launches`.
@@ -21,11 +29,13 @@ replica grid does; one call covers all replicas.
 """
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from gamd_tpu_torch.core import space
 from gamd_tpu_torch.ops.philox import philox_normal
@@ -44,6 +54,29 @@ def _silu(x):
 
 
 _ACTS = {"gelu": _gelu_tanh, "silu": _silu}
+
+
+def _edge_mm(a, w):
+    """An edge-level product of the plain forward (the encoder's RBF and
+    MLP products, each layer's W_e1, W_e2, W_t1, W_t2): plain fp32."""
+    return a @ w
+
+
+def split_bf16_matmul(a, w):
+    """a @ w as the kernel's tensor cores compute it (csrc/edge_tc.cuh;
+    JAX's edge_hilo, gamd_tpu/ops/pallas_model.py:359-381): both float32
+    operands split into bf16 hi + lo (lo = bf16(x - hi)), then
+    a_hi w_hi + a_hi w_lo + a_lo w_hi with float32 sums; lo x lo is
+    dropped. Each product of two bf16 values is exact in float32, so only
+    the split's residuals (about 2^-18 of |a||w| a term) and the sums'
+    rounding differ from the exact product. Plain PyTorch, for the tests."""
+    def split(x):
+        hi = x.to(torch.bfloat16)
+        lo = (x - hi.float()).to(torch.bfloat16)
+        return hi.float(), lo.float()
+    a_hi, a_lo = split(a.float())
+    w_hi, w_lo = split(w.float())
+    return a_hi @ w_hi + a_hi @ w_lo + a_lo @ w_hi
 
 
 class MegaParams(NamedTuple):
@@ -193,13 +226,13 @@ def encode_edges(mp: MegaParams, unit, std_dist, bond, mlp_act="gelu",
     act = _ACTS[mlp_act]
     gamma = 1.0 / rbf_gap
     diff = std_dist[..., None] - mp.centers[0]
-    z = torch.exp(-gamma * diff * diff) @ mp.w_rbf
+    z = _edge_mm(torch.exp(-gamma * diff * diff), mp.w_rbf)
     z = (z + unit[..., 0:1] * mp.w_geo[0:1] + unit[..., 1:2] * mp.w_geo[1:2]
          + unit[..., 2:3] * mp.w_geo[2:3]
          + std_dist[..., None] * mp.w_geo[3:4] + mp.b0[0])
     if bond is not None:
         z = z + bond[..., None] * mp.w_geo[4:5]
-    z = act(act(z) @ mp.w1 + mp.b1[0]) @ mp.w2 + mp.b2[0]
+    z = _edge_mm(act(_edge_mm(act(z), mp.w1) + mp.b1[0]), mp.w2) + mp.b2[0]
     mean = torch.mean(z, dim=-1, keepdim=True)
     zc = z - mean
     var = torch.mean(zc * zc, dim=-1, keepdim=True)
@@ -223,11 +256,11 @@ def conv_apply(mp: MegaParams, layer, h_own, hn_own, hn_env, e, idx, mask,
     idx = idx.long()
     src_env = hn_env @ mp.w_src[layer] + mp.b_src[layer, 0]
     dst = hn_own @ mp.w_dst[layer] + mp.b_dst[layer, 0]
-    z = act(e @ mp.w_e1[layer] + mp.b_e1[layer, 0]) @ mp.w_e2[layer] \
-        + mp.b_e2[layer, 0]
+    z = _edge_mm(act(_edge_mm(e, mp.w_e1[layer]) + mp.b_e1[layer, 0]),
+                 mp.w_e2[layer]) + mp.b_e2[layer, 0]
     z = z + src_env[idx] + dst[:, None, :]
-    z = act(act(z) @ mp.w_t1[layer] + mp.b_t1[layer, 0]) @ mp.w_t2[layer] \
-        + mp.b_t2[layer, 0]
+    z = _edge_mm(act(_edge_mm(act(z), mp.w_t1[layer]) + mp.b_t1[layer, 0]),
+                 mp.w_t2[layer]) + mp.b_t2[layer, 0]
     agg = torch.sum(torch.where(mask[..., None], hn_env[idx] * z, 0.0), dim=1)
     pre = hn_own @ mp.w_pd[layer] + mp.b_pd[layer, 0] \
         + agg @ mp.w_pe[layer] + mp.b_pe[layer, 0]
@@ -310,6 +343,90 @@ def md_steps_reference(pos, vel, force, idx, build_mask, h0,
 
 
 # ---------------------------------------------------------------------------
+# The kernel's live-edge layout, plain version.
+# ---------------------------------------------------------------------------
+
+#: Rows of a tile of the kernel's edge stages (one wgmma M).
+TILE_ROWS = 64
+
+
+class LiveLayout(NamedTuple):
+    """The live edges of R replicas (a leading R axis, 1 for one system),
+    as the kernel's edge stages walk them.
+
+    slot:   [R, cap] slot id i*K + k of each live edge, atom-major and in
+            slot order within an atom; rows past total[r] hold -1 (the
+            kernel leaves them unwritten). cap = layout_capacity(N, K).
+    offset: [R, N] the atom's first row in its replica's list.
+    count:  [R, N] the atom's live edges.
+    total:  [R] the replica's live edges.
+    """
+
+    slot: torch.Tensor
+    offset: torch.Tensor
+    count: torch.Tensor
+    total: torch.Tensor
+
+
+def layout_capacity(n, k):
+    """Rows a replica's list may take: N*K rounded up to TILE_ROWS."""
+    return -(-n * k // TILE_ROWS) * TILE_ROWS
+
+
+def live_mask(pos, idx, build_mask, box, cutoff):
+    """The kernel's live test of every slot ([N, K] or [R, N, K]): the build
+    mask and d^2 < cutoff^2 (cutoff None: the build mask alone), with the
+    round-form minimum image and d^2 = (x^2 + y^2) + z^2 in float32 --
+    the kernel's arithmetic operation for operation, so that the two agree
+    bit for bit (reference_forward's remainder-form test can differ in the
+    last bit at the cutoff)."""
+    f32 = dict(dtype=torch.float32, device=pos.device)
+    box_t = torch.tensor(float(box), **f32)   # a tensor: CUDA divides by a
+    cut2 = torch.tensor(math.inf if cutoff is None   # scalar as a product
+                        else float(cutoff) ** 2, **f32)
+    idx = idx.long()
+    if pos.ndim == 2:
+        nbr = pos[idx]
+    else:
+        nbr = pos[torch.arange(pos.shape[0], device=pos.device)[:, None,
+                                                                 None], idx]
+    rel = nbr - pos[..., None, :]
+    rel = rel - box_t * torch.round(rel / box_t)
+    sq = rel * rel
+    d2 = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+    return build_mask & (d2 < cut2)
+
+
+def live_edge_layout(pos, idx, build_mask, box, cutoff):
+    """Plain version of the kernel's live-edge layout (its first stage):
+    the live slots (live_mask) of each replica compacted atom-major, with
+    per-atom offsets from an exclusive scan of the per-atom counts. One
+    system ([N, 3]) or replicas ([R, N, 3]); a LiveLayout with a leading R
+    axis either way."""
+    live = live_mask(pos, idx, build_mask, box, cutoff)
+    if live.ndim == 2:
+        live = live[None]
+    r, n, k = live.shape
+    count = live.sum(dim=-1, dtype=torch.int32)
+    offset = (torch.cumsum(count, dim=-1) - count).to(torch.int32)
+    slot = torch.full((r, layout_capacity(n, k)), -1, dtype=torch.int32,
+                      device=pos.device)
+    for rep in range(r):
+        ids = torch.nonzero(live[rep].reshape(-1)).flatten()
+        slot[rep, :ids.numel()] = ids.to(torch.int32)
+    return LiveLayout(slot, offset, count,
+                      count.sum(dim=-1, dtype=torch.int32))
+
+
+def layout_tiles(layout: LiveLayout):
+    """(replica, first row, rows) of each tile of the kernel's edge
+    stages: TILE_ROWS rows of one replica's list, the last one short."""
+    return [(rep, row0, min(TILE_ROWS, total - row0))
+            for rep, total in enumerate(layout.total.tolist())
+            for row0 in range(0, total, TILE_ROWS)]
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernels (csrc/mega_forward.cu, csrc/mega_md_steps.cu) and their
 # wrappers.
 # ---------------------------------------------------------------------------
@@ -321,33 +438,59 @@ class _MegaWeights(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in MegaParams._fields]
 
 
-#: Edges per block of the kernel's edge stages (csrc/mega_forward.cu KC).
-EDGE_CHUNK = 16
+class _MegaScratch(ctypes.Structure):
+    """Mirror of the C struct MegaScratch (csrc/mega.cuh): the forward's
+    scratch, one device pointer a field."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "live", "slot", "off", "cnt", "total", "e", "msg", "h", "hn", "src",
+        "dst", "wsplit")]
+
+
+#: Returned by the library when the TMA map over the split weights cannot
+#: be encoded: this plus the CUresult of cuTensorMapEncodeTiled.
+_TMA_MAP_ERROR = 100000
 
 
 def declare(lib):
     """Set argtypes/restype of the library's C entries."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     weights = ctypes.POINTER(_MegaWeights)
+    scratch = ctypes.POINTER(_MegaScratch)
     lib.gamd_mega_forward.argtypes = [
         p, p, p, p, weights,                          # pos idx bmask h0 w
-        i, i, i, i, i, i,                             # r n k layers ln flip
+        i, i, i, i, i, i, i,                          # r n k L n_rbf ln flip
         f, f, f, f, f,                                # box cut2 lm ls gamma
-        p, p, p, p, p, p, p, p,                       # scratch + out
+        scratch, p,                                   # scratch out
         p]                                            # stream
     lib.gamd_mega_forward.restype = ctypes.c_int
     lib.gamd_mega_md_steps.argtypes = [
         p, p, p, p, p, p, weights,                    # pos vel f idx bm h0 w
         p, p, p,                                      # seed masses c2col
-        i, i, i, i, i, i,                             # r n k layers ln flip
+        i, i, i, i, i, i, i,                          # r n k L n_rbf ln flip
         f, f, f, f, f,                                # box cut2 lm ls gamma
         i, f, f,                                      # n_steps c1 hdt
-        p, p, p, p, p, p, p,                          # forward scratch
+        scratch,                                      # forward scratch
         p, p, p, p,                                   # pos vel force ke out
         p]                                            # stream
     lib.gamd_mega_md_steps.restype = ctypes.c_int
+    lib.gamd_mega_layout.argtypes = [
+        p, p, p,                                      # pos idx bmask
+        i, i, i,                                      # r n k
+        f, f,                                         # box cut2
+        scratch, p]                                   # scratch stream
+    lib.gamd_mega_layout.restype = ctypes.c_int
 
 
+def _raise_on(fn, err):
+    if err >= _TMA_MAP_ERROR:
+        raise RuntimeError(f"{fn}: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {err - _TMA_MAP_ERROR}")
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
+
+
+@functools.lru_cache(maxsize=None)
 def _expected_shapes(n_layers):
     w, L = KERNEL_WIDTH, n_layers
     shapes = {"centers": (1, 128), "w_geo": (8, w), "w_rbf": (128, w),
@@ -382,7 +525,8 @@ def _check_forward(fn, pos, idx, build_mask, h0, mp, bond, conv_act,
     """The checks both kernels make of the forward's inputs on a CUDA
     device (one system [N, ...] or R replicas [R, N, ...], the same R on
     pos, idx, build_mask and h0); returns the library's forward arguments
-    that follow from them as (r, n, k, n_layers, weights struct)."""
+    that follow from them as (r, n, k, n_layers, weights struct, RBF
+    rows)."""
     if pos.device.type != "cuda":
         raise ValueError(f"{fn} runs on cuda or cpu, not {pos.device}")
     if bond is not None or conv_act != "silu" or mlp_act != "gelu":
@@ -401,25 +545,73 @@ def _check_forward(fn, pos, idx, build_mask, h0, mp, bond, conv_act,
     _check(fn, "idx", idx, dev, torch.int32, (*lead, n, k))
     _check(fn, "build_mask", build_mask, dev, torch.bool, (*lead, n, k))
     _check(fn, "h0", h0, dev, torch.float32, (*lead, n, KERNEL_WIDTH))
-    for name, shape in _expected_shapes(n_layers).items():
-        _check(fn, f"mp.{name}", getattr(mp, name), dev, torch.float32,
-               shape)
     r = lead[0] if lead else 1
     if r < 1:
         raise ValueError(f"{fn}: no replicas in pos {tuple(pos.shape)}")
-    return r, n, k, n_layers, _MegaWeights(*[t.data_ptr() for t in mp])
+    _check_slots(fn, k)
+    return (r, n, k, n_layers, *_weights(fn, mp, dev))
 
 
-def _forward_scratch(r, n, k, device):
-    """Scratch of one forward of r replicas (e, live, h, hn, src, dst,
-    aggp), made with torch.empty: the kernels allocate nothing."""
-    w = KERNEL_WIDTH
-    a = r * n
-    f32 = dict(device=device, dtype=torch.float32)
-    return (torch.empty((a * k, w), **f32), torch.empty((a * k,), **f32),
-            torch.empty((a, w), **f32), torch.empty((a, w), **f32),
-            torch.empty((a, w), **f32), torch.empty((a, w), **f32),
-            torch.empty((a, -(-k // EDGE_CHUNK), w), **f32))
+#: Per MegaParams (keyed by its first tensor): the identity and version of
+#: every tensor and the device, with what _weights returns. A call with the
+#: same, unchanged tensors skips the 34 checks and the RBF row count.
+_CHECKED = WeakIdKeyDictionary()
+
+
+def _weights(fn, mp: MegaParams, device):
+    """(the library's _MegaWeights struct, _rbf_rows) of mp, checked
+    against the kernel's shapes on `device`; once per unchanged set of
+    tensors."""
+    key = (device, tuple((id(t), t._version) for t in mp))
+    hit = _CHECKED.get(mp.centers)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    for name, shape in _expected_shapes(mp.w_src.shape[0]).items():
+        _check(fn, f"mp.{name}", getattr(mp, name), device, torch.float32,
+               shape)
+    found = (_MegaWeights(*[t.data_ptr() for t in mp]), _rbf_rows(mp))
+    _CHECKED[mp.centers] = (key, found)
+    return found
+
+
+#: The most slots an atom's list may have: the layout kernel holds the live
+#: flags of at least 32 atoms in 16 KB of shared memory.
+MAX_SLOTS = 512
+
+
+def _check_slots(fn, k):
+    if not 1 <= k <= MAX_SLOTS:
+        raise ValueError(f"{fn}: the CUDA kernel takes 1 to {MAX_SLOTS} "
+                         f"slots an atom, not {k}")
+
+
+def _forward_scratch(r, n, k, n_layers, device):
+    """Scratch of one forward of r replicas in one torch.empty (the
+    kernels allocate nothing): the live flags and the live-edge layout
+    (slot, off, cnt, total), the edge embeddings and messages of the live
+    edges (R * cap rows each), the node rows h, hn, src, dst, and the split
+    edge-stage weights (bf16). Returns (buffer, _MegaScratch of pointers
+    into it, each 256-byte aligned); the buffer must outlive the call."""
+    w, a, cap = KERNEL_WIDTH, r * n, layout_capacity(n, k)
+    sizes = dict(live=a * k, slot=4 * r * cap, off=4 * a, cnt=4 * a,
+                 total=4 * r, e=4 * r * cap * w, msg=4 * r * cap * w,
+                 h=4 * a * w, hn=4 * a * w, src=4 * a * w, dst=4 * a * w,
+                 wsplit=2 * (3 + 4 * n_layers) * 2 * w * w)
+    offsets, total = [], 0
+    for name, _ in _MegaScratch._fields_:
+        offsets.append(total)
+        total += -(-sizes[name] // 256) * 256
+    buf = torch.empty((total,), device=device, dtype=torch.uint8)
+    base = buf.data_ptr()
+    return buf, _MegaScratch(*[base + o for o in offsets])
+
+
+def _rbf_rows(mp: MegaParams):
+    """The RBF rows pack_params filled (1 + the last non-zero row of
+    w_rbf; the rows past it are zero padding), which the kernel's RBF
+    product runs over. A device read (one sync): _weights keeps it."""
+    nonzero = torch.nonzero(mp.w_rbf.abs().sum(dim=1)).flatten()
+    return int(nonzero[-1]) + 1 if nonzero.numel() else 0
 
 
 def _scalars(box, cutoff, length_mean, length_std, rbf_gap):
@@ -455,24 +647,22 @@ def mega_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
         return reference_forward(pos, idx, build_mask, h0, mp, box, cutoff,
                                  length_mean, length_std, bond, rbf_gap,
                                  flip_dir, use_ln, conv_act, mlp_act)
-    r, n, k, n_layers, weights = _check_forward(
+    r, n, k, n_layers, weights, n_rbf = _check_forward(
         "mega_forward", pos, idx, build_mask, h0, mp, bond, conv_act,
         mlp_act)
 
     from gamd_tpu_torch.ops.build import load_library
     lib = load_library()
-    scratch = _forward_scratch(r, n, k, pos.device)
+    buf, scratch = _forward_scratch(r, n, k, n_layers, pos.device)
     out = torch.empty(pos.shape, device=pos.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     err = lib.gamd_mega_forward(
         pos.data_ptr(), idx.data_ptr(), build_mask.data_ptr(),
         h0.data_ptr(), ctypes.byref(weights),
-        r, n, k, n_layers, int(use_ln), int(flip_dir),
+        r, n, k, n_layers, n_rbf, int(use_ln), int(flip_dir),
         *_scalars(box, cutoff, length_mean, length_std, rbf_gap),
-        *[t.data_ptr() for t in scratch], out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"mega_forward: CUDA launch failed with "
-                           f"cudaError {err}")
+        ctypes.byref(scratch), out.data_ptr(), stream)
+    _raise_on("mega_forward", err)
     mega_forward.launches += 1
     return out
 
@@ -519,7 +709,7 @@ def mega_md_steps(pos, vel, force, idx, build_mask, h0, mp: MegaParams,
             flip_dir=flip_dir, use_ln=use_ln, conv_act=conv_act,
             mlp_act=mlp_act)
     fn = "mega_md_steps"
-    r, n, k, n_layers, weights = _check_forward(
+    r, n, k, n_layers, weights, n_rbf = _check_forward(
         fn, pos, idx, build_mask, h0, mp, bond, conv_act, mlp_act)
     dev = pos.device
     _check(fn, "vel", vel, dev, torch.float32, tuple(pos.shape))
@@ -532,7 +722,7 @@ def mega_md_steps(pos, vel, force, idx, build_mask, h0, mp: MegaParams,
 
     from gamd_tpu_torch.ops.build import load_library
     lib = load_library()
-    scratch = _forward_scratch(r, n, k, dev)
+    buf, scratch = _forward_scratch(r, n, k, n_layers, dev)
     outs = [torch.empty(pos.shape, device=dev, dtype=torch.float32)
             for _ in range(3)]
     ke = torch.empty((*pos.shape[:-2], int(n_steps)), device=dev,
@@ -542,15 +732,58 @@ def mega_md_steps(pos, vel, force, idx, build_mask, h0, mp: MegaParams,
         pos.data_ptr(), vel.data_ptr(), force.data_ptr(), idx.data_ptr(),
         build_mask.data_ptr(), h0.data_ptr(), ctypes.byref(weights),
         seed.data_ptr(), masses.data_ptr(), c2col.data_ptr(),
-        r, n, k, n_layers, int(use_ln), int(flip_dir),
+        r, n, k, n_layers, n_rbf, int(use_ln), int(flip_dir),
         *_scalars(box, cutoff, length_mean, length_std, rbf_gap),
-        int(n_steps), float(c1), float(hdt),
-        *[t.data_ptr() for t in scratch], *[t.data_ptr() for t in outs],
-        ke.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
+        int(n_steps), float(c1), float(hdt), ctypes.byref(scratch),
+        *[t.data_ptr() for t in outs], ke.data_ptr(), stream)
+    _raise_on(fn, err)
     mega_md_steps.launches += 1
     return (*outs, ke)
 
 
 mega_md_steps.launches = 0
+
+
+def mega_layout(pos, idx, build_mask, box, cutoff):
+    """The kernel's live-edge layout (the forward's first stage) alone: a
+    LiveLayout as live_edge_layout returns it, whose rows past a replica's
+    total are unwritten (not -1) on the card.
+
+    A CPU `pos` runs live_edge_layout. A CUDA `pos` ([N, 3] or [R, N, 3]
+    float32, with int32 idx and bool build_mask of [.., N, K]) launches the
+    layout kernel of csrc/mega_forward.cu or raises."""
+    if pos.device.type == "cpu":
+        return live_edge_layout(pos, idx, build_mask, box, cutoff)
+    fn = "mega_layout"
+    if pos.device.type != "cuda":
+        raise ValueError(f"{fn} runs on cuda or cpu, not {pos.device}")
+    if pos.ndim not in (2, 3):
+        raise ValueError(f"{fn}: pos must be [N, 3] or [R, N, 3], not "
+                         f"{tuple(pos.shape)}")
+    lead = tuple(pos.shape[:-2])
+    n, k = pos.shape[-2], idx.shape[-1]
+    dev = pos.device
+    _check(fn, "pos", pos, dev, torch.float32, (*lead, n, 3))
+    _check(fn, "idx", idx, dev, torch.int32, (*lead, n, k))
+    _check(fn, "build_mask", build_mask, dev, torch.bool, (*lead, n, k))
+    r = lead[0] if lead else 1
+    _check_slots(fn, k)
+    cap = layout_capacity(n, k)
+    i32 = dict(device=dev, dtype=torch.int32)
+    out = LiveLayout(torch.empty((r, cap), **i32),
+                     torch.empty((r, n), **i32), torch.empty((r, n), **i32),
+                     torch.empty((r,), **i32))
+    live = torch.empty((r * n * k,), device=dev, dtype=torch.uint8)
+    scratch = _MegaScratch(live.data_ptr(), *[t.data_ptr() for t in out])
+
+    from gamd_tpu_torch.ops.build import load_library
+    err = load_library().gamd_mega_layout(
+        pos.data_ptr(), idx.data_ptr(), build_mask.data_ptr(), r, n, k,
+        *_scalars(box, cutoff, 1.0, 1.0, 1.0)[:2], ctypes.byref(scratch),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(fn, err)
+    mega_layout.launches += 1
+    return out
+
+
+mega_layout.launches = 0

@@ -24,7 +24,8 @@ ROOT = build.BUILD_DIR.parent / "build_times"
 def serial(out_dir) -> float:
     out_dir.mkdir(parents=True)
     cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
-           str(out_dir / "lib.so"), *[str(s) for s in build.sources()]]
+           str(out_dir / "lib.so"), *[str(s) for s in build.sources()],
+           *build.LINK_FLAGS]
     t0 = time.perf_counter()
     subprocess.run(cmd, capture_output=True, check=True)
     return time.perf_counter() - t0

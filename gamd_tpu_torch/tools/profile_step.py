@@ -22,10 +22,14 @@ warm-up, times 40 steps (two windows) on the host clock without the
 profiler, then runs the same 40 steps from the same state again traced
 with torch.profiler. Prints the card line, then one JSON line per path:
 device time per kernel name (summed over the traced window, with launch
-counts), wall time per step of both windows, the device's idle share of
-each window (1 - device time / wall time; the profiler's own host cost
-inflates the traced one), and the gaps between consecutive device
-activities of the traced window: per step in all, split at 20 us into
+counts: each kernel's span, which under programmatic dependent launch
+includes its wait for the kernel before it; and each kernel's exclusive
+time, what it adds to the device's busy time beyond the spans before
+it), wall time per step of both windows, the device's busy time (the
+union of the spans) and idle share of each window (1 - busy time / wall
+time; the profiler's own host cost inflates the traced one), and the gaps
+between the device's busy stretches in the traced window: per step in
+all, split at 20 us into
 short ones (the device's own turnaround from one queued launch to the
 next) and long ones (the device waiting for the host), with the long
 ones counted by the activities on either side. On the megastep path it
@@ -36,14 +40,20 @@ chunk sums) and the cell list's time per rebuild (CUDA events, median of
 10 builds at the start frame), whose PyTorch kernels the breakdown
 otherwise mixes with the model's.
 
-    python3 -m gamd_tpu_torch.tools.profile_step
+Each path's line also gives the exclusive device time per step of the
+whole-model forward's stages (FORWARD_STAGES: weight split, live flags
+and layout, encoder, edge stage, node stages).
 
-Needs a CUDA card; it raises without one.
+    python3 -m gamd_tpu_torch.tools.profile_step [path ...]
+
+runs the named paths (all six without one). Needs a CUDA card; it raises
+without one.
 """
 
 import dataclasses
 import json
 import re
+import sys
 import time
 
 import numpy as np
@@ -70,9 +80,24 @@ BANDED_N, BANDED_K = 10_000, 96                    # the banded path's system
 SHORT_GAP_US = 20.0
 
 
+#: The whole-model forward's kernels (csrc/mega_forward.cu) by the stage
+#: each runs: short name -> stage.
+FORWARD_STAGES = {
+    "split_weights_kernel": "weight split",
+    "live_kernel": "live-edge layout",
+    "layout_kernel": "live-edge layout",
+    "encode_tile_kernel": "encoder (tensor cores)",
+    "edge_tile_kernel": "edge stage (tensor cores)",
+    "node_fused_kernel[B=4]": "node stages",
+    "node_fused_kernel[B=8]": "node stages",
+    "node_fused_kernel[B=16]": "node stages",
+}
+
+
 def short_name(kernel: str) -> str:
     """A readable name for a device kernel: this repo's kernels by their
-    own name, PyTorch's by the kernel template and the op it runs."""
+    own name (node_fused_kernel with its atoms a block, B), PyTorch's by
+    the kernel template and the op it runs."""
     name = kernel.replace("(anonymous namespace)::", "")
     name = name[5:] if name.startswith("void ") else name
     base = re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1].strip()
@@ -81,8 +106,21 @@ def short_name(kernel: str) -> str:
                      rest)
     if rows:            # edge_msg_kernel's instances
         return f"{base}[{rows.group(1)}]"
+    width = re.match(r"<(\d+)>", rest)
+    if base == "node_fused_kernel" and width:
+        return f"{base}[B={width.group(1)}]"
     ops = re.findall(r"(\w+_kernel_cuda|\w+Functor|\w+_cuda_out)", rest)
     return f"{base}[{ops[-1]}]" if ops else (base or kernel[:60])
+
+
+def forward_stages(kernels: dict, calls: int) -> dict:
+    """Device us per call of each stage of the whole-model forward
+    (FORWARD_STAGES), from kernel_times' {short name: {"us", "count"}}."""
+    stages = {}
+    for name, stage in FORWARD_STAGES.items():
+        if name in kernels:
+            stages[stage] = stages.get(stage, 0.0) + kernels[name]["us"]
+    return {k: round(v / calls, 3) for k, v in stages.items()}
 
 
 def on_device(evt) -> bool:
@@ -91,6 +129,33 @@ def on_device(evt) -> bool:
     gaps between them, are not."""
     return evt.device_type == torch.autograd.DeviceType.CUDA \
         and not getattr(evt, "is_user_annotation", False)
+
+
+def device_spans(prof) -> list:
+    """(start us, end us, short name) of every device activity, by start."""
+    return sorted((e.time_range.start, e.time_range.end, short_name(e.name))
+                  for e in prof.events() if on_device(e))
+
+
+def exclusive_times(spans) -> tuple:
+    """Device time as a partition of the busy time: each activity gets what
+    it adds beyond the latest end before it (the running frontier), so
+    overlapping spans (a kernel started early by programmatic dependent
+    launch, waiting for the one before it) are not counted twice. Returns
+    ({short name: {"us", "count"}}, [(gap us, name before, name after)]
+    between an activity and the frontier before it)."""
+    kernels, gaps = {}, []
+    frontier, last = None, None
+    for start, end, name in spans:
+        if frontier is not None:
+            gaps.append((max(0.0, start - frontier), last, name))
+        entry = kernels.setdefault(name, {"us": 0.0, "count": 0})
+        entry["us"] += max(0.0, end - (start if frontier is None
+                                       else max(start, frontier)))
+        entry["count"] += 1
+        if frontier is None or end >= frontier:
+            frontier, last = end, name
+    return kernels, gaps
 
 
 def kernel_times(prof) -> dict:
@@ -176,17 +241,16 @@ def profile(dev, path: str) -> dict:
         wall = time.perf_counter() - t0
 
     kernels = kernel_times(prof)
-    spans = sorted((e.time_range.start, e.time_range.end, short_name(e.name))
-                   for e in prof.events() if on_device(e))
-    gaps = [max(0.0, b[0] - a[1]) for a, b in zip(spans, spans[1:])]
+    exclusive, gap_list = exclusive_times(device_spans(prof))
+    gaps = [g for g, _, _ in gap_list]
     short = [g for g in gaps if g < SHORT_GAP_US]
     sites = {}        # long gaps by the activities on either side
-    for a, b, g in zip(spans, spans[1:], gaps):
+    for g, a, b in gap_list:
         if g >= SHORT_GAP_US:
-            site = sites.setdefault(f"{a[2]} -> {b[2]}", [0, 0.0])
+            site = sites.setdefault(f"{a} -> {b}", [0, 0.0])
             site[0] += 1
             site[1] += g
-    total = sum(k["us"] for k in kernels.values())
+    total = sum(k["us"] for k in exclusive.values())
     if total <= 0:
         raise RuntimeError("torch.profiler saw no device time on this "
                            "machine; time with CUDA events instead")
@@ -226,6 +290,10 @@ def profile(dev, path: str) -> dict:
             [round(t * 1e3, 3) for t in enqueue] if megastep else None),
         "kernels_us_per_step": {k: round(v["us"] / STEPS, 3)
                                 for k, v in ranked.items()},
+        "kernels_exclusive_us_per_step": {
+            k: round(v["us"] / STEPS, 3) for k, v in sorted(
+                exclusive.items(), key=lambda kv: -kv[1]["us"])},
+        "forward_stages_us_per_step": forward_stages(exclusive, STEPS),
         "kernel_launches": {k: v["count"] for k, v in ranked.items()},
     }
 
@@ -246,13 +314,18 @@ def cell_list_ms(sim, pos) -> float:
     return float(np.median(times))
 
 
-def main():
+def main(argv=None):
+    paths = (sys.argv[1:] if argv is None else argv) or PATHS
+    unknown = set(paths) - set(PATHS)
+    if unknown:
+        raise ValueError(f"profile_step: no path {sorted(unknown)}; the "
+                         f"paths are {PATHS}")
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA card")
     dev = torch.device("cuda")
     card = card_line()
     print(card, flush=True)
-    for path in PATHS:
+    for path in paths:
         print(json.dumps({"card": card, **profile(dev, path)}), flush=True)
 
 

@@ -1,5 +1,6 @@
 """The CUDA kernels mega_forward and mega_md_steps (one system and R
-replicas), the conv-message pair (conv_msg_gather forward and backward),
+replicas; the forward's live-edge layout stage alone through mega_layout),
+the conv-message pair (conv_msg_gather forward and backward),
 edge_encoder, banded_msg, nhc_half_step, nhc_chain_probe (both forms), the
 op library's gather_agg, edge_mlp_agg, conv_msg and conv_layer, and the
 probes' mxu_loop (five bodies), onehot_gather (five forms), lane_gather
@@ -32,7 +33,8 @@ from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
                                         fused_edge_encoder)
-from gamd_tpu_torch.ops.mega import (md_steps_reference, mega_forward,
+from gamd_tpu_torch.ops.mega import (live_edge_layout, md_steps_reference,
+                                     mega_forward, mega_layout,
                                      mega_md_steps, pack_params,
                                      reference_forward)
 from gamd_tpu_torch.physics.lennard_jones import lj_fluid_box
@@ -83,8 +85,8 @@ def _case(dev, n, k, use_ln=True, layers=2, seed=0):
 
 
 @pytest.mark.parametrize("n,k,use_ln,flip", [
-    (64, 16, True, False),     # one edge chunk, full node blocks
-    (66, 20, True, True),      # ragged edge chunk and node block, flip_dir
+    (64, 16, True, False),     # full node blocks
+    (66, 20, True, True),      # ragged last tile and node block, flip_dir
     (64, 16, False, False),    # BatchNorm folded into the node affine
 ])
 def test_kernel_matches_plain_version(cuda, n, k, use_ln, flip):
@@ -97,6 +99,30 @@ def test_kernel_matches_plain_version(cuda, n, k, use_ln, flip):
     assert out.shape == (n, 3) and bool(torch.isfinite(out).all())
     err = float((out - ref).abs().max())
     assert err < TOLERANCE * float(ref.abs().std())
+
+
+def test_kernel_with_rbf_centres_in_both_column_halves(cuda):
+    """80 RBF centres (gap 0.0125): the RBF product's depth crosses into
+    the second 64-column half of the tile, which the second warpgroup
+    writes; within 5e-3 std(F) of reference_forward."""
+    cfg = ModelConfig(conv_layers=2, use_layer_norm=True, rbf_gap=0.0125)
+    assert cfg.n_rbf == 80
+    system = get_preset("lj", n_atoms=64, box=BOX, cutoff=4.2,
+                        nbr_capacity=16, skin=0.8)
+    state = init_params(cfg, system, seed=3)
+    mp = pack_params(state.params, cfg, force_std=2.0, force_mean=0.1,
+                     unit=0.1, device=cuda)
+    pos = torch.as_tensor(np.random.default_rng(4).uniform(
+        0, BOX, (64, 3)).astype(np.float32), device=cuda)
+    idx, mask, _ = dense_neighbor_list(pos, BOX, 5.0, 16)
+    h0 = torch.as_tensor(state.params["node_emb"], device=cuda).expand(
+        64, cfg.encoding_size).contiguous()
+    args = (pos, idx, mask, h0, mp, BOX, 4.2, 4.0, 1.2)
+    out = mega_forward(*args, rbf_gap=0.0125)
+    ref = reference_forward(*args, rbf_gap=0.0125)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) < TOLERANCE * float(
+        ref.abs().std())
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -112,6 +138,112 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         mega_forward(pos, idx, mask, h0, mp, *rest,
                      bond=torch.zeros_like(mask, dtype=torch.float32))
     assert mega_forward.launches == before
+
+
+def _edge_case(dev, k=20):
+    """_case(66, k) with the layout's edge cases: atom 3 with no live edge
+    (build mask off), atom 5 with all k slots live (its list atoms 6 ..
+    6 + k - 1, moved to within 2 A of it), build-time slots past the true
+    cutoff, random dead slots."""
+    pos, idx, mask, *rest = _case(dev, 66, k)
+    rng = np.random.default_rng(5)
+    p = pos.cpu().numpy()
+    p[6:6 + k] = np.mod(p[5] + rng.uniform(-1.1, 1.1, (k, 3)), BOX)
+    ids = np.stack([rng.choice(np.delete(np.arange(66), i), k,
+                               replace=False) for i in range(66)])
+    ids[5] = np.arange(6, 6 + k)
+    live = rng.uniform(size=(66, k)) < 0.8
+    live[3] = False
+    live[5] = True
+    return (torch.as_tensor(p, device=dev),
+            torch.as_tensor(ids.astype(np.int32), device=dev),
+            torch.as_tensor(live, device=dev), *rest)
+
+
+_LAYOUT_CASES = {
+    "n64": lambda dev: _case(dev, 64, 16),
+    "ragged": lambda dev: _case(dev, 66, 20),
+    "edge_cases": _edge_case,
+    "replicas": lambda dev: _replica_case(dev),
+}
+
+
+@pytest.mark.parametrize("case", list(_LAYOUT_CASES))
+def test_layout_kernel_equals_plain_layout(cuda, case):
+    """The forward's first stage alone (mega_layout, one launch): per-atom
+    offsets and counts, the replica totals and each replica's compacted
+    slot ids equal live_edge_layout's exactly (rows past a total are
+    unwritten on the card)."""
+    pos, idx, mask, h0, mp, box, cutoff, *_ = _LAYOUT_CASES[case](cuda)
+    before = mega_layout.launches
+    got = mega_layout(pos, idx, mask, box, cutoff)
+    want = live_edge_layout(pos, idx, mask, box, cutoff)
+    torch.cuda.synchronize()
+    assert mega_layout.launches == before + 1
+    assert torch.equal(got.offset, want.offset)
+    assert torch.equal(got.count, want.count)
+    assert torch.equal(got.total, want.total)
+    for r, total in enumerate(want.total.tolist()):
+        assert torch.equal(got.slot[r, :total], want.slot[r, :total])
+    if case == "edge_cases":
+        assert int(got.count[0, 3]) == 0 and int(got.count[0, 5]) == 20
+
+
+@pytest.mark.parametrize("k", [16, 20])
+def test_kernel_on_layout_edge_cases(cuda, k):
+    """The forward on the layout's edge cases (an atom with no live edge,
+    one with all k live; k=20 not a multiple of 16): within 5e-3 std(F)
+    of reference_forward."""
+    args = _edge_case(cuda, k)
+    out = mega_forward(*args)
+    ref = reference_forward(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) < TOLERANCE * float(
+        ref.abs().std())
+
+
+def test_mega_forward_is_run_to_run_identical(cuda):
+    """Two calls on the same inputs give the same bits (no atomics; sums
+    in fixed orders)."""
+    args = _case(cuda, 66, 20)
+    first = mega_forward(*args)
+    second = mega_forward(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_forward_at_full_width_with_trained_weights(cuda):
+    """LJ-258 with the trained GAMD-small weights of results/ckpts/
+    lj_relabel_latest.msgpack (4 layers, widths 128, 40 RBF centres; the
+    nearest 48 of a K=96 list), through GNNForceField.force_fn(
+    megakernel=True): within 5e-3 std(F) of reference_forward on the
+    same packed weights."""
+    state, model_cfg, system = load_self_describing(os.path.join(
+        REPO, "results", "ckpts", "lj_relabel_latest.msgpack"))
+    ff = GNNForceField(state, system, model_cfg, device=cuda)
+    _, lattice = lj_fluid_box(system.n_atoms, 0.5)
+    pos = torch.as_tensor(np.mod(lattice + np.random.default_rng(1).normal(
+        0.0, 0.05, lattice.shape), system.box).astype(np.float32),
+        device=cuda)
+    idx, mask, ovf = build_nbrs(pos, system, 48)
+    assert not bool(ovf)
+    before = mega_forward.launches
+    out = ff.force_fn(megakernel=True)(pos, idx, mask)
+    torch.cuda.synchronize()
+    assert mega_forward.launches == before + 1
+    mp = pack_params(state.params, model_cfg,
+                     force_std=state.force_stat.std,
+                     force_mean=state.force_stat.safe_mean,
+                     unit=system.force_unit_to_internal, device=cuda)
+    h0 = torch.as_tensor(state.params["node_emb"], device=cuda).expand(
+        system.n_atoms, model_cfg.encoding_size).contiguous()
+    ref = reference_forward(pos, idx, mask, h0, mp, system.box,
+                            system.cutoff, state.length_stat.safe_mean,
+                            state.length_stat.std,
+                            rbf_gap=model_cfg.rbf_gap)
+    assert float((out - ref).abs().max()) < TOLERANCE * float(
+        ref.abs().std())
 
 
 def _window_constants(dev, n, temperature):
@@ -956,7 +1088,7 @@ def test_gather_forms_reject_what_they_do_not_take(cuda):
 
 def _replica_case(dev, r=3):
     """The case frame shifted by 0, 1.7, 3.4 ... A, each with its own list
-    (N=66, K=20: ragged node blocks and edge chunks)."""
+    (N=66, K=20: ragged node blocks and last tiles)."""
     pos, _, _, h0, mp, box, cutoff, lm, ls = _case(dev, 66, 20)
     frames = torch.stack([torch.remainder(pos + 1.7 * i, box)
                           for i in range(r)])
@@ -981,6 +1113,19 @@ def test_mega_forward_replica_axis_matches_single_calls(cuda):
     ref = reference_forward(*args)
     assert float((out - ref).abs().max()) < TOLERANCE * float(
         ref.abs().std())
+
+
+def test_mega_forward_eight_replicas_match_single_calls(cuda):
+    """R=8 in one launch (the node stages then take more atoms a block
+    than at R=1): each replica bit for bit its single-system launch."""
+    args = _replica_case(cuda, r=8)
+    pos, idx, mask, h0, mp, *rest = args
+    out = mega_forward(*args)
+    torch.cuda.synchronize()
+    for r in range(pos.shape[0]):
+        one = mega_forward(pos[r], idx[r], mask[r], h0[r].contiguous(), mp,
+                           *rest)
+        assert torch.equal(out[r], one), r
 
 
 @pytest.mark.parametrize("temperature", [0.0, 100.0])
