@@ -28,8 +28,8 @@ hand-written CUDA kernel: pallas_gather_multiply_aggregate (gather_agg),
 fused_edge_mlp_aggregate (edge_mlp_agg), fused_conv_message (conv_msg) and
 fused_conv_layer (conv_layer), driven through GAMDNet's forward with every
 conv layer in one form of the library (tools/op_library.py). Then its
-tensor-core probes, each product an mma.sync in a hand-written CUDA
-kernel: tools/bench_mxu.py (scripts/bench_mxu.py's loop kernel, five stage
+tensor-core probes, each product an mma.sync or wgmma in a hand-written
+CUDA kernel: tools/bench_mxu.py (scripts/bench_mxu.py's loop kernel, five stage
 bodies through mxu_loop) and tools/probe_gather.py (scripts/probe_gather.py's
 one-hot gathers, five forms through onehot_gather), whose lane, sublane and
 transpose forms are the hand-written CUDA kernels lane_gather (two widths),
@@ -134,17 +134,21 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
  29. the four kernels' times at layer 0's inputs against their plain
      versions and bounds, and their device time (torch.profiler);
  30. tools.bench_mxu in process at its defaults (iters 200, tile_n 16,
-     k 48, n 258): each stage's us/iter and TFLOP/s, the calibration line
-     (required OK), the launches by body, and cuBLAS on the same bf16
-     four-product chain, gather_mm's two products and repeat_interleave
-     (iters calls replayed from a CUDA graph: the library times);
+     k 48, n 258): each stage's us/iter, TFLOP/s and launch (CTAs,
+     cluster), the calibration line (required OK), the launches by body,
+     and cuBLAS on each body's products in their order: the bf16
+     four-product chain, gather_mm's two products (768 and 6,144 rows),
+     gather_full's two gathers and three affines, edge_mlp's four
+     products, and repeat_interleave (iters calls replayed from a CUDA
+     graph: the library times);
  31. each mxu_loop body against its plain version at iters 2 on the
      tool's inputs (gather_mm and repeat bit for bit), repeating bit for
      bit, and the plain versions' times at the tool's iters;
  32. tools.probe_gather in process at its defaults (iters 2000): every
      one-hot variant status OK with its carry equal to iters sum T[idx]
-     (1e-5), the launches by form, and the library times: the same
-     products by cuBLAS and torch.index_select(tbl, 0, idx);
+     (1e-5), the launches by form, each form's launch (persistent CTAs),
+     and the library times: the same products by
+     cuBLAS and torch.index_select(tbl, 0, idx);
  33. each one-hot form against its plain version at iters 2: the gathered
      rows (the last product) bit for bit and equal to T[idx], the carry
      within 1e-5 of iters sum |T[idx]| (int8 x int8 exact), repeating bit
@@ -1943,34 +1947,24 @@ def mxu_probe_phases(dev, card):
             f"a body did not launch: {launches}")
     require(fwd_launches > 0, "the forward stage did not launch")
     stages = bench_mxu.stage_inputs(args, dev)
-    a, w = stages["peak"][1]
-    oh, nh, nl = stages["gather_mm"][1]
-    dst, = stages["repeat"][1]
-
-    def chain():
-        x = a
-        for _ in range(4):
-            x = torch.matmul(x, w)
-        return x
-
-    libs = {"peak": graph_ms(chain, iters),
-            "gather_mm": graph_ms(
-                lambda: (torch.matmul(oh, nh), torch.matmul(oh, nl)), iters),
-            "repeat": graph_ms(
-                lambda: torch.repeat_interleave(
-                    dst, args.k, dim=0, output_size=dst.shape[0] * args.k),
-                iters)}
+    libs = {label: graph_ms(library_products(stages, label, args.k, dev),
+                            iters)
+            for label in stages}
     peak_flops = bench_mxu.flops_per_iter("peak", mxu_probe.PEAK_N, 0)
+    peak = res["stages"]["peak"]
     say(f"phase 30: cuBLAS (torch.matmul, bf16) on the same four-product "
         f"chain: {libs['peak'] * 1e3 / iters:.2f} us/iter, "
         f"{peak_flops * iters / (libs['peak'] * 1e-3) / 1e12:.2f} TFLOP/s "
-        f"(the kernel {res['stages']['peak']['us_per_iter']:.2f} us/iter, "
-        f"{res['stages']['peak']['tflops']:.2f} TFLOP/s on "
-        f"{res['stages']['peak']['blocks']} blocks); gather_mm's two "
-        f"products {libs['gather_mm'] * 1e3 / iters:.2f} us/iter; "
-        f"repeat_interleave {libs['repeat'] * 1e3 / iters:.2f} us/iter "
-        f"({iters} calls replayed from a CUDA graph, CUDA events, median "
-        f"of 3) [{card}]")
+        f"(the kernel {peak['us_per_iter']:.2f} us/iter, "
+        f"{peak['tflops']:.2f} TFLOP/s on {peak['ctas']} CTAs in clusters "
+        f"of {peak['cluster']}); " + "; ".join(
+            f"{label} {libs[label] * 1e3 / iters:.2f} us/iter (kernel "
+            f"{res['stages'][label]['us_per_iter']:.2f} on "
+            f"{res['stages'][label]['ctas']} CTAs in clusters of "
+            f"{res['stages'][label]['cluster']})"
+            for label in stages if label != "peak")
+        + f" ({iters} calls replayed from a CUDA graph, CUDA events, median"
+        f" of 3; repeat: repeat_interleave) [{card}]")
 
     # -- phase 31: each body's kernel against its plain version --------------
     salt = torch.randn((8, 128), device=dev,
@@ -2018,9 +2012,56 @@ def mxu_probe_phases(dev, card):
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": libs.get(body),
             "iters": iters, "us_per_iter": stage["us_per_iter"],
-            "tflops": stage["tflops"], "blocks": stage["blocks"]})
-    kernels[1]["us_per_iter_8M"] = res["stages"]["gather_mm_8M"]["us_per_iter"]
+            "tflops": stage["tflops"], "ctas": stage["ctas"],
+            "cluster": stage["cluster"]})
+    big = res["stages"]["gather_mm_8M"]
+    kernels[1].update(us_per_iter_8M=big["us_per_iter"], ms_8M=big["ms"],
+                      library_ms_8M=libs["gather_mm_8M"], ctas_8M=big["ctas"])
     return kernels, fwd_launches
+
+
+def library_products(stages, label, k, dev):
+    """One iteration's products of a bench_mxu stage as PyTorch calls, in
+    the body's order (cuBLAS for the bf16 products; repeat_interleave for
+    the broadcast): the library yardstick."""
+    body, inputs, _ = stages[label]
+    if body == "peak":
+        a, w = inputs
+
+        def chain():
+            x = a
+            for _ in range(4):
+                x = torch.matmul(x, w)
+            return x
+        return chain
+    if body == "gather_mm":
+        oh, nh, nl = inputs
+        return lambda: (torch.matmul(oh, nh), torch.matmul(oh, nl))
+    if body == "gather_full":
+        idx, nh, nl, ws = inputs
+        oh = (torch.arange(nh.shape[0], device=dev)[None] == idx).to(
+            torch.bfloat16)
+        wsh = ws.to(torch.bfloat16)
+        wsl = (ws - wsh.float()).to(torch.bfloat16)
+
+        def gather_affine():
+            gh, gl = torch.matmul(oh, nh), torch.matmul(oh, nl)
+            return (torch.matmul(gh, wsh), torch.matmul(gh, wsl),
+                    torch.matmul(gl, wsh))
+        return gather_affine
+    if body == "edge_mlp":
+        e, w = inputs
+        wb = w.to(torch.bfloat16)
+
+        def mlp():
+            x = e
+            for _ in range(4):
+                x = torch.matmul(x, wb)
+            return x
+        return mlp
+    dst, = inputs
+    return lambda: torch.repeat_interleave(dst, k, dim=0,
+                                           output_size=dst.shape[0] * k)
 
 
 def gather_probe_phases(dev, card):
@@ -2124,8 +2165,12 @@ def gather_probe_phases(dev, card):
         plain_ms = time_ms(lambda: gather_probe.onehot_gather_reference(
             x["idx"], x["tbl"], iters, form, x["starts"]), reps=1, warmup=1)
         bound_ms, bound_by, gflop = onehot_bound(form, x, iters)
+        plan = gather_probe.launch_plan(form, x["idx"].shape[0],
+                                        x["tbl"].shape[0],
+                                        mxu_probe.sm_count(dev))
         say(f"phase 33: onehot_gather {form} {line['ms']:.4f} ms/call at "
-            f"iters {iters} ({line['per_edge_stream_us']:.3f} us/iter), "
+            f"iters {iters} ({line['per_edge_stream_us']:.3f} us/iter) on "
+            f"{plan.ctas} persistent CTAs, "
             f"plain {plain_ms:.4f} ms/call (one call), bound "
             f"{bound_ms:.4f} ms ({bound_by}; {gflop:.4f} GFLOP an "
             f"iteration), kernel at {bound_ms / line['ms']:.2%} of it "
@@ -2139,7 +2184,7 @@ def gather_probe_phases(dev, card):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": libs[form], "index_select_ms": index_ms,
             "iters": iters, "us_per_iter": line["per_edge_stream_us"],
-            "calib_ratio": line["calib_ratio"]})
+            "calib_ratio": line["calib_ratio"], "ctas": plan.ctas})
     return kernels, all_lines, form_launches
 
 

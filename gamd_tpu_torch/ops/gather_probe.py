@@ -19,10 +19,16 @@ the carry passes 1e30, else 0). The forms (FORMS):
 onehot_gather is the entry: a CPU tensor runs the plain version
 (onehot_gather_reference: float32 matmuls of the 0/1 one-hot and the
 table's values, which are exact, and float32 sums); a CUDA tensor makes one
-launch of the form's kernel and one of the partials' total, or raises,
-counted in onehot_gather.launches[form]. Both return the carry [8, 128]
-(every element the total), and with product=True also the last
-iteration's product [rows, 256] fp32 (the gathered rows).
+launch of the form's kernel and one of the partials' total, or raises, counted in
+onehot_gather.launches[form]. Both return the carry [8, 128] (every
+element the total), and with product=True also the last iteration's
+product [rows, 256] fp32 (the gathered rows).
+
+The kernel's launch plan (launch_plan: a persistent grid of at most the
+card's SM count, threads, shared bytes) is computed here and passed to
+the C entry, which recomputes it and refuses one that differs; check_plan
+is the same check in Python. plan_units lists the stream rows and table
+lanes each CTA computes.
 
 The other three forms, csrc/gather_forms.cu, gather without a product
 and fold the full sum of each iteration's result into the carry, with
@@ -46,6 +52,7 @@ or [n_pad, 256] fp32.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -56,8 +63,13 @@ from gamd_tpu_torch.ops.mxu_probe import fp32_matmul
 FORMS = {"bf16": 0, "int8_bf16": 1, "int8_int8": 2, "band256": 3,
          "band208": 3}
 LANES = 256        # table lanes (hi|lo packed)
-BLOCK_ROWS = 32    # edge rows of one block of the kernel
+ROW_MULTIPLE = 32  # the stream's rows (and a band tile's) a multiple of it
 DEP_LIMIT = 1e30   # _dep_scalar's threshold
+UNIT_ROWS = 64           # edge rows of a unit of work (wgmma M)
+HALF_LANES = 128         # table lanes of one wgmma (N); a CTA takes both
+GATHER_THREADS = 256     # two warpgroups
+MAX_SMEM = 232448
+H100_SMS = 132
 #: Lane gather widths, by their code in gather_forms.cu's C entry.
 LANE_WIDTHS = {384: 0, 128: 1}
 SUBLANE, TRANSPOSE = 2, 3      # the other codes of that entry
@@ -112,13 +124,67 @@ def onehot_gather_reference(idx, tbl, iters, form, starts=None,
     return out, g
 
 
+class Plan(NamedTuple):
+    """A launch of onehot_gather_kernel: `ctas` persistent CTAs of
+    `threads` threads with `smem` bytes of dynamic shared memory, over
+    `units` 64-row tiles of the stream."""
+    ctas: int
+    threads: int
+    smem: int
+    units: int
+
+
+def launch_plan(form, rows, n_pad, sms=H100_SMS):
+    """The one-hot kernel's launch for `form` on `rows` edge rows and a
+    table of `n_pad` rows, on a card of `sms` SMs: units of 64 rows x 256
+    lanes, CTA c taking the row tiles c, c + ctas, ..., ctas the least of
+    `sms` and the row tiles; the whole table resident (two halves of 128
+    lanes in 128-byte K blocks: 64 bf16 or 128 int8 values of 128 lanes,
+    16 KB each), 1,024 bytes to align it and 128 for the warp sums and the
+    carry."""
+    units = -(-rows // UNIT_ROWS)
+    block_k = 128 if form == "int8_int8" else 64
+    half = -(-n_pad // block_k) * HALF_LANES * 128
+    return Plan(min(sms, units), GATHER_THREADS, 1024 + 2 * half + 128,
+                units)
+
+
+def check_plan(form, plan, rows, n_pad, sms=H100_SMS):
+    """Raises ValueError unless `plan` is launch_plan's for this shape,
+    with ctas its own (at most `sms` and the row tiles)."""
+    want = launch_plan(form, rows, n_pad, sms)
+    ok = (plan._replace(ctas=want.ctas) == want and plan.ctas > 0
+          and plan.ctas <= min(sms, want.units) and plan.smem <= MAX_SMEM)
+    if not ok:
+        raise ValueError(f"onehot_gather: inconsistent {form} plan {plan} "
+                         f"for rows {rows}, n_pad {n_pad} on {sms} SMs "
+                         f"(launch_plan gives {want})")
+
+
+def plan_units(plan, rows):
+    """[(CTA, row0, rows, lane0, lanes)] of every unit the kernel computes
+    in one iteration: CTA c takes the row tiles c + ctas j, its two
+    warpgroups alternating, each tile's 256 lanes as two 128-lane halves
+    from the same A fragments."""
+    out = []
+    for c in range(plan.ctas):
+        for u in range(c, plan.units, plan.ctas):
+            r0 = u * UNIT_ROWS
+            for half in range(2):
+                out.append((c, r0, min(UNIT_ROWS, rows - r0),
+                            HALF_LANES * half, HALF_LANES))
+    return out
+
+
 def declare(lib):
     """Set argtypes/restype of the library's one-hot gather entry."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gamd_onehot_gather.argtypes = [
         i, p, p, p,                   # form, idx, starts, tbl
         i, i, i, i, i,                # rows n_pad band tile_rows iters
-        p, p, p, p]                   # partials, out, g_out, stream
+        p, p, p,                      # partials, out, g_out
+        i, i, i,                      # the plan
+        p]                            # stream
     lib.gamd_onehot_gather.restype = ctypes.c_int
     lib.gamd_gather_form_partials.argtypes = [i, i, i, i]
     lib.gamd_gather_form_partials.restype = ctypes.c_int
@@ -176,16 +242,18 @@ def onehot_gather(idx, tbl, iters, form, starts=None, product=False):
         n_tiles = starts.shape[0] if starts.ndim == 1 else 0
         _check(fn, "starts", starts, dev, torch.int32, (n_tiles,))
         tile_rows = rows // n_tiles if n_tiles else 0
-        if not n_tiles or rows % n_tiles or tile_rows % BLOCK_ROWS:
+        if not n_tiles or rows % n_tiles or tile_rows % ROW_MULTIPLE:
             raise ValueError(f"{fn}: {rows} rows in {n_tiles} tiles: each "
-                             f"tile must hold a multiple of {BLOCK_ROWS}")
-    if rows <= 0 or rows % BLOCK_ROWS or not 0 < k <= n_pad or k % step:
+                             f"tile must hold a multiple of {ROW_MULTIPLE}")
+    if rows <= 0 or rows % ROW_MULTIPLE or not 0 < k <= n_pad or k % step:
         raise ValueError(f"{fn}: {form} needs rows a positive multiple of "
-                         f"{BLOCK_ROWS} and a one-hot width (n_pad or the "
+                         f"{ROW_MULTIPLE} and a one-hot width (n_pad or the "
                          f"band) in (0, n_pad], a multiple of {step}; got "
                          f"rows {rows}, n_pad {n_pad}, width {k}")
+    from gamd_tpu_torch.ops.mxu_probe import sm_count
+    plan = launch_plan(form, rows, n_pad, sm_count(dev))
     f32 = dict(device=dev, dtype=torch.float32)
-    partials = torch.empty((rows // BLOCK_ROWS) * 2, **f32)
+    partials = torch.empty(plan.ctas, **f32)
     out = torch.empty((8, 128), **f32)
     g = torch.empty((rows, LANES), **f32) if product else None
     from gamd_tpu_torch.ops.build import load_library
@@ -193,8 +261,8 @@ def onehot_gather(idx, tbl, iters, form, starts=None, product=False):
         FORMS[form], idx.data_ptr(),
         None if starts is None else starts.data_ptr(), tbl.data_ptr(),
         rows, n_pad, k, tile_rows, int(iters), partials.data_ptr(),
-        out.data_ptr(), None if g is None else g.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), None if g is None else g.data_ptr(), plan.ctas,
+        plan.threads, plan.smem, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
     onehot_gather.launches[form] += 1

@@ -30,10 +30,18 @@ bf16-valued tensors (exact products, float32 sums; TF32 off on the card)
 and round to bf16 where JAX's .astype(bf16) rounds. mxu_loop is the entry:
 a CPU tensor runs the plain version; a CUDA tensor makes one launch of
 loop_kernel<Body> or raises, counted in mxu_loop.launches[body].
+
+The kernel's launch plan (launch_plan: CTAs, cluster size, rows and
+columns a CTA, threads, shared bytes) is computed here from the body's
+split (SPLIT) and passed to the C entry, which recomputes it and refuses
+one that differs; check_plan is the same check in Python. plan_tiles
+lists the output tile each CTA writes.
 """
 
 import contextlib
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -42,11 +50,134 @@ from gamd_tpu_torch.ops.mega import _check
 #: Bodies, by their code in the C entry.
 BODIES = {"peak": 0, "gather_mm": 1, "gather_full": 2, "edge_mlp": 3,
           "repeat": 4}
-#: Output rows of one block and threads of a block of the kernel.
-BLOCK_ROWS, THREADS = 32, 256
+ROW_TILE = 32    # rows of the kernel's row tile: rows must be a multiple
 PEAK_N = 512     # the peak chain's [512, 512]
 WIDTH = 128      # every other stage's width
 KEEP = 1e-30     # the keep-alive scale
+PAD = 8          # bf16 elements of row padding in shared memory
+MAX_SMEM = 232448        # a block's shared memory on Hopper
+MAX_THREADS = {"peak": 128, "gather_mm": 1024, "gather_full": 512,
+               "edge_mlp": 512, "repeat": 256}
+#: Each body's split (csrc/mxu_probe.cu's SPLIT): CTAs a cluster, columns
+#: a CTA, rows a CTA. peak: 64-row wgmma tiles; gather_mm's rows a CTA
+#: (None) follow from the SM count.
+SPLIT = {"peak": (8, 64, 64), "gather_mm": (1, 32, None),
+         "gather_full": (4, 32, 32), "edge_mlp": (2, 64, 32),
+         "repeat": (1, WIDTH, 32)}
+H100_SMS = 132
+
+
+class Plan(NamedTuple):
+    """A launch of loop_kernel<Body>: `ctas` CTAs in clusters of `cluster`,
+    each `threads` threads with `smem` bytes of dynamic shared memory,
+    owning `tile_rows` rows and `cols` columns of the output."""
+    ctas: int
+    cluster: int
+    tile_rows: int
+    cols: int
+    threads: int
+    smem: int
+
+
+def _smem(body, cols, tile_rows, n_pad):
+    """The dynamic shared bytes of a CTA (csrc/mxu_probe.cu's
+    Body::smem_bytes)."""
+    if body == "peak":
+        return 1024 + 16 + 3 * (PEAK_N // 64) * tile_rows * 128 + cols * 4
+    if body == "edge_mlp":
+        return 16 + (WIDTH * (cols + PAD) + 2 * (WIDTH // cols) * ROW_TILE
+                     * (cols + PAD)) * 2 + cols * 4
+    if body == "gather_full":
+        return 16 + (2 * n_pad * (cols + PAD) + 2 * WIDTH * (cols + PAD)
+                     + 2 * (WIDTH // cols) * ROW_TILE
+                     * (2 * cols + 3 * PAD)) * 2 + 16
+    if body == "gather_mm":
+        return (tile_rows * (n_pad + PAD) + 2 * n_pad * (cols + PAD)) * 2 \
+            + 2 * (tile_rows // ROW_TILE) * cols * 4
+    return WIDTH * 4
+
+
+def _derived(body, rows, n_pad, tile_rows):
+    """(ctas, threads, smem) of the body's split with `tile_rows` rows a
+    CTA."""
+    cluster, cols, _ = SPLIT[body]
+    if body == "gather_mm":
+        ctas = -(-rows // tile_rows) * (WIDTH // cols)
+        threads = (tile_rows // 16) * (cols // 16) * 32
+    elif body == "repeat":
+        ctas, threads = rows // ROW_TILE, MAX_THREADS[body]
+    elif body == "peak":
+        ctas, threads = rows // tile_rows * cluster, MAX_THREADS[body]
+    else:
+        ctas = rows // ROW_TILE * cluster
+        threads = 2 * (cols // 16) * 32
+    return ctas, threads, _smem(body, cols, tile_rows, n_pad)
+
+
+def check_plan(body, plan, rows, n_pad=0):
+    """Raises ValueError unless `plan` is a plan the C entry launches for
+    this shape: the body's split (gather_mm: any positive multiple of 32
+    rows a CTA) and the CTAs, threads and shared bytes it gives, within
+    the card's limits."""
+    cluster, cols, tile_rows = SPLIT[body]
+    why = None
+    if (plan.cluster, plan.cols) != (cluster, cols):
+        why = f"{body} takes clusters of {cluster} CTAs of {cols} columns"
+    elif tile_rows is not None and plan.tile_rows != tile_rows:
+        why = f"{body} takes {tile_rows} rows a CTA"
+    elif plan.tile_rows <= 0 or plan.tile_rows % ROW_TILE:
+        why = f"tile_rows {plan.tile_rows} not a positive multiple of " \
+              f"{ROW_TILE}"
+    else:
+        want = _derived(body, rows, n_pad, plan.tile_rows)
+        got = (plan.ctas, plan.threads, plan.smem)
+        if got != want:
+            why = f"(ctas, threads, smem) {got} where the split gives {want}"
+        elif plan.threads > MAX_THREADS[body]:
+            why = f"{plan.threads} threads, more than {MAX_THREADS[body]}"
+        elif plan.smem > MAX_SMEM:
+            why = f"{plan.smem} shared bytes, more than {MAX_SMEM}"
+    if why is not None:
+        raise ValueError(f"mxu_loop: inconsistent {body} plan {plan}: {why}")
+
+
+def launch_plan(body, rows, n_pad=0, sms=H100_SMS):
+    """The kernel's launch for `body` at `rows` output rows and `n_pad`
+    table rows on a card of `sms` SMs, checked by check_plan. peak,
+    edge_mlp, gather_full and repeat: SPLIT's. gather_mm: no cluster, 32
+    columns and 32 T rows a CTA, T the least that keeps the CTAs within
+    `sms` (T = 1 at 768 rows, 6 at 6,144), bounded by the threads and the
+    shared memory a CTA can have."""
+    cluster, cols, tile_rows = SPLIT[body]
+    if tile_rows is None:
+        row_tiles = -(-rows // ROW_TILE)
+        t = max(1, math.ceil(row_tiles * (WIDTH // cols) / sms))
+        t_max = MAX_THREADS[body] // (2 * (cols // 16) * 32)
+        while t_max > 1 and _smem(body, cols, t_max * ROW_TILE,
+                                  n_pad) > MAX_SMEM:
+            t_max -= 1
+        tile_rows = ROW_TILE * max(1, min(t, t_max, row_tiles))
+    ctas, threads, smem = _derived(body, rows, n_pad, tile_rows)
+    plan = Plan(ctas, cluster, tile_rows, cols, threads, smem)
+    check_plan(body, plan, rows, n_pad)
+    return plan
+
+
+def plan_tiles(body, plan, rows):
+    """[(row0, rows, col0, cols)] of the output each CTA writes, in CTA
+    order (csrc/mxu_probe.cu's block-to-tile mapping)."""
+    tiles = []
+    for b in range(plan.ctas):
+        if body in ("gather_mm", "repeat"):
+            slices = WIDTH // plan.cols
+            row0, col0 = (b // slices) * plan.tile_rows, \
+                (b % slices) * plan.cols
+        else:
+            row0 = (b // plan.cluster) * plan.tile_rows
+            col0 = (b % plan.cluster) * plan.cols
+        tiles.append((row0, max(0, min(plan.tile_rows, rows - row0)), col0,
+                      plan.cols))
+    return tiles
 
 
 def _bf(t):
@@ -170,8 +301,10 @@ def declare(lib):
     """Set argtypes/restype of the library's probe-loop entry."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gamd_mxu_loop.argtypes = [i, p, p, p, p, p,      # body, in0-3, salt
-                                  i, i, i, i, p, p]      # rows n_pad k iters
-    lib.gamd_mxu_loop.restype = ctypes.c_int              # out, stream
+                                  i, i, i, i, p,         # rows n_pad k iters
+                                  i, i, i, i, i, i,      # out; the plan
+                                  p]                     # stream
+    lib.gamd_mxu_loop.restype = ctypes.c_int
 
 
 def _expected(body, inputs, k):
@@ -231,17 +364,19 @@ def mxu_loop(body, inputs, salt, iters, k=1):
                          f"{len(inputs)}")
     for (name, dtype, shape), t in zip(specs, inputs):
         _check(fn, name, t, dev, dtype, shape)
-    if rows <= 0 or rows % BLOCK_ROWS or n_pad % BLOCK_ROWS:
+    if rows <= 0 or rows % ROW_TILE or n_pad % ROW_TILE:
         raise ValueError(f"{fn}: {body} needs rows a positive multiple of "
-                         f"{BLOCK_ROWS} and n_pad a multiple of {BLOCK_ROWS};"
+                         f"{ROW_TILE} and n_pad a multiple of {ROW_TILE};"
                          f" got rows {rows}, n_pad {n_pad}")
+    plan = launch_plan(body, rows, n_pad, sm_count(dev))
     width = PEAK_N if body == "peak" else WIDTH
     out = torch.empty((rows, width), device=dev, dtype=torch.float32)
     ptrs = [t.data_ptr() for t in inputs] + [None] * (4 - len(inputs))
     from gamd_tpu_torch.ops.build import load_library
     err = load_library().gamd_mxu_loop(
         BODIES[body], *ptrs, salt.data_ptr(), rows, n_pad, int(k),
-        int(iters), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        int(iters), out.data_ptr(), *plan,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
     mxu_loop.launches[body] += 1
@@ -249,3 +384,8 @@ def mxu_loop(body, inputs, salt, iters, k=1):
 
 
 mxu_loop.launches = dict.fromkeys(BODIES, 0)
+
+
+def sm_count(device):
+    """The SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

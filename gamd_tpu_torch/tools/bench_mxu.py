@@ -20,8 +20,9 @@ the megakernel's forward body at the LJ-258 shapes (tile_n 16, k 48, D
 
 Per stage it prints microseconds per iteration (one call's device time
 by CUDA events, median of 5 calls with a fresh salt each, over iters),
-the achieved TFLOP/s of the exact FLOP count, and the blocks the kernel
-runs on the card's SMs. The calibration line holds the loop to the
+the achieved TFLOP/s of the exact FLOP count, and the launch the kernel
+makes (ops.mxu_probe.launch_plan: CTAs, cluster size, threads) on the
+card's SMs. The calibration line holds the loop to the
 script's check: the peak stage's time per iteration at iters and iters/4
 must agree within 0.8-1.25, and the peak must not claim more than the
 card's dense bf16 rate of 989 TFLOP/s, or the line says LOOP-COLLAPSED.
@@ -44,8 +45,8 @@ import zlib
 import numpy as np
 import torch
 
-from gamd_tpu_torch.ops.mxu_probe import (BLOCK_ROWS, PEAK_N, THREADS,
-                                          WIDTH, mxu_loop, output_rows)
+from gamd_tpu_torch.ops.mxu_probe import (PEAK_N, WIDTH, launch_plan,
+                                          mxu_loop, output_rows, sm_count)
 
 #: The card's dense bf16 rate (H100 SXM data sheet), the calibration's
 #: ceiling.
@@ -249,15 +250,14 @@ def main(argv=None):
     if on_card:
         from gamd_tpu_torch.core.device import card_line
         print(card_line(), flush=True)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        sms = sm_count(dev)
     n_pad = -(-args.n // 128) * 128
     stages = {}
     calibration = None
     for label, (body, inputs, k) in stage_inputs(args, dev).items():
         rows = output_rows(body, inputs, k)
         flops = flops_per_iter(body, rows, n_pad)
-        entry = {"body": body, "rows": rows, "flops_per_iter": flops,
-                 "blocks": rows // BLOCK_ROWS}
+        entry = {"body": body, "rows": rows, "flops_per_iter": flops}
         if not on_card:
             err = parity(label, body, inputs, k, args.iters, dev)
             entry["parity"] = err
@@ -267,12 +267,14 @@ def main(argv=None):
                   flush=True)
             stages[label] = entry
             continue
+        plan = launch_plan(body, rows, n_pad, sms)
         us, ms = time_stage(label, body, inputs, k, args.iters, dev)
         tf = flops / (us * 1e-6) / 1e12 if flops else 0.0
-        entry.update(us_per_iter=us, ms=ms, tflops=tf)
+        entry.update(us_per_iter=us, ms=ms, tflops=tf, ctas=plan.ctas,
+                     cluster=plan.cluster, threads=plan.threads)
         print(f"{label:14s} {us:9.2f} us/iter   {tf:7.1f} TFLOP/s   "
-              f"({entry['blocks']} blocks x {THREADS} threads on {sms} "
-              "SMs)", flush=True)
+              f"({plan.ctas} CTAs in clusters of {plan.cluster} x "
+              f"{plan.threads} threads on {sms} SMs)", flush=True)
         stages[label] = entry
         if label == "peak":
             it_q = max(1, args.iters // 4)

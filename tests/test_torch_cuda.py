@@ -1037,6 +1037,106 @@ def test_onehot_gather_rejects_what_it_does_not_take(cuda):
     assert gather_probe.onehot_gather.launches == counts
 
 
+# -- slice 11: the redesigned probe kernels' ragged shapes and plans ---------
+
+@pytest.mark.parametrize("label,rows", [("gather_mm", 96),
+                                        ("gather_mm", 6112),
+                                        ("gather_full", 96),
+                                        ("edge_mlp", 96), ("repeat", 96)])
+def test_mxu_loop_ragged_rows(cuda, label, rows):
+    """96 rows (three row tiles, a 64-row tile half full) and gather_mm at
+    6,112 rows (persistent CTAs of six row tiles, the last CTAs' last tile
+    empty): against the plain loop at iters 2."""
+    body, inputs, k = _mxu_stages(cuda)[
+        "gather_mm_8M" if label == "gather_mm" else label]
+    if body == "repeat":
+        inputs, k = (inputs[0][:2].contiguous(),), 48
+    else:
+        inputs = (inputs[0][:rows].contiguous(), *inputs[1:])
+    assert mxu_probe.output_rows(body, inputs, k) == rows
+    salt = torch.randn((8, 128), device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(4))
+    ref = mxu_probe.mxu_loop_reference(body, inputs, salt, 2, k)
+    out = mxu_probe.mxu_loop(body, inputs, salt, 2, k)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    assert err <= bench_mxu.KERNEL_RTOL[body] * float(ref.abs().max())
+
+
+def test_mxu_entry_refuses_an_inconsistent_plan(cuda):
+    """The C entry itself recomputes the plan: one CTA too many, shared
+    bytes off by 16, or another split returns cudaErrorInvalidValue and
+    launches nothing."""
+    from gamd_tpu_torch.ops.build import load_library
+    lib = load_library()
+    _, (e, w), _ = _mxu_stages(cuda)["edge_mlp"]
+    salt = torch.zeros((8, 128), device=cuda)
+    out = torch.full((768, 128), 7.0, device=cuda)
+    good = mxu_probe.launch_plan("edge_mlp", 768, 0, mxu_probe.sm_count(cuda))
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for bad in (good._replace(ctas=good.ctas + 4),
+                good._replace(smem=good.smem + 16),
+                good._replace(cluster=4, cols=32, ctas=96, threads=256)):
+        err = lib.gamd_mxu_loop(3, e.data_ptr(), w.data_ptr(), None, None,
+                                salt.data_ptr(), 768, 0, 1, 2,
+                                out.data_ptr(), *bad, stream)
+        assert err != 0, bad
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+
+
+@pytest.mark.parametrize("form", list(gather_probe.FORMS))
+def test_onehot_gather_ragged(cuda, form):
+    """96 edge rows (a 64-row unit half full), band tiles of 32 rows (three
+    windows, one unit across two of them), some indices outside their
+    window: the gathered rows and the carry against the plain version."""
+    rng = np.random.default_rng(5)
+    _, tbl = probe_gather.probe_inputs()
+    idx = rng.integers(0, 258, (96, 1)).astype(np.int32)
+    x = probe_gather.form_inputs(form.replace("band256", "bf16").replace(
+        "band208", "bf16"), idx, tbl, cuda)
+    starts = None
+    if gather_probe.band_of(form) is not None:
+        band = gather_probe.band_of(form)
+        starts = torch.tensor([0, 64, 384 - band], dtype=torch.int32,
+                              device=cuda)
+    out, g = gather_probe.onehot_gather(x["idx"], x["tbl"], 3, form, starts,
+                                        True)
+    torch.cuda.synchronize()
+    ref, g_ref = gather_probe.onehot_gather_reference(
+        x["idx"], x["tbl"], 3, form, starts, product=True)
+    assert torch.equal(g, g_ref)
+    scale = float(g_ref.abs().sum())
+    tol = 0.0 if form == "int8_int8" else 1e-5 * 3 * max(scale, 1.0)
+    assert float((out - ref).abs().max()) <= tol
+
+
+def test_onehot_entry_refuses_an_inconsistent_plan(cuda):
+    """The C entry recomputes the plan: no CTA, more CTAs than SMs, other
+    shared bytes or threads returns cudaErrorInvalidValue and launches
+    nothing."""
+    from gamd_tpu_torch.ops.build import load_library
+    lib = load_library()
+    idx, tbl = probe_gather.probe_inputs()
+    x = probe_gather.form_inputs("bf16", idx, tbl, cuda)
+    sms = mxu_probe.sm_count(cuda)
+    good = gather_probe.launch_plan("bf16", 13056, 384, sms)
+    out = torch.full((8, 128), 7.0, device=cuda)
+    partials = torch.empty(sms + 2, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for bad in (good._replace(ctas=0),
+                good._replace(ctas=sms + 1),
+                good._replace(smem=good.smem + 1024),
+                good._replace(threads=128)):
+        err = lib.gamd_onehot_gather(
+            0, x["idx"].data_ptr(), None, x["tbl"].data_ptr(), 13056, 384,
+            384, 13056, 2, partials.data_ptr(), out.data_ptr(), None,
+            bad.ctas, bad.threads, bad.smem, stream)
+        assert err != 0, bad
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+
+
 # -- slice 9: the lane, sublane and transpose forms; the replica axis --------
 
 @pytest.mark.parametrize("form", list(probe_gather.GATHER_FORMS))

@@ -345,3 +345,158 @@ def test_probe_entries_refuse_unknown_bodies_and_forms():
         gather_probe.onehot_gather(x["idx"], x["tbl"], 2, "lane_384")
     with pytest.raises(ValueError, match="starts"):
         gather_probe.onehot_gather(x["idx"], x["tbl"], 2, "band256")
+
+
+# -- the kernels' launch plans (ops/mxu_probe.py, ops/gather_probe.py) -------
+
+#: (body, rows, n_pad) of every shape the tools and the card tests run:
+#: bench_mxu's defaults (768 rows, 8 x 768, n_pad 384) and the ragged
+#: 96-row cases (gather_mm also 6,112 rows, its last CTA's last tile
+#: empty).
+MXU_SHAPES = [("peak", 512, 0), ("gather_mm", 768, 384),
+              ("gather_mm", 6144, 384), ("gather_mm", 96, 384),
+              ("gather_mm", 6112, 384), ("gather_full", 768, 384),
+              ("gather_full", 96, 384), ("edge_mlp", 768, 0),
+              ("edge_mlp", 96, 0), ("repeat", 768, 0), ("repeat", 96, 0)]
+#: The SM counts of an H100 SXM and an H100 PCIe.
+SM_COUNTS = (132, 114)
+ONEHOT_SHAPES = [(form, rows, band_tile)
+                 for form in gather_probe.FORMS
+                 for rows, band_tile in ((13056, 1632), (96, 32), (64, 32))]
+
+
+def _mxu_plans():
+    for body, rows, n_pad in MXU_SHAPES:
+        for sms in SM_COUNTS:
+            plan = mxu_probe.launch_plan(body, rows, n_pad, sms)
+            yield pytest.param(body, rows, n_pad, sms, plan,
+                               id=f"{body}-{rows}-{sms}sm")
+
+
+@pytest.mark.parametrize("body,rows,n_pad,sms,plan", list(_mxu_plans()))
+def test_mxu_plan_covers_the_output_once(body, rows, n_pad, sms, plan):
+    """Every element of the [rows, width] carry is written by exactly one
+    CTA, and the plan is one the entry takes."""
+    mxu_probe.check_plan(body, plan, rows, n_pad)
+    width = mxu_probe.PEAK_N if body == "peak" else mxu_probe.WIDTH
+    hits = np.zeros((rows, width), np.int32)
+    for row0, n, col0, cols in mxu_probe.plan_tiles(body, plan, rows):
+        hits[row0:row0 + n, col0:col0 + cols] += 1
+    assert (hits == 1).all()
+    assert plan.ctas % plan.cluster == 0
+
+
+@pytest.mark.parametrize("body,rows,n_pad,sms,plan", list(_mxu_plans()))
+def test_mxu_plan_fits_a_block(body, rows, n_pad, sms, plan):
+    """Shared memory within Hopper's 232,448 bytes a block, threads within
+    the body's bound, and gather_mm's persistent CTAs within the SMs
+    unless one more row tile a CTA would not fit (6,144 rows on 114 SMs:
+    128 CTAs of six tiles)."""
+    assert 0 < plan.smem <= 232448
+    assert 0 < plan.threads <= mxu_probe.MAX_THREADS[body]
+    assert plan.threads % 32 == 0
+    if body == "gather_mm" and plan.ctas > sms:
+        assert mxu_probe._smem(body, plan.cols, plan.tile_rows + 32,
+                               n_pad) > 232448
+
+
+def test_mxu_default_plans_fill_the_card():
+    """At the script's shapes the plans run 48-128 CTAs at once (the first
+    form ran 16-24 blocks; edge_mlp's cluster of 2 measured faster than
+    4), peak in 8 clusters of 8 on 64-row tiles, gather_mm at 8 x 768 rows
+    on persistent CTAs of six row tiles, no more CTAs than SMs."""
+    got = {(body, rows): mxu_probe.launch_plan(body, rows, n_pad, 132)
+           for body, rows, n_pad in MXU_SHAPES}
+    assert got["peak", 512][:4] == (64, 8, 64, 64)
+    assert got["gather_mm", 768].ctas == 96
+    assert got["gather_mm", 6144][:3] == (128, 1, 192)
+    assert got["gather_full", 768][:2] == (96, 4)
+    assert got["edge_mlp", 768][:2] == (48, 2)
+
+
+def _bad_mxu_plans():
+    good = mxu_probe.launch_plan("peak", 512, 0, 132)
+    yield "peak", 512, 0, good._replace(ctas=good.ctas + 8), "ctas"
+    yield "peak", 512, 0, good._replace(smem=good.smem - 16), "smem"
+    yield "peak", 512, 0, good._replace(threads=256), "threads"
+    yield "peak", 512, 0, good._replace(cluster=16, cols=32), "cluster"
+    yield "peak", 512, 0, good._replace(cluster=4, cols=128, ctas=32), \
+        "cluster 8"
+    yield "peak", 512, 0, good._replace(tile_rows=32, ctas=128), "64 rows"
+    mm = mxu_probe.launch_plan("gather_mm", 768, 384, 132)
+    yield "gather_mm", 768, 384, mm._replace(cluster=2), "cluster"
+    yield "gather_mm", 768, 384, mm._replace(cols=64, ctas=48), "cols"
+    yield "gather_mm", 768, 384, mm._replace(tile_rows=48), "tile_rows"
+    yield "gather_mm", 768, 384, mm._replace(tile_rows=288, ctas=12,
+                                             threads=1152), "threads"
+    yield "gather_mm", 768, 768, mxu_probe.launch_plan(
+        "gather_mm", 768, 384, 132), "n_pad"
+    yield "gather_full", 768, 384, mxu_probe.launch_plan(
+        "gather_full", 768, 384, 132)._replace(cluster=8, cols=16), "cols"
+    em = mxu_probe.launch_plan("edge_mlp", 768, 0, 132)
+    yield "edge_mlp", 768, 0, em._replace(ctas=96 * 2), "ctas"
+    yield "repeat", 768, 0, mxu_probe.launch_plan(
+        "repeat", 768, 0, 132)._replace(cols=64), "repeat"
+
+
+@pytest.mark.parametrize("body,rows,n_pad,plan,why", list(_bad_mxu_plans()))
+def test_mxu_inconsistent_plan_is_refused(body, rows, n_pad, plan, why):
+    """check_plan, the C entry's check in Python, refuses a plan that is
+    not the body's split, whose fields disagree with it, or that exceeds
+    the card's limits."""
+    with pytest.raises(ValueError, match="inconsistent"):
+        mxu_probe.check_plan(body, plan, rows, n_pad)
+
+
+@pytest.mark.parametrize("form,rows,band_tile", ONEHOT_SHAPES)
+def test_onehot_plan_covers_every_row_and_lane_once(form, rows, band_tile):
+    """Every (edge row, table lane) of an iteration's product is computed
+    by exactly one unit of one CTA; at most one wave (ctas <= SMs)."""
+    plan = gather_probe.launch_plan(form, rows, 384, 132)
+    gather_probe.check_plan(form, plan, rows, 384)
+    assert plan.ctas <= 132
+    hits = np.zeros((rows, gather_probe.LANES), np.int32)
+    for _, row0, n, lane0, lanes in gather_probe.plan_units(plan, rows):
+        hits[row0:row0 + n, lane0:lane0 + lanes] += 1
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("form,rows,band_tile", ONEHOT_SHAPES)
+def test_onehot_plan_fits_a_block(form, rows, band_tile):
+    """Shared memory within 232,448 bytes: the whole table resident in the
+    form's type (bf16 2 bytes a value, int8 1), and the tail."""
+    plan = gather_probe.launch_plan(form, rows, 384, 132)
+    assert 0 < plan.smem <= 232448
+    value_bytes = 1 if form == "int8_int8" else 2
+    assert plan.smem == 1024 + 384 * 256 * value_bytes + 128
+    assert plan.threads == 256
+
+
+def test_onehot_default_plan_is_one_wave():
+    """At probe_gather's shapes: 132 persistent CTAs on an H100's 132 SMs
+    over 204 row tiles of 64 rows (the first form: 816 blocks in 6.2
+    waves), a fewer count on a smaller card or a shorter stream."""
+    plan = gather_probe.launch_plan("bf16", 13056, 384, 132)
+    assert (plan.ctas, plan.units) == (132, 204)
+    assert gather_probe.launch_plan("bf16", 13056, 384, 114).ctas == 114
+    assert gather_probe.launch_plan("bf16", 96, 384, 132).ctas == 2
+
+
+def _bad_onehot_plans():
+    good = gather_probe.launch_plan("bf16", 13056, 384, 132)
+    yield good._replace(ctas=0), "no CTA"
+    yield good._replace(ctas=133), "more CTAs than SMs"
+    yield good._replace(smem=good.smem - 1024), "smem"
+    yield good._replace(threads=128), "threads"
+    yield good._replace(units=good.units + 1), "units"
+    yield gather_probe.launch_plan("bf16", 13056, 256, 132), "n_pad"
+    yield gather_probe.launch_plan("int8_int8", 13056, 384, 132), "form"
+
+
+@pytest.mark.parametrize("plan,why", list(_bad_onehot_plans()))
+def test_onehot_inconsistent_plan_is_refused(plan, why):
+    """check_plan, the C entry's check in Python, refuses a plan that is
+    not launch_plan's for the shape (no CTA or more than the SMs, other
+    shared bytes, threads or row tiles)."""
+    with pytest.raises(ValueError, match="inconsistent"):
+        gather_probe.check_plan("bf16", plan, 13056, 384)
