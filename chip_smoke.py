@@ -53,7 +53,12 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
   6. conv_msg_gather against its plain version on layer 0's real inputs
      (start frame) and layer 1's (a displaced frame, after one conv layer,
      whose rows differ) at the training slice's shapes (N=258, K=96,
-     widths 128), timed on layer 0's;
+     widths 128), two calls bit for bit, its live-edge layout from the
+     mask (edge_tiles.mask_layout) equal to the plain one; timed on layer
+     0's: CUDA events, the device time (torch.profiler, exclusive), the
+     bound on the tensor cores (the four products as three bf16 passes at
+     989 TFLOP/s, the epilogues in fp32 at 67, e's live rows) beside the
+     fp32 CUDA-core bound of the same function;
   7. conv_msg_gather_bwd against autograd through the plain version on
      the same two inputs, with a seeded cotangent, all 12 grads;
   8. one training step, kernel path against plain path, from the same
@@ -80,13 +85,17 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
  14. banded_msg against its plain version at N=10,000 (tools/
      bench_large.py's LJ fluid at reduced density 0.5, displaced by a
      seeded 0.1 A jitter; seeded GAMD-small; the cell list at 8.0 A with
-     K=96; the auto band 2,304) on the real inputs of layers 0 and 1, timed
-     on layer 0's; and a band too narrow: the flag set, the forces NaN;
+     K=96; the auto band 2,304) on the real inputs of layers 0 and 1, two
+     calls bit for bit, the layout kernels equal to the plain layout;
+     timed on layer 0's as phase 6 (CUDA events, device time, both
+     bounds); and a band too narrow: the flag set, the forces NaN;
  15. GNNForceField.banded_force_fn against reference_forward on the card
      on the same frame and list, at N=10,000;
  16. the large-N MD path: Simulation(ff.banded_force_fn(), ...,
      nbr_method="cell") at N=4,096 and 10,000, 20 warm-up and 100 timed
-     Langevin steps at 100 K, with banded_msg's launch counts;
+     Langevin steps at 100 K, with banded_msg's and the layout's launch
+     counts, then 20 steps traced (torch.profiler): the banded message's
+     device time a step and its share of the step's device time;
  17. the entry points: tools.run_md --banded (200 steps, the committed
      checkpoint, N=258 on the dense list), its forces at the last frame
      against the checkpoint's eager force_fn, and tools.bench_large
@@ -122,10 +131,10 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
  27. gather_agg, edge_mlp_agg, conv_msg and conv_layer against their plain
      versions on phase 6's two layers' real inputs (h_src = hn[idx],
      src_code = src[idx], edge_pre = edge_affine(e) + src_code + dst, the
-     gate theta(edge_pre)); conv_msg bit for bit equal to
-     conv_msg_gather, edge_mlp_agg(edge_pre) and gather_agg(hn, gate) equal
-     to that agg, conv_layer equal to GAMDNet's own layer on the plain path
-     and, with a bf16 e, to its plain version;
+     gate theta(edge_pre)); conv_msg_gather (tensor cores) within 1e-4 of
+     conv_msg's agg (CUDA cores), edge_mlp_agg(edge_pre) and gather_agg(hn,
+     gate) within 1e-5 of conv_msg's agg, conv_layer equal to GAMDNet's
+     own layer on the plain path and, with a bf16 e, to its plain version;
  28. the gradients of edge_mlp_agg, conv_msg and conv_layer (autograd
      Functions whose backward recomputes through the plain version, as
      JAX's custom_vjp) against autograd through the plain version, with a
@@ -215,8 +224,8 @@ from gamd_tpu_torch.models.normalizer import init_stat, update_stat
 from gamd_tpu_torch.neighbors.dense import (build_nbrs, dense_neighbor_list,
                                             refresh_mask)
 from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
-from gamd_tpu_torch.ops import (banded, build, gather_probe, message,
-                                mxu_probe, nhc)
+from gamd_tpu_torch.ops import (banded, build, edge_tiles, gather_probe,
+                                message, mxu_probe, nhc)
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
@@ -238,10 +247,10 @@ from gamd_tpu_torch.tools.bench_large import (LARGE_MD, banded_layer_inputs,
 from gamd_tpu_torch.tools.bench_mxu import graph_ms
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
 from gamd_tpu_torch.tools.lj_train_slice import lj_train_slice
-from gamd_tpu_torch.tools.profile_step import (FORWARD_STAGES,
-                                               device_spans,
+from gamd_tpu_torch.tools.profile_step import (BANDED_KERNELS,
+                                               FORWARD_STAGES,
                                                exclusive_times,
-                                               forward_stages, kernel_times)
+                                               forward_stages, traced_spans)
 from gamd_tpu_torch.train.checkpoint import load_self_describing
 from gamd_tpu_torch.train.forcefield import GNNForceField
 from gamd_tpu_torch.train.loop import (edge_distances, make_train_step,
@@ -275,6 +284,7 @@ ANALYZE_STEPS = 4000      # analyze_rollout's rollout (200 windows)
 LARGE_N = (4096, 10_000)  # atoms of the large-N MD runs (phase 16)
 LARGE_K = 96              # bench_large's K at 7.5 + 0.5 A
 LARGE_STEPS = 100         # timed steps of each large-N MD run
+SHARE_STEPS = 20          # traced steps of each (the message's share)
 RUN_MD_BANDED_STEPS = 200  # phase 17's run_md --banded
 BENCH_LARGE_ARGV = ["--sizes", "10000", "--gnn_size", "4096",
                     "--gnn_banded_sizes", "4096", "10000", "--steps", "80"]
@@ -285,7 +295,7 @@ NHC_ANALYZE_STEPS = 4000  # phase 21's per-step NHC rollout
 ANDERSEN_STEPS, NVE_STEPS = 400, 1000   # phases 23 and 24
 RECORD_FRAMES, RECORD_INTERVAL = 10, 20  # phase 25
 OP_FORCE_RTOL = 1e-4      # op-library forms vs the plain forward, / std(F)
-OP_AGG_RTOL = 1e-5        # staged forms vs conv_msg_gather's agg, / max
+OP_AGG_RTOL = 1e-5        # staged forms vs conv_msg's agg, / max
 OP_GRAD_RTOL = 1e-5       # per grad: max |d| / max |grad|, Function vs plain
 THERMO_HEADER = ('#"Step"\t"Time (ps)"\t"Kinetic Energy (kJ/mole)"\t'
                  '"Temperature (K)"')
@@ -381,6 +391,38 @@ def conv_flops(live_edges, width=128):
     edges: four width x width products (2 per multiply-add) and the gated
     masked sum; activations not counted."""
     return live_edges * (4 * 2 * width * width + 2 * width)
+
+
+#: fp32 operations of the conv message's epilogues a live edge and column
+#: as the tensor-core kernel runs them: the first and third products' bias
+#: and silu (4 each: silu as exp, add, divide), the second's bias, src and
+#: dst adds and silu (6), the last bias, gated product and sum (3).
+EPILOGUE_OPS = 17
+
+
+def conv_tc_ops(live_edges, width=128):
+    """(tensor-core FLOP, fp32 FLOP) of one conv message as the live-edge
+    kernels (rows 3 and 6) compute it: the four products over the live
+    edges as three bf16 passes each, and the epilogues on the CUDA cores."""
+    return (3.0 * 4 * 2 * width * width * live_edges,
+            float(EPILOGUE_OPS * width * live_edges))
+
+
+def live_rows_only(nbytes, n, k, live_edges, width=128):
+    """A message's compulsory bytes with e's rows and the indices read at
+    the live slots only, as the live-edge kernels read them (the mask is
+    still read whole): nbytes less the dead slots' e rows and ids."""
+    return nbytes - (n * k - live_edges) * (4 * width + 4)
+
+
+def tc_conv_bound(live_edges, nbytes):
+    """(least ms, "operations" or "bytes") of one conv message on the
+    tensor-core basis: conv_tc_ops against the bf16 tensor peak and the
+    fp32 peak (their times add), nbytes against HBM; the larger."""
+    tc_flops, fp32_flops = conv_tc_ops(live_edges)
+    t_ops = (tc_flops / BF16_FLOPS + fp32_flops / FP32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def conv_bytes(n, k, width=128, backward=False):
@@ -482,6 +524,16 @@ def conv_inputs(dev):
     return cases
 
 
+def layout_equal(got, want):
+    """A card layout (rows past total unwritten) equal to the plain one:
+    offsets, counts, the total and the compacted slots."""
+    total = int(want.total[0])
+    return (torch.equal(got.total.cpu(), want.total)
+            and torch.equal(got.offset.cpu(), want.offset)
+            and torch.equal(got.count.cpu(), want.count)
+            and torch.equal(got.slot[0, :total].cpu(), want.slot[0, :total]))
+
+
 def grads_of(fn, args, g):
     """(out, the 12 grads of sum(out * g)) with respect to e, hn, src, dst
     and the 8 weights, and the leaves, for timing the backward again."""
@@ -547,14 +599,34 @@ def training_phases(dev, card):
     (args, live, *_), _ = cases
     n, k = args[1].shape[1:]
     with torch.no_grad():
+        same = torch.equal(fused(*args), fused(*args))
+        got = edge_tiles.mask_layout(args[2])
+        want = edge_tiles.mask_layout(args[2].cpu())
+        torch.cuda.synchronize()
+    layout_same = layout_equal(got, want)
+    say(f"phase 6: two calls bit for bit {same}; the layout kernels "
+        f"({int(want.total[0])} live slots) equal to the plain layout "
+        f"{layout_same}")
+    require(same, "conv_msg_gather differs from run to run")
+    require(layout_same, "the layout kernels differ from the plain layout")
+    with torch.no_grad():
         fwd_ms = time_ms(lambda: fused(*args))
         fwd_plain_ms = time_ms(lambda: batched_reference(*args))
-    fwd_bound, fwd_by = roofline(conv_flops(live), conv_bytes(n, k))
-    say(f"phase 6: conv_msg_gather {fwd_ms:.4f} ms/call, plain "
-        f"{fwd_plain_ms:.4f} ms/call, bound {fwd_bound:.4f} ms ({fwd_by}; "
-        f"{conv_flops(live) / 1e9:.4f} GFLOP for {live} live edges), "
-        f"kernel at {fwd_bound / fwd_ms:.2%} of it; CUDA events, median of "
-        f"20 [{card}]")
+        fwd_us, fwd_kernels = device_us(lambda: fused(*args))
+    fwd_bound, fwd_by = tc_conv_bound(
+        live, live_rows_only(conv_bytes(n, k), n, k, live))
+    fwd_fp32, _ = roofline(conv_flops(live), conv_bytes(n, k))
+    tc_flops, ep_flops = conv_tc_ops(live)
+    say(f"phase 6: conv_msg_gather {fwd_ms:.4f} ms/call, "
+        f"{fwd_us:.2f} us of device time a call "
+        f"{json.dumps({key: round(v, 2) for key, v in fwd_kernels.items()})}"
+        f", plain {fwd_plain_ms:.4f} ms/call; bound {fwd_bound:.4f} ms "
+        f"({fwd_by}; {tc_flops / 1e9:.4f} GFLOP bf16 x 3 at "
+        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s and {ep_flops / 1e9:.4f} GFLOP "
+        f"fp32 at {FP32_FLOPS / 1e12:.0f}, for {live} live edges), device "
+        f"time at {fwd_bound * 1e3 / fwd_us:.2%} of it; fp32 CUDA-core "
+        f"bound {fwd_fp32:.4f} ms ({conv_flops(live) / 1e9:.4f} GFLOP); "
+        f"CUDA events, median of 20 [{card}]")
 
     # -- phase 7: the backward kernel against autograd through plain -----
     bwd_err = 0.0
@@ -657,7 +729,8 @@ def training_phases(dev, card):
         "launches": train_launches[0],
         "launches_by_path": {"train": train_launches[0]},
         "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
-        "bound_ms": fwd_bound, "bound_by": fwd_by,
+        "bound_ms": fwd_bound, "bound_by": fwd_by, "device_us": fwd_us,
+        "fp32_bound_ms": fwd_fp32,
     }, {
         "name": "conv_msg_gather_bwd", **common,
         "source": "gamd_tpu_torch/csrc/conv_msg_gather_bwd.cu",
@@ -1055,19 +1128,37 @@ def large_n_phases(dev, card):
     require(spread > 1e-2, "layer 1's rows are nearly identical: the check "
             "cannot see a read from the wrong row")
     args, weights, live = timed
+    layout = edge_tiles.mask_layout(args[2])
+    same = torch.equal(call(*args, layout=layout), call(*args))
+    layout_same = layout_equal(layout, edge_tiles.mask_layout(args[2].cpu()))
+    say(f"phase 14: two calls (the layout given, and computed in the call) "
+        f"bit for bit {same}; the layout kernels ({live} live slots of "
+        f"{n * LARGE_K}) equal to the plain layout {layout_same}")
+    require(same, "banded_msg differs from run to run")
+    require(layout_same, "the layout kernels differ from the plain layout")
     with torch.no_grad():
-        ms = time_ms(lambda: call(*args))
+        ms = time_ms(lambda: call(*args, layout=layout))
         plain_ms = time_ms(lambda: banded.banded_msg_reference(
             *args[:6], *weights, tile_n=args[9]))
+        dev_us, dev_kernels = device_us(lambda: call(*args, layout=layout))
+        layout_us, _ = device_us(lambda: edge_tiles.mask_layout(args[2]))
     nodes, lo = args[4], args[3]
-    bound_ms, bound_by = roofline(
-        conv_flops(live), banded_bytes(n, LARGE_K, nodes.shape[0],
-                                       lo.shape[0]))
-    say(f"phase 14: banded_msg {ms:.4f} ms/call, plain {plain_ms:.4f} "
-        f"ms/call, bound {bound_ms:.4f} ms ({bound_by}; "
-        f"{conv_flops(live) / 1e9:.4f} GFLOP for {live} live edges), "
-        f"kernel at {bound_ms / ms:.2%} of it; CUDA events, median of 20 "
-        f"[{card}]")
+    nbytes = banded_bytes(n, LARGE_K, nodes.shape[0], lo.shape[0])
+    bound_ms, bound_by = tc_conv_bound(
+        live, live_rows_only(nbytes, n, LARGE_K, live))
+    fp32_ms, _ = roofline(conv_flops(live), nbytes)
+    tc_flops, ep_flops = conv_tc_ops(live)
+    say(f"phase 14: banded_msg {ms:.4f} ms/call, {dev_us:.2f} us of device "
+        f"time a call "
+        f"{json.dumps({key: round(v, 2) for key, v in dev_kernels.items()})}"
+        f" over a given layout (the layout, once a force call: "
+        f"{layout_us:.2f} us), plain {plain_ms:.4f} ms/call; bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {tc_flops / 1e9:.4f} GFLOP bf16 x 3"
+        f" at {BF16_FLOPS / 1e12:.0f} TFLOP/s and {ep_flops / 1e9:.4f} "
+        f"GFLOP fp32 at {FP32_FLOPS / 1e12:.0f}, for {live} live edges), "
+        f"device time at {bound_ms * 1e3 / dev_us:.2%} of it; fp32 "
+        f"CUDA-core bound {fp32_ms:.4f} ms ({conv_flops(live) / 1e9:.4f} "
+        f"GFLOP); CUDA events, median of 20 [{card}]")
     # The same list in a band too narrow: the flag, and NaN forces.
     _, _, flag = banded.band_layout(banded.sort_by_x(pos, idx)[2], args[2],
                                     n, 256, args[9])
@@ -1106,7 +1197,7 @@ def large_n_phases(dev, card):
         bfn = seeded_force_field(system, dev).banded_force_fn()
         sim = Simulation(bfn, system, LARGE_MD, nbr_method="cell",
                          device=dev)
-        call.launches = 0
+        call.launches = edge_tiles.mask_layout.launches = 0
         mega_forward.launches = mega_md_steps.launches = 0
         st = sim.init_state(pos, rng=torch.Generator(dev).manual_seed(16))
         warm = sim.run(st, WARMUP_STEPS)
@@ -1132,10 +1223,21 @@ def large_n_phases(dev, card):
                 and bool(torch.isfinite(res.state.force).all()),
                 f"non-finite large-N MD state (N={size})")
         require(call.launches == cfg.conv_layers * calls
+                and edge_tiles.mask_layout.launches == calls
                 and mega_forward.launches == mega_md_steps.launches == 0,
                 f"launches {call.launches} for {calls} force calls")
         require(abs(mean_t - LARGE_MD.temperature) <= T_BAND,
                 f"mean temperature {mean_t} K outside 100 +- {T_BAND} K")
+        kernels, _ = exclusive_times(traced_spans(
+            lambda: sim.run(res.state, SHARE_STEPS), 1))
+        step_us = sum(v["us"] for v in kernels.values()) / SHARE_STEPS
+        msg_us = sum(v["us"] for key, v in kernels.items()
+                     if key in BANDED_KERNELS) / SHARE_STEPS
+        say(f"phase 16: N={size}: {step_us:.1f} us of device time a step, "
+            f"the banded message (layout, splits, tiles, fix-ups) "
+            f"{msg_us:.1f} us = {msg_us / step_us:.2%} of it (torch.profiler,"
+            f" {SHARE_STEPS} steps, exclusive times) [{card}]")
+        require(msg_us > 0, "the profiler saw no banded message kernel")
         del sim, st, warm, res
 
     # -- phase 17: the entry points ----------------------------------------
@@ -1198,8 +1300,8 @@ def large_n_phases(dev, card):
             "launches": sum(launches.values()),
             "launches_by_path": launches,
             "max_abs_err": err_max, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "device_us": dev_us,
+            "fp32_bound_ms": fp32_ms, "library_ms": None}
 
 
 def nhc_case(dev, n, r, m=10, seed=18):
@@ -1702,17 +1804,13 @@ OP_SOURCES = {"gather_agg": ("gather_agg.cu", 49),
 
 def device_us(fn, calls=20):
     """(device time of fn's kernels per call in us, {kernel: us per call})
-    by torch.profiler over `calls` calls after one untraced call; (None,
-    {}) where the profiler saw no device time."""
-    fn()
-    torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    times = {name: t["us"] / calls for name, t in kernel_times(prof).items()}
+    by torch.profiler over `calls` calls after one untraced call
+    (profile_step.traced_spans), each kernel's exclusive time (what it
+    adds to the busy time: a kernel that programmatic dependent launch
+    starts early is not counted twice); (None, {}) where the profiler saw
+    no device time."""
+    kernels, _ = exclusive_times(traced_spans(fn, calls))
+    times = {name: t["us"] / calls for name, t in kernels.items()}
     return (sum(times.values()) or None), times
 
 
@@ -1795,23 +1893,29 @@ def op_library_phases(dev, card):
             out_bf16 = ops["conv_layer"][1](*bf16)
             ref_bf16 = ops["conv_layer"][2](*bf16)
         torch.cuda.synchronize()
-        same = torch.equal(outs["conv_msg"], agg)
-        scale = float(agg.abs().max())
-        vs_agg = {name: float((outs[name] - agg).abs().max())
+        # The anchor is conv_msg's agg (row 8, the fp32 CUDA-core edge
+        # stage); conv_msg_gather (row 3, bf16 x 3 on the tensor cores)
+        # computes the same function to CONV_RTOL.
+        anchor = outs["conv_msg"]
+        scale = float(anchor.abs().max())
+        gather_err = float((agg - anchor).abs().max())
+        vs_agg = {name: float((outs[name] - anchor).abs().max())
                   for name in ("edge_mlp_agg", "gather_agg")}
         own_err = float((outs["conv_layer"] - own).abs().max())
         own_std = float(own.std())
         bf16_err = float((out_bf16 - ref_bf16).abs().max())
-        say(f"phase 27: layer {layer}: conv_msg bit for bit equal to "
-            f"conv_msg_gather {same}; edge_mlp_agg(edge_pre) and "
-            f"gather_agg(hn, theta(edge_pre)) against that agg: max |d| "
-            f"{vs_agg['edge_mlp_agg']:.3e} and {vs_agg['gather_agg']:.3e}, "
-            f"max |agg| {scale:.3e} (tolerance {OP_AGG_RTOL} x max); "
+        say(f"phase 27: layer {layer}: conv_msg_gather against conv_msg's "
+            f"agg: max |d| {gather_err:.3e}, max |agg| {scale:.3e} "
+            f"(tolerance {CONV_RTOL} x max); edge_mlp_agg(edge_pre) and "
+            f"gather_agg(hn, theta(edge_pre)) against conv_msg's agg: max "
+            f"|d| {vs_agg['edge_mlp_agg']:.3e} and "
+            f"{vs_agg['gather_agg']:.3e} (tolerance {OP_AGG_RTOL} x max); "
             f"conv_layer against GAMDNet's own layer on the plain path: max "
             f"|d| {own_err:.3e}, std {own_std:.3e} (tolerance {CONV_RTOL} x "
             f"std); with a bf16 e against its plain version: max |d| "
             f"{bf16_err:.3e}")
-        require(same, "conv_msg and conv_msg_gather differ")
+        require(gather_err <= CONV_RTOL * scale,
+                f"conv_msg_gather disagrees with conv_msg: {gather_err}")
         require(max(vs_agg.values()) <= OP_AGG_RTOL * scale,
                 f"the staged forms disagree with agg: {vs_agg}")
         require(own_err <= CONV_RTOL * own_std,
@@ -2514,14 +2618,7 @@ def stage_profile(fn, calls):
     overlaps a kernel's span with the one before it), their launches a
     call and their device us a call, from a torch.profiler run of `calls`
     calls of fn."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels, _ = exclusive_times(device_spans(prof))
+    kernels, _ = exclusive_times(traced_spans(fn, calls))
     stages = forward_stages(kernels, calls)
     forward = [k for k in kernels if k in FORWARD_STAGES]
     require(stages, "torch.profiler saw no device time of the forward")

@@ -16,9 +16,9 @@
 // at 3.35 TB/s): operations-bound.
 //
 // What the design does about it, for now: the edge stage is
-// edge_msg.cuh's edge_msg_kernel, conv_msg_gather.cu's own, with the rows
-// of slot (i, k) read at i*K + k (PreRows) instead of gathered by node id,
-// so on the same rows the two kernels give the same bits. The TPU
+// edge_msg.cuh's edge_msg_kernel (the fp32 CUDA-core stage that
+// conv_msg_gather.cu ran before its tensor-core redesign), with the rows
+// of slot (i, k) read at i*K + k (PreRows). The TPU
 // kernel's bf16 products and tile padding have no counterpart: products
 // are fp32 FMAs, and the grid runs over rows. chunk_sum_kernel adds a
 // row's chunk partials in a fixed order. Two launches a call.

@@ -1,8 +1,8 @@
-// The gated edge message of one conv layer, shared by conv_msg_gather.cu
-// and conv_layer.cu (source rows gathered by node id), banded_msg.cu
-// (source rows read from a tile's band of the x-sorted frame), conv_msg.cu
-// (rows gathered beforehand) and edge_mlp_agg.cu (no edge affine). Per row
-// i and slot k, with r = rows.row(i, i*K + k) the source row:
+// The gated edge message of one conv layer on the CUDA cores, shared by the
+// op library's kernels: conv_layer.cu (source rows gathered by node id,
+// clamped), conv_msg.cu (rows gathered beforehand) and edge_mlp_agg.cu (no
+// edge affine). Per row i and slot k, with r = rows.row(i, i*K + k) the
+// source row:
 //   z  = silu(e[i,k] @ W1 + b1) @ W2 + b2 + src[r] + dst[i]
 //        (with kEdgeAffine false: z = e[i,k], the summed pre-activation)
 //   m  = silu(silu(z) @ W3 + b3) @ W4 + b4
@@ -31,20 +31,10 @@ struct ConvWeights {
   const float *w1, *b1, *w2, *b2, *w3, *b3, *w4, *b4;
 };
 
-// Source rows by global node id: hn and src are [M, W], idx [M*K].
-struct GatherRows {
-  const int* idx;
-  const float* hn;
-  const float* src;
-  static constexpr int stride = W;
-  __device__ __forceinline__ int row(int, size_t slot) const {
-    return idx[slot];
-  }
-};
-
-// GatherRows under JAX's rule for an id out of range (jnp indexing): a
-// negative id counts from the end, then ids clamp into [0, n). Any id is
-// then safe to read, which a masked slot's need not be.
+// Source rows by global node id (hn and src [M, W], idx [M*K]) under
+// JAX's rule for an id out of range (jnp indexing): a negative id counts
+// from the end, then ids clamp into [0, n). Any id is then safe to read,
+// which a masked slot's need not be.
 struct ClampedRows {
   const int* idx;
   const float* hn;
@@ -66,21 +56,6 @@ struct PreRows {
   static constexpr int stride = W;
   __device__ __forceinline__ int row(int, size_t slot) const {
     return static_cast<int>(slot);
-  }
-};
-
-// Source rows of a band: nodes is [rows, 2W] = [hn | src] of the x-sorted
-// frame (extended by a replica of its head rows), and slot (i, k) reads
-// row lo[i / tile_n] + idx_loc[i*K + k].
-struct BandRows {
-  const int* idx_loc;
-  const int* lo;
-  const float* hn;   // nodes
-  const float* src;  // nodes + W
-  int tile_n;
-  static constexpr int stride = 2 * W;
-  __device__ __forceinline__ int row(int i, size_t slot) const {
-    return lo[i / tile_n] + idx_loc[slot];
   }
 };
 

@@ -1,5 +1,6 @@
-// Tensor-core building blocks of the whole-model forward's edge stages
-// (mega_forward.cu): a tile of 64 rows (live edges) times a 128 x 128 fp32
+// Tensor-core building blocks of the port's edge-tile kernels (the
+// whole-model forward's, mega_forward.cu, and the conv message's,
+// conv_tc.cuh): a tile of 64 rows (live edges) times a 128 x 128 fp32
 // weight, fp32-faithful on the bf16 tensor cores.
 //
 // The product is JAX's edge_hilo arithmetic (gamd_tpu/ops/pallas_model.py
@@ -272,6 +273,129 @@ __device__ __forceinline__ void product_x3(float (&acc)[2 * PAIRS],
   wgmma_commit();
   wgmma_wait_all();
   fence_acc(acc);
+}
+
+// ---------------------------------------------------------------------------
+// Shared by the tile kernels (mega_forward.cu's, conv_tc.cuh's)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float2 ld2(const float* __restrict__ p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// silu of the edge epilogues with the fast exponential and division: their
+// float32 error stays far below the products' bf16 x 3 error of 2^-16.
+__device__ __forceinline__ float silu_fast(float x) {
+  return __fdividef(x, 1.0f + __expf(-x));
+}
+
+// The activations are written: make them visible to the tensor cores and
+// to the other warpgroup.
+__device__ __forceinline__ void activations_ready() {
+  proxy_fence();
+  __syncthreads();
+}
+
+// A tile block's shared memory and weight ring: NBUF buffers of split
+// weights, then the activation buffer, all 1024-byte aligned. Product p
+// (p < n_products) reads split weight m0 + p % period from buffer p % NBUF;
+// with two buffers the next weight loads while the current one computes.
+// A block that runs its products over several tiles has the ring run on
+// from one tile into the next (period: the products of a tile).
+template <int NBUF>
+struct WeightRing {
+  uint32_t w;      // weight buffer 0 (shared address); the others follow
+  uint32_t a_s;    // the activation buffer's shared address
+  uint8_t* a;      // and a generic pointer to it
+  uint32_t bar;    // mbarrier of weight buffer 0; the others' follow
+  int m0, period, n_products;
+
+  // Barrier setup and the first NBUF weights (n_products >= NBUF), by
+  // thread 0. The caller syncs before waiting on them.
+  __device__ __forceinline__ WeightRing(uint8_t* smem, uint64_t* bars,
+                                        const CUtensorMap* map, int first,
+                                        int per_tile, int count)
+      : m0(first), period(per_tile), n_products(count) {
+    const uint32_t base = smem_addr(smem);
+    w = (base + 1023u) & ~1023u;
+    a_s = w + NBUF * SPLIT_BYTES;
+    a = smem + (a_s - base);
+    bar = smem_addr(bars);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int b = 0; b < NBUF; ++b) mbar_init(bar + 8 * b, 1);
+      mbar_init_fence();
+#pragma unroll
+      for (int b = 0; b < NBUF; ++b)
+        load_split(w + b * SPLIT_BYTES, map, bar + 8 * b, m0 + b % period);
+    }
+  }
+
+  // Product p of the calling warpgroup, once its weight has landed.
+  __device__ __forceinline__ void product(float (&acc)[2 * PAIRS], int p,
+                                          int wg, int ksteps = 8) const {
+    mbar_wait(bar + 8 * (p % NBUF), (p / NBUF) & 1);
+    product_x3(acc, a_s, w + (p % NBUF) * SPLIT_BYTES, wg, ksteps);
+  }
+
+  // After product p: both warpgroups are done with the activations and
+  // with p's buffer; thread 0 refills the buffer with product p + NBUF's
+  // weight.
+  __device__ __forceinline__ void release(const CUtensorMap* map,
+                                          int p) const {
+    __syncthreads();
+    const int next = p + NBUF;
+    if (threadIdx.x == 0 && next < n_products)
+      load_split(w + (p % NBUF) * SPLIT_BYTES, map, bar + 8 * (p % NBUF),
+                 m0 + next % period);
+  }
+};
+
+// A launch on `stream` with programmatic dependent launch: the kernel's
+// blocks may start while the previous kernel finishes (each kernel so
+// launched waits for it, grid_wait, before reading what it wrote).
+template <typename... Params, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block,
+                       size_t smem, cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The card's SM count, read once.
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms;
+}
+
+// The TMA map over a split table of n_mats weights ([2 n_mats * 128][128]
+// bf16, each W^T hi then lo): boxes of 64 x 128 with the 128-byte swizzle
+// (the B layout above). Returns 0, or 100000 + the CUresult.
+inline int encode_split_map(void* table, int n_mats, CUtensorMap* map) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(WIDTH),
+                              static_cast<cuuint64_t>(n_mats) * 2 * WIDTH};
+  const cuuint64_t strides[1] = {WIDTH * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(WIDTH)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, table, dims, strides, box,
+      elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : 100000 + static_cast<int>(res);
 }
 
 }  // namespace tc

@@ -95,24 +95,11 @@
 
 namespace {
 
-// A launch on `stream` with programmatic dependent launch: the kernel's
-// blocks may start while the previous kernel finishes (each kernel here
-// waits for it, tc::grid_wait, before reading what it wrote).
-template <typename... Params, typename... Args>
-cudaError_t launch(void (*kernel)(Params...), dim3 grid, dim3 block,
-                   size_t smem, cudaStream_t stream, Args... args) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
+using tc::activations_ready;
+using tc::launch_pdl;
+using tc::ld2;
+using tc::silu_fast;
+using tc::sm_count;
 
 constexpr int LIVE_THREADS = 256;
 constexpr int LAYOUT_THREADS = 1024;
@@ -224,14 +211,16 @@ cudaError_t launch_layout(const float* pos, const int* idx,
                           float box, float cutoff2, const MegaScratch* s,
                           cudaStream_t stream) {
   cudaError_t err =
-      launch(live_kernel, dim3((n * k + LIVE_THREADS - 1) / LIVE_THREADS, r),
-             dim3(LIVE_THREADS), 0, stream, pos, idx, bmask, n, k, box,
-             cutoff2, s->live);
+      launch_pdl(live_kernel,
+                 dim3((n * k + LIVE_THREADS - 1) / LIVE_THREADS, r),
+                 dim3(LIVE_THREADS), 0, stream, pos, idx, bmask, n, k, box,
+                 cutoff2, s->live);
   if (err != cudaSuccess) return err;
   const int chunk = layout_chunk(k);
-  return launch(layout_kernel, dim3(r), dim3(LAYOUT_THREADS), chunk * k,
-                stream, static_cast<const uint8_t*>(s->live), n, k,
-                layout_cap(n, k), chunk, s->slot, s->off, s->cnt, s->total);
+  return launch_pdl(layout_kernel, dim3(r), dim3(LAYOUT_THREADS), chunk * k,
+                    stream, static_cast<const uint8_t*>(s->live), n, k,
+                    layout_cap(n, k), chunk, s->slot, s->off, s->cnt,
+                    s->total);
 }
 
 // Weight m of the split table: w_rbf, w1, w2, then w_e1, w_e2, w_t1, w_t2
@@ -300,77 +289,6 @@ __device__ __forceinline__ TileRows tile_rows(const tc::Frag& f,
   return t;
 }
 
-__device__ __forceinline__ float2 ld2(const float* __restrict__ p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-// silu of the edge epilogues with the fast exponential and division: their
-// float32 error stays far below the products' bf16 x 3 error of 2^-16.
-__device__ __forceinline__ float silu_fast(float x) {
-  return __fdividef(x, 1.0f + __expf(-x));
-}
-
-// A tile block's shared memory and weight ring: NBUF buffers of split
-// weights (product p reads buffer p % NBUF; with two, the next weight
-// loads while the current one computes), then the activation buffer, all
-// 1024-byte aligned. Weights m0 .. m0 + n_mats - 1 are the products' in
-// order.
-template <int NBUF>
-struct TileSmem {
-  uint32_t w;      // weight buffer 0 (shared address); the others follow
-  uint32_t a_s;    // the activation buffer's shared address
-  uint8_t* a;      // and a generic pointer to it
-  uint32_t bar;    // mbarrier of weight buffer 0; the others' follow
-  int m0, n_mats;
-
-  // Barrier setup and the first NBUF weights, by thread 0. The caller
-  // syncs before waiting on them.
-  __device__ __forceinline__ TileSmem(uint8_t* smem, uint64_t* bars,
-                                      const CUtensorMap* map, int first,
-                                      int count)
-      : m0(first), n_mats(count) {
-    const uint32_t base = tc::smem_addr(smem);
-    w = (base + 1023u) & ~1023u;
-    a_s = w + NBUF * tc::SPLIT_BYTES;
-    a = smem + (a_s - base);
-    bar = tc::smem_addr(bars);
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int b = 0; b < NBUF; ++b) tc::mbar_init(bar + 8 * b, 1);
-      tc::mbar_init_fence();
-#pragma unroll
-      for (int b = 0; b < NBUF; ++b)
-        tc::load_split(w + b * tc::SPLIT_BYTES, map, bar + 8 * b, m0 + b);
-    }
-  }
-
-  // Product p of the calling warpgroup, once its weight has landed.
-  __device__ __forceinline__ void product(float (&acc)[2 * tc::PAIRS],
-                                          int p, int wg,
-                                          int ksteps = 8) const {
-    tc::mbar_wait(bar + 8 * (p % NBUF), (p / NBUF) & 1);
-    tc::product_x3(acc, a_s, w + (p % NBUF) * tc::SPLIT_BYTES, wg, ksteps);
-  }
-
-  // After product p: both warpgroups are done with the activations and
-  // with p's buffer; thread 0 refills the buffer with weight p + NBUF.
-  __device__ __forceinline__ void release(const CUtensorMap* map,
-                                          int p) const {
-    __syncthreads();
-    const int next = p + NBUF;
-    if (threadIdx.x == 0 && next < n_mats)
-      tc::load_split(w + (p % NBUF) * tc::SPLIT_BYTES, map,
-                     bar + 8 * (p % NBUF), m0 + next);
-  }
-};
-
-// The activations are written: make them visible to the tensor cores and
-// to the other warpgroup.
-__device__ __forceinline__ void activations_ready() {
-  tc::proxy_fence();
-  __syncthreads();
-}
-
 struct EncArgs {
   const float* pos;
   const int *idx, *slot, *total;
@@ -394,7 +312,7 @@ encode_tile_kernel(const __grid_constant__ CUtensorMap wmap, EncArgs a) {
   extern __shared__ uint8_t tile_smem[];
   __shared__ __align__(8) uint64_t bars[2];
   __shared__ float red[2][2][tc::TILE];   // [stat][warpgroup][row]
-  const TileSmem<NBUF> sm(tile_smem, bars, &wmap, 0, 3);
+  const tc::WeightRing<NBUF> sm(tile_smem, bars, &wmap, 0, 3, 3);
   const tc::Frag f;
   const TileRows t = tile_rows(f, a.slot, a.idx, rep, row0, count, a.n, a.k,
                                a.cap);
@@ -534,7 +452,7 @@ edge_tile_kernel(const __grid_constant__ CUtensorMap wmap, EdgeArgs a,
   if (row0 >= count) return;
   extern __shared__ uint8_t tile_smem[];
   __shared__ __align__(8) uint64_t bars[2];
-  const TileSmem<NBUF> sm(tile_smem, bars, &wmap, m0, 4);
+  const tc::WeightRing<NBUF> sm(tile_smem, bars, &wmap, m0, 4, 4);
   const tc::Frag f;
   const TileRows t = tile_rows(f, a.slot, a.idx, rep, row0, count, a.n, a.k,
                                a.cap);
@@ -617,18 +535,6 @@ cudaError_t configure() {
   return cudaSuccess;
 }
 
-// The card's SM count, read once.
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  return sms;
-}
-
 // Atoms a node block takes: the smallest of 4, 8, 16 whose grid fits in
 // one wave (one block an SM: their 128 KB of weights leave room for no
 // second).
@@ -649,14 +555,14 @@ cudaError_t launch_node(const NodeArgs& na, int layer, int b,
   const dim3 blocks((na.atoms + b - 1) / b);
   switch (b) {
     case 4:
-      return launch(node_fused_kernel<4>, blocks, dim3(W), node_smem_bytes(4),
-                    s, na, layer);
+      return launch_pdl(node_fused_kernel<4>, blocks, dim3(W),
+                        node_smem_bytes(4), s, na, layer);
     case 8:
-      return launch(node_fused_kernel<8>, blocks, dim3(W), node_smem_bytes(8),
-                    s, na, layer);
+      return launch_pdl(node_fused_kernel<8>, blocks, dim3(W),
+                        node_smem_bytes(8), s, na, layer);
     default:
-      return launch(node_fused_kernel<16>, blocks, dim3(W),
-                    node_smem_bytes(16), s, na, layer);
+      return launch_pdl(node_fused_kernel<16>, blocks, dim3(W),
+                        node_smem_bytes(16), s, na, layer);
   }
 }
 
@@ -670,16 +576,7 @@ int mega_split_weights(const MegaWeights* weights, int n_layers,
       *weights, static_cast<__nv_bfloat16*>(s->wsplit));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(W),
-                              static_cast<cuuint64_t>(n_mats) * 2 * W};
-  const cuuint64_t strides[1] = {W * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(W)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult res = cuTensorMapEncodeTiled(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, s->wsplit, dims, strides,
-      box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : 100000 + static_cast<int>(res);
+  return tc::encode_split_map(s->wsplit, n_mats, map);
 }
 
 int mega_forward_run(const float* pos, const int* idx, const uint8_t* bmask,
@@ -703,10 +600,10 @@ int mega_forward_run(const float* pos, const int* idx, const uint8_t* bmask,
                    p.b1, p.b2, p.eln_s, p.eln_b, s->e, n, k, cap, n_rbf,
                    flip_dir, box, length_mean, length_std, gamma};
   const bool one = tile_buffers(tiles.x * tiles.y) == 1;
-  err = one ? launch(encode_tile_kernel<1>, tiles, dim3(tc::THREADS),
-                     tc::smem_bytes(1), stream, *map, ea)
-            : launch(encode_tile_kernel<2>, tiles, dim3(tc::THREADS),
-                     tc::smem_bytes(2), stream, *map, ea);
+  err = one ? launch_pdl(encode_tile_kernel<1>, tiles, dim3(tc::THREADS),
+                         tc::smem_bytes(1), stream, *map, ea)
+            : launch_pdl(encode_tile_kernel<2>, tiles, dim3(tc::THREADS),
+                         tc::smem_bytes(2), stream, *map, ea);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const NodeArgs na{p, h0, s->off, s->cnt, s->msg, s->h, s->hn, s->src,
@@ -719,10 +616,11 @@ int mega_forward_run(const float* pos, const int* idx, const uint8_t* bmask,
     const EdgeArgs ga{idx, s->slot, s->total, s->e, s->hn, s->src, s->dst,
                       p.b_e1 + lb, p.b_e2 + lb, p.b_t1 + lb, p.b_t2 + lb,
                       s->msg, n, k, cap};
-    err = one ? launch(edge_tile_kernel<1>, tiles, dim3(tc::THREADS),
-                       tc::smem_bytes(1), stream, *map, ga, 3 + 4 * layer)
-              : launch(edge_tile_kernel<2>, tiles, dim3(tc::THREADS),
-                       tc::smem_bytes(2), stream, *map, ga, 3 + 4 * layer);
+    err = one ? launch_pdl(edge_tile_kernel<1>, tiles, dim3(tc::THREADS),
+                           tc::smem_bytes(1), stream, *map, ga, 3 + 4 * layer)
+              : launch_pdl(edge_tile_kernel<2>, tiles, dim3(tc::THREADS),
+                           tc::smem_bytes(2), stream, *map, ga,
+                           3 + 4 * layer);
     if (err != cudaSuccess) return static_cast<int>(err);
     if ((err = launch_node(na, layer, b, stream)) != cudaSuccess)
       return static_cast<int>(err);

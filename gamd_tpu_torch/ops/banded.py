@@ -11,21 +11,24 @@ from that band.
   (integer work, equal to the JAX package's bit for bit).
 * banded_msg_reference: the plain version of the kernel.
 * banded_conv_message: the wrapper. A CPU tensor runs the plain version, a
-  CUDA tensor launches csrc/banded_msg.cu or raises. It counts its kernel
-  launches in `banded_conv_message.launches`.
+  CUDA tensor launches csrc/banded_msg.cu (the live-edge tensor-core tiles
+  of csrc/conv_tc.cuh, ops/edge_tiles.py) or raises. It counts its calls
+  in `banded_conv_message.launches`.
 * banded_forward: the GAMD forward in the sorted frame, from banded_edges
   (geometry, true-cutoff mask, encoder, band layout), band_nodes (a
   layer's node rows) and node_update. All but the message are plain
   PyTorch (ops.mega), as the JAX package leaves them to XLA; the message
-  and node update use silu whatever conv_activation says, as JAX's do.
+  and node update use silu whatever conv_activation says, as JAX's do. On
+  the card the live-edge layout of the mask is computed once a call
+  (edge_tiles.mask_layout) and every layer's message reads it.
 * make_banded_force_fn: (pos, idx, mask) -> (forces, overflow) with the
   per-call x-sort (sort_by_x), the neighbour-id remap into the sorted
   frame and the unsort.
 
 The TPU kernel's grid runs over whole tiles, so JAX pads e, idx_loc, mask
-and dst_code to a multiple of tile_n. The CUDA grid runs over rows, and a
-row finds its band start at lo[i // tile_n], so nothing is padded or
-copied here.
+and dst_code to a multiple of tile_n. The CUDA kernel runs over the live
+edges, and row i finds its band start at lo[i // tile_n], so nothing is
+padded or copied here.
 """
 
 import ctypes
@@ -33,14 +36,12 @@ import ctypes
 import torch
 
 from gamd_tpu_torch.core import space
-from gamd_tpu_torch.ops.conv_gather import (EDGE_CHUNK,
-                                            conv_msg_gather_reference)
+from gamd_tpu_torch.ops import edge_tiles
+from gamd_tpu_torch.ops.conv_gather import conv_msg_gather_reference
 from gamd_tpu_torch.ops.mega import (KERNEL_WIDTH, MegaParams, _check,
                                      _silu, decode_nodes, encode_edges,
-                                     node_norm)
-
-#: Rows the kernel's grid takes (CUDA's limit on grid y).
-MAX_ROWS = 65535
+                                     layout_capacity, node_norm)
+from gamd_tpu_torch.ops.mxu_probe import sm_count
 
 
 def _round_up(x, m):
@@ -127,27 +128,28 @@ def declare(lib):
     """Set argtypes/restype of the library's banded entry."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gamd_banded_msg.argtypes = [
-        p, p, p, p, p, p,                             # e idx_loc mask lo
-        p, p, p, p, p, p, p, p,                       # nodes dst w1 ... b4
-        i, i, i, p, p, p]                             # m k tile aggp agg s
+        p, p, p, p, p,                                # e idx_loc lo nodes dst
+        p, p, p, p, p, p, p, p,                       # w1 b1 ... w4 b4
+        i, i, i, ctypes.POINTER(edge_tiles._SlotLayout),  # m k tile layout
+        p, p,                                         # wsplit part
+        i, i, i, i,                                   # the plan
+        p, p]                                         # agg stream
     lib.gamd_banded_msg.restype = ctypes.c_int
 
 
 def _check_inputs(e, idx_loc, mask, lo, nodes, dst_code, weights, band,
-                  tile_n):
+                  tile_n, layout):
     """The kernel's checks on a CUDA device: widths 128, float32 (indices
     int32, mask bool), contiguous, one device; lo one start per tile and
     nodes np_rows + band rows, so that every row the layout can name
-    (lo < np_rows, idx_loc in [0, band)) lies inside it."""
+    (lo < np_rows, idx_loc in [0, band)) lies inside it; a given live-edge
+    layout of one replica of N atoms of K slots."""
     fn = "banded_conv_message"
     if e.device.type != "cuda":
         raise ValueError(f"{fn} runs on cuda or cpu, not {e.device}")
     dev = e.device
     n, k = idx_loc.shape
     w = KERNEL_WIDTH
-    if n > MAX_ROWS:
-        raise ValueError(f"{fn}: the kernel takes at most {MAX_ROWS} rows, "
-                         f"got {n}")
     _check(fn, "e", e, dev, torch.float32, (n, k, w))
     _check(fn, "idx_loc", idx_loc, dev, torch.int32, (n, k))
     _check(fn, "mask", mask, dev, torch.bool, (n, k))
@@ -159,10 +161,15 @@ def _check_inputs(e, idx_loc, mask, lo, nodes, dst_code, weights, band,
     for name, t in zip(names, weights):
         shape = (w,) if name.startswith("b") else (w, w)
         _check(fn, name, t, dev, torch.float32, shape)
+    if layout is not None:
+        shapes = ((1, layout_capacity(n, k)), (1, n), (1, n), (1,))
+        for name, t, shape in zip(layout._fields, layout, shapes):
+            _check(fn, f"layout.{name}", t, dev, torch.int32, shape)
 
 
 def banded_conv_message(e, idx_loc, mask, lo, nodes, dst_code, layer,
-                        mp: MegaParams, band: int, tile_n: int = 64):
+                        mp: MegaParams, band: int, tile_n: int = 64,
+                        layout=None):
     """Masked sum_k hn[src] * theta(e, src, dst) with the source rows read
     from a per-tile band of `nodes`.
 
@@ -176,8 +183,12 @@ def banded_conv_message(e, idx_loc, mask, lo, nodes, dst_code, layer,
                  its first `band` rows.
         dst_code:[N, H] dst affine rows.
         layer:   conv layer index (selects mp's weights).
-    Returns agg [N, D] float32. A CPU `e` runs banded_msg_reference, a CUDA
-    `e` launches the kernel (every width 128) or raises.
+        layout:  the live-edge layout of `mask` (edge_tiles.mask_layout),
+                 which every layer of a force call shares; computed here
+                 when not given.
+    Returns agg [N, D] float32. A CPU `e` runs banded_msg_reference (the
+    layout unread), a CUDA `e` launches the kernel (every width 128) or
+    raises.
     """
     d = nodes.shape[1] // 2
     if d != mp.w_e1.shape[-1]:
@@ -189,22 +200,24 @@ def banded_conv_message(e, idx_loc, mask, lo, nodes, dst_code, layer,
         return banded_msg_reference(e, idx_loc, mask, lo, nodes, dst_code,
                                     *weights, tile_n=tile_n)
     _check_inputs(e, idx_loc, mask, lo, nodes, dst_code, weights, band,
-                  tile_n)
+                  tile_n, layout)
+    if layout is None:
+        layout = edge_tiles.mask_layout(mask)
     from gamd_tpu_torch.ops.build import load_library
 
     n, k = idx_loc.shape
     dev = e.device
-    aggp = torch.empty((n, -(-k // EDGE_CHUNK), KERNEL_WIDTH), device=dev,
-                       dtype=torch.float32)
+    plan = edge_tiles.launch_plan(n, k, sm_count(dev))
+    buf, _, _, wsplit, part = edge_tiles.call_scratch(n, k, plan, dev,
+                                                      layout=False)
     agg = torch.empty((n, KERNEL_WIDTH), device=dev, dtype=torch.float32)
     err = load_library().gamd_banded_msg(
-        *[t.data_ptr() for t in (e, idx_loc, mask, lo, nodes, dst_code,
+        *[t.data_ptr() for t in (e, idx_loc, lo, nodes, dst_code,
                                  *weights)],
-        n, k, tile_n, aggp.data_ptr(), agg.data_ptr(),
+        n, k, tile_n, ctypes.byref(edge_tiles.slot_struct(layout)),
+        wsplit.data_ptr(), part.data_ptr(), *plan[:4], agg.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"banded_msg: CUDA launch failed with cudaError "
-                           f"{err}")
+    edge_tiles.raise_on("banded_msg", err)
     banded_conv_message.launches += 1
     return agg
 
@@ -276,11 +289,12 @@ def banded_forward(pos_s, idx_s, mask, h0_s, mp: MegaParams, box, cutoff,
     e, idx_loc, mask, lo, overflow = banded_edges(
         pos_s, idx_s, mask, mp, box, cutoff, length_mean, length_std, band,
         tile_n, bond, rbf_gap, flip_dir, mlp_act)
+    layout = edge_tiles.mask_layout(mask) if e.is_cuda else None
     h = h0_s
     for layer in range(mp.w_src.shape[0]):
         hn, nodes, dst_code = band_nodes(mp, layer, h, band, use_ln)
         agg = banded_conv_message(e, idx_loc, mask, lo, nodes, dst_code,
-                                  layer, mp, band, tile_n)
+                                  layer, mp, band, tile_n, layout)
         h = node_update(mp, layer, h, hn, agg)
     return decode_nodes(mp, h, mlp_act), overflow
 

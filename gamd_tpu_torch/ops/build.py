@@ -105,13 +105,14 @@ def load_library():
     """The loaded library (built first if needed), with argtypes set."""
     import ctypes
 
-    from gamd_tpu_torch.ops import (banded, conv_gather, encoder,
-                                    gather_probe, mega, message, mxu_probe,
-                                    nhc)
+    from gamd_tpu_torch.ops import (banded, conv_gather, edge_tiles,
+                                    encoder, gather_probe, mega, message,
+                                    mxu_probe, nhc)
 
     lib = ctypes.CDLL(build()["path"])
     mega.declare(lib)
     conv_gather.declare(lib)
+    edge_tiles.declare(lib)
     encoder.declare(lib)
     banded.declare(lib)
     nhc.declare(lib)

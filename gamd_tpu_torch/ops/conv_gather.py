@@ -1,11 +1,14 @@
 """One conv layer's edge pipeline with the neighbour gathers inside, and its
 backward: the host side of gamd_tpu/ops/pallas_mp.py:370-727
 (fused_conv_gather_message and its custom VJP) and the wrappers of the two
-Hopper kernels csrc/conv_msg_gather.cu and csrc/conv_msg_gather_bwd.cu.
+Hopper kernels csrc/conv_msg_gather.cu (the live-edge tensor-core tiles of
+csrc/conv_tc.cuh, ops/edge_tiles.py) and csrc/conv_msg_gather_bwd.cu.
 
 * conv_msg_gather_reference is the plain version of the forward on one
   graph, batched_reference on a batch; the plain backward is autograd
-  through them.
+  through them. Their four edge products go through `_edge_mm`, a plain
+  fp32 product; ops/mega.py::split_bf16_matmul, the kernel's bf16 x 3
+  tensor-core arithmetic, is what a test puts in its place.
 * ConvMsgGather is the torch.autograd.Function whose forward and backward
   launch the kernels (CUDA tensors only).
 * fused_conv_gather_message is the entry point, in the JAX entry's argument
@@ -20,14 +23,22 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from gamd_tpu_torch.ops import edge_tiles
 from gamd_tpu_torch.ops.mega import KERNEL_WIDTH, _check
+from gamd_tpu_torch.ops.mxu_probe import sm_count
 
-#: Edges per block of the kernels' edge stages (csrc/tile.cuh KC).
+#: Edges per block of the CUDA-core edge stages (csrc/tile.cuh KC): the
+#: backward's and the op library's.
 EDGE_CHUNK = 16
 #: Per-edge planes of the backward's scratch (csrc/conv_msg_gather_bwd.cu
 #: N_ROWS) and its weight-gradient ranges (N_RANGE).
 SCRATCH_PLANES = 8
 WGRAD_RANGES = 32
+
+
+def _edge_mm(a, w):
+    """An edge product of the plain version (W1..W4): plain fp32."""
+    return a @ w
 
 
 def conv_msg_gather_reference(e, idx, mask, hn, src_nodes, dst_code,
@@ -38,9 +49,9 @@ def conv_msg_gather_reference(e, idx, mask, hn, src_nodes, dst_code,
     e [N, K, E], idx [N, K], mask [N, K] bool, hn [N, D], src_nodes and
     dst_code [N, H]."""
     idx = idx.long()
-    z = F.silu(e @ w1 + b1) @ w2 + b2
+    z = _edge_mm(F.silu(_edge_mm(e, w1) + b1), w2) + b2
     z = z + src_nodes[idx] + dst_code[:, None, :]
-    z = F.silu(F.silu(z) @ w3 + b3) @ w4 + b4
+    z = _edge_mm(F.silu(_edge_mm(F.silu(z), w3) + b3), w4) + b4
     return torch.sum(torch.where(mask[..., None], hn[idx] * z, 0.0), dim=1)
 
 
@@ -59,7 +70,10 @@ def declare(lib):
     lib.gamd_conv_msg_gather.argtypes = [
         p, p, p, p, p, p,                             # e idx mask hn src dst
         p, p, p, p, p, p, p, p,                       # w1 b1 ... w4 b4
-        i, i, p, p, p]                                # m k aggp agg stream
+        i, i, ctypes.POINTER(edge_tiles._SlotLayout),  # m k layout
+        p, p,                                         # wsplit part
+        i, i, i, i,                                   # the plan
+        p, p]                                         # agg stream
     lib.gamd_conv_msg_gather.restype = ctypes.c_int
     lib.gamd_conv_msg_gather_bwd.argtypes = [
         p, p, p, p, p, p, p,                          # g e idx mask hn src dst
@@ -110,15 +124,15 @@ class ConvMsgGather(torch.autograd.Function):
     def forward(ctx, e, idx, mask, hn, src_nodes, dst_code, *weights):
         m, k, _ = e.shape
         dev = e.device
-        aggp = torch.empty((m, -(-k // EDGE_CHUNK), KERNEL_WIDTH),
-                           device=dev, dtype=torch.float32)
+        plan = edge_tiles.launch_plan(m, k, sm_count(dev))
+        buf, layout, block_sum, wsplit, part = edge_tiles.call_scratch(
+            m, k, plan, dev)
         agg = torch.empty((m, KERNEL_WIDTH), device=dev, dtype=torch.float32)
         err = _library().gamd_conv_msg_gather(
-            *_ptrs(e, idx, mask, hn, src_nodes, dst_code, *weights),
-            m, k, aggp.data_ptr(), agg.data_ptr(), _stream(dev))
-        if err != 0:
-            raise RuntimeError(f"conv_msg_gather: CUDA launch failed with "
-                               f"cudaError {err}")
+            *_ptrs(e, idx, mask, hn, src_nodes, dst_code, *weights), m, k,
+            ctypes.byref(edge_tiles.slot_struct(layout, block_sum)),
+            *_ptrs(wsplit, part), *plan[:4], agg.data_ptr(), _stream(dev))
+        edge_tiles.raise_on("conv_msg_gather", err)
         fused_conv_gather_message.launches += 1
         ctx.save_for_backward(e, idx, mask, hn, src_nodes, dst_code,
                               *weights)
@@ -200,8 +214,9 @@ def fused_conv_gather_message(e, idx, mask, hn, src_nodes, dst_code,
                                  *weights)
     _check_inputs(e, idx, mask, hn, src_nodes, dst_code, weights)
     b, n, k = idx.shape
-    offset = torch.arange(b, device=idx.device, dtype=torch.int32) * n
-    flat_idx = (idx + offset[:, None, None]).reshape(b * n, k)
+    flat_idx = idx.reshape(n, k) if b == 1 else (idx + n * torch.arange(
+        b, device=idx.device, dtype=torch.int32)[:, None, None]).reshape(
+            b * n, k)
     flat = lambda t: t.reshape(b * n, *t.shape[2:])
     agg = ConvMsgGather.apply(flat(e), flat_idx, flat(mask), flat(hn),
                               flat(src_nodes), flat(dst_code), *weights)

@@ -397,25 +397,32 @@ def live_mask(pos, idx, build_mask, box, cutoff):
     return build_mask & (d2 < cut2)
 
 
-def live_edge_layout(pos, idx, build_mask, box, cutoff):
-    """Plain version of the kernel's live-edge layout (its first stage):
-    the live slots (live_mask) of each replica compacted atom-major, with
-    per-atom offsets from an exclusive scan of the per-atom counts. One
-    system ([N, 3]) or replicas ([R, N, 3]); a LiveLayout with a leading R
-    axis either way."""
-    live = live_mask(pos, idx, build_mask, box, cutoff)
+def live_slot_layout(live):
+    """The live slots of a bool [N, K] or [R, N, K] mask compacted
+    atom-major per replica, with per-atom offsets from an exclusive scan of
+    the per-atom counts: a LiveLayout with a leading R axis either way.
+    The plain version of the layout stage of both tensor-core edge
+    kernels: the whole-model forward's (on live_mask) and the conv
+    message's (csrc/conv_tc.cuh, on the aggregation mask)."""
     if live.ndim == 2:
         live = live[None]
     r, n, k = live.shape
     count = live.sum(dim=-1, dtype=torch.int32)
     offset = (torch.cumsum(count, dim=-1) - count).to(torch.int32)
     slot = torch.full((r, layout_capacity(n, k)), -1, dtype=torch.int32,
-                      device=pos.device)
+                      device=live.device)
     for rep in range(r):
         ids = torch.nonzero(live[rep].reshape(-1)).flatten()
         slot[rep, :ids.numel()] = ids.to(torch.int32)
     return LiveLayout(slot, offset, count,
                       count.sum(dim=-1, dtype=torch.int32))
+
+
+def live_edge_layout(pos, idx, build_mask, box, cutoff):
+    """Plain version of the kernel's live-edge layout (its first stage):
+    live_slot_layout of live_mask. One system ([N, 3]) or replicas ([R, N,
+    3]); a LiveLayout with a leading R axis either way."""
+    return live_slot_layout(live_mask(pos, idx, build_mask, box, cutoff))
 
 
 def layout_tiles(layout: LiveLayout):

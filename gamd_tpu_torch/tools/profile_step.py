@@ -8,8 +8,9 @@ use_pallas_encoder path: one edge_encoder and four conv_msg_gather
 launches per force call, K=96 at 7.5 + 1.25 A, Langevin at 100 K and
 25/ps, rebuild every 20 steps); and banded, the large-N path at N=10,000
 (tools/bench_large.py's LJ fluid and seeded GAMD-small on
-GNNForceField.banded_force_fn: four banded_msg launches per force call,
-the cell list at 7.5 + 0.5 A with K=96, rebuilt every 20 steps); and nhc,
+GNNForceField.banded_force_fn: one live-edge layout and four banded_msg
+calls per force call, the cell list at 7.5 + 0.5 A with K=96, rebuilt
+every 20 steps); and nhc,
 the per-step path under the Nose-Hoover chain (the slice's system and
 weights, nose_hoover at 100 K and 25/ps with M=10, n_c = n_ys = 5: one
 mega_forward and two nhc_half_step launches a step); and replicas, the
@@ -35,10 +36,11 @@ next) and long ones (the device waiting for the host), with the long
 ones counted by the activities on either side. On the megastep path it
 also gives the host time of each window call of the untraced run (the
 call returns once its launches are queued). On the banded path it also
-gives the banded_msg kernel's device time per step (its edge stage and
-chunk sums) and the cell list's time per rebuild (CUDA events, median of
-10 builds at the start frame), whose PyTorch kernels the breakdown
-otherwise mixes with the model's.
+gives the banded message's device time per step (BANDED_KERNELS: the
+live-edge layout, the weight splits, the edge tiles and the fix-ups) and
+its share of the step's device time, and the cell list's time per
+rebuild (CUDA events, median of 10 builds at the start frame), whose
+PyTorch kernels the breakdown otherwise mixes with the model's.
 
 Each path's line also gives the exclusive device time per step of the
 whole-model forward's stages (FORWARD_STAGES: weight split, live flags
@@ -94,6 +96,15 @@ FORWARD_STAGES = {
 }
 
 
+#: The conv message's kernels (csrc/conv_tc.cuh) by short name: rows 3
+#: (conv_msg_gather.cu, GatherSrc) and 6 (banded_msg.cu, BandSrc).
+CONV_KERNELS = ("mask_count_kernel", "mask_slots_kernel",
+                "split_conv_weights_kernel", "conv_tile_kernel[GatherSrc]",
+                "conv_tile_kernel[BandSrc]", "tile_fixup_kernel")
+#: Those of the banded path (row 6 and its per-call layout).
+BANDED_KERNELS = tuple(k for k in CONV_KERNELS if "GatherSrc" not in k)
+
+
 def short_name(kernel: str) -> str:
     """A readable name for a device kernel: this repo's kernels by their
     own name (node_fused_kernel with its atoms a block, B), PyTorch's by
@@ -102,9 +113,9 @@ def short_name(kernel: str) -> str:
     name = name[5:] if name.startswith("void ") else name
     base = re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1].strip()
     rest = name[len(name.split("<", 1)[0]):]
-    rows = re.search(r"\b(GatherRows|BandRows|ClampedRows|PreRows)\b",
+    rows = re.search(r"\b(ClampedRows|PreRows|GatherSrc|BandSrc)\b",
                      rest)
-    if rows:            # edge_msg_kernel's instances
+    if rows:            # edge_msg_kernel's and conv_tile_kernel's instances
         return f"{base}[{rows.group(1)}]"
     width = re.match(r"<(\d+)>", rest)
     if base == "node_fused_kernel" and width:
@@ -135,6 +146,25 @@ def device_spans(prof) -> list:
     """(start us, end us, short name) of every device activity, by start."""
     return sorted((e.time_range.start, e.time_range.end, short_name(e.name))
                   for e in prof.events() if on_device(e))
+
+
+def traced_spans(fn, calls, tries=3) -> list:
+    """device_spans of `calls` calls of fn in one torch.profiler session
+    (device activity only), after an untraced call. Now and then a
+    session delivers no device activity at all; such a session is run
+    again, up to `tries` sessions. [] if none saw any."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = device_spans(prof)
+        if spans:
+            return spans
+    return []
 
 
 def exclusive_times(spans) -> tuple:
@@ -257,10 +287,10 @@ def profile(dev, path: str) -> dict:
     ranked = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["us"]))
     banded = {}
     if path == "banded":
-        banded_us = sum(v["us"] for k, v in kernels.items()
-                        if k in ("edge_msg_kernel[BandRows]",
-                                 "chunk_sum_kernel"))
+        banded_us = sum(v["us"] for k, v in exclusive.items()
+                        if k in BANDED_KERNELS)
         banded = {"banded_msg_us_per_step": banded_us / STEPS,
+                  "banded_msg_device_share": banded_us / total,
                   "cell_list_ms_per_build": cell_list_ms(sim, pos),
                   "rebuild_every": sim.md.rebuild_every}
     return {

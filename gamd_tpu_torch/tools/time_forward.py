@@ -7,9 +7,11 @@ CUDA events, the median of single calls after warm-up calls. It uses only
 the public API of gamd_tpu_torch.ops.mega, so it can time another tree's
 package: put that tree first on PYTHONPATH and run this file by its path.
 
-    python3 -m gamd_tpu_torch.tools.time_forward [R]
+    python3 -m gamd_tpu_torch.tools.time_forward [R] [--save PATH]
 
-Prints the card line, then one JSON line. Needs a CUDA card.
+Prints the card line, then one JSON line; --save also writes the forces of
+each forward and the outputs of each window (torch.save), so that two
+trees' results can be compared bit for bit. Needs a CUDA card.
 """
 
 import json
@@ -44,7 +46,12 @@ def median_ms(fn, reps, warmup=3):
 
 
 def main(argv=None):
-    argv = sys.argv[1:] if argv is None else argv
+    argv = list(sys.argv[1:] if argv is None else argv)
+    save = None
+    if "--save" in argv:
+        at = argv.index("--save")
+        save = argv[at + 1]
+        del argv[at:at + 2]
     replicas = int(argv[0]) if argv else 8
     if not torch.cuda.is_available():
         raise RuntimeError("time_forward needs a CUDA card")
@@ -69,6 +76,7 @@ def main(argv=None):
         system.box) for _ in range(replicas - 1)])
     line = {"card": card, "replicas": replicas,
             "window_steps": md.rebuild_every}
+    outputs = {}
     for r, p in ((1, pos), (replicas, frames)):
         idx, mask, ovf = build_nbrs(p, system, K_MODEL)
         if bool(ovf):
@@ -87,6 +95,11 @@ def main(argv=None):
         line[f"window_ms_r{r}"] = median_ms(
             lambda: mega_md_steps(p, vel, force, idx, mask, hh, mp, *scalars,
                                   sim.masses, **wkw), 10)
+        outputs[f"forward_r{r}"] = force.cpu()
+        outputs[f"window_r{r}"] = [t.cpu() for t in mega_md_steps(
+            p, vel, force, idx, mask, hh, mp, *scalars, sim.masses, **wkw)]
+    if save:
+        torch.save(outputs, save)
     print(json.dumps(line), flush=True)
     return line
 

@@ -1,7 +1,8 @@
 """The CUDA kernels mega_forward and mega_md_steps (one system and R
 replicas; the forward's live-edge layout stage alone through mega_layout),
-the conv-message pair (conv_msg_gather forward and backward),
-edge_encoder, banded_msg, nhc_half_step, nhc_chain_probe (both forms), the
+the conv-message pair (conv_msg_gather forward and backward; the live-edge
+layout from the mask alone through mask_layout), edge_encoder,
+banded_msg, nhc_half_step, nhc_chain_probe (both forms), the
 op library's gather_agg, edge_mlp_agg, conv_msg and conv_layer, and the
 probes' mxu_loop (five bodies), onehot_gather (five forms), lane_gather
 (two widths), sublane_gather and transpose_probe against their plain
@@ -14,6 +15,7 @@ conftest:  python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_cuda.py
 """
 
+import ctypes
 import os
 
 os.environ.setdefault("GAMD_XLA_CACHE", "off")
@@ -28,7 +30,8 @@ from gamd_tpu_torch.md import integrators as integ
 from gamd_tpu_torch.md.simulate import Simulation
 from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
 from gamd_tpu_torch.neighbors.dense import build_nbrs, dense_neighbor_list
-from gamd_tpu_torch.ops import banded, gather_probe, message, mxu_probe, nhc
+from gamd_tpu_torch.ops import (banded, edge_tiles, gather_probe, message,
+                                mxu_probe, nhc)
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
@@ -38,7 +41,8 @@ from gamd_tpu_torch.ops.mega import (live_edge_layout, md_steps_reference,
                                      mega_md_steps, pack_params,
                                      reference_forward)
 from gamd_tpu_torch.physics.lennard_jones import lj_fluid_box
-from gamd_tpu_torch.tools import bench_mxu, probe_gather, probe_nhc_kernel
+from gamd_tpu_torch.tools import (bench_mxu, probe_gather, probe_nhc_kernel,
+                                  profile_step)
 from gamd_tpu_torch.tools.bench_large import (banded_layer_inputs, lj_large,
                                               seeded_force_field)
 from gamd_tpu_torch.train.checkpoint import load_self_describing
@@ -629,7 +633,104 @@ def test_banded_msg_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match=": e must"):
         call(e[..., :64].contiguous(), idx_loc, mask_s, lo, nodes, dst,
              layer, mp, band, tile_n)
+    lay = edge_tiles.mask_layout(mask_s[1:].contiguous())
+    with pytest.raises(ValueError, match="layout.slot"):
+        call(e, idx_loc, mask_s, lo, nodes, dst, layer, mp, band, tile_n,
+             lay)
     assert call.launches == before
+
+
+def _kernel_names(fn, calls=3):
+    """Short names (tools/profile_step.py) of the device kernels of
+    `calls` traced calls of fn (profile_step.traced_spans)."""
+    return {name for _, _, name in profile_step.traced_spans(fn, calls)}
+
+
+def test_conv_message_kernels_launch_tensor_core_tiles(cuda):
+    """Rows 3 and 6 run the live-edge wgmma tiles of csrc/conv_tc.cuh
+    (row 3 with its layout inside the call, row 6 over a given one), and
+    not the CUDA-core edge stage they ran before."""
+    inputs, weights = _conv_inputs(cuda, 1, 66, 20, seed=9)
+    with torch.no_grad():
+        gather = _kernel_names(
+            lambda: fused_conv_gather_message(*inputs, *weights))
+    assert {"mask_count_kernel", "mask_slots_kernel",
+            "split_conv_weights_kernel", "conv_tile_kernel[GatherSrc]",
+            "tile_fixup_kernel"} <= gather
+    pos, idx, mask, ff = _banded_case(cuda, 1000, seed=6)
+    args = banded_layer_inputs(ff, pos, idx, mask, 0)
+    lay = edge_tiles.mask_layout(args[2])
+    band = _kernel_names(lambda: banded.banded_conv_message(*args,
+                                                            layout=lay))
+    assert {"split_conv_weights_kernel", "conv_tile_kernel[BandSrc]",
+            "tile_fixup_kernel"} <= band
+    assert not any(name.startswith(("edge_msg_kernel", "chunk_sum_kernel"))
+                   for name in gather | band)
+
+
+@pytest.mark.parametrize("shape", [(2, 66, 20), (1, 10_000, 96),
+                                   (3, 1000, 33)])
+def test_mask_layout_kernel_equals_plain_layout(cuda, shape):
+    """The layout kernels against live_slot_layout, exactly: offsets,
+    counts, the total and the compacted slots; an all-masked row and an
+    all-live one."""
+    rng = np.random.default_rng(sum(shape))
+    mask = torch.as_tensor(rng.random(shape) < 0.2, device=cuda)
+    mask[0, 3] = False
+    mask[-1, 5] = True
+    before = edge_tiles.mask_layout.launches
+    got = edge_tiles.mask_layout(mask)
+    want = edge_tiles.mask_layout(mask.cpu())
+    torch.cuda.synchronize()
+    assert edge_tiles.mask_layout.launches == before + 1
+    total = int(want.total[0])
+    assert torch.equal(got.total.cpu(), want.total)
+    assert torch.equal(got.offset.cpu(), want.offset)
+    assert torch.equal(got.count.cpu(), want.count)
+    assert torch.equal(got.slot[0, :total].cpu(), want.slot[0, :total])
+
+
+def test_conv_message_kernels_are_run_to_run_identical_at_scale(cuda):
+    """No atomics, and which block takes a tile does not enter a sum: two
+    calls give the same bits at the paths' largest shapes (row 6 at
+    N=10,000, 2,500-odd tiles on a persistent grid; row 3 on a batch of
+    16 graphs)."""
+    pos, idx, mask, ff = _banded_case(cuda, 10_000, seed=8)
+    args = banded_layer_inputs(ff, pos, idx, mask, 1)
+    first = banded.banded_conv_message(*args)
+    second = banded.banded_conv_message(*args)
+    inputs, weights = _conv_inputs(cuda, 16, 258, 96, seed=8)
+    with torch.no_grad():
+        a = fused_conv_gather_message(*inputs, *weights)
+        b = fused_conv_gather_message(*inputs, *weights)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(a, b)
+
+
+def test_conv_entries_refuse_an_inconsistent_plan(cuda):
+    """The C entries check the plan (csrc/conv_tc.cuh::plan_ok): a grid of
+    0 or past the tiles, 128 threads, or shared bytes off by 16 returns
+    cudaErrorInvalidValue and launches nothing."""
+    from gamd_tpu_torch.ops.build import load_library
+    lib = load_library()
+    (e, idx, mask, hn, src, dst), ws = _conv_inputs(cuda, 1, 66, 20, seed=2)
+    m, k = 66, 20
+    good = edge_tiles.launch_plan(m, k, mxu_probe.sm_count(cuda))
+    buf, lay, block_sum, wsplit, part = edge_tiles.call_scratch(m, k, good,
+                                                                cuda)
+    agg = torch.full((m, 128), 7.0, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for bad in (good._replace(grid=0), good._replace(grid=good.tiles + 1),
+                good._replace(threads=128),
+                good._replace(smem=good.smem + 16)):
+        err = lib.gamd_conv_msg_gather(
+            *[t.data_ptr() for t in (e, idx, mask, hn, src, dst, *ws)],
+            m, k, ctypes.byref(edge_tiles.slot_struct(lay, block_sum)),
+            wsplit.data_ptr(), part.data_ptr(), *bad[:4], agg.data_ptr(),
+            stream)
+        assert err != 0, bad
+    torch.cuda.synchronize()
+    assert bool((agg == 7.0).all())
 
 
 def test_banded_force_path_on_the_card(cuda):
@@ -877,8 +978,11 @@ def test_op_kernels_match_plain_version(cuda, op, n, k, d):
 
 
 def test_conv_message_equals_conv_gather_bit_for_bit(cuda):
-    """fused_conv_message on rows gathered at idx and
-    fused_conv_gather_message run the same edge stage: the same bits."""
+    """fused_conv_message on rows gathered at idx (row 8: fp32 CUDA cores)
+    and fused_conv_gather_message (row 3: the live-edge tensor-core tiles,
+    bf16 x 3) compute the same function: within 1e-4 of max |agg|. They
+    shared one edge stage, and gave the same bits, until row 3's
+    redesign."""
     x, ws = _op_inputs(cuda, 258, 96, seed=4)
     rows = x["idx"].long()
     with torch.no_grad():
@@ -890,7 +994,8 @@ def test_conv_message_equals_conv_gather_bit_for_bit(cuda):
             x["e"][None], x["idx"][None], x["mask"][None], x["hn"][None],
             x["src_nodes"][None], x["dst_code"][None], *ws[:8])[0]
     torch.cuda.synchronize()
-    assert torch.equal(pre, gathered)
+    assert float((pre - gathered).abs().max()) \
+        <= 1e-4 * float(pre.abs().max())
 
 
 @pytest.mark.parametrize("op", ["edge_mlp_agg", "conv_msg", "conv_layer"])
