@@ -15,8 +15,9 @@ lj_relabel_latest.msgpack (trained LJ-258 GAMD-small; cutoff 7.5 A, skin
 edges come from the hand-written CUDA kernel edge_encoder and whose conv
 layers go through conv_msg_gather, for predict / predict_batch and MD, and
 the port's run_md and analyze_rollout CLIs. Then its large-N path:
-x-sorted frames whose conv layers read their source rows from per-tile
-bands through the hand-written CUDA kernel banded_msg
+x-sorted frames whose edges are encoded over their live slots by the same
+edge_encoder kernel and whose conv layers read their source rows from
+per-tile bands through the hand-written CUDA kernel banded_msg
 (GNNForceField.banded_force_fn, the cell list, run_md --banded and
 bench_large). Then its thermostat integrators: Nose-Hoover chain MD, each
 chain half-step one launch of the hand-written CUDA kernel nhc_half_step
@@ -67,9 +68,13 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
   9. the training path: 30 steps on 4 relabelled frames through the
      kernel pair (and the plain path, for its time), with the launch
      counts, the loss of each step and the loss falling;
- 10. edge_encoder against its plain version on LJ-258 frames with the
-     checkpoint's weights and list (K=96): one frame with cutoff=None and
-     with the 7.5 A cutoff, and 16 frames in one call against 16 calls;
+ 10. edge_encoder (fused_edge_encoder, every slot) against its plain
+     version on LJ-258 frames with the checkpoint's weights and list
+     (K=96): one frame with cutoff=None and with the 7.5 A cutoff, and 16
+     frames in one call against 16 calls; its times at B=1 and 16 (CUDA
+     events, device time), its bound on the tensor cores (the products as
+     three bf16 passes, the epilogues in fp32, e written for every slot)
+     beside the fp32 CUDA-core bound, and the share reached;
  11. the deployment force path: force_fn on the card against the same force
      field on the CPU (plain versions), predict and predict_batch (40
      frames at batch size 16) against per-frame predict, and the force
@@ -89,25 +94,35 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
      calls bit for bit, the layout kernels equal to the plain layout;
      timed on layer 0's as phase 6 (CUDA events, device time, both
      bounds); and a band too narrow: the flag set, the forces NaN;
- 15. GNNForceField.banded_force_fn against reference_forward on the card
-     on the same frame and list, at N=10,000;
+ 15. on the same frame, the banded path's encoder: live_edge_encoder
+     (edge_encoder over the live slots of the route's layout) against its
+     plain version on the live rows, two calls bit for bit, the banded
+     forward with e's buffer filled with NaN (finite forces within 5e-3
+     std(F) of reference_forward, the dead rows still NaN), its times and
+     bounds; then GNNForceField.banded_force_fn against reference_forward
+     on the card on the same frame and list, at N=10,000, with one
+     live_edge_encoder, one layout and four banded_msg launches a call;
  16. the large-N MD path: Simulation(ff.banded_force_fn(), ...,
      nbr_method="cell") at N=4,096 and 10,000, 20 warm-up and 100 timed
-     Langevin steps at 100 K, with banded_msg's and the layout's launch
-     counts, then 20 steps traced (torch.profiler): the banded message's
-     device time a step and its share of the step's device time;
+     Langevin steps at 100 K, with banded_msg's, the layout's and
+     live_edge_encoder's launch counts, then 20 steps traced
+     (torch.profiler): the banded message's and the encoder's device time
+     a step and their shares of the step's device time;
  17. the entry points: tools.run_md --banded (200 steps, the committed
      checkpoint, N=258 on the dense list), its forces at the last frame
      against the checkpoint's eager force_fn, and tools.bench_large
      (classical LJ at N=10,000; GNN-MD cell-list at N=4,096; GNN-MD
-     banded at N=4,096 and 10,000);
+     banded at N=4,096 and 10,000), with the encoder's launches (one a
+     force call on the banded paths);
  18. nhc_half_step against its plain version at N=258, N=10,000 and
      N=258 with R=3 chains (M=10, n_c = n_ys = 5, 100 K, 25/ps, 2 fs, a
      seeded chain): one half-step and 20 consecutive ones, a repeat bit
      for bit, ke2 given equal to ke2 summed, M=17 refused, and the times;
  19. tools.probe_nhc_kernel in process: both forms of nhc_chain_probe
      (scalar, warp) at reps 3 against the plain chain and microseconds
-     per half-step at reps 400;
+     per half-step at reps 400; the chain's bound, the latency of its
+     dependent sequence priced by one-thread chains of its steps
+     (ops.nhc.chain_latency, held against its plain version);
  20. the NHC per-step path: Simulation(ff.force_fn(megakernel=True)) with
      nose_hoover on the slice, 20 warm-up and 200 timed steps: one
      mega_forward and two nhc_half_step launches a step;
@@ -170,7 +185,9 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
      magnitudes, a repeat bit for bit; the times beside the plain
      version's, the library's (torch.gather, index_select, one copy of 34
      transposed views, iters calls replayed from a CUDA graph) and the
-     bound;
+     bound, and for the lane forms the bound of the gathered values read
+     from shared memory (SMs x 128 bytes a clock at the largest SM
+     clock);
  35. mega_forward on 8 LJ-258 frames [8, 258, 3] (the start frame and 7
      jittered copies, each with its own list) in one launch against 8
      single launches (bit for bit counted) and the plain version, each
@@ -216,7 +233,7 @@ import torch.nn.functional as F
 
 from gamd_tpu_torch.core import space, units
 from gamd_tpu_torch.core.config import MDConfig
-from gamd_tpu_torch.core.device import card_line
+from gamd_tpu_torch.core.device import card_line, max_sm_clock_hz
 from gamd_tpu_torch.md import integrators as integ
 from gamd_tpu_torch.md.integrators import maxwell_boltzmann_velocities
 from gamd_tpu_torch.md.simulate import Simulation
@@ -229,7 +246,9 @@ from gamd_tpu_torch.ops import (banded, build, edge_tiles, gather_probe,
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
-                                        fused_edge_encoder)
+                                        fused_edge_encoder,
+                                        live_edge_encoder,
+                                        live_edge_encoder_reference)
 from gamd_tpu_torch.ops.mega import (layout_tiles, live_edge_layout,
                                      md_steps_reference, mega_forward,
                                      mega_layout, mega_md_steps, pack_params,
@@ -248,6 +267,7 @@ from gamd_tpu_torch.tools.bench_mxu import graph_ms
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
 from gamd_tpu_torch.tools.lj_train_slice import lj_train_slice
 from gamd_tpu_torch.tools.profile_step import (BANDED_KERNELS,
+                                               ENCODER_KERNELS,
                                                FORWARD_STAGES,
                                                exclusive_times,
                                                forward_stages, traced_spans)
@@ -744,15 +764,57 @@ def training_phases(dev, card):
 
 def encoder_bound(live_edges, n, k, n_rbf, width=128):
     """(least ms, "operations" or "bytes") of one edge_encoder call on one
-    frame: the three encoder products over the live edges (2 per
-    multiply-add), against e written in fp32 for every slot, the live mask
-    written, and pos, idx, the build mask and the weights read once."""
+    frame on the fp32 CUDA-core basis: the three encoder products over the
+    live edges (2 per multiply-add), against e written in fp32 for every
+    slot, the live mask written, and pos, idx, the build mask and the
+    weights read once."""
     flops = 2.0 * live_edges * ((4 + n_rbf) * width + width * width
                                 + width * width)
+    return roofline(flops, encoder_bytes(n, k, n_rbf, width)), flops
+
+
+def encoder_bytes(n, k, n_rbf, width=128):
+    """Bytes of one fused_edge_encoder call on one frame, each input read
+    and each output written once: e for every slot and the live mask out;
+    pos, idx, the build mask and the weights in."""
     weights = 4 * ((4 + n_rbf) * width + 2 * width * width + 5 * width)
-    nbytes = 4 * n * k * width + n * k + 4 * n * 3 + 4 * n * k + n * k \
+    return 4 * n * k * width + n * k + 4 * n * 3 + 4 * n * k + n * k \
         + weights
-    return roofline(flops, nbytes), flops
+
+
+#: fp32 operations of the encoder's epilogues a row and column as the
+#: tensor-core kernel (csrc/encode.cuh) runs them: the rank-1 geometric
+#: terms (8), three biases (3), two tanh-gelus (8 each) and the LayerNorm
+#: with its affine (7); and of the RBF a row and centre (4: a difference,
+#: two products, the exponential).
+ENCODER_EPILOGUE_OPS, RBF_OPS = 34, 4
+
+
+def encoder_tc_ops(rows, n_rbf, width=128):
+    """(tensor-core FLOP, fp32 FLOP) of the encoder over `rows` rows as the
+    tensor-core kernel computes them: the products 2 ((4 + n_rbf) width +
+    2 width^2) a row as three bf16 passes, the epilogues and the RBF on
+    the CUDA cores."""
+    return (3.0 * 2 * rows * ((4 + n_rbf) * width + 2 * width * width),
+            float(rows * (ENCODER_EPILOGUE_OPS * width + RBF_OPS * n_rbf)))
+
+
+def encoder_tc_bound(rows, nbytes, n_rbf):
+    """(least ms, "operations" or "bytes") of the encoder on the
+    tensor-core basis: encoder_tc_ops over `rows` against the bf16 tensor
+    peak and the fp32 peak (their times add), nbytes against HBM; the
+    larger."""
+    tc_flops, fp32_flops = encoder_tc_ops(rows, n_rbf)
+    t_ops = (tc_flops / BF16_FLOPS + fp32_flops / FP32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def live_encoder_bytes(n, live_edges, n_rbf, width=128):
+    """Bytes of one live_edge_encoder call: pos, the layout's slot ids and
+    the live slots' ids and weights read once, e's live rows written."""
+    weights = 4 * ((4 + n_rbf) * width + 2 * width * width + 5 * width)
+    return 4 * n * 3 + live_edges * (4 + 4 + 4 * width) + weights
 
 
 def classical_frames(dev, system):
@@ -857,15 +919,40 @@ def encoder_phase(dev, card, state, model_cfg, system):
     plain_ms = time_ms(lambda: call(edge_encoder_reference, 1,
                                     system.cutoff))
     batch_ms = time_ms(lambda: call(fused, ENCODER_BATCH, system.cutoff))
-    (bound_ms, bound_by), flops = encoder_bound(live_edges, n, k,
-                                                model_cfg.n_rbf)
+    dev_us, dev_kernels = device_us(lambda: call(fused, 1, system.cutoff))
+    batch_us, _ = device_us(lambda: call(fused, ENCODER_BATCH,
+                                         system.cutoff))
+    n_rbf = model_cfg.n_rbf
+    nbytes = encoder_bytes(n, k, n_rbf)
+    live_batch = int(live_b.sum())
+    bound_ms, bound_by = encoder_tc_bound(live_edges, nbytes, n_rbf)
+    batch_bound, batch_by = encoder_tc_bound(live_batch,
+                                             ENCODER_BATCH * nbytes, n_rbf)
+    every_ms, every_by = encoder_tc_bound(n * k, nbytes, n_rbf)
+    (fp32_ms, fp32_by), flops = encoder_bound(live_edges, n, k, n_rbf)
+    tc_flops, ep_flops = encoder_tc_ops(live_edges, n_rbf)
     say(f"phase 10: edge_encoder {ms:.4f} ms/call (B=1), {batch_ms:.4f} "
-        f"ms/call (B={ENCODER_BATCH}), plain {plain_ms:.4f} ms/call (B=1), "
-        f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.4f} GFLOP for "
-        f"{live_edges} live edges, e fp32 for {n * k} slots), kernel at "
-        f"{bound_ms / ms:.2%} of it; CUDA events, median of 20 [{card}]")
+        f"ms/call (B={ENCODER_BATCH}), plain {plain_ms:.4f} ms/call (B=1); "
+        f"CUDA events, median of 20; device time {dev_us:.2f} us a call "
+        f"(B=1) "
+        f"{json.dumps({key: round(v, 2) for key, v in dev_kernels.items()})}"
+        f", {batch_us:.2f} us (B={ENCODER_BATCH}) [{card}]")
+    say(f"phase 10: edge_encoder bound on the tensor-core basis {bound_ms:.4f}"
+        f" ms at B=1 ({bound_by}; {tc_flops / 1e9:.4f} GFLOP bf16 x 3 at "
+        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s and {ep_flops / 1e9:.4f} GFLOP "
+        f"fp32 at {FP32_FLOPS / 1e12:.0f} for {live_edges} live edges, e "
+        f"fp32 for {n * k} slots, {nbytes / 1e6:.2f} MB), device time at "
+        f"{bound_ms * 1e3 / dev_us:.2%} of it; {batch_bound:.4f} ms at "
+        f"B={ENCODER_BATCH} ({batch_by}; {live_batch} live edges), at "
+        f"{batch_bound * 1e3 / batch_us:.2%}; fp32 CUDA-core basis "
+        f"{fp32_ms:.4f} ms ({fp32_by}; {flops / 1e9:.4f} GFLOP); the "
+        f"products over every slot, which the kernel computes, "
+        f"{every_ms:.4f} ms ({every_by})")
     return {"max_abs_err": err_max, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "device_us": dev_us,
+            "fp32_bound_ms": fp32_ms, "every_slot_bound_ms": every_ms,
+            "b16": {"ms": batch_ms, "device_us": batch_us,
+                    "bound_ms": batch_bound, "bound_by": batch_by}}
 
 
 def deployment_phases(dev, card):
@@ -1092,9 +1179,103 @@ def large_frame(dev, n, seed):
     return pos, idx, mask, seeded_force_field(system, dev)
 
 
+def live_encoder_phase(ff, pos, idx, mask, card):
+    """Phase 15's check of live_edge_encoder on phase 14's frame: the
+    route's layout from the true-cutoff mask, two calls against the plain
+    version on the live rows and against each other, the banded forward
+    with e's buffer filled with NaN, and the times. Returns its fields of
+    the edge_encoder entry."""
+    system, cfg = ff.system, ff.model_cfg
+    n, k = idx.shape
+    mp = ff._kernel_params("banded")
+    length_mean, length_std = ff._length_scale()
+    perm, inv, idx_s = banded.sort_by_x(pos, idx)
+    pos_s, idx32 = pos[perm], idx_s.to(torch.int32)
+    _, _, live = banded.banded_geometry(pos_s, idx_s, mask[perm],
+                                        system.box, system.cutoff)
+    layout = edge_tiles.mask_layout(live)
+    kw = dict(rbf_gap=cfg.rbf_gap, flip_dir=cfg.flip_dir)
+
+    def encode(out=None):
+        return live_edge_encoder(pos_s, idx32, layout, mp, system.box,
+                                 length_mean, length_std, n_rbf=cfg.n_rbf,
+                                 out=out, **kw)
+
+    before = live_edge_encoder.launches
+    e1, e2 = encode(), encode()
+    torch.cuda.synchronize()
+    require(live_edge_encoder.launches == before + 2,
+            "live_edge_encoder did not launch")
+    ref = live_edge_encoder_reference(pos_s, idx32, layout, mp, system.box,
+                                      length_mean, length_std, **kw)
+    err = float((e1[live] - ref[live]).abs().max())
+    scale = float(ref[live].abs().max())
+    same = torch.equal(e1[live], e2[live])
+    n_live = int(live.sum())
+    say(f"phase 15: live_edge_encoder vs plain at N={n} K={k} on the "
+        f"route's layout ({n_live} live slots of {n * k}): max |de| "
+        f"{err:.3e}, max |e| {scale:.3e} (tolerance {ENCODER_RTOL} x max) "
+        f"on the live rows; two calls bit for bit {same}")
+    require(bool(torch.isfinite(e1[live]).all()), "non-finite live rows")
+    require(err <= ENCODER_RTOL * scale, "live_edge_encoder disagrees")
+    require(same, "live_edge_encoder differs from run to run")
+
+    # e's buffer filled with NaN: the dead rows are neither written nor read.
+    poisoned = torch.full((n, k, 128), float("nan"), device=pos.device)
+    band = ff.banded_force_fn().banded_band
+    f_s, ovf = banded.banded_forward(
+        pos_s, idx_s, mask[perm], ff._node_h0()[perm], mp, system.box,
+        system.cutoff, length_mean, length_std, band,
+        use_ln=cfg.use_layer_norm, mlp_act=cfg.mlp_activation,
+        e_out=poisoned, **kw)
+    f = f_s[inv]
+    ref_f = reference_forward(pos, idx, mask, ff._node_h0(), mp, system.box,
+                              system.cutoff, length_mean, length_std,
+                              rbf_gap=cfg.rbf_gap)
+    f_err, f_scale = float((f - ref_f).abs().max()), float(ref_f.std())
+    dead_nan = bool(torch.isnan(poisoned[~live]).all())
+    say(f"phase 15: banded_forward with e's buffer filled with NaN: forces "
+        f"finite {bool(torch.isfinite(f).all())}, max |dF| vs "
+        f"reference_forward {f_err:.3e}, std(F) {f_scale:.3e}, ratio "
+        f"{f_err / f_scale:.3e} (tolerance {TOLERANCE}); the dead rows still"
+        f" NaN {dead_nan}, no overflow {not bool(ovf)}")
+    require(bool(torch.isfinite(f).all()) and not bool(ovf),
+            "a dead row of e reached the forces")
+    require(f_err <= TOLERANCE * f_scale, "the poisoned forces disagree")
+    require(dead_nan, "live_edge_encoder wrote a dead row")
+    del poisoned, f_s, f, ref_f
+
+    with torch.no_grad():
+        ms = time_ms(encode)
+        plain_ms = time_ms(lambda: live_edge_encoder_reference(
+            pos_s, idx32, layout, mp, system.box, length_mean, length_std,
+            **kw))
+        dev_us, dev_kernels = device_us(encode)
+    nbytes = live_encoder_bytes(n, n_live, cfg.n_rbf)
+    bound_ms, bound_by = encoder_tc_bound(n_live, nbytes, cfg.n_rbf)
+    fp32_ms = roofline(2.0 * n_live * ((4 + cfg.n_rbf) * 128
+                                       + 2 * 128 * 128), nbytes)[0]
+    tc_flops, ep_flops = encoder_tc_ops(n_live, cfg.n_rbf)
+    say(f"phase 15: live_edge_encoder {ms:.4f} ms/call, {dev_us:.2f} us of "
+        f"device time a call "
+        f"{json.dumps({key: round(v, 2) for key, v in dev_kernels.items()})}"
+        f", plain {plain_ms:.4f} ms/call; bound {bound_ms:.4f} ms "
+        f"({bound_by}; {tc_flops / 1e9:.4f} GFLOP bf16 x 3 at "
+        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s and {ep_flops / 1e9:.4f} GFLOP "
+        f"fp32 at {FP32_FLOPS / 1e12:.0f}, e's {n_live} live rows "
+        f"{nbytes / 1e6:.1f} MB), device time at "
+        f"{bound_ms * 1e3 / dev_us:.2%} of it; fp32 CUDA-core basis "
+        f"{fp32_ms:.4f} ms; CUDA events, median of 20 [{card}]")
+    return {"live_slots": {"n": n, "k": k, "live": n_live, "max_abs_err":
+                           err, "ms": ms, "plain_ms": plain_ms,
+                           "device_us": dev_us, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "fp32_bound_ms": fp32_ms}}
+
+
 def large_n_phases(dev, card):
     """Phases 14-17 (module docstring). Returns (the banded_msg entry of
-    the kernels line, its launches by path)."""
+    the kernels line, live_edge_encoder's launches by path, its check's
+    fields)."""
     call = banded.banded_conv_message
     n = LARGE_N[-1]
 
@@ -1169,13 +1350,17 @@ def large_n_phases(dev, card):
             "a band overflow did not poison the forces")
     del args, timed, f_narrow
 
-    # -- phase 15: the banded force path against the plain forward ---------
+    # -- phase 15: the encoder over live slots, the banded force path ------
+    live_entry = live_encoder_phase(ff, pos, idx, mask, card)
     fn = ff.banded_force_fn()
     system, cfg = ff.system, ff.model_cfg
-    before = call.launches
+    before = (call.launches, live_edge_encoder.launches,
+              edge_tiles.mask_layout.launches)
     f = fn(pos, idx, mask)
     torch.cuda.synchronize()
-    per_call = call.launches - before
+    per_call = (call.launches - before[0],
+                live_edge_encoder.launches - before[1],
+                edge_tiles.mask_layout.launches - before[2])
     ref = reference_forward(pos, idx, mask, ff._node_h0(),
                             ff._kernel_params("banded"), system.box,
                             system.cutoff, *ff._length_scale(),
@@ -1184,20 +1369,24 @@ def large_n_phases(dev, card):
     say(f"phase 15: banded_force_fn (band {fn.banded_band}) vs "
         f"reference_forward on the card, N={n}, seeded GAMD-small: max |dF| "
         f"{err:.3e}, std(F) {scale:.3e}, ratio {err / scale:.3e} "
-        f"(tolerance {TOLERANCE}); {per_call} banded_msg launches per call")
+        f"(tolerance {TOLERANCE}); launches per call: banded_msg "
+        f"{per_call[0]}, live_edge_encoder {per_call[1]}, mask_layout "
+        f"{per_call[2]}")
     require(bool(torch.isfinite(f).all()), "non-finite banded forces")
-    require(per_call == cfg.conv_layers, f"{per_call} launches per call")
+    require(per_call == (cfg.conv_layers, 1, 1),
+            f"{per_call} launches per call")
     require(err <= TOLERANCE * scale, "the banded forces disagree")
     del f, ref
 
     # -- phase 16: the large-N MD path -------------------------------------
-    launches = {}
+    launches, enc_launches = {}, {}
     for size in LARGE_N:
         system, pos = lj_large(size, LARGE_K, dev)
         bfn = seeded_force_field(system, dev).banded_force_fn()
         sim = Simulation(bfn, system, LARGE_MD, nbr_method="cell",
                          device=dev)
         call.launches = edge_tiles.mask_layout.launches = 0
+        live_edge_encoder.launches = 0
         mega_forward.launches = mega_md_steps.launches = 0
         st = sim.init_state(pos, rng=torch.Generator(dev).manual_seed(16))
         warm = sim.run(st, WARMUP_STEPS)
@@ -1208,6 +1397,7 @@ def large_n_phases(dev, card):
         seconds = time.perf_counter() - t0
         calls = 1 + WARMUP_STEPS + LARGE_STEPS
         launches[f"large_n_md_{size}"] = call.launches
+        enc_launches[f"large_n_md_{size}"] = live_edge_encoder.launches
         temps = res.thermo.temperature
         mean_t = float(temps.mean())
         sps = LARGE_STEPS / seconds
@@ -1215,8 +1405,9 @@ def large_n_phases(dev, card):
             f"list K={LARGE_K}, rebuild every {LARGE_MD.rebuild_every}): "
             f"{LARGE_STEPS} Langevin steps in {seconds:.4f} s = {sps:.2f} "
             f"steps/s, {sps * size:.0f} atom-steps/s; mean T {mean_t:.2f} K "
-            f"(band 100 +- {T_BAND} K); banded_msg launches {call.launches} "
-            f"for {calls} force calls [{card}]")
+            f"(band 100 +- {T_BAND} K); banded_msg launches {call.launches}, "
+            f"live_edge_encoder {live_edge_encoder.launches} for {calls} "
+            f"force calls [{card}]")
         require(not warm.overflow and not res.overflow,
                 f"neighbour overflow (large-N MD, N={size})")
         require(bool(torch.isfinite(res.state.pos).all())
@@ -1224,8 +1415,10 @@ def large_n_phases(dev, card):
                 f"non-finite large-N MD state (N={size})")
         require(call.launches == cfg.conv_layers * calls
                 and edge_tiles.mask_layout.launches == calls
+                and live_edge_encoder.launches == calls
                 and mega_forward.launches == mega_md_steps.launches == 0,
-                f"launches {call.launches} for {calls} force calls")
+                f"launches {call.launches}, {live_edge_encoder.launches} for "
+                f"{calls} force calls")
         require(abs(mean_t - LARGE_MD.temperature) <= T_BAND,
                 f"mean temperature {mean_t} K outside 100 +- {T_BAND} K")
         kernels, _ = exclusive_times(traced_spans(
@@ -1233,11 +1426,17 @@ def large_n_phases(dev, card):
         step_us = sum(v["us"] for v in kernels.values()) / SHARE_STEPS
         msg_us = sum(v["us"] for key, v in kernels.items()
                      if key in BANDED_KERNELS) / SHARE_STEPS
+        enc_us = sum(v["us"] for key, v in kernels.items()
+                     if key in ENCODER_KERNELS) / SHARE_STEPS
         say(f"phase 16: N={size}: {step_us:.1f} us of device time a step, "
             f"the banded message (layout, splits, tiles, fix-ups) "
-            f"{msg_us:.1f} us = {msg_us / step_us:.2%} of it (torch.profiler,"
-            f" {SHARE_STEPS} steps, exclusive times) [{card}]")
+            f"{msg_us:.1f} us = {msg_us / step_us:.2%} of it, the encoder "
+            f"over live slots (split, tiles) {enc_us:.1f} us = "
+            f"{enc_us / step_us:.2%}, one launch a force call "
+            f"(torch.profiler, {SHARE_STEPS} steps, exclusive times) "
+            f"[{card}]")
         require(msg_us > 0, "the profiler saw no banded message kernel")
+        require(enc_us > 0, "the profiler saw no encoder kernel")
         del sim, st, warm, res
 
     # -- phase 17: the entry points ----------------------------------------
@@ -1246,13 +1445,14 @@ def large_n_phases(dev, card):
     with tempfile.TemporaryDirectory() as tmp:
         log = os.path.join(tmp, "run_md_banded.txt")
         out = os.path.join(tmp, "run_md_banded.npy")
-        call.launches = 0
+        call.launches = live_edge_encoder.launches = 0
         t0 = time.perf_counter()
         run_md.main(["--ckpt", CKPT, "--banded", "--steps",
                      str(RUN_MD_BANDED_STEPS), "--log", log, "--out_traj",
                      out])
         seconds = time.perf_counter() - t0
         launches["run_md_banded"] = call.launches
+        enc_launches["run_md_banded"] = live_edge_encoder.launches
         lines = open(log).read().splitlines()
         final = np.load(out)
     temps = [float(line.split("\t")[3]) for line in lines[1:]]
@@ -1263,7 +1463,9 @@ def large_n_phases(dev, card):
             and final.shape == (system.n_atoms, 3)
             and np.isfinite(final).all(), "run_md --banded output")
     require(call.launches == model_cfg.conv_layers
-            * (RUN_MD_BANDED_STEPS + 1), f"launches {call.launches} "
+            * (RUN_MD_BANDED_STEPS + 1)
+            and live_edge_encoder.launches == RUN_MD_BANDED_STEPS + 1,
+            f"launches {call.launches}, {live_edge_encoder.launches} "
             "(run_md --banded)")
     ff = GNNForceField(state, system, model_cfg, device=dev)
     pos = space.wrap(torch.as_tensor(final, device=dev), system.box)
@@ -1276,23 +1478,28 @@ def large_n_phases(dev, card):
     say(f"phase 17: run_md --ckpt {CKPT} --banded --steps "
         f"{RUN_MD_BANDED_STEPS}: {seconds:.1f} s with the FIRE start; "
         f"{len(lines) - 1} thermo rows, mean T {np.mean(temps):.2f} K; "
-        f"banded_msg launches {launches['run_md_banded']}; at its last "
+        f"banded_msg launches {launches['run_md_banded']}, "
+        f"live_edge_encoder {enc_launches['run_md_banded']}; at its last "
         f"frame banded vs "
         f"eager force_fn (use_pallas_encoder) max |dF| {err:.3e}, std(F) "
         f"{scale:.3e}, ratio {err / scale:.3e} (tolerance {TOLERANCE})")
     require(err <= TOLERANCE * scale,
             "run_md --banded's forces disagree with the eager force field")
 
-    call.launches = 0
+    call.launches = live_edge_encoder.launches = 0
     t0 = time.perf_counter()
     rows = bench_large.main(BENCH_LARGE_ARGV)
     seconds = time.perf_counter() - t0
     launches["bench_large"] = call.launches
+    enc_launches["bench_large"] = live_edge_encoder.launches
     say(f"phase 17: bench_large {' '.join(BENCH_LARGE_ARGV)}: {len(rows)} "
-        f"rows in {seconds:.1f} s, banded_msg launches {call.launches} "
-        f"[{card}]")
+        f"rows in {seconds:.1f} s, banded_msg launches {call.launches}, "
+        f"live_edge_encoder {live_edge_encoder.launches} [{card}]")
     require(len(rows) == 4 and not any("error" in row for row in rows),
             f"bench_large rows {rows}")
+    require(live_edge_encoder.launches > 0 and call.launches
+            == model_cfg.conv_layers * live_edge_encoder.launches,
+            "bench_large's banded rows did not encode once a force call")
 
     return {"name": "banded_msg", "route": "cuda",
             "source": "gamd_tpu_torch/csrc/banded_msg.cu",
@@ -1301,7 +1508,8 @@ def large_n_phases(dev, card):
             "launches_by_path": launches,
             "max_abs_err": err_max, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "device_us": dev_us,
-            "fp32_bound_ms": fp32_ms, "library_ms": None}
+            "fp32_bound_ms": fp32_ms, "library_ms": None}, \
+        enc_launches, live_entry
 
 
 def nhc_case(dev, n, r, m=10, seed=18):
@@ -1428,6 +1636,7 @@ def nhc_kernel_phases(dev, card):
     t0 = time.perf_counter()
     results = probe_nhc_kernel.main(["--reps", "400"])
     seconds = time.perf_counter() - t0
+    chain = results.pop("chain_bound")
     probe_launches = dict(nhc.nhc_chain_probe.launches)
     say(f"phase 19: tools.probe_nhc_kernel --reps 400 in process "
         f"({seconds:.1f} s): " + "; ".join(
@@ -1439,6 +1648,25 @@ def nhc_kernel_phases(dev, card):
     require(all(res["parity_err"] <= probe_nhc_kernel.PARITY_ATOL
                 for res in results.values()),
             "a probe form disagrees with the plain chain")
+    chain_ms = chain["us_per_half_step"] / 1e3
+    say(f"phase 19: the chain's dependent sequence on one thread: "
+        + ", ".join(f"{op} {v:.2f} ns" for op, v in chain["ns"].items())
+        + f" a step; {probe_nhc_kernel.N_C * probe_nhc_kernel.N_YS} x "
+        f"{probe_nhc_kernel.M - 1} x (backward + forward) = "
+        f"{chain['us_per_half_step']:.3f} us a half-step (a lower bound, "
+        f"beside the roofline's); the probe's scalar form "
+        f"{results['scalar']['us_per_half_step']:.3f} us a half-step, the "
+        f"bound at "
+        f"{chain_ms * 1e3 / results['scalar']['us_per_half_step']:.2%} of "
+        f"it [{card}]")
+    say(f"phase 19: chain_latency_kernel against its plain version over "
+        f"{probe_nhc_kernel.CHECK_REPS} steps of each op: max |d| "
+        f"{chain['max_abs_err']:.3e} (tolerance "
+        f"{probe_nhc_kernel.CHECK_ATOL})")
+    require(chain["max_abs_err"] <= probe_nhc_kernel.CHECK_ATOL,
+            "the chain latency kernel disagrees with its plain version")
+    require(chain["us_per_half_step"] > 0, "the chain's latency is not "
+            "positive")
     inputs = probe_nhc_kernel.probe_inputs(dev)
     keys = ("xi", "vxi", "g", "ke2", "q", "kt", "ndf", "wdts")
     args = [inputs[k] for k in keys]
@@ -1470,6 +1698,7 @@ def nhc_kernel_phases(dev, card):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": probe_bound[0], "bound_by": probe_bound[1],
             "library_ms": None, "reps": reps,
+            "chain_bound_ms": reps * chain_ms,
             "us_per_half_step_reps_400": res["us_per_half_step"],
             "parity_vs_probe_reference": res["parity_err"]})
     md_shape = shapes["N=258"]
@@ -1477,7 +1706,8 @@ def nhc_kernel_phases(dev, card):
                  "source": "gamd_tpu_torch/csrc/nhc_chain.cu",
                  "replaces": "scripts/probe_nhc_kernel.py:77",
                  "launches_by_path": {}, "max_abs_err": err_max,
-                 **md_shape, "library_ms": None, "shapes": shapes}
+                 **md_shape, "library_ms": None, "shapes": shapes,
+                 "chain_bound_ms": chain_ms, "chain_ns_per_step": chain["ns"]}
     return [half_step, *probes]
 
 
@@ -2302,6 +2532,20 @@ def form_bound(form, x, iters):
     return roofline(iters * values, tensor_bytes(*inputs) + 8 * 128 * 4)
 
 
+#: Bytes an SM's shared memory delivers a clock (32 banks of 4 bytes).
+SMEM_BYTES_PER_CLOCK = 128
+
+
+def smem_bound(iters, dev):
+    """(least ms of one call of a lane form, GB/s): the 256 x 13,056
+    four-byte values an iteration read once from shared memory, at the
+    card's SMs x 128 bytes a clock x its largest SM clock (nvidia-smi)."""
+    values = probe_gather.N_BLOCKS * probe_gather.EB * probe_gather.LANES
+    rate = (torch.cuda.get_device_properties(dev).multi_processor_count
+            * SMEM_BYTES_PER_CLOCK * max_sm_clock_hz())
+    return iters * 4 * values / rate * 1e3, rate / 1e9
+
+
 def plain_call(x, form, iters, product=False):
     """The plain version of a lane, sublane or transpose form on x."""
     if form in probe_gather.LANE_FORMS:
@@ -2362,13 +2606,18 @@ def gather_form_phase(dev, card, lines, launches):
         plain_ms = time_ms(lambda: plain_call(x, form, iters), reps=1,
                            warmup=1)
         bound_ms, bound_by = form_bound(form, x, iters)
+        lane = form in probe_gather.LANE_FORMS
+        smem_ms, smem_rate = smem_bound(iters, dev) if lane else (None, 0)
+        smem = (f"; the gathered values from shared memory {smem_ms:.4f} "
+                f"ms ({smem_rate:.0f} GB/s), kernel at "
+                f"{smem_ms / line['ms']:.2%} of it") if lane else ""
         say(f"phase 34: {form} {line['ms']:.4f} ms/call at iters {iters} "
             f"({line['per_edge_stream_us']:.4f} us/iter, collapse ratio "
             f"{line['calib_ratio']:.3f}), plain {plain_ms:.4f} ms/call "
             f"(one call), library {line['library']} "
             f"{line['library_ms']:.4f} ms for the same work, bound "
             f"{bound_ms:.4f} ms ({bound_by}), kernel at "
-            f"{bound_ms / line['ms']:.2%} of it [{card}]")
+            f"{bound_ms / line['ms']:.2%} of it{smem} [{card}]")
         kernels.append({
             "name": ("lane_gather:" + str(probe_gather.LANE_FORMS[form])
                      if form in probe_gather.LANE_FORMS
@@ -2382,7 +2631,8 @@ def gather_form_phase(dev, card, lines, launches):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": line["library_ms"], "library": line["library"],
             "iters": iters, "us_per_iter": line["per_edge_stream_us"],
-            "calib_ratio": line["calib_ratio"]})
+            "calib_ratio": line["calib_ratio"],
+            **({"smem_bound_ms": smem_ms} if lane else {})})
     return kernels
 
 
@@ -2964,7 +3214,9 @@ def main():
 
     conv_kernels = training_phases(dev, card)
     encoder_kernel, deploy_launches, traj = deployment_phases(dev, card)
-    banded_kernel = large_n_phases(dev, card)
+    banded_kernel, live_launches, live_entry = large_n_phases(dev, card)
+    encoder_kernel["launches_by_path"].update(live_launches)
+    encoder_kernel.update(live_entry)
     nhc_kernels = nhc_kernel_phases(dev, card)
     integrator_launches = integrator_phases(dev, card, traj, per_step_sps)
     op_kernels = op_library_phases(dev, card)

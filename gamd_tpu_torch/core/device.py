@@ -29,3 +29,14 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
+
+
+def max_sm_clock_hz() -> float:
+    """The card's largest SM clock in Hz, as `nvidia-smi
+    --query-gpu=clocks.max.sm --format=csv,noheader,nounits` gives it in
+    MHz (of the first card); raises if nvidia-smi fails."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return float(out.split()[0]) * 1e6

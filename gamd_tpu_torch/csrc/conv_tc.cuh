@@ -86,8 +86,10 @@ namespace {
 
 using tc::launch_pdl;
 using tc::ld2;
+using tc::plan_ok;
 using tc::silu_fast;
 using tc::sm_count;
+using tc::TilePlan;
 
 constexpr int CW = tc::WIDTH;             // every width of the message
 constexpr int COUNT_ATOMS = 8;            // atoms a count block, a warp each
@@ -97,13 +99,6 @@ constexpr int N_WEIGHTS = 4;              // W1, W2, W3, W4
 // The edge stage's weights, [in][out] row-major fp32, and biases.
 struct EdgeWeights {
   const float *w[N_WEIGHTS], *b[N_WEIGHTS];
-};
-
-// A launch of conv_tile_kernel (ops/edge_tiles.py::launch_plan): `grid`
-// persistent blocks of `threads` threads with `smem` bytes of dynamic
-// shared memory and `nbuf` weight buffers.
-struct TilePlan {
-  int grid, threads, smem, nbuf;
 };
 
 // Source rows by node id: hn, src [M, 128] and idx [M*K] (global ids).
@@ -453,23 +448,6 @@ tile_fixup_kernel(SlotLayout lay, const float* __restrict__ part, int m,
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
-
-// Tiles the layout of M atoms of K slots may need: ceil(M*K / 64).
-inline long long tile_capacity(int m, int k) {
-  return ((long long)m * k + tc::TILE - 1) / tc::TILE;
-}
-
-// The plan's check (ops/edge_tiles.py::check_plan): 256 threads, one or
-// two weight buffers with their shared memory, and 1 to the least of the
-// tiles and the blocks the card holds at once (3 - nbuf an SM).
-bool plan_ok(const TilePlan& p, int m, int k) {
-  if (p.threads != tc::THREADS || (p.nbuf != 1 && p.nbuf != 2)
-      || p.smem != tc::smem_bytes(p.nbuf))
-    return false;
-  const long long most = (long long)(3 - p.nbuf) * sm_count();
-  const long long tiles = tile_capacity(m, k);
-  return p.grid >= 1 && p.grid <= (tiles < most ? tiles : most);
-}
 
 // Dynamic shared memory above 48 KB for Src's tile kernels, once per
 // process.

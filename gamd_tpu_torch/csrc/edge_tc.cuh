@@ -382,6 +382,30 @@ inline int sm_count() {
   return sms;
 }
 
+// A launch of a persistent tile kernel (conv_tc.cuh's, edge_encoder.cu's;
+// ops/edge_tiles.py::launch_plan): `grid` blocks of `threads` threads with
+// `smem` bytes of dynamic shared memory and `nbuf` weight buffers.
+struct TilePlan {
+  int grid, threads, smem, nbuf;
+};
+
+// Tiles of 64 rows that M atoms of K slots may need: ceil(M*K / 64).
+inline long long tile_capacity(int m, int k) {
+  return ((long long)m * k + TILE - 1) / TILE;
+}
+
+// The plan's check (ops/edge_tiles.py::check_plan): 256 threads, one or
+// two weight buffers with their shared memory, and 1 to the least of the
+// tiles and the blocks the card holds at once (3 - nbuf an SM).
+inline bool plan_ok(const TilePlan& p, int m, int k) {
+  if (p.threads != THREADS || (p.nbuf != 1 && p.nbuf != 2)
+      || p.smem != smem_bytes(p.nbuf))
+    return false;
+  const long long most = (long long)(3 - p.nbuf) * sm_count();
+  const long long tiles = tile_capacity(m, k);
+  return p.grid >= 1 && p.grid <= (tiles < most ? tiles : most);
+}
+
 // The TMA map over a split table of n_mats weights ([2 n_mats * 128][128]
 // bf16, each W^T hi then lo): boxes of 64 x 128 with the 128-byte swizzle
 // (the B layout above). Returns 0, or 100000 + the CUresult.

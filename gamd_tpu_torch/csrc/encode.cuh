@@ -1,36 +1,40 @@
 // The edge featurisation and encoder, positions to the edge embedding: the
-// device code of edge_encoder.cu (the standalone, batched entry of
-// gamd_tpu_torch.ops.encoder.fused_edge_encoder), and the gelu and
-// LayerNorm helpers that mega_forward.cu's tensor-core stages share.
+// tile body on the tensor cores that edge_encoder.cu's kernel (the entries
+// of gamd_tpu_torch.ops.encoder) and mega_forward.cu's encoder stage share,
+// and the gelu and LayerNorm helpers of the node stages.
 //
 // It computes the function of gamd_tpu/ops/pallas_encoder.py::
-// _encoder_kernel (line 46) for every slot, dead ones included: gather
-// pos[idx], min-image displacement in round form (rintf, half to even),
+// _encoder_kernel (line 46) for each row of a tile: gather pos[i] and
+// pos[j], min-image displacement in round form (rintf, half to even),
 // distance, unit vector 1/(dist + 1e-8) (negated under flip_dir),
-// standardised distance (dist - mean) / std, the live mask (build mask AND
-// d^2 < cutoff^2; cutoff^2 = inf passes the build mask through), the RBF
-// exp(-gamma (std - centre_j)^2) over the centres, Linear(4 + n_rbf -> W)
-// as rank-1 geometric terms plus the RBF product, tanh-gelu, Linear, tanh-
+// standardised distance (dist - mean) / std, the RBF exp(-gamma (std -
+// centre_c)^2) over the model's n_rbf centres, Linear(4 + n_rbf -> W) as
+// rank-1 geometric terms plus the RBF product, tanh-gelu, Linear, tanh-
 // gelu, Linear, and LayerNorm (eps 1e-6) with its affine.
 //
-// Precision: fp32 CUDA-core FMAs throughout, no TF32, e written in fp32.
-// The TPU kernel's bf16 operands and bf16 output, its one-hot hi/lo
-// gathers and its zero-padding of the RBF rows to 128 are TPU choices, not
-// part of the function. The RBF product runs over `n_rbf` weight rows:
-// edge_encoder.cu passes the model's own w0 rows and n_rbf = 40.
+// Precision: the three products (RBF, w1, w2) on the tensor cores as bf16
+// x 3 with fp32 accumulation (edge_tc.cuh: JAX's edge_hilo arithmetic,
+// about 2^-16 relative), the geometry, gelu and the LayerNorm in fp32
+// epilogues, e written in fp32. The forward's stage takes tanhf and expf;
+// edge_encoder.cu the fast exponential and division (FAST). The TPU kernel's single-pass bf16 operands
+// and bf16 output, its one-hot hi/lo gathers and its zero-padding of the
+// RBF rows to 128 are TPU choices, not part of the function: the RBF
+// product runs over ceil(n_rbf / 16) k-steps of 16.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "edge_tc.cuh"
 #include "tile.cuh"
 
 // One device pointer per field of gamd_tpu_torch.ops.encoder.EncoderParams,
 // in the same order (the first ten fields of MegaWeights, mega.cuh).
 // w_geo rows 0-3 weight the unit vector and the standardised distance;
-// w_rbf holds n_rbf rows, one per centre; b0..b2 [W], w1/w2 [W][W],
-// eln_s/eln_b the LayerNorm affine [W]; centers [n_rbf].
+// w_rbf holds at least n_rbf rows, one per centre; b0..b2 [W], w1/w2
+// [W][W], eln_s/eln_b the LayerNorm affine [W]; centers [>= n_rbf].
 struct EncoderWeights {
   const float *centers, *w_geo, *w_rbf, *b0, *w1, *b1, *w2, *b2, *eln_s,
       *eln_b;
@@ -43,6 +47,15 @@ constexpr float LN_EPS = 1e-6f;
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float c = 0.7978845608028654f;   // sqrt(2/pi)
   return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
+}
+
+// The same tanh-gelu as x sigmoid(2u), u = sqrt(2/pi) (x + 0.044715 x^3),
+// with the fast exponential and division: 0.5 x (1 + tanh u) = x / (1 +
+// exp(-2u)), within about 2^-20 of it (the products' bf16 x 3 error is
+// 2^-16).
+__device__ __forceinline__ float gelu_fast(float x) {
+  const float c2 = 1.5957691216057308f;   // 2 sqrt(2/pi)
+  return __fdividef(x, 1.0f + __expf(-c2 * (x + 0.044715f * x * x * x)));
 }
 
 // Per-row LayerNorm over the W channels (no affine): two-pass mean and
@@ -62,112 +75,150 @@ __device__ __forceinline__ void layer_norm(float (&x)[M], float* red) {
   for (int m = 0; m < M; ++m) x[m] *= rsqrtf(s[m] * (1.0f / W) + LN_EPS);
 }
 
-// Encoder. grid (ceil(K/KC), N, B), block W: one chunk of KC slots of atom
-// i of frame blockIdx.z. idx holds per-frame indices in [0, N). Writes e
-// [B*N*K, W] and live [B*N*K] (1 / 0 as LiveT: uint8_t for a torch.bool
-// tensor).
-template <typename LiveT>
-__global__ void __launch_bounds__(W)
-encode_kernel(const float* __restrict__ pos, const int* __restrict__ idx,
-              const uint8_t* __restrict__ bmask, EncoderWeights p, int n_rbf,
-              int n, int k, int flip_dir, float box, float cutoff2,
-              float length_mean, float length_std, float gamma,
-              float* __restrict__ e_out, LiveT* __restrict__ live_out) {
-  __shared__ __align__(16) float buf[W * KC];
-  __shared__ float geo[4][KC];            // ux, uy, uz, standardised dist
-  __shared__ float red[NWARP * KC];
-  const int i = blockIdx.y, k0 = blockIdx.x * KC, c = threadIdx.x;
-  const size_t frame = blockIdx.z;
-  pos += frame * n * 3;
-  idx += frame * n * k;
-  bmask += frame * n * k;
-  e_out += frame * n * k * W;
-  live_out += frame * n * k;
+// What an encoder tile reads besides its rows and the split weights (w_rbf,
+// w1, w2 go through the TMA map): the centres, the geometric rows of w0,
+// the biases and the LayerNorm affine, and the scalars.
+struct EncTileArgs {
+  const float *centers, *w_geo, *b0, *b1, *b2, *eln_s, *eln_b;
+  int n_rbf, flip_dir;
+  float box, length_mean, length_std, gamma;
+};
 
-  if (c < KC) {
-    const int kk = k0 + c;
-    float ux = 0.f, uy = 0.f, uz = 0.f, sd = 0.f;
-    if (kk < k) {
-      const int j = idx[i * k + kk];
-      float rx = pos[3 * j + 0] - pos[3 * i + 0];
-      float ry = pos[3 * j + 1] - pos[3 * i + 1];
-      float rz = pos[3 * j + 2] - pos[3 * i + 2];
-      rx -= box * rintf(rx / box);
-      ry -= box * rintf(ry / box);
-      rz -= box * rintf(rz / box);
-      const float d2 = rx * rx + ry * ry + rz * rz;
-      const float dist = sqrtf(d2);
-      const float inv = (flip_dir ? -1.0f : 1.0f) / (dist + 1e-8f);
-      ux = rx * inv;
-      uy = ry * inv;
-      uz = rz * inv;
-      sd = (dist - length_mean) / length_std;
-      live_out[i * k + kk] =
-          static_cast<LiveT>((bmask[i * k + kk] && d2 < cutoff2) ? 1 : 0);
+// The geometry of the edge from atom i (position pi) to atom j (pj): g =
+// unit vector and standardised distance. Returns d^2.
+__device__ __forceinline__ float edge_geometry(const float* __restrict__ pi,
+                                               const float* __restrict__ pj,
+                                               const EncTileArgs& a,
+                                               float (&g)[4]) {
+  float rx = pj[0] - pi[0], ry = pj[1] - pi[1], rz = pj[2] - pi[2];
+  rx -= a.box * rintf(rx / a.box);
+  ry -= a.box * rintf(ry / a.box);
+  rz -= a.box * rintf(rz / a.box);
+  const float d2 = rx * rx + ry * ry + rz * rz;
+  const float dist = sqrtf(d2);
+  const float inv = (a.flip_dir ? -1.0f : 1.0f) / (dist + 1e-8f);
+  g[0] = rx * inv;
+  g[1] = ry * inv;
+  g[2] = rz * inv;
+  g[3] = (dist - a.length_mean) / a.length_std;
+  return d2;
+}
+
+// The encoder of one tile of 64 rows, by the block's two warpgroups: the
+// calling thread holds rows f.r0 and f.r0 + 8 (geometry geo[s], written to
+// e at row[s] * W where live[s]). Products p, p + 1, p + 2 of the ring are
+// the split w_rbf, w1, w2; each is released after it (the last one's
+// release lets a persistent block's next tile write the activations and
+// load its weights). red is the LayerNorm's exchange between the
+// warpgroups. FAST takes gelu_fast and the fast exponential for the RBF;
+// RBF_STEPS > 0 runs the RBF product over that many k-steps of 16 (its
+// zero columns past n_rbf add nothing), 0 over ceil(n_rbf / 16) known at
+// run time.
+template <int NBUF, bool FAST = false, int RBF_STEPS = 0>
+__device__ __forceinline__ void encode_tile(
+    const tc::WeightRing<NBUF>& sm, const CUtensorMap* wmap, int p,
+    const tc::Frag& f, const EncTileArgs& a, const float (&geo)[2][4],
+    const bool (&live)[2], const size_t (&row)[2],
+    float (&red)[2][2][tc::TILE], float* __restrict__ e) {
+  // RBF operand: column c < n_rbf holds exp(-gamma (std - centre_c)^2).
+#pragma unroll
+  for (int q = 0; q < tc::PAIRS; ++q) {
+    float v[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = f.col(q) + u;
+      const float d = geo[q & 1][3] - (c < a.n_rbf ? a.centers[c] : 0.f);
+      v[u] = c < a.n_rbf ? (FAST ? __expf(-a.gamma * d * d)
+                                 : expf(-a.gamma * d * d))
+                         : 0.f;
     }
-    geo[0][c] = ux;
-    geo[1][c] = uy;
-    geo[2][c] = uz;
-    geo[3][c] = sd;
+    tc::store_pair(sm.a, f, q, v[0], v[1]);
   }
-  __syncthreads();
+  tc::activations_ready();
 
-  // RBF tile: row c < n_rbf holds exp(-gamma (std_m - centre_c)^2) for
-  // every edge m.
-  if (c < n_rbf) {
-    const float cc = p.centers[c];
-    float r[KC];
+  float acc[2 * tc::PAIRS];
+  sm.product(acc, p, f.wg,
+             RBF_STEPS > 0 ? RBF_STEPS : (a.n_rbf + 15) / 16);
+  sm.release(wmap, p);
 #pragma unroll
-    for (int m = 0; m < KC; ++m) {
-      const float d = geo[3][m] - cc;
-      r[m] = expf(-gamma * d * d);
+  for (int q = 0; q < tc::PAIRS; ++q) {
+    const int c = f.col(q), s = q & 1;
+    float v[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float z = acc[2 * q + u] + geo[s][0] * a.w_geo[c + u] +
+                      geo[s][1] * a.w_geo[W + c + u] +
+                      geo[s][2] * a.w_geo[2 * W + c + u] +
+                      geo[s][3] * a.w_geo[3 * W + c + u] + a.b0[c + u];
+      v[u] = FAST ? gelu_fast(z) : gelu_tanh(z);
     }
-    store_tile<KC>(buf, r);
+    tc::store_pair(sm.a, f, q, v[0], v[1]);
   }
-  __syncthreads();
+  tc::activations_ready();
+  sm.product(acc, p + 1, f.wg);
+  sm.release(wmap, p + 1);
+#pragma unroll
+  for (int q = 0; q < tc::PAIRS; ++q) {
+    const float2 b = tc::ld2(a.b1 + f.col(q));
+    const float z0 = acc[2 * q] + b.x, z1 = acc[2 * q + 1] + b.y;
+    tc::store_pair(sm.a, f, q, FAST ? gelu_fast(z0) : gelu_tanh(z0),
+                   FAST ? gelu_fast(z1) : gelu_tanh(z1));
+  }
+  tc::activations_ready();
+  sm.product(acc, p + 2, f.wg);
+  sm.release(wmap, p + 2);
 
-  // acc[m] = sum over the n_rbf rows j of rbf[j][m] * w_rbf[j][c], j in
-  // increasing order.
-  float acc[KC];
+  // + b2, then LayerNorm of each row over its 128 values: the quad's four
+  // threads of each warpgroup, then the two warpgroups, in a fixed order.
+  float stat[2] = {0.f, 0.f};
 #pragma unroll
-  for (int m = 0; m < KC; ++m) acc[m] = 0.f;
-#pragma unroll 4
-  for (int j = 0; j < n_rbf; ++j) {
-    const float wj = __ldg(p.w_rbf + j * W + c);
-    const float4* row = reinterpret_cast<const float4*>(buf + j * KC);
-#pragma unroll
-    for (int q = 0; q < KC / 4; ++q) {
-      const float4 v = row[q];
-      acc[4 * q + 0] = fmaf(v.x, wj, acc[4 * q + 0]);
-      acc[4 * q + 1] = fmaf(v.y, wj, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(v.z, wj, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(v.w, wj, acc[4 * q + 3]);
-    }
+  for (int q = 0; q < tc::PAIRS; ++q) {
+    const float2 b = tc::ld2(a.b2 + f.col(q));
+    acc[2 * q] += b.x;
+    acc[2 * q + 1] += b.y;
+    stat[q & 1] += acc[2 * q] + acc[2 * q + 1];
   }
-  {
-    const float g0 = p.w_geo[c], g1 = p.w_geo[W + c], g2 = p.w_geo[2 * W + c];
-    const float g3 = p.w_geo[3 * W + c], bb = p.b0[c];
+  float mean[2], rstd[2];
 #pragma unroll
-    for (int m = 0; m < KC; ++m)
-      acc[m] = gelu_tanh(acc[m] + geo[0][m] * g0 + geo[1][m] * g1 +
-                         geo[2][m] * g2 + geo[3][m] * g3 + bb);
+  for (int s = 0; s < 2; ++s) {
+    stat[s] += __shfl_xor_sync(0xffffffffu, stat[s], 1);
+    stat[s] += __shfl_xor_sync(0xffffffffu, stat[s], 2);
+    if (f.q == 0) red[0][f.wg][f.r0 + 8 * s] = stat[s];
   }
   __syncthreads();
-  store_tile<KC>(buf, acc);
-  __syncthreads();
-  matmul_tile<KC>(buf, p.w1, p.b1[c], acc);
 #pragma unroll
-  for (int m = 0; m < KC; ++m) acc[m] = gelu_tanh(acc[m]);
-  __syncthreads();
-  store_tile<KC>(buf, acc);
-  __syncthreads();
-  matmul_tile<KC>(buf, p.w2, p.b2[c], acc);
-  layer_norm<KC>(acc, red);
-
-  const float s = p.eln_s[c], b = p.eln_b[c];
+  for (int s = 0; s < 2; ++s) {
+    const int r = f.r0 + 8 * s;
+    mean[s] = (red[0][0][r] + red[0][1][r]) * (1.0f / W);
+    stat[s] = 0.f;
+  }
 #pragma unroll
-  for (int m = 0; m < KC; ++m)
-    if (k0 + m < k) e_out[(size_t)(i * k + k0 + m) * W + c] = acc[m] * s + b;
+  for (int q = 0; q < tc::PAIRS; ++q) {
+    acc[2 * q] -= mean[q & 1];
+    acc[2 * q + 1] -= mean[q & 1];
+    stat[q & 1] += acc[2 * q] * acc[2 * q] + acc[2 * q + 1] * acc[2 * q + 1];
+  }
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    stat[s] += __shfl_xor_sync(0xffffffffu, stat[s], 1);
+    stat[s] += __shfl_xor_sync(0xffffffffu, stat[s], 2);
+    if (f.q == 0) red[1][f.wg][f.r0 + 8 * s] = stat[s];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int r = f.r0 + 8 * s;
+    rstd[s] = rsqrtf((red[1][0][r] + red[1][1][r]) * (1.0f / W) + LN_EPS);
+  }
+#pragma unroll
+  for (int q = 0; q < tc::PAIRS; ++q) {
+    const int s = q & 1, c = f.col(q);
+    if (!live[s]) continue;
+    const float2 sc = tc::ld2(a.eln_s + c), sh = tc::ld2(a.eln_b + c);
+    *reinterpret_cast<float2*>(e + row[s] * W + c) =
+        make_float2(acc[2 * q] * rstd[s] * sc.x + sh.x,
+                    acc[2 * q + 1] * rstd[s] * sc.y + sh.y);
+  }
 }
 
 }  // namespace

@@ -11,8 +11,9 @@
 //     transposed table TT [256, n_pad], the whole edge stream an iteration;
 //     width 384 gathers across the whole row (LANE384), width 128 gathers
 //     from three 128-wide sub-tables with clip(idx - 128 s, 0, 127) and
-//     selects by idx // 128 (LANE128; the compiler may fold the three loads
-//     and two selects into one load, which is what the hardware would do);
+//     selects by idx // 128 (LANE128: the three indices and the two
+//     selects are made on the index, and the value is one load, since on
+//     Hopper the three sub-tables are one row of shared memory);
 //   * kernel_sublane (line 178): out[e, :] = T[idx[e] + dep, :] over the
 //     table T [n_pad, 256] (SUBLANE);
 //   * kernel_transpose (line 196): (TT + dep).T, `copies` times an
@@ -21,14 +22,24 @@
 // Design. The TPU's lane gather is a cross-lane shuffle inside a vreg; its
 // Hopper counterpart is a gather from shared memory: TT (393 KB in fp32)
 // exceeds a block's 227 KB, so a LANE block stages 32 of TT's 256 rows
-// (49 KB) and gathers its 256 edges (one a thread) from that slice, grid
-// (rows / 256, 8). The sublane gather is a row load: 64 threads read one
-// 1 KB table row as float4s, coalesced, from L2 (the table stays resident),
-// 4 rows at a time, 32 edges a block. The transpose goes through a shared
-// tile [32][33] (the pad column keeps the transposed reads free of bank
-// conflicts): a block holds 4 of the 96 tiles of TT in registers, and every
-// iteration adds the dependent zero, stores them, syncs and reads them
-// transposed, grid (24, copies).
+// (49 KB), index-major (a column's 32 values in 128 contiguous bytes), and
+// each thread reads its edge's column as eight float4s in an order rotated
+// by its lane, so that a quarter warp's eight 16-byte loads hit eight
+// different bank groups whatever the columns: no bank conflict, where a
+// row-major slice gave each warp's scalar loads random banks. The blocks
+// the card holds at once (4 an SM) split the stream evenly among the 8
+// slices, one wave. Measured on the H100 against this design and dropped
+// (PERF.md): a block of 256 edges a slice (408 blocks, 3 or 4 an SM: 14-
+// 17% slower), the row-major slice (3.7 and 5.6 times slower at widths
+// 384 and 128), and the TPU's own form, a cross-lane shuffle of a table
+// row held in a warp's registers, which costs twelve shuffles a value at
+// a 384-wide row (13 times slower). The sublane gather is a row load: 64
+// threads read one 1 KB table row as float4s, coalesced, from L2 (the
+// table stays resident), 4 rows at a time, 32 edges a block. The
+// transpose goes through a shared tile [32][33] (the pad column keeps the
+// transposed reads free of bank conflicts): a block holds 4 of the 96
+// tiles of TT in registers, and every iteration adds the dependent zero,
+// stores them, syncs and reads them transposed, grid (24, copies).
 //
 // Blocks run in parallel, so there is no global carry: every thread keeps
 // its own running sum and takes the dependent zero from it (the keep-alive
@@ -44,9 +55,11 @@
 // What bounds it on this card: the additions, 256 x 13,056 = 3,342,336 an
 // iteration at 67 TFLOP/s fp32 (0.0499 us); the inputs (the 393 KB table,
 // the 52 KB of indices) read once take 0.13 us at 3.35 TB/s, once a call.
-// What limits these simple forms is the shared-memory and L2 traffic of
-// the gathered values, 13.4 MB an iteration, which the bound does not
-// count: every value is read from a table that the TPU holds in vregs.
+// What sets the lane and sublane forms' pace is the traffic of the
+// gathered values, 13.4 MB an iteration, from shared memory (lane: 128
+// bytes a clock an SM, about 0.40 us an iteration at 132 SMs and 1.98 GHz)
+// or L2 (sublane): every value is read from a table that the TPU holds in
+// vregs.
 //
 // g_out, when given, receives the last iteration's result: [256, rows]
 // (lane), [rows, 256] (sublane) or [n_pad, 256] (transpose), so that a
@@ -60,6 +73,11 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <map>
+
+#include "edge_tc.cuh"
 
 namespace {
 
@@ -107,49 +125,89 @@ __device__ __forceinline__ int clamp_index(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-// grid (rows / LANE_THREADS, LANES / LANE_ROWS), block LANE_THREADS,
-// dynamic shared memory LANE_ROWS * n_pad floats.
+
+// The width-128 form's column: three 128-wide sub-table indices,
+// clip(j - 128 s, 0, 127), and two selects by j / 128, made on the index
+// (on Hopper the three sub-tables are one row of shared memory, so the
+// three loads and two selects of the values are one load).
+__device__ __forceinline__ int sub128_column(int j) {
+  const int p0 = min(max(j, 0), SUB_WIDTH - 1);
+  const int p1 = SUB_WIDTH + min(max(j - SUB_WIDTH, 0), SUB_WIDTH - 1);
+  const int p2 = 2 * SUB_WIDTH + min(max(j - 2 * SUB_WIDTH, 0),
+                                     SUB_WIDTH - 1);
+  const int blk = j / SUB_WIDTH;
+  return blk == 0 ? p0 : (blk == 1 ? p1 : p2);
+}
+
+// Stages rows d0 .. d0 + 31 of TT [256, n_pad] into `slice` index-major
+// (column j's 32 values at slice[32 j .. 32 j + 31], 128 bytes): lane l
+// of each warp reads float4s of row d0 + l and writes them across four
+// columns, so that the 32 lanes' stores fall on 32 banks.
+__device__ __forceinline__ void stage_index_major(const float* __restrict__ tt,
+                                                  int d0, int n_pad,
+                                                  float* slice) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float4* row =
+      reinterpret_cast<const float4*>(tt + (size_t)(d0 + lane) * n_pad);
+  for (int q = warp; q < n_pad / 4; q += LANE_THREADS / 32) {
+    const float4 v = row[q];
+    slice[(4 * q + 0) * LANE_ROWS + lane] = v.x;
+    slice[(4 * q + 1) * LANE_ROWS + lane] = v.y;
+    slice[(4 * q + 2) * LANE_ROWS + lane] = v.z;
+    slice[(4 * q + 3) * LANE_ROWS + lane] = v.w;
+  }
+}
+
+// grid slices * per_slice, block LANE_THREADS, dynamic shared memory
+// LANE_ROWS * n_pad floats: block b stages slice b / per_slice (rows 32 s
+// .. 32 s + 31 of TT, index-major) and gathers edges [e0, e0 + span) of
+// the stream, span = ceil(rows / per_slice) <= LANE_THREADS, one a
+// thread: a thread reads its column's 32 values as eight float4s, chunk
+// (c + lane) % 8 at step c, so that the eight threads of each quarter
+// warp read eight different 16-byte bank groups whatever their columns
+// (a conflict-free gather of random columns).
 template <bool SUB128>
 __global__ void __launch_bounds__(LANE_THREADS)
 lane_kernel(const int* __restrict__ idx, const float* __restrict__ tt,
-            int rows, int n_pad, int iters, float* __restrict__ partials,
-            float* __restrict__ g_out) {
+            int rows, int n_pad, int iters, int per_slice,
+            float* __restrict__ partials, float* __restrict__ g_out) {
   extern __shared__ __align__(16) float slice[];
-  const int d0 = blockIdx.y * LANE_ROWS;
-  const int e = blockIdx.x * LANE_THREADS + threadIdx.x;
-  for (int v = threadIdx.x; v < LANE_ROWS * n_pad / 4; v += LANE_THREADS)
-    reinterpret_cast<float4*>(slice)[v] =
-        reinterpret_cast<const float4*>(tt + (size_t)d0 * n_pad)[v];
+  const int d0 = blockIdx.x / per_slice * LANE_ROWS;
+  const int span = (rows + per_slice - 1) / per_slice;
+  const int e = blockIdx.x % per_slice * span + threadIdx.x;
+  stage_index_major(tt, d0, n_pad, slice);
   __syncthreads();
 
-  const int i = clamp_index(idx[e], n_pad);
   float acc = 0.f;
-  for (int it = 0; it < iters; ++it) {
-    const int j = min(i + (acc > DEP_LIMIT ? 1 : 0), n_pad - 1);
-    const bool keep = g_out != nullptr && it == iters - 1;
-    float s = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < LANE_ROWS; ++d) {
-      const float* row = slice + d * n_pad;
-      float v;
-      if constexpr (SUB128) {
-        const float p0 = row[min(max(j, 0), SUB_WIDTH - 1)];
-        const float p1 = row[SUB_WIDTH + min(max(j - SUB_WIDTH, 0),
-                                             SUB_WIDTH - 1)];
-        const float p2 = row[2 * SUB_WIDTH + min(max(j - 2 * SUB_WIDTH, 0),
-                                                 SUB_WIDTH - 1)];
-        const int blk = j / SUB_WIDTH;
-        v = blk == 0 ? p0 : (blk == 1 ? p1 : p2);
-      } else {
-        v = row[j];
+  if (threadIdx.x < span && e < rows) {
+    const int i = clamp_index(idx[e], n_pad);
+    const int rot = threadIdx.x & 7;
+    for (int it = 0; it < iters; ++it) {
+      const int j = min(i + (acc > DEP_LIMIT ? 1 : 0), n_pad - 1);
+      const int col = SUB128 ? sub128_column(j) : j;
+      const float4* v4 = reinterpret_cast<const float4*>(slice) + col * 8;
+      const bool keep = g_out != nullptr && it == iters - 1;
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int q = (c + rot) & 7;
+        const float4 v = v4[q];
+        s0 += v.x;
+        s1 += v.y;
+        s2 += v.z;
+        s3 += v.w;
+        if (keep) {
+          float* g = g_out + (size_t)(d0 + 4 * q) * rows + e;
+          g[0] = v.x;
+          g[(size_t)rows] = v.y;
+          g[2 * (size_t)rows] = v.z;
+          g[3 * (size_t)rows] = v.w;
+        }
       }
-      s += v;
-      if (keep) g_out[(size_t)(d0 + d) * rows + e] = v;
+      acc += (s0 + s1) + (s2 + s3);
     }
-    acc += s;
   }
-  block_total<LANE_THREADS>(acc, partials + blockIdx.y * gridDim.x
-                                     + blockIdx.x);
+  block_total<LANE_THREADS>(acc, partials + blockIdx.x);
 }
 
 // grid rows / SUB_EDGES, block SUB_THREADS: thread (r, q) loads lanes
@@ -249,20 +307,51 @@ total_kernel(const float* __restrict__ partials, int n,
   for (int i = threadIdx.x; i < 8 * 128; i += TOTAL_THREADS) out[i] = total;
 }
 
+// Dynamic shared memory of `smem` bytes for both lane kernels.
+cudaError_t configure_lane(size_t smem) {
+  const cudaFuncAttribute max_smem =
+      cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err = cudaFuncSetAttribute(lane_kernel<false>, max_smem,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(lane_kernel<true>, max_smem, (int)smem);
+}
+
+// Blocks of the lane kernel a slice of LANE_ROWS rows takes: the blocks
+// the card holds at once spread over the slices (one wave, every SM the
+// same share of the stream), at least enough that a block's span of the
+// stream fits its threads; 0 if the card refuses the slice's shared
+// memory. Both lane kernels are set to take it, and the blocks an SM
+// holds with it are found, once per process and slice width.
+int lane_per_slice(int rows, int n_pad) {
+  static std::map<int, int> per_sm_of;   // n_pad -> blocks an SM holds
+  auto it = per_sm_of.find(n_pad);
+  if (it == per_sm_of.end()) {
+    const size_t smem = sizeof(float) * LANE_ROWS * n_pad;
+    int per_sm = 0;
+    if (smem > (size_t)MAX_SMEM || configure_lane(smem) != cudaSuccess
+        || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, lane_kernel<false>, LANE_THREADS, smem)
+               != cudaSuccess)
+      per_sm = 0;
+    it = per_sm_of.emplace(n_pad, per_sm).first;
+  }
+  if (it->second < 1) return 0;
+  const int slices = LANES / LANE_ROWS;
+  const int wave = it->second * tc::sm_count() / slices;
+  return std::max(wave, (rows + LANE_THREADS - 1) / LANE_THREADS);
+}
+
 template <bool SUB128>
 cudaError_t launch_lane(const int* idx, const float* tt, int rows, int n_pad,
                         int iters, float* partials, float* g_out,
                         cudaStream_t s, int* blocks) {
-  const size_t smem = sizeof(float) * LANE_ROWS * n_pad;
-  if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      lane_kernel<SUB128>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(rows / LANE_THREADS, LANES / LANE_ROWS);
-  *blocks = grid.x * grid.y;
-  lane_kernel<SUB128><<<grid, LANE_THREADS, smem, s>>>(
-      idx, tt, rows, n_pad, iters, partials, g_out);
+  const int per_slice = lane_per_slice(rows, n_pad);
+  if (per_slice < 1) return cudaErrorInvalidValue;
+  *blocks = per_slice * (LANES / LANE_ROWS);
+  lane_kernel<SUB128><<<*blocks, LANE_THREADS,
+                        sizeof(float) * LANE_ROWS * n_pad, s>>>(
+      idx, tt, rows, n_pad, iters, per_slice, partials, g_out);
   return cudaGetLastError();
 }
 
@@ -274,7 +363,8 @@ extern "C" {
 int gamd_gather_form_partials(int form, int rows, int n_pad, int copies) {
   switch (form) {
     case LANE384:
-    case LANE128: return rows / LANE_THREADS * (LANES / LANE_ROWS);
+    case LANE128:
+      return lane_per_slice(rows, n_pad) * (LANES / LANE_ROWS);
     case SUBLANE: return rows / SUB_EDGES;
     case TRANSPOSE:
       return (LANES / TILE) * (n_pad / TILE) / TR_TILES * copies;

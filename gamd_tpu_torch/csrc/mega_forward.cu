@@ -292,15 +292,15 @@ __device__ __forceinline__ TileRows tile_rows(const tc::Frag& f,
 struct EncArgs {
   const float* pos;
   const int *idx, *slot, *total;
-  const float *centers, *w_geo, *b0, *b1, *b2, *eln_s, *eln_b;
   float* e;
-  int n, k, cap, n_rbf, flip_dir;
-  float box, length_mean, length_std, gamma;
+  int n, k, cap;
+  EncTileArgs t;   // the tile body's centres, biases, affine and scalars
 };
 
 // Encoder over live edges. grid (cap / 64, R), block 256 (one tile, its
 // columns split between the two warpgroups), tc::smem_bytes(NBUF) of
-// dynamic shared memory; split weights 0 (w_rbf), 1 (w1), 2 (w2).
+// dynamic shared memory; split weights 0 (w_rbf), 1 (w1), 2 (w2). The
+// tile body is encode.cuh's, shared with edge_encoder.cu.
 template <int NBUF>
 __global__ void __launch_bounds__(tc::THREADS, 3 - NBUF)
 encode_tile_kernel(const __grid_constant__ CUtensorMap wmap, EncArgs a) {
@@ -318,112 +318,10 @@ encode_tile_kernel(const __grid_constant__ CUtensorMap wmap, EncArgs a) {
                                a.cap);
   float geo[2][4];   // ux, uy, uz, standardised distance of each row
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const float* pi = a.pos + ((size_t)rep * a.n + t.i[s]) * 3;
-    const float* pj = a.pos + ((size_t)rep * a.n + t.j[s]) * 3;
-    float rx = pj[0] - pi[0], ry = pj[1] - pi[1], rz = pj[2] - pi[2];
-    rx -= a.box * rintf(rx / a.box);
-    ry -= a.box * rintf(ry / a.box);
-    rz -= a.box * rintf(rz / a.box);
-    const float dist = sqrtf(rx * rx + ry * ry + rz * rz);
-    const float inv = (a.flip_dir ? -1.0f : 1.0f) / (dist + 1e-8f);
-    geo[s][0] = rx * inv;
-    geo[s][1] = ry * inv;
-    geo[s][2] = rz * inv;
-    geo[s][3] = (dist - a.length_mean) / a.length_std;
-  }
-  // RBF operand: column c < n_rbf holds exp(-gamma (std - centre_c)^2).
-#pragma unroll
-  for (int p = 0; p < tc::PAIRS; ++p) {
-    float v[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int c = f.col(p) + u;
-      const float d = geo[p & 1][3] - a.centers[c];
-      v[u] = c < a.n_rbf ? expf(-a.gamma * d * d) : 0.f;
-    }
-    tc::store_pair(sm.a, f, p, v[0], v[1]);
-  }
-  activations_ready();
-
-  float acc[2 * tc::PAIRS];
-  sm.product(acc, 0, f.wg, (a.n_rbf + 15) / 16);
-  sm.release(&wmap, 0);
-#pragma unroll
-  for (int p = 0; p < tc::PAIRS; ++p) {
-    const int c = f.col(p), s = p & 1;
-    float v[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-      v[u] = gelu_tanh(acc[2 * p + u] + geo[s][0] * a.w_geo[c + u] +
-                       geo[s][1] * a.w_geo[W + c + u] +
-                       geo[s][2] * a.w_geo[2 * W + c + u] +
-                       geo[s][3] * a.w_geo[3 * W + c + u] + a.b0[c + u]);
-    tc::store_pair(sm.a, f, p, v[0], v[1]);
-  }
-  activations_ready();
-  sm.product(acc, 1, f.wg);
-  sm.release(&wmap, 1);
-#pragma unroll
-  for (int p = 0; p < tc::PAIRS; ++p) {
-    const float2 b = ld2(a.b1 + f.col(p));
-    tc::store_pair(sm.a, f, p, gelu_tanh(acc[2 * p] + b.x),
-                   gelu_tanh(acc[2 * p + 1] + b.y));
-  }
-  activations_ready();
-  sm.product(acc, 2, f.wg);
-
-  // + b2, then LayerNorm of each row over its 128 values: the quad's four
-  // threads of each warpgroup, then the two warpgroups, in a fixed order.
-  float stat[2] = {0.f, 0.f};
-#pragma unroll
-  for (int p = 0; p < tc::PAIRS; ++p) {
-    const float2 b = ld2(a.b2 + f.col(p));
-    acc[2 * p] += b.x;
-    acc[2 * p + 1] += b.y;
-    stat[p & 1] += acc[2 * p] + acc[2 * p + 1];
-  }
-  float mean[2], rstd[2];
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    stat[s] += __shfl_xor_sync(0xffffffffu, stat[s], 1);
-    stat[s] += __shfl_xor_sync(0xffffffffu, stat[s], 2);
-    if (f.q == 0) red[0][f.wg][f.r0 + 8 * s] = stat[s];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int r = f.r0 + 8 * s;
-    mean[s] = (red[0][0][r] + red[0][1][r]) * (1.0f / W);
-    stat[s] = 0.f;
-  }
-#pragma unroll
-  for (int p = 0; p < tc::PAIRS; ++p) {
-    acc[2 * p] -= mean[p & 1];
-    acc[2 * p + 1] -= mean[p & 1];
-    stat[p & 1] += acc[2 * p] * acc[2 * p] + acc[2 * p + 1] * acc[2 * p + 1];
-  }
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    stat[s] += __shfl_xor_sync(0xffffffffu, stat[s], 1);
-    stat[s] += __shfl_xor_sync(0xffffffffu, stat[s], 2);
-    if (f.q == 0) red[1][f.wg][f.r0 + 8 * s] = stat[s];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int r = f.r0 + 8 * s;
-    rstd[s] = rsqrtf((red[1][0][r] + red[1][1][r]) * (1.0f / W) + LN_EPS);
-  }
-#pragma unroll
-  for (int p = 0; p < tc::PAIRS; ++p) {
-    const int s = p & 1, c = f.col(p);
-    if (!t.live[s]) continue;
-    const float2 sc = ld2(a.eln_s + c), sh = ld2(a.eln_b + c);
-    *reinterpret_cast<float2*>(a.e + t.row[s] * W + c) =
-        make_float2(acc[2 * p] * rstd[s] * sc.x + sh.x,
-                    acc[2 * p + 1] * rstd[s] * sc.y + sh.y);
-  }
+  for (int s = 0; s < 2; ++s)
+    edge_geometry(a.pos + ((size_t)rep * a.n + t.i[s]) * 3,
+                  a.pos + ((size_t)rep * a.n + t.j[s]) * 3, a.t, geo[s]);
+  encode_tile(sm, &wmap, 0, f, a.t, geo, t.live, t.row, red, a.e);
 }
 
 struct EdgeArgs {
@@ -596,9 +494,9 @@ int mega_forward_run(const float* pos, const int* idx, const uint8_t* bmask,
                            stream)) != cudaSuccess)
     return static_cast<int>(err);
 
-  const EncArgs ea{pos, idx, s->slot, s->total, p.centers, p.w_geo, p.b0,
-                   p.b1, p.b2, p.eln_s, p.eln_b, s->e, n, k, cap, n_rbf,
-                   flip_dir, box, length_mean, length_std, gamma};
+  const EncArgs ea{pos, idx, s->slot, s->total, s->e, n, k, cap,
+                   {p.centers, p.w_geo, p.b0, p.b1, p.b2, p.eln_s, p.eln_b,
+                    n_rbf, flip_dir, box, length_mean, length_std, gamma}};
   const bool one = tile_buffers(tiles.x * tiles.y) == 1;
   err = one ? launch_pdl(encode_tile_kernel<1>, tiles, dim3(tc::THREADS),
                          tc::smem_bytes(1), stream, *map, ea)

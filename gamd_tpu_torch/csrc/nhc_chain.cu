@@ -243,6 +243,29 @@ void launch_probe_scalar(int m, cudaStream_t s, const ProbeArgs& a) {
 
 }  // namespace
 
+// The latency of the chain's two dependent steps on one thread, to price
+// the chain's sequence (the bound of the half-step, tools/probe_nhc_kernel.
+// py): `reps` steps chained through x, each waiting on the last. op 0, a
+// step of the backward sweep: x = kick(expf(c0 x), x, c1, c2), the path
+// from vxi[j + 1] to vxi[j]; op 1, a step of the forward sweep: v =
+// kick(c3, 1, c1, x), x = (v v - 1) / c2, the path from g[j] to g[j + 1].
+// Replaces no TPU kernel: it measures what bounds nhc_half_step_kernel
+// and the probe's scalar form. One thread; out[0] = the last x.
+__global__ void __launch_bounds__(32)
+chain_latency_kernel(int op, int reps, float x, float c0, float c1,
+                     float c2, float c3, float* __restrict__ out) {
+  if (threadIdx.x != 0) return;
+  for (int r = 0; r < reps; ++r) {
+    if (op == 0) {
+      x = nhc_kick(expf(nhc_mul(c0, x)), x, c1, c2);
+    } else {
+      const float v = nhc_kick(c3, 1.0f, c1, x);
+      x = nhc_div(nhc_sub(nhc_mul(v, v), 1.0f), c2);
+    }
+  }
+  out[0] = x;
+}
+
 extern "C" int gamd_nhc_half_step(
     const float* vel, const float* masses, const float* ke2, const float* xi,
     const float* vxi, const float* g, const float* q, const float* wdts,
@@ -254,6 +277,20 @@ extern "C" int gamd_nhc_half_step(
   const HalfStepArgs a{vel, masses, ke2, xi, vxi, g, q, wdts, n, n_sub, kt,
                        ndf_kt, vel_out, xi_out, vxi_out, g_out};
   launch_half_step(m, r, static_cast<cudaStream_t>(stream), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of chain_latency_kernel (one thread): op 0 or 1, `reps` >= 1
+// chained steps from x with the constants c0 .. c3 (the chain's -wdt/8,
+// wdt/4, a force or mass ratio, a damping factor), out[0] the last x.
+extern "C" int gamd_nhc_chain_latency(int op, int reps, float x, float c0,
+                                      float c1, float c2, float c3,
+                                      float* out, void* stream) {
+  if (op < 0 || op > 1 || reps < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  chain_latency_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      op, reps, x, c0, c1, c2, c3, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,12 +15,16 @@ from that band.
   of csrc/conv_tc.cuh, ops/edge_tiles.py) or raises. It counts its calls
   in `banded_conv_message.launches`.
 * banded_forward: the GAMD forward in the sorted frame, from banded_edges
-  (geometry, true-cutoff mask, encoder, band layout), band_nodes (a
-  layer's node rows) and node_update. All but the message are plain
-  PyTorch (ops.mega), as the JAX package leaves them to XLA; the message
-  and node update use silu whatever conv_activation says, as JAX's do. On
-  the card the live-edge layout of the mask is computed once a call
-  (edge_tiles.mask_layout) and every layer's message reads it.
+  (geometry and true-cutoff mask, banded_geometry; encoder; band layout),
+  band_nodes (a layer's node rows) and node_update. All but the encoder
+  and the message are plain PyTorch (ops.mega), as the JAX package leaves
+  them to XLA; the message and node update use silu whatever
+  conv_activation says, as JAX's do. On the card the live-edge layout of
+  the mask is computed once a call (edge_tiles.mask_layout); the encoder
+  runs over its live slots (ops.encoder.live_edge_encoder, where JAX
+  encodes every slot in XLA: the same rows) and every layer's message
+  reads it. The card takes the LJ encoder (no bond channel, gelu) and
+  refuses another.
 * make_banded_force_fn: (pos, idx, mask) -> (forces, overflow) with the
   per-call x-sort (sort_by_x), the neighbour-id remap into the sorted
   frame and the unsort.
@@ -38,9 +42,11 @@ import torch
 from gamd_tpu_torch.core import space
 from gamd_tpu_torch.ops import edge_tiles
 from gamd_tpu_torch.ops.conv_gather import conv_msg_gather_reference
+from gamd_tpu_torch.ops.encoder import live_edge_encoder
 from gamd_tpu_torch.ops.mega import (KERNEL_WIDTH, MegaParams, _check,
-                                     _silu, decode_nodes, encode_edges,
-                                     layout_capacity, node_norm)
+                                     _silu, _weights, decode_nodes,
+                                     encode_edges, layout_capacity,
+                                     node_norm)
 from gamd_tpu_torch.ops.mxu_probe import sm_count
 
 
@@ -235,24 +241,54 @@ def sort_by_x(pos, idx):
     return perm, inv, inv[idx[perm].long()]
 
 
-def banded_edges(pos_s, idx_s, mask, mp: MegaParams, box, cutoff,
-                 length_mean, length_std, band, tile_n=64, bond=None,
-                 rbf_gap=0.025, flip_dir=False, mlp_act="gelu"):
-    """What every layer's banded_conv_message shares, in the sorted frame:
-    the geometry, the true-cutoff mask, the encoded edges and the band
-    layout. Returns (e [N, K, E], idx_loc, mask, lo, overflow)."""
+def banded_geometry(pos_s, idx_s, mask, box, cutoff):
+    """The sorted frame's edge geometry and true-cutoff mask, as JAX's
+    banded_forward computes them (gamd_tpu/ops/banded.py:283-289): (rel
+    [N, K, 3] in the remainder-form minimum image, dist [N, K], mask AND
+    dist * dist < cutoff * cutoff; cutoff None keeps the mask)."""
     rel = space.min_image(pos_s[idx_s.long()] - pos_s[:, None, :], box)
     dist = torch.sqrt(torch.sum(rel * rel, dim=-1))
-    unit = rel / (dist[..., None] + 1e-8)
-    if flip_dir:
-        unit = -unit
     if cutoff is not None:
         mask = mask & (dist * dist < cutoff * cutoff)
-    std = (dist - length_mean) / length_std
-    e = encode_edges(mp, unit, std, bond, mlp_act, rbf_gap=rbf_gap)
+    return rel, dist, mask
+
+
+def banded_edges(pos_s, idx_s, mask, mp: MegaParams, box, cutoff,
+                 length_mean, length_std, band, tile_n=64, bond=None,
+                 rbf_gap=0.025, flip_dir=False, mlp_act="gelu", e_out=None):
+    """What every layer's banded_conv_message shares, in the sorted frame:
+    the geometry, the true-cutoff mask (banded_geometry), the encoded
+    edges, the band layout and, on the card, the live-edge layout of the
+    mask. Returns (e [N, K, E], idx_loc, mask, lo, overflow, layout), with
+    layout None on the CPU.
+
+    On the CPU e is encode_edges over every slot, as JAX's. On the card
+    the layout (edge_tiles.mask_layout) is made once and the encoder runs
+    as the kernel ops.encoder.live_edge_encoder over its live slots, into
+    e_out if given: e's rows of dead slots are never written, and no layer
+    reads them. The kernel takes the LJ encoder (no bond channel, gelu):
+    another raises NotImplementedError there, before any work."""
+    if pos_s.is_cuda and (bond is not None or mlp_act != "gelu"):
+        raise NotImplementedError(
+            "the CUDA banded_edges takes the LJ encoder: no bond channel "
+            "and the gelu MLP activation")
+    rel, dist, mask = banded_geometry(pos_s, idx_s, mask, box, cutoff)
+    if pos_s.is_cuda:
+        layout = edge_tiles.mask_layout(mask)
+        e = live_edge_encoder(
+            pos_s, idx_s.to(torch.int32), layout, mp, box, length_mean,
+            length_std, rbf_gap=rbf_gap, flip_dir=flip_dir,
+            n_rbf=_weights("banded_edges", mp, pos_s.device)[1], out=e_out)
+    else:
+        layout = None
+        unit = rel / (dist[..., None] + 1e-8)
+        if flip_dir:
+            unit = -unit
+        std = (dist - length_mean) / length_std
+        e = encode_edges(mp, unit, std, bond, mlp_act, rbf_gap=rbf_gap)
     idx_loc, lo, overflow = band_layout(idx_s, mask, idx_s.shape[0], band,
                                         tile_n)
-    return e, idx_loc, mask, lo, overflow
+    return e, idx_loc, mask, lo, overflow, layout
 
 
 def band_nodes(mp: MegaParams, layer, h, band, use_ln=True):
@@ -279,17 +315,17 @@ def node_update(mp: MegaParams, layer, h, hn, agg):
 def banded_forward(pos_s, idx_s, mask, h0_s, mp: MegaParams, box, cutoff,
                    length_mean, length_std, band, tile_n=64, bond=None,
                    rbf_gap=0.025, flip_dir=False, use_ln=True,
-                   mlp_act="gelu"):
+                   mlp_act="gelu", e_out=None):
     """The GAMD forward in the SORTED frame with banded source rows.
 
     pos_s/idx_s/h0_s are in x-sorted order (idx_s references sorted rows);
-    the true-cutoff mask is redone from pos_s. Returns (forces_sorted
-    [N, 3], overflow 0-d bool).
+    the true-cutoff mask is redone from pos_s. e_out, on the card, is a
+    [N, K, 128] buffer for the live rows of e (banded_edges). Returns
+    (forces_sorted [N, 3], overflow 0-d bool).
     """
-    e, idx_loc, mask, lo, overflow = banded_edges(
+    e, idx_loc, mask, lo, overflow, layout = banded_edges(
         pos_s, idx_s, mask, mp, box, cutoff, length_mean, length_std, band,
-        tile_n, bond, rbf_gap, flip_dir, mlp_act)
-    layout = edge_tiles.mask_layout(mask) if e.is_cuda else None
+        tile_n, bond, rbf_gap, flip_dir, mlp_act, e_out)
     h = h0_s
     for layer in range(mp.w_src.shape[0]):
         hn, nodes, dst_code = band_nodes(mp, layer, h, band, use_ln)

@@ -20,6 +20,10 @@ csrc/nhc_chain.cu.
   on a CUDA tensor it launches the kernel in its "scalar" form (one thread
   holds the chain) or its "warp" form (lane j holds element j), counted
   in `nhc_chain_probe.launches[form]`.
+* chain_latency chains one of the chain's dependent steps `reps` times on
+  one thread (its plain version chain_latency_reference), so that the
+  step's latency can be timed on the card: the price of the chain's
+  dependent sequence, the bound that the roofline does not see.
 
 The schedule `wdts` [n_c * n_ys] and the chain masses `q` [M] are float32
 tensors that the caller builds (md.integrators.nhc_schedule and nhc_masses
@@ -108,7 +112,7 @@ def nhc_probe_reference(xi, vxi, g, ke2, q, kt, ndf, wdts, reps):
 
 
 def declare(lib):
-    """Set argtypes/restype of the library's two NHC entries."""
+    """Set argtypes/restype of the library's three NHC entries."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gamd_nhc_half_step.argtypes = [
         p, p, p, p, p, p, p, p,                       # vel m ke2 xi vxi g q w
@@ -120,6 +124,10 @@ def declare(lib):
         i, i, i, i, f, f,                             # m n_sub reps form kt
         p, p, p, p, p]                                # outs, stream
     lib.gamd_nhc_chain_probe.restype = ctypes.c_int
+    lib.gamd_nhc_chain_latency.argtypes = [
+        i, i, f, f, f, f, f,                          # op reps x c0..c3
+        p, p]                                         # out stream
+    lib.gamd_nhc_chain_latency.restype = ctypes.c_int
 
 
 def _check_chain(fn, xi, vxi, g, q, wdts, lead):
@@ -243,3 +251,60 @@ def nhc_chain_probe(xi, vxi, g, ke2, q, kt, ndf, wdts, reps, form):
 
 
 nhc_chain_probe.launches = dict.fromkeys(FORMS, 0)
+
+
+#: The chain's dependent steps that chain_latency chains: a step of the
+#: backward sweep (expf and the kick) and of the forward sweep (the kick
+#: and the IEEE division).
+LATENCY_OPS = {"backward": 0, "forward": 1}
+#: chain_latency's constants: c0 (-wdt/8), c1 (wdt/4), c2 (the force, or
+#: the division's denominator), c3 (the damping factor).
+LATENCY_CONSTS = (-1.25e-4, 2.5e-4, 1.5, 0.999)
+
+
+def _latency_step(op, x, c0, c1, c2, c3):
+    """One step of chain_latency's `op` on a 0-d float32 x (nhc.cuh's
+    operations, each rounded on its own)."""
+    if op == "backward":
+        a = torch.exp(c0 * x)
+        return a * (a * x + c1 * c2)
+    v = c3 * (c3 * 1.0 + c1 * x)
+    return (v * v - 1.0) / c2
+
+
+def chain_latency_reference(op, reps, x):
+    """Plain version of chain_latency: the last x of `reps` chained
+    steps (0-d float32 on x's device)."""
+    consts = [torch.tensor(c, dtype=torch.float32, device=x.device)
+              for c in LATENCY_CONSTS]
+    for _ in range(reps):
+        x = _latency_step(op, x, *consts)
+    return x
+
+
+def chain_latency(op, reps, x):
+    """`reps` steps of the chain's dependent step `op` (LATENCY_OPS) on one
+    thread, each waiting on the last, from the 0-d float32 x with the
+    constants LATENCY_CONSTS: the last x (0-d). Timed on the card, reps
+    steps give the step's latency (tools/probe_nhc_kernel.py::
+    chain_bound).
+
+    A CPU x runs chain_latency_reference. A CUDA x makes one launch of
+    csrc/nhc_chain.cu's chain_latency_kernel or raises."""
+    fn = "chain_latency"
+    if op not in LATENCY_OPS:
+        raise ValueError(f"{fn}: op must be one of {sorted(LATENCY_OPS)}, "
+                         f"not {op!r}")
+    if int(reps) < 1:
+        raise ValueError(f"{fn}: reps must be at least 1, not {reps}")
+    if x.device.type == "cpu":
+        return chain_latency_reference(op, int(reps), x)
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn} runs on cuda or cpu, not {x.device}")
+    out = torch.empty(1, device=x.device, dtype=torch.float32)
+    from gamd_tpu_torch.ops.build import load_library
+    err = load_library().gamd_nhc_chain_latency(
+        LATENCY_OPS[op], int(reps), float(x), *LATENCY_CONSTS,
+        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(fn, err)
+    return out[0]

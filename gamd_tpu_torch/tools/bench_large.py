@@ -91,7 +91,7 @@ def banded_layer_inputs(ff: GNNForceField, pos, idx, mask, layer,
     band = min(band, -(-system.n_atoms // 16) * 16)
     perm, _, idx_s = banded.sort_by_x(pos, idx)
     length_mean, length_std = ff._length_scale()
-    e, idx_loc, mask_s, lo, _ = banded.banded_edges(
+    e, idx_loc, mask_s, lo, _, _ = banded.banded_edges(
         pos[perm], idx_s, mask[perm], mp, system.box, system.cutoff,
         length_mean, length_std, band, tile_n, rbf_gap=cfg.rbf_gap,
         flip_dir=cfg.flip_dir, mlp_act=cfg.mlp_activation)

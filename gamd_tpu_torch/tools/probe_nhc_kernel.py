@@ -17,7 +17,12 @@ half-step's scale) and prints
     carrier whose mass is ke2 / 3 (max abs error over xi, vxi, g and the
     product of the scales; the probe's own scale is 1e-4);
   * microseconds per half-step at --reps (default 400): one call's device
-    time, CUDA events, median of 20, over reps.
+    time, CUDA events, median of 20, over reps;
+  * the chain's bound (chain_bound): the latency of its dependent
+    sequence, n_c n_ys (M - 1) backward steps (expf and the kick) and as
+    many forward steps (the kick and the IEEE division), each step's
+    latency timed on one thread (ops.nhc.chain_latency; CUDA events over
+    two chain lengths, so that the launch cancels).
 The kernel's schedule is the probe's (float64 weights * dt / n_c, rounded
 to float32); the reference's is _nhc_propagate's (float32 throughout).
 
@@ -33,7 +38,8 @@ import numpy as np
 import torch
 
 from gamd_tpu_torch.md.integrators import _YS_WEIGHTS, _nhc_propagate
-from gamd_tpu_torch.ops.nhc import FORMS, nhc_chain_probe
+from gamd_tpu_torch.ops.nhc import (FORMS, LATENCY_OPS, chain_latency,
+                                    chain_latency_reference, nhc_chain_probe)
 
 M = 10          # chain length (the reference's default)
 N_C = 5         # MTS subdivisions
@@ -43,6 +49,9 @@ KE2 = NDF * KT * 1.07   # slightly hot
 PARITY_REPS = 3
 PARITY_ATOL = 1e-4   # the probe's parity scale
 TIMED_CALLS = 20
+LATENCY_REPS = 20_000   # chained steps of the shorter latency call
+CHECK_REPS = 32         # chained steps of the latency kernel's check
+CHECK_ATOL = 1e-5       # its |kernel - plain version| (x of order 1)
 
 
 def probe_schedule():
@@ -121,9 +130,34 @@ def time_call_ms(fn, calls=TIMED_CALLS):
     return float(np.median(times))
 
 
+def chain_bound(device, reps=LATENCY_REPS):
+    """The latency of the chain's dependent sequence on the card: {"ns":
+    {op: ns a step}, "us_per_half_step": n_c n_ys (M - 1) (backward +
+    forward), "max_abs_err": the largest |kernel - plain version| of
+    CHECK_REPS steps of each op on the card}. A step's latency is
+    (t(2 reps) - t(reps)) / reps of one launch each (CUDA events, median
+    of 5), so the launch's own time cancels. The sequence left out (g[0]'s
+    division and the scale's expf a substep, the ends of the sweeps) makes
+    it a lower bound."""
+    x = torch.tensor(0.5, device=device)
+    ns, err = {}, 0.0
+    for op in LATENCY_OPS:
+        got = chain_latency(op, CHECK_REPS, x)
+        err = max(err, float((got - chain_latency_reference(
+            op, CHECK_REPS, x)).abs()))
+        t1, t2 = [time_call_ms(lambda n=n: chain_latency(op, n, x), calls=5)
+                  for n in (reps, 2 * reps)]
+        ns[op] = (t2 - t1) * 1e6 / reps
+    steps = N_C * N_YS * (M - 1)
+    return {"ns": ns, "us_per_half_step":
+            steps * (ns["backward"] + ns["forward"]) / 1e3,
+            "max_abs_err": err}
+
+
 def main(argv=None):
     """Runs the probe; returns {form: {"parity_err", "us_per_half_step",
-    "ms_per_call"}} (the times None with --cpu)."""
+    "ms_per_call"}} (the times None with --cpu) and, on the card,
+    "chain_bound": chain_bound's result."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=400)
     ap.add_argument("--cpu", action="store_true",
@@ -151,6 +185,16 @@ def main(argv=None):
                   f"{ms * 1e3 / args.reps:.3f} us per NHC half-step (CUDA "
                   f"events, median of {TIMED_CALLS})", flush=True)
         results[form] = entry
+    if dev.type == "cuda":
+        bound = chain_bound(dev)
+        results["chain_bound"] = bound
+        print("chain latency on one thread (ns a step): " + ", ".join(
+            f"{op} {v:.2f}" for op, v in bound["ns"].items())
+            + f" -> the chain's dependent sequence {N_C * N_YS} x "
+            f"{M - 1} x (backward + forward) = "
+            f"{bound['us_per_half_step']:.3f} us per half-step; kernel vs "
+            f"plain over {CHECK_REPS} steps max |d| {bound['max_abs_err']:.3e}"
+            f" (tolerance {CHECK_ATOL})", flush=True)
     print("probe done", flush=True)
     return results
 

@@ -38,7 +38,9 @@ also gives the host time of each window call of the untraced run (the
 call returns once its launches are queued). On the banded path it also
 gives the banded message's device time per step (BANDED_KERNELS: the
 live-edge layout, the weight splits, the edge tiles and the fix-ups) and
-its share of the step's device time, and the cell list's time per
+its share of the step's device time, the same of the edge encoder over
+the live slots (ENCODER_KERNELS: its weight split and tiles), and the
+cell list's time per
 rebuild (CUDA events, median of 10 builds at the start frame), whose
 PyTorch kernels the breakdown otherwise mixes with the model's.
 
@@ -103,6 +105,12 @@ CONV_KERNELS = ("mask_count_kernel", "mask_slots_kernel",
                 "conv_tile_kernel[BandSrc]", "tile_fixup_kernel")
 #: Those of the banded path (row 6 and its per-call layout).
 BANDED_KERNELS = tuple(k for k in CONV_KERNELS if "GatherSrc" not in k)
+#: The edge encoder's kernels (csrc/edge_encoder.cu, row 5): the weight
+#: split and the tiles over every slot (AllSlots, fused_edge_encoder) or
+#: over a layout's live slots (LiveSlots, live_edge_encoder).
+ENCODER_KERNELS = ("split_encoder_weights_kernel",
+                   "encoder_tile_kernel[AllSlots]",
+                   "encoder_tile_kernel[LiveSlots]")
 
 
 def short_name(kernel: str) -> str:
@@ -113,9 +121,9 @@ def short_name(kernel: str) -> str:
     name = name[5:] if name.startswith("void ") else name
     base = re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1].strip()
     rest = name[len(name.split("<", 1)[0]):]
-    rows = re.search(r"\b(ClampedRows|PreRows|GatherSrc|BandSrc)\b",
-                     rest)
-    if rows:            # edge_msg_kernel's and conv_tile_kernel's instances
+    rows = re.search(r"\b(ClampedRows|PreRows|GatherSrc|BandSrc|AllSlots|"
+                     r"LiveSlots)\b", rest)
+    if rows:   # edge_msg_kernel's, conv_tile_kernel's, encoder_tile_kernel's
         return f"{base}[{rows.group(1)}]"
     width = re.match(r"<(\d+)>", rest)
     if base == "node_fused_kernel" and width:
@@ -289,8 +297,12 @@ def profile(dev, path: str) -> dict:
     if path == "banded":
         banded_us = sum(v["us"] for k, v in exclusive.items()
                         if k in BANDED_KERNELS)
+        encoder_us = sum(v["us"] for k, v in exclusive.items()
+                         if k in ENCODER_KERNELS)
         banded = {"banded_msg_us_per_step": banded_us / STEPS,
                   "banded_msg_device_share": banded_us / total,
+                  "encoder_us_per_step": encoder_us / STEPS,
+                  "encoder_device_share": encoder_us / total,
                   "cell_list_ms_per_build": cell_list_ms(sim, pos),
                   "rebuild_every": sim.md.rebuild_every}
     return {

@@ -35,7 +35,9 @@ from gamd_tpu_torch.ops import (banded, edge_tiles, gather_probe, message,
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
-                                        fused_edge_encoder)
+                                        encoder_params, fused_edge_encoder,
+                                        live_edge_encoder,
+                                        live_edge_encoder_reference)
 from gamd_tpu_torch.ops.mega import (live_edge_layout, md_steps_reference,
                                      mega_forward, mega_layout,
                                      mega_md_steps, pack_params,
@@ -458,10 +460,10 @@ def test_conv_gather_rejects_what_it_does_not_take(cuda):
     assert fused_conv_gather_message.launches == before
 
 
-def _encoder_inputs(dev, b, n, k, seed=0):
+def _encoder_inputs(dev, b, n, k, seed=0, n_rbf=40):
     """b frames of n atoms in the BOX, their lists (built at 5.0 A, the
-    encoder's cutoff 4.2 A refines them) and seeded encoder weights [44,
-    128], [128], ... on `dev`."""
+    encoder's cutoff 4.2 A refines them) and seeded encoder weights
+    [4 + n_rbf, 128], [128], ... on `dev`."""
     rng = np.random.default_rng(seed)
     pos = torch.as_tensor(rng.uniform(0, BOX, (b, n, 3)).astype(np.float32),
                           device=dev)
@@ -470,7 +472,7 @@ def _encoder_inputs(dev, b, n, k, seed=0):
     mask = torch.stack([t[1] for t in lists])
     w = lambda *s: torch.as_tensor(
         (rng.standard_normal(s) * 0.1).astype(np.float32), device=dev)
-    weights = [w(44, 128), w(128), w(128, 128), w(128), w(128, 128),
+    weights = [w(4 + n_rbf, 128), w(128), w(128, 128), w(128), w(128, 128),
                w(128), 1.0 + w(128), w(128)]
     return pos, idx, mask, weights
 
@@ -521,6 +523,85 @@ def test_encoder_rejects_what_it_does_not_take(cuda):
         fused_edge_encoder(pos, idx, mask, *rest, weights[0], weights[1],
                            weights[2][:, :64].contiguous(), *weights[3:])
     assert fused_edge_encoder.launches == before
+
+
+@pytest.mark.parametrize("n,k,cutoff,flip", [
+    (66, 20, None, False),     # a ragged tail, the mask passed through
+    (66, 20, 4.2, True),       # the cutoff refines, flip_dir
+    (1000, 48, 4.2, False),    # tiles over several blocks
+])
+def test_live_encoder_kernel_matches_plain_version(cuda, n, k, cutoff,
+                                                   flip):
+    """live_edge_encoder over the layout of the live mask, into a buffer
+    filled with NaN: one launch a call; the live rows within 1e-4 of max
+    |e| of the plain version and equal bit for bit to fused_edge_encoder's
+    rows of the same slots (the same tile body, row by row); the dead rows
+    still NaN (never written); two calls bit for bit."""
+    pos, idx, mask, weights = _encoder_inputs(cuda, 1, n, k)
+    args = (pos, idx, mask, BOX, cutoff, 4.0, 1.2, *weights)
+    e_all, live = fused_edge_encoder(*args, flip_dir=flip)
+    e_all, live = e_all[0], live[0]
+    layout = edge_tiles.mask_layout(live)
+    params = encoder_params(*weights)
+    out = torch.full((n, k, 128), float("nan"), device=cuda)
+    before = live_edge_encoder.launches
+    e = live_edge_encoder(pos[0], idx[0], layout, params, BOX, 4.0, 1.2,
+                          flip_dir=flip, out=out)
+    again = live_edge_encoder(pos[0], idx[0], layout, params, BOX, 4.0,
+                              1.2, flip_dir=flip)
+    torch.cuda.synchronize()
+    assert live_edge_encoder.launches == before + 2 and e is out
+    ref = live_edge_encoder_reference(pos[0], idx[0], layout, params, BOX,
+                                      4.0, 1.2, flip_dir=flip)
+    scale = float(ref[live].abs().max())
+    assert float((e[live] - ref[live]).abs().max()) <= 1e-4 * scale
+    assert torch.equal(e[live], e_all[live])
+    assert torch.equal(again[live], e[live])
+    assert bool(torch.isnan(e[~live]).all())
+
+
+def test_encoder_kernels_past_48_rbf_centres(cuda):
+    """80 RBF centres, where both encoder kernels take the RBF product's
+    k-steps at run time: every slot and the live slots each within 1e-4
+    of max |e| of their plain versions, the live rows bit for bit equal
+    to the every-slot kernel's."""
+    pos, idx, mask, weights = _encoder_inputs(cuda, 1, 66, 20, n_rbf=80)
+    args = (pos, idx, mask, BOX, 4.2, 4.0, 1.2, *weights)
+    e_all, live = fused_edge_encoder(*args)
+    e_ref, live_ref = edge_encoder_reference(*args)
+    assert torch.equal(live, live_ref)
+    scale = float(e_ref.abs().max())
+    assert float((e_all - e_ref).abs().max()) <= 1e-4 * scale
+    layout = edge_tiles.mask_layout(live[0])
+    params = encoder_params(*weights)
+    e = live_edge_encoder(pos[0], idx[0], layout, params, BOX, 4.0, 1.2)
+    ref = live_edge_encoder_reference(pos[0], idx[0], layout, params, BOX,
+                                      4.0, 1.2)
+    torch.cuda.synchronize()
+    sel = live[0]
+    scale = float(ref[sel].abs().max())
+    assert float((e[sel] - ref[sel]).abs().max()) <= 1e-4 * scale
+    assert torch.equal(e[sel], e_all[0][sel])
+
+
+def test_live_encoder_rejects_what_it_does_not_take(cuda):
+    """The live entry's input checks on the card; nothing launches."""
+    pos, idx, mask, weights = _encoder_inputs(cuda, 1, 66, 20)
+    layout = edge_tiles.mask_layout(mask[0])
+    params = encoder_params(*weights)
+    rest = (BOX, 4.0, 1.2)
+    before = live_edge_encoder.launches
+    with pytest.raises(ValueError, match="idx"):
+        live_edge_encoder(pos[0], idx[0].long(), layout, params, *rest)
+    with pytest.raises(ValueError, match="layout.slot"):
+        live_edge_encoder(pos[0], idx[0], layout._replace(
+            slot=layout.slot[:, :64].contiguous()), params, *rest)
+    with pytest.raises(ValueError, match="n_rbf"):
+        live_edge_encoder(pos[0], idx[0], layout, params, *rest, n_rbf=129)
+    with pytest.raises(ValueError, match="out"):
+        live_edge_encoder(pos[0], idx[0], layout, params, *rest,
+                          out=torch.empty((66, 20, 64), device=cuda))
+    assert live_edge_encoder.launches == before
 
 
 def test_deployment_force_path_with_trained_weights(cuda):
@@ -754,6 +835,53 @@ def test_banded_force_path_on_the_card(cuda):
     assert float((f - ref).abs().max()) <= TOLERANCE * scale
     assert bool(torch.isnan(ff.banded_force_fn(band=256)(pos, idx,
                                                          mask)).all())
+
+
+def test_banded_forces_through_the_encoder_route(cuda):
+    """The banded force path at N=4,096 encodes once a force call through
+    live_edge_encoder over the layout it makes once (one launch each, four
+    banded_msg launches), and its forces are within 5e-3 std(F) of the
+    plain banded forward (make_banded_force_fn on the CPU: encode_edges
+    over every slot and the plain message)."""
+    pos, idx, mask, ff = _banded_case(cuda, 4096, seed=7)
+    system, cfg = ff.system, ff.model_cfg
+    before = (live_edge_encoder.launches, edge_tiles.mask_layout.launches,
+              banded.banded_conv_message.launches)
+    f = ff.banded_force_fn()(pos, idx, mask)
+    torch.cuda.synchronize()
+    assert (live_edge_encoder.launches - before[0],
+            edge_tiles.mask_layout.launches - before[1],
+            banded.banded_conv_message.launches - before[2]) == (1, 1, 4)
+    mp = ff._kernel_params("banded")
+    mp_cpu = type(mp)(*[t.cpu() for t in mp])
+    plain = banded.make_banded_force_fn(
+        mp_cpu, system.box, system.cutoff, system.n_atoms,
+        ff._node_h0().cpu(), *ff._length_scale(), flip_dir=cfg.flip_dir,
+        use_ln=cfg.use_layer_norm, mlp_act=cfg.mlp_activation)
+    f_plain, ovf = plain(pos.cpu(), idx.cpu(), mask.cpu())
+    assert not bool(ovf)
+    scale = float(f_plain.std())
+    assert float((f.cpu() - f_plain).abs().max()) <= TOLERANCE * scale
+
+
+def test_banded_edges_refuses_what_the_encoder_kernel_does_not_take(cuda):
+    """banded_edges on the card takes the LJ encoder: a bond channel or
+    the silu MLP activation raises NotImplementedError before any work
+    (no layout, no encoder launch)."""
+    pos, idx, mask, ff = _banded_case(cuda, 258, seed=3)
+    system = ff.system
+    mp = ff._kernel_params("banded")
+    perm, _, idx_s = banded.sort_by_x(pos, idx)
+    args = (pos[perm], idx_s, mask[perm], mp, system.box, system.cutoff,
+            *ff._length_scale(), 272)
+    before = (live_edge_encoder.launches, edge_tiles.mask_layout.launches)
+    with pytest.raises(NotImplementedError, match="gelu"):
+        banded.banded_edges(*args, mlp_act="silu")
+    with pytest.raises(NotImplementedError, match="bond"):
+        banded.banded_edges(*args, bond=torch.zeros_like(mask[perm],
+                                                         dtype=torch.float32))
+    assert (live_edge_encoder.launches,
+            edge_tiles.mask_layout.launches) == before
 
 
 # -- the Nose-Hoover chain ---------------------------------------------------
@@ -1265,6 +1393,30 @@ def test_gather_form_matches_plain_version(cuda, form):
     assert abs(float(out[0, 0]) - 2 * total) <= 1e-5 * 2 * scale
     assert bool((out == out[0, 0]).all())
     assert torch.equal(probe_gather.call(x, form, 2), out)
+
+
+@pytest.mark.parametrize("width", [384, 128])
+@pytest.mark.parametrize("rows", [256, 26_112])
+def test_lane_gather_on_other_streams(cuda, width, rows):
+    """lane_gather on a seeded stream of `rows` columns in [0, 384) (one
+    block's worth, and twice probe_gather.py's stream, which needs more
+    blocks a slice than the card holds at once), iters 3: the last result
+    bit for bit its plain version's, the carry within 1e-5 of iters x one
+    iteration's sum of magnitudes, a repeat bit for bit."""
+    rng = np.random.default_rng(rows + width)
+    tblt = torch.as_tensor(rng.standard_normal((256, 384))
+                           .astype(np.float32), device=cuda)
+    idx = torch.as_tensor(rng.integers(0, 384, (rows, 1)).astype(np.int32),
+                          device=cuda)
+    out, g = gather_probe.lane_gather(idx, tblt, 3, width, product=True)
+    again = gather_probe.lane_gather(idx, tblt, 3, width)
+    torch.cuda.synchronize()
+    ref, g_ref = gather_probe.lane_gather_reference(idx.cpu(), tblt.cpu(),
+                                                    3, width, product=True)
+    assert torch.equal(g.cpu(), g_ref)
+    scale = float(tblt[:, idx[:, 0].long()].abs().sum())
+    assert float((out.cpu() - ref).abs().max()) <= 1e-5 * 3 * scale
+    assert torch.equal(again, out)
 
 
 def test_gather_forms_reject_what_they_do_not_take(cuda):
