@@ -61,7 +61,13 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
      989 TFLOP/s, the epilogues in fp32 at 67, e's live rows) beside the
      fp32 CUDA-core bound of the same function;
   7. conv_msg_gather_bwd against autograd through the plain version on
-     the same two inputs, with a seeded cotangent, all 12 grads;
+     the same two inputs, with a seeded cotangent, all 12 grads, two calls
+     bit for bit; timed on layer 0's: CUDA events, one backward launch a
+     call, the device time by kernel (its tensor-core kernels, the
+     first transcription's gone), the bound on the tensor cores (the twelve products as three
+     bf16 passes at 989 TFLOP/s, the epilogues in fp32 at 67, against e's
+     live rows, ge at every slot and the node rows) beside the fp32
+     CUDA-core bound;
   8. one training step, kernel path against plain path, from the same
      seeded state and generator: the same augmented positions, loss,
      grads and parameters after Adam;
@@ -185,9 +191,10 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
      magnitudes, a repeat bit for bit; the times beside the plain
      version's, the library's (torch.gather, index_select, one copy of 34
      transposed views, iters calls replayed from a CUDA graph) and the
-     bound, and for the lane forms the bound of the gathered values read
-     from shared memory (SMs x 128 bytes a clock at the largest SM
-     clock);
+     bound, and the bound on the data each form moves (SMs x 128 bytes a
+     clock at the largest SM clock): the lane forms' gathered values read
+     from shared memory, the sublane form's from L1, the transpose's
+     values stored and read once in shared memory;
  35. mega_forward on 8 LJ-258 frames [8, 258, 3] (the start frame and 7
      jittered copies, each with its own list) in one launch against 8
      single launches (bit for bit counted) and the plain version, each
@@ -267,6 +274,7 @@ from gamd_tpu_torch.tools.bench_mxu import graph_ms
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
 from gamd_tpu_torch.tools.lj_train_slice import lj_train_slice
 from gamd_tpu_torch.tools.profile_step import (BANDED_KERNELS,
+                                               CONV_BWD_KERNELS,
                                                ENCODER_KERNELS,
                                                FORWARD_STAGES,
                                                exclusive_times,
@@ -435,14 +443,40 @@ def live_rows_only(nbytes, n, k, live_edges, width=128):
     return nbytes - (n * k - live_edges) * (4 * width + 4)
 
 
-def tc_conv_bound(live_edges, nbytes):
-    """(least ms, "operations" or "bytes") of one conv message on the
-    tensor-core basis: conv_tc_ops against the bf16 tensor peak and the
-    fp32 peak (their times add), nbytes against HBM; the larger."""
-    tc_flops, fp32_flops = conv_tc_ops(live_edges)
+def tc_conv_bound(live_edges, nbytes, ops=conv_tc_ops):
+    """(least ms, "operations" or "bytes") of one conv message (or, with
+    conv_bwd_tc_ops, its backward) on the tensor-core basis: ops(live
+    edges) against the bf16 tensor peak and the fp32 peak (their times
+    add), nbytes against HBM; the larger."""
+    tc_flops, fp32_flops = ops(live_edges)
     t_ops = (tc_flops / BF16_FLOPS + fp32_flops / FP32_FLOPS) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+#: fp32 operations of the conv backward's epilogues a live edge and column
+#: as its tensor-core kernels run them (silu counted as the forward's 3,
+#: silu' as 5 more: a divide for sigma, then 4): the recomputed first and
+#: third products' bias, silu and silu' (9 each), the second's with the
+#: src and dst adds (11), the last's bias and the two products with g (3);
+#: the sweep's products with silu' (3) and gdst's sum (1); the sums by
+#: source of g_hsrc and g_z2 (2); the four bias sums of hi + lo (8).
+BWD_EPILOGUE_OPS = 46
+
+
+def conv_bwd_tc_ops(live_edges, width=128):
+    """(tensor-core FLOP, fp32 FLOP) of one conv backward as the tensor-core
+    kernels (row 4) compute it: twelve products a live edge (the recompute's
+    four, the sweep's four with W^T, the four weight gradients) as three
+    bf16 passes each, and the epilogues on the CUDA cores."""
+    return (3.0 * 12 * 2 * width * width * live_edges,
+            float(BWD_EPILOGUE_OPS * width * live_edges))
+
+
+def tc_conv_bwd_bound(live_edges, nbytes):
+    """(least ms, "operations" or "bytes") of one conv backward on the
+    tensor-core basis: conv_bwd_tc_ops against nbytes (tc_conv_bound)."""
+    return tc_conv_bound(live_edges, nbytes, conv_bwd_tc_ops)
 
 
 def conv_bytes(n, k, width=128, backward=False):
@@ -658,7 +692,12 @@ def training_phases(dev, card):
         torch.cuda.synchronize()
         require(fused.backward_launches == before + 1,
                 "conv_msg_gather_bwd did not launch")
+        _, _, again = grads_of(fused, case, g)
         out_p, leaves_p, grads_p = grads_of(batched_reference, case, g)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(grads_k, again))
+        say(f"phase 7: layer {layer}: two backward calls bit for bit {same}")
+        require(same, "conv_msg_gather_bwd differs from run to run")
         for name, a, b in zip(GRAD_NAMES, grads_k, grads_p):
             err, mx = float((a - b).abs().max()), float(b.abs().max())
             say(f"phase 7: layer {layer} grad {name:9s} {tuple(a.shape)}: "
@@ -671,20 +710,43 @@ def training_phases(dev, card):
         if layer == 0:      # timed on layer 0's inputs
             timed = (out_k, leaves_k, out_p, leaves_p, g)
     out_k, leaves_k, out_p, leaves_p, g = timed
-    bwd_ms = time_ms(lambda: torch.autograd.grad(out_k, leaves_k, g,
-                                                 retain_graph=True))
+    bwd_call = lambda: torch.autograd.grad(out_k, leaves_k, g,
+                                           retain_graph=True)
+    bwd_ms = time_ms(bwd_call)
     bwd_plain_ms = time_ms(lambda: torch.autograd.grad(out_p, leaves_p, g,
                                                        retain_graph=True))
-    bwd_flops = 3 * conv_flops(live)
-    bwd_bound, bwd_by = roofline(bwd_flops, conv_bytes(n, k, backward=True))
-    say(f"phase 7: conv_msg_gather_bwd {bwd_ms:.4f} ms/call (with the "
-        f"wrapper's source sort and weight transposes), plain autograd "
-        f"{bwd_plain_ms:.4f} ms/call, bound {bwd_bound:.4f} ms ({bwd_by}; "
-        f"{bwd_flops / 1e9:.4f} GFLOP: recompute, input and weight grads), "
-        f"kernel at {bwd_bound / bwd_ms:.2%} of it (tolerance "
+    before = fused.backward_launches
+    bwd_call()
+    require(fused.backward_launches == before + 1,
+            "not one backward launch a call")
+    bwd_us, bwd_kernels = device_us(bwd_call)
+    missing = set(CONV_BWD_KERNELS) - set(bwd_kernels)
+    old = {"bwd_edge_kernel", "wgrad_kernel", "bwd_node_kernel"} \
+        & set(bwd_kernels)
+    require(bwd_us is not None and not missing and not old,
+            f"the backward's kernels: {sorted(bwd_kernels)} (missing "
+            f"{sorted(missing)}, the first transcription's {sorted(old)})")
+    # e's rows and the ids read at the live slots only, ge at every slot.
+    bwd_bytes = live_rows_only(conv_bytes(n, k, backward=True), n, k, live)
+    bwd_bound, bwd_by = tc_conv_bwd_bound(live, bwd_bytes)
+    bwd_fp32, _ = roofline(3 * conv_flops(live),
+                           conv_bytes(n, k, backward=True))
+    bwd_tc, bwd_ep = conv_bwd_tc_ops(live)
+    say(f"phase 7: conv_msg_gather_bwd {bwd_ms:.4f} ms/call (CUDA events, "
+        f"with the wrapper's sort of the live slots by source), "
+        f"{bwd_us:.2f} us of device time a call "
+        f"{json.dumps({key: round(v, 2) for key, v in bwd_kernels.items()})}"
+        f", one backward launch a call, plain autograd {bwd_plain_ms:.4f} "
+        f"ms/call; bound {bwd_bound:.4f} ms ({bwd_by}; {bwd_tc / 1e9:.4f} "
+        f"GFLOP bf16 x 3 at {BF16_FLOPS / 1e12:.0f} TFLOP/s and "
+        f"{bwd_ep / 1e9:.4f} GFLOP fp32 at {FP32_FLOPS / 1e12:.0f}, against "
+        f"{bwd_bytes / 1e6:.2f} MB, for {live} live edges), device time at {bwd_bound * 1e3 / bwd_us:.2%} of it; fp32 "
+        f"CUDA-core bound {bwd_fp32:.4f} ms "
+        f"({3 * conv_flops(live) / 1e9:.4f} GFLOP: recompute, input and "
+        f"weight grads) (tolerance "
         f"{CONV_GRAD_RTOL} x max per grad); CUDA events, median of 20 "
         f"[{card}]")
-    del out_k, out_p, leaves_k, leaves_p, grads_k, grads_p, timed
+    del out_k, out_p, leaves_k, leaves_p, grads_k, grads_p, timed, again
 
     # -- phase 8: one training step, kernel path against plain path ------
     runs = {flag: train_steps(dev, flag, 1) for flag in (True, False)}
@@ -758,7 +820,8 @@ def training_phases(dev, card):
         "launches": train_launches[1],
         "launches_by_path": {"train": train_launches[1]},
         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-        "bound_ms": bwd_bound, "bound_by": bwd_by,
+        "bound_ms": bwd_bound, "bound_by": bwd_by, "device_us": bwd_us,
+        "fp32_bound_ms": bwd_fp32,
     }]
 
 
@@ -2546,6 +2609,31 @@ def smem_bound(iters, dev):
     return iters * 4 * values / rate * 1e3, rate / 1e9
 
 
+def data_bound(form, iters, dev):
+    """(least ms of one call, what it counts) on the data a form moves
+    through an SM, at smem_bound's rate.
+
+    * The lane forms: each gathered value read once from shared memory.
+    * The sublane form reads its gathered rows from the table in global
+      memory through L1, whose data path is shared memory's, 128 bytes a
+      clock. The rows it gathers (258 of 1 KB) about fill an SM's L1 (at
+      most 256 KB with no shared memory, as here), so most reads can hit
+      it; L2 has no published rate to price the rest. So each gathered
+      value read once from L1: a least time, which L2 misses only raise.
+    * The transpose moves every value across lanes. On Hopper no
+      instruction does that for 32-bit values outside shared memory
+      (ldmatrix, stmatrix .trans and movmatrix take 16-bit elements; a
+      shuffle transpose needs a rotation of registers by lane before and
+      after each exchange), so each value is stored once and read once in
+      shared memory: twice the read bound."""
+    ms, _ = smem_bound(iters, dev)
+    if form == "sublane":
+        return ms, "the gathered values read once from L1"
+    if form == "transpose":
+        return 2 * ms, "each value stored and read once in shared memory"
+    return ms, "the gathered values read once from shared memory"
+
+
 def plain_call(x, form, iters, product=False):
     """The plain version of a lane, sublane or transpose form on x."""
     if form in probe_gather.LANE_FORMS:
@@ -2606,11 +2694,10 @@ def gather_form_phase(dev, card, lines, launches):
         plain_ms = time_ms(lambda: plain_call(x, form, iters), reps=1,
                            warmup=1)
         bound_ms, bound_by = form_bound(form, x, iters)
-        lane = form in probe_gather.LANE_FORMS
-        smem_ms, smem_rate = smem_bound(iters, dev) if lane else (None, 0)
-        smem = (f"; the gathered values from shared memory {smem_ms:.4f} "
-                f"ms ({smem_rate:.0f} GB/s), kernel at "
-                f"{smem_ms / line['ms']:.2%} of it") if lane else ""
+        _, smem_rate = smem_bound(iters, dev)
+        smem_ms, moved = data_bound(form, iters, dev)
+        smem = (f"; {moved} {smem_ms:.4f} ms ({smem_rate:.0f} GB/s), "
+                f"kernel at {smem_ms / line['ms']:.2%} of it")
         say(f"phase 34: {form} {line['ms']:.4f} ms/call at iters {iters} "
             f"({line['per_edge_stream_us']:.4f} us/iter, collapse ratio "
             f"{line['calib_ratio']:.3f}), plain {plain_ms:.4f} ms/call "
@@ -2631,8 +2718,7 @@ def gather_form_phase(dev, card, lines, launches):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": line["library_ms"], "library": line["library"],
             "iters": iters, "us_per_iter": line["per_edge_stream_us"],
-            "calib_ratio": line["calib_ratio"],
-            **({"smem_bound_ms": smem_ms} if lane else {})})
+            "calib_ratio": line["calib_ratio"], "smem_bound_ms": smem_ms})
     return kernels
 
 

@@ -3,340 +3,728 @@
 // e, hn, src, dst and of the eight weights and biases.
 //
 // Replaces gamd_tpu/ops/pallas_mp.py::_conv_msg_gather_bwd_kernel (line 530,
-// pallas_call at line 658; wrapper _conv_msg_gather_backward, line 624). It
-// recomputes the edge pipeline of a tile (s1 = e W1 + b1, z1 = silu(s1),
-// z2 = z1 W2 + b2 + src[idx] + dst, a2 = silu(z2), s3 = a2 W3 + b3,
-// z3 = silu(s3), m = z3 W4 + b4) and runs the reverse sweep of
-// pallas_mp.py:588-621:
-//   g_rows = mask g[i];  g_m = g_rows h_src;  g_hsrc = g_rows m
+// pallas_call at line 658; wrapper _conv_msg_gather_backward, line 624; the
+// VJP at lines 713-724). Per live edge (i, k) with source j = idx[i, k] it
+// recomputes the forward (s1 = e W1 + b1, z1 = silu(s1), z2 = z1 W2 + b2 +
+// src[j] + dst[i], a2 = silu(z2), s3 = a2 W3 + b3, z3 = silu(s3), m = z3
+// W4 + b4) and sweeps back:
+//   g_m = g[i] hn[j];  g_hsrc = g[i] m
 //   g_s3 = (g_m W4^T) silu'(s3);  g_z2 = (g_s3 W3^T) silu'(z2)
-//   g_s1 = (g_z2 W2^T) silu'(s1); ge = g_s1 W1^T (exact 0 on masked slots)
-// and three reductions leave the edge:
-//   gdst[i]  = sum_k g_z2[i,k]          per-chunk partials, fixed-order sum;
-//   ghn[j], gsrc[j] = sum of g_hsrc, g_z2 over the live edges with
-//                     idx = j           a segmented sum per target node over
-//                     the edges ordered by (i, k): the host sorts the edge
-//                     ids by target (index bookkeeping, torch.sort) and this
-//                     file adds the gradient rows;
-//   dW = sum_rows act^T grad for (e, g_s1), (z1, g_z2), (a2, g_s3), (z3,
-//        g_m), and the bias sums of the grads: each of 32 fixed ranges of
-//        the live edges writes a partial [W, W] per weight, a second kernel
-//        adds the 32 partials in order.
-// No atomics anywhere, so the result is the same from run to run.
+//   g_s1 = (g_z2 W2^T) silu'(s1); ge = g_s1 W1^T (exactly 0 on masked slots)
+//   gdst[i] = sum of g_z2 over the atom's live edges
+//   ghn[j], gsrc[j] = sums of g_hsrc, g_z2 over the live edges from j
+//   dW1..dW4 = sums over the live edges of e^T g_s1, z1^T g_z2, a2^T g_s3,
+//   z3^T g_m; db1..db4 the sums of g_s1, g_z2, g_s3, g_m.
 //
-// What bounds it on this card: per call at the training slice (LJ-258,
-// K=96, widths 128, about 5,500 live edges of 24,768 slots) the recompute,
-// the input-gradient products and the weight-gradient products need about
-// 3 x 0.72 = 2.2 GFLOP, about 32 us at the 67 TFLOP/s fp32 peak, against
-// reading e and writing ge (25.4 MB, about 8 us at 3.35 TB/s):
-// operations-bound.
+// What bounds it on this card: at the training slice (LJ-258, K=96, every
+// width 128; about 5,500 live edges of 24,768 slots) the twelve 128 x 128
+// products a live edge, as three bf16 passes on the tensor cores, are
+// about 6.5 GFLOP, 6.6 us at 989 TFLOP/s, with the epilogues' fp32
+// arithmetic about 0.5 us more; the compulsory bytes (e's live rows, ge at
+// every slot, the node rows, the weights) are about 17 MB, 5 us at 3.35
+// TB/s: operations-bound, at about 7 us.
 //
-// What the design does about it, for now: the simple exact fp32 version.
-// The edge kernel is the forward's block (one thread per channel, a chunk
-// of KC=16 slots, FMAs against shared-memory tiles) run forward and back;
-// the transposed weights come from the host. Chunks with no live slot
-// write zeros and stop. The weight gradients read per-edge activations and
-// gradients that the edge kernel writes for live slots only, to one
-// scratch block of 8 x [M*K, W] fp32 (z1, a2, z3, g_m, g_s3, g_z2, g_s1,
-// g_hsrc; 101 MB at M*K = 24,768, of which the live rows, about 23 MB, are
-// written and read): recomputing them inside the weight-gradient kernel
-// would trade those bytes for a second copy of the recompute. Five
-// launches a call. wgmma, TMA and bf16 are later work.
+// The design, on conv_tc.cuh's live-edge tiles (the forward's layout, its
+// split weights and its partials buffer are handed over by the wrapper, so
+// neither is made again):
+// 1. dead_rows_kernel writes ge's masked rows as 0, and nothing else.
+// 2. conv_bwd_tile_kernel (a persistent grid of one block an SM, each
+//    taking tiles b, b + grid, ... of 64 live edges): per tile eight
+//    products on the tensor cores, bf16 x 3 with fp32 accumulation
+//    (edge_tc.cuh), the split weights streamed by TMA through a two-buffer
+//    ring in the order W1, W2, W3, W4, W4, W3, W2, W1. The first four are
+//    the forward's products with its epilogues (the same arithmetic on
+//    the same inputs); the last four read the same split table MN-major,
+//    so that the product is with W^T and no transpose is made.
+//    silu'(s1), silu'(z2), silu'(s3) stay in registers from the recompute
+//    to the sweep (96 a thread: shared memory holds the weight ring, the
+//    activations and the g_z2 tile, 194 KB). Each of the eight activation
+//    and gradient tiles (e, z1, a2, z3, g_s1, g_z2, g_s3, g_m), already
+//    split into bf16 hi and lo in the tensor cores' swizzled layout, leaves
+//    the block by one bulk copy into its compact plane (32 KB a tile, live
+//    tiles only). The block writes ge's live rows, g_hsrc's and g_z2's rows
+//    at their slots, and sums each atom's g_z2 rows in row order into gdst
+//    or the tile's head and tail partials, as the forward sums agg.
+// 3. source_sum_kernel: ghn and gsrc, each source node's rows summed in
+//    the order of the wrapper's stable sort of the slots by source (its
+//    run found by binary search in the sorted sources).
+// 4. tile_fixup_kernel (conv_tc.cuh): gdst of the atoms that straddle
+//    tiles, and 0 for those with no live edge.
+// 5. wgrad_tc_kernel (grid N_RANGE x 4, a block for each range of tiles
+//    and weight): act^T grad over the range's tiles on the tensor cores,
+//    both operands read MN-major from the compact planes (bf16 x 3), and
+//    the bias column sums (hi + lo) in row order.
+// 6. wgrad_sum_kernel: the N_RANGE partials of each weight and bias summed
+//    in range order.
+// Launches 2-6 use programmatic dependent launch. No atomics anywhere: two
+// runs give the same bits.
 //
-// The host allocates every buffer (scratch included) with torch.empty and
-// launches on PyTorch's current stream; gamd_conv_msg_gather_bwd returns the
-// first non-zero cudaGetLastError().
+// Measured against this design on the H100 and dropped (PERF.md row 4):
+// the first transcription (a block of one thread a channel on every
+// chunk of 16 slots, dead ones included, fp32 FMAs against shared-memory
+// tiles, the weight gradients summed on the CUDA cores from 8 fp32 planes
+// over every slot), 2.8x slower at B=1; and this design with int32 sort
+// keys and the runs' offsets from a search in PyTorch, 15 us slower.
+//
+// The host allocates every buffer with torch.empty and launches on
+// PyTorch's current stream; gamd_conv_msg_gather_bwd returns the first
+// non-zero error.
 
+#include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tile.cuh"
+#include "conv_tc.cuh"
 
 namespace {
 
-// N_ROWS and N_RANGE size the host's scratch: gamd_tpu_torch/ops/
-// conv_gather.py mirrors them (SCRATCH_PLANES, WGRAD_RANGES).
-constexpr int N_ROWS = 8;      // per-edge planes of the scratch block
-constexpr int Z1 = 0, A2 = 1, Z3 = 2, GM = 3, GS3 = 4, GZ2 = 5, GS1 = 6,
-              GHS = 7;
-constexpr int AT = 32;         // rows of a weight gradient per block
-constexpr int RB = 16;         // edges staged in shared memory per pass
-constexpr int N_RANGE = 32;    // edge ranges of the weight-gradient partials
+// N_PLANES and N_RANGE size the host's scratch: gamd_tpu_torch/ops/
+// conv_gather.py mirrors them (BWD_PLANES, WGRAD_RANGES).
+constexpr int N_PLANES = 8;        // e, z1, a2, z3, then g_s1, g_z2, g_s3, g_m
+constexpr int N_RANGE = 32;        // tile ranges of the weight-gradient sums
+constexpr int BWD_PRODUCTS = 8;    // a tile's: W1..W4, then W4^T..W1^T
+constexpr int KSTEP_BYTES = 16 * 128;   // 16 rows of an MN-major operand
+// Dynamic shared memory of a tile block (ops/edge_tiles.py BACKWARD_SMEM):
+// two weight buffers, the activations and the fp32 g_z2 tile.
+constexpr int BWD_SMEM = 2 * tc::SPLIT_BYTES + 2 * tc::A_BYTES + 1024;
+// Of a weight-gradient block: two stages of an activation and a gradient
+// tile.
+constexpr int WG_SMEM = 2 * 2 * tc::A_BYTES + 1024;
+constexpr int DEAD_WARPS = 8;      // slots a dead-row block takes at once
 
-// The weights, biases and transposed weights of the edge pipeline.
-struct ConvGradWeights {
-  const float *w1, *b1, *w2, *b2, *w3, *b3, *w4, *b4;
-  const float *w1t, *w2t, *w3t, *w4t;
-};
+// ---------------------------------------------------------------------------
+// MN-major operands
+// ---------------------------------------------------------------------------
 
-// Activation and gradient planes of the four weight-gradient products.
-struct WgradPlanes {
-  const float* act[4];
-  const float* grad[4];
-};
-
-__device__ __forceinline__ float dsilu(float x) {
-  const float s = 1.0f / (1.0f + expf(-x));
-  return s * (1.0f + x * (1.0f - s));
+// Shared-memory matrix descriptor of an MN-major operand in the 128-byte
+// swizzle: a 1024-byte atom is 8 K-rows of 128 bytes (64 M or N values),
+// the next 8 K-rows 1024 bytes on. Every operand here is 64 values wide,
+// one atom, so the stride between atoms along M or N is never taken; both
+// offsets hold the K-group stride.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
 }
 
-// grid (ceil(K/KC), M), block W: one chunk of KC slots of row i, recomputed
-// and swept back. Writes ge for every slot, the chunk's gdst partial, and
-// the per-edge planes of its live slots.
-__global__ void __launch_bounds__(W)
-bwd_edge_kernel(const float* __restrict__ g, const float* __restrict__ e,
-                const int* __restrict__ idx, const uint8_t* __restrict__ mask,
-                const float* __restrict__ hn, const float* __restrict__ src,
-                const float* __restrict__ dst, ConvGradWeights p, int k,
-                size_t plane, float* __restrict__ rows,
-                float* __restrict__ gdstp, float* __restrict__ ge) {
-  __shared__ __align__(16) float buf_a[W * KC];
-  __shared__ __align__(16) float buf_b[W * KC];
-  __shared__ int idx_s[KC];
-  __shared__ int live_s[KC];
-  const int i = blockIdx.y, k0 = blockIdx.x * KC, c = threadIdx.x;
-  const size_t row0 = (size_t)i * k + k0;
-
-  int live = 0;
-  if (c < KC) {
-    const int kk = k0 + c;
-    live = kk < k && mask[row0 + c];
-    idx_s[c] = kk < k ? idx[row0 + c] : i;
-    live_s[c] = live;
-  }
-  float* gdst_out = gdstp + ((size_t)i * gridDim.x + blockIdx.x) * W + c;
-  if (!__syncthreads_or(live)) {
-#pragma unroll
-    for (int m = 0; m < KC; ++m)
-      if (k0 + m < k) ge[(row0 + m) * W + c] = 0.f;
-    *gdst_out = 0.f;
-    return;
-  }
-  // Plane t of slot m: rows[t * plane + (row0 + m) * W + c], live slots only.
-  auto put = [&](int t, int m, float v) {
-    if (live_s[m]) rows[t * plane + (row0 + m) * W + c] = v;
-  };
-
-  {
-    float x[KC];
-#pragma unroll
-    for (int m = 0; m < KC; ++m)
-      x[m] = (k0 + m < k) ? e[(row0 + m) * W + c] : 0.f;
-    store_tile<KC>(buf_a, x);
-  }
-  __syncthreads();
-
-  // ---- recompute ----------------------------------------------------------
-  float s1[KC], z2[KC], s3[KC], acc[KC];
-  matmul_tile<KC>(buf_a, p.w1, p.b1[c], acc);
-#pragma unroll
-  for (int m = 0; m < KC; ++m) {
-    s1[m] = acc[m];
-    acc[m] = silu(acc[m]);
-    put(Z1, m, acc[m]);
-  }
-  store_tile<KC>(buf_b, acc);
-  __syncthreads();
-  matmul_tile<KC>(buf_b, p.w2, p.b2[c], acc);
-  {
-    const float dc = dst[(size_t)i * W + c];
-#pragma unroll
-    for (int m = 0; m < KC; ++m) {
-      z2[m] = acc[m] + src[(size_t)idx_s[m] * W + c] + dc;
-      acc[m] = silu(z2[m]);
-      put(A2, m, acc[m]);
-    }
-  }
-  // Each tile below overwrites a buffer whose last reader ran before the
-  // barrier that precedes the store.
-  store_tile<KC>(buf_a, acc);
-  __syncthreads();
-  matmul_tile<KC>(buf_a, p.w3, p.b3[c], acc);
-#pragma unroll
-  for (int m = 0; m < KC; ++m) {
-    s3[m] = acc[m];
-    acc[m] = silu(acc[m]);
-    put(Z3, m, acc[m]);
-  }
-  store_tile<KC>(buf_b, acc);
-  __syncthreads();
-  matmul_tile<KC>(buf_b, p.w4, p.b4[c], acc);            // m
-
-  // ---- reverse sweep -------------------------------------------------------
-  {
-    const float gi = g[(size_t)i * W + c];
-#pragma unroll
-    for (int m = 0; m < KC; ++m) {
-      const float gr = live_s[m] ? gi : 0.f;
-      put(GHS, m, gr * acc[m]);
-      acc[m] = gr * hn[(size_t)idx_s[m] * W + c];        // g_m
-      put(GM, m, acc[m]);
-    }
-  }
-  store_tile<KC>(buf_a, acc);
-  __syncthreads();
-  matmul_tile<KC>(buf_a, p.w4t, 0.f, acc);               // g_z3
-#pragma unroll
-  for (int m = 0; m < KC; ++m) {
-    acc[m] *= dsilu(s3[m]);                                // g_s3
-    put(GS3, m, acc[m]);
-  }
-  store_tile<KC>(buf_b, acc);
-  __syncthreads();
-  matmul_tile<KC>(buf_b, p.w3t, 0.f, acc);               // g_a2
-  {
-    float gsum = 0.f;
-#pragma unroll
-    for (int m = 0; m < KC; ++m) {
-      acc[m] *= dsilu(z2[m]);                              // g_z2
-      put(GZ2, m, acc[m]);
-      if (live_s[m]) gsum += acc[m];
-    }
-    *gdst_out = gsum;
-  }
-  store_tile<KC>(buf_a, acc);
-  __syncthreads();
-  matmul_tile<KC>(buf_a, p.w2t, 0.f, acc);               // g_z1
-#pragma unroll
-  for (int m = 0; m < KC; ++m) {
-    acc[m] *= dsilu(s1[m]);                                // g_s1
-    put(GS1, m, acc[m]);
-  }
-  store_tile<KC>(buf_b, acc);
-  __syncthreads();
-  matmul_tile<KC>(buf_b, p.w1t, 0.f, acc);               // ge
-#pragma unroll
-  for (int m = 0; m < KC; ++m)
-    if (k0 + m < k) ge[(row0 + m) * W + c] = live_s[m] ? acc[m] : 0.f;
+// d += A B for one k-step (m64n64k16, bf16, fp32 accumulation), A MN-major
+// if TRANS_A, B MN-major if TRANS_B (K-major otherwise).
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_t(float (&d)[2 * tc::PAIRS],
+                                        uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
 }
 
-// grid M, block W: ghn[j] and gsrc[j], the sums of the g_hsrc and g_z2 rows
-// of the live edges whose source is node j, in the order of `order`
-// between offsets[j] and offsets[j + 1].
-__global__ void __launch_bounds__(W)
-bwd_node_kernel(const int* __restrict__ order, const int* __restrict__ offsets,
-                const float* __restrict__ ghs, const float* __restrict__ gz2,
-                float* __restrict__ ghn, float* __restrict__ gsrc) {
+// acc = A W^T for the calling warpgroup's 64 output columns, bf16 x 3 as
+// tc::product_x3: A the activation buffer (K-major), B the split weight's
+// W^T [out][in] read MN-major, K = out down its rows: the warpgroup's
+// columns are the half [64 wg, 64 wg + 64) of each part, k-step kk its
+// rows 16 kk .. 16 kk + 15.
+__device__ __forceinline__ void product_x3_t(float (&acc)[2 * tc::PAIRS],
+                                             uint32_t a, uint32_t w,
+                                             int wg) {
+#pragma unroll
+  for (int i = 0; i < 2 * tc::PAIRS; ++i) acc[i] = 0.f;
+  tc::fence_acc(acc);
+  tc::wgmma_fence();
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) {
+    const uint32_t a_part = a + (pass == 2 ? tc::A_PART_BYTES : 0);
+    const uint32_t w_part =
+        w + (pass == 1 ? tc::PART_BYTES : 0) + wg * tc::HALF_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_t<0, 1>(acc,
+                    tc::desc_sw128(a_part + (kk >> 2) * tc::A_HALF_BYTES +
+                                   (kk & 3) * 32),
+                    desc_mn(w_part + kk * KSTEP_BYTES));
+  }
+  tc::wgmma_commit();
+  tc::wgmma_wait_all();
+  tc::fence_acc(acc);
+}
+
+// acc0 += act^T grad and acc1 likewise over one tile's 64 rows, for the
+// weight rows [64 h, 64 h + 64) (act's columns; the calling warpgroup's)
+// and the weight columns [0, 64) and [64, 128) (grad's), bf16 x 3: act_hi
+// grad_hi + act_hi grad_lo + act_lo grad_hi. Both tiles are in the
+// activation buffer's layout, read MN-major with the rows as K.
+__device__ __forceinline__ void wgrad_x3(float (&acc0)[2 * tc::PAIRS],
+                                         float (&acc1)[2 * tc::PAIRS],
+                                         uint32_t act, uint32_t grad,
+                                         int h) {
+  tc::fence_acc(acc0);
+  tc::fence_acc(acc1);
+  tc::wgmma_fence();
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) {
+    const uint32_t a_part =
+        act + (pass == 2 ? tc::A_PART_BYTES : 0) + h * tc::A_HALF_BYTES;
+    const uint32_t g_part = grad + (pass == 1 ? tc::A_PART_BYTES : 0);
+#pragma unroll
+    for (int kk = 0; kk < tc::TILE / 16; ++kk) {
+      const uint64_t da = desc_mn(a_part + kk * KSTEP_BYTES);
+      wgmma_t<1, 1>(acc0, da, desc_mn(g_part + kk * KSTEP_BYTES));
+      wgmma_t<1, 1>(acc1, da, desc_mn(g_part + tc::A_HALF_BYTES +
+                                      kk * KSTEP_BYTES));
+    }
+  }
+  tc::wgmma_commit();
+  tc::wgmma_wait_all();
+  tc::fence_acc(acc0);
+  tc::fence_acc(acc1);
+}
+
+// One thread: `bytes` of shared memory at `src` into global memory at
+// `dst` (a bulk copy, committed as its own group).
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(src), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The issuing thread's bulk copies have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// The issuing thread's bulk copies are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// 1. The dead rows of ge
+// ---------------------------------------------------------------------------
+
+// A warp a slot, grid-stride: ge's row of every masked slot set to 0.
+__global__ void __launch_bounds__(32 * DEAD_WARPS)
+dead_rows_kernel(const uint8_t* __restrict__ mask, long long slots,
+                 float* __restrict__ ge) {
+  tc::let_next_start();
+  const int lane = threadIdx.x & 31;
+  const long long step = (long long)gridDim.x * DEAD_WARPS;
+  for (long long s = (long long)blockIdx.x * DEAD_WARPS + (threadIdx.x >> 5);
+       s < slots; s += step)
+    if (!mask[s])
+      reinterpret_cast<float4*>(ge + s * CW)[lane] =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// ---------------------------------------------------------------------------
+// 2. The edge tiles
+// ---------------------------------------------------------------------------
+
+// Product p's weight: W1..W4, then W4..W1 (read as W^T).
+__device__ __forceinline__ int bwd_weight(int p) {
+  const int q = p % BWD_PRODUCTS;
+  return q < N_WEIGHTS ? q : BWD_PRODUCTS - 1 - q;
+}
+
+// silu(x) as the forward computes it (tc::silu_fast) and silu'(x) =
+// sigma(x) (1 + x (1 - sigma(x))).
+__device__ __forceinline__ float2 silu_and_grad(float x) {
+  const float ex = __expf(-x);
+  const float s = __fdividef(1.0f, 1.0f + ex);
+  return make_float2(__fdividef(x, 1.0f + ex), s * (1.0f + x * (1.0f - s)));
+}
+
+__device__ __forceinline__ void st2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+struct BwdArgs {
+  TileArgs t;         // layout, e, dst, biases; agg = gdst, part its partials
+  const float* g;     // [M, 128] the cotangent of agg
+  float* ge;          // [M*K, 128]
+  float *ghs, *gz2;   // [M*K, 128] g_hsrc and g_z2 at the live slots
+  uint8_t* planes;    // [N_PLANES][cap_tiles][A_BYTES] compact tiles
+  int cap_tiles;      // ceil(M*K / 64)
+};
+
+// The tile block's shared memory (BWD_SMEM, 1024-byte aligned): two
+// weight buffers, the activation buffer, the fp32 g_z2 tile `red`; and the
+// ring of split weights in bwd_weight's order, as tc::WeightRing<2>.
+struct BwdRing {
+  uint32_t w, a_s, bar;
+  uint8_t* a;
+  float* red;
+  int n_products;
+
+  // Barrier setup and the first two weights by thread 0; the caller syncs
+  // before waiting on them.
+  __device__ __forceinline__ BwdRing(uint8_t* smem, uint64_t* bars,
+                                     const CUtensorMap* map, int count)
+      : n_products(count) {
+    const uint32_t base = tc::smem_addr(smem);
+    w = (base + 1023u) & ~1023u;
+    a_s = w + 2 * tc::SPLIT_BYTES;
+    a = smem + (a_s - base);
+    red = reinterpret_cast<float*>(a + tc::A_BYTES);
+    bar = tc::smem_addr(bars);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b) tc::mbar_init(bar + 8 * b, 1);
+      tc::mbar_init_fence();
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+        tc::load_split(w + b * tc::SPLIT_BYTES, map, bar + 8 * b,
+                       bwd_weight(b));
+    }
+  }
+
+  // Product p of the calling warpgroup once its weight has landed: with W
+  // (the forward's) or, if `transposed`, with W^T.
+  __device__ __forceinline__ void product(float (&acc)[2 * tc::PAIRS], int p,
+                                          int wg, bool transposed) const {
+    tc::mbar_wait(bar + 8 * (p & 1), (p >> 1) & 1);
+    const uint32_t wb = w + (p & 1) * tc::SPLIT_BYTES;
+    if (transposed)
+      product_x3_t(acc, a_s, wb, wg);
+    else
+      tc::product_x3(acc, a_s, wb, wg);
+  }
+
+  // After product p: the copy of the activations out has read them, both
+  // warpgroups are done with them and with p's buffer; thread 0 refills
+  // the buffer with product p + 2's weight.
+  __device__ __forceinline__ void release(const CUtensorMap* map,
+                                          int p) const {
+    if (threadIdx.x == 0) bulk_wait_read();
+    __syncthreads();
+    if (threadIdx.x == 0 && p + 2 < n_products)
+      tc::load_split(w + (p & 1) * tc::SPLIT_BYTES, map, bar + 8 * (p & 1),
+                     bwd_weight(p + 2));
+  }
+};
+
+// The activations are written and fenced: thread 0 copies them into
+// compact plane `plane` at tile t.
+__device__ __forceinline__ void store_plane(const BwdArgs& a, int plane,
+                                            int t, uint32_t a_s) {
+  if (threadIdx.x == 0)
+    bulk_store(a.planes + ((size_t)plane * a.cap_tiles + t) * tc::A_BYTES,
+               a_s, tc::A_BYTES);
+}
+
+// The persistent backward tile kernel. grid plan.grid (at most one block
+// an SM), block 256 (one tile at a time, its columns split between the two
+// warpgroups), BWD_SMEM of dynamic shared memory; block b takes tiles b,
+// b + grid, ... of the layout's ceil(total / 64).
+template <class Src>
+__global__ void __launch_bounds__(tc::THREADS, 1)
+conv_bwd_tile_kernel(const __grid_constant__ CUtensorMap wmap, BwdArgs a,
+                     Src src) {
+  tc::let_next_start();
+  tc::grid_wait();
+  const TileArgs& ta = a.t;
+  const int total = *ta.lay.total;
+  const int tiles = (total + tc::TILE - 1) / tc::TILE;
+  if ((int)blockIdx.x >= tiles) return;
+  const int mine = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  extern __shared__ uint8_t tile_smem[];
+  __shared__ __align__(8) uint64_t bars[2];
+  __shared__ int atom_s[tc::TILE];     // each row's atom, -1 past total
+  __shared__ uint8_t first_s[tc::TILE], last_s[tc::TILE];   // of its atom
+  const BwdRing ring(tile_smem, bars, &wmap, BWD_PRODUCTS * mine);
+  float* red = ring.red;
+  const tc::Frag f;
+  // silu' of s1, z2 and s3 at the thread's fragment, from the recompute to
+  // the sweep.
+  float d1[2 * tc::PAIRS], d2[2 * tc::PAIRS], d3[2 * tc::PAIRS];
+  int p = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int row0 = t * tc::TILE;
+    bool live[2];
+    int i[2], j[2], sl[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int g = row0 + f.r0 + 8 * s;
+      live[s] = g < total;
+      sl[s] = ta.lay.slot[live[s] ? g : row0];
+      i[s] = sl[s] / ta.k;
+      j[s] = src.row(i[s], sl[s]);
+    }
+    int row_atom = -1, row_off = 0, row_cnt = 0;
+    const int g = row0 + threadIdx.x;
+    if (threadIdx.x < tc::TILE && g < total) {
+      row_atom = ta.lay.slot[g] / ta.k;
+      row_off = ta.lay.off[row_atom];
+      row_cnt = ta.lay.cnt[row_atom];
+    }
+#pragma unroll
+    for (int q = 0; q < tc::PAIRS; ++q) {
+      const int s = q & 1;
+      const float2 v = live[s] ? ld2(ta.e + (size_t)sl[s] * CW + f.col(q))
+                               : make_float2(0.f, 0.f);
+      tc::store_pair(ring.a, f, q, v.x, v.y);
+    }
+    if (threadIdx.x < tc::TILE) {
+      atom_s[threadIdx.x] = row_atom;
+      first_s[threadIdx.x] = row_off == g;
+      last_s[threadIdx.x] = row_off + row_cnt == g + 1;
+    }
+    tc::activations_ready();
+    store_plane(a, 0, t, ring.a_s);
+
+    // The eight products, each followed by its epilogue; the epilogue's
+    // tile (but the last's) goes into the activations and out to its
+    // plane: z1, a2, z3 (planes 1-3), then g_m, g_s3, g_z2, g_s1 (7-4).
+    float acc[2 * tc::PAIRS];
+#pragma unroll
+    for (int m = 0; m < BWD_PRODUCTS; ++m, ++p) {
+      ring.product(acc, p, f.wg, m >= N_WEIGHTS);
+      ring.release(&wmap, p);
+#pragma unroll
+      for (int q = 0; q < tc::PAIRS; ++q) {
+        const int s = q & 1, c = f.col(q);
+        const float x0 = acc[2 * q], x1 = acc[2 * q + 1];
+        float2 out = make_float2(0.f, 0.f);
+        if (m < N_WEIGHTS) {
+          const float* bias = m == 0 ? ta.b1 : m == 1 ? ta.b2
+                              : m == 2 ? ta.b3 : ta.b4;
+          float2 x = ld2(bias + c);
+          x.x += x0;
+          x.y += x1;
+          if (m == 1) {
+            const float2 sv = ld2(src.src_row(j[s]) + c);
+            const float2 dv = ld2(ta.dst + (size_t)i[s] * CW + c);
+            x.x += sv.x + dv.x;
+            x.y += sv.y + dv.y;
+          }
+          if (m < N_WEIGHTS - 1) {
+            const float2 u = silu_and_grad(x.x), v = silu_and_grad(x.y);
+            if (m == 0) {
+              d1[2 * q] = u.y;
+              d1[2 * q + 1] = v.y;
+            } else if (m == 1) {
+              d2[2 * q] = u.y;
+              d2[2 * q + 1] = v.y;
+            } else {
+              d3[2 * q] = u.y;
+              d3[2 * q + 1] = v.y;
+            }
+            out = make_float2(u.x, v.x);
+          } else {   // x is m: g_hsrc = g[i] m, g_m = g[i] hn[j]
+            float2 gi = make_float2(0.f, 0.f);
+            if (live[s]) {
+              gi = ld2(a.g + (size_t)i[s] * CW + c);
+              st2(a.ghs + (size_t)sl[s] * CW + c, gi.x * x.x, gi.y * x.y);
+            }
+            const float2 hv = ld2(src.hn_row(j[s]) + c);
+            out = make_float2(gi.x * hv.x, gi.y * hv.y);
+          }
+        } else if (m == 4) {
+          out = make_float2(x0 * d3[2 * q], x1 * d3[2 * q + 1]);   // g_s3
+        } else if (m == 5) {
+          out = make_float2(x0 * d2[2 * q], x1 * d2[2 * q + 1]);   // g_z2
+          *reinterpret_cast<float2*>(red + red_at(f.row(q), c)) = out;
+          if (live[s]) st2(a.gz2 + (size_t)sl[s] * CW + c, out.x, out.y);
+        } else if (m == 6) {
+          out = make_float2(x0 * d1[2 * q], x1 * d1[2 * q + 1]);   // g_s1
+        } else if (live[s]) {
+          st2(a.ge + (size_t)sl[s] * CW + c, x0, x1);              // ge
+        }
+        if (m < BWD_PRODUCTS - 1) tc::store_pair(ring.a, f, q, out.x, out.y);
+      }
+      if (m < BWD_PRODUCTS - 1) {
+        tc::activations_ready();
+        store_plane(a, m < 3 ? m + 1 : 10 - m, t, ring.a_s);
+      }
+    }
+
+    // Each atom's g_z2 rows of the tile, summed in row order by the
+    // column's thread of the first warpgroup (the forward's sum of agg).
+    if (threadIdx.x < CW) {
+      const int c = threadIdx.x, rows = min(tc::TILE, total - row0);
+      int cur = atom_s[0], start = 0;
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        const int at = atom_s[r];
+        if (at != cur) {
+          emit_run(ta, t, cur, first_s[start], last_s[r - 1], c, s);
+          cur = at;
+          start = r;
+          s = 0.f;
+        }
+        s += red[red_at(r, c)];
+      }
+      emit_run(ta, t, cur, first_s[start], last_s[rows - 1], c, s);
+    }
+    __syncthreads();   // red and the row flags are rewritten by the next tile
+  }
+  if (threadIdx.x == 0) bulk_wait();
+}
+
+// ---------------------------------------------------------------------------
+// 3. The sums by source node
+// ---------------------------------------------------------------------------
+
+// [q0, q1): the run of keys equal to v in the ascending keys[0, n), n >=
+// 1. Two lower bounds (the count of keys below v, below v + 1) found
+// together by halving steps, so that their loads overlap.
+template <class Key>
+__device__ __forceinline__ void key_run(const Key* __restrict__ keys, int n,
+                                        int v, int& q0, int& q1) {
+  q0 = q1 = 0;
+  for (int step = 1 << (31 - __clz(n)); step > 0; step >>= 1) {
+    if (q0 + step <= n && (int)keys[q0 + step - 1] < v) q0 += step;
+    if (q1 + step <= n && (int)keys[q1 + step - 1] <= v) q1 += step;
+  }
+}
+
+// grid M, block 128: ghn[j] and gsrc[j], the sums of the g_hsrc and g_z2
+// rows of the live edges whose source is node j, in the order of `order`
+// over the run of keys equal to j (keys: the n = M*K slots' sources,
+// sorted; a masked slot's key is M).
+template <class Key>
+__global__ void __launch_bounds__(CW)
+source_sum_kernel(const long long* __restrict__ order,
+                  const Key* __restrict__ keys, int n,
+                  const float* __restrict__ ghs,
+                  const float* __restrict__ gz2, float* __restrict__ ghn,
+                  float* __restrict__ gsrc) {
+  tc::let_next_start();
+  tc::grid_wait();
   const int j = blockIdx.x, c = threadIdx.x;
+  int q0, q1;
+  key_run(keys, n, j, q0, q1);
   float sh = 0.f, ss = 0.f;
-  for (int q = offsets[j]; q < offsets[j + 1]; ++q) {
-    const size_t r = (size_t)order[q] * W + c;
+  for (int q = q0; q < q1; ++q) {
+    const size_t r = (size_t)order[q] * CW + c;
     sh += ghs[r];
     ss += gz2[r];
   }
-  ghn[(size_t)j * W + c] = sh;
-  gsrc[(size_t)j * W + c] = ss;
+  ghn[(size_t)j * CW + c] = sh;
+  gsrc[(size_t)j * CW + c] = ss;
 }
 
-// grid (N_RANGE, 4, W / AT), block W. Block (q, t, z) adds, over the live
-// edges of range q (positions of `order`), act_t[r][a] * grad_t[r][c] for
-// its AT rows a of weight t and the thread's column c, and (z == 0) the
-// bias sum grad_t[r][c]; partials go to wpart [4, N_RANGE, W, W] and
-// bpart [4, N_RANGE, W].
-__global__ void __launch_bounds__(W)
-wgrad_kernel(const int* __restrict__ order, const int* __restrict__ offsets,
-             int m_nodes, WgradPlanes planes, float* __restrict__ wpart,
-             float* __restrict__ bpart) {
-  __shared__ __align__(16) float act_s[RB][AT];
-  __shared__ int row_s[RB];
-  const int q = blockIdx.x, t = blockIdx.y, a0 = blockIdx.z * AT;
-  const int c = threadIdx.x;
-  const int n_live = offsets[m_nodes];
-  const int per = (n_live + N_RANGE - 1) / N_RANGE;
-  const int p0 = min(q * per, n_live), p1 = min(p0 + per, n_live);
-  const float* act = planes.act[t];
-  const float* grad = planes.grad[t];
+// ---------------------------------------------------------------------------
+// 5-6. The weight gradients
+// ---------------------------------------------------------------------------
 
-  float acc[AT], bacc = 0.f;
+// grid (N_RANGE, 4), block 256, WG_SMEM of dynamic shared memory. Block
+// (q, w) takes range q of the live tiles (ceil(tiles / N_RANGE) each, in
+// order) and adds, over their rows, act^T grad of weight w (planes w and
+// 4 + w; warpgroup h the weight rows [64 h, 64 h + 64)) and the bias sums
+// of grad (hi + lo, in row order); partials to wpart [4, N_RANGE, 128,
+// 128] and bpart [4, N_RANGE, 128]. Tiles stream through two stages by
+// bulk copies.
+__global__ void __launch_bounds__(tc::THREADS, 1)
+wgrad_tc_kernel(const uint8_t* __restrict__ planes, int cap_tiles,
+                const int* __restrict__ total, float* __restrict__ wpart,
+                float* __restrict__ bpart) {
+  tc::let_next_start();
+  tc::grid_wait();
+  const int q = blockIdx.x, w = blockIdx.y;
+  const int tiles = (*total + tc::TILE - 1) / tc::TILE;
+  const int per = (tiles + N_RANGE - 1) / N_RANGE;
+  const int t0 = min(q * per, tiles), t1 = min(t0 + per, tiles);
+  extern __shared__ uint8_t wg_smem[];
+  __shared__ __align__(8) uint64_t bars[2];
+  const uint32_t base = tc::smem_addr(wg_smem);
+  const uint32_t buf = (base + 1023u) & ~1023u;
+  const uint8_t* buf_g = wg_smem + (buf - base);
+  const uint32_t bar = tc::smem_addr(bars);
+  const uint8_t* act = planes + (size_t)w * cap_tiles * tc::A_BYTES;
+  const uint8_t* grad =
+      planes + (size_t)(N_WEIGHTS + w) * cap_tiles * tc::A_BYTES;
+  auto load = [&](int t, int s) {
+    const uint32_t dst = buf + s * 2 * tc::A_BYTES;
+    tc::mbar_expect(bar + 8 * s, 2 * tc::A_BYTES);
+    tc::bulk_load(dst, act + (size_t)t * tc::A_BYTES, tc::A_BYTES,
+                  bar + 8 * s);
+    tc::bulk_load(dst + tc::A_BYTES, grad + (size_t)t * tc::A_BYTES,
+                  tc::A_BYTES, bar + 8 * s);
+  };
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int m = 0; m < AT; ++m) acc[m] = 0.f;
-  for (int base = p0; base < p1; base += RB) {
-    const int cnt = min(RB, p1 - base);
-    if (c < cnt) row_s[c] = order[base + c];
-    __syncthreads();
-    for (int x = c; x < cnt * AT; x += W)
-      act_s[x / AT][x % AT] = act[(size_t)row_s[x / AT] * W + a0 + x % AT];
-    __syncthreads();
-    for (int r = 0; r < cnt; ++r) {
-      const float gv = grad[(size_t)row_s[r] * W + c];
-      bacc += gv;
-      const float4* ar = reinterpret_cast<const float4*>(act_s[r]);
+    for (int s = 0; s < 2; ++s) tc::mbar_init(bar + 8 * s, 1);
+    tc::mbar_init_fence();
 #pragma unroll
-      for (int v = 0; v < AT / 4; ++v) {
-        const float4 a = ar[v];
-        acc[4 * v + 0] = fmaf(a.x, gv, acc[4 * v + 0]);
-        acc[4 * v + 1] = fmaf(a.y, gv, acc[4 * v + 1]);
-        acc[4 * v + 2] = fmaf(a.z, gv, acc[4 * v + 2]);
-        acc[4 * v + 3] = fmaf(a.w, gv, acc[4 * v + 3]);
+    for (int s = 0; s < 2; ++s)
+      if (t0 + s < t1) load(t0 + s, s);
+  }
+  __syncthreads();
+
+  float acc0[2 * tc::PAIRS], acc1[2 * tc::PAIRS];
+#pragma unroll
+  for (int i = 0; i < 2 * tc::PAIRS; ++i) acc0[i] = acc1[i] = 0.f;
+  float bsum = 0.f;
+  const int h = threadIdx.x >> 7, c = threadIdx.x;
+  // Column c's byte offset in a row of the tile layout (its half, its
+  // 16-byte chunk before the swizzle, its place in the chunk).
+  const int half = (c >> 6) & 1, chunk = (c & 63) >> 3, in_chunk = 2 * (c & 7);
+  for (int t = t0, n = 0; t < t1; ++t, ++n) {
+    const int s = n & 1;
+    tc::mbar_wait(bar + 8 * s, (n >> 1) & 1);
+    const uint32_t act_s = buf + s * 2 * tc::A_BYTES;
+    wgrad_x3(acc0, acc1, act_s, act_s + tc::A_BYTES, h);
+    if (c < CW) {
+      const uint8_t* gt = buf_g + s * 2 * tc::A_BYTES + tc::A_BYTES
+                          + half * tc::A_HALF_BYTES + in_chunk;
+#pragma unroll 8
+      for (int r = 0; r < tc::TILE; ++r) {
+        const int off = r * 128 + ((chunk ^ (r & 7)) << 4);
+        bsum += __bfloat162float(
+                    *reinterpret_cast<const __nv_bfloat16*>(gt + off)) +
+                __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+                    gt + tc::A_PART_BYTES + off));
       }
     }
+    tc::proxy_fence();   // the generic reads before the stage is refilled
     __syncthreads();
+    if (threadIdx.x == 0 && t + 2 < t1) load(t + 2, s);
   }
-  float* out = wpart + ((size_t)(t * N_RANGE + q) * W + a0) * W + c;
+
+  const tc::Frag f;
+  float* out = wpart + (size_t)(w * N_RANGE + q) * CW * CW;
 #pragma unroll
-  for (int m = 0; m < AT; ++m) out[(size_t)m * W] = acc[m];
-  if (blockIdx.z == 0) bpart[(size_t)(t * N_RANGE + q) * W + c] = bacc;
+  for (int p = 0; p < tc::PAIRS; ++p) {
+    const int row = 64 * h + f.row(p), col = 8 * (p >> 1) + 2 * f.q;
+    st2(out + (size_t)row * CW + col, acc0[2 * p], acc0[2 * p + 1]);
+    st2(out + (size_t)row * CW + 64 + col, acc1[2 * p], acc1[2 * p + 1]);
+  }
+  if (c < CW) bpart[(size_t)(w * N_RANGE + q) * CW + c] = bsum;
 }
 
-// grid (4, W + 1), block W: gw[t][a][c] = sum over ranges q in order of
+// grid (4, 129), block 128: gw[t][a][c] = sum over ranges q in order of
 // wpart[t][q][a][c]; the last row of the grid does the biases into gb[t].
-__global__ void __launch_bounds__(W)
+__global__ void __launch_bounds__(CW)
 wgrad_sum_kernel(const float* __restrict__ wpart,
                  const float* __restrict__ bpart, float* __restrict__ gw,
                  float* __restrict__ gb) {
+  tc::let_next_start();
+  tc::grid_wait();
   const int t = blockIdx.x, a = blockIdx.y, c = threadIdx.x;
   float s = 0.f;
-  if (a < W) {
+  if (a < CW) {
     for (int q = 0; q < N_RANGE; ++q)
-      s += wpart[((size_t)(t * N_RANGE + q) * W + a) * W + c];
-    gw[((size_t)t * W + a) * W + c] = s;
+      s += wpart[((size_t)(t * N_RANGE + q) * CW + a) * CW + c];
+    gw[((size_t)t * CW + a) * CW + c] = s;
   } else {
     for (int q = 0; q < N_RANGE; ++q)
-      s += bpart[(size_t)(t * N_RANGE + q) * W + c];
-    gb[(size_t)t * W + c] = s;
+      s += bpart[(size_t)(t * N_RANGE + q) * CW + c];
+    gb[(size_t)t * CW + c] = s;
   }
+}
+
+// Dynamic shared memory above 48 KB for the two tensor-core kernels, once
+// per process.
+cudaError_t configure_backward() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  const cudaFuncAttribute max_smem =
+      cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(conv_bwd_tile_kernel<GatherSrc>, max_smem,
+                                  BWD_SMEM)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(wgrad_tc_kernel, max_smem, WG_SMEM)) !=
+          cudaSuccess)
+    return err;
+  done = true;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// Gradients of agg = conv_msg_gather(...) for the cotangent g [M, W]:
-// ge [M*K, W], ghn/gsrc/gdst [M, W], gw [4, W, W] (W1..W4) and gb [4, W]
-// (b1..b4). order [n_live] and offsets [M + 1] list the live edges by
-// source node (order[offsets[j]:offsets[j+1]] are the flat slot ids i*K+k
-// with mask set and idx = j, ascending). Scratch: rows [N_ROWS, M*K, W],
-// gdstp [M, ceil(K/KC), W], wpart [4, N_RANGE, W, W], bpart
-// [4, N_RANGE, W]. Returns 0, or the first non-zero
-// cudaError_t seen after a launch.
+// Gradients of agg = conv_msg_gather(...) for the cotangent g [M, 128]:
+// ge [M*K, 128], ghn/gsrc/gdst [M, 128], gw [4, 128, 128] (W1..W4) and gb
+// [4, 128] (b1..b4). lay, wsplit and part are the forward call's layout,
+// split weights and partials buffer (ops/edge_tiles.py::call_scratch), the
+// first two as the forward left them. order [M*K] (int64) and keys [M*K]
+// (int16 or int32, key_bytes 2 or 4) list the slots stably sorted by
+// source, M for a masked one (ops/conv_gather.py::source_order).
+// Scratch: planes [N_PLANES, ceil(M*K / 64), 32 KB], rows [2, M*K, 128],
+// wpart [4, N_RANGE, 128, 128], bpart [4, N_RANGE, 128]. The plan is
+// ops/edge_tiles.py::backward_plan's. Returns 0, a cudaError_t
+// (cudaErrorInvalidValue for a shape or plan it does not take), or 100000
+// + the CUresult of the TMA map's encoding.
 extern "C" int gamd_conv_msg_gather_bwd(
     const float* g, const float* e, const int* idx, const uint8_t* mask,
-    const float* hn, const float* src, const float* dst, const float* w1,
-    const float* b1, const float* w2, const float* b2, const float* w3,
-    const float* b3, const float* w4, const float* b4, const float* w1t,
-    const float* w2t, const float* w3t, const float* w4t, const int* order,
-    const int* offsets, int m, int k, float* rows, float* gdstp, float* wpart,
-    float* bpart, float* ge, float* ghn, float* gsrc, float* gdst, float* gw,
-    float* gb, void* stream) {
+    const float* hn, const float* src, const float* dst, const float* b1,
+    const float* b2, const float* b3, const float* b4, int m, int k,
+    const SlotLayout* lay, void* wsplit, float* part, const long long* order,
+    const void* keys, int key_bytes, void* planes, float* rows, float* wpart,
+    float* bpart, int grid, int threads, int smem, float* ge, float* ghn,
+    float* gsrc, float* gdst, float* gw, float* gb, void* stream) {
+  if (m <= 0 || k <= 0 || (long long)m * k >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  const long long cap = tc::tile_capacity(m, k);
+  const long long most = cap < tc::sm_count() ? cap : tc::sm_count();
+  if (threads != tc::THREADS || smem != BWD_SMEM || grid < 1 || grid > most
+      || (key_bytes != 2 && key_bytes != 4))
+    return cudaErrorInvalidValue;
+  cudaError_t err = configure_backward();
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ConvGradWeights p{w1, b1, w2, b2, w3, b3, w4, b4, w1t, w2t, w3t, w4t};
-  const int n_chunk = (k + KC - 1) / KC;
-  const size_t plane = (size_t)m * k * W;
-  const WgradPlanes planes{{e, rows + Z1 * plane, rows + A2 * plane,
-                            rows + Z3 * plane},
-                           {rows + GS1 * plane, rows + GZ2 * plane,
-                            rows + GS3 * plane, rows + GM * plane}};
-  cudaError_t err;
-  bwd_edge_kernel<<<dim3(n_chunk, m), W, 0, s>>>(
-      g, e, idx, mask, hn, src, dst, p, k, plane, rows, gdstp, ge);
+  const long long slots = (long long)m * k;
+  const long long dead_blocks = (slots + DEAD_WARPS - 1) / DEAD_WARPS;
+  const int dead_grid = static_cast<int>(
+      dead_blocks < 8LL * tc::sm_count() ? dead_blocks
+                                         : 8LL * tc::sm_count());
+  dead_rows_kernel<<<dead_grid, 32 * DEAD_WARPS, 0, s>>>(mask, slots, ge);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  bwd_node_kernel<<<m, W, 0, s>>>(order, offsets, rows + GHS * plane,
-                                  rows + GZ2 * plane, ghn, gsrc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  chunk_sum_kernel<<<m, W, 0, s>>>(gdstp, n_chunk, gdst);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  wgrad_kernel<<<dim3(N_RANGE, 4, W / AT), W, 0, s>>>(order, offsets, m,
-                                                      planes, wpart, bpart);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  wgrad_sum_kernel<<<dim3(4, W + 1), W, 0, s>>>(wpart, bpart, gw, gb);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map;
+  const int map_err = tc::encode_split_map(wsplit, N_WEIGHTS, &map);
+  if (map_err != 0) return map_err;
+  float* ghs = rows;
+  float* gz2 = rows + slots * CW;
+  const BwdArgs a{TileArgs{*lay, e, dst, b1, b2, b3, b4, gdst, part, k}, g,
+                  ge, ghs, gz2, static_cast<uint8_t*>(planes),
+                  static_cast<int>(cap)};
+  if ((err = launch_pdl(conv_bwd_tile_kernel<GatherSrc>, dim3(grid),
+                        dim3(tc::THREADS), BWD_SMEM, s, map, a,
+                        GatherSrc{idx, hn, src})) != cudaSuccess ||
+      (err = key_bytes == 2
+                 ? launch_pdl(source_sum_kernel<short>, dim3(m), dim3(CW), 0,
+                              s, order, static_cast<const short*>(keys),
+                              static_cast<int>(slots),
+                              static_cast<const float*>(ghs),
+                              static_cast<const float*>(gz2), ghn, gsrc)
+                 : launch_pdl(source_sum_kernel<int>, dim3(m), dim3(CW), 0,
+                              s, order, static_cast<const int*>(keys),
+                              static_cast<int>(slots),
+                              static_cast<const float*>(ghs),
+                              static_cast<const float*>(gz2), ghn, gsrc)) !=
+          cudaSuccess ||
+      (err = launch_pdl(tile_fixup_kernel,
+                        dim3((m + FIX_ATOMS - 1) / FIX_ATOMS),
+                        dim3(32 * FIX_ATOMS), 0, s, *lay,
+                        static_cast<const float*>(part), m, gdst)) !=
+          cudaSuccess ||
+      (err = launch_pdl(wgrad_tc_kernel, dim3(N_RANGE, N_WEIGHTS),
+                        dim3(tc::THREADS), WG_SMEM, s,
+                        static_cast<const uint8_t*>(planes),
+                        static_cast<int>(cap),
+                        static_cast<const int*>(lay->total), wpart, bpart)) !=
+          cudaSuccess ||
+      (err = launch_pdl(wgrad_sum_kernel, dim3(N_WEIGHTS, CW + 1), dim3(CW),
+                        0, s, static_cast<const float*>(wpart),
+                        static_cast<const float*>(bpart), gw, gb)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
   return 0;
 }

@@ -1,6 +1,6 @@
-// Device helpers shared by the port's CUDA-core kernels (conv_msg_gather_
-// bwd.cu, the op library's edge message, the encoder, the node stages of
-// mega_forward.cu): one thread per output
+// Device helpers shared by the port's CUDA-core kernels (the op library's
+// edge message, the encoder, the node stages of mega_forward.cu): one
+// thread per output
 // channel of a 128-wide layer, activations of a tile of M rows held in
 // shared memory feature-major ([W][M]), fp32 FMAs, fixed summation order.
 

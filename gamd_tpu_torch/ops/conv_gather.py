@@ -1,16 +1,22 @@
 """One conv layer's edge pipeline with the neighbour gathers inside, and its
 backward: the host side of gamd_tpu/ops/pallas_mp.py:370-727
 (fused_conv_gather_message and its custom VJP) and the wrappers of the two
-Hopper kernels csrc/conv_msg_gather.cu (the live-edge tensor-core tiles of
-csrc/conv_tc.cuh, ops/edge_tiles.py) and csrc/conv_msg_gather_bwd.cu.
+Hopper kernels csrc/conv_msg_gather.cu and csrc/conv_msg_gather_bwd.cu
+(both on the live-edge tensor-core tiles of csrc/conv_tc.cuh,
+ops/edge_tiles.py).
 
 * conv_msg_gather_reference is the plain version of the forward on one
   graph, batched_reference on a batch; the plain backward is autograd
   through them. Their four edge products go through `_edge_mm`, a plain
   fp32 product; ops/mega.py::split_bf16_matmul, the kernel's bf16 x 3
   tensor-core arithmetic, is what a test puts in its place.
+* conv_msg_gather_backward_reference is the backward as the kernels
+  compute it (a reverse sweep over the live edges, the weight gradients
+  summed over wgrad_ranges' tile ranges in order), its twelve products
+  through `_edge_mm` too. The tests hold it against autograd and JAX.
 * ConvMsgGather is the torch.autograd.Function whose forward and backward
-  launch the kernels (CUDA tensors only).
+  launch the kernels (CUDA tensors only); the backward takes the forward's
+  live-edge layout and split weights over.
 * fused_conv_gather_message is the entry point, in the JAX entry's argument
   order, on [B, N, K, .] batches: a CPU tensor runs the plain version, a
   CUDA tensor launches the kernels or raises. It counts its forward and
@@ -24,15 +30,19 @@ import torch
 import torch.nn.functional as F
 
 from gamd_tpu_torch.ops import edge_tiles
-from gamd_tpu_torch.ops.mega import KERNEL_WIDTH, _check
+from gamd_tpu_torch.ops.mega import (KERNEL_WIDTH, TILE_ROWS, _check,
+                                     live_slot_layout)
 from gamd_tpu_torch.ops.mxu_probe import sm_count
 
-#: Edges per block of the CUDA-core edge stages (csrc/tile.cuh KC): the
-#: backward's and the op library's.
+#: Edges per block of the op library's CUDA-core edge stages
+#: (csrc/tile.cuh KC).
 EDGE_CHUNK = 16
-#: Per-edge planes of the backward's scratch (csrc/conv_msg_gather_bwd.cu
-#: N_ROWS) and its weight-gradient ranges (N_RANGE).
-SCRATCH_PLANES = 8
+#: The backward's compact planes, a tile each (e, z1, a2, z3, then g_s1,
+#: g_z2, g_s3, g_m; csrc/conv_msg_gather_bwd.cu N_PLANES), the bytes of a
+#: tile of one (64 rows of 128 bf16 hi and lo), and the tile ranges of its
+#: weight-gradient sums (N_RANGE).
+BWD_PLANES = 8
+PLANE_BYTES = edge_tiles.ACTIVATION_BYTES
 WGRAD_RANGES = 32
 
 
@@ -64,6 +74,87 @@ def batched_reference(e, idx, mask, hn, src_nodes, dst_code, *weights):
         for i in range(e.shape[0])])
 
 
+def _dsilu(x):
+    """d/dx silu(x) = sigmoid(x) (1 + x (1 - sigmoid(x)))."""
+    s = torch.sigmoid(x)
+    return s * (1.0 + x * (1.0 - s))
+
+
+def wgrad_ranges(total):
+    """[(first tile, end tile)] of the WGRAD_RANGES ranges of the
+    weight-gradient sums over the ceil(total / 64) tiles of `total` live
+    edges: ceil(tiles / WGRAD_RANGES) tiles each, in order, the last ones
+    short or empty (csrc/conv_msg_gather_bwd.cu wgrad_tc_kernel)."""
+    tiles = -(-total // TILE_ROWS)
+    per = -(-tiles // WGRAD_RANGES)
+    return [(min(q * per, tiles), min(q * per + per, tiles))
+            for q in range(WGRAD_RANGES)]
+
+
+def conv_msg_gather_backward_reference(g, e, idx, mask, hn, src_nodes,
+                                       dst_code, w1, b1, w2, b2, w3, b3, w4,
+                                       b4):
+    """The backward of conv_msg_gather_reference as the kernels compute it,
+    on one graph of M nodes (g [M, D], e [M, K, E], idx [M, K] node ids,
+    mask [M, K] bool, the rest as the forward's): the live edges in the
+    layout's order (live_slot_layout: atom-major, slot order within an
+    atom), their forward recomputed and swept back (pallas_mp.py:588-621)
+    with the twelve products through `_edge_mm`; ge 0 at the masked slots;
+    gdst, ghn and gsrc summed over the live edges in that order; each
+    weight's gradient and bias sum over the tiles of each of wgrad_ranges'
+    ranges, the partials added in range order. Returns (ge, ghn, gsrc,
+    gdst, gw1, gb1, gw2, gb2, gw3, gb3, gw4, gb4)."""
+    m, k, w = e.shape
+    lay = live_slot_layout(mask.reshape(m, k).cpu())
+    total = int(lay.total[0])
+    slots = lay.slot[0, :total].long().to(e.device)
+    i, j = slots // k, idx.reshape(-1).long()[slots]
+    x = e.reshape(m * k, w)[slots]
+    s1 = _edge_mm(x, w1) + b1
+    z1 = F.silu(s1)
+    z2 = _edge_mm(z1, w2) + b2 + src_nodes[j] + dst_code[i]
+    a2 = F.silu(z2)
+    s3 = _edge_mm(a2, w3) + b3
+    z3 = F.silu(s3)
+    msg = _edge_mm(z3, w4) + b4
+    g_m = g[i] * hn[j]
+    g_s3 = _edge_mm(g_m, w4.t()) * _dsilu(s3)
+    g_z2 = _edge_mm(g_s3, w3.t()) * _dsilu(z2)
+    g_s1 = _edge_mm(g_z2, w2.t()) * _dsilu(s1)
+    ge = torch.zeros((m * k, w), dtype=e.dtype, device=e.device)
+    ge[slots] = _edge_mm(g_s1, w1.t())
+    zeros = lambda: torch.zeros((m, w), dtype=e.dtype, device=e.device)
+    gdst = zeros().index_add_(0, i, g_z2)
+    ghn = zeros().index_add_(0, j, g[i] * msg)
+    gsrc = zeros().index_add_(0, j, g_z2)
+    grads = []
+    for act, grad in ((x, g_s1), (z1, g_z2), (a2, g_s3), (z3, g_m)):
+        gw = torch.zeros((w, w), dtype=e.dtype, device=e.device)
+        gb = torch.zeros((w,), dtype=e.dtype, device=e.device)
+        for first, end in wgrad_ranges(total):
+            rows = slice(first * TILE_ROWS, min(end * TILE_ROWS, total))
+            gw = gw + _edge_mm(act[rows].t(), grad[rows])
+            gb = gb + grad[rows].sum(0)
+        grads += [gw, gb]
+    return (ge.reshape(m, k, w), ghn, gsrc, gdst, *grads)
+
+
+def backward_scratch(m, k, plan, device):
+    """The backward call's scratch in edge_tiles.one_buffer: the compact
+    planes [BWD_PLANES, plan.tiles, PLANE_BYTES] uint8 (the live tiles
+    written), g_hsrc and g_z2 at every slot [2, M*K, 128] float32 (the live
+    slots written), and the weight-gradient and bias partials [4,
+    WGRAD_RANGES, 128, 128] and [4, WGRAD_RANGES, 128] float32. Returns
+    (planes, rows, wpart, bpart), which keep the buffer alive."""
+    w, f32 = KERNEL_WIDTH, torch.float32
+    _, v = edge_tiles.one_buffer({
+        "planes": ((BWD_PLANES, plan.tiles, PLANE_BYTES), torch.uint8),
+        "rows": ((2, m * k, w), f32),
+        "wpart": ((4, WGRAD_RANGES, w, w), f32),
+        "bpart": ((4, WGRAD_RANGES, w), f32)}, device)
+    return v["planes"], v["rows"], v["wpart"], v["bpart"]
+
+
 def declare(lib):
     """Set argtypes/restype of the library's conv entries."""
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -77,10 +168,11 @@ def declare(lib):
     lib.gamd_conv_msg_gather.restype = ctypes.c_int
     lib.gamd_conv_msg_gather_bwd.argtypes = [
         p, p, p, p, p, p, p,                          # g e idx mask hn src dst
-        p, p, p, p, p, p, p, p,                       # w1 b1 ... w4 b4
-        p, p, p, p,                                   # w1t ... w4t
-        p, p, i, i,                                   # order offsets m k
-        p, p, p, p,                                   # scratch
+        p, p, p, p,                                   # b1 ... b4
+        i, i, ctypes.POINTER(edge_tiles._SlotLayout),  # m k layout
+        p, p, p, p, i,                                # wsplit part order keys
+        p, p, p, p,                                   # planes rows wpart bpart
+        i, i, i,                                      # the plan
         p, p, p, p, p, p,                             # ge ghn gsrc gdst gw gb
         p]                                            # stream
     lib.gamd_conv_msg_gather_bwd.restype = ctypes.c_int
@@ -101,16 +193,18 @@ def _ptrs(*tensors):
 
 def source_order(idx, mask, m):
     """The live edges grouped by source node, for the backward's segmented
-    sums: (order [M*K] int32, offsets [M + 1] int32) such that
-    order[offsets[j]:offsets[j+1]] are the flat slot ids i*K + k with
-    mask[i, k] set and idx[i, k] = j, ascending; offsets[m] is the number of
-    live edges. idx/mask are [M, K] with global node ids. Index bookkeeping
-    in torch ops, with no host sync."""
-    key = torch.where(mask.reshape(-1), idx.reshape(-1).to(torch.int32), m)
-    sorted_key, order = torch.sort(key, stable=True)
-    nodes = torch.arange(m + 1, device=idx.device, dtype=torch.int32)
-    offsets = torch.searchsorted(sorted_key, nodes, out_int32=True)
-    return order.to(torch.int32), offsets
+    sums: (order [M*K] int64, keys [M*K]) with keys the source of each slot
+    (m for a masked one) stably sorted and order the flat slot ids i*K + k
+    in that order, so that the live slots with idx = j are order[q] for the
+    q with keys[q] = j, ascending; the masked ones come last. keys are
+    int16 where m < 2^15 - 1 (half the radix sort's passes of int32), else
+    int32. idx/mask are [M, K] with global node ids. Index bookkeeping in
+    torch ops, with no host sync; the kernel finds each node's run in keys
+    by binary search."""
+    dtype = torch.int16 if m < 2 ** 15 - 1 else torch.int32
+    key = torch.where(mask.reshape(-1), idx.reshape(-1).to(dtype), m)
+    keys, order = torch.sort(key, stable=True)
+    return order, keys
 
 
 class ConvMsgGather(torch.autograd.Function):
@@ -136,36 +230,37 @@ class ConvMsgGather(torch.autograd.Function):
         fused_conv_gather_message.launches += 1
         ctx.save_for_backward(e, idx, mask, hn, src_nodes, dst_code,
                               *weights)
+        # The backward reads the layout and the split weights as this call
+        # left them (the saved weights cannot change in place unnoticed)
+        # and reuses the partials buffer.
+        ctx.scratch = (layout, wsplit, part)
         return agg
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         e, idx, mask, hn, src_nodes, dst_code, *weights = ctx.saved_tensors
+        layout, wsplit, part = ctx.scratch
         m, k, _ = e.shape
         dev = e.device
         w = KERNEL_WIDTH
         f32 = dict(device=dev, dtype=torch.float32)
         g = g.contiguous()
-        w1, w2, w3, w4 = weights[0::2]
-        transposed = [t.t().contiguous() for t in (w1, w2, w3, w4)]
-        order, offsets = source_order(idx, mask, m)
-        rows = torch.empty((SCRATCH_PLANES, m * k, w), **f32)
-        gdstp = torch.empty((m, -(-k // EDGE_CHUNK), w), **f32)
-        wpart = torch.empty((4, WGRAD_RANGES, w, w), **f32)
-        bpart = torch.empty((4, WGRAD_RANGES, w), **f32)
+        plan = edge_tiles.backward_plan(m, k, sm_count(dev))
+        order, keys = source_order(idx, mask, m)
+        planes, rows, wpart, bpart = backward_scratch(m, k, plan, dev)
         ge = torch.empty((m, k, w), **f32)
         ghn, gsrc, gdst = (torch.empty((m, w), **f32) for _ in range(3))
         gw = torch.empty((4, w, w), **f32)
         gb = torch.empty((4, w), **f32)
         err = _library().gamd_conv_msg_gather_bwd(
-            *_ptrs(g, e, idx, mask, hn, src_nodes, dst_code, *weights,
-                   *transposed, order, offsets),
-            m, k, *_ptrs(rows, gdstp, wpart, bpart, ge, ghn, gsrc, gdst, gw,
-                         gb), _stream(dev))
-        if err != 0:
-            raise RuntimeError(f"conv_msg_gather_bwd: CUDA launch failed "
-                               f"with cudaError {err}")
+            *_ptrs(g, e, idx, mask, hn, src_nodes, dst_code, *weights[1::2]),
+            m, k, ctypes.byref(edge_tiles.slot_struct(layout)),
+            *_ptrs(wsplit, part, order, keys), keys.element_size(),
+            *_ptrs(planes, rows, wpart, bpart),
+            plan.grid, plan.threads, plan.smem,
+            *_ptrs(ge, ghn, gsrc, gdst, gw, gb), _stream(dev))
+        edge_tiles.raise_on("conv_msg_gather_bwd", err)
         fused_conv_gather_message.backward_launches += 1
         weight_grads = [t for pair in zip(gw, gb) for t in pair]
         return (ge, None, None, ghn, gsrc, gdst, *weight_grads)

@@ -11,10 +11,13 @@ launch plan, and the scratch.
 * Plan / launch_plan / check_plan: the tile kernel's launch, computed here
   and refused by the C entries (csrc/conv_tc.cuh::plan_ok) when
   inconsistent; plan_tiles lists the tiles each block takes.
-* call_scratch: a call's scratch in one allocation.
+  backward_plan: the backward's tile kernel (csrc/conv_msg_gather_bwd.cu),
+  one block an SM.
+* one_buffer / call_scratch: a call's scratch in one allocation.
 """
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -38,6 +41,10 @@ ACTIVATION_BYTES = 2 * 2 * TILE_ROWS * KERNEL_WIDTH
 MAX_SMEM = 232448
 #: The weights of the edge stage (W1..W4).
 N_WEIGHTS = 4
+#: Dynamic shared memory of the backward's tile block: two weight buffers,
+#: the activations and the fp32 tile of g_z2 (csrc/conv_msg_gather_bwd.cu
+#: BWD_SMEM), so one block an SM.
+BACKWARD_SMEM = 2 * SPLIT_BYTES + 2 * ACTIVATION_BYTES + 1024
 #: Tiles (of the capacity, ceil(M*K / 64)) up to which a block keeps two
 #: weight buffers (a block an SM); past it one, so that two blocks share an
 #: SM and hide each other's waits.
@@ -90,6 +97,15 @@ def check_plan(plan, m, k, sms=H100_SMS):
                          f"{launch_plan(m, k, sms)})")
 
 
+def backward_plan(m, k, sms=H100_SMS):
+    """The backward tile kernel's launch for M atoms of K slots on a card
+    of `sms` SMs: two weight buffers and BACKWARD_SMEM, a persistent grid
+    of the least of the capacity's tiles and the SMs (the C entry refuses
+    any other)."""
+    tiles = -(-m * k // TILE_ROWS)
+    return Plan(min(tiles, sms), TILE_THREADS, BACKWARD_SMEM, 2, tiles)
+
+
 def plan_tiles(plan, total):
     """[(block, first row, rows)] of the tiles a launch computes for
     `total` live edges: block b takes tiles b, b + grid, ...; the last
@@ -121,34 +137,41 @@ def slot_struct(layout: LiveLayout, block_sum=None):
                        0 if block_sum is None else block_sum.data_ptr())
 
 
-def call_scratch(m, k, plan, device, layout=True):
-    """A call's scratch in one torch.empty (the kernels allocate nothing):
-    with `layout`, the live-edge layout (slot [1, cap], offset and count
-    [1, M], total [1]) and the layout kernels' per-block sums; the four
-    split weights (bf16 hi and lo); each tile's head and tail partials
-    [tiles, 2, 128] fp32. Returns (buffer, LiveLayout or None, block sums or
-    None, split weights, partials), views of the buffer, each 256-byte
-    aligned; the buffer must outlive the call."""
-    sizes = {"wsplit": N_WEIGHTS * SPLIT_BYTES,
-             "part": plan.tiles * 2 * KERNEL_WIDTH * 4}
-    if layout:
-        sizes.update(slot=4 * layout_capacity(m, k), offset=4 * m,
-                     count=4 * m, total=4,
-                     block_sum=4 * -(-m // COUNT_ATOMS))
+def one_buffer(specs, device):
+    """Views of one torch.empty for specs {name: (shape, dtype)}, in order,
+    each 256-byte aligned: (buffer, {name: view}). The kernels allocate
+    nothing; the buffer must outlive the call."""
+    nbytes = {name: math.prod(shape) * dtype.itemsize
+              for name, (shape, dtype) in specs.items()}
     offsets, total = {}, 0
-    for name, size in sizes.items():
+    for name, size in nbytes.items():
         offsets[name] = total
         total += -(-size // 256) * 256
     buf = torch.empty((total,), device=device, dtype=torch.uint8)
-    view = lambda name, dtype: buf[offsets[name]:offsets[name]
-                                   + sizes[name]].view(dtype)
-    part = view("part", torch.float32).view(plan.tiles, 2, KERNEL_WIDTH)
+    return buf, {name: buf[offsets[name]:offsets[name] + nbytes[name]]
+                 .view(dtype).view(shape)
+                 for name, (shape, dtype) in specs.items()}
+
+
+def call_scratch(m, k, plan, device, layout=True):
+    """A call's scratch in one_buffer: with `layout`, the live-edge layout
+    (slot [1, cap], offset and count [1, M], total [1]) and the layout
+    kernels' per-block sums; the four split weights (bf16 hi and lo); each
+    tile's head and tail partials [tiles, 2, 128] fp32. Returns (buffer,
+    LiveLayout or None, block sums or None, split weights, partials)."""
+    i32 = torch.int32
+    specs = {"wsplit": ((N_WEIGHTS * SPLIT_BYTES,), torch.uint8),
+             "part": ((plan.tiles, 2, KERNEL_WIDTH), torch.float32)}
+    if layout:
+        specs.update(slot=((1, layout_capacity(m, k)), i32),
+                     offset=((1, m), i32), count=((1, m), i32),
+                     total=((1,), i32),
+                     block_sum=((-(-m // COUNT_ATOMS),), i32))
+    buf, v = one_buffer(specs, device)
     if not layout:
-        return buf, None, None, view("wsplit", torch.uint8), part
-    i32 = lambda name, *shape: view(name, torch.int32).view(*shape)
-    lay = LiveLayout(i32("slot", 1, layout_capacity(m, k)),
-                     i32("offset", 1, m), i32("count", 1, m), i32("total", 1))
-    return buf, lay, i32("block_sum", -1), view("wsplit", torch.uint8), part
+        return buf, None, None, v["wsplit"], v["part"]
+    lay = LiveLayout(v["slot"], v["offset"], v["count"], v["total"])
+    return buf, lay, v["block_sum"], v["wsplit"], v["part"]
 
 
 def raise_on(fn, err):

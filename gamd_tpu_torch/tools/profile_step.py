@@ -103,6 +103,11 @@ FORWARD_STAGES = {
 CONV_KERNELS = ("mask_count_kernel", "mask_slots_kernel",
                 "split_conv_weights_kernel", "conv_tile_kernel[GatherSrc]",
                 "conv_tile_kernel[BandSrc]", "tile_fixup_kernel")
+#: The conv backward's kernels (csrc/conv_msg_gather_bwd.cu, row 4); the
+#: layout and the split weights are the forward's.
+CONV_BWD_KERNELS = ("dead_rows_kernel", "conv_bwd_tile_kernel[GatherSrc]",
+                    "source_sum_kernel", "tile_fixup_kernel",
+                    "wgrad_tc_kernel", "wgrad_sum_kernel")
 #: Those of the banded path (row 6 and its per-call layout).
 BANDED_KERNELS = tuple(k for k in CONV_KERNELS if "GatherSrc" not in k)
 #: The edge encoder's kernels (csrc/edge_encoder.cu, row 5): the weight

@@ -1,7 +1,12 @@
 """Times of the conv message on the card at the shapes its paths run:
 fused_conv_gather_message (csrc/conv_msg_gather.cu) on the LJ-258 start
 frame of the slice with the deployment's list (K=96 at 7.5 A; B=1 as the
-deployment's MD, B=16 as predict_batch), and banded_conv_message
+deployment's MD and the training step, B=16 as predict_batch), its
+backward (csrc/conv_msg_gather_bwd.cu, through autograd on the same
+inputs with a seeded cotangent: the events time includes the wrapper's
+sort of the live slots by source and its other preparation; the device
+time by kernel, exclusive; the backward launches a call), and
+banded_conv_message
 (csrc/banded_msg.cu) on layer 0 of tools/bench_large.py's LJ fluid with
 the seeded GAMD-small at N=258, 4,096 and 10,000 (the dense list at 8.0 A
 below 1,025 atoms, the cell list above; K=96; the auto band). Row 3's e,
@@ -40,11 +45,36 @@ DEPLOY_CUTOFF = 7.5           # the LJ checkpoint's cutoff (A)
 BANDED_SIZES = (258, 4096, 10_000)
 
 
+def kernel_us(fn, calls=20):
+    """{kernel short name: exclusive device us a call} of fn over `calls`
+    traced calls (profile_step.traced_spans)."""
+    kernels, _ = exclusive_times(traced_spans(fn, calls))
+    return {name: v["us"] / calls for name, v in kernels.items()}
+
+
 def device_us(fn, calls=20):
     """Device time of fn's kernels a call (us), each kernel's exclusive
-    time, over `calls` traced calls (profile_step.traced_spans)."""
-    kernels, _ = exclusive_times(traced_spans(fn, calls))
-    return sum(v["us"] for v in kernels.values()) / calls
+    time."""
+    return sum(kernel_us(fn, calls).values())
+
+
+def backward_entry(args, dev):
+    """Row 4 on row 3's inputs: the backward of one forward (its graph
+    kept), timed by CUDA events (median of 20 calls) and by kernel on the
+    device, with the backward launches a call."""
+    leaves = [t.clone().requires_grad_(True) for t in (args[0], *args[3:])]
+    e, hn, src, dst, *ws = leaves
+    out = fused_conv_gather_message(e, args[1], args[2], hn, src, dst, *ws)
+    g = torch.randn(out.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(7))
+    call = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+    before = fused_conv_gather_message.backward_launches
+    call()
+    launches = fused_conv_gather_message.backward_launches - before
+    kernels = kernel_us(call)
+    return {"ms": median_ms(call, 20), "device_us": sum(kernels.values()),
+            "kernels": {k: round(v, 3) for k, v in kernels.items()},
+            "launches_a_call": launches}
 
 
 def gather_inputs(dev, b):
@@ -91,6 +121,9 @@ def main():
             line[f"conv_msg_gather_b{b}"] = {
                 "live": live, "ms": median_ms(call, 20),
                 "device_us": device_us(call)}
+            with torch.enable_grad():
+                line[f"conv_msg_gather_bwd_b{b}"] = {
+                    "live": live, **backward_entry(args, dev)}
         given = "layout" in inspect.signature(
             banded.banded_conv_message).parameters
         for n in BANDED_SIZES:

@@ -440,6 +440,84 @@ def test_conv_gather_kernels_are_run_to_run_identical(cuda):
     assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
 
 
+def _bwd_case(dev, b, n, k, seed, p_live=0.5):
+    """_conv_inputs at a chosen live share, a seeded cotangent, and the
+    kernels' and the plain version's outputs and grads."""
+    inputs, weights = _conv_inputs(dev, b, n, k, seed=seed)
+    rng = np.random.default_rng(seed)
+    inputs[2] = torch.as_tensor(rng.random((b, n, k)) < p_live, device=dev)
+    g = torch.randn((b, n, 128), device=dev,
+                    generator=torch.Generator(dev).manual_seed(seed))
+    got = _conv_run(fused_conv_gather_message, inputs, weights, g)
+    want = _conv_run(batched_reference, inputs, weights, g)
+    torch.cuda.synchronize()
+    return inputs, got, want
+
+
+def _grads_close(got, want):
+    for a, r in zip(got, want):
+        assert a.shape == r.shape and bool(torch.isfinite(a).all())
+        assert float((a - r).abs().max()) <= 1e-3 * float(r.abs().max())
+
+
+def test_conv_backward_dead_slots_and_straddling_atoms(cuda):
+    """ge exactly 0 on every masked slot; at N=66, K=20 with about half the
+    slots live, atoms whose live edges straddle a 64-edge tile, whose gdst
+    (and every other grad) matches the plain version."""
+    inputs, (_, grads), (_, ref) = _bwd_case(cuda, 1, 66, 20, seed=41)
+    mask = inputs[2][0]
+    lay = edge_tiles.mask_layout(mask.cpu())
+    off, cnt = lay.offset[0], lay.count[0]
+    straddle = [i for i in range(66) if cnt[i] > 0 and int(off[i]) // 64
+                != int(off[i] + cnt[i] - 1) // 64]
+    assert straddle
+    assert bool((grads[0][0][~mask] == 0).all())
+    gdst, gdst_ref = grads[3][0], ref[3][0]
+    assert float((gdst[straddle] - gdst_ref[straddle]).abs().max()) \
+        <= 1e-3 * float(gdst_ref.abs().max())
+    _grads_close(grads, ref)
+
+
+def test_conv_backward_of_a_mask_with_no_live_edge(cuda):
+    """No live edge: every grad exactly 0 (ge at every slot, the node grads
+    of every node, the weight and bias grads)."""
+    inputs, (out, grads), _ = _bwd_case(cuda, 1, 33, 16, seed=43,
+                                        p_live=0.0)
+    assert not bool(out.any())
+    assert all(not bool(t.any()) for t in grads)
+
+
+def test_conv_backward_at_a_batch_of_16(cuda):
+    """B=16 graphs of the training slice's shape (N=258, K=96, a quarter of
+    the slots live, as at 7.5 A): each of the 12 grads within
+    CONV_GRAD_RTOL (1e-3) of its max of the plain version."""
+    _, (_, grads), (_, ref) = _bwd_case(cuda, 16, 258, 96, seed=47,
+                                        p_live=0.22)
+    _grads_close(grads, ref)
+
+
+def test_conv_backward_launches_and_kernels(cuda):
+    """One backward launch a call, and the device kernels of a backward are
+    profile_step.CONV_BWD_KERNELS' (the first transcription's edge and
+    weight-gradient kernels gone)."""
+    inputs, weights = _conv_inputs(cuda, 1, 258, 96, seed=5)
+    g = torch.randn((1, 258, 128), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(3))
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (inputs[0], *inputs[3:], *weights)]
+    e, hn, src, dst, *ws = leaves
+    out = fused_conv_gather_message(e, inputs[1], inputs[2], hn, src, dst,
+                                    *ws)
+    before = fused_conv_gather_message.backward_launches
+    spans = profile_step.traced_spans(
+        lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 2)
+    assert fused_conv_gather_message.backward_launches - before == 3
+    names = {name for _, _, name in spans}
+    assert set(profile_step.CONV_BWD_KERNELS) <= names
+    assert not names & {"bwd_edge_kernel", "wgrad_kernel",
+                        "bwd_node_kernel"}
+
+
 def test_conv_gather_rejects_what_it_does_not_take(cuda):
     """The entry's input checks on the card; nothing launches."""
     (e, idx, mask, hn, src, dst), ws = _conv_inputs(cuda, 1, 32, 16)

@@ -199,20 +199,26 @@ def test_conv_gather_batched_weight_grads_match_jax_vmap():
 
 
 def test_source_order_lists_live_edges_by_source():
-    """The backward's index bookkeeping: order[offsets[j]:offsets[j+1]] are
-    exactly the live slots i*K+k with idx = j, ascending."""
+    """The backward's index bookkeeping: keys are the slots' sources sorted
+    (m for a masked slot, last), int16 below 2^15 - 1 nodes; order[q] over
+    the run of keys equal to j are exactly the live slots i*K+k with
+    idx = j, ascending."""
     rng = np.random.RandomState(3)
     m, k = 30, 12
     idx = rng.randint(0, m, (m, k)).astype(np.int32)
     mask = rng.rand(m, k) > 0.4
-    order, offsets = source_order(_t(idx), _t(mask), m)
-    assert order.dtype == offsets.dtype == torch.int32
-    order, offsets = order.numpy(), offsets.numpy()
+    order, keys = source_order(_t(idx), _t(mask), m)
+    assert order.dtype == torch.int64 and keys.dtype == torch.int16
+    order, keys = order.numpy(), keys.numpy()
     flat_idx, flat_mask = idx.reshape(-1), mask.reshape(-1)
-    assert offsets[0] == 0 and offsets[m] == flat_mask.sum()
+    assert bool((np.diff(keys) >= 0).all())
+    assert (keys == m).sum() == (~flat_mask).sum()
     for j in range(m):
         want = np.nonzero(flat_mask & (flat_idx == j))[0]
-        np.testing.assert_array_equal(order[offsets[j]:offsets[j + 1]], want)
+        np.testing.assert_array_equal(order[keys == j], want)
+    big = 2 ** 15
+    _, keys = source_order(_t(idx), _t(mask), big)
+    assert keys.dtype == torch.int32 and int(keys.max()) == big
 
 
 # -- GAMDNet in train mode --------------------------------------------------
