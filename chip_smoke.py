@@ -128,7 +128,9 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
      (scalar, warp) at reps 3 against the plain chain and microseconds
      per half-step at reps 400; the chain's bound, the latency of its
      dependent sequence priced by one-thread chains of its steps
-     (ops.nhc.chain_latency, held against its plain version);
+     (ops.nhc.chain_latency, held against its plain version), and each
+     form's share of it; the warp form's five outputs the scalar form's
+     bit for bit at reps 3 and 400;
  20. the NHC per-step path: Simulation(ff.force_fn(megakernel=True)) with
      nose_hoover on the slice, 20 warm-up and 200 timed steps: one
      mega_forward and two nhc_half_step launches a step;
@@ -192,9 +194,10 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
      version's, the library's (torch.gather, index_select, one copy of 34
      transposed views, iters calls replayed from a CUDA graph) and the
      bound, and the bound on the data each form moves (SMs x 128 bytes a
-     clock at the largest SM clock): the lane forms' gathered values read
-     from shared memory, the sublane form's from L1, the transpose's
-     values stored and read once in shared memory;
+     clock at the largest SM clock) with each form's share of it: the
+     lane and sublane forms' gathered values read from shared memory
+     (each from a slice of its table staged there once a call), the
+     transpose's values stored and read once in shared memory;
  35. mega_forward on 8 LJ-258 frames [8, 258, 3] (the start frame and 7
      jittered copies, each with its own list) in one launch against 8
      single launches (bit for bit counted) and the plain version, each
@@ -240,7 +243,7 @@ import torch.nn.functional as F
 
 from gamd_tpu_torch.core import space, units
 from gamd_tpu_torch.core.config import MDConfig
-from gamd_tpu_torch.core.device import card_line, max_sm_clock_hz
+from gamd_tpu_torch.core.device import card_line
 from gamd_tpu_torch.md import integrators as integ
 from gamd_tpu_torch.md.integrators import maxwell_boltzmann_velocities
 from gamd_tpu_torch.md.simulate import Simulation
@@ -279,6 +282,7 @@ from gamd_tpu_torch.tools.profile_step import (BANDED_KERNELS,
                                                FORWARD_STAGES,
                                                exclusive_times,
                                                forward_stages, traced_spans)
+from gamd_tpu_torch.tools.time_probes import nhc_case, smem_bound
 from gamd_tpu_torch.train.checkpoint import load_self_describing
 from gamd_tpu_torch.train.forcefield import GNNForceField
 from gamd_tpu_torch.train.loop import (edge_distances, make_train_step,
@@ -1575,29 +1579,6 @@ def large_n_phases(dev, card):
         enc_launches, live_entry
 
 
-def nhc_case(dev, n, r, m=10, seed=18):
-    """Phase 18's inputs: thermal argon velocities at 100 K ([r,] n, 3,
-    10% hot), a seeded chain ([r,] m) and the chain's constants of the MD
-    path (100 K, 25 / ps, 2 fs, n_c = n_ys = 5, ndf = 3n)."""
-    rng = np.random.default_rng(seed)
-    lead = () if r is None else (r,)
-    kt = units.KB * 100.0
-    freq = 25.0 / units.PS
-    vel = np.sqrt(kt * 1.1 / 39.948) * rng.standard_normal((*lead, n, 3))
-    chain = (rng.normal(0, 0.1, (*lead, m)), rng.normal(0, 0.5, (*lead, m)),
-             -freq**2 + rng.normal(0, 1.0, (*lead, m)))
-
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-
-    ndf = 3 * n
-    return {"vel": f32(vel), "chain": tuple(f32(c) for c in chain),
-            "masses": f32(np.full(n, 39.948)), "kt": kt, "ndf": ndf,
-            "q": integ.nhc_masses(kt, freq, m, ndf, dev),
-            "wdts": integ.nhc_schedule(2.0 * units.FS, 5,
-                                       integ._YS_WEIGHTS[5], dev)}
-
-
 def nhc_args(case, vel, chain):
     return (vel, *chain, case["masses"], case["kt"], case["ndf"], case["q"],
             case["wdts"])
@@ -1730,7 +1711,23 @@ def nhc_kernel_phases(dev, card):
             "the chain latency kernel disagrees with its plain version")
     require(chain["us_per_half_step"] > 0, "the chain's latency is not "
             "positive")
+    bound_us = chain["us_per_half_step"]
+    say(f"phase 19: the forms at reps 400 against the chain's dependent "
+        f"sequence ({bound_us:.3f} us a half-step): " + ", ".join(
+            f"{form} {res['us_per_half_step']:.3f} us, "
+            f"{bound_us / res['us_per_half_step']:.2%} of the bound"
+            for form, res in results.items()) + f" [{card}]")
     inputs = probe_nhc_kernel.probe_inputs(dev)
+    same = {}
+    for n in (probe_nhc_kernel.PARITY_REPS, 400):
+        warp = probe_nhc_kernel.run_form(inputs, "warp", n)
+        scalar = probe_nhc_kernel.run_form(inputs, "scalar", n)
+        same[n] = all(torch.equal(a, b) for a, b in zip(warp, scalar))
+    say(f"phase 19: the warp form's xi, vxi, g, product of the scales and "
+        f"last ke2 equal the scalar form's bit for bit: " + ", ".join(
+            f"reps {n} {ok}" for n, ok in same.items()))
+    require(all(same.values()), "the warp form differs from the scalar "
+            "form's bits")
     keys = ("xi", "vxi", "g", "ke2", "q", "kt", "ndf", "wdts")
     args = [inputs[k] for k in keys]
     reps = probe_nhc_kernel.PARITY_REPS
@@ -1763,6 +1760,8 @@ def nhc_kernel_phases(dev, card):
             "library_ms": None, "reps": reps,
             "chain_bound_ms": reps * chain_ms,
             "us_per_half_step_reps_400": res["us_per_half_step"],
+            "share_of_chain_bound": chain["us_per_half_step"]
+            / res["us_per_half_step"],
             "parity_vs_probe_reference": res["parity_err"]})
     md_shape = shapes["N=258"]
     half_step = {"name": "nhc_half_step", "route": "cuda",
@@ -2595,31 +2594,15 @@ def form_bound(form, x, iters):
     return roofline(iters * values, tensor_bytes(*inputs) + 8 * 128 * 4)
 
 
-#: Bytes an SM's shared memory delivers a clock (32 banks of 4 bytes).
-SMEM_BYTES_PER_CLOCK = 128
-
-
-def smem_bound(iters, dev):
-    """(least ms of one call of a lane form, GB/s): the 256 x 13,056
-    four-byte values an iteration read once from shared memory, at the
-    card's SMs x 128 bytes a clock x its largest SM clock (nvidia-smi)."""
-    values = probe_gather.N_BLOCKS * probe_gather.EB * probe_gather.LANES
-    rate = (torch.cuda.get_device_properties(dev).multi_processor_count
-            * SMEM_BYTES_PER_CLOCK * max_sm_clock_hz())
-    return iters * 4 * values / rate * 1e3, rate / 1e9
-
-
 def data_bound(form, iters, dev):
     """(least ms of one call, what it counts) on the data a form moves
-    through an SM, at smem_bound's rate.
+    through an SM, at tools.time_probes.smem_bound's rate.
 
     * The lane forms: each gathered value read once from shared memory.
-    * The sublane form reads its gathered rows from the table in global
-      memory through L1, whose data path is shared memory's, 128 bytes a
-      clock. The rows it gathers (258 of 1 KB) about fill an SM's L1 (at
-      most 256 KB with no shared memory, as here), so most reads can hit
-      it; L2 has no published rate to price the rest. So each gathered
-      value read once from L1: a least time, which L2 misses only raise.
+    * The sublane form stages a slice of its table's lanes (every row)
+      in shared memory once a call and reads its gathered values from
+      there: each gathered value read once from shared memory, as the
+      lane forms.
     * The transpose moves every value across lanes. On Hopper no
       instruction does that for 32-bit values outside shared memory
       (ldmatrix, stmatrix .trans and movmatrix take 16-bit elements; a
@@ -2627,8 +2610,6 @@ def data_bound(form, iters, dev):
       after each exchange), so each value is stored once and read once in
       shared memory: twice the read bound."""
     ms, _ = smem_bound(iters, dev)
-    if form == "sublane":
-        return ms, "the gathered values read once from L1"
     if form == "transpose":
         return 2 * ms, "each value stored and read once in shared memory"
     return ms, "the gathered values read once from shared memory"
@@ -2698,6 +2679,13 @@ def gather_form_phase(dev, card, lines, launches):
         smem_ms, moved = data_bound(form, iters, dev)
         smem = (f"; {moved} {smem_ms:.4f} ms ({smem_rate:.0f} GB/s), "
                 f"kernel at {smem_ms / line['ms']:.2%} of it")
+        if form == "sublane":
+            plan = gather_probe.sublane_plan(
+                probe_gather.ROWS, probe_gather.N_PAD,
+                mxu_probe.sm_count(dev))
+            say(f"phase 34: sublane_kernel at {smem_ms / line['ms']:.2%} "
+                f"of its bound, {moved} ({smem_ms:.4f} ms against "
+                f"{line['ms']:.4f}); plan {plan._asdict()} [{card}]")
         say(f"phase 34: {form} {line['ms']:.4f} ms/call at iters {iters} "
             f"({line['per_edge_stream_us']:.4f} us/iter, collapse ratio "
             f"{line['calib_ratio']:.3f}), plain {plain_ms:.4f} ms/call "

@@ -15,7 +15,7 @@
 //     selects are made on the index, and the value is one load, since on
 //     Hopper the three sub-tables are one row of shared memory);
 //   * kernel_sublane (line 178): out[e, :] = T[idx[e] + dep, :] over the
-//     table T [n_pad, 256] (SUBLANE);
+//     table T [n_pad, 256] (sublane_kernel, entry gamd_sublane_gather);
 //   * kernel_transpose (line 196): (TT + dep).T, `copies` times an
 //     iteration (the script's 34 blocks) (TRANSPOSE).
 //
@@ -33,9 +33,21 @@
 // 17% slower), the row-major slice (3.7 and 5.6 times slower at widths
 // 384 and 128), and the TPU's own form, a cross-lane shuffle of a table
 // row held in a warp's registers, which costs twelve shuffles a value at
-// a 384-wide row (13 times slower). The sublane gather is a row load: 64
-// threads read one 1 KB table row as float4s, coalesced, from L2 (the
-// table stays resident), 4 rows at a time, 32 edges a block. The
+// a 384-wide row (13 times slower). The sublane gather is row 15's design
+// in the row layout: T (393 KB) exceeds a block's shared memory too, so a
+// SUBLANE block stages 64 of T's 256 lanes of every row (96 KB,
+// row-major: two blocks an SM, four slices) once a call, and gathers an
+// even share of the stream from it: 16 threads on a row of the slice,
+// 16 edges at once, a quarter warp on 128 contiguous bytes of one row, so
+// no bank conflict by layout whatever the rows; the blocks the card holds
+// at once (sublane_plan in ops/gather_probe.py, 264) split the stream
+// evenly among the slices, one wave of 198 edges a block. Measured on the
+// H100 and dropped (PERF.md): the row load from global memory (64 threads
+// a 1 KB row, 32 edges a block, 408 blocks: 0.1657 ms at iters 200, set
+// by L2's latency, since the 258 rows, 264 KB, do not stay in an SM's L1
+// and the dependent zero lets a thread have one round of eight loads in
+// flight), and slices of 32 or 128 lanes (four or one block an SM: the
+// same 16 warps an SM and the same time within 1.5%). The
 // transpose goes through a shared tile [32][33] (the pad column keeps the
 // transposed reads free of bank conflicts): a block holds 4 of the 96
 // tiles of TT in registers, and every iteration adds the dependent zero,
@@ -56,10 +68,9 @@
 // iteration at 67 TFLOP/s fp32 (0.0499 us); the inputs (the 393 KB table,
 // the 52 KB of indices) read once take 0.13 us at 3.35 TB/s, once a call.
 // What sets the lane and sublane forms' pace is the traffic of the
-// gathered values, 13.4 MB an iteration, from shared memory (lane: 128
-// bytes a clock an SM, about 0.40 us an iteration at 132 SMs and 1.98 GHz)
-// or L2 (sublane): every value is read from a table that the TPU holds in
-// vregs.
+// gathered values, 13.4 MB an iteration, from shared memory, 128 bytes a
+// clock an SM: about 0.40 us an iteration at 132 SMs and 1.98 GHz. Every
+// value is read from a table that the TPU holds in vregs.
 //
 // g_out, when given, receives the last iteration's result: [256, rows]
 // (lane), [rows, 256] (sublane) or [n_pad, 256] (transpose), so that a
@@ -86,17 +97,25 @@ constexpr float DEP_LIMIT = 1e30f;  // _dep_scalar's threshold
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_SMEM = 232448;
 
-enum Form { LANE384 = 0, LANE128 = 1, SUBLANE = 2, TRANSPOSE = 3 };
+// gamd_gather_form's forms (code 2, the sublane form, has its own entry).
+enum Form { LANE384 = 0, LANE128 = 1, TRANSPOSE = 3 };
 
 // LANE: one edge a thread, LANE_ROWS rows of TT a block.
 constexpr int LANE_THREADS = 256;
 constexpr int LANE_ROWS = 32;
 constexpr int SUB_WIDTH = 128;      // LANE128's sub-table width
-// SUBLANE: 64 threads a row (float4 each), 4 rows at a time.
-constexpr int SUB_THREADS = 256;
-constexpr int SUB_EDGES = 32;
-constexpr int ROW_THREADS = LANES / 4;
-constexpr int SUB_PASSES = SUB_EDGES / (SUB_THREADS / ROW_THREADS);
+// SUBLANE: a slice of SUB_W table lanes (every row) in shared memory,
+// SUB_THREADS a block: SUB_ROW_T threads on a row of the slice (a float4
+// each), SUB_AT_ONCE edges at once, at most SUB_UNITS edges a thread.
+constexpr int SUB_W = 64;
+constexpr int SUB_SLICES = LANES / SUB_W;
+constexpr int SUB_THREADS = 4 * SUB_W;
+constexpr int SUB_ROW_T = SUB_W / 4;
+constexpr int SUB_AT_ONCE = SUB_THREADS / SUB_ROW_T;   // 16
+constexpr int SUB_UNITS = 16;
+constexpr int SM_SMEM = 233472;        // an SM's shared memory (228 KB)
+constexpr int SMEM_RESERVED = 1024;    // the system's share of each block
+constexpr int SUB_SM_THREADS = 512;    // an SM's: the launch bounds' own
 // TRANSPOSE: 32 x 8 threads, TR_TILES tiles of 32 x 32 a block.
 constexpr int TILE = 32;
 constexpr int TR_THREADS = 256;
@@ -210,19 +229,38 @@ lane_kernel(const int* __restrict__ idx, const float* __restrict__ tt,
   block_total<LANE_THREADS>(acc, partials + blockIdx.x);
 }
 
-// grid rows / SUB_EDGES, block SUB_THREADS: thread (r, q) loads lanes
-// 4q..4q+3 of the rows of edges r, r + 4, ... of the block.
-__global__ void __launch_bounds__(SUB_THREADS)
+// grid per_slice * SUB_SLICES, block SUB_THREADS, dynamic shared memory
+// n_pad SUB_W floats: block b stages lanes c0 .. c0 + 63 of every table
+// row, c0 = 64 (b / per_slice), row-major (row j's 64 values at slice[64
+// j ..]), then gathers edges [e0, e0 + span) of the stream, e0 = span (b %
+// per_slice): thread t reads float4 q = t % 16 of the rows of edges e0 +
+// r, e0 + r + 16, ..., r = t / 16, while they lie in its span and the
+// stream. A quarter warp reads 128 contiguous bytes of one row: no bank
+// conflict whatever the rows.
+__global__ void __launch_bounds__(SUB_THREADS, SUB_SM_THREADS / SUB_THREADS)
 sublane_kernel(const int* __restrict__ idx, const float* __restrict__ tbl,
-               int n_pad, int iters, float* __restrict__ partials,
-               float* __restrict__ g_out) {
-  const int q = threadIdx.x % ROW_THREADS, r = threadIdx.x / ROW_THREADS;
-  const int e0 = blockIdx.x * SUB_EDGES + r;
+               int rows, int n_pad, int iters, int per_slice, int span,
+               float* __restrict__ partials, float* __restrict__ g_out) {
+  extern __shared__ __align__(16) float slice[];
+  float4* s4 = reinterpret_cast<float4*>(slice);
+  const int c4 = blockIdx.x / per_slice * SUB_ROW_T;   // its first float4
+  const int e0 = blockIdx.x % per_slice * span;
   const float4* t4 = reinterpret_cast<const float4*>(tbl);
-  int src[SUB_PASSES];
+  for (int i = threadIdx.x; i < n_pad * SUB_ROW_T; i += SUB_THREADS)
+    s4[i] = __ldg(t4 + (size_t)(i / SUB_ROW_T) * (LANES / 4) + c4
+                  + i % SUB_ROW_T);
+
+  const int q = threadIdx.x % SUB_ROW_T, r = threadIdx.x / SUB_ROW_T;
+  int src[SUB_UNITS];
+  int mine = 0;   // edges r, r + 16, ... of the block that the stream has
 #pragma unroll
-  for (int m = 0; m < SUB_PASSES; ++m)
-    src[m] = clamp_index(idx[e0 + m * (SUB_THREADS / ROW_THREADS)], n_pad);
+  for (int k = 0; k < SUB_UNITS; ++k) {
+    const int e = r + SUB_AT_ONCE * k;
+    const bool live = e < span && e0 + e < rows;
+    src[k] = live ? clamp_index(idx[e0 + e], n_pad) : 0;
+    mine += live ? 1 : 0;
+  }
+  __syncthreads();
 
   float acc = 0.f;
   for (int it = 0; it < iters; ++it) {
@@ -230,14 +268,15 @@ sublane_kernel(const int* __restrict__ idx, const float* __restrict__ tbl,
     const bool keep = g_out != nullptr && it == iters - 1;
     float s = 0.f;
 #pragma unroll
-    for (int m = 0; m < SUB_PASSES; ++m) {
-      const int j = min(src[m] + dep, n_pad - 1);
-      const float4 v = __ldg(t4 + (size_t)j * ROW_THREADS + q);
-      s += (v.x + v.y) + (v.z + v.w);
-      if (keep)
-        reinterpret_cast<float4*>(g_out)[
-            (size_t)(e0 + m * (SUB_THREADS / ROW_THREADS)) * ROW_THREADS
-            + q] = v;
+    for (int k = 0; k < SUB_UNITS; ++k) {
+      if (k < mine) {
+        const int j = min(src[k] + dep, n_pad - 1);
+        const float4 v = s4[j * SUB_ROW_T + q];
+        s += (v.x + v.y) + (v.z + v.w);
+        if (keep)
+          reinterpret_cast<float4*>(g_out)[
+              (size_t)(e0 + r + SUB_AT_ONCE * k) * (LANES / 4) + c4 + q] = v;
+      }
     }
     acc += s;
   }
@@ -355,6 +394,72 @@ cudaError_t launch_lane(const int* idx, const float* tt, int rows, int n_pad,
   return cudaGetLastError();
 }
 
+// The sublane form's launch, ops/gather_probe.py::sublane_plan:
+// `per_slice` blocks of `span` edges on each of the four 64-lane slices,
+// SUB_THREADS threads and n_pad SUB_W floats of shared memory a block. An
+// SM holds the blocks of 512 threads (16 warps, which the launch bounds
+// leave registers for) that its shared memory holds; the one wave's
+// blocks spread over the slices, and a block takes at least one row of
+// its threads (16 edges) and at most what their registers hold (256).
+struct SublanePlan {
+  int per_slice, span, threads, smem;
+};
+
+SublanePlan sublane_plan(int rows, int n_pad, int sms) {
+  const int smem = 4 * n_pad * SUB_W;
+  const int per_block = smem + SUB_THREADS / 8 + SMEM_RESERVED;
+  const int per_sm = std::min(SM_SMEM / per_block,
+                              SUB_SM_THREADS / SUB_THREADS);
+  const int wave = std::max(per_sm * sms / SUB_SLICES, 1);
+  const int span = std::min(std::max((rows + wave - 1) / wave, SUB_AT_ONCE),
+                            SUB_AT_ONCE * SUB_UNITS);
+  return {per_sm < 1 ? 0 : (rows + span - 1) / span, span, SUB_THREADS,
+          smem};
+}
+
+cudaError_t launch_sublane(const int* idx, const float* tbl, int rows,
+                           int n_pad, int iters, const SublanePlan& p,
+                           float* partials, float* out, float* g_out,
+                           cudaStream_t s) {
+  // Once per process: the kernel may take what its static shared memory
+  // leaves of a block's, and prefers the SM's largest carveout of shared
+  // memory. Once per table size: whether the card holds the plan's blocks
+  // an SM (cudaErrorInvalidConfiguration if it does not).
+  static const cudaError_t allowed = [] {
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, sublane_kernel);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          sublane_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          MAX_SMEM - (int)attr.sharedSizeBytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          sublane_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
+  if (allowed != cudaSuccess) return allowed;
+  static std::map<int, cudaError_t> fits_of;   // n_pad -> the check
+  auto it = fits_of.find(n_pad);
+  if (it == fits_of.end()) {
+    const int per_block = p.smem + p.threads / 8 + SMEM_RESERVED;
+    const int want = std::min(SM_SMEM / per_block, SUB_SM_THREADS / p.threads);
+    int per_sm = 0;
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sublane_kernel, p.threads, p.smem);
+    if (e == cudaSuccess && per_sm < want) e = cudaErrorInvalidConfiguration;
+    it = fits_of.emplace(n_pad, e).first;
+  }
+  if (it->second != cudaSuccess) return it->second;
+  const int blocks = p.per_slice * SUB_SLICES;
+  sublane_kernel<<<blocks, p.threads, p.smem, s>>>(
+      idx, tbl, rows, n_pad, iters, p.per_slice, p.span, partials, g_out);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  total_kernel<<<1, TOTAL_THREADS, 0, s>>>(partials, blocks, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -365,7 +470,6 @@ int gamd_gather_form_partials(int form, int rows, int n_pad, int copies) {
     case LANE384:
     case LANE128:
       return lane_per_slice(rows, n_pad) * (LANES / LANE_ROWS);
-    case SUBLANE: return rows / SUB_EDGES;
     case TRANSPOSE:
       return (LANES / TILE) * (n_pad / TILE) / TR_TILES * copies;
     default: return 0;
@@ -373,15 +477,14 @@ int gamd_gather_form_partials(int form, int rows, int n_pad, int copies) {
 }
 
 // One call of the probe: `iters` iterations of form `form` (0 lane over
-// the whole row, 1 lane from three 128-wide sub-tables, 2 sublane, 3
-// transpose), the total of their sums in out [8, 128]. idx [rows] int32
-// in [0, n_pad) (unused by the transpose); tbl the transposed table TT
-// [256, n_pad] (lane, transpose) or the table T [n_pad, 256] (sublane),
-// fp32; partials gamd_gather_form_partials(...) fp32; g_out the last
+// the whole row, 1 lane from three 128-wide sub-tables, 3 transpose; the
+// sublane form, 2, has its own entry, gamd_sublane_gather), the total of
+// their sums in out [8, 128]. idx [rows] int32 in [0, n_pad) (unused by
+// the transpose); tbl the transposed table TT [256, n_pad], fp32;
+// partials gamd_gather_form_partials(...) fp32; g_out the last
 // iteration's result or null. Lane: rows a positive multiple of 256, n_pad
-// a multiple of 4 (384 for form 1); sublane: rows a positive multiple of
-// 32; transpose: n_pad a multiple of 32 with (n_pad / 32) * 8 a multiple
-// of 4, `copies` transposes an iteration.
+// a multiple of 4 (384 for form 1); transpose: n_pad a multiple of 32 with
+// (n_pad / 32) * 8 a multiple of 4, `copies` transposes an iteration.
 int gamd_gather_form(int form, const int* idx, const float* tbl, int rows,
                      int n_pad, int copies, int iters, float* partials,
                      float* out, float* g_out, void* stream) {
@@ -401,13 +504,6 @@ int gamd_gather_form(int form, const int* idx, const float* tbl, int rows,
           : launch_lane<false>(idx, tbl, rows, n_pad, iters, partials,
                                g_out, s, &blocks);
       break;
-    case SUBLANE:
-      if (rows <= 0 || rows % SUB_EDGES != 0) return cudaErrorInvalidValue;
-      blocks = rows / SUB_EDGES;
-      sublane_kernel<<<blocks, SUB_THREADS, 0, s>>>(idx, tbl, n_pad, iters,
-                                                    partials, g_out);
-      err = cudaGetLastError();
-      break;
     case TRANSPOSE: {
       const int tiles = (LANES / TILE) * (n_pad / TILE);
       if (n_pad % TILE != 0 || tiles % TR_TILES != 0 || copies <= 0)
@@ -425,6 +521,27 @@ int gamd_gather_form(int form, const int* idx, const float* tbl, int rows,
   if (err != cudaSuccess) return err;
   total_kernel<<<1, TOTAL_THREADS, 0, s>>>(partials, blocks, out);
   return cudaGetLastError();
+}
+
+// One call of the sublane form: `iters` gathers out[e, :] = T[idx[e] +
+// dep, :], the total of their sums in out [8, 128]. idx [rows] int32, rows
+// positive (an index outside [0, n_pad) is clamped into it); tbl T [n_pad,
+// 256] fp32; partials [per_slice * 4] fp32; g_out [rows, 256] fp32 or
+// null. The plan (per_slice, span, threads, smem) is
+// ops/gather_probe.py's sublane_plan for this card's SMs; any other is
+// refused before any launch, and so is one whose blocks an SM the card
+// does not hold.
+int gamd_sublane_gather(const int* idx, const float* tbl, int rows,
+                        int n_pad, int iters, float* partials, float* out,
+                        float* g_out, int per_slice, int span, int threads,
+                        int smem, void* stream) {
+  if (rows <= 0 || n_pad <= 0 || iters < 0) return cudaErrorInvalidValue;
+  const SublanePlan p = sublane_plan(rows, n_pad, tc::sm_count());
+  if (p.per_slice < 1 || per_slice != p.per_slice || span != p.span
+      || threads != p.threads || smem != p.smem || smem > MAX_SMEM)
+    return cudaErrorInvalidValue;
+  return launch_sublane(idx, tbl, rows, n_pad, iters, p, partials, out,
+                        g_out, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -37,10 +37,25 @@
 // for the rarest rounding ties (skipped when ke2 is given); (b) thread 0
 // runs the chain in registers (M a template argument, 1 to 16) over the
 // substeps, writes xi, vxi and g, and puts scale in shared memory; (c)
-// every thread scales its velocities. The warp form takes each expf on
-// all lanes at once and brings the neighbouring element's value over with
-// __shfl_sync, keeping the sequential order of the updates: it answers
-// which representation is faster for a chain that is sequential by nature.
+// every thread scales its velocities.
+//
+// The probe's two forms answer which representation is faster for a
+// chain that is sequential by nature; both are bound by the same
+// dependent sequence (tools/probe_nhc_kernel.py::chain_bound, 13.8-14.1
+// us a half-step at M = 10 on an H100 SXM at 700 W). The scalar form holds
+// the chain on one thread (16.1-16.7 us, 84-88% of it). The warp form
+// holds element j on lane j and runs the vector work across lanes; the
+// math has one dependence between neighbours a step of each sweep, so it
+// crosses one lane once a step (a shuffle, 450 a half-step), takes the
+// forward sweep's exponentials as one vector expf off the chain, keeps
+// the scale on lane 0, and updates by selects so that the warp never
+// diverges: 23.8 us (58-59%), the chain plus about 22 ns a crossing.
+// Measured and dropped (PERF.md): the first transcription, an expf on
+// every lane and an indexed shuffle a step, a second shuffle a forward
+// step and the scale broadcast to every lane, with a run-time M (43.97-
+// 44.31 us); the same schedule as now with each update under `if (lane
+// == j)` (31.76 us: a branch a step, which the warp leaves and rejoins
+// around every shuffle).
 //
 // The host allocates every buffer with torch.empty and launches on
 // PyTorch's current stream; each entry returns cudaGetLastError(), or
@@ -159,50 +174,73 @@ __global__ void nhc_probe_scalar_kernel(const ProbeArgs a) {
   a.tail[1] = ke2;
 }
 
-// The probe's warp form: lane j holds xi[j], vxi[j], g[j] and q[j]; each
-// expf is taken by every lane at once and the one the update needs comes
-// from its lane by __shfl_sync, in nhc.cuh's order.
-__global__ void nhc_probe_warp_kernel(const ProbeArgs a) {
-  const int lane = threadIdx.x, m = a.m;
-  const bool in = lane < m;
+// The probe's warp form: lane j holds xi[j], vxi[j], g[j] and q[j] of a
+// chain of M (a template argument, so that every lane test and loop bound
+// is a constant), and the vector work runs across lanes: the xi update,
+// the forward sweep's exponentials and the masked updates. Each
+// dependence between neighbouring elements crosses one lane once a step:
+// in the backward sweep lane j + 1's new vxi goes down to lane j, in the
+// forward sweep lane j's new vxi goes up to lane j + 1 for g[j + 1]. The
+// forward sweep's M - 1 factors exp(-wdt/8 vxi[j + 1]) read vxi as the
+// backward sweep left it, so they are one vector expf and one shuffle,
+// taken before the sweep and off its critical path. Every lane computes
+// each update and keeps it by a select where it is the lane updated: the
+// warp never diverges, so no shuffle waits for it to reconverge (the
+// other lanes' scale stays 1, so that their divisions take the fast
+// path too). The scale, ke2 and the product of the scales are lane 0's,
+// the only lane that uses them. Every operation is nhc.cuh's, in its
+// order and rounding, so the outputs are the scalar form's bit for bit.
+// The next substep's weight is loaded a substep ahead, off the chain.
+template <int M>
+__global__ void __launch_bounds__(32) nhc_probe_warp_kernel(
+    const ProbeArgs a) {
+  const int lane = threadIdx.x;
+  const bool in = lane < M;
   float x = in ? a.xi[lane] : 0.0f;
   float v = in ? a.vxi[lane] : 0.0f;
   float gg = in ? a.g[lane] : 0.0f;
   const float ql = in ? a.q[lane] : 1.0f;
-  const float q0 = __shfl_sync(FULL_WARP, ql, 0);
   const float q_prev = __shfl_up_sync(FULL_WARP, ql, 1);   // q[lane - 1]
-  float ke2 = a.ke2[0], total = 1.0f;
+  float ke2 = a.ke2[0], total = 1.0f;   // lane 0's are the chain's
+  float w_next = a.wdts[0];
   for (int rep = 0; rep < a.reps; ++rep) {
     float scale = 1.0f;
-    if (lane == 0) gg = nhc_div(nhc_sub(ke2, a.ndf_kt), q0);
+    const float g0 = nhc_div(nhc_sub(ke2, a.ndf_kt), ql);
+    gg = lane == 0 ? g0 : gg;
     for (int s = 0; s < a.n_sub; ++s) {
-      const float wdt = a.wdts[s];
+      const float wdt = w_next;
+      w_next = a.wdts[s + 1 < a.n_sub ? s + 1 : 0];
       const float quarter = nhc_mul(0.25f, wdt);
       const float eighth = nhc_mul(-0.125f, wdt);
       const float half = nhc_mul(0.5f, wdt);
-      if (lane == m - 1) v = nhc_add(v, nhc_mul(quarter, gg));
-      for (int j = m - 2; j >= 0; --j) {
-        const float aa = __shfl_sync(FULL_WARP, expf(nhc_mul(eighth, v)),
-                                     j + 1);
-        if (lane == j) v = nhc_kick(aa, v, quarter, gg);
+      const float top = nhc_add(v, nhc_mul(quarter, gg));
+      v = lane == M - 1 ? top : v;
+#pragma unroll
+      for (int j = M - 2; j >= 0; --j) {
+        const float up = __shfl_down_sync(FULL_WARP, v, 1);   // vxi[j + 1]
+        const float kicked = nhc_kick(expf(nhc_mul(eighth, up)), v, quarter,
+                                      gg);
+        v = lane == j ? kicked : v;
       }
-      scale = nhc_mul(scale, __shfl_sync(FULL_WARP,
-                                         expf(nhc_mul(-half, v)), 0));
+      const float sv = expf(nhc_mul(-half, v));
+      scale = nhc_mul(scale, lane == 0 ? sv : 1.0f);   // 1 off lane 0
       x = nhc_add(x, nhc_mul(half, v));
-      if (lane == 0) {
-        gg = nhc_div(nhc_sub(nhc_mul(nhc_mul(scale, scale), ke2), a.ndf_kt),
-                     q0);
+      const float aa = __shfl_down_sync(FULL_WARP, expf(nhc_mul(eighth, v)),
+                                        1);   // exp(-wdt/8 vxi[lane + 1])
+      const float g_first = nhc_div(
+          nhc_sub(nhc_mul(nhc_mul(scale, scale), ke2), a.ndf_kt), ql);
+      gg = lane == 0 ? g_first : gg;
+#pragma unroll
+      for (int j = 0; j < M - 1; ++j) {
+        const float kicked = nhc_kick(aa, v, quarter, gg);
+        v = lane == j ? kicked : v;
+        const float down = __shfl_up_sync(FULL_WARP, v, 1);   // vxi[j]
+        const float g_next = nhc_div(
+            nhc_sub(nhc_mul(nhc_mul(q_prev, down), down), a.kt), ql);
+        gg = lane == j + 1 ? g_next : gg;
       }
-      for (int j = 0; j < m - 1; ++j) {
-        const float aa = __shfl_sync(FULL_WARP, expf(nhc_mul(eighth, v)),
-                                     j + 1);
-        if (lane == j) v = nhc_kick(aa, v, quarter, gg);
-        const float vj = __shfl_sync(FULL_WARP, v, j);
-        if (lane == j + 1) {
-          gg = nhc_div(nhc_sub(nhc_mul(nhc_mul(q_prev, vj), vj), a.kt), ql);
-        }
-      }
-      if (lane == m - 1) v = nhc_add(v, nhc_mul(quarter, gg));
+      const float bottom = nhc_add(v, nhc_mul(quarter, gg));
+      v = lane == M - 1 ? bottom : v;
     }
     ke2 = nhc_mul(nhc_mul(scale, scale), ke2);
     total = nhc_mul(total, scale);
@@ -237,6 +275,17 @@ void launch_probe_scalar(int m, cudaStream_t s, const ProbeArgs& a) {
       nhc_probe_scalar_kernel<M><<<1, 1, 0, s>>>(a);
     } else {
       launch_probe_scalar<M + 1>(m, s, a);
+    }
+  }
+}
+
+template <int M = 1>
+void launch_probe_warp(int m, cudaStream_t s, const ProbeArgs& a) {
+  if constexpr (M <= NHC_MAX_M) {
+    if (m == M) {
+      nhc_probe_warp_kernel<M><<<1, 32, 0, s>>>(a);
+    } else {
+      launch_probe_warp<M + 1>(m, s, a);
     }
   }
 }
@@ -309,7 +358,7 @@ extern "C" int gamd_nhc_chain_probe(
   if (form == 0) {
     launch_probe_scalar(m, s, a);
   } else {
-    nhc_probe_warp_kernel<<<1, 32, 0, s>>>(a);
+    launch_probe_warp(m, s, a);
   }
   return static_cast<int>(cudaGetLastError());
 }

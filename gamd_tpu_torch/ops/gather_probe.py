@@ -48,12 +48,18 @@ tensor, launches its kernel (and the partials' total) for a CUDA tensor
 or raises, and counts its launches (lane_gather.launches[width],
 sublane_gather.launches, transpose_probe.launches). With product=True
 each also returns the last iteration's result: [256, rows], [rows, 256]
-or [n_pad, 256] fp32.
+or [n_pad, 256] fp32. The sublane kernel's launch (sublane_plan: the
+blocks on each 64-lane slice of the table, the edges a block) is
+computed here and passed to its C entry, which recomputes it and
+refuses one that differs (check_sublane_plan is the same check);
+sublane_cover counts how often each (edge, lane) of its iteration is
+gathered.
 """
 
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from gamd_tpu_torch.ops.mega import _check
@@ -72,10 +78,17 @@ MAX_SMEM = 232448
 H100_SMS = 132
 #: Lane gather widths, by their code in gather_forms.cu's C entry.
 LANE_WIDTHS = {384: 0, 128: 1}
-SUBLANE, TRANSPOSE = 2, 3      # the other codes of that entry
+TRANSPOSE = 3                  # the transpose's code there
 SUB_WIDTH = 128                # the width-128 form's sub-tables
 LANE_EDGES = 256               # edges of a lane block (rows: a multiple)
-SUBLANE_EDGES = 32             # edges of a sublane block
+SUBLANE_WIDTH = 64             # table lanes of a sublane slice
+SUBLANE_SLICES = LANES // SUBLANE_WIDTH
+SUBLANE_THREADS = 4 * SUBLANE_WIDTH   # a sublane block's: a float4 each
+SUBLANE_AT_ONCE = 16           # edges a sublane block reads at once
+SUBLANE_UNITS = 16             # edges a thread holds at most
+SM_SMEM = 233472               # an SM's shared memory (228 KB)
+SMEM_RESERVED = 1024           # the system's share of each block
+SUBLANE_SM_THREADS = 512       # an SM's (the kernel's launch bounds)
 TILE = 32                      # transpose tile
 COPIES = 34                    # transposes an iteration (the script's)
 
@@ -193,6 +206,12 @@ def declare(lib):
         i, i, i, i,                   # rows n_pad copies iters
         p, p, p, p]                   # partials, out, g_out, stream
     lib.gamd_gather_form.restype = ctypes.c_int
+    lib.gamd_sublane_gather.argtypes = [
+        p, p, i, i, i,                # idx, tbl, rows, n_pad, iters
+        p, p, p,                      # partials, out, g_out
+        i, i, i, i,                   # the plan
+        p]                            # stream
+    lib.gamd_sublane_gather.restype = ctypes.c_int
 
 
 def onehot_gather(idx, tbl, iters, form, starts=None, product=False):
@@ -304,6 +323,85 @@ def lane_gather_reference(idx, tblt, iters, width=384, product=False):
     return _carry(acc, g, product)
 
 
+class SublanePlan(NamedTuple):
+    """A launch of gather_forms.cu's sublane_kernel: `per_slice` blocks on
+    each of the table's four slices of SUBLANE_WIDTH lanes, each block
+    gathering `span` edges (the last of a slice may have fewer) with
+    `threads` threads and `smem` bytes of dynamic shared memory (the
+    slice: every table row's SUBLANE_WIDTH lanes, fp32)."""
+    per_slice: int
+    span: int
+    threads: int
+    smem: int
+
+
+def sublane_blocks_per_sm(n_pad):
+    """The blocks of the sublane kernel an SM holds: those its shared
+    memory holds (the slice, the block sum's warp totals and the system's
+    1 KB a block), up to 512 threads (the kernel's launch bounds leave
+    registers for 512)."""
+    per_block = (4 * n_pad * SUBLANE_WIDTH + SUBLANE_THREADS // 8
+                 + SMEM_RESERVED)
+    return min(SM_SMEM // per_block, SUBLANE_SM_THREADS // SUBLANE_THREADS)
+
+
+def sublane_plan(rows, n_pad, sms=H100_SMS):
+    """The sublane kernel's launch on `rows` edges and a table of `n_pad`
+    rows, on a card of `sms` SMs.
+
+    The blocks the card holds at once (one wave) spread evenly over the
+    slices, and the stream evenly over a slice's blocks: each block
+    gathers ceil(rows / blocks a slice) edges, at least one row of its
+    threads (16 edges) and at most what its threads' registers hold (16
+    edges a thread, 256 a block; a longer stream takes more blocks than a
+    wave). Raises ValueError if a slice of the table does not fit a
+    block."""
+    per_sm = sublane_blocks_per_sm(n_pad)
+    if per_sm < 1:
+        raise ValueError(f"sublane_gather: no slice of {SUBLANE_WIDTH} "
+                         f"lanes of a table of {n_pad} rows fits a block "
+                         f"({MAX_SMEM} bytes)")
+    wave = max(per_sm * sms // SUBLANE_SLICES, 1)
+    span = min(max(-(-rows // wave), SUBLANE_AT_ONCE),
+               SUBLANE_AT_ONCE * SUBLANE_UNITS)
+    return SublanePlan(-(-rows // span), span, SUBLANE_THREADS,
+                       4 * n_pad * SUBLANE_WIDTH)
+
+
+def check_sublane_plan(plan, rows, n_pad, sms=H100_SMS):
+    """Raises ValueError unless `plan` is sublane_plan's for this shape:
+    the C entry's check."""
+    try:
+        want = sublane_plan(rows, n_pad, sms)
+    except ValueError:
+        want = None
+    if plan != want or plan.smem > MAX_SMEM:
+        raise ValueError(f"sublane_gather: inconsistent plan {plan} for rows "
+                         f"{rows}, n_pad {n_pad} on {sms} SMs "
+                         f"(sublane_plan gives {want})")
+
+
+def sublane_cover(plan, rows):
+    """[rows, 256] int32: how many times the kernel of `plan` gathers each
+    (edge, lane) of an iteration. Block b takes lanes 64 (b // per_slice)
+    on of edges span (b % per_slice) on; its thread t the float4 t % 16
+    of the edges r, r + 16, ... (r = t // 16) while they lie in the
+    block's span and the stream."""
+    hits = np.zeros((rows, LANES), np.int32)
+    row_t = SUBLANE_WIDTH // 4
+    t = np.arange(plan.threads)
+    q, r = t % row_t, t // row_t
+    for b in range(plan.per_slice * SUBLANE_SLICES):
+        c0 = b // plan.per_slice * SUBLANE_WIDTH
+        e0 = b % plan.per_slice * plan.span
+        for k in range(SUBLANE_UNITS):
+            e = r + SUBLANE_AT_ONCE * k
+            live = (e < plan.span) & (e0 + e < rows)
+            for lane in range(4):
+                np.add.at(hits, (e0 + e[live], c0 + 4 * q[live] + lane), 1)
+    return hits
+
+
 def sublane_gather_reference(idx, tbl, iters, product=False):
     """Plain version of sublane_gather (probe_gather.py:178-193)."""
     col = idx.reshape(-1).long()
@@ -363,8 +461,9 @@ def _check_idx(fn, idx, tbl, multiple):
     rows = idx.shape[0] if idx.ndim == 2 else 0
     _check(fn, "idx", idx, tbl.device, torch.int32, (rows, 1))
     if rows <= 0 or rows % multiple:
-        raise ValueError(f"{fn}: rows must be a positive multiple of "
-                         f"{multiple}, not {rows}")
+        need = (f"a positive multiple of {multiple}" if multiple > 1
+                else "positive")
+        raise ValueError(f"{fn}: rows must be {need}, not {rows}")
     return rows
 
 
@@ -422,7 +521,7 @@ def sublane_gather(idx, tbl, iters, product=False):
         tbl: [n_pad, 256] float32 table T.
 
     A CPU `idx` runs sublane_gather_reference. A CUDA `idx` launches
-    csrc/gather_forms.cu's sublane kernel (rows a multiple of 32) or
+    csrc/gather_forms.cu's sublane kernel on sublane_plan's launch or
     raises.
     """
     fn = "sublane_gather"
@@ -430,10 +529,23 @@ def sublane_gather(idx, tbl, iters, product=False):
     if not _on_card(fn, idx):
         return sublane_gather_reference(idx, tbl, int(iters), product)
     n_pad = tbl.shape[0] if tbl.ndim == 2 else 0
-    _check(fn, "tbl", tbl, idx.device, torch.float32, (n_pad, LANES))
-    rows = _check_idx(fn, idx, tbl, SUBLANE_EDGES)
-    out, g = _form_call(fn, SUBLANE, idx, tbl, rows, n_pad, 1, iters,
-                        (rows, LANES) if product else None)
+    dev = idx.device
+    _check(fn, "tbl", tbl, dev, torch.float32, (n_pad, LANES))
+    rows = _check_idx(fn, idx, tbl, 1)
+    from gamd_tpu_torch.ops.mxu_probe import sm_count
+    plan = sublane_plan(rows, n_pad, sm_count(dev))
+    f32 = dict(device=dev, dtype=torch.float32)
+    partials = torch.empty(plan.per_slice * SUBLANE_SLICES, **f32)
+    out = torch.empty((8, 128), **f32)
+    g = torch.empty((rows, LANES), **f32) if product else None
+    from gamd_tpu_torch.ops.build import load_library
+    err = load_library().gamd_sublane_gather(
+        idx.data_ptr(), tbl.data_ptr(), rows, n_pad, int(iters),
+        partials.data_ptr(), out.data_ptr(),
+        None if g is None else g.data_ptr(), *plan,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
     sublane_gather.launches += 1
     return (out, g) if product else out
 

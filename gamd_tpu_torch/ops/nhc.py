@@ -19,7 +19,9 @@ csrc/nhc_chain.cu.
   the scales and the last ke2. Its plain version is nhc_probe_reference;
   on a CUDA tensor it launches the kernel in its "scalar" form (one thread
   holds the chain) or its "warp" form (lane j holds element j), counted
-  in `nhc_chain_probe.launches[form]`.
+  in `nhc_chain_probe.launches[form]`. nhc_probe_warp_reference computes
+  the same bits in the warp kernel's schedule: a mirror that the tests
+  hold against both.
 * chain_latency chains one of the chain's dependent steps `reps` times on
   one thread (its plain version chain_latency_reference), so that the
   step's latency can be timed on the card: the price of the chain's
@@ -109,6 +111,54 @@ def nhc_probe_reference(xi, vxi, g, ke2, q, kt, ndf, wdts, reps):
         ke2 = scale * scale * ke2
         total = total * scale
     return xi, vxi, g, total, ke2
+
+
+def nhc_probe_warp_reference(xi, vxi, g, ke2, q, kt, ndf, wdts, reps):
+    """Plain version of nhc_chain_probe's warp form, in its kernel's
+    schedule: the chain as [M] vectors, element j in the kernel's lane j.
+    Each update of one element is computed on the whole vector and kept
+    where the element's mask is set; the neighbour's value comes from the
+    vector shifted by one (the kernel's shuffle). The forward sweep's
+    M - 1 exponentials are one vector exp taken before the sweep, and the
+    scale, ke2 and the product of the scales are element 0's. Every value
+    it keeps is nhc_probe_reference's, bit for bit: the same float32
+    operations on the same operands, in the same order."""
+    m = xi.shape[-1]
+    lane = torch.arange(m, device=xi.device)
+    ndf_kt = ndf * kt
+    q0, q_prev = q[0], torch.cat([q[:1], q[:-1]])
+
+    def down(t):            # element j takes element j + 1 (the last its own)
+        return torch.cat([t[1:], t[-1:]])
+
+    def up(t):              # element j takes element j - 1 (the first its own)
+        return torch.cat([t[:1], t[:-1]])
+
+    x, v, gg = xi, vxi, g
+    total = torch.ones_like(ke2)
+    for _ in range(reps):
+        gg = torch.where(lane == 0, (ke2 - ndf_kt) / q0, gg)
+        scale = torch.ones_like(ke2)
+        for wdt in wdts.tolist():
+            quarter, eighth, half = 0.25 * wdt, -0.125 * wdt, 0.5 * wdt
+            v = torch.where(lane == m - 1, v + quarter * gg, v)
+            for j in range(m - 2, -1, -1):
+                aa = torch.exp(eighth * down(v))
+                v = torch.where(lane == j, aa * (aa * v + quarter * gg), v)
+            scale = scale * torch.exp(-half * v[0])
+            x = x + half * v
+            aa = down(torch.exp(eighth * v))
+            gg = torch.where(lane == 0, (scale * scale * ke2 - ndf_kt) / q0,
+                             gg)
+            for j in range(m - 1):
+                v = torch.where(lane == j, aa * (aa * v + quarter * gg), v)
+                prev = up(v)
+                gg = torch.where(lane == j + 1,
+                                 (q_prev * prev * prev - kt) / q, gg)
+            v = torch.where(lane == m - 1, v + quarter * gg, v)
+        ke2 = scale * scale * ke2
+        total = total * scale
+    return x, v, gg, total, ke2
 
 
 def declare(lib):

@@ -5,8 +5,8 @@ The TPU probe asked which representation of the chain lowers (SMEM
 scalars or [1, 128] lane vectors). Here both forms of csrc/nhc_chain.cu's
 probe kernel (ops.nhc.nhc_chain_probe) build, and the probe asks which is
 faster for a chain that is sequential by nature: "scalar", one thread
-holding the chain in registers, or "warp", lane j holding element j, each
-expf taken by all lanes at once.
+holding the chain in registers, or "warp", lane j holding element j, the
+vector work across lanes and one lane crossing a step of each sweep.
 
 For each form it runs `reps` NHC half-steps of a chain of M = 10 with
 n_c = n_ys = 5 (kT 0.8314 kJ/mol, ndf 771, dt 0.01 t0, frequency 5 / t0,
@@ -60,15 +60,16 @@ def probe_schedule():
     return [float(w) * DT / N_C for _ in range(N_C) for w in ys]
 
 
-def probe_inputs(device):
-    """The probe's chain: {xi, vxi, g [M], ke2 [1], q [M], kt, ndf, wdts}
-    (float32 tensors on `device`), from numpy seed 0."""
+def probe_inputs(device, m=M):
+    """The probe's chain: {xi, vxi, g [m], ke2 [1], q [m], kt, ndf, wdts}
+    (float32 tensors on `device`), from numpy seed 0; a chain of another
+    length m than the probe's M takes the probe's constants."""
     q_single = KT / FREQ**2
-    q = [NDF * q_single] + [q_single] * (M - 1)
+    q = [NDF * q_single] + [q_single] * (m - 1)
     rng = np.random.default_rng(0)
-    xi0 = rng.normal(0, 0.1, M).astype(np.float32)
-    vxi0 = rng.normal(0, 0.5, M).astype(np.float32)
-    g0 = np.full(M, -(FREQ**2), np.float32)
+    xi0 = rng.normal(0, 0.1, m).astype(np.float32)
+    vxi0 = rng.normal(0, 0.5, m).astype(np.float32)
+    g0 = np.full(m, -(FREQ**2), np.float32)
     ke2 = np.array([KE2], np.float32)
 
     def f32(a):

@@ -1081,6 +1081,21 @@ def test_nhc_chain_probe_matches_plain_version(cuda, form):
         <= probe_nhc_kernel.PARITY_ATOL
 
 
+@pytest.mark.parametrize("m", [1, 2, 10, 16])
+def test_nhc_chain_probe_warp_equals_scalar(cuda, m):
+    """The warp form (lane j holds element j, one lane crossing a step)
+    runs nhc.cuh's operations in the scalar form's order and rounding: at
+    reps 3 and 400, on the probe's constants with a chain of m, its five
+    outputs equal the scalar form's bit for bit."""
+    inputs = probe_nhc_kernel.probe_inputs(cuda, m)
+    for reps in (3, 400):
+        scalar = probe_nhc_kernel.run_form(inputs, "scalar", reps)
+        warp = probe_nhc_kernel.run_form(inputs, "warp", reps)
+        torch.cuda.synchronize()
+        for a, b in zip(warp, scalar):
+            assert torch.equal(a, b), (m, reps, a, b)
+
+
 def test_nose_hoover_simulation_on_the_card(cuda):
     """Simulation under nose_hoover with classical LJ-258 forces: two
     nhc_half_step launches a step, and 40 steps within 1e-4 A of the same
@@ -1497,10 +1512,63 @@ def test_lane_gather_on_other_streams(cuda, width, rows):
     assert torch.equal(again, out)
 
 
+@pytest.mark.parametrize("rows,n_pad", [(13056, 384), (32, 32), (100, 384),
+                                        (13001, 384)])
+def test_sublane_gather_matches_plain_version(cuda, rows, n_pad):
+    """The sublane kernel on a seeded stream with an index on the table's
+    last row and one past it (clamped), at probe_gather's shapes, a small
+    table and two ragged streams: one launch a call; the last result bit
+    for bit its plain version's (of the clamped indices), the carry within
+    1e-5 of iters x one iteration's sum of magnitudes, a repeat bit for
+    bit."""
+    rng = np.random.default_rng(rows)
+    tbl = torch.as_tensor(rng.standard_normal((n_pad, 256))
+                          .astype(np.float32), device=cuda)
+    ids = rng.integers(0, n_pad, (rows, 1)).astype(np.int32)
+    ids[3, 0], ids[-1, 0] = n_pad - 1, n_pad
+    idx = torch.as_tensor(ids, device=cuda)
+    before = gather_probe.sublane_gather.launches
+    out, g = gather_probe.sublane_gather(idx, tbl, 3, True)
+    again, g_again = gather_probe.sublane_gather(idx, tbl, 3, True)
+    torch.cuda.synchronize()
+    assert gather_probe.sublane_gather.launches == before + 2
+    clamped = idx.clamp(0, n_pad - 1).cpu()
+    ref, g_ref = gather_probe.sublane_gather_reference(
+        clamped, tbl.cpu(), 3, product=True)
+    assert torch.equal(g.cpu(), g_ref)
+    scale = float(g_ref.abs().sum())
+    assert float((out.cpu() - ref).abs().max()) <= 1e-5 * 3 * scale
+    assert torch.equal(again, out) and torch.equal(g_again, g)
+
+
+def test_sublane_entry_refuses_an_inconsistent_plan(cuda):
+    """The C entry recomputes the sublane plan: other blocks a slice,
+    edges a block, threads or shared bytes returns cudaErrorInvalidValue
+    and launches nothing."""
+    from gamd_tpu_torch.ops.build import load_library
+    lib = load_library()
+    idx, tbl = probe_gather.probe_inputs()
+    x = probe_gather.form_inputs("sublane", idx, tbl, cuda)
+    good = gather_probe.sublane_plan(13056, 384, mxu_probe.sm_count(cuda))
+    out = torch.full((8, 128), 7.0, device=cuda)
+    partials = torch.empty(4 * (good.per_slice + 1), device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for bad in (good._replace(per_slice=good.per_slice + 1),
+                good._replace(span=good.span - 1),
+                good._replace(threads=2 * good.threads),
+                good._replace(smem=good.smem + 1024)):
+        err = lib.gamd_sublane_gather(
+            x["idx"].data_ptr(), x["tbl"].data_ptr(), 13056, 384, 2,
+            partials.data_ptr(), out.data_ptr(), None, *bad, stream)
+        assert err != 0, bad
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+
+
 def test_gather_forms_reject_what_they_do_not_take(cuda):
-    """A ragged stream (100 rows), a bf16 table, int64 ids, a transposed
-    table whose width is not a multiple of 32: refused, nothing
-    launches."""
+    """A ragged stream (100 rows) to the lane form, an empty one to the
+    sublane form, a bf16 table, int64 ids, a transposed table whose width
+    is not a multiple of 32: refused, nothing launches."""
     idx, tbl = probe_gather.probe_inputs()
     lane = probe_gather.form_inputs("lane384", idx, tbl, cuda)
     sub = probe_gather.form_inputs("sublane", idx, tbl, cuda)
@@ -1512,8 +1580,8 @@ def test_gather_forms_reject_what_they_do_not_take(cuda):
         gather_probe.lane_gather(lane["idx"], lane["tbl"].bfloat16(), 2)
     with pytest.raises(ValueError, match="idx"):
         gather_probe.sublane_gather(sub["idx"].long(), sub["tbl"], 2)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        gather_probe.sublane_gather(sub["idx"][:100].contiguous(),
+    with pytest.raises(ValueError, match="rows must be positive"):
+        gather_probe.sublane_gather(sub["idx"][:0].contiguous(),
                                     sub["tbl"], 2)
     with pytest.raises(ValueError, match="multiple of 32"):
         gather_probe.transpose_probe(lane["tbl"][:, :200].contiguous(), 2)

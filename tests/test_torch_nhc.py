@@ -1,7 +1,9 @@
 """Port parity of the integrator slice on the CPU: the Nose-Hoover chain
 half-step (the plain version of the CUDA nhc_half_step) against JAX's
 _nhc_propagate; the plain chain of nhc_chain_probe against
-scripts/probe_nhc_kernel.py's two Pallas kernels in interpret mode;
+scripts/probe_nhc_kernel.py's two Pallas kernels in interpret mode, and
+the warp kernel's schedule in PyTorch against the plain chain bit for
+bit and against the vector kernel;
 velocity_verlet, nose_hoover_chain and andersen step functions;
 nhc_bath_energies; Simulation under NVE, NHC and Andersen; and
 run_recorded. Each test feeds the same seeded numpy inputs to the JAX
@@ -10,6 +12,7 @@ are held against their plain versions in tests/test_torch_cuda.py and
 chip_smoke.py, on the card.
 """
 
+import functools
 import importlib.util
 import os
 
@@ -150,19 +153,16 @@ def _load_jax_probe():
     return module
 
 
-@pytest.mark.parametrize("form", ["scalar", "warp"])
-def test_probe_chain_matches_pallas_probe_kernels(form):
-    """nhc_chain_probe's plain chain (both forms compute it) at reps = 3
-    against the probe's Pallas kernel of the same form in interpret mode
-    (scalar: _make_kernel_scalar, SMEM; warp: _make_kernel_vector, [1,128]
-    lanes), on the probe's constants and schedule: within 1e-4 absolute,
-    the probe's parity scale, on xi, vxi, g, the product of the scales and
-    the final ke2; and the probe's reference (_nhc_propagate on a carrier)
-    within the same scale."""
+@functools.lru_cache(maxsize=None)
+def _pallas_probe(form, reps=3):
+    """(xi, vxi, g, product of the scales, last ke2) of the probe's Pallas
+    kernel of `form` in interpret mode (scalar: _make_kernel_scalar, SMEM;
+    warp: _make_kernel_vector, [1, 128] lanes) at `reps` on the probe's
+    constants and schedule, as numpy."""
     jp = _load_jax_probe()
     inputs = tprobe.probe_inputs("cpu")
     q = [float(v) for v in inputs["q"]]
-    kt, ndf, reps = tprobe.KT, tprobe.NDF, 3
+    kt, ndf = tprobe.KT, tprobe.NDF
     wdts = jp._schedule(tprobe.DT)
     assert np.array_equal(np.float32(wdts), inputs["wdts"].numpy())
     xi0, vxi0, g0 = (inputs[k].numpy() for k in ("xi", "vxi", "g"))
@@ -172,24 +172,79 @@ def test_probe_chain_matches_pallas_probe_kernels(form):
         outs = call(jnp.asarray(xi0), jnp.asarray(vxi0), jnp.asarray(g0),
                     jnp.asarray([ke2], jnp.float32))
         j_xi, j_vxi, j_g, aux = [np.asarray(o) for o in outs]
-        j_total, j_ke2 = aux[0], aux[1]
-    else:
-        pad = lambda a: np.pad(a, (0, jp.LANES - M)).reshape(1, jp.LANES)
-        call = jp._make_kernel_vector(wdts, q, kt, ndf, reps, interpret=True)
-        outs = call(*[jnp.asarray(pad(a).astype(np.float32)) for a in (
-            xi0, vxi0, g0, np.array([ke2] + [0.0] * (M - 1), np.float32))])
-        j_xi, j_vxi, j_g = [np.asarray(o)[0, :M] for o in outs[:3]]
-        j_total, j_ke2 = np.asarray(outs[3])[0, 0], np.asarray(outs[3])[0, 1]
-    xi, vxi, g, total, ke2_out = tprobe.run_form(inputs, form, reps)
-    err = max(float(np.abs(xi.numpy() - j_xi).max()),
-              float(np.abs(vxi.numpy() - j_vxi).max()),
-              float(np.abs(g.numpy() - j_g).max()),
-              abs(float(total) - float(j_total)))
+        return j_xi, j_vxi, j_g, aux[0], aux[1]
+    pad = lambda a: np.pad(a, (0, jp.LANES - M)).reshape(1, jp.LANES)
+    call = jp._make_kernel_vector(wdts, q, kt, ndf, reps, interpret=True)
+    outs = call(*[jnp.asarray(pad(a).astype(np.float32)) for a in (
+        xi0, vxi0, g0, np.array([ke2] + [0.0] * (M - 1), np.float32))])
+    j_xi, j_vxi, j_g = [np.asarray(o)[0, :M] for o in outs[:3]]
+    return j_xi, j_vxi, j_g, np.asarray(outs[3])[0, 0], \
+        np.asarray(outs[3])[0, 1]
+
+
+def _probe_err(out, pallas):
+    """max |d| over xi, vxi, g and the product of the scales, and |d| of
+    the last ke2."""
+    xi, vxi, g, total, ke2 = (np.asarray(t) for t in out)
+    j_xi, j_vxi, j_g, j_total, j_ke2 = pallas
+    err = max(float(np.abs(xi - j_xi).max()), float(np.abs(vxi - j_vxi).max()),
+              float(np.abs(g - j_g).max()), abs(float(total) - float(j_total)))
+    return err, abs(float(ke2) - float(j_ke2))
+
+
+@pytest.mark.parametrize("form", ["scalar", "warp"])
+def test_probe_chain_matches_pallas_probe_kernels(form):
+    """nhc_chain_probe's plain chain (both forms compute it) at reps = 3
+    against the probe's Pallas kernel of the same form in interpret mode
+    (scalar: _make_kernel_scalar, SMEM; warp: _make_kernel_vector, [1,128]
+    lanes), on the probe's constants and schedule: within 1e-4 absolute,
+    the probe's parity scale, on xi, vxi, g, the product of the scales and
+    the final ke2; and the probe's reference (_nhc_propagate on a carrier)
+    within the same scale."""
+    inputs = tprobe.probe_inputs("cpu")
+    out = tprobe.run_form(inputs, form, 3)
+    err, ke2_err = _probe_err(out, _pallas_probe(form))
     assert err <= tprobe.PARITY_ATOL, err
-    assert abs(float(ke2_out) - float(j_ke2)) <= tprobe.PARITY_ATOL * ke2
-    ref = tprobe.reference(inputs, reps)
-    assert tprobe.parity_error((xi, vxi, g, total, ke2_out), ref) \
+    assert ke2_err <= tprobe.PARITY_ATOL * float(inputs["ke2"][0])
+    assert tprobe.parity_error(out, tprobe.reference(inputs, 3)) \
         <= tprobe.PARITY_ATOL
+
+
+def _probe_args(m):
+    inputs = tprobe.probe_inputs("cpu", m)
+    args = [inputs[k] for k in ("xi", "vxi", "g", "ke2", "q", "kt", "ndf",
+                                "wdts")]
+    args[3] = args[3].reshape(())
+    return args
+
+
+@pytest.mark.parametrize("reps", [3, 400])
+@pytest.mark.parametrize("m", [1, 2, 10, 16])
+def test_warp_schedule_is_the_plain_chain_bit_for_bit(m, reps):
+    """nhc_probe_warp_reference, the warp kernel's schedule (element j's
+    updates masked on [m] vectors, neighbours by a shift, the forward
+    sweep's m - 1 exponentials one vector exp before the sweep, the scale
+    on element 0 only), equals nhc_probe_reference bit for bit in all five
+    outputs at reps 3 and 400 for chains of 1, 2, 10 and 16 on the probe's
+    constants: the same float32 operations in the same order."""
+    args = _probe_args(m)
+    warp = nhc.nhc_probe_warp_reference(*args, reps)
+    plain = nhc.nhc_probe_reference(*args, reps)
+    assert warp[0].shape == (m,)
+    for a, b in zip(warp, plain):
+        assert torch.equal(a, b), (m, reps, a, b)
+
+
+def test_warp_schedule_matches_pallas_vector_kernel():
+    """nhc_probe_warp_reference at reps 3 within 1e-4 absolute (the
+    probe's parity scale) of _make_kernel_vector in interpret mode on the
+    probe's constants, in xi, vxi, g, the product of the scales and the
+    last ke2 (the latter relative to ke2)."""
+    args = _probe_args(M)
+    err, ke2_err = _probe_err(nhc.nhc_probe_warp_reference(*args, 3),
+                              _pallas_probe("warp"))
+    assert err <= tprobe.PARITY_ATOL, err
+    assert ke2_err <= tprobe.PARITY_ATOL * float(args[3])
 
 
 def test_probe_tool_on_cpu(capsys):

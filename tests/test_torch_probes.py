@@ -4,7 +4,9 @@ one-hot, lane, sublane and transpose form of scripts/probe_gather.py, run
 as the scripts define them (Pallas in interpret mode), against the plain
 versions of ops.mxu_probe.mxu_loop and ops.gather_probe's onehot_gather,
 lane_gather, sublane_gather and transpose_probe; the two port tools with
---cpu; the launch counters. The CUDA kernels themselves are
+--cpu; the launch counters; the launch plans of the mxu, one-hot and
+sublane kernels (coverage, shared bytes, one wave, refusals). The CUDA
+kernels themselves are
 held against the plain versions in tests/test_torch_cuda.py and
 chip_smoke.py, on the card.
 
@@ -500,3 +502,74 @@ def test_onehot_inconsistent_plan_is_refused(plan, why):
     shared bytes, threads or row tiles)."""
     with pytest.raises(ValueError, match="inconsistent"):
         gather_probe.check_plan("bf16", plan, 13056, 384)
+
+
+#: (rows, n_pad) of the sublane plans: probe_gather.py's stream and
+#: table, a small one, two ragged streams (the last block of a slice
+#: short) and one longer than a wave holds.
+SUBLANE_SHAPES = [(13056, 384), (32, 32), (100, 384), (13001, 384),
+                  (4 * 13056, 384)]
+
+
+@pytest.mark.parametrize("rows,n_pad", SUBLANE_SHAPES)
+def test_sublane_plan_covers_every_edge_and_lane_once(rows, n_pad):
+    """Every (edge, table lane) of an iteration is gathered by exactly one
+    thread of one block (sublane_cover walks the kernel's blocks, threads
+    and edges), and the plan is its own check's."""
+    plan = gather_probe.sublane_plan(rows, n_pad, 132)
+    gather_probe.check_sublane_plan(plan, rows, n_pad, 132)
+    assert (gather_probe.sublane_cover(plan, rows) == 1).all()
+
+
+@pytest.mark.parametrize("rows,n_pad", SUBLANE_SHAPES)
+def test_sublane_plan_fits_a_block(rows, n_pad):
+    """A block's slice (n_pad rows x 64 lanes of fp32) within 232,448
+    bytes, 256 threads; the blocks an SM holds fit its 233,472 bytes and
+    the 512 threads the kernel's launch bounds leave registers for; at
+    most 16 edges a thread (the kernel's registers)."""
+    plan = gather_probe.sublane_plan(rows, n_pad, 132)
+    assert 0 < plan.smem == 4 * n_pad * 64 <= 232448
+    assert plan.threads == 256
+    per_sm = gather_probe.sublane_blocks_per_sm(n_pad)
+    assert per_sm >= 1
+    assert per_sm * (plan.smem + plan.threads // 8 + 1024) <= 233472
+    assert per_sm * plan.threads <= 512
+    assert gather_probe.SUBLANE_AT_ONCE <= plan.span <= 256
+
+
+def test_sublane_default_plan_is_one_wave():
+    """At probe_gather's shapes on 132 SMs: 64-lane slices (96 KB, two
+    blocks an SM), 66 blocks on each of the 4 slices, 198 edges a block:
+    264 blocks, one wave. A stream of four times the rows needs more edges
+    a block than a thread holds: 256 a block, more than one wave."""
+    plan = gather_probe.sublane_plan(13056, 384, 132)
+    assert plan == gather_probe.SublanePlan(66, 198, 256, 98304)
+    assert gather_probe.sublane_blocks_per_sm(384) == 2
+    assert plan.per_slice * 4 == 2 * 132
+    long = gather_probe.sublane_plan(4 * 13056, 384, 132)
+    assert long.span == 256 and long.per_slice * 4 > 2 * 132
+    assert gather_probe.sublane_plan(32, 32, 132).per_slice == 2
+
+
+def _bad_sublane_plans():
+    good = gather_probe.sublane_plan(13056, 384, 132)
+    yield good._replace(per_slice=good.per_slice + 1), "blocks a slice"
+    yield good._replace(span=good.span - 1), "edges a block"
+    yield good._replace(threads=128), "threads"
+    yield good._replace(smem=good.smem - 1024), "smem"
+    yield gather_probe.sublane_plan(13056, 384, 114), "another card's"
+    yield gather_probe.sublane_plan(13056, 256, 132), "n_pad"
+    yield gather_probe.sublane_plan(13000, 384, 132), "rows"
+
+
+@pytest.mark.parametrize("plan,why", list(_bad_sublane_plans()))
+def test_sublane_inconsistent_plan_is_refused(plan, why):
+    """check_sublane_plan, the C entry's check in Python, refuses a plan
+    that is not sublane_plan's for the shape (other blocks a slice, edges
+    a block, threads or shared bytes, another card's, another table's or
+    another stream's plan); sublane_plan refuses a table whose slice does
+    not fit a block."""
+    with pytest.raises(ValueError, match="inconsistent"):
+        gather_probe.check_sublane_plan(plan, 13056, 384, 132)
+    with pytest.raises(ValueError, match="fits a block"):
+        gather_probe.sublane_plan(13056, 1024, 132)
