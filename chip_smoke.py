@@ -154,17 +154,21 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
  27. gather_agg, edge_mlp_agg, conv_msg and conv_layer against their plain
      versions on phase 6's two layers' real inputs (h_src = hn[idx],
      src_code = src[idx], edge_pre = edge_affine(e) + src_code + dst, the
-     gate theta(edge_pre)); conv_msg_gather (tensor cores) within 1e-4 of
-     conv_msg's agg (CUDA cores), edge_mlp_agg(edge_pre) and gather_agg(hn,
-     gate) within 1e-5 of conv_msg's agg, conv_layer equal to GAMDNet's
-     own layer on the plain path and, with a bf16 e, to its plain version;
+     gate theta(edge_pre)); conv_msg equal to conv_msg_gather bit for bit
+     (the same live-edge tiles on equal rows), edge_mlp_agg(edge_pre) and
+     gather_agg(hn, gate) within 1e-5 of conv_msg's plain agg (fp32, on
+     the card), conv_layer equal to GAMDNet's own layer on the plain path
+     and to its plain version with a bf16 e and with ids out of range
+     (negative, N and past it) in live and masked slots;
  28. the gradients of edge_mlp_agg, conv_msg and conv_layer (autograd
      Functions whose backward recomputes through the plain version, as
      JAX's custom_vjp) against autograd through the plain version, with a
      seeded cotangent, on both layers; gather_agg's refusal of an input
      that requires grad;
  29. the four kernels' times at layer 0's inputs against their plain
-     versions and bounds, and their device time (torch.profiler);
+     versions and bounds (conv_msg and conv_layer on the tensor-core
+     basis, the fp32 CUDA-core basis beside it), and their device time by
+     kernel (torch.profiler, exclusive);
  30. tools.bench_mxu in process at its defaults (iters 200, tile_n 16,
      k 48, n 258): each stage's us/iter, TFLOP/s and launch (CTAs,
      cluster), the calibration line (required OK), the launches by body,
@@ -235,11 +239,8 @@ import sys
 import tempfile
 import time
 
-from typing import NamedTuple
-
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from gamd_tpu_torch.core import space, units
 from gamd_tpu_torch.core.config import MDConfig
@@ -247,7 +248,6 @@ from gamd_tpu_torch.core.device import card_line
 from gamd_tpu_torch.md import integrators as integ
 from gamd_tpu_torch.md.integrators import maxwell_boltzmann_velocities
 from gamd_tpu_torch.md.simulate import Simulation
-from gamd_tpu_torch.models.normalizer import init_stat, update_stat
 from gamd_tpu_torch.neighbors.dense import (build_nbrs, dense_neighbor_list,
                                             refresh_mask)
 from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
@@ -282,11 +282,11 @@ from gamd_tpu_torch.tools.profile_step import (BANDED_KERNELS,
                                                FORWARD_STAGES,
                                                exclusive_times,
                                                forward_stages, traced_spans)
+from gamd_tpu_torch.tools.time_conv import conv_inputs, op_inputs
 from gamd_tpu_torch.tools.time_probes import nhc_case, smem_bound
 from gamd_tpu_torch.train.checkpoint import load_self_describing
 from gamd_tpu_torch.train.forcefield import GNNForceField
-from gamd_tpu_torch.train.loop import (edge_distances, make_train_step,
-                                       search_batch)
+from gamd_tpu_torch.train.loop import make_train_step
 from gamd_tpu_torch.train.state import create_train_state
 
 DEADLINE_S = 600          # the whole script, build included
@@ -327,7 +327,7 @@ NHC_ANALYZE_STEPS = 4000  # phase 21's per-step NHC rollout
 ANDERSEN_STEPS, NVE_STEPS = 400, 1000   # phases 23 and 24
 RECORD_FRAMES, RECORD_INTERVAL = 10, 20  # phase 25
 OP_FORCE_RTOL = 1e-4      # op-library forms vs the plain forward, / std(F)
-OP_AGG_RTOL = 1e-5        # staged forms vs conv_msg's agg, / max
+OP_AGG_RTOL = 1e-5        # staged forms vs conv_msg's plain agg, / max
 OP_GRAD_RTOL = 1e-5       # per grad: max |d| / max |grad|, Function vs plain
 THERMO_HEADER = ('#"Step"\t"Time (ps)"\t"Kinetic Energy (kJ/mole)"\t'
                  '"Temperature (K)"')
@@ -526,60 +526,6 @@ def tc_bound(ops, n, k, mp, model_cfg, state_io=False):
     t_bytes = forward_bytes(n, k, mp, model_cfg, state_io) \
         / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-class ConvCase(NamedTuple):
-    """One conv layer's real inputs (batch of one graph)."""
-    args: tuple          # e, idx, mask, hn, src, dst and the 8 edge weights
-    live: int            # live edges
-    h: torch.Tensor      # the layer's input [1, N, D], its residual
-    phi: list            # phi_dst, phi_edge, phi weights and biases
-    frame: tuple         # (pos [1, N, 3], length mean, length std)
-
-
-def conv_inputs(dev):
-    """The conv kernel pair's real inputs at the training slice, from
-    init_params(seed=0) GAMD-small, the dense list at 7.5 A with K=96 and
-    the edge-length scaler fitted on the frame: layer 0's on the start
-    frame (the encoded edges, hn, src and dst codes; every row of hn is the
-    node embedding) and layer 1's on frame 1 (the lattice displaced by
-    0.1 A, after one conv layer, so that rows differ). Returns a ConvCase
-    for each."""
-    sl = lj_train_slice(dev)
-    system = sl.system
-    model = create_train_state(sl.model_cfg, system, sl.train_cfg, 1,
-                               seed=0, device=dev).model
-    cases = []
-    for frame, layer in ((0, 0), (1, 1)):
-        pos = space.wrap(sl.batches[frame]["pos"], system.box)
-        idx, mask, ovf = search_batch(pos, system.box, system.cutoff,
-                                      system.nbr_capacity)
-        require(not bool(ovf), "neighbour overflow at the training frame")
-        stat = update_stat(init_stat(dev), edge_distances(pos, idx,
-                                                          system.box),
-                           mask=mask)
-        block = model.graph_conv
-        with torch.no_grad():
-            e = model.encode_edges(pos, idx, system.box, stat.safe_mean,
-                                   stat.std)
-            h = model.node_emb.expand(1, system.n_atoms, -1)
-            for below in range(layer):
-                h = getattr(block, f"conv_{below}")(
-                    h, getattr(block, f"norm_{below}")(h), e, idx, mask)
-            conv = getattr(block, f"conv_{layer}")
-            hn = getattr(block, f"norm_{layer}")(h)
-            src, dst = conv.src_affine(hn), conv.dst_affine(hn)
-        weights = [t.detach() for t in (
-            conv.edge_affine_w1, conv.edge_affine_b1, conv.edge_affine_w2,
-            conv.edge_affine_b2, conv.theta_edge_w1, conv.theta_edge_b1,
-            conv.theta_edge_w2, conv.theta_edge_b2)]
-        phi = [t.detach() for t in (conv.phi_dst_w, conv.phi_dst_b,
-                                    conv.phi_edge_w, conv.phi_edge_b,
-                                    conv.phi_w, conv.phi_b)]
-        cases.append(ConvCase((e, idx, mask, hn, src, dst, *weights),
-                              int(mask.sum()), h, phi,
-                              (pos, stat.safe_mean, stat.std)))
-    return cases
 
 
 def layout_equal(got, want):
@@ -2030,14 +1976,21 @@ def integrator_phases(dev, card, traj, langevin_sps):
 
 
 def op_bound(op, live, n, k, width=128):
-    """(least ms, "operations" or "bytes", FLOP) of one op-library call on
-    one graph: the products over the live edges (2 per multiply-add; for
-    conv_layer also its three node products), against each input read once
-    (per-slot inputs and ids at the live slots only, the mask in full, the
-    node arrays and weights) and the output written once."""
+    """(least ms, "operations" or "bytes", the fp32 CUDA-core basis's
+    least ms, (tensor-core FLOP, fp32 FLOP)) of one op-library call on one
+    graph. Bytes: each input read once (per-slot inputs and ids at the
+    live slots only, the mask in full, the node arrays and weights) and
+    the output written once. Operations: rows 9-10 (gather_agg,
+    edge_mlp_agg) run fp32 FMAs, priced at the fp32 peak (the bound is its
+    own fp32 basis); rows 7-8 (conv_layer, conv_msg) run the four edge
+    products over the live edges as three bf16 passes on the tensor cores
+    and the epilogues in fp32 (conv_tc_ops, tc_conv_bound), conv_layer also
+    its three node products in fp32. The fp32 basis prices every product
+    at the fp32 peak (2 per multiply-add)."""
     w = width
     slot, node = 4 * live * w, 4 * n * w
     mats = lambda count: 4 * count * (w * w + w)
+    node_flops = 3 * 2.0 * n * w * w
     if op == "gather_agg":
         flops = 2.0 * live * w
         nbytes = slot + 4 * live + n * k + 2 * node
@@ -2048,40 +2001,30 @@ def op_bound(op, live, n, k, width=128):
         flops = float(conv_flops(live, w))
         nbytes = 3 * slot + n * k + mats(4) + 2 * node
     else:
-        flops = conv_flops(live, w) + 3 * 2.0 * n * w * w
+        flops = conv_flops(live, w) + node_flops
         nbytes = slot + 4 * live + n * k + mats(7) + 5 * node
-    return (*roofline(flops, nbytes), flops)
+    fp32_ms, fp32_by = roofline(flops, nbytes)
+    if op in ("gather_agg", "edge_mlp_agg"):
+        return fp32_ms, fp32_by, fp32_ms, (0.0, flops)
+    tc_flops, epilogue = conv_tc_ops(live, w)
+    ops = (tc_flops, epilogue + (node_flops if op == "conv_layer" else 0.0))
+    bound_ms, bound_by = tc_conv_bound(live, nbytes, lambda _: ops)
+    return bound_ms, bound_by, fp32_ms, ops
 
 
-def op_inputs(case):
-    """The op library's inputs on one graph of a ConvCase, flat in each
-    entry's argument order, {op: (inputs, kernel, plain)}: the conv
-    pair's own e, idx, mask, hn, src, dst and weights, and from them
-    h_src = hn[idx], src_code = src[idx], edge_pre = edge_affine(e) +
-    src_code + dst and the gate theta(edge_pre)."""
-    e, idx, mask, hn, src, dst = (t[0] for t in case.args[:6])
-    w8 = list(case.args[6:])
-    w1, b1, w2, b2, w3, b3, w4, b4 = w8
-    with torch.no_grad():
-        rows = idx.long()
-        h_src, src_code = hn[rows], src[rows]
-        edge_pre = F.silu(e @ w1 + b1) @ w2 + b2 + src_code + dst[:, None]
-        gate = F.silu(F.silu(edge_pre) @ w3 + b3) @ w4 + b4
-    h = case.h[0].contiguous()
-    return {
-        "gather_agg": ((hn, gate, idx, mask),
-                       message.pallas_gather_multiply_aggregate,
-                       message.gather_multiply_aggregate),
-        "edge_mlp_agg": ((edge_pre, h_src, mask, w3, b3, w4, b4),
-                         message.fused_edge_mlp_aggregate,
-                         message._fused_reference),
-        "conv_msg": ((e, h_src, src_code, dst, mask, *w8),
-                     message.fused_conv_message,
-                     message._conv_msg_reference),
-        "conv_layer": ((e, idx, mask, h, hn, src, dst, *w8, *case.phi),
-                       lambda *a: message.fused_conv_layer(*a[:7], a[7:]),
-                       message._conv_layer_plain),
-    }
+def wild_ids(inputs, n):
+    """conv_layer's inputs with ids out of range (negative, N and past it,
+    far past either end) in every masked slot and in the live slots whose
+    flat index is a multiple of 5, which JAX's rule reads as clamped
+    rows."""
+    idx, mask = inputs[1], inputs[2]
+    dev = idx.device
+    wild = torch.tensor([-1, -n, -n - 1, n, n + 7, 10 ** 6, -10 ** 6],
+                        dtype=torch.int32, device=dev)
+    flat = torch.arange(idx.numel(), device=dev).reshape(idx.shape)
+    pick = ~mask | (flat % 5 == 0)
+    fill = wild[torch.arange(int(pick.sum()), device=dev) % wild.numel()]
+    return (inputs[0], idx.masked_scatter(pick, fill), *inputs[2:])
 
 
 OP_ENTRIES = {"gather_agg": message.pallas_gather_multiply_aggregate,
@@ -2153,7 +2096,7 @@ def op_library_phases(dev, card):
     for layer, case in enumerate(cases):
         ops = op_inputs(case)
         n, k = case.args[1].shape[1:]
-        outs = {}
+        outs, refs = {}, {}
         for name, (inputs, kernel, plain) in ops.items():
             entry = OP_ENTRIES[name]
             before = entry.launches
@@ -2174,46 +2117,57 @@ def op_library_phases(dev, card):
             require(err <= CONV_RTOL * scale, f"{name} disagrees: {err} vs "
                     f"{scale}")
             errs[name] = max(errs[name], err)
-            outs[name] = out
+            outs[name], refs[name] = out, ref
+        layer_inputs, layer_kernel, layer_plain = ops["conv_layer"]
+        wild = wild_ids(layer_inputs, n)
         with torch.no_grad():
             agg = fused_conv_gather_message(*case.args)[0]
-            e, idx_l, mask_l, h, hn, src, dst = ops["conv_layer"][0][:7]
+            e, idx_l, mask_l, h, hn, src, dst = layer_inputs[:7]
             own = getattr(plain_model.graph_conv, f"conv_{layer}")(
                 h[None], hn[None], e[None], idx_l[None], mask_l[None])[0]
-            layer_inputs = ops["conv_layer"][0]
             bf16 = (e.to(torch.bfloat16), *layer_inputs[1:])
-            out_bf16 = ops["conv_layer"][1](*bf16)
-            ref_bf16 = ops["conv_layer"][2](*bf16)
+            out_bf16 = layer_kernel(*bf16)
+            ref_bf16 = layer_plain(*bf16)
+            out_wild = layer_kernel(*wild)
+            ref_wild = layer_plain(*wild)
         torch.cuda.synchronize()
-        # The anchor is conv_msg's agg (row 8, the fp32 CUDA-core edge
-        # stage); conv_msg_gather (row 3, bf16 x 3 on the tensor cores)
-        # computes the same function to CONV_RTOL.
-        anchor = outs["conv_msg"]
+        # Row 8 (conv_msg) runs row 3's live-edge tiles (conv_msg_gather)
+        # on equal rows over the same layout: the same bits. The anchor of
+        # the staged forms (rows 9 and 10, fp32 on the CUDA cores) is
+        # conv_msg's plain version, fp32 on the card.
+        same = torch.equal(outs["conv_msg"], agg)
+        anchor = refs["conv_msg"]
         scale = float(anchor.abs().max())
-        gather_err = float((agg - anchor).abs().max())
         vs_agg = {name: float((outs[name] - anchor).abs().max())
                   for name in ("edge_mlp_agg", "gather_agg")}
         own_err = float((outs["conv_layer"] - own).abs().max())
         own_std = float(own.std())
         bf16_err = float((out_bf16 - ref_bf16).abs().max())
-        say(f"phase 27: layer {layer}: conv_msg_gather against conv_msg's "
-            f"agg: max |d| {gather_err:.3e}, max |agg| {scale:.3e} "
-            f"(tolerance {CONV_RTOL} x max); edge_mlp_agg(edge_pre) and "
-            f"gather_agg(hn, theta(edge_pre)) against conv_msg's agg: max "
-            f"|d| {vs_agg['edge_mlp_agg']:.3e} and "
-            f"{vs_agg['gather_agg']:.3e} (tolerance {OP_AGG_RTOL} x max); "
+        wild_err = float((out_wild - ref_wild).abs().max())
+        wild_std = float(ref_wild.std())
+        say(f"phase 27: layer {layer}: conv_msg equals conv_msg_gather bit "
+            f"for bit: {same}; edge_mlp_agg(edge_pre) and gather_agg(hn, "
+            f"theta(edge_pre)) against conv_msg's plain agg: max |d| "
+            f"{vs_agg['edge_mlp_agg']:.3e} and {vs_agg['gather_agg']:.3e}, "
+            f"max |agg| {scale:.3e} (tolerance {OP_AGG_RTOL} x max); "
             f"conv_layer against GAMDNet's own layer on the plain path: max "
             f"|d| {own_err:.3e}, std {own_std:.3e} (tolerance {CONV_RTOL} x "
             f"std); with a bf16 e against its plain version: max |d| "
-            f"{bf16_err:.3e}")
-        require(gather_err <= CONV_RTOL * scale,
-                f"conv_msg_gather disagrees with conv_msg: {gather_err}")
+            f"{bf16_err:.3e}; with ids out of range in "
+            f"{int((wild[1] != idx_l)[mask_l].sum())} live and every masked "
+            f"slot against its plain version: max |d| {wild_err:.3e}, std "
+            f"{wild_std:.3e}")
+        require(same, "conv_msg and conv_msg_gather differ")
         require(max(vs_agg.values()) <= OP_AGG_RTOL * scale,
                 f"the staged forms disagree with agg: {vs_agg}")
         require(own_err <= CONV_RTOL * own_std,
                 "conv_layer disagrees with GAMDNet's layer")
         require(bf16_err <= CONV_RTOL * float(ref_bf16.std()),
                 "conv_layer disagrees with its plain version on a bf16 e")
+        require(bool(torch.isfinite(out_wild).all())
+                and wild_err <= CONV_RTOL * wild_std,
+                "conv_layer disagrees with its plain version on ids out of "
+                "range")
 
     # -- phase 28: gradients through the three autograd Functions ------------
     for layer, case in enumerate(cases):
@@ -2261,11 +2215,18 @@ def op_library_phases(dev, card):
             ms = time_ms(lambda: kernel(*inputs))
             plain_ms = time_ms(lambda: plain(*inputs))
             dev_us, by_kernel = device_us(lambda: kernel(*inputs))
-        bound_ms, bound_by, flops = op_bound(name, live, n, k)
+        bound_ms, bound_by, fp32_ms, (tc_flops, fp32_flops) = op_bound(
+            name, live, n, k)
+        basis = (f"{fp32_flops / 1e9:.4f} GFLOP fp32" if not tc_flops else
+                 f"{tc_flops / 1e9:.4f} GFLOP bf16x3 at 989 TFLOP/s + "
+                 f"{fp32_flops / 1e9:.4f} fp32 at 67; fp32 CUDA-core basis "
+                 f"{fp32_ms:.4f} ms")
         say(f"phase 29: {name} {ms:.4f} ms/call, plain {plain_ms:.4f} "
-            f"ms/call, bound {bound_ms:.4f} ms ({bound_by}; "
-            f"{flops / 1e9:.4f} GFLOP for {live} live edges), kernel at "
-            f"{bound_ms / ms:.2%} of it; CUDA events, median of 20 [{card}]")
+            f"ms/call, bound {bound_ms:.4f} ms ({bound_by}; {basis}; "
+            f"{live} live edges), kernel at {bound_ms / ms:.2%} of it"
+            + ("" if dev_us is None else
+               f", device time at {bound_ms * 1e3 / dev_us:.2%}")
+            + f"; CUDA events, median of 20 [{card}]")
         say(f"phase 29: {name} device time "
             + ("not measured (the profiler saw none)" if dev_us is None
                else f"{dev_us:.2f} us/call: " + ", ".join(
@@ -2279,7 +2240,7 @@ def op_library_phases(dev, card):
             "launches_by_path": {"op_library": launches[name]},
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "device_us": dev_us})
+            "device_us": dev_us, "fp32_bound_ms": fp32_ms})
     return kernels
 
 

@@ -9,47 +9,53 @@
 //   agg[i] = sum over k with mask[i,k] of h_src[i,k] * m
 // A masked slot contributes exactly 0, whatever it holds.
 //
-// What bounds it on this card: the four 128x128 edge products, 131,328
-// FLOP a live edge; at the training slice (LJ-258, K=96, about 5,500 live
-// edges of 24,768 slots) about 0.72 GFLOP, 11 us at the 67 TFLOP/s fp32
-// peak, against e, h_src and src_code at the live slots (8.4 MB, 2.5 us
-// at 3.35 TB/s): operations-bound.
+// What bounds it on this card: at the op library's shape (LJ-258, K=96,
+// every width 128) a frame has about 5,500 live edges of 24,768 slots; the
+// four 128x128 edge products, as three bf16 passes on the tensor cores,
+// need about 2.2 GFLOP, about 2.2 us at 989 TFLOP/s, and the epilogues
+// about 0.2 us more on the fp32 cores, against reading e, h_src and
+// src_code at the live slots (8.4 MB, 2.5 us at 3.35 TB/s): bytes-bound,
+// by a little.
 //
-// What the design does about it, for now: the edge stage is
-// edge_msg.cuh's edge_msg_kernel (the fp32 CUDA-core stage that
-// conv_msg_gather.cu ran before its tensor-core redesign), with the rows
-// of slot (i, k) read at i*K + k (PreRows). The TPU
-// kernel's bf16 products and tile padding have no counterpart: products
-// are fp32 FMAs, and the grid runs over rows. chunk_sum_kernel adds a
-// row's chunk partials in a fixed order. Two launches a call.
+// What the design does about it: conv_msg_gather.cu's (row 3), with the
+// source policy PreSrc (slot (i, k) reads its rows at i*K + k): the live
+// slots laid out from the mask, so that masked slots cost nothing past the
+// layout; the four weights split once a call; tiles of 64 live edges
+// through the four products on wgmma (bf16 x 3, fp32-faithful to about
+// 2^-16; the TPU kernel runs them in single-pass bf16 over every slot);
+// each atom's rows summed in a fixed order, no atomics. On equal rows
+// (h_src = hn[idx], src_code = src[idx]) it gives row 3's bits. Five
+// launches a call.
 //
 // The host allocates every buffer with torch.empty and launches on
 // PyTorch's current stream; gamd_conv_msg returns the first non-zero
-// cudaGetLastError().
+// error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "edge_msg.cuh"
-#include "tile.cuh"
+#include "conv_tc.cuh"
 
-// agg [N, W] from e, h_src, src_code [N*K, W], dst [N, W], mask [N*K];
-// aggp [N, ceil(K/KC), W] is scratch. Returns 0, or the first non-zero
-// cudaError_t seen after a launch.
+// agg [N, W] from e, h_src, src_code [N*K, W], dst [N, W], mask [N*K] and
+// the eight edge weights; lay, wsplit and part are scratch
+// (ops/edge_tiles.py), the plan ops/edge_tiles.py::launch_plan's. Returns
+// 0, a cudaError_t (cudaErrorInvalidValue for a shape or plan it does not
+// take), or 100000 + the CUresult of the TMA map's encoding.
 extern "C" int gamd_conv_msg(
     const float* e, const float* h_src, const float* src_code,
     const float* dst, const uint8_t* mask, const float* w1, const float* b1,
     const float* w2, const float* b2, const float* w3, const float* b3,
-    const float* w4, const float* b4, int n, int k, float* aggp, float* agg,
-    void* stream) {
+    const float* w4, const float* b4, int n, int k, const SlotLayout* lay,
+    void* wsplit, float* part, int grid, int threads, int smem, int nbuf,
+    float* agg, void* stream) {
+  if (n <= 0 || k <= 0 || (long long)n * k >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  const TilePlan plan{grid, threads, smem, nbuf};
+  if (!plan_ok(plan, n, k)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ConvWeights p{w1, b1, w2, b2, w3, b3, w4, b4};
-  const int n_chunk = (k + KC - 1) / KC;
-  cudaError_t err;
-  edge_msg_kernel<<<dim3(n_chunk, n), W, 0, s>>>(
-      e, mask, dst, p, k, PreRows{h_src, src_code}, aggp);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  chunk_sum_kernel<<<n, W, 0, s>>>(aggp, n_chunk, agg);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  return 0;
+  const cudaError_t err = launch_mask_layout(mask, n, k, *lay, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const EdgeWeights w{{w1, w2, w3, w4}, {b1, b2, b3, b4}};
+  return run_conv_tiles(e, dst, w, PreSrc{h_src, src_code}, *lay, wsplit,
+                        part, n, k, plan, agg, s);
 }

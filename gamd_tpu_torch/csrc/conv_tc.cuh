@@ -1,8 +1,11 @@
 // The conv message on the tensor cores, for Hopper (sm_90a): the live-edge
 // layout from a mask, the edge tiles and the per-atom sums, shared by
 // conv_msg_gather.cu (source rows by node id, row 3 of the port's kernel
-// table) and banded_msg.cu (source rows from a tile's band of the x-sorted
-// frame, row 6). Per live slot (i, k) of M atoms, with j = src.row(i,
+// table), banded_msg.cu (source rows from a tile's band of the x-sorted
+// frame, row 6), conv_msg.cu (rows gathered beforehand, row 8) and
+// conv_layer.cu (node ids read by JAX's rule, row 7). The source policies
+// (GatherSrc, ClampedSrc, PreSrc, BandSrc) say where a slot's rows come
+// from. Per live slot (i, k) of M atoms, with j = src.row(i,
 // i*K + k) its source row:
 //   z  = silu(e[i,k] @ W1 + b1) @ W2 + b2 + src[j] + dst[i]
 //   m  = silu(silu(z) @ W3 + b3) @ W4 + b4
@@ -113,6 +116,39 @@ struct GatherSrc {
   }
   __device__ __forceinline__ const float* src_row(int j) const {
     return src + (size_t)j * CW;
+  }
+};
+
+// Source rows by node id under JAX's rule for an id out of range (jnp
+// indexing): a negative id counts from the end, then ids clamp into
+// [0, n). hn, src [n, 128] and idx [n*K].
+struct ClampedSrc {
+  const int* idx;
+  const float *hn, *src;
+  int n;
+  __device__ __forceinline__ int row(int, int slot) const {
+    int j = idx[slot];
+    if (j < 0) j += n;
+    return min(max(j, 0), n - 1);
+  }
+  __device__ __forceinline__ const float* hn_row(int j) const {
+    return hn + (size_t)j * CW;
+  }
+  __device__ __forceinline__ const float* src_row(int j) const {
+    return src + (size_t)j * CW;
+  }
+};
+
+// Rows gathered beforehand: h_src and src_code [M*K, 128], and slot
+// (i, k) reads row i*K + k of each.
+struct PreSrc {
+  const float *h_src, *src_code;
+  __device__ __forceinline__ int row(int, int slot) const { return slot; }
+  __device__ __forceinline__ const float* hn_row(int j) const {
+    return h_src + (size_t)j * CW;
+  }
+  __device__ __forceinline__ const float* src_row(int j) const {
+    return src_code + (size_t)j * CW;
   }
 };
 

@@ -14,12 +14,10 @@
 // the live slots (5.6 MB, 1.7 us at 3.35 TB/s): operations-bound.
 //
 // What the design does about it, for now: it is edge_msg.cuh's
-// edge_msg_kernel with the edge affine stage compiled out (kEdgeAffine
-// false: z is edge_pre itself) and the rows of slot (i, k) read at
-// i*K + k (PreRows): one thread per channel, 16 slots a block, fp32 FMAs
-// against shared-memory tiles, chunks without a live slot exiting at once.
-// chunk_sum_kernel adds a row's chunk partials in a fixed order. Two
-// launches a call.
+// edge_msg_kernel, the rows of slot (i, k) read at i*K + k: one thread per
+// channel, 16 slots a block, fp32 FMAs against shared-memory tiles, chunks
+// without a live slot exiting at once. chunk_sum_kernel adds a row's chunk
+// partials in a fixed order. Two launches a call.
 //
 // The host allocates every buffer with torch.empty and launches on
 // PyTorch's current stream; gamd_edge_mlp_agg returns the first non-zero
@@ -39,12 +37,11 @@ extern "C" int gamd_edge_mlp_agg(
     const float* w1, const float* b1, const float* w2, const float* b2, int n,
     int k, float* aggp, float* agg, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // theta_edge's two layers are the edge stage's third and fourth.
-  const ConvWeights p{nullptr, nullptr, nullptr, nullptr, w1, b1, w2, b2};
+  const ThetaWeights p{w1, b1, w2, b2};
   const int n_chunk = (k + KC - 1) / KC;
   cudaError_t err;
-  edge_msg_kernel<PreRows, false><<<dim3(n_chunk, n), W, 0, s>>>(
-      edge_pre, mask, nullptr, p, k, PreRows{h_src, nullptr}, aggp);
+  edge_msg_kernel<<<dim3(n_chunk, n), W, 0, s>>>(edge_pre, mask, p, k, h_src,
+                                                 aggp);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   chunk_sum_kernel<<<n, W, 0, s>>>(aggp, n_chunk, agg);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);

@@ -15,9 +15,14 @@ tensor launches the kernel or raises (check_inputs: float32, idx int32,
 mask bool, contiguous, one device, every width 128 but gather_agg's D).
 Each entry counts its kernel launches in `.launches`.
 
-* Precision: fp32 throughout. JAX's kernels of rows 7-8 cast every product
-  to bf16; its references, which the port's plain versions transcribe,
-  stay fp32.
+* Precision: the plain versions are fp32 throughout, as JAX's references,
+  which they transcribe. The kernels of rows 7-8 (conv_msg.cu,
+  conv_layer.cu) run the four edge products on the tensor cores as three
+  bf16 passes (csrc/conv_tc.cuh; JAX's kernels run them in single-pass
+  bf16) and the node update's three in fp32. `_edge_mm` is the plain
+  versions' edge product: fp32, unless a test puts
+  ops/mega.py::split_bf16_matmul, the kernels' arithmetic, in its place.
+  Rows 9-10 are fp32 FMAs.
 * A masked slot adds exactly 0, whatever it holds (the references'
   jnp.where; the TPU kernels multiply by the mask and let a NaN through).
   Gathered ids are read as JAX reads them (aggregate.gather_index).
@@ -34,11 +39,13 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from gamd_tpu_torch.ops import edge_tiles
 from gamd_tpu_torch.ops.aggregate import (gather_index,
                                           gather_multiply_aggregate)
 from gamd_tpu_torch.ops.conv_gather import (EDGE_CHUNK, _library, _ptrs,
                                             _stream)
 from gamd_tpu_torch.ops.mega import KERNEL_WIDTH, _check
+from gamd_tpu_torch.ops.mxu_probe import sm_count
 
 #: The 8 edge-pipeline weights (edge_affine w1..b2, theta_edge w3..b4) and
 #: the 6 of the node update (phi_dst, phi_edge, phi), fused_conv_layer's
@@ -47,6 +54,25 @@ CONV_WEIGHTS = ("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4")
 LAYER_WEIGHTS = CONV_WEIGHTS + ("wpd", "bpd", "wpe", "bpe", "wp", "bp")
 _PER_SLOT = ("e", "edge_pre", "h_src", "src_code")
 _PER_NODE = ("h", "hn", "src_nodes", "dst_code")
+#: Atoms a block of conv_layer.cu's node update may take
+#: (csrc/node_fused.cuh NODE_MIN_B, NODE_MAX_B), doubling between them.
+UPDATE_MIN_ATOMS, UPDATE_MAX_ATOMS = 4, 16
+
+
+def _edge_mm(a, w):
+    """An edge product of the plain conv message (W1..W4): plain fp32."""
+    return a @ w
+
+
+def update_atoms(n, sms=edge_tiles.H100_SMS):
+    """Atoms a block of conv_layer.cu's node update takes for N atoms on a
+    card of `sms` SMs: the smallest of 4, 8, 16 whose grid of ceil(N / B)
+    blocks fits in one wave (a block an SM), else 16. The C entry
+    refuses any other."""
+    b = UPDATE_MIN_ATOMS
+    while b < UPDATE_MAX_ATOMS and -(-n // b) > sms:
+        b *= 2
+    return b
 
 
 def _fused_reference(edge_pre, h_src, mask, w1, b1, w2, b2):
@@ -61,10 +87,11 @@ def _conv_msg_reference(e, h_src, src_code, dst_code, mask,
                         w1, b1, w2, b2, w3, b3, w4, b4):
     """The edge pipeline on pre-gathered rows (pallas_mp.py:308):
     z = silu(e @ w1 + b1) @ w2 + b2 + src_code + dst_code[:, None],
-    out[i] = sum_k where(mask, h_src * theta(z), 0)."""
-    z = F.silu(e @ w1 + b1) @ w2 + b2
+    out[i] = sum_k where(mask, h_src * theta(z), 0); the four products
+    through `_edge_mm`."""
+    z = _edge_mm(F.silu(_edge_mm(e, w1) + b1), w2) + b2
     z = z + src_code + dst_code[:, None, :]
-    z = F.silu(F.silu(z) @ w3 + b3) @ w4 + b4
+    z = _edge_mm(F.silu(_edge_mm(F.silu(z), w3) + b3), w4) + b4
     return torch.sum(torch.where(mask[..., None], h_src * z, 0.0), dim=1)
 
 
@@ -86,8 +113,17 @@ def declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gamd_gather_agg.argtypes = [p, p, p, p, i, i, i, p, p]
     lib.gamd_edge_mlp_agg.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p]
-    lib.gamd_conv_msg.argtypes = [p] * 13 + [i, i, p, p, p]
-    lib.gamd_conv_layer.argtypes = [p] * 21 + [i, i, p, p, p]
+    lay = ctypes.POINTER(edge_tiles._SlotLayout)
+    lib.gamd_conv_msg.argtypes = [
+        *[p] * 13,                  # e h_src src_code dst mask w1 ... b4
+        i, i, lay, p, p,            # n k layout wsplit part
+        i, i, i, i,                 # the plan
+        p, p]                       # agg stream
+    lib.gamd_conv_layer.argtypes = [
+        *[p] * 21,                  # e idx mask h hn src dst w1 ... bp
+        i, i, lay, p, p,            # n k layout wsplit part
+        i, i, i, i,                 # the plan
+        p, i, p, p]                 # agg b out stream
     for fn in (lib.gamd_gather_agg, lib.gamd_edge_mlp_agg, lib.gamd_conv_msg,
                lib.gamd_conv_layer):
         fn.restype = ctypes.c_int
@@ -125,7 +161,7 @@ def _raise_on(err, name):
 
 
 def _chunk_scratch(n, k, device):
-    """aggp [N, ceil(K / 16), 128]: the edge stages' per-chunk partials."""
+    """aggp [N, ceil(K / 16), 128]: edge_mlp_agg's per-chunk partials."""
     return torch.empty((n, -(-k // EDGE_CHUNK), KERNEL_WIDTH), device=device,
                        dtype=torch.float32)
 
@@ -156,26 +192,35 @@ def _launch_edge_mlp_agg(edge_pre, h_src, mask, *weights):
 
 def _launch_conv_msg(e, h_src, src_code, dst_code, mask, *weights):
     n, k, _ = e.shape
-    aggp = _chunk_scratch(n, k, e.device)
-    agg = torch.empty((n, KERNEL_WIDTH), device=e.device,
-                      dtype=torch.float32)
+    dev = e.device
+    plan = edge_tiles.launch_plan(n, k, sm_count(dev))
+    _buf, layout, block_sum, wsplit, part = edge_tiles.call_scratch(
+        n, k, plan, dev)
+    agg = torch.empty((n, KERNEL_WIDTH), device=dev, dtype=torch.float32)
     err = _library().gamd_conv_msg(
         *_ptrs(e, h_src, src_code, dst_code, mask, *weights), n, k,
-        aggp.data_ptr(), agg.data_ptr(), _stream(e.device))
-    _raise_on(err, "conv_msg")
+        ctypes.byref(edge_tiles.slot_struct(layout, block_sum)),
+        *_ptrs(wsplit, part), *plan[:4], agg.data_ptr(), _stream(dev))
+    edge_tiles.raise_on("conv_msg", err)
     fused_conv_message.launches += 1
     return agg
 
 
 def _launch_conv_layer(e, idx, mask, h, hn, src_nodes, dst_code, *weights):
     n, k, _ = e.shape
-    aggp = _chunk_scratch(n, k, e.device)
-    out = torch.empty((n, KERNEL_WIDTH), device=e.device,
-                      dtype=torch.float32)
+    dev = e.device
+    sms = sm_count(dev)
+    plan = edge_tiles.launch_plan(n, k, sms)
+    _buf, layout, block_sum, wsplit, part = edge_tiles.call_scratch(
+        n, k, plan, dev)
+    agg, out = (torch.empty((n, KERNEL_WIDTH), device=dev,
+                            dtype=torch.float32) for _ in range(2))
     err = _library().gamd_conv_layer(
         *_ptrs(e, idx, mask, h, hn, src_nodes, dst_code, *weights), n, k,
-        aggp.data_ptr(), out.data_ptr(), _stream(e.device))
-    _raise_on(err, "conv_layer")
+        ctypes.byref(edge_tiles.slot_struct(layout, block_sum)),
+        *_ptrs(wsplit, part), *plan[:4], agg.data_ptr(),
+        update_atoms(n, sms), out.data_ptr(), _stream(dev))
+    edge_tiles.raise_on("conv_layer", err)
     fused_conv_layer.launches += 1
     return out
 

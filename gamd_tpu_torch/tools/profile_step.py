@@ -99,17 +99,24 @@ FORWARD_STAGES = {
 
 
 #: The conv message's kernels (csrc/conv_tc.cuh) by short name: rows 3
-#: (conv_msg_gather.cu, GatherSrc) and 6 (banded_msg.cu, BandSrc).
+#: (conv_msg_gather.cu, GatherSrc), 6 (banded_msg.cu, BandSrc), 8
+#: (conv_msg.cu, PreSrc) and 7 (conv_layer.cu, ClampedSrc, then its node
+#: update by atoms a block).
 CONV_KERNELS = ("mask_count_kernel", "mask_slots_kernel",
                 "split_conv_weights_kernel", "conv_tile_kernel[GatherSrc]",
-                "conv_tile_kernel[BandSrc]", "tile_fixup_kernel")
+                "conv_tile_kernel[BandSrc]", "conv_tile_kernel[PreSrc]",
+                "conv_tile_kernel[ClampedSrc]", "tile_fixup_kernel",
+                "conv_update_kernel[B=4]", "conv_update_kernel[B=8]",
+                "conv_update_kernel[B=16]")
 #: The conv backward's kernels (csrc/conv_msg_gather_bwd.cu, row 4); the
 #: layout and the split weights are the forward's.
 CONV_BWD_KERNELS = ("dead_rows_kernel", "conv_bwd_tile_kernel[GatherSrc]",
                     "source_sum_kernel", "tile_fixup_kernel",
                     "wgrad_tc_kernel", "wgrad_sum_kernel")
 #: Those of the banded path (row 6 and its per-call layout).
-BANDED_KERNELS = tuple(k for k in CONV_KERNELS if "GatherSrc" not in k)
+BANDED_KERNELS = ("mask_count_kernel", "mask_slots_kernel",
+                  "split_conv_weights_kernel", "conv_tile_kernel[BandSrc]",
+                  "tile_fixup_kernel")
 #: The edge encoder's kernels (csrc/edge_encoder.cu, row 5): the weight
 #: split and the tiles over every slot (AllSlots, fused_edge_encoder) or
 #: over a layout's live slots (LiveSlots, live_edge_encoder).
@@ -120,18 +127,18 @@ ENCODER_KERNELS = ("split_encoder_weights_kernel",
 
 def short_name(kernel: str) -> str:
     """A readable name for a device kernel: this repo's kernels by their
-    own name (node_fused_kernel with its atoms a block, B), PyTorch's by
-    the kernel template and the op it runs."""
+    own name (node_fused_kernel and conv_update_kernel with their atoms a
+    block, B), PyTorch's by the kernel template and the op it runs."""
     name = kernel.replace("(anonymous namespace)::", "")
     name = name[5:] if name.startswith("void ") else name
     base = re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1].strip()
     rest = name[len(name.split("<", 1)[0]):]
-    rows = re.search(r"\b(ClampedRows|PreRows|GatherSrc|BandSrc|AllSlots|"
+    rows = re.search(r"\b(ClampedSrc|PreSrc|GatherSrc|BandSrc|AllSlots|"
                      r"LiveSlots)\b", rest)
-    if rows:   # edge_msg_kernel's, conv_tile_kernel's, encoder_tile_kernel's
+    if rows:   # conv_tile_kernel's, encoder_tile_kernel's
         return f"{base}[{rows.group(1)}]"
     width = re.match(r"<(\d+)>", rest)
-    if base == "node_fused_kernel" and width:
+    if base in ("node_fused_kernel", "conv_update_kernel") and width:
         return f"{base}[B={width.group(1)}]"
     ops = re.findall(r"(\w+_kernel_cuda|\w+Functor|\w+_cuda_out)", rest)
     return f"{base}[{ops[-1]}]" if ops else (base or kernel[:60])

@@ -1,14 +1,15 @@
 """Port parity of the conv message's tensor-core redesign on the CPU (rows 3
 and 6 of the port's kernel table: csrc/conv_msg_gather.cu and
-csrc/banded_msg.cu over csrc/conv_tc.cuh): the live-edge layout from the
-mask (ops/edge_tiles.py::mask_layout, whose CPU path is ops/mega.py::
+csrc/banded_msg.cu over csrc/conv_tc.cuh; rows 7 and 8 on the same tiles
+in tests/test_torch_op_tiles.py): the live-edge layout from the mask
+(ops/edge_tiles.py::mask_layout, whose CPU path is ops/mega.py::
 live_slot_layout), the plain conv message with its four products in the
 kernel's bf16 x 3 arithmetic (ops/mega.py::split_bf16_matmul put in the
 place of ops/conv_gather.py::_edge_mm) under both source addressings, held
-against JAX's fp32 plain reference and the port's fp32 plain version, and
-the tile kernel's launch plans. The CUDA kernels themselves are held
-against their plain versions in tests/test_torch_cuda.py and
-chip_smoke.py, on the card.
+against JAX's fp32 plain reference and the port's fp32 plain version, the
+tile kernel's launch plans, and the profiler's names of the tiles'
+kernels. The CUDA kernels themselves are held against their plain
+versions in tests/test_torch_cuda.py and chip_smoke.py, on the card.
 """
 
 import os
@@ -255,6 +256,16 @@ def test_inconsistent_plan_is_refused(plan, why):
     ("void (anonymous namespace)::conv_tile_kernel<2, (anonymous namespace)"
      "::GatherSrc>(CUtensorMap_st, (anonymous namespace)::TileArgs, "
      "(anonymous namespace)::GatherSrc)", "conv_tile_kernel[GatherSrc]"),
+    ("void (anonymous namespace)::conv_tile_kernel<2, (anonymous namespace)"
+     "::PreSrc>(CUtensorMap_st, (anonymous namespace)::TileArgs, "
+     "(anonymous namespace)::PreSrc)", "conv_tile_kernel[PreSrc]"),
+    ("void (anonymous namespace)::conv_tile_kernel<1, (anonymous namespace)"
+     "::ClampedSrc>(CUtensorMap_st, (anonymous namespace)::TileArgs, "
+     "(anonymous namespace)::ClampedSrc)", "conv_tile_kernel[ClampedSrc]"),
+    ("void (anonymous namespace)::conv_update_kernel<4>((anonymous "
+     "namespace)::UpdateArgs)", "conv_update_kernel[B=4]"),
+    ("void (anonymous namespace)::conv_update_kernel<16>((anonymous "
+     "namespace)::UpdateArgs)", "conv_update_kernel[B=16]"),
     ("(anonymous namespace)::tile_fixup_kernel((anonymous namespace)::"
      "SlotLayout, float const*, int, float*)", "tile_fixup_kernel"),
     ("(anonymous namespace)::mask_count_kernel(unsigned char const*, int, "
@@ -266,9 +277,12 @@ def test_inconsistent_plan_is_refused(plan, why):
      "split_conv_weights_kernel"),
 ])
 def test_profile_step_names_the_conv_message_kernels(kernel, name):
-    """Each kernel of rows 3 and 6 gets a short name, and the banded path's
-    share of the banded message counts every one of them."""
+    """Each kernel of rows 3, 6, 7 and 8 gets a short name, and the banded
+    path's share of the banded message counts every one of its own and
+    none of the other rows' (their tile kernels by source policy, row 7's
+    node update)."""
     assert profile_step.short_name(kernel) == name
     assert name in profile_step.CONV_KERNELS
-    if "GatherSrc" not in name:
-        assert name in profile_step.BANDED_KERNELS
+    other = ("GatherSrc", "PreSrc", "ClampedSrc", "conv_update_kernel")
+    banded_own = not any(tag in name for tag in other)
+    assert (name in profile_step.BANDED_KERNELS) == banded_own

@@ -1199,11 +1199,10 @@ def test_op_kernels_match_plain_version(cuda, op, n, k, d):
 
 
 def test_conv_message_equals_conv_gather_bit_for_bit(cuda):
-    """fused_conv_message on rows gathered at idx (row 8: fp32 CUDA cores)
-    and fused_conv_gather_message (row 3: the live-edge tensor-core tiles,
-    bf16 x 3) compute the same function: within 1e-4 of max |agg|. They
-    shared one edge stage, and gave the same bits, until row 3's
-    redesign."""
+    """fused_conv_message on rows gathered at idx (row 8) and
+    fused_conv_gather_message (row 3) run the same live-edge tiles
+    (csrc/conv_tc.cuh, bf16 x 3) on equal rows over the same layout: the
+    same bits."""
     x, ws = _op_inputs(cuda, 258, 96, seed=4)
     rows = x["idx"].long()
     with torch.no_grad():
@@ -1215,8 +1214,52 @@ def test_conv_message_equals_conv_gather_bit_for_bit(cuda):
             x["e"][None], x["idx"][None], x["mask"][None], x["hn"][None],
             x["src_nodes"][None], x["dst_code"][None], *ws[:8])[0]
     torch.cuda.synchronize()
-    assert float((pre - gathered).abs().max()) \
-        <= 1e-4 * float(pre.abs().max())
+    assert torch.equal(pre, gathered)
+
+
+def test_op_conv_kernels_launch_tensor_core_tiles(cuda):
+    """Rows 8 and 7 run the live-edge wgmma tiles of csrc/conv_tc.cuh (by
+    the policies PreSrc and ClampedSrc), row 7 then its node update at the
+    block width update_atoms picks; the CUDA-core edge stage is gone from
+    both."""
+    x, ws = _op_inputs(cuda, 258, 96, seed=5)
+    with torch.no_grad():
+        names = {op: _kernel_names(lambda: _op_call(op, x, ws))
+                 for op in ("conv_msg", "conv_layer")}
+    tiles = {"mask_count_kernel", "mask_slots_kernel",
+             "split_conv_weights_kernel", "tile_fixup_kernel"}
+    b = message.update_atoms(258, mxu_probe.sm_count(cuda))
+    assert tiles | {"conv_tile_kernel[PreSrc]"} <= names["conv_msg"]
+    assert tiles | {"conv_tile_kernel[ClampedSrc]",
+                    f"conv_update_kernel[B={b}]"} <= names["conv_layer"]
+    assert not any(name.startswith(("edge_msg_kernel", "chunk_sum_kernel",
+                                    "update_kernel"))
+                   for name in names["conv_msg"] | names["conv_layer"])
+
+
+@pytest.mark.parametrize("n,k", [(258, 96), (600, 20), (2000, 8)])
+def test_conv_layer_reads_ids_out_of_range_as_jax(cuda, n, k):
+    """fused_conv_layer with ids out of range (negative, N and past it, far
+    past either end) in every masked slot and every third live one,
+    against its plain version (JAX's rule: from the end, then clamped):
+    within 1e-4 of std(out), one launch; N=258, 600 and 2,000 take each
+    node-update width (4, 8 and 16 atoms a block on 132 SMs)."""
+    x, ws = _op_inputs(cuda, n, k, seed=n)
+    mask = x["mask"]
+    pick = ~mask | (torch.arange(mask.numel(), device=cuda)
+                    .reshape(mask.shape) % 3 == 0)
+    wild = torch.tensor([-1, -n, -n - 1, n, n + 3, 10 ** 6, -10 ** 6],
+                        dtype=torch.int32, device=cuda)
+    fill = wild[torch.arange(int(pick.sum()), device=cuda) % wild.numel()]
+    x["idx"] = x["idx"].masked_scatter(pick, fill)
+    before = message.fused_conv_layer.launches
+    with torch.no_grad():
+        out = _op_call("conv_layer", x, ws)
+        ref = _op_call("conv_layer", x, ws, "plain")
+    torch.cuda.synchronize()
+    assert message.fused_conv_layer.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.std())
 
 
 @pytest.mark.parametrize("op", ["edge_mlp_agg", "conv_msg", "conv_layer"])
