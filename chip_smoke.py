@@ -155,20 +155,22 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
      versions on phase 6's two layers' real inputs (h_src = hn[idx],
      src_code = src[idx], edge_pre = edge_affine(e) + src_code + dst, the
      gate theta(edge_pre)); conv_msg equal to conv_msg_gather bit for bit
-     (the same live-edge tiles on equal rows), edge_mlp_agg(edge_pre) and
-     gather_agg(hn, gate) within 1e-5 of conv_msg's plain agg (fp32, on
-     the card), conv_layer equal to GAMDNet's own layer on the plain path
-     and to its plain version with a bf16 e and with ids out of range
-     (negative, N and past it) in live and masked slots;
+     (the same live-edge tiles on equal rows), edge_mlp_agg(edge_pre) (on
+     the same tiles with theta_edge's two products) and gather_agg(hn,
+     gate) within 1e-5 of conv_msg's plain agg (fp32, on the card), two
+     calls of edge_mlp_agg bit for bit, conv_layer equal to GAMDNet's own
+     layer on the plain path and to its plain version with a bf16 e and
+     with ids out of range (negative, N and past it) in live and masked
+     slots;
  28. the gradients of edge_mlp_agg, conv_msg and conv_layer (autograd
      Functions whose backward recomputes through the plain version, as
      JAX's custom_vjp) against autograd through the plain version, with a
      seeded cotangent, on both layers; gather_agg's refusal of an input
      that requires grad;
  29. the four kernels' times at layer 0's inputs against their plain
-     versions and bounds (conv_msg and conv_layer on the tensor-core
-     basis, the fp32 CUDA-core basis beside it), and their device time by
-     kernel (torch.profiler, exclusive);
+     versions and bounds (conv_msg, conv_layer and edge_mlp_agg on the
+     tensor-core basis, the fp32 CUDA-core basis beside it), and their
+     device time by kernel (torch.profiler, exclusive);
  30. tools.bench_mxu in process at its defaults (iters 200, tile_n 16,
      k 48, n 258): each stage's us/iter, TFLOP/s and launch (CTAs,
      cluster), the calibration line (required OK), the launches by body,
@@ -178,8 +180,17 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
      products, and repeat_interleave (iters calls replayed from a CUDA
      graph: the library times);
  31. each mxu_loop body against its plain version at iters 2 on the
-     tool's inputs (gather_mm and repeat bit for bit), repeating bit for
-     bit, and the plain versions' times at the tool's iters;
+     tool's inputs (gather_mm and repeat bit for bit; repeat also at the
+     tool's iters), repeating bit for bit, and the plain versions' times
+     at the tool's iters; repeat's bound, the larger of the instructions
+     it must issue (a multiply and an add an output element and
+     iteration, its broadcast value's two adds once a dst element) at one
+     a lane a clock, iters x the latency of row 0's dependent multiply and
+     three adds (tools.bench_mxu.repeat_chain_bound: one thread's chain,
+     held bit for bit against its plain version) and its bytes, beside the
+     first form's roofline; and its collapse check: the time an iteration
+     between iters 200 and 2,000 (CUDA events) no less than that bound's
+     time an iteration;
  32. tools.probe_gather in process at its defaults (iters 2000): every
      one-hot variant status OK with its carry equal to iters sum T[idx]
      (1e-5), the launches by form, each form's launch (persistent CTAs),
@@ -1975,18 +1986,34 @@ def integrator_phases(dev, card, traj, langevin_sps):
     return launches
 
 
+#: fp32 operations of theta_edge's epilogues a live edge and column as
+#: row 9's tile kernel runs them: silu of the staged pre-activation (3),
+#: the first product's bias and silu (4), the last bias, gated product and
+#: sum (3).
+THETA_EPILOGUE_OPS = 10
+
+
+def theta_tc_ops(live_edges, width=128):
+    """(tensor-core FLOP, fp32 FLOP) of one edge-MLP aggregate as row 9's
+    live-edge tiles compute it: theta_edge's two products over the live
+    edges as three bf16 passes each, the epilogues on the CUDA cores."""
+    return (3.0 * 2 * 2 * width * width * live_edges,
+            float(THETA_EPILOGUE_OPS * width * live_edges))
+
+
 def op_bound(op, live, n, k, width=128):
     """(least ms, "operations" or "bytes", the fp32 CUDA-core basis's
     least ms, (tensor-core FLOP, fp32 FLOP)) of one op-library call on one
     graph. Bytes: each input read once (per-slot inputs and ids at the
     live slots only, the mask in full, the node arrays and weights) and
-    the output written once. Operations: rows 9-10 (gather_agg,
-    edge_mlp_agg) run fp32 FMAs, priced at the fp32 peak (the bound is its
-    own fp32 basis); rows 7-8 (conv_layer, conv_msg) run the four edge
-    products over the live edges as three bf16 passes on the tensor cores
-    and the epilogues in fp32 (conv_tc_ops, tc_conv_bound), conv_layer also
-    its three node products in fp32. The fp32 basis prices every product
-    at the fp32 peak (2 per multiply-add)."""
+    the output written once. Operations: row 10 (gather_agg) runs fp32,
+    priced at the fp32 peak (the bound is its own fp32 basis); rows 7-8
+    (conv_layer, conv_msg) run the four edge products over the live edges
+    as three bf16 passes on the tensor cores and the epilogues in fp32
+    (conv_tc_ops, tc_conv_bound), conv_layer also its three node products
+    in fp32; row 9 (edge_mlp_agg) theta_edge's two the same way
+    (theta_tc_ops). The fp32 basis prices every product at the fp32 peak
+    (2 per multiply-add)."""
     w = width
     slot, node = 4 * live * w, 4 * n * w
     mats = lambda count: 4 * count * (w * w + w)
@@ -2004,10 +2031,14 @@ def op_bound(op, live, n, k, width=128):
         flops = conv_flops(live, w) + node_flops
         nbytes = slot + 4 * live + n * k + mats(7) + 5 * node
     fp32_ms, fp32_by = roofline(flops, nbytes)
-    if op in ("gather_agg", "edge_mlp_agg"):
+    if op == "gather_agg":
         return fp32_ms, fp32_by, fp32_ms, (0.0, flops)
-    tc_flops, epilogue = conv_tc_ops(live, w)
-    ops = (tc_flops, epilogue + (node_flops if op == "conv_layer" else 0.0))
+    if op == "edge_mlp_agg":
+        ops = theta_tc_ops(live, w)
+    else:
+        tc_flops, epilogue = conv_tc_ops(live, w)
+        ops = (tc_flops,
+               epilogue + (node_flops if op == "conv_layer" else 0.0))
     bound_ms, bound_by = tc_conv_bound(live, nbytes, lambda _: ops)
     return bound_ms, bound_by, fp32_ms, ops
 
@@ -2133,9 +2164,13 @@ def op_library_phases(dev, card):
         torch.cuda.synchronize()
         # Row 8 (conv_msg) runs row 3's live-edge tiles (conv_msg_gather)
         # on equal rows over the same layout: the same bits. The anchor of
-        # the staged forms (rows 9 and 10, fp32 on the CUDA cores) is
-        # conv_msg's plain version, fp32 on the card.
+        # the staged forms (row 9 on the same tiles, row 10 fp32 on the
+        # CUDA cores) is conv_msg's plain version, fp32 on the card.
         same = torch.equal(outs["conv_msg"], agg)
+        with torch.no_grad():
+            mlp_again = ops["edge_mlp_agg"][1](*ops["edge_mlp_agg"][0])
+        torch.cuda.synchronize()
+        mlp_same = torch.equal(mlp_again, outs["edge_mlp_agg"])
         anchor = refs["conv_msg"]
         scale = float(anchor.abs().max())
         vs_agg = {name: float((outs[name] - anchor).abs().max())
@@ -2146,7 +2181,8 @@ def op_library_phases(dev, card):
         wild_err = float((out_wild - ref_wild).abs().max())
         wild_std = float(ref_wild.std())
         say(f"phase 27: layer {layer}: conv_msg equals conv_msg_gather bit "
-            f"for bit: {same}; edge_mlp_agg(edge_pre) and gather_agg(hn, "
+            f"for bit: {same}; edge_mlp_agg repeats bit for bit: "
+            f"{mlp_same}; edge_mlp_agg(edge_pre) and gather_agg(hn, "
             f"theta(edge_pre)) against conv_msg's plain agg: max |d| "
             f"{vs_agg['edge_mlp_agg']:.3e} and {vs_agg['gather_agg']:.3e}, "
             f"max |agg| {scale:.3e} (tolerance {OP_AGG_RTOL} x max); "
@@ -2158,6 +2194,7 @@ def op_library_phases(dev, card):
             f"slot against its plain version: max |d| {wild_err:.3e}, std "
             f"{wild_std:.3e}")
         require(same, "conv_msg and conv_msg_gather differ")
+        require(mlp_same, "edge_mlp_agg does not repeat bit for bit")
         require(max(vs_agg.values()) <= OP_AGG_RTOL * scale,
                 f"the staged forms disagree with agg: {vs_agg}")
         require(own_err <= CONV_RTOL * own_std,
@@ -2248,16 +2285,49 @@ def tensor_bytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def mxu_bound(body, inputs, k, iters):
+#: fp32 instructions a lane issues a second on the card: the fp32 peak
+#: counts a multiply-add as 2 operations, and an add or a multiply takes
+#: an issue slot of its own.
+FP32_INSTR = FP32_FLOPS / 2
+REPEAT_SLOPE_ITERS = (200, 2000)   # phase 31's collapse check
+
+
+def repeat_bound(inputs, k, iters, chain_ns):
+    """The repeat body's bound at `iters` iterations: {"ms", "by",
+    "issue_ms", "chain_ms", "bytes_ms", "roofline_ms"}. Issue: the fp32
+    instructions the function needs, a multiply and an add an output
+    element and iteration, the broadcast value's two adds an element of
+    dst and the keep-alive multiply a column (JAX's body sums on the
+    [tile_n, 128] rows before the repeat), at one a lane a clock
+    (FP32_INSTR); chain: iters times the measured latency of row 0's
+    dependent multiply and three adds (chain_ns), which every iteration
+    waits on; bytes: dst and the salt read once, the carry written once.
+    The bound is the largest; roofline_ms is the first form's price, 4
+    fp32 operations an output element at the fp32 peak."""
+    dst, = inputs
+    rows, width = dst.shape[0] * k, mxu_probe.WIDTH
+    nbytes = tensor_bytes(dst) + 8 * 128 * 4 + rows * width * 4
+    instr = iters * (2.0 * rows * width + 2.0 * dst.numel() + width)
+    out = {"issue_ms": instr / FP32_INSTR * 1e3,
+           "chain_ms": iters * chain_ns * 1e-6,
+           "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "roofline_ms": roofline(iters * 4.0 * rows * width, nbytes)[0]}
+    out["ms"] = max(out["issue_ms"], out["chain_ms"], out["bytes_ms"])
+    out["by"] = "bytes" if out["ms"] == out["bytes_ms"] else "operations"
+    return out
+
+
+def mxu_bound(body, inputs, k, iters, chain_ns=None):
     """(least ms, bound_by) of one mxu_loop call of `iters` iterations: the
-    products' FLOP at the dense bf16 rate (repeat: its 4 fp32 operations an
-    output element an iteration, at the fp32 rate), against the inputs and
-    the salt read once and the carry written once."""
+    products' FLOP at the dense bf16 rate, against the inputs and the salt
+    read once and the carry written once (repeat: repeat_bound, with the
+    chain's measured ns a step)."""
+    if body == "repeat":
+        b = repeat_bound(inputs, k, iters, chain_ns)
+        return b["ms"], b["by"]
     rows = mxu_probe.output_rows(body, inputs, k)
     width = mxu_probe.PEAK_N if body == "peak" else mxu_probe.WIDTH
     nbytes = tensor_bytes(*inputs) + 8 * 128 * 4 + rows * width * 4
-    if body == "repeat":
-        return roofline(iters * 4.0 * rows * width, nbytes)
     n_pad = inputs[1].shape[0] if body.startswith("gather") else 0
     flops = iters * bench_mxu.flops_per_iter(body, rows, n_pad)
     return roofline(flops, nbytes, BF16_FLOPS)
@@ -2345,6 +2415,37 @@ def mxu_probe_phases(dev, card):
                 f"mxu_loop {label} disagrees with its plain version")
         require(torch.equal(out, again), f"mxu_loop {label} does not repeat")
         errs[body] = max(errs[body], err)
+
+    # Repeat at the tool's iters, bit for bit; its chain, bound and slope.
+    _, rep_inputs, rep_k = stages["repeat"]
+    out = mxu_probe.mxu_loop("repeat", rep_inputs, salt, iters, rep_k)
+    torch.cuda.synchronize()
+    ref = mxu_probe.repeat_reference(*rep_inputs, rep_k, salt, iters)
+    require(torch.equal(out, ref), f"mxu_loop repeat at iters {iters} is "
+            "not its plain version bit for bit")
+    chain = bench_mxu.repeat_chain_bound(dev)
+    require(chain["max_abs_err"] == 0.0,
+            f"repeat_chain disagrees with its plain version: {chain}")
+    rb = repeat_bound(rep_inputs, rep_k, iters, chain["ns"])
+    slope_ms = {n: bench_mxu.time_stage("repeat", "repeat", rep_inputs,
+                                        rep_k, n, dev)[1]
+                for n in REPEAT_SLOPE_ITERS}
+    lo, hi = REPEAT_SLOPE_ITERS
+    slope_ns = (slope_ms[hi] - slope_ms[lo]) * 1e6 / (hi - lo)
+    iter_bound_ns = max(rb["issue_ms"], rb["chain_ms"]) * 1e6 / iters
+    say(f"phase 31: repeat at iters {iters} bit for bit its plain version; "
+        f"row 0's chain (repeat_chain, one thread, {chain['reps']} and "
+        f"{2 * chain['reps']} steps) {chain['ns']:.3f} ns a step, bit for "
+        f"bit its plain version; bound {rb['ms']:.5f} ms ({rb['by']}: "
+        f"issue {rb['issue_ms']:.5f}, chain {rb['chain_ms']:.5f}, bytes "
+        f"{rb['bytes_ms']:.5f}; the first form's roofline "
+        f"{rb['roofline_ms']:.5f}); collapse check: {slope_ms[lo]:.5f} ms "
+        f"at iters {lo}, {slope_ms[hi]:.5f} at {hi}, {slope_ns:.3f} ns an "
+        f"iteration between them against the bound's {iter_bound_ns:.3f} "
+        f"[{card}]")
+    require(slope_ns >= iter_bound_ns,
+            f"repeat's loop collapsed: {slope_ns} ns an iteration under "
+            f"its bound's {iter_bound_ns}")
     kernels = []
     body_lines = {"peak": 150, "gather_mm": 185, "gather_full": 215,
                   "edge_mlp": 247, "repeat": 264}
@@ -2353,7 +2454,7 @@ def mxu_probe_phases(dev, card):
         stage = res["stages"][body]
         plain_ms = time_ms(lambda: mxu_probe.mxu_loop_reference(
             body, inputs, salt, iters, k), reps=3, warmup=1)
-        bound_ms, bound_by = mxu_bound(body, inputs, k, iters)
+        bound_ms, bound_by = mxu_bound(body, inputs, k, iters, chain["ns"])
         say(f"phase 31: mxu_loop {body} {stage['ms']:.4f} ms/call at iters "
             f"{iters} ({stage['us_per_iter']:.3f} us/iter), plain "
             f"{plain_ms:.4f} ms/call (median of 3), bound {bound_ms:.4f} ms "
@@ -2371,6 +2472,13 @@ def mxu_probe_phases(dev, card):
             "iters": iters, "us_per_iter": stage["us_per_iter"],
             "tflops": stage["tflops"], "ctas": stage["ctas"],
             "cluster": stage["cluster"]})
+        if body == "repeat":
+            kernels[-1].update(
+                issue_bound_ms=rb["issue_ms"], chain_bound_ms=rb["chain_ms"],
+                chain_ns_per_iter=chain["ns"],
+                roofline_bound_ms=rb["roofline_ms"],
+                us_per_iter_slope=slope_ns / 1e3,
+                slope_ms={str(n): t for n, t in slope_ms.items()})
     big = res["stages"]["gather_mm_8M"]
     kernels[1].update(us_per_iter_8M=big["us_per_iter"], ms_8M=big["ms"],
                       library_ms_8M=libs["gather_mm_8M"], ctas_8M=big["ctas"])

@@ -2,13 +2,18 @@
 // layout from a mask, the edge tiles and the per-atom sums, shared by
 // conv_msg_gather.cu (source rows by node id, row 3 of the port's kernel
 // table), banded_msg.cu (source rows from a tile's band of the x-sorted
-// frame, row 6), conv_msg.cu (rows gathered beforehand, row 8) and
-// conv_layer.cu (node ids read by JAX's rule, row 7). The source policies
-// (GatherSrc, ClampedSrc, PreSrc, BandSrc) say where a slot's rows come
-// from. Per live slot (i, k) of M atoms, with j = src.row(i,
-// i*K + k) its source row:
+// frame, row 6), conv_msg.cu (rows gathered beforehand, row 8),
+// conv_layer.cu (node ids read by JAX's rule, row 7) and edge_mlp_agg.cu
+// (theta_edge alone on rows gathered beforehand, row 9). The source
+// policies (GatherSrc, ClampedSrc, PreSrc, BandSrc) say where a slot's
+// rows come from; the stage policies (ConvStages, ThetaStages) which
+// products a tile runs. Per live slot (i, k) of M atoms, with j = src.row(
+// i, i*K + k) its source row, ConvStages:
 //   z  = silu(e[i,k] @ W1 + b1) @ W2 + b2 + src[j] + dst[i]
 //   m  = silu(silu(z) @ W3 + b3) @ W4 + b4
+// and ThetaStages (e the pre-activation edge_pre):
+//   m  = silu(silu(e[i,k]) @ W1 + b1) @ W2 + b2
+// then, for both,
 //   agg[i] = sum over the live slots of hn[j] * m
 // A masked slot is never read: it costs a byte of the layout and nothing
 // else.
@@ -21,18 +26,22 @@
 //    compacted atom-major, in slot order within an atom. Integer sums: the
 //    layout is exact, whatever the order. ops/mega.py::live_slot_layout is
 //    its plain version.
-// 2. split_conv_weights_kernel: W1..W4 as W^T bf16 hi and lo (x = hi +
-//    lo, lo = bf16(x - hi)), for the TMA map over them.
+// 2. split_conv_weights_kernel: the policy's weights (W1..W4, or W1 and
+//    W2) as W^T bf16 hi and lo (x = hi + lo, lo = bf16(x - hi)), for the
+//    TMA map over them.
 // 3. conv_tile_kernel (a persistent grid of the plan's blocks, each taking
-//    tiles b, b + grid, ... of 64 live edges): per tile the four products
-//    on the tensor cores (edge_tc.cuh: wgmma m64n64k16, bf16 x 3, fp32
-//    accumulation; the two warpgroups split the 128 output columns), the
+//    tiles b, b + grid, ... of 64 live edges): per tile the policy's
+//    products (four, or two) on the tensor cores (edge_tc.cuh: wgmma
+//    m64n64k16, bf16 x 3, fp32 accumulation; the two warpgroups split the
+//    128 output columns), the
 //    split weights staged by TMA into a ring that runs on across the
 //    block's tiles, and fp32 epilogues: silu, the `+ src[j] + dst[i]` add
-//    and the gated product hn[j] * m. The ring has two buffers (161 KB, a
-//    block an SM) where the layout's capacity is a few waves of tiles, and
-//    one (97 KB, two blocks an SM that hide each other's waits) past it
-//    (ops/edge_tiles.py::launch_plan). The block then sums each atom's rows
+//    (ConvStages) and the gated product hn[j] * m. The ring has two
+//    buffers (161 KB, a block an SM) where the layout's capacity is a few
+//    waves of tiles, and one (97 KB, two blocks an SM that hide each
+//    other's waits) past it (ops/edge_tiles.py::launch_plan). Two buffers
+//    and two weights (ThetaStages) keep both weights resident: loaded
+//    once a block, never refilled. The block then sums each atom's rows
 //    of the tile through shared memory, in row order: an atom whose rows
 //    all lie in the tile goes straight to agg; one that straddles a tile
 //    boundary leaves its partial, the tile's head (rows from a tile
@@ -52,10 +61,10 @@
 // block an SM: about 9% slower at N=10,000 and 22% at a batch of 16 than
 // two single-buffer blocks an SM).
 //
-// What bounds it on this card: the four products are 131,072 multiply-adds
-// a live edge; as three bf16 passes that is about 65 us at N=10,000 (about
-// 164,000 live edges of 960,000 slots) against the 989 TFLOP/s tensor
-// peak, and the epilogues' fp32 arithmetic about 5 us more; e's live rows
+// What bounds the conv message on this card: the four products are
+// 131,072 multiply-adds a live edge; as three bf16 passes that is about 65
+// us at N=10,000 (about 164,000 live edges of 960,000 slots) against the
+// 989 TFLOP/s tensor peak, and the epilogues' fp32 arithmetic about 5 us more; e's live rows
 // are 84 MB (25 us at 3.35 TB/s): operations-bound. What bounds the design
 // is latency: a tile's four products and epilogues run in sequence on one
 // SM, and each tile loads its 256 KB of split weights from L2 (656 MB a
@@ -97,11 +106,31 @@ using tc::TilePlan;
 constexpr int CW = tc::WIDTH;             // every width of the message
 constexpr int COUNT_ATOMS = 8;            // atoms a count block, a warp each
 constexpr int FIX_ATOMS = 8;              // atoms a fix-up block, a warp each
-constexpr int N_WEIGHTS = 4;              // W1, W2, W3, W4
+constexpr int N_WEIGHTS = 4;              // W1, W2, W3, W4 of the conv message
 
-// The edge stage's weights, [in][out] row-major fp32, and biases.
+// The edge stage's weights, [in][out] row-major fp32, and biases: the
+// first Stages::WEIGHTS of them (the others null).
 struct EdgeWeights {
   const float *w[N_WEIGHTS], *b[N_WEIGHTS];
+};
+
+// The stage policies: the products a tile runs, how an e row is staged
+// for the first, and whether `+ src[j] + dst[i]` follows the second.
+// The conv message: four products on the raw e row.
+struct ConvStages {
+  static constexpr int WEIGHTS = N_WEIGHTS;
+  static constexpr bool ADD_SRC_DST = true;
+  static __device__ __forceinline__ float stage(float x) { return x; }
+};
+
+// theta_edge alone (fused_edge_mlp_aggregate): two products on
+// silu(edge_pre), nothing added.
+struct ThetaStages {
+  static constexpr int WEIGHTS = 2;
+  static constexpr bool ADD_SRC_DST = false;
+  static __device__ __forceinline__ float stage(float x) {
+    return silu_fast(x);
+  }
 };
 
 // Source rows by node id: hn, src [M, 128] and idx [M*K] (global ids).
@@ -270,7 +299,7 @@ cudaError_t launch_mask_layout(const uint8_t* mask, int m, int k,
 // 2. The weight split
 // ---------------------------------------------------------------------------
 
-// grid (4, 16), block 256: 8 output rows of weight m as W^T hi and lo
+// grid (weights, 16), block 256: 8 output rows of weight m as W^T hi and lo
 // bf16 ([2m] and [2m+1] of the table, each [128 out][128 in]), x = hi +
 // lo, lo = bf16(x - hi); the transpose goes through shared memory.
 __global__ void __launch_bounds__(256)
@@ -332,10 +361,14 @@ __device__ __forceinline__ void emit_run(const TileArgs& a, int t, int atom,
 // a time, its columns split between the two warpgroups), tc::smem_bytes(
 // NBUF) of dynamic shared memory (NBUF weight buffers, the activations);
 // block b takes tiles b, b + grid, ... of the layout's ceil(total / 64).
-template <int NBUF, class Src>
+// With as many buffers as the policy has weights, the weights stay
+// resident: every product of the block reads its own buffer, loaded once.
+template <int NBUF, class Src, class Stages = ConvStages>
 __global__ void __launch_bounds__(tc::THREADS, 3 - NBUF)
 conv_tile_kernel(const __grid_constant__ CUtensorMap wmap, TileArgs a,
                  Src src) {
+  constexpr int NW = Stages::WEIGHTS;
+  constexpr bool RESIDENT = NBUF == NW;
   tc::let_next_start();
   tc::grid_wait();
   const int total = *a.lay.total;
@@ -346,8 +379,8 @@ conv_tile_kernel(const __grid_constant__ CUtensorMap wmap, TileArgs a,
   __shared__ __align__(8) uint64_t bars[NBUF];
   __shared__ int atom_s[tc::TILE];     // each row's atom, -1 past total
   __shared__ uint8_t first_s[tc::TILE], last_s[tc::TILE];   // of its atom
-  const tc::WeightRing<NBUF> ring(tile_smem, bars, &wmap, 0, N_WEIGHTS,
-                                  N_WEIGHTS * mine);
+  const tc::WeightRing<NBUF> ring(tile_smem, bars, &wmap, 0, NW,
+                                  RESIDENT ? NW : NW * mine);
   float* red = reinterpret_cast<float*>(ring.a);
   const tc::Frag f;
   int p = 0;
@@ -377,7 +410,7 @@ conv_tile_kernel(const __grid_constant__ CUtensorMap wmap, TileArgs a,
       const int s = q & 1;
       const float2 v = live[s] ? ld2(a.e + (size_t)sl[s] * CW + f.col(q))
                                : make_float2(0.f, 0.f);
-      tc::store_pair(ring.a, f, q, v.x, v.y);
+      tc::store_pair(ring.a, f, q, Stages::stage(v.x), Stages::stage(v.y));
     }
     if (threadIdx.x < tc::TILE) {
       atom_s[threadIdx.x] = row_atom;
@@ -387,16 +420,17 @@ conv_tile_kernel(const __grid_constant__ CUtensorMap wmap, TileArgs a,
     tc::proxy_fence();
     __syncthreads();
 
-    // The four products, each followed by its epilogue: the bias (after
-    // the second, + src[j] + dst[i]) and silu into the activations; after
-    // the last, the message hn[j] * m (0 on a dead row) into the shared
-    // buffer. release's barrier puts both warpgroups past their reads of
-    // the activations first.
+    // The products, each followed by its epilogue: the bias (after the
+    // second of ConvStages, + src[j] + dst[i]) and silu into the
+    // activations; after the last, the message hn[j] * m (0 on a dead row)
+    // into the shared buffer. release's barrier puts both warpgroups past
+    // their reads of the activations first.
     float acc[2 * tc::PAIRS];
 #pragma unroll
-    for (int m = 0; m < N_WEIGHTS; ++m, ++p) {
-      ring.product(acc, p, f.wg);
-      ring.release(&wmap, p);
+    for (int m = 0; m < NW; ++m, ++p) {
+      const int q = RESIDENT ? m : p;   // the ring's product: its buffer
+      ring.product(acc, q, f.wg);
+      ring.release(&wmap, q);
       const float* bias = m == 0 ? a.b1 : m == 1 ? a.b2 : m == 2 ? a.b3
                                                                  : a.b4;
 #pragma unroll
@@ -405,13 +439,13 @@ conv_tile_kernel(const __grid_constant__ CUtensorMap wmap, TileArgs a,
         float2 x = ld2(bias + c);
         x.x += acc[2 * q];
         x.y += acc[2 * q + 1];
-        if (m == 1) {
+        if (Stages::ADD_SRC_DST && m == 1) {
           const float2 sv = ld2(src.src_row(j[s]) + c);
           const float2 dv = ld2(a.dst + (size_t)i[s] * CW + c);
           x.x += sv.x + dv.x;
           x.y += sv.y + dv.y;
         }
-        if (m + 1 < N_WEIGHTS) {
+        if (m + 1 < NW) {
           tc::store_pair(ring.a, f, q, silu_fast(x.x), silu_fast(x.y));
         } else {
           float2 v = make_float2(0.f, 0.f);
@@ -422,7 +456,7 @@ conv_tile_kernel(const __grid_constant__ CUtensorMap wmap, TileArgs a,
           *reinterpret_cast<float2*>(red + red_at(f.row(q), c)) = v;
         }
       }
-      if (m + 1 < N_WEIGHTS) tc::proxy_fence();
+      if (m + 1 < NW) tc::proxy_fence();
       __syncthreads();
     }
 
@@ -485,19 +519,21 @@ tile_fixup_kernel(SlotLayout lay, const float* __restrict__ part, int m,
 // Host side
 // ---------------------------------------------------------------------------
 
-// Dynamic shared memory above 48 KB for Src's tile kernels, once per
-// process.
-template <class Src>
+// Dynamic shared memory above 48 KB for the tile kernels of Src and
+// Stages, once per process.
+template <class Src, class Stages>
 cudaError_t configure_tiles() {
   static bool done = false;
   if (done) return cudaSuccess;
   const cudaFuncAttribute max_smem =
       cudaFuncAttributeMaxDynamicSharedMemorySize;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(conv_tile_kernel<1, Src>, max_smem,
-                                  tc::smem_bytes(1))) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(conv_tile_kernel<2, Src>, max_smem,
-                                  tc::smem_bytes(2))) != cudaSuccess)
+  if ((err = cudaFuncSetAttribute(conv_tile_kernel<1, Src, Stages>,
+                                  max_smem, tc::smem_bytes(1)))
+          != cudaSuccess ||
+      (err = cudaFuncSetAttribute(conv_tile_kernel<2, Src, Stages>,
+                                  max_smem, tc::smem_bytes(2)))
+          != cudaSuccess)
     return err;
   done = true;
   return cudaSuccess;
@@ -505,29 +541,30 @@ cudaError_t configure_tiles() {
 
 // Launches 2-4 of a call on `s` over a layout already on the stream: the
 // split (ordered after the stream's earlier work), the tile kernel and the
-// fix-up. wsplit is the split table's scratch (2 * 4 * 128 * 128 bf16),
-// part the partials' [ceil(M*K / 64), 2, 128] fp32. Returns 0, a
-// cudaError_t (cudaErrorInvalidValue for a plan the shape does not take),
-// or 100000 + the CUresult of the TMA map's encoding.
-template <class Src>
+// fix-up, for the stage policy Stages. wsplit is the split table's
+// scratch (2 * Stages::WEIGHTS * 128 * 128 bf16), part the partials'
+// [ceil(M*K / 64), 2, 128] fp32. Returns 0, a cudaError_t
+// (cudaErrorInvalidValue for a plan the shape does not take), or 100000 +
+// the CUresult of the TMA map's encoding.
+template <class Src, class Stages = ConvStages>
 int run_conv_tiles(const float* e, const float* dst, const EdgeWeights& w,
                    const Src& src, const SlotLayout& lay, void* wsplit,
                    float* part, int m, int k, const TilePlan& plan,
                    float* agg, cudaStream_t s) {
   if (!plan_ok(plan, m, k)) return cudaErrorInvalidValue;
-  cudaError_t err = configure_tiles<Src>();
+  cudaError_t err = configure_tiles<Src, Stages>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  split_conv_weights_kernel<<<dim3(N_WEIGHTS, CW / 8), 256, 0, s>>>(
+  split_conv_weights_kernel<<<dim3(Stages::WEIGHTS, CW / 8), 256, 0, s>>>(
       w, static_cast<__nv_bfloat16*>(wsplit));
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   CUtensorMap map;
-  const int map_err = tc::encode_split_map(wsplit, N_WEIGHTS, &map);
+  const int map_err = tc::encode_split_map(wsplit, Stages::WEIGHTS, &map);
   if (map_err != 0) return map_err;
   const TileArgs a{lay, e, dst, w.b[0], w.b[1], w.b[2], w.b[3], agg, part, k};
   err = plan.nbuf == 2
-            ? launch_pdl(conv_tile_kernel<2, Src>, dim3(plan.grid),
+            ? launch_pdl(conv_tile_kernel<2, Src, Stages>, dim3(plan.grid),
                          dim3(tc::THREADS), plan.smem, s, map, a, src)
-            : launch_pdl(conv_tile_kernel<1, Src>, dim3(plan.grid),
+            : launch_pdl(conv_tile_kernel<1, Src, Stages>, dim3(plan.grid),
                          dim3(tc::THREADS), plan.smem, s, map, a, src);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_pdl(tile_fixup_kernel, dim3((m + FIX_ATOMS - 1) / FIX_ATOMS),

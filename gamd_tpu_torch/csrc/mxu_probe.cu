@@ -18,7 +18,7 @@
 //   * EdgeMlpBody (emlp_body :247): four [rows,128]@[128,128] bf16
 //     products with silu;
 //   * RepeatBody (rep_body :264): the k-broadcast of [tile_n,128] rows to
-//     [tile_n k, 128] (no product).
+//     [tile_n k, 128] (no product), a register-resident loop (below).
 // The peak chain's products are wgmma m64n64k16 (edge_tc.cuh), both
 // operands in shared memory; every other product is mma.sync (mma.cuh):
 // bf16 m16n8k16 with fp32 accumulation, fragments by ldmatrix.
@@ -52,7 +52,14 @@
 //     bf16(nh + keep[c]) is made in the B fragments in registers. At 768
 //     rows T = 1 (96 CTAs); at 8 x 768 rows T = 6 (128 persistent CTAs of
 //     24 warps), where 192 one-block-a-tile CTAs would run in two waves.
-//   * repeat: as before (32 rows a block).
+//   * repeat: no shared memory and no barrier. A CTA of two warps owns 32
+//     columns and 2 PER rows, a thread PER rows of one column that share
+//     their dst row, with its dst values loaded before the loop; PER (1,
+//     2, 4 or 8, dividing k) is the largest that keeps the CTAs at one
+//     wave of the card's SMs or more: at 768 rows and k 48, PER 8, 192
+//     CTAs (the first form: 24 blocks of 256 threads, a 32-row tile each,
+//     two barriers and a shared-memory round trip of the tile's first row
+//     an iteration).
 // Python computes the launch plan (ops/mxu_probe.py::launch_plan: CTAs,
 // cluster, rows and columns a CTA, threads, shared bytes) and passes it in;
 // the entry recomputes every field from the body's split (SPLIT below) and
@@ -61,24 +68,28 @@
 // The carry. JAX's keep-alive terms read the global acc[0:1, :] (or
 // acc[0, 0]); CTAs here share nothing but their cluster, so each CTA reads
 // the first row of its own row tile in its own columns (gather_full: its
-// own tile's first element). The terms are numerically void in both (a +
-// bf16(acc 1e-30) is a for a nonzero bf16 a; (int)(acc 1e-30) is 0), so
-// the output equals JAX's loop, but the compiler cannot know it: the next
-// iteration's inputs depend on the carry, and no iteration can be hoisted
-// or dropped. tools/bench_mxu.py's calibration (per-iteration time at
-// iters and iters/4, and the peak stage's rate against the card's 989
-// TFLOP/s) catches a collapse.
+// own tile's first element), except repeat, whose threads each carry the
+// global row 0 of their column (its recurrence needs nothing else). The
+// terms are numerically void in both (a + bf16(acc 1e-30) is a for a
+// nonzero bf16 a; (int)(acc 1e-30) is 0), so the output equals JAX's
+// loop, but the compiler cannot know it: the next iteration's inputs
+// depend on the carry, and no iteration can be hoisted or dropped.
+// tools/bench_mxu.py's calibration (per-iteration time at iters and
+// iters/4, and the peak stage's rate against the card's 989 TFLOP/s)
+// catches a collapse; chip_smoke.py phase 31 holds repeat's time an
+// iteration between iters 200 and 2,000 to its bound.
 //
 // What bounds it on this card: the products at the dense bf16 rate (989
 // TFLOP/s; 1.074 GFLOP an iteration for peak, 151 M for gather_mm, 226.5 M
-// for gather_full, 100.7 M for edge_mlp), repeat by its 393 KB of output.
-// The first form (a block a 32-row tile, B staged 32 rows at a time, 16-24
-// blocks) took 89.9 us an iteration for peak, 26.2-27.7 for gather_mm,
-// 18 for gather_full and 10.5 for edge_mlp; this one 11.9-12.3, 2.4-2.5,
-// 3.1-3.3 and 4.5-4.7 (H100 SXM, 700 W; chip_smoke.py phase 30 and
-// PERF.md row 11, which also lists the splits tried). What holds it back now is
-// latency: each product waits on the exchange before it, and at these
-// shapes a CTA's products are short.
+// for gather_full, 100.7 M for edge_mlp); repeat by the latency of row 0's
+// dependent multiply and three adds an iteration, since every iteration of
+// every thread waits on it. The first form (a block a 32-row tile, B
+// staged 32 rows at a time, 16-24 blocks) took 89.9 us an iteration for
+// peak, 26.2-27.7 for gather_mm, 18 for gather_full and 10.5 for
+// edge_mlp; this one 11.9-12.3, 2.4-2.5, 3.1-3.3 and 4.5-4.7 (H100 SXM,
+// 700 W; chip_smoke.py phase 30 and PERF.md row 11, which also lists the
+// splits tried). What holds it back now is latency: each product waits on
+// the exchange before it, and at these shapes a CTA's products are short.
 //
 // Sums that the bit-for-bit comparison with the plain version relies on
 // (gather_mm, repeat) use __fadd_rn/__fmul_rn, so no FMA contraction
@@ -106,7 +117,8 @@ constexpr int D = 128;             // width of every stage but peak
 constexpr int PEAK_N = 512;        // the peak chain's [512, 512]
 constexpr int PAD = 8;             // bf16 elements of row padding (16 bytes)
 constexpr int MAX_SMEM = 232448;   // a block's shared memory on Hopper
-constexpr int REPEAT_THREADS = 256;
+constexpr int REPEAT_THREADS = 64;   // two warps: 2 PER rows a CTA
+constexpr int REPEAT_COLS = 32;      // a warp's columns, one a lane
 constexpr float KEEP = 1e-30f;     // the keep-alive scale (bench_mxu.py)
 
 enum Body { PEAK = 0, GATHER_MM = 1, GATHER_FULL = 2, EDGE_MLP = 3,
@@ -124,7 +136,7 @@ struct LoopArgs {
   int iters;
   float* out;          // [rows, width] fp32
   int cluster;         // CTAs of a cluster (the column slices of a row tile)
-  int tile_rows;       // rows a CTA (a multiple of BM)
+  int tile_rows;       // rows a CTA (a multiple of BM; repeat 2 PER)
   int cols;            // columns a CTA
 };
 
@@ -814,46 +826,70 @@ struct GatherFullBody {
 };
 
 // ---- repeat: the k-broadcast of the dst rows ------------------------------
+// A CTA of two warps owns 2 PER rows and 32 columns; lane l of warp w
+// holds PER consecutive rows of column col_base + l, which lie in one dst
+// row because PER divides k (the plan's choice). Every thread also carries
+// row 0 of its column in a register: JAX's keep-alive term reads the
+// global acc[0:1], and row 0's recurrence depends on nothing but itself
+// and dst[0], so each thread runs it with the same operations in the same
+// order. The loop then reads no memory and has no barrier: per iteration
+// a thread runs row 0's five operations, its rows' broadcast value x =
+// (dst + keep) + salt once (JAX's body sums on the [tile_n, 128] rows
+// before the repeat), and a multiply and an add a row. The empty asm
+// keeps each row's carry opaque, so that the compiler cannot merge the
+// rows it can prove equal: each row is carried, as in the TPU kernel.
+template <int PER>
 struct RepeatBody {
   static constexpr int MAX_THREADS = REPEAT_THREADS;
-  static constexpr int PER = BM * D / REPEAT_THREADS;   // 16 a thread
   typedef float Carry[PER];
-  static size_t smem_bytes(int, int, int) { return D * sizeof(float); }
-  float* row0;
-  const float* dst;
+  static size_t smem_bytes(int, int, int) { return 0; }
   float* out;
-  int c, r0, k;
-  float salt_term;
-  __device__ RepeatBody(const LoopArgs& a, unsigned char* smem) {
-    row0 = reinterpret_cast<float*>(smem);
-    dst = static_cast<const float*>(a.in0);
-    out = a.out;
-    k = a.k;
-    c = threadIdx.x % D;
-    r0 = threadIdx.x / D;
+  float d, d0, carry0, salt_term;
+  __device__ RepeatBody(const LoopArgs& a, unsigned char*) {
+    constexpr int slices = D / REPEAT_COLS;
+    const int c = (blockIdx.x % slices) * REPEAT_COLS + (threadIdx.x & 31);
+    const int row = (blockIdx.x / slices) * a.tile_rows
+                    + (threadIdx.x >> 5) * PER;
+    const float* dst = static_cast<const float*>(a.in0);
+    d0 = dst[c];
+    d = dst[(size_t)(row / a.k) * D + c];
     salt_term = __fmul_rn(a.salt[0], KEEP);
-    if (threadIdx.x < D) row0[threadIdx.x] = 0.f;
-    __syncthreads();
+    carry0 = 0.f;
+    out = a.out + (size_t)row * D + c;
   }
   __device__ void step(Carry& acc) {
-    const float keep = __fmul_rn(row0[c], KEEP);
+    const float keep = __fmul_rn(carry0, KEEP);
+    const float x = __fadd_rn(__fadd_rn(d, keep), salt_term);
+    carry0 = __fadd_rn(__fmul_rn(carry0, 0.5f),
+                       __fadd_rn(__fadd_rn(d0, keep), salt_term));
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
-      const int row = blockIdx.x * BM + r0 + 2 * j;
-      const float x = __fadd_rn(__fadd_rn(dst[(row / k) * D + c], keep),
-                                salt_term);
       acc[j] = __fadd_rn(__fmul_rn(acc[j], 0.5f), x);
+      asm volatile("" : "+f"(acc[j]));
     }
-    __syncthreads();
-    if (r0 == 0) row0[c] = acc[0];
-    __syncthreads();
   }
   __device__ void finish(const Carry& acc) {
 #pragma unroll
-    for (int j = 0; j < PER; ++j)
-      out[(size_t)(blockIdx.x * BM + r0 + 2 * j) * D + c] = acc[j];
+    for (int j = 0; j < PER; ++j) out[(size_t)j * D] = acc[j];
   }
 };
+
+// The latency of row 0's dependent sequence on one thread, to price the
+// repeat body's chain (chip_smoke.py::mxu_bound): `reps` steps of carry =
+// carry 0.5 + ((d0 + carry 1e-30) + salt 1e-30), each waiting on the last
+// through the multiply and the three adds. Replaces no TPU kernel; out[0]
+// = the carry, RepeatBody's row 0 after `reps` iterations.
+__global__ void __launch_bounds__(32)
+repeat_chain_kernel(int reps, float d0, float salt, float* __restrict__ out) {
+  if (threadIdx.x != 0) return;
+  const float salt_term = __fmul_rn(salt, KEEP);
+  float carry = 0.f;
+  for (int r = 0; r < reps; ++r)
+    carry = __fadd_rn(__fmul_rn(carry, 0.5f),
+                      __fadd_rn(__fadd_rn(d0, __fmul_rn(carry, KEEP)),
+                                salt_term));
+  out[0] = carry;
+}
 
 template <typename T, int N>
 __device__ __forceinline__ void zero_carry(T (&c)[N]) {
@@ -907,25 +943,39 @@ int launch(const LoopArgs& a, const Plan& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Each body's split: CTAs a cluster, columns a CTA, rows a CTA (gather_mm:
-// 0, a multiple of BM chosen by the host from the SM count).
+// Each body's split: CTAs a cluster, columns a CTA, rows a CTA (0: chosen
+// by the host from the SM count; gather_mm a multiple of BM, repeat 2 PER
+// with PER 1, 2, 4 or 8 dividing k).
 struct Split {
   int cluster, cols, tile_rows;
 };
 constexpr Split SPLIT[5] = {{PEAK_N / PeakTcBody::COLS, PeakTcBody::COLS,
                              PeakTcBody::TILE},
                             {1, 32, 0}, {4, 32, BM}, {2, 64, BM},
-                            {1, D, BM}};
+                            {1, REPEAT_COLS, 0}};
 
-// Recomputes the plan from the shape, the body's split and (gather_mm) the
-// plan's rows a CTA, and compares every field: true if it is the plan this
-// entry launches.
-bool plan_ok(int body, int rows, int n_pad, const Plan& p) {
+// Rows a thread of the repeat body at `tile_rows` rows a CTA and factor
+// k, or 0 if the pair is not one it takes.
+int repeat_per(int tile_rows, int k) {
+  const int per = tile_rows / (REPEAT_THREADS / 32);
+  const bool ok = (per == 1 || per == 2 || per == 4 || per == 8)
+                  && tile_rows == per * (REPEAT_THREADS / 32) && k % per == 0;
+  return ok ? per : 0;
+}
+
+// Recomputes the plan from the shape, the body's split and (gather_mm,
+// repeat) the plan's rows a CTA, and compares every field: true if it is
+// the plan this entry launches.
+bool plan_ok(int body, int rows, int n_pad, int k, const Plan& p) {
   if (body < PEAK || body > REPEAT) return false;
   const Split sp = SPLIT[body];
-  if (p.cluster != sp.cluster || p.cols != sp.cols || p.tile_rows <= 0
-      || (sp.tile_rows ? p.tile_rows != sp.tile_rows : p.tile_rows % BM))
+  if (p.cluster != sp.cluster || p.cols != sp.cols || p.tile_rows <= 0)
     return false;
+  const bool rows_ok =
+      body == REPEAT ? repeat_per(p.tile_rows, k) && rows % p.tile_rows == 0
+      : sp.tile_rows ? p.tile_rows == sp.tile_rows
+                     : p.tile_rows % BM == 0;
+  if (!rows_ok) return false;
   size_t smem = 0;
   int ctas = 0, threads = 0, max_threads = 0;
   switch (body) {
@@ -950,9 +1000,9 @@ bool plan_ok(int body, int rows, int n_pad, const Plan& p) {
       max_threads = GatherMmBody::MAX_THREADS;
       break;
     default:   // REPEAT
-      ctas = rows / BM;
+      ctas = rows / p.tile_rows * (D / p.cols);
       threads = max_threads = REPEAT_THREADS;
-      smem = RepeatBody::smem_bytes(0, 0, 0);
+      smem = RepeatBody<1>::smem_bytes(0, 0, 0);
   }
   return p.ctas == ctas && p.threads == threads && threads <= max_threads
          && (size_t)p.smem == smem && smem <= (size_t)MAX_SMEM;
@@ -974,7 +1024,8 @@ extern "C" {
 //   repeat:      in0 dst [rows / k, 128] fp32.
 // rows must be a positive multiple of 32, n_pad of 32. The plan (ctas,
 // cluster, tile_rows, cols, threads, smem) is ops/mxu_probe.py's
-// launch_plan; any other is refused before any launch.
+// launch_plan (repeat: tile_rows / 2 rows a thread, dividing k); any
+// other is refused before any launch.
 int gamd_mxu_loop(int body, const void* in0, const void* in1, const void* in2,
                   const void* in3, const float* salt, int rows, int n_pad,
                   int k, int iters, float* out, int ctas, int cluster,
@@ -988,7 +1039,7 @@ int gamd_mxu_loop(int body, const void* in0, const void* in1, const void* in2,
   if (body == REPEAT && (k <= 0 || rows % k != 0))
     return cudaErrorInvalidValue;
   const Plan p{ctas, cluster, tile_rows, cols, threads, smem};
-  if (!plan_ok(body, rows, n_pad, p)) return cudaErrorInvalidValue;
+  if (!plan_ok(body, rows, n_pad, k, p)) return cudaErrorInvalidValue;
   const LoopArgs a{in0, in1, in2, in3, salt, rows, n_pad, k, iters, out,
                    cluster, tile_rows, cols};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -997,9 +1048,26 @@ int gamd_mxu_loop(int body, const void* in0, const void* in1, const void* in2,
     case GATHER_MM: return launch<GatherMmBody>(a, p, s);
     case GATHER_FULL: return launch<GatherFullBody>(a, p, s);
     case EDGE_MLP: return launch<EdgeMlpBody>(a, p, s);
-    case REPEAT: return launch<RepeatBody>(a, p, s);
+    case REPEAT:
+      switch (repeat_per(p.tile_rows, k)) {
+        case 1: return launch<RepeatBody<1>>(a, p, s);
+        case 2: return launch<RepeatBody<2>>(a, p, s);
+        case 4: return launch<RepeatBody<4>>(a, p, s);
+        default: return launch<RepeatBody<8>>(a, p, s);
+      }
     default: return cudaErrorInvalidValue;
   }
+}
+
+// One launch of repeat_chain_kernel (one thread): `reps` >= 1 steps of
+// the repeat body's row 0 from 0 with dst[0] = d0 and salt[0] = salt,
+// out[0] the carry.
+int gamd_repeat_chain(int reps, float d0, float salt, float* out,
+                      void* stream) {
+  if (reps < 1) return cudaErrorInvalidValue;
+  repeat_chain_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      reps, d0, salt, out);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

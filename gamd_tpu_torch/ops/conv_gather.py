@@ -34,9 +34,6 @@ from gamd_tpu_torch.ops.mega import (KERNEL_WIDTH, TILE_ROWS, _check,
                                      live_slot_layout)
 from gamd_tpu_torch.ops.mxu_probe import sm_count
 
-#: Edges per block of the op library's CUDA-core edge stages
-#: (csrc/tile.cuh KC).
-EDGE_CHUNK = 16
 #: The backward's compact planes, a tile each (e, z1, a2, z3, then g_s1,
 #: g_z2, g_s3, g_m; csrc/conv_msg_gather_bwd.cu N_PLANES), the bytes of a
 #: tile of one (64 rows of 128 bf16 hi and lo), and the tile ranges of its

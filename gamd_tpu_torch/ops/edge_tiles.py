@@ -153,14 +153,15 @@ def one_buffer(specs, device):
                  for name, (shape, dtype) in specs.items()}
 
 
-def call_scratch(m, k, plan, device, layout=True):
+def call_scratch(m, k, plan, device, layout=True, n_weights=N_WEIGHTS):
     """A call's scratch in one_buffer: with `layout`, the live-edge layout
     (slot [1, cap], offset and count [1, M], total [1]) and the layout
-    kernels' per-block sums; the four split weights (bf16 hi and lo); each
-    tile's head and tail partials [tiles, 2, 128] fp32. Returns (buffer,
-    LiveLayout or None, block sums or None, split weights, partials)."""
+    kernels' per-block sums; `n_weights` split weights (bf16 hi and lo:
+    the conv message's four, theta_edge's two); each tile's head and tail
+    partials [tiles, 2, 128] fp32. Returns (buffer, LiveLayout or None,
+    block sums or None, split weights, partials)."""
     i32 = torch.int32
-    specs = {"wsplit": ((N_WEIGHTS * SPLIT_BYTES,), torch.uint8),
+    specs = {"wsplit": ((n_weights * SPLIT_BYTES,), torch.uint8),
              "part": ((plan.tiles, 2, KERNEL_WIDTH), torch.float32)}
     if layout:
         specs.update(slot=((1, layout_capacity(m, k)), i32),

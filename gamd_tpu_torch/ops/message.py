@@ -16,13 +16,13 @@ mask bool, contiguous, one device, every width 128 but gather_agg's D).
 Each entry counts its kernel launches in `.launches`.
 
 * Precision: the plain versions are fp32 throughout, as JAX's references,
-  which they transcribe. The kernels of rows 7-8 (conv_msg.cu,
-  conv_layer.cu) run the four edge products on the tensor cores as three
-  bf16 passes (csrc/conv_tc.cuh; JAX's kernels run them in single-pass
-  bf16) and the node update's three in fp32. `_edge_mm` is the plain
-  versions' edge product: fp32, unless a test puts
-  ops/mega.py::split_bf16_matmul, the kernels' arithmetic, in its place.
-  Rows 9-10 are fp32 FMAs.
+  which they transcribe. The kernels of rows 7-9 (conv_layer.cu,
+  conv_msg.cu, edge_mlp_agg.cu) run the edge products (four; theta_edge's
+  two) on the tensor cores as three bf16 passes (csrc/conv_tc.cuh; JAX's
+  kernels run them in single-pass bf16) and row 7 the node update's three
+  in fp32. `_edge_mm` is the plain versions' edge product: fp32, unless a
+  test puts ops/mega.py::split_bf16_matmul, the kernels' arithmetic, in
+  its place. Row 10 is fp32.
 * A masked slot adds exactly 0, whatever it holds (the references'
   jnp.where; the TPU kernels multiply by the mask and let a NaN through).
   Gathered ids are read as JAX reads them (aggregate.gather_index).
@@ -42,8 +42,7 @@ import torch.nn.functional as F
 from gamd_tpu_torch.ops import edge_tiles
 from gamd_tpu_torch.ops.aggregate import (gather_index,
                                           gather_multiply_aggregate)
-from gamd_tpu_torch.ops.conv_gather import (EDGE_CHUNK, _library, _ptrs,
-                                            _stream)
+from gamd_tpu_torch.ops.conv_gather import _library, _ptrs, _stream
 from gamd_tpu_torch.ops.mega import KERNEL_WIDTH, _check
 from gamd_tpu_torch.ops.mxu_probe import sm_count
 
@@ -52,6 +51,9 @@ from gamd_tpu_torch.ops.mxu_probe import sm_count
 #: `weights` in order.
 CONV_WEIGHTS = ("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4")
 LAYER_WEIGHTS = CONV_WEIGHTS + ("wpd", "bpd", "wpe", "bpe", "wp", "bp")
+#: The split weights of fused_edge_mlp_aggregate's tiles: theta_edge's W1
+#: and W2 (csrc/conv_tc.cuh ThetaStages).
+THETA_WEIGHTS = 2
 _PER_SLOT = ("e", "edge_pre", "h_src", "src_code")
 _PER_NODE = ("h", "hn", "src_nodes", "dst_code")
 #: Atoms a block of conv_layer.cu's node update may take
@@ -60,7 +62,8 @@ UPDATE_MIN_ATOMS, UPDATE_MAX_ATOMS = 4, 16
 
 
 def _edge_mm(a, w):
-    """An edge product of the plain conv message (W1..W4): plain fp32."""
+    """An edge product of the plain edge pipelines (the conv message's
+    W1..W4, theta_edge's W1 and W2): plain fp32."""
     return a @ w
 
 
@@ -77,9 +80,10 @@ def update_atoms(n, sms=edge_tiles.H100_SMS):
 
 def _fused_reference(edge_pre, h_src, mask, w1, b1, w2, b2):
     """out[i] = sum_k where(mask, h_src * theta(edge_pre), 0), theta the
-    activation-first silu -> Linear -> silu -> Linear (pallas_mp.py:158)."""
-    z = F.silu(F.silu(edge_pre) @ w1 + b1)
-    m = z @ w2 + b2
+    activation-first silu -> Linear -> silu -> Linear (pallas_mp.py:158);
+    the two products through `_edge_mm`."""
+    z = F.silu(_edge_mm(F.silu(edge_pre), w1) + b1)
+    m = _edge_mm(z, w2) + b2
     return torch.sum(torch.where(mask[..., None], h_src * m, 0.0), dim=1)
 
 
@@ -112,8 +116,12 @@ def declare(lib):
     """Set argtypes/restype of the library's op-library entries."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gamd_gather_agg.argtypes = [p, p, p, p, i, i, i, p, p]
-    lib.gamd_edge_mlp_agg.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p]
     lay = ctypes.POINTER(edge_tiles._SlotLayout)
+    lib.gamd_edge_mlp_agg.argtypes = [
+        *[p] * 7,                   # edge_pre h_src mask w1 b1 w2 b2
+        i, i, lay, p, p,            # n k layout wsplit part
+        i, i, i, i,                 # the plan
+        p, p]                       # agg stream
     lib.gamd_conv_msg.argtypes = [
         *[p] * 13,                  # e h_src src_code dst mask w1 ... b4
         i, i, lay, p, p,            # n k layout wsplit part
@@ -160,12 +168,6 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def _chunk_scratch(n, k, device):
-    """aggp [N, ceil(K / 16), 128]: edge_mlp_agg's per-chunk partials."""
-    return torch.empty((n, -(-k // EDGE_CHUNK), KERNEL_WIDTH), device=device,
-                       dtype=torch.float32)
-
-
 def _launch_gather_agg(h, e, idx, mask):
     n, d = h.shape
     out = torch.empty((n, d), device=h.device, dtype=torch.float32)
@@ -179,13 +181,16 @@ def _launch_gather_agg(h, e, idx, mask):
 
 def _launch_edge_mlp_agg(edge_pre, h_src, mask, *weights):
     n, k, _ = edge_pre.shape
-    aggp = _chunk_scratch(n, k, edge_pre.device)
-    agg = torch.empty((n, KERNEL_WIDTH), device=edge_pre.device,
-                      dtype=torch.float32)
+    dev = edge_pre.device
+    plan = edge_tiles.launch_plan(n, k, sm_count(dev))
+    _buf, layout, block_sum, wsplit, part = edge_tiles.call_scratch(
+        n, k, plan, dev, n_weights=THETA_WEIGHTS)
+    agg = torch.empty((n, KERNEL_WIDTH), device=dev, dtype=torch.float32)
     err = _library().gamd_edge_mlp_agg(
-        *_ptrs(edge_pre, h_src, mask, *weights), n, k, aggp.data_ptr(),
-        agg.data_ptr(), _stream(edge_pre.device))
-    _raise_on(err, "edge_mlp_agg")
+        *_ptrs(edge_pre, h_src, mask, *weights), n, k,
+        ctypes.byref(edge_tiles.slot_struct(layout, block_sum)),
+        *_ptrs(wsplit, part), *plan[:4], agg.data_ptr(), _stream(dev))
+    edge_tiles.raise_on("edge_mlp_agg", err)
     fused_edge_mlp_aggregate.launches += 1
     return agg
 
@@ -284,8 +289,8 @@ def fused_edge_mlp_aggregate(edge_pre, h_src, mask, w1, b1, w2, b2):
     """out[i] = sum_k mask[i,k] * h_src[i,k] * theta(edge_pre[i,k])
     (pallas_mp.py:166). edge_pre [N, K, H], h_src [N, K, D], mask [N, K]
     bool, w1 [H, H], b1 [H], w2 [H, D], b2 [D]. A CPU tensor runs
-    _fused_reference; a CUDA one csrc/edge_mlp_agg.cu (H = D = 128) or
-    raises."""
+    _fused_reference; a CUDA one csrc/edge_mlp_agg.cu (H = D = 128; the
+    live-edge tiles of csrc/conv_tc.cuh, ThetaStages) or raises."""
     args = (edge_pre, h_src, mask, w1, b1, w2, b2)
     if edge_pre.device.type == "cpu":
         return _fused_reference(*args)

@@ -23,7 +23,12 @@ Every body reads the carry through a keep-alive term scaled by 1e-30 and
 the salt [8, 128] fp32 (salt[0, 0]), as JAX's: numerically void, it keeps
 each iteration dependent on the last. The plain versions read JAX's global
 acc[0:1, :] (acc[0, 0]); the kernel's blocks each read their own tile's
-first row. They agree because the term rounds away.
+first row, except repeat's threads, which each carry the global row 0 of
+their column (its recurrence needs nothing but itself and dst[0]). They
+agree because the term rounds away. repeat_chain runs that row-0
+recurrence alone on one thread, so that its dependent sequence (a
+multiply and three adds an iteration, repeat's bound) can be timed on the
+card.
 
 The plain versions compute each bf16 product as a float32 matmul of
 bf16-valued tensors (exact products, float32 sums; TF32 off on the card)
@@ -57,13 +62,17 @@ KEEP = 1e-30     # the keep-alive scale
 PAD = 8          # bf16 elements of row padding in shared memory
 MAX_SMEM = 232448        # a block's shared memory on Hopper
 MAX_THREADS = {"peak": 128, "gather_mm": 1024, "gather_full": 512,
-               "edge_mlp": 512, "repeat": 256}
+               "edge_mlp": 512, "repeat": 64}
 #: Each body's split (csrc/mxu_probe.cu's SPLIT): CTAs a cluster, columns
-#: a CTA, rows a CTA. peak: 64-row wgmma tiles; gather_mm's rows a CTA
-#: (None) follow from the SM count.
+#: a CTA, rows a CTA. peak: 64-row wgmma tiles; gather_mm's and repeat's
+#: rows a CTA (None) follow from the SM count (repeat: 2 PER, a thread's
+#: PER rows of one column lying in one dst row).
 SPLIT = {"peak": (8, 64, 64), "gather_mm": (1, 32, None),
          "gather_full": (4, 32, 32), "edge_mlp": (2, 64, 32),
-         "repeat": (1, WIDTH, 32)}
+         "repeat": (1, 32, None)}
+#: Rows a thread of the repeat kernel may hold (csrc/mxu_probe.cu
+#: repeat_per), the largest tried first; it must divide k.
+REPEAT_PER = (8, 4, 2, 1)
 H100_SMS = 132
 
 
@@ -94,7 +103,7 @@ def _smem(body, cols, tile_rows, n_pad):
     if body == "gather_mm":
         return (tile_rows * (n_pad + PAD) + 2 * n_pad * (cols + PAD)) * 2 \
             + 2 * (tile_rows // ROW_TILE) * cols * 4
-    return WIDTH * 4
+    return 0   # repeat: the loop runs in registers
 
 
 def _derived(body, rows, n_pad, tile_rows):
@@ -105,7 +114,8 @@ def _derived(body, rows, n_pad, tile_rows):
         ctas = -(-rows // tile_rows) * (WIDTH // cols)
         threads = (tile_rows // 16) * (cols // 16) * 32
     elif body == "repeat":
-        ctas, threads = rows // ROW_TILE, MAX_THREADS[body]
+        ctas = rows // tile_rows * (WIDTH // cols)
+        threads = MAX_THREADS[body]
     elif body == "peak":
         ctas, threads = rows // tile_rows * cluster, MAX_THREADS[body]
     else:
@@ -114,18 +124,32 @@ def _derived(body, rows, n_pad, tile_rows):
     return ctas, threads, _smem(body, cols, tile_rows, n_pad)
 
 
-def check_plan(body, plan, rows, n_pad=0):
+def _repeat_rows(k):
+    """The rows a CTA repeat takes at factor k: 2 PER, PER in REPEAT_PER
+    dividing k."""
+    threads = MAX_THREADS["repeat"]
+    return [threads // 32 * per for per in REPEAT_PER if k % per == 0]
+
+
+def check_plan(body, plan, rows, n_pad=0, k=1):
     """Raises ValueError unless `plan` is a plan the C entry launches for
     this shape: the body's split (gather_mm: any positive multiple of 32
-    rows a CTA) and the CTAs, threads and shared bytes it gives, within
-    the card's limits."""
+    rows a CTA; repeat: 2 PER rows, PER in REPEAT_PER dividing k and the
+    rows a multiple of 2 PER) and the CTAs, threads and shared bytes it
+    gives, within the card's limits."""
     cluster, cols, tile_rows = SPLIT[body]
     why = None
     if (plan.cluster, plan.cols) != (cluster, cols):
         why = f"{body} takes clusters of {cluster} CTAs of {cols} columns"
     elif tile_rows is not None and plan.tile_rows != tile_rows:
         why = f"{body} takes {tile_rows} rows a CTA"
-    elif plan.tile_rows <= 0 or plan.tile_rows % ROW_TILE:
+    elif body == "repeat" and (plan.tile_rows not in _repeat_rows(k)
+                               or rows % plan.tile_rows):
+        why = f"repeat at k={k} and {rows} rows takes rows a CTA in " \
+              f"{[t for t in _repeat_rows(k) if rows % t == 0]}, not " \
+              f"{plan.tile_rows}"
+    elif body != "repeat" and (plan.tile_rows <= 0
+                               or plan.tile_rows % ROW_TILE):
         why = f"tile_rows {plan.tile_rows} not a positive multiple of " \
               f"{ROW_TILE}"
     else:
@@ -141,15 +165,22 @@ def check_plan(body, plan, rows, n_pad=0):
         raise ValueError(f"mxu_loop: inconsistent {body} plan {plan}: {why}")
 
 
-def launch_plan(body, rows, n_pad=0, sms=H100_SMS):
-    """The kernel's launch for `body` at `rows` output rows and `n_pad`
-    table rows on a card of `sms` SMs, checked by check_plan. peak,
-    edge_mlp, gather_full and repeat: SPLIT's. gather_mm: no cluster, 32
-    columns and 32 T rows a CTA, T the least that keeps the CTAs within
-    `sms` (T = 1 at 768 rows, 6 at 6,144), bounded by the threads and the
-    shared memory a CTA can have."""
+def launch_plan(body, rows, n_pad=0, sms=H100_SMS, k=1):
+    """The kernel's launch for `body` at `rows` output rows, `n_pad` table
+    rows and broadcast factor `k` on a card of `sms` SMs, checked by
+    check_plan. peak, edge_mlp and gather_full: SPLIT's. gather_mm: no
+    cluster, 32 columns and 32 T rows a CTA, T the least that keeps the
+    CTAs within `sms` (T = 1 at 768 rows, 6 at 6,144), bounded by the
+    threads and the shared memory a CTA can have. repeat: 64 threads, 32
+    columns and 2 PER rows a CTA, PER the largest of REPEAT_PER that
+    divides k and keeps the CTAs at `sms` or more (one wave at least: PER
+    8 and 192 CTAs at 768 rows and k 48), else 1."""
     cluster, cols, tile_rows = SPLIT[body]
-    if tile_rows is None:
+    if body == "repeat":
+        fits = [t for t in _repeat_rows(k) if rows % t == 0]
+        full = [t for t in fits if rows // t * (WIDTH // cols) >= sms]
+        tile_rows = full[0] if full else fits[-1]
+    elif tile_rows is None:
         row_tiles = -(-rows // ROW_TILE)
         t = max(1, math.ceil(row_tiles * (WIDTH // cols) / sms))
         t_max = MAX_THREADS[body] // (2 * (cols // 16) * 32)
@@ -159,7 +190,7 @@ def launch_plan(body, rows, n_pad=0, sms=H100_SMS):
         tile_rows = ROW_TILE * max(1, min(t, t_max, row_tiles))
     ctas, threads, smem = _derived(body, rows, n_pad, tile_rows)
     plan = Plan(ctas, cluster, tile_rows, cols, threads, smem)
-    check_plan(body, plan, rows, n_pad)
+    check_plan(body, plan, rows, n_pad, k)
     return plan
 
 
@@ -275,6 +306,44 @@ def repeat_reference(dst, k, salt, iters):
     return acc
 
 
+def repeat_chain_reference(d0, salt, reps):
+    """Plain version of repeat_chain: `reps` steps of repeat_reference's
+    row-0 recurrence from 0, elementwise over d0 (dst[0], any shape) with
+    the 0-d salt (salt[0, 0]); repeat_reference(dst, k, salt, reps)[0] is
+    repeat_chain_reference(dst[0], salt[0, 0], reps), bit for bit."""
+    acc = torch.zeros_like(d0)
+    for _ in range(reps):
+        acc = acc * 0.5 + (d0 + acc * KEEP + salt * KEEP)
+    return acc
+
+
+def repeat_chain(d0, salt, reps):
+    """`reps` steps of the repeat body's row-0 recurrence on one thread
+    (csrc/mxu_probe.cu's repeat_chain_kernel), each waiting on the last
+    through a multiply and three adds, from the 0-d float32 d0 and salt:
+    the carry (0-d). Timed on the card, reps steps give the latency of the
+    dependent sequence that bounds every iteration of the repeat kernel
+    (tools/bench_mxu.py::repeat_chain_bound).
+
+    A CPU d0 runs repeat_chain_reference; a CUDA d0 makes one launch or
+    raises."""
+    fn = "repeat_chain"
+    if int(reps) < 1:
+        raise ValueError(f"{fn}: reps must be at least 1, not {reps}")
+    if d0.device.type == "cpu":
+        return repeat_chain_reference(d0, salt, int(reps))
+    if d0.device.type != "cuda":
+        raise ValueError(f"{fn} runs on cuda or cpu, not {d0.device}")
+    out = torch.empty(1, device=d0.device, dtype=torch.float32)
+    from gamd_tpu_torch.ops.build import load_library
+    err = load_library().gamd_repeat_chain(
+        int(reps), float(d0), float(salt), out.data_ptr(),
+        torch.cuda.current_stream(d0.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
+    return out[0]
+
+
 def mxu_loop_reference(body, inputs, salt, iters, k=1):
     """The plain version of mxu_loop."""
     if body == "peak":
@@ -305,6 +374,9 @@ def declare(lib):
                                   i, i, i, i, i, i,      # out; the plan
                                   p]                     # stream
     lib.gamd_mxu_loop.restype = ctypes.c_int
+    lib.gamd_repeat_chain.argtypes = [i, ctypes.c_float, ctypes.c_float, p,
+                                      p]
+    lib.gamd_repeat_chain.restype = ctypes.c_int
 
 
 def _expected(body, inputs, k):
@@ -368,7 +440,7 @@ def mxu_loop(body, inputs, salt, iters, k=1):
         raise ValueError(f"{fn}: {body} needs rows a positive multiple of "
                          f"{ROW_TILE} and n_pad a multiple of {ROW_TILE};"
                          f" got rows {rows}, n_pad {n_pad}")
-    plan = launch_plan(body, rows, n_pad, sm_count(dev))
+    plan = launch_plan(body, rows, n_pad, sm_count(dev), int(k))
     width = PEAK_N if body == "peak" else WIDTH
     out = torch.empty((rows, width), device=dev, dtype=torch.float32)
     ptrs = [t.data_ptr() for t in inputs] + [None] * (4 - len(inputs))

@@ -46,7 +46,9 @@ import numpy as np
 import torch
 
 from gamd_tpu_torch.ops.mxu_probe import (PEAK_N, WIDTH, launch_plan,
-                                          mxu_loop, output_rows, sm_count)
+                                          mxu_loop, output_rows,
+                                          repeat_chain,
+                                          repeat_chain_reference, sm_count)
 
 #: The card's dense bf16 rate (H100 SXM data sheet), the calibration's
 #: ceiling.
@@ -63,6 +65,10 @@ KERNEL_RTOL = {"peak": 1e-2, "gather_mm": 0.0, "gather_full": 1e-5,
 TIMED_CALLS = 5
 SPIN_CYCLES = 2_000_000   # the spin before each timed call (~1 ms)
 FORWARD_CALLS = 20
+#: Steps of repeat_chain timed for its latency (reps and 2 reps), and the
+#: steps at which the kernel is held to its plain version.
+CHAIN_REPS = 20_000
+CHAIN_CHECK_REPS = 200
 
 
 def flops_per_iter(body, rows, n_pad):
@@ -171,6 +177,23 @@ def time_stage(label, body, inputs, k, iters, device):
     return ms * 1e3 / iters, ms
 
 
+def repeat_chain_bound(device, reps=CHAIN_REPS):
+    """The latency of the repeat body's row-0 dependent sequence (a
+    multiply and three adds) on the card: {"ns": ns a step, "max_abs_err":
+    |kernel - plain version| after CHAIN_CHECK_REPS steps}. A step's
+    latency is (t(2 reps) - t(reps)) / reps of one launch each of
+    ops.mxu_probe.repeat_chain on one thread (call_ms: CUDA events, median
+    of 5), so that the launch's own time cancels."""
+    d0 = torch.tensor(0.7, device=device)
+    salt = torch.tensor(0.3, device=device)
+    got = repeat_chain(d0, salt, CHAIN_CHECK_REPS)
+    ref = repeat_chain_reference(d0, salt, CHAIN_CHECK_REPS)
+    t1, t2 = [call_ms(lambda n=n: repeat_chain(d0, salt, n), tuple)
+              for n in (reps, 2 * reps)]
+    return {"ns": (t2 - t1) * 1e6 / reps, "reps": reps,
+            "max_abs_err": float((got - ref).abs())}
+
+
 def parity(label, body, inputs, k, iters, device):
     """max |carry - geometric sum of one iteration's output| / max
     |carry|, the carry at `iters`."""
@@ -267,7 +290,7 @@ def main(argv=None):
                   flush=True)
             stages[label] = entry
             continue
-        plan = launch_plan(body, rows, n_pad, sms)
+        plan = launch_plan(body, rows, n_pad, sms, k)
         us, ms = time_stage(label, body, inputs, k, args.iters, dev)
         tf = flops / (us * 1e-6) / 1e12 if flops else 0.0
         entry.update(us_per_iter=us, ms=ms, tflops=tf, ctas=plan.ctas,

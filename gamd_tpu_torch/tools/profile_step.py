@@ -100,12 +100,14 @@ FORWARD_STAGES = {
 
 #: The conv message's kernels (csrc/conv_tc.cuh) by short name: rows 3
 #: (conv_msg_gather.cu, GatherSrc), 6 (banded_msg.cu, BandSrc), 8
-#: (conv_msg.cu, PreSrc) and 7 (conv_layer.cu, ClampedSrc, then its node
-#: update by atoms a block).
+#: (conv_msg.cu, PreSrc), 7 (conv_layer.cu, ClampedSrc, then its node
+#: update by atoms a block) and 9 (edge_mlp_agg.cu, PreSrc with the stage
+#: policy ThetaStages).
 CONV_KERNELS = ("mask_count_kernel", "mask_slots_kernel",
                 "split_conv_weights_kernel", "conv_tile_kernel[GatherSrc]",
                 "conv_tile_kernel[BandSrc]", "conv_tile_kernel[PreSrc]",
-                "conv_tile_kernel[ClampedSrc]", "tile_fixup_kernel",
+                "conv_tile_kernel[ClampedSrc]",
+                "conv_tile_kernel[PreSrc,ThetaStages]", "tile_fixup_kernel",
                 "conv_update_kernel[B=4]", "conv_update_kernel[B=8]",
                 "conv_update_kernel[B=16]")
 #: The conv backward's kernels (csrc/conv_msg_gather_bwd.cu, row 4); the
@@ -127,8 +129,10 @@ ENCODER_KERNELS = ("split_encoder_weights_kernel",
 
 def short_name(kernel: str) -> str:
     """A readable name for a device kernel: this repo's kernels by their
-    own name (node_fused_kernel and conv_update_kernel with their atoms a
-    block, B), PyTorch's by the kernel template and the op it runs."""
+    own name (the tile kernels with their source policy, and a stage
+    policy other than the conv message's; node_fused_kernel and
+    conv_update_kernel with their atoms a block, B), PyTorch's by the
+    kernel template and the op it runs."""
     name = kernel.replace("(anonymous namespace)::", "")
     name = name[5:] if name.startswith("void ") else name
     base = re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1].strip()
@@ -136,7 +140,9 @@ def short_name(kernel: str) -> str:
     rows = re.search(r"\b(ClampedSrc|PreSrc|GatherSrc|BandSrc|AllSlots|"
                      r"LiveSlots)\b", rest)
     if rows:   # conv_tile_kernel's, encoder_tile_kernel's
-        return f"{base}[{rows.group(1)}]"
+        stages = ",ThetaStages" if re.search(r"\bThetaStages\b", rest) \
+            else ""
+        return f"{base}[{rows.group(1)}{stages}]"
     width = re.match(r"<(\d+)>", rest)
     if base in ("node_fused_kernel", "conv_update_kernel") and width:
         return f"{base}[B={width.group(1)}]"

@@ -27,8 +27,8 @@ package: put that tree first on PYTHONPATH and run this file by its path.
     python3 -m gamd_tpu_torch.tools.time_conv [--save PATH]
 
 Prints the card line, then one JSON line; --save also writes each timed
-forward's output (torch.save), so that two trees' results can be compared
-bit for bit. Needs a CUDA card.
+forward's output and the backward's gradients (torch.save), so that two
+trees' results can be compared bit for bit. Needs a CUDA card.
 """
 
 import inspect
@@ -74,10 +74,11 @@ def device_us(fn, calls=20):
     return sum(kernel_us(fn, calls).values())
 
 
-def backward_entry(args, dev):
+def backward_entry(args, dev, outputs=None, name=None):
     """Row 4 on row 3's inputs: the backward of one forward (its graph
     kept), timed by CUDA events (median of 20 calls) and by kernel on the
-    device, with the backward launches a call."""
+    device, with the backward launches a call; the gradients kept in
+    outputs[name] where given."""
     leaves = [t.clone().requires_grad_(True) for t in (args[0], *args[3:])]
     e, hn, src, dst, *ws = leaves
     out = fused_conv_gather_message(e, args[1], args[2], hn, src, dst, *ws)
@@ -85,8 +86,10 @@ def backward_entry(args, dev):
                     generator=torch.Generator(dev).manual_seed(7))
     call = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
     before = fused_conv_gather_message.backward_launches
-    call()
+    grads = call()
     launches = fused_conv_gather_message.backward_launches - before
+    if outputs is not None:
+        outputs[name] = [t.cpu() for t in grads]
     kernels = kernel_us(call)
     return {"ms": median_ms(call, 20), "device_us": sum(kernels.values()),
             "kernels": {k: round(v, 3) for k, v in kernels.items()},
@@ -247,7 +250,8 @@ def main(argv=None):
             outputs[f"conv_msg_gather_b{b}"] = call().cpu()
             with torch.enable_grad():
                 line[f"conv_msg_gather_bwd_b{b}"] = {
-                    "live": live, **backward_entry(args, dev)}
+                    "live": live, **backward_entry(
+                        args, dev, outputs, f"conv_msg_gather_bwd_b{b}")}
         given = "layout" in inspect.signature(
             banded.banded_conv_message).parameters
         for n in BANDED_SIZES:

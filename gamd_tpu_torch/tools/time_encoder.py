@@ -20,12 +20,15 @@ their paths run:
 It uses only the public API, so it can time another tree's package: put
 that tree first on PYTHONPATH and run this file by its path.
 
-    python3 -m gamd_tpu_torch.tools.time_encoder
+    python3 -m gamd_tpu_torch.tools.time_encoder [--save PATH]
 
-Prints the card line, then one JSON line. Needs a CUDA card.
+Prints the card line, then one JSON line; --save also writes (torch.save)
+fused_edge_encoder's outputs at B=1 and 16, so that two trees' results
+can be compared bit for bit. Needs a CUDA card.
 """
 
 import json
+import sys
 import time
 
 import numpy as np
@@ -105,7 +108,9 @@ def large_n(dev, n):
             "finite": bool(torch.isfinite(res.state.pos).all())}
 
 
-def main():
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    save = argv[argv.index("--save") + 1] if "--save" in argv else None
     if not torch.cuda.is_available():
         raise RuntimeError("time_encoder needs a CUDA card")
     dev = torch.device("cuda")
@@ -114,6 +119,9 @@ def main():
     line = {"card": card}
     with torch.no_grad():
         call, live = encoder_inputs(dev)
+        if save:
+            torch.save({f"encoder_b{b}": [t.cpu() for t in call(b)]
+                        for b in (1, 16)}, save)
         for b in (1, 16):
             line[f"encoder_b{b}"] = {
                 "live_edges_frame0": live,

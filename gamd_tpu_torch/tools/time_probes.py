@@ -1,6 +1,6 @@
-"""Times of the sublane gather (row 16 of the port's kernel table) and of
-the Nose-Hoover chain probe's two forms (rows 18-19) on the card, each
-beside its bound:
+"""Times of the sublane gather (row 16 of the port's kernel table), of the
+Nose-Hoover chain probe's two forms (rows 18-19) and of the tensor-core
+probe's repeat body (row 11) on the card, each beside its bound:
 
 * sublane_gather (csrc/gather_forms.cu) on tools/probe_gather.py's inputs
   at iters 200 (the script's max(200, iters // 10) at its default 2,000):
@@ -14,7 +14,13 @@ beside its bound:
   tools/probe_nhc_kernel.py's chain: median of 20 calls, over reps; whether
   the warp form's five outputs equal the scalar form's bit for bit; and
   tools.probe_nhc_kernel.chain_bound (the latency of the chain's dependent
-  sequence) measured in the same process, each form's share of it.
+  sequence) measured in the same process, each form's share of it;
+* mxu_loop("repeat") (csrc/mxu_probe.cu) on tools/bench_mxu.py's inputs
+  at iters 200 and 2,000 (bench_mxu.time_stage: median of 5, the card
+  kept busy while the host issues the call): us an iteration at each and
+  between them, and, where the package has it, bench_mxu.
+  repeat_chain_bound (the latency of row 0's dependent sequence, which
+  bounds an iteration) measured in the same process.
 
 It uses only the public API, so it can time another tree's package: put
 that tree first on PYTHONPATH and run this file by its path.
@@ -26,7 +32,8 @@ the outputs of the kernels that share the two sources, so that two trees'
 results can be compared bit for bit: both probe forms at reps 3 and 400,
 nhc_half_step on chip_smoke.py phase 18's three cases (nhc_case), and the
 lane (both widths), sublane and transpose forms at iters 2 (the carry and
-the last result). Needs a CUDA card.
+the last result), and every mxu_loop stage of bench_mxu at iters 2 with a
+seeded salt (repeat also at iters 200). Needs a CUDA card.
 """
 
 import argparse
@@ -38,8 +45,8 @@ import torch
 from gamd_tpu_torch.core import units
 from gamd_tpu_torch.core.device import card_line, max_sm_clock_hz
 from gamd_tpu_torch.md import integrators as integ
-from gamd_tpu_torch.ops import gather_probe, nhc
-from gamd_tpu_torch.tools import probe_gather, probe_nhc_kernel
+from gamd_tpu_torch.ops import gather_probe, mxu_probe, nhc
+from gamd_tpu_torch.tools import bench_mxu, probe_gather, probe_nhc_kernel
 from gamd_tpu_torch.tools.bench_mxu import call_ms, graph_ms
 
 SUBLANE_ITERS = 200
@@ -50,6 +57,9 @@ NHC_CALLS = 20
 SMEM_BYTES_PER_CLOCK = 128
 #: chip_smoke.py phase 18's nhc_half_step cases: (N, chains or None).
 NHC_SHAPES = ((258, None), (10_000, None), (258, 3))
+#: The repeat body's iterations a call (bench_mxu's default, and ten times
+#: it for the time an iteration between the two).
+REPEAT_ITERS = (200, 2000)
 
 
 def nhc_case(dev, n, r, m=10, seed=18):
@@ -121,6 +131,22 @@ def time_nhc(dev):
     return out
 
 
+def time_repeat(dev):
+    """{"ms": {iters: ms}, "us_per_iter": {iters: us}, "us_per_iter_between",
+    "chain"} of mxu_loop("repeat") at REPEAT_ITERS on bench_mxu's inputs;
+    "chain" is repeat_chain_bound's result, or None in a tree without
+    it."""
+    _, inputs, k = bench_mxu.stage_inputs(bench_mxu.parse_args([]),
+                                          dev)["repeat"]
+    ms = {n: bench_mxu.time_stage("repeat", "repeat", inputs, k, n, dev)[1]
+          for n in REPEAT_ITERS}
+    lo, hi = REPEAT_ITERS
+    bound = getattr(bench_mxu, "repeat_chain_bound", None)
+    return {"ms": ms, "us_per_iter": {n: t * 1e3 / n for n, t in ms.items()},
+            "us_per_iter_between": (ms[hi] - ms[lo]) * 1e3 / (hi - lo),
+            "chain": bound(dev) if bound else None}
+
+
 def outputs(dev):
     """{name: CPU tensor} of the outputs --save writes."""
     out = {}
@@ -142,6 +168,13 @@ def outputs(dev):
         x = probe_gather.form_inputs(form, idx, tbl, dev)
         carry, g = probe_gather.call(x, form, 2, product=True)
         out[f"{form}_carry"], out[f"{form}_result"] = carry, g
+    salt = torch.randn((8, 128), device=dev,
+                       generator=torch.Generator(dev).manual_seed(31))
+    stages = bench_mxu.stage_inputs(bench_mxu.parse_args([]), dev)
+    for label, (body, inputs, k) in stages.items():
+        for iters in (2, 200) if body == "repeat" else (2,):
+            out[f"mxu_{label}_{iters}"] = mxu_probe.mxu_loop(
+                body, inputs, salt, iters, k)
     return {k: t.detach().cpu() for k, t in out.items()}
 
 
@@ -155,7 +188,7 @@ def main(argv=None):
     card = card_line()
     print(card, flush=True)
     line = {"card": card, "sublane": time_sublane(dev),
-            "nhc": time_nhc(dev)}
+            "nhc": time_nhc(dev), "repeat": time_repeat(dev)}
     if args.save:
         torch.save(outputs(dev), args.save)
     print(json.dumps(line), flush=True)

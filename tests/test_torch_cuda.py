@@ -1237,6 +1237,37 @@ def test_op_conv_kernels_launch_tensor_core_tiles(cuda):
                    for name in names["conv_msg"] | names["conv_layer"])
 
 
+@pytest.mark.parametrize("n,k", [(66, 20), (258, 96)])
+def test_edge_mlp_agg_tiles_match_plain_version(cuda, n, k):
+    """Row 9 on the live-edge tiles of csrc/conv_tc.cuh (PreSrc with
+    ThetaStages): with an atom that has no live slot (its agg exactly 0)
+    and one with all K live, within 1e-4 of its plain version (max |agg|),
+    one launch, a second call bit for bit the first, and the kernels by
+    name: the layout, the split of two weights, the tiles and the fix-up,
+    not the CUDA-core edge stage of the first form."""
+    x, ws = _op_inputs(cuda, n, k, seed=11 + n)
+    x["mask"][1] = False
+    x["mask"][2] = True
+    before = message.fused_edge_mlp_aggregate.launches
+    with torch.no_grad():
+        out = _op_call("edge_mlp_agg", x, ws)
+        again = _op_call("edge_mlp_agg", x, ws)
+        ref = _op_call("edge_mlp_agg", x, ws, "plain")
+    torch.cuda.synchronize()
+    assert message.fused_edge_mlp_aggregate.launches == before + 2
+    assert bool(torch.isfinite(out).all()) and bool((out[1] == 0).all())
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(out, again)
+    with torch.no_grad():
+        names = _kernel_names(lambda: _op_call("edge_mlp_agg", x, ws))
+    assert {"mask_count_kernel", "mask_slots_kernel",
+            "split_conv_weights_kernel",
+            "conv_tile_kernel[PreSrc,ThetaStages]",
+            "tile_fixup_kernel"} <= names
+    assert not any(name.startswith(("edge_msg_kernel", "chunk_sum_kernel"))
+                   for name in names)
+
+
 @pytest.mark.parametrize("n,k", [(258, 96), (600, 20), (2000, 8)])
 def test_conv_layer_reads_ids_out_of_range_as_jax(cuda, n, k):
     """fused_conv_layer with ids out of range (negative, N and past it, far
@@ -1430,6 +1461,61 @@ def test_mxu_loop_ragged_rows(cuda, label, rows):
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     assert err <= bench_mxu.KERNEL_RTOL[body] * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("iters", [2, 200])
+def test_repeat_kernel_is_its_plain_loop_bit_for_bit(cuda, iters):
+    """The repeat body (row 0 carried in registers, 192 CTAs at bench_mxu's
+    768 rows and k 48; 96 rows at k 48) at iters 2 and 200 with a seeded
+    salt: bit for bit the plain loop, one launch each."""
+    _, (dst,), k = _mxu_stages(cuda)["repeat"]
+    salt = torch.randn((8, 128), device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(iters))
+    for inputs in ((dst,), (dst[:2].contiguous(),)):
+        before = mxu_probe.mxu_loop.launches["repeat"]
+        out = mxu_probe.mxu_loop("repeat", inputs, salt, iters, k)
+        torch.cuda.synchronize()
+        assert mxu_probe.mxu_loop.launches["repeat"] == before + 1
+        ref = mxu_probe.repeat_reference(*inputs, k, salt, iters)
+        assert torch.equal(out, ref), float((out - ref).abs().max())
+
+
+def test_repeat_chain_matches_plain_version(cuda):
+    """repeat_chain (one thread, row 0's recurrence) bit for bit its plain
+    version at 1, 200 and 20,000 steps, and the kernel's row 0."""
+    d0 = torch.tensor(0.7, device=cuda)
+    salt = torch.tensor(0.3, device=cuda)
+    for reps in (1, 200, 20_000):
+        got = mxu_probe.repeat_chain(d0, salt, reps)
+        want = mxu_probe.repeat_chain_reference(d0.cpu(), salt.cpu(), reps)
+        assert float(got) == float(want), reps
+    _, (dst,), k = _mxu_stages(cuda)["repeat"]
+    salt8 = torch.zeros((8, 128), device=cuda)
+    out = mxu_probe.mxu_loop("repeat", (dst,), salt8, 200, k)
+    assert float(out[0, 3]) == float(mxu_probe.repeat_chain(
+        dst[0, 3], salt8[0, 0], 200))
+
+
+def test_mxu_entry_refuses_the_first_repeat_split(cuda):
+    """The C entry refuses the first form's repeat plan (24 blocks of 256
+    threads on 32-row tiles) and a plan whose rows a thread do not divide
+    k, launching nothing."""
+    from gamd_tpu_torch.ops.build import load_library
+    lib = load_library()
+    _, (dst,), k = _mxu_stages(cuda)["repeat"]
+    salt = torch.zeros((8, 128), device=cuda)
+    out = torch.full((768, 128), 7.0, device=cuda)
+    good = mxu_probe.launch_plan("repeat", 768, 0, mxu_probe.sm_count(cuda),
+                                 k)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for bad, kk in ((mxu_probe.Plan(24, 1, 32, 128, 256, 512), k),
+                    (good, 12), (good._replace(smem=512), k)):
+        err = lib.gamd_mxu_loop(4, dst.data_ptr(), None, None, None,
+                                salt.data_ptr(), 768, 0, kk, 2,
+                                out.data_ptr(), *bad, stream)
+        assert err != 0, bad
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
 
 
 def test_mxu_entry_refuses_an_inconsistent_plan(cuda):

@@ -1,13 +1,16 @@
-"""Port parity of the op library's conv message and conv layer in their
-kernels' arithmetic on the CPU (rows 8 and 7 of the port's kernel table:
-csrc/conv_msg.cu and csrc/conv_layer.cu over csrc/conv_tc.cuh's live-edge
-tiles): the plain versions with their four edge products as bf16 x 3
+"""Port parity of the op library's conv message, conv layer and edge-MLP
+aggregate in their kernels' arithmetic on the CPU (rows 8, 7 and 9 of the
+port's kernel table: csrc/conv_msg.cu, csrc/conv_layer.cu and
+csrc/edge_mlp_agg.cu over csrc/conv_tc.cuh's live-edge tiles): the plain
+versions with their edge products (four; theta_edge's two) as bf16 x 3
 (ops/mega.py::split_bf16_matmul put in the place of ops/message.py::
 _edge_mm), held against JAX's fp32 references and the port's fp32 plain
-versions, row 7 with ids out of range in live and masked slots; and the
-node update's block choice (ops/message.py::update_atoms). The CUDA
-kernels themselves are held against their plain versions in
-tests/test_torch_cuda.py and chip_smoke.py, on the card.
+versions, row 7 with ids out of range in live and masked slots; the
+profiler's name of row 9's tile kernel; a call's scratch for either
+stage policy (ops/edge_tiles.py::call_scratch); and the node update's
+block choice (ops/message.py::update_atoms). The CUDA kernels themselves are
+held against their plain versions in tests/test_torch_cuda.py and
+chip_smoke.py, on the card.
 """
 
 import os
@@ -21,12 +24,13 @@ import torch
 
 from gamd_tpu.ops import pallas_mp as jmp
 
-from gamd_tpu_torch.ops import mega, message
+from gamd_tpu_torch.ops import edge_tiles, mega, message
+from gamd_tpu_torch.tools import profile_step
 
 W = 128
 #: max |d| / scale of the kernels' arithmetic against the fp32 function,
-#: scale max |agg| (row 8) or std(out) (row 7): the card's tolerance of
-#: rows 7 and 8 (chip_smoke.py CONV_RTOL).
+#: scale max |agg| (rows 8 and 9) or std(out) (row 7): the card's
+#: tolerance of rows 7-9 (chip_smoke.py CONV_RTOL).
 CONV_RTOL = 1e-4
 #: Ids out of range as JAX's indexing reads them: from the end, then
 #: clamped into [0, N).
@@ -132,6 +136,82 @@ def test_conv_layer_in_kernel_arithmetic_matches_jax(monkeypatch, n, k,
                                      tuple(jnp.asarray(w) for w in ws))
     assert bool(torch.isfinite(split).all())
     _hold(split, fp32, want, one, float(fp32.std()))
+
+
+@pytest.mark.parametrize("n,k,seed", [(66, 20, 4), (40, 33, 5)])
+def test_edge_mlp_aggregate_in_kernel_arithmetic_matches_jax(monkeypatch, n,
+                                                             k, seed):
+    """Row 9: fused_edge_mlp_aggregate's plain version with theta_edge's
+    two products as bf16 x 3, on pre-activations and gathered source rows
+    (h_src = hn[idx]) with an atom that has no live slot and one with all K
+    live, against JAX's _fused_reference (pallas_mp.py:158) and the port's
+    fp32 plain version, within CONV_RTOL of max |agg|, and 100 times closer
+    than single-pass bf16."""
+    x, ws = _inputs(n, k, seed)
+    args = (x["e"] * 3.0, x["hn"][x["idx"]], x["mask"], *ws[4:8])
+    targs = [torch.as_tensor(a) for a in args]
+    before = message.fused_edge_mlp_aggregate.launches
+    fp32, one, split = _three_ways(
+        monkeypatch, lambda: message.fused_edge_mlp_aggregate(*targs))
+    assert message.fused_edge_mlp_aggregate.launches == before
+    want = jmp._fused_reference(*[jnp.asarray(a) for a in args])
+    assert bool((fp32[1] == 0).all()) and bool(fp32[2].abs().sum() > 0)
+    _hold(split, fp32, want, one, float(fp32.abs().max()))
+
+
+def test_edge_mlp_aggregate_launches_nothing_on_the_cpu():
+    """CPU tensors run the plain version: the launch counters of the four
+    op-library kernels stay as they were."""
+    x, ws = _inputs(24, 12, 6)
+    entries = (message.pallas_gather_multiply_aggregate,
+               message.fused_edge_mlp_aggregate, message.fused_conv_message,
+               message.fused_conv_layer)
+    before = [entry.launches for entry in entries]
+    args = [torch.as_tensor(a) for a in (x["e"], x["hn"][x["idx"]],
+                                          x["mask"], *ws[4:8])]
+    out = message.fused_edge_mlp_aggregate(*args)
+    assert out.shape == (24, W) and bool(torch.isfinite(out).all())
+    assert torch.equal(out, message._fused_reference(*args))
+    assert [entry.launches for entry in entries] == before
+
+
+def test_profile_step_names_the_edge_mlp_tile_kernel():
+    """Row 9's tile kernel (PreSrc with the stage policy ThetaStages) has a
+    short name of its own, distinct from row 8's (PreSrc, the conv
+    message's four products), and counts among the conv kernels but not
+    the banded path's."""
+    theta = ("void (anonymous namespace)::conv_tile_kernel<2, (anonymous "
+             "namespace)::PreSrc, (anonymous namespace)::ThetaStages>("
+             "CUtensorMap_st, (anonymous namespace)::TileArgs, (anonymous "
+             "namespace)::PreSrc)")
+    conv = theta.replace("ThetaStages", "ConvStages")
+    assert profile_step.short_name(theta) == \
+        "conv_tile_kernel[PreSrc,ThetaStages]"
+    assert profile_step.short_name(conv) == "conv_tile_kernel[PreSrc]"
+    assert "conv_tile_kernel[PreSrc,ThetaStages]" in profile_step.CONV_KERNELS
+    assert "conv_tile_kernel[PreSrc,ThetaStages]" not in \
+        profile_step.BANDED_KERNELS
+
+
+@pytest.mark.parametrize("n_weights", [edge_tiles.N_WEIGHTS,
+                                       message.THETA_WEIGHTS])
+def test_call_scratch_holds_the_policy_weights(n_weights):
+    """A call's scratch holds the split weights of its stage policy (the
+    conv message's four, theta_edge's two: bf16 hi and lo each), each
+    tile's two partials and the layout, every view 256-byte aligned in one
+    buffer."""
+    m, k = 258, 96
+    plan = edge_tiles.launch_plan(m, k)
+    buf, lay, block_sum, wsplit, part = edge_tiles.call_scratch(
+        m, k, plan, "cpu", n_weights=n_weights)
+    assert wsplit.numel() == n_weights * 2 * 2 * W * W
+    assert part.shape == (plan.tiles, 2, W)
+    assert lay.slot.shape == (1, mega.layout_capacity(m, k))
+    assert block_sum.shape == (-(-m // edge_tiles.COUNT_ATOMS),)
+    base = buf.data_ptr()
+    for view in (wsplit, part, *lay, block_sum):
+        assert (view.data_ptr() - base) % 256 == 0
+        assert base <= view.data_ptr() < base + buf.numel()
 
 
 def test_edge_product_hook_is_plain_fp32():

@@ -5,10 +5,10 @@ as the scripts define them (Pallas in interpret mode), against the plain
 versions of ops.mxu_probe.mxu_loop and ops.gather_probe's onehot_gather,
 lane_gather, sublane_gather and transpose_probe; the two port tools with
 --cpu; the launch counters; the launch plans of the mxu, one-hot and
-sublane kernels (coverage, shared bytes, one wave, refusals). The CUDA
-kernels themselves are
-held against the plain versions in tests/test_torch_cuda.py and
-chip_smoke.py, on the card.
+sublane kernels (coverage, shared bytes, one wave, refusals); the repeat
+kernel's recurrence transcribed in PyTorch, bit for bit the plain loop.
+The CUDA kernels themselves are held against the plain versions in
+tests/test_torch_cuda.py and chip_smoke.py, on the card.
 
 The scripts are loaded by file path. bench_mxu.py's stage bodies are
 closures inside its main(): its module-level `timed` is replaced by a
@@ -351,15 +351,16 @@ def test_probe_entries_refuse_unknown_bodies_and_forms():
 
 # -- the kernels' launch plans (ops/mxu_probe.py, ops/gather_probe.py) -------
 
-#: (body, rows, n_pad) of every shape the tools and the card tests run:
-#: bench_mxu's defaults (768 rows, 8 x 768, n_pad 384) and the ragged
-#: 96-row cases (gather_mm also 6,112 rows, its last CTA's last tile
-#: empty).
-MXU_SHAPES = [("peak", 512, 0), ("gather_mm", 768, 384),
-              ("gather_mm", 6144, 384), ("gather_mm", 96, 384),
-              ("gather_mm", 6112, 384), ("gather_full", 768, 384),
-              ("gather_full", 96, 384), ("edge_mlp", 768, 0),
-              ("edge_mlp", 96, 0), ("repeat", 768, 0), ("repeat", 96, 0)]
+#: (body, rows, n_pad, k) of every shape the tools and the card tests run:
+#: bench_mxu's defaults (768 rows, 8 x 768, n_pad 384, k 48) and the
+#: ragged 96-row cases (gather_mm also 6,112 rows, its last CTA's last
+#: tile empty; repeat 2 dst rows at k 48).
+MXU_SHAPES = [("peak", 512, 0, 1), ("gather_mm", 768, 384, 1),
+              ("gather_mm", 6144, 384, 1), ("gather_mm", 96, 384, 1),
+              ("gather_mm", 6112, 384, 1), ("gather_full", 768, 384, 1),
+              ("gather_full", 96, 384, 1), ("edge_mlp", 768, 0, 1),
+              ("edge_mlp", 96, 0, 1), ("repeat", 768, 0, 48),
+              ("repeat", 96, 0, 48)]
 #: The SM counts of an H100 SXM and an H100 PCIe.
 SM_COUNTS = (132, 114)
 ONEHOT_SHAPES = [(form, rows, band_tile)
@@ -368,18 +369,18 @@ ONEHOT_SHAPES = [(form, rows, band_tile)
 
 
 def _mxu_plans():
-    for body, rows, n_pad in MXU_SHAPES:
+    for body, rows, n_pad, k in MXU_SHAPES:
         for sms in SM_COUNTS:
-            plan = mxu_probe.launch_plan(body, rows, n_pad, sms)
-            yield pytest.param(body, rows, n_pad, sms, plan,
+            plan = mxu_probe.launch_plan(body, rows, n_pad, sms, k)
+            yield pytest.param(body, rows, n_pad, k, sms, plan,
                                id=f"{body}-{rows}-{sms}sm")
 
 
-@pytest.mark.parametrize("body,rows,n_pad,sms,plan", list(_mxu_plans()))
-def test_mxu_plan_covers_the_output_once(body, rows, n_pad, sms, plan):
+@pytest.mark.parametrize("body,rows,n_pad,k,sms,plan", list(_mxu_plans()))
+def test_mxu_plan_covers_the_output_once(body, rows, n_pad, k, sms, plan):
     """Every element of the [rows, width] carry is written by exactly one
     CTA, and the plan is one the entry takes."""
-    mxu_probe.check_plan(body, plan, rows, n_pad)
+    mxu_probe.check_plan(body, plan, rows, n_pad, k)
     width = mxu_probe.PEAK_N if body == "peak" else mxu_probe.WIDTH
     hits = np.zeros((rows, width), np.int32)
     for row0, n, col0, cols in mxu_probe.plan_tiles(body, plan, rows):
@@ -388,13 +389,15 @@ def test_mxu_plan_covers_the_output_once(body, rows, n_pad, sms, plan):
     assert plan.ctas % plan.cluster == 0
 
 
-@pytest.mark.parametrize("body,rows,n_pad,sms,plan", list(_mxu_plans()))
-def test_mxu_plan_fits_a_block(body, rows, n_pad, sms, plan):
-    """Shared memory within Hopper's 232,448 bytes a block, threads within
-    the body's bound, and gather_mm's persistent CTAs within the SMs
-    unless one more row tile a CTA would not fit (6,144 rows on 114 SMs:
-    128 CTAs of six tiles)."""
-    assert 0 < plan.smem <= 232448
+@pytest.mark.parametrize("body,rows,n_pad,k,sms,plan", list(_mxu_plans()))
+def test_mxu_plan_fits_a_block(body, rows, n_pad, k, sms, plan):
+    """Shared memory within Hopper's 232,448 bytes a block (none for
+    repeat, whose loop runs in registers), threads within the body's
+    bound, and gather_mm's persistent CTAs within the SMs unless one more
+    row tile a CTA would not fit (6,144 rows on 114 SMs: 128 CTAs of six
+    tiles)."""
+    assert 0 <= plan.smem <= 232448
+    assert (plan.smem == 0) == (body == "repeat")
     assert 0 < plan.threads <= mxu_probe.MAX_THREADS[body]
     assert plan.threads % 32 == 0
     if body == "gather_mm" and plan.ctas > sms:
@@ -406,14 +409,16 @@ def test_mxu_default_plans_fill_the_card():
     """At the script's shapes the plans run 48-128 CTAs at once (the first
     form ran 16-24 blocks; edge_mlp's cluster of 2 measured faster than
     4), peak in 8 clusters of 8 on 64-row tiles, gather_mm at 8 x 768 rows
-    on persistent CTAs of six row tiles, no more CTAs than SMs."""
-    got = {(body, rows): mxu_probe.launch_plan(body, rows, n_pad, 132)
-           for body, rows, n_pad in MXU_SHAPES}
+    on persistent CTAs of six row tiles, no more CTAs than SMs; repeat on
+    192 CTAs of two warps, 8 rows a thread, without shared memory."""
+    got = {(body, rows): mxu_probe.launch_plan(body, rows, n_pad, 132, k)
+           for body, rows, n_pad, k in MXU_SHAPES}
     assert got["peak", 512][:4] == (64, 8, 64, 64)
     assert got["gather_mm", 768].ctas == 96
     assert got["gather_mm", 6144][:3] == (128, 1, 192)
     assert got["gather_full", 768][:2] == (96, 4)
     assert got["edge_mlp", 768][:2] == (48, 2)
+    assert got["repeat", 768] == (192, 1, 16, 32, 64, 0)
 
 
 def _bad_mxu_plans():
@@ -439,6 +444,8 @@ def _bad_mxu_plans():
     yield "edge_mlp", 768, 0, em._replace(ctas=96 * 2), "ctas"
     yield "repeat", 768, 0, mxu_probe.launch_plan(
         "repeat", 768, 0, 132)._replace(cols=64), "repeat"
+    yield "repeat", 768, 0, mxu_probe.Plan(24, 1, 32, 128, 256, 512), \
+        "the first form's split"
 
 
 @pytest.mark.parametrize("body,rows,n_pad,plan,why", list(_bad_mxu_plans()))
@@ -448,6 +455,106 @@ def test_mxu_inconsistent_plan_is_refused(body, rows, n_pad, plan, why):
     the card's limits."""
     with pytest.raises(ValueError, match="inconsistent"):
         mxu_probe.check_plan(body, plan, rows, n_pad)
+
+
+# -- the repeat body's redesign: its split and its recurrence -----------------
+
+@pytest.mark.parametrize("rows,k", [(768, 48), (96, 48), (6144, 48),
+                                    (768, 12), (64, 8), (96, 3)])
+@pytest.mark.parametrize("sms", SM_COUNTS)
+def test_repeat_plan_is_a_wave_of_rows_sharing_their_dst_row(rows, k, sms):
+    """repeat's plan fills at least one wave of the SMs wherever 2-row CTAs
+    do, each thread's PER rows lie in one dst row (PER divides k), PER is
+    the largest of 8, 4, 2, 1 that keeps the wave, and the plan covers the
+    carry once."""
+    plan = mxu_probe.launch_plan("repeat", rows, 0, sms, k)
+    mxu_probe.check_plan("repeat", plan, rows, 0, k)
+    per = plan.tile_rows // (plan.threads // 32)
+    assert per in mxu_probe.REPEAT_PER and k % per == 0
+    assert plan.ctas == rows // plan.tile_rows * 4
+    if rows * 128 // 64 >= sms:
+        assert plan.ctas >= sms
+    for bigger in mxu_probe.REPEAT_PER:
+        if bigger > per and k % bigger == 0 and rows % (2 * bigger) == 0:
+            assert rows // (2 * bigger) * 4 < sms, bigger
+    hits = np.zeros((rows, 128), np.int32)
+    for row0, n, col0, cols in mxu_probe.plan_tiles("repeat", plan, rows):
+        hits[row0:row0 + n, col0:col0 + cols] += 1
+        assert all((r + per - 1) // k == r // k
+                   for r in range(row0, row0 + n, per))
+    assert (hits == 1).all()
+
+
+def test_repeat_plan_refuses_rows_that_straddle_dst_rows():
+    """A plan whose thread rows (PER) do not divide k, the first form's
+    split (24 blocks of 256 threads on 32-row tiles), another thread count
+    or shared memory: refused for the shape the kernel would read
+    wrongly."""
+    good = mxu_probe.launch_plan("repeat", 768, 0, 132, 48)
+    mxu_probe.check_plan("repeat", good, 768, 0, 48)
+    bad = [(good, 12), (good, 1),
+           (mxu_probe.Plan(24, 1, 32, 128, 256, 512), 48),
+           (good._replace(threads=128), 48), (good._replace(smem=512), 48),
+           (good._replace(tile_rows=32, ctas=96), 48),
+           (good._replace(ctas=good.ctas + 4), 48)]
+    for plan, k in bad:
+        with pytest.raises(ValueError, match="inconsistent"):
+            mxu_probe.check_plan("repeat", plan, 768, 0, k)
+
+
+def _repeat_kernel_transcription(dst, k, salt, iters, plan):
+    """The repeat kernel's arithmetic in PyTorch, CTA by CTA of the plan
+    (csrc/mxu_probe.cu RepeatBody<PER>): each thread carries row 0 of its
+    column and PER rows of one dst row; per iteration keep = carry0 1e-30,
+    x = (d + keep) + salt 1e-30 once a thread, carry0 = carry0 0.5 + ((d0
+    + keep) + salt 1e-30), each row acc 0.5 + x; every operation rounded
+    to float32 on its own."""
+    rows = dst.shape[0] * k
+    per = plan.tile_rows // (plan.threads // 32)
+    out = torch.full((rows, 128), float("nan"))
+    salt_term = salt[0, 0] * mxu_probe.KEEP
+    for row0, _, col0, cols in mxu_probe.plan_tiles("repeat", plan, rows):
+        c = slice(col0, col0 + cols)
+        for w in range(plan.threads // 32):
+            r = row0 + w * per
+            d0, d = dst[0, c], dst[r // k, c]
+            carry0 = torch.zeros(cols)
+            acc = torch.zeros((per, cols))
+            for _ in range(iters):
+                keep = carry0 * mxu_probe.KEEP
+                x = (d + keep) + salt_term
+                carry0 = carry0 * 0.5 + ((d0 + keep) + salt_term)
+                acc = acc * 0.5 + x
+            out[r:r + per, c] = acc
+    return out
+
+
+@pytest.mark.parametrize("tile_n,k,iters", [(4, 8, 7), (2, 48, 3),
+                                            (3, 12, 200)])
+def test_repeat_kernel_recurrence_is_the_plain_loop_bit_for_bit(tile_n, k,
+                                                                 iters):
+    """The kernel's recurrence (row 0 carried in registers, one broadcast
+    value a thread), transcribed over the plan's CTAs, equals
+    repeat_reference bit for bit on seeded values, and the row-0 chain
+    alone (repeat_chain, its plain version on the CPU) equals its row 0."""
+    rng = np.random.default_rng(tile_n * k + iters)
+    dst = torch.as_tensor(rng.standard_normal((tile_n, 128)).astype(
+        np.float32))
+    salt = torch.as_tensor(rng.standard_normal((8, 128)).astype(np.float32))
+    plan = mxu_probe.launch_plan("repeat", tile_n * k, 0, 132, k)
+    want = mxu_probe.repeat_reference(dst, k, salt, iters)
+    got = _repeat_kernel_transcription(dst, k, salt, iters, plan)
+    assert torch.equal(got, want)
+    assert torch.equal(mxu_probe.repeat_chain_reference(
+        dst[0], salt[0, 0], iters), want[0])
+    before = dict(mxu_probe.mxu_loop.launches)
+    assert float(mxu_probe.repeat_chain(dst[0, 5], salt[0, 0], iters)) == \
+        float(want[0, 5])
+    assert torch.equal(mxu_probe.mxu_loop("repeat", (dst,), salt, iters, k),
+                       want)
+    assert mxu_probe.mxu_loop.launches == before
+    with pytest.raises(ValueError, match="reps"):
+        mxu_probe.repeat_chain(dst[0, 0], salt[0, 0], 0)
 
 
 @pytest.mark.parametrize("form,rows,band_tile", ONEHOT_SHAPES)
