@@ -37,7 +37,12 @@ transpose forms are the hand-written CUDA kernels lane_gather (two widths),
 sublane_gather and transpose_probe. Then its replica path: R=8 LJ-258
 systems in one call of mega_forward and of mega_md_steps,
 Simulation.run_replicas under megastep Langevin and per-step NHC, and
-tools/bench_replicas.py. Phases, one flushed line or more each:
+tools/bench_replicas.py. Then its water deployment on the committed
+checkpoint results/ckpts/tip3p_final.msgpack (TIP3P-774, 4 x 128, cutoff
+4.2 A, K=96): mega_forward and mega_md_steps with the O-H bond channel,
+and `run_md --system tip3p --megakernel`, rigid water under SETTLE/RATTLE
+with every force call one mega_forward launch. Phases, one flushed line or
+more each:
 
   0. card (nvidia-smi name and power limit), torch and nvcc versions;
   1. build the CUDA sources with nvcc (or reuse the hashed library);
@@ -233,7 +238,33 @@ tools/bench_replicas.py. Phases, one flushed line or more each:
      exclusive time grouped by stage, tools/profile_step.py's
      FORWARD_STAGES) and its launches a forward, at R=1 and R=8, for
      mega_forward calls and a mega_md_steps window;
- 41. the kernels line (JSON), then the result line (JSON) last.
+ 41. water: the start of run_md --system tip3p (water_box, 1,500 FIRE
+     steps on the flexible TIP3P forces, project_initial) with
+     tip3p_final's weights, the K=96 list and its bond channel;
+     mega_forward with the bond channel against its plain version (5e-3
+     std(F)), a bond of zeros the bits of no bond, f32_edges the same
+     bits, R=2 bit for bit its single calls; its time, device time,
+     bound (the bond one more rank-1 term and 4 bytes a slot) and share;
+ 42. mega_md_steps with the bond channel: one 20-step window at c2col = 0
+     against md_steps_reference (2e-4 in x, KE rtol 1e-4; in v 2e-4 or,
+     if larger, twice the distance of the plain window with the kernel's
+     bf16 x 3 edge products from the fp32 one: hydrogen's light mass turns
+     the forward's 3e-5 std(F) into some 5e-4 A/t0 over a window); its time
+     with noise, the plain window's and the bound;
+ 43. run_md --system tip3p --ckpt results/ckpts/tip3p_final.msgpack
+     --megakernel --friction 25 --steps 2000 in process (rigid g-BAOAB at
+     300 K, 2 fs, the water deployment's 25/ps: at the preset's 1/ps the
+     model's force noise heats the box to about 430 K within 4 ps): steps/s
+     on the host clock, every force finite, no overflow,
+     the mean T of the second half within 300 +- 20 K, the residual under
+     1e-5 A, the O-O RDF's first peak (second half) within 2.6-3.0 A, one
+     mega_forward launch a force call;
+ 44. the eager water GAMDNet with use_pallas (conv_msg_gather a layer)
+     against the plain model on the water start (1e-4 std(F));
+ 45. run_md --system tip3p --megastep --no-rigid, 100 steps from phase
+     41's start: steps/s, finite state, one mega_md_steps a window;
+ 46. the kernels line (JSON; rows 1-2 with their water figures), then the
+     result line (JSON) last.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 card; without one it exits non-zero and prints no result. Any failed check
@@ -264,6 +295,7 @@ from gamd_tpu_torch.neighbors.dense import (build_nbrs, dense_neighbor_list,
 from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
 from gamd_tpu_torch.ops import (banded, build, edge_tiles, gather_probe,
                                 message, mxu_probe, nhc)
+from gamd_tpu_torch.ops import mega as mega_module
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
@@ -403,13 +435,13 @@ def forward_flops(edges, n, n_rbf, model_cfg):
     return 2.0 * (edges * per_edge + n * per_node)
 
 
-def forward_ops(edges, n, n_rbf, model_cfg):
+def forward_ops(edges, n, n_rbf, model_cfg, bond=False):
     """(tensor-core FLOP, fp32 FLOP) of one forward as mega_forward computes
     it over `edges` live edges and n atoms: the edge-level products (the
     RBF over n_rbf rows, the encoder's two, four a layer) as three bf16
     passes each (bf16 x 3, csrc/edge_tc.cuh), and on the CUDA cores the
-    rank-1 geometric terms, the gated product and the node-level products
-    (2 operations per multiply-add)."""
+    rank-1 geometric terms (one more with the bond channel), the gated
+    product and the node-level products (2 operations per multiply-add)."""
     d, h, e = (model_cfg.encoding_size, model_cfg.hidden_dim,
                model_cfg.edge_embedding_dim)
     layers = model_cfg.conv_layers
@@ -417,7 +449,7 @@ def forward_ops(edges, n, n_rbf, model_cfg):
         + layers * (e * h + h * h + h * h + h * d)
     per_node = layers * (2 * d * h + 2 * d * h + h * d) + d * h + h * 3
     return (2.0 * 3 * edges * products,
-            2.0 * (edges * (4 * h + layers * d) + n * per_node))
+            2.0 * (edges * ((4 + bond) * h + layers * d) + n * per_node))
 
 
 def roofline(flops, nbytes, rate=FP32_FLOPS):
@@ -507,13 +539,14 @@ def conv_bytes(n, k, width=128, backward=False):
     return io + nodes
 
 
-def forward_bytes(n, k, mp, model_cfg, state_io=False):
+def forward_bytes(n, k, mp, model_cfg, state_io=False, bond=False):
     """Bytes one forward, or with state_io one MD window, must move: each
     input read once and each output written once (a window also reads
     velocities, forces, masses, noise amplitudes and the seed, and writes
-    positions, velocities, forces and the KE)."""
+    positions, velocities, forces and the KE); the bond channel adds 4
+    bytes a slot."""
     weight_bytes = sum(t.numel() * t.element_size() for t in mp)
-    io_bytes = n * 3 * 4 + n * k * (4 + 1) \
+    io_bytes = n * 3 * 4 + n * k * (4 + 1 + 4 * bond) \
         + n * model_cfg.encoding_size * 4 + n * 3 * 4
     if state_io:
         io_bytes += 2 * n * 3 * 4 + 2 * n * 4 + 4 + 3 * n * 3 * 4
@@ -527,14 +560,14 @@ def bound(flops, n, k, mp, model_cfg, state_io=False):
     return roofline(flops, forward_bytes(n, k, mp, model_cfg, state_io))
 
 
-def tc_bound(ops, n, k, mp, model_cfg, state_io=False):
+def tc_bound(ops, n, k, mp, model_cfg, state_io=False, bond=False):
     """(least ms, "operations" or "bytes") of one forward, or with
     state_io of one MD window, as the kernel computes it: `ops` =
     (tensor-core FLOP, fp32 FLOP) from forward_ops, the first against the
     bf16 tensor peak and the second against the fp32 peak (their times
     add), forward_bytes against HBM; the larger."""
     t_ops = (ops[0] / BF16_FLOPS + ops[1] / FP32_FLOPS) * 1e3
-    t_bytes = forward_bytes(n, k, mp, model_cfg, state_io) \
+    t_bytes = forward_bytes(n, k, mp, model_cfg, state_io, bond) \
         / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -3099,6 +3132,262 @@ def forward_stage_phases(dev, card):
     return stages
 
 
+# -- water: tip3p_final on TIP3P-774 (phases 41-45) ---------------------------
+
+WATER_CKPT = os.path.join("results", "ckpts", "tip3p_final.msgpack")
+WATER_STEPS = 2000          # phase 43's rigid rollout
+WATER_FRICTION = 25.0       # 1/ps: the water deployment's Langevin friction
+                            # (scripts/session_r4h_queue.sh:30-33); at the
+                            # preset's 1/ps the model's force noise heats it
+WATER_MEGASTEP_STEPS = 100  # phase 45's unconstrained megastep run (it
+                            # heats by thousands of K: no intramolecular
+                            # force holds the molecules without SETTLE)
+WATER_T_BAND = 20.0         # |mean T of the second half - 300 K|
+WATER_RESIDUAL = 1e-5       # RigidWater.residual at the end (A)
+WATER_OO_PEAK = (2.6, 3.0)  # the O-O RDF's first peak (A)
+WATER_EAGER_RTOL = 1e-4     # use_pallas vs plain eager forces, / std(F)
+
+
+def water_phases(dev, card):
+    """Phases 41-45 (module docstring). Returns ({"mega_forward": {...},
+    "mega_md_steps": {...}} the water shape's entries, {path: {kernel:
+    launches}} of the water paths)."""
+    from gamd_tpu_torch.md.constraints import RigidWater
+    from gamd_tpu_torch.neighbors.topology import neighbor_bond_channel
+
+    state, model_cfg, system = load_self_describing(WATER_CKPT)
+    n, k = system.n_atoms, system.nbr_capacity
+    ff = GNNForceField(state, system, model_cfg, device=dev)
+    cst = RigidWater(n // 3, system.box)
+    t0 = time.perf_counter()
+    start = cst.project_initial(run_md.water_start(system, dev))
+    pos = space.wrap(start, system.box).contiguous()
+    torch.cuda.synchronize()
+    idx, mask, ovf = build_nbrs(pos, system)
+    require(not bool(ovf), "neighbour overflow at the water start")
+    bond = neighbor_bond_channel(idx)
+    mp = ff._kernel_params("megakernel")
+    args = (pos, idx, mask, ff._node_h0(), mp, system.box, system.cutoff,
+            *ff._length_scale())
+    live_edges = int(refresh_mask(pos, system.box, system.cutoff, idx,
+                                  mask).sum())
+    say(f"phase 41: water start (water_box, {run_md.WATER_FIRE_STEPS} FIRE "
+        f"steps on the flexible TIP3P forces, project_initial) in "
+        f"{time.perf_counter() - t0:.2f} s: residual "
+        f"{float(cst.residual(pos)):.3e} A, {live_edges} live edges of "
+        f"{n * k} slots (TIP3P-774, {system.cutoff} A, K={k}, "
+        f"{int(bond.sum())} bond slots)")
+
+    # -- phase 41: mega_forward with the bond channel ---------------------
+    mega_forward.launches = 0
+    f_kernel = mega_forward(*args, bond=bond)
+    torch.cuda.synchronize()
+    require(mega_forward.launches == 1, "mega_forward (bond) did not launch")
+    f_plain = reference_forward(*args, bond=bond)
+    scale = float(f_plain.abs().std())
+    max_err = float((f_kernel - f_plain).abs().max())
+    require(bool(torch.isfinite(f_kernel).all()),
+            "non-finite water forces")
+    require(max_err < TOLERANCE * scale,
+            f"mega_forward with the bond disagrees: {max_err} vs {scale}")
+    same_zero = torch.equal(mega_forward(*args, bond=torch.zeros_like(bond)),
+                            mega_forward(*args))
+    require(same_zero, "a bond of zeros does not give the bits of none")
+    same_f32 = torch.equal(mega_forward(*args, bond=bond, f32_edges=True),
+                           f_kernel)
+    require(same_f32, "f32_edges changed the forward's bits")
+    frames = torch.stack([pos, space.wrap(pos + 3.1, system.box)])
+    idx2, mask2, ovf2 = build_nbrs(frames, system)
+    require(not bool(ovf2), "neighbour overflow at the R=2 water frames")
+    bond2 = neighbor_bond_channel(idx2)
+    h02 = args[3].expand(2, -1, -1).contiguous()
+    out2 = mega_forward(frames, idx2, mask2, h02, *args[4:], bond=bond2)
+    same_r2 = all(torch.equal(out2[r], mega_forward(
+        frames[r], idx2[r], mask2[r], args[3], *args[4:], bond=bond2[r]))
+        for r in range(2))
+    require(same_r2, "R=2 with the bond differs from its single calls")
+    kernel_ms = time_ms(lambda: mega_forward(*args, bond=bond))
+    plain_ms = time_ms(lambda: reference_forward(*args, bond=bond), reps=5)
+    dev_us, _ = device_us(lambda: mega_forward(*args, bond=bond))
+    ops = forward_ops(live_edges, n, model_cfg.n_rbf, model_cfg, bond=True)
+    bound_ms, bound_by = tc_bound(ops, n, k, mp, model_cfg, bond=True)
+    say(f"phase 41: mega_forward with the bond channel on TIP3P-774 "
+        f"(tip3p_final, 4 x 128, K={k}, {live_edges} live edges): max |dF| "
+        f"{max_err:.3e} vs std(F_plain) {scale:.3e}, max/std "
+        f"{max_err / scale:.3e} (tolerance {TOLERANCE}, f32_edges and "
+        f"edge_hilo the same bits: {same_f32}); bond zeros = no bond bit "
+        f"for bit: {same_zero}; R=2 = its single calls bit for bit: "
+        f"{same_r2}; {kernel_ms:.4f} ms/call (CUDA events, median of 20), "
+        f"{dev_us:.2f} us of device time a call (torch.profiler), plain "
+        f"version {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{ops[0] / 1e9:.4f} GFLOP bf16 x 3 and {ops[1] / 1e9:.4f} GFLOP "
+        f"fp32), kernel at {bound_ms / kernel_ms:.2%} of it [{card}]")
+    forward_entry = {"max_abs_err": max_err, "ms": kernel_ms,
+                     "device_us": dev_us, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "live_edges": live_edges}
+
+    # -- phase 42: mega_md_steps with the bond channel --------------------
+    md = MDConfig(integrator="langevin", temperature=system.temperature,
+                  friction_per_ps=system.friction_per_ps)
+    sim = Simulation(lambda p, i, m: p, system, md, device=dev)
+    c1, hdt, c2col = sim._baoab_constants()
+    n_win = md.rebuild_every
+    vel = maxwell_boltzmann_velocities(torch.Generator(dev).manual_seed(42),
+                                       sim.masses, system.temperature)
+    wkw = dict(n_steps=n_win, c1=c1, hdt=hdt,
+               c2col=torch.zeros_like(c2col),
+               seed=torch.tensor([42], dtype=torch.int32, device=dev),
+               bond=bond)
+    wargs = (pos, vel, f_kernel, idx, mask, *args[3:], sim.masses)
+    mega_md_steps.launches = 0
+    out = mega_md_steps(*wargs, **wkw)
+    torch.cuda.synchronize()
+    require(mega_md_steps.launches == 1, "mega_md_steps (bond) did not "
+            "launch")
+    ref = md_steps_reference(*wargs, **wkw)
+    # The same plain window with its edge products in the kernels' bf16 x 3
+    # arithmetic (ops.mega.split_bf16_matmul), as the CPU tests swap it in.
+    plain_mm = mega_module._edge_mm
+    mega_module._edge_mm = mega_module.split_bf16_matmul
+    try:
+        emu = md_steps_reference(*wargs, **wkw)
+    finally:
+        mega_module._edge_mm = plain_mm
+    gap = lambda a, b, i: float((a[i] - b[i]).abs().max())
+    dx, dv = gap(out, ref, 0), gap(out, ref, 1)
+    dke = float(((out[3] - ref[3]).abs() / ref[3].abs()).max())
+    spread = gap(emu, ref, 1)
+    v_tol = max(WINDOW_ATOL, 2.0 * spread)
+    require(all(bool(torch.isfinite(t).all()) for t in out),
+            "non-finite water window")
+    require(dx <= WINDOW_ATOL and dv <= v_tol,
+            f"the water window disagrees: {dx}, {dv} (v tolerance {v_tol})")
+    require(dke <= WINDOW_KE_RTOL, f"the water window's KE disagrees: {dke}")
+    wkw["c2col"] = c2col.contiguous()
+    window_ms = time_ms(lambda: mega_md_steps(*wargs, **wkw), reps=10)
+    window_plain_ms = time_ms(lambda: md_steps_reference(*wargs, **wkw),
+                              reps=3, warmup=1)
+    window_bound_ms, window_bound_by = tc_bound(
+        (n_win * ops[0], n_win * ops[1]), n, k, mp, model_cfg,
+        state_io=True, bond=True)
+    say(f"phase 42: mega_md_steps with the bond channel, one {n_win}-step "
+        f"window at c2col = 0 on TIP3P-774, against the fp32 plain window: "
+        f"max |dx| {dx:.3e} A (tolerance {WINDOW_ATOL}), max |dv| {dv:.3e} "
+        f"A/t0 (tolerance {v_tol:.3e}: {WINDOW_ATOL} or twice the distance "
+        f"of the plain window with the kernel's bf16 x 3 products from the "
+        f"fp32 one, {spread:.3e}, the larger), max ke rel {dke:.3e} "
+        f"(tolerance "
+        f"{WINDOW_KE_RTOL}); against that bf16 x 3 plain window max |dx| "
+        f"{gap(out, emu, 0):.3e}, |dv| {gap(out, emu, 1):.3e}; with noise "
+        f"{window_ms:.4f} "
+        f"ms/window ({window_ms / n_win:.4f} ms/step), plain version "
+        f"{window_plain_ms:.4f} ms, bound {window_bound_ms:.4f} ms "
+        f"({window_bound_by}; {n_win} x the start frame's work), kernel at "
+        f"{window_bound_ms / window_ms:.2%} of it [{card}]")
+    window_entry = {"max_abs_err": max(dx, dv), "ms": window_ms,
+                    "plain_ms": window_plain_ms, "bound_ms": window_bound_ms,
+                    "bound_by": window_bound_by}
+
+    # -- phase 43: run_md --system tip3p --megakernel (rigid) -------------
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--system", "tip3p", "--ckpt", WATER_CKPT, "--megakernel",
+                "--friction", str(WATER_FRICTION), "--steps",
+                str(WATER_STEPS), "--log", os.path.join(tmp, "log.txt")]
+        mega_forward.launches = mega_md_steps.launches = 0
+        run = run_md.rollout(run_md.build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        launches["water_megakernel"] = {
+            "mega_forward": mega_forward.launches,
+            "mega_md_steps": mega_md_steps.launches}
+    res, rcst = run["result"], run["constraint"]
+    temps = res.thermo.temperature
+    second = float(temps[WATER_STEPS // 2:].mean())
+    residual = float(rcst.residual(res.state.pos))
+    frames = res.positions[res.positions.shape[0] // 2:]
+    is_o = np.arange(n) % 3 == 0
+    r_c, g = radial_distribution(frames, system.box, r_max=system.box / 2,
+                                 n_bins=200, species_a=is_o, species_b=is_o)
+    peak = float(r_c[int(np.argmax(g))])
+    sps = WATER_STEPS / run["seconds"]
+    say(f"phase 43: run_md --system tip3p --ckpt {WATER_CKPT} --megakernel "
+        f"--friction {WATER_FRICTION:g} --steps {WATER_STEPS} (rigid: "
+        f"SETTLE/RATTLE g-BAOAB, 300 K, 2 fs; K={k}, rebuilt every 20): "
+        f"{sps:.1f} steps/s on the host "
+        f"clock; mean T of the second half {second:.2f} K (band 300 +- "
+        f"{WATER_T_BAND}), residual {residual:.3e} A (under "
+        f"{WATER_RESIDUAL}), O-O RDF first peak {peak:.3f} A (band "
+        f"{WATER_OO_PEAK}, {frames.shape[0]} frames), overflow "
+        f"{res.overflow}; launches {launches['water_megakernel']} [{card}]")
+    require(bool(torch.isfinite(res.state.force).all())
+            and bool(torch.isfinite(res.state.pos).all())
+            and bool(torch.isfinite(temps).all()), "non-finite water run")
+    require(not res.overflow, "neighbour overflow in the water run")
+    require(abs(second - 300.0) <= WATER_T_BAND,
+            f"water mean T {second} K outside 300 +- {WATER_T_BAND} K")
+    require(residual < WATER_RESIDUAL, f"constraint residual {residual}")
+    require(WATER_OO_PEAK[0] <= peak <= WATER_OO_PEAK[1],
+            f"O-O RDF peak at {peak} A")
+    require(launches["water_megakernel"] == {"mega_forward": WATER_STEPS + 1,
+                                             "mega_md_steps": 0},
+            f"water launches {launches['water_megakernel']}")
+
+    # -- phase 44: the eager water model, plain and use_pallas ------------
+    live = refresh_mask(pos, system.box, system.cutoff, idx, mask)
+    plain_f = ff.force_fn()(pos, idx, live)
+    kernel_ff = GNNForceField(state, system, dataclasses.replace(
+        model_cfg, use_pallas=True), device=dev)
+    fused_conv_gather_message.launches = 0
+    got_f = kernel_ff.force_fn()(pos, idx, live)
+    torch.cuda.synchronize()
+    launches["water_eager_use_pallas"] = {
+        "conv_msg_gather": fused_conv_gather_message.launches}
+    eager_err = float((got_f - plain_f).abs().max())
+    eager_scale = float(plain_f.abs().std())
+    say(f"phase 44: the eager water GAMDNet with use_pallas (conv_msg_gather "
+        f"a layer, {fused_conv_gather_message.launches} launches) against "
+        f"the plain model on the water start: max |dF| {eager_err:.3e}, "
+        f"std(F) {eager_scale:.3e}, max/std {eager_err / eager_scale:.3e} "
+        f"(tolerance {WATER_EAGER_RTOL})")
+    require(fused_conv_gather_message.launches == model_cfg.conv_layers,
+            "the eager water model did not launch conv_msg_gather a layer")
+    require(eager_err <= WATER_EAGER_RTOL * eager_scale,
+            "the eager water model's kernel path disagrees")
+
+    # -- phase 45: run_md --megastep --no-rigid ---------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        init = os.path.join(tmp, "start.npy")
+        np.save(init, pos.cpu().numpy())
+        argv = ["--system", "tip3p", "--ckpt", WATER_CKPT, "--megastep",
+                "--no-rigid", "--init_pos", init, "--steps",
+                str(WATER_MEGASTEP_STEPS), "--log",
+                os.path.join(tmp, "log.txt")]
+        mega_forward.launches = mega_md_steps.launches = 0
+        run = run_md.rollout(run_md.build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        launches["water_megastep"] = {
+            "mega_forward": mega_forward.launches,
+            "mega_md_steps": mega_md_steps.launches}
+    res = run["result"]
+    windows = WATER_MEGASTEP_STEPS // 20
+    say(f"phase 45: run_md --system tip3p --megastep --no-rigid --steps "
+        f"{WATER_MEGASTEP_STEPS}: {WATER_MEGASTEP_STEPS / run['seconds']:.1f}"
+        f" steps/s on the host clock, mean T "
+        f"{float(res.thermo.temperature.mean()):.2f} K (no band: the model "
+        f"was trained on rigid water), launches {launches['water_megastep']}"
+        f" [{card}]")
+    require(bool(torch.isfinite(res.state.pos).all())
+            and bool(torch.isfinite(res.state.vel).all())
+            and bool(torch.isfinite(res.state.force).all()),
+            "non-finite megastep water state")
+    require(launches["water_megastep"] == {"mega_forward": 1,
+                                           "mega_md_steps": windows},
+            f"megastep water launches {launches['water_megastep']}")
+    return ({"mega_forward": forward_entry, "mega_md_steps": window_entry},
+            launches)
+
+
 def merge_launches(entries, runs):
     """Adds each run's non-zero counts ({path: {kernel name: count}}) to
     the entries' launches_by_path, keeping a path an entry already has,
@@ -3370,8 +3659,9 @@ def main():
     forward_r8, window_r8, replica_launches = replica_phases(
         dev, card, kernel_ms, window_ms)
     stages = forward_stage_phases(dev, card)
+    water_entries, water_launches = water_phases(dev, card)
 
-    # -- phase 41: kernels line, result line ------------------------------
+    # -- phase 46: kernels line, result line ------------------------------
     by_path = {name: {"per_step": per_step_launches[name],
                       "megastep": mega_launches[name]}
                for name in per_step_launches}
@@ -3405,11 +3695,13 @@ def main():
         "r8": window_r8,
     }, *conv_kernels, encoder_kernel, banded_kernel, *nhc_kernels,
         *op_kernels, *mxu_kernels, *gather_kernels, *form_kernels]
+    for entry in kernels[:2]:
+        entry["water"] = water_entries[entry["name"]]
     merge_launches(kernels, {**deploy_launches, **integrator_launches,
-                             **replica_launches})
+                             **replica_launches, **water_launches})
     say("kernels: " + json.dumps([k["name"] for k in kernels]))
     say(json.dumps({"kernels": kernels}))
-    say(f"phase 41: total {time.perf_counter() - t_start:.1f} s")
+    say(f"phase 46: total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,11 @@
 // standardised distance (dist - mean) / std, the RBF exp(-gamma (std -
 // centre_c)^2) over the model's n_rbf centres, Linear(4 + n_rbf -> W) as
 // rank-1 geometric terms plus the RBF product, tanh-gelu, Linear, tanh-
-// gelu, Linear, and LayerNorm (eps 1e-6) with its affine.
+// gelu, Linear, and LayerNorm (eps 1e-6) with its affine. With BOND (the
+// whole-model forward of the water model only) each row adds one more
+// rank-1 term before the first gelu, bond * w_geo[4], as
+// gamd_tpu/ops/pallas_model.py::encode_edges (lines 212-223) does; BOND is
+// a template switch, so the LJ encoder compiles to the code it had.
 //
 // Precision: the three products (RBF, w1, w2) on the tensor cores as bf16
 // x 3 with fp32 accumulation (edge_tc.cuh: JAX's edge_hilo arithmetic,
@@ -32,7 +36,8 @@
 
 // One device pointer per field of gamd_tpu_torch.ops.encoder.EncoderParams,
 // in the same order (the first ten fields of MegaWeights, mega.cuh).
-// w_geo rows 0-3 weight the unit vector and the standardised distance;
+// w_geo rows 0-3 weight the unit vector and the standardised distance,
+// row 4 the bond channel;
 // w_rbf holds at least n_rbf rows, one per centre; b0..b2 [W], w1/w2
 // [W][W], eln_s/eln_b the LayerNorm affine [W]; centers [>= n_rbf].
 struct EncoderWeights {
@@ -113,13 +118,16 @@ __device__ __forceinline__ float edge_geometry(const float* __restrict__ pi,
 // warpgroups. FAST takes gelu_fast and the fast exponential for the RBF;
 // RBF_STEPS > 0 runs the RBF product over that many k-steps of 16 (its
 // zero columns past n_rbf add nothing), 0 over ceil(n_rbf / 16) known at
-// run time.
-template <int NBUF, bool FAST = false, int RBF_STEPS = 0>
+// run time. BOND adds bond[s] * w_geo[4] to row s's first pre-activation
+// (one fma after the LJ sum, so a bond of 0 gives the LJ bits); without
+// it `bond` is not read.
+template <int NBUF, bool FAST = false, int RBF_STEPS = 0, bool BOND = false>
 __device__ __forceinline__ void encode_tile(
     const tc::WeightRing<NBUF>& sm, const CUtensorMap* wmap, int p,
     const tc::Frag& f, const EncTileArgs& a, const float (&geo)[2][4],
     const bool (&live)[2], const size_t (&row)[2],
-    float (&red)[2][2][tc::TILE], float* __restrict__ e) {
+    float (&red)[2][2][tc::TILE], float* __restrict__ e,
+    const float* bond = nullptr) {
   // RBF operand: column c < n_rbf holds exp(-gamma (std - centre_c)^2).
 #pragma unroll
   for (int q = 0; q < tc::PAIRS; ++q) {
@@ -146,10 +154,11 @@ __device__ __forceinline__ void encode_tile(
     float v[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const float z = acc[2 * q + u] + geo[s][0] * a.w_geo[c + u] +
-                      geo[s][1] * a.w_geo[W + c + u] +
-                      geo[s][2] * a.w_geo[2 * W + c + u] +
-                      geo[s][3] * a.w_geo[3 * W + c + u] + a.b0[c + u];
+      float z = acc[2 * q + u] + geo[s][0] * a.w_geo[c + u] +
+                geo[s][1] * a.w_geo[W + c + u] +
+                geo[s][2] * a.w_geo[2 * W + c + u] +
+                geo[s][3] * a.w_geo[3 * W + c + u] + a.b0[c + u];
+      if constexpr (BOND) z = __fmaf_rn(bond[s], a.w_geo[4 * W + c + u], z);
       v[u] = FAST ? gelu_fast(z) : gelu_tanh(z);
     }
     tc::store_pair(sm.a, f, q, v[0], v[1]);

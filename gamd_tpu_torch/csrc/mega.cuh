@@ -46,11 +46,12 @@ int mega_split_weights(const MegaWeights* weights, int n_layers,
                        cudaStream_t stream);
 
 // All launches of one forward of r replicas of n atoms on `stream`
-// (positions to forces `out`, every array replica-major), reading the
-// split weights through `map`. Returns 0, or the first non-zero
-// cudaError_t seen.
+// (positions to forces `out`, every array replica-major; bond, the water
+// model's [r, n, k] bond channel, or null for none), reading the split
+// weights through `map`. Returns 0, or the first non-zero cudaError_t seen.
 int mega_forward_run(const float* pos, const int* idx, const uint8_t* bmask,
-                     const float* h0, const MegaWeights* weights,
+                     const float* bond, const float* h0,
+                     const MegaWeights* weights,
                      const CUtensorMap* map, int r, int n, int k,
                      int n_layers, int n_rbf, int use_ln, int flip_dir,
                      float box, float cutoff2, float length_mean,

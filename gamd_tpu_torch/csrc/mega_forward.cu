@@ -9,7 +9,11 @@
 // layers (pre-norm LayerNorm or folded BatchNorm, silu), and the tanh-gelu
 // decoder whose last affine already holds the force denormalisation. Like
 // the TPU kernel (grid = replicas), it takes R independent systems in one
-// call.
+// call. The water model's bond channel (an optional [R, N, K] float input,
+// the O-H indicator of each slot, read at the live slots only) adds bond *
+// w_geo[4] to each live edge's encoder input, as the TPU kernel's bond_ref
+// does (pallas_model.py:443); without it the encoder stage is the LJ code
+// (a template switch), bit for bit.
 //
 // The design, stage by stage (launches of one forward of any R, 12 at L=4;
 // the host entry gamd_mega_forward adds the weight split, so 13 a call,
@@ -24,9 +28,9 @@
 // 2. encode_tile_kernel (grid tiles x R, a block a tile): per tile of 64
 //    live edges the geometry, the RBF over the model's n_rbf centres
 //    (rounded up to the tensor core's depth of 16) and the two MLP
-//    products on the tensor cores, the rank-1 terms, gelu and the
-//    LayerNorm with its affine in fp32 epilogues; it writes the embedding
-//    of live edges only.
+//    products on the tensor cores, the rank-1 terms (the bond's too, with
+//    a bond channel), gelu and the LayerNorm with its affine in fp32
+//    epilogues; it writes the embedding of live edges only.
 // 3. node_fused_kernel (node_fused.cuh), once before the first layer: h =
 //    h0 and the first layer's norm, src and dst codes.
 // 4. per layer, edge_tile_kernel (grid tiles x R): per tile the four edge
@@ -71,7 +75,9 @@
 // memory), each tile loads 256 KB of weights a layer from L2, every node
 // block reads all of its layer's node weights (320 KB), and 12 launches
 // depend on each other. chip_smoke.py computes the bound from each run's
-// live edges.
+// live edges. At TIP3P-774 (water, K=96, 4.2 A cutoff, the same widths and
+// depth) a frame has about 4 times LJ-258's live edges and the bond adds
+// one rank-1 term and 4 bytes a slot: the same operations-bound shape.
 //
 // Every atom's arithmetic is the same whichever tile or block holds it and
 // at any R (a replica's list has the same tiles as a single call's; a node
@@ -292,6 +298,7 @@ __device__ __forceinline__ TileRows tile_rows(const tc::Frag& f,
 struct EncArgs {
   const float* pos;
   const int *idx, *slot, *total;
+  const float* bond;   // [R, N, K] bond channel (read with BOND only)
   float* e;
   int n, k, cap;
   EncTileArgs t;   // the tile body's centres, biases, affine and scalars
@@ -300,8 +307,9 @@ struct EncArgs {
 // Encoder over live edges. grid (cap / 64, R), block 256 (one tile, its
 // columns split between the two warpgroups), tc::smem_bytes(NBUF) of
 // dynamic shared memory; split weights 0 (w_rbf), 1 (w1), 2 (w2). The
-// tile body is encode.cuh's, shared with edge_encoder.cu.
-template <int NBUF>
+// tile body is encode.cuh's, shared with edge_encoder.cu; BOND reads the
+// bond channel at each row's slot.
+template <int NBUF, bool BOND>
 __global__ void __launch_bounds__(tc::THREADS, 3 - NBUF)
 encode_tile_kernel(const __grid_constant__ CUtensorMap wmap, EncArgs a) {
   tc::let_next_start();
@@ -321,7 +329,21 @@ encode_tile_kernel(const __grid_constant__ CUtensorMap wmap, EncArgs a) {
   for (int s = 0; s < 2; ++s)
     edge_geometry(a.pos + ((size_t)rep * a.n + t.i[s]) * 3,
                   a.pos + ((size_t)rep * a.n + t.j[s]) * 3, a.t, geo[s]);
-  encode_tile(sm, &wmap, 0, f, a.t, geo, t.live, t.row, red, a.e);
+  if constexpr (BOND) {
+    // The bond of each row's slot (a dead row reads the tile's first
+    // slot, in bounds, and its value is never written).
+    float bond[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int g = row0 + f.r0 + 8 * s;
+      const int sl = a.slot[(size_t)rep * a.cap + (t.live[s] ? g : row0)];
+      bond[s] = a.bond[(size_t)rep * a.n * a.k + sl];
+    }
+    encode_tile<NBUF, false, 0, true>(sm, &wmap, 0, f, a.t, geo, t.live,
+                                      t.row, red, a.e, bond);
+  } else {
+    encode_tile(sm, &wmap, 0, f, a.t, geo, t.live, t.row, red, a.e);
+  }
 }
 
 struct EdgeArgs {
@@ -414,9 +436,13 @@ cudaError_t configure() {
   const cudaFuncAttribute max_smem =
       cudaFuncAttributeMaxDynamicSharedMemorySize;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(encode_tile_kernel<1>, max_smem,
+  if ((err = cudaFuncSetAttribute(encode_tile_kernel<1, false>, max_smem,
                                   tc::smem_bytes(1))) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(encode_tile_kernel<2>, max_smem,
+      (err = cudaFuncSetAttribute(encode_tile_kernel<2, false>, max_smem,
+                                  tc::smem_bytes(2))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(encode_tile_kernel<1, true>, max_smem,
+                                  tc::smem_bytes(1))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(encode_tile_kernel<2, true>, max_smem,
                                   tc::smem_bytes(2))) != cudaSuccess ||
       (err = cudaFuncSetAttribute(edge_tile_kernel<1>, max_smem,
                                   tc::smem_bytes(1))) != cudaSuccess ||
@@ -448,6 +474,22 @@ int node_width(int atoms) {
 // outnumber the SMs. The grid's tile count bounds the live tiles.
 int tile_buffers(int tiles) { return tiles > 2 * sm_count() ? 1 : 2; }
 
+// The encoder stage over the layout's tiles: one weight buffer or two, with
+// the bond channel or without.
+cudaError_t launch_encode(const CUtensorMap& map, const EncArgs& ea,
+                          dim3 tiles, bool one, cudaStream_t s) {
+  const dim3 threads(tc::THREADS);
+  if (ea.bond != nullptr)
+    return one ? launch_pdl(encode_tile_kernel<1, true>, tiles, threads,
+                            tc::smem_bytes(1), s, map, ea)
+               : launch_pdl(encode_tile_kernel<2, true>, tiles, threads,
+                            tc::smem_bytes(2), s, map, ea);
+  return one ? launch_pdl(encode_tile_kernel<1, false>, tiles, threads,
+                          tc::smem_bytes(1), s, map, ea)
+             : launch_pdl(encode_tile_kernel<2, false>, tiles, threads,
+                          tc::smem_bytes(2), s, map, ea);
+}
+
 cudaError_t launch_node(const NodeArgs& na, int layer, int b,
                         cudaStream_t s) {
   const dim3 blocks((na.atoms + b - 1) / b);
@@ -478,7 +520,8 @@ int mega_split_weights(const MegaWeights* weights, int n_layers,
 }
 
 int mega_forward_run(const float* pos, const int* idx, const uint8_t* bmask,
-                     const float* h0, const MegaWeights* weights,
+                     const float* bond, const float* h0,
+                     const MegaWeights* weights,
                      const CUtensorMap* map, int r, int n, int k,
                      int n_layers, int n_rbf, int use_ln, int flip_dir,
                      float box, float cutoff2, float length_mean,
@@ -494,15 +537,12 @@ int mega_forward_run(const float* pos, const int* idx, const uint8_t* bmask,
                            stream)) != cudaSuccess)
     return static_cast<int>(err);
 
-  const EncArgs ea{pos, idx, s->slot, s->total, s->e, n, k, cap,
+  const EncArgs ea{pos, idx, s->slot, s->total, bond, s->e, n, k, cap,
                    {p.centers, p.w_geo, p.b0, p.b1, p.b2, p.eln_s, p.eln_b,
                     n_rbf, flip_dir, box, length_mean, length_std, gamma}};
   const bool one = tile_buffers(tiles.x * tiles.y) == 1;
-  err = one ? launch_pdl(encode_tile_kernel<1>, tiles, dim3(tc::THREADS),
-                         tc::smem_bytes(1), stream, *map, ea)
-            : launch_pdl(encode_tile_kernel<2>, tiles, dim3(tc::THREADS),
-                         tc::smem_bytes(2), stream, *map, ea);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = launch_encode(*map, ea, tiles, one, stream)) != cudaSuccess)
+    return static_cast<int>(err);
 
   const NodeArgs na{p, h0, s->off, s->cnt, s->msg, s->h, s->hn, s->src,
                     s->dst, out, r * n, n, cap, n_layers, use_ln};
@@ -527,11 +567,13 @@ int mega_forward_run(const float* pos, const int* idx, const uint8_t* bmask,
 }
 
 // One forward of r replicas of n atoms on `stream` (arrays [r, n, ...],
-// replica-major): the weight split, then mega_forward_run. Returns 0, a
-// cudaError_t, or 100000 + the CUresult of the TMA map's encoding.
+// replica-major; bond [r, n, k] or null): the weight split, then
+// mega_forward_run. Returns 0, a cudaError_t, or 100000 + the CUresult of
+// the TMA map's encoding.
 extern "C" int gamd_mega_forward(
-    const float* pos, const int* idx, const uint8_t* bmask, const float* h0,
-    const MegaWeights* weights, int r, int n, int k, int n_layers, int n_rbf,
+    const float* pos, const int* idx, const uint8_t* bmask,
+    const float* bond, const float* h0, const MegaWeights* weights, int r,
+    int n, int k, int n_layers, int n_rbf,
     int use_ln, int flip_dir, float box, float cutoff2, float length_mean,
     float length_std, float gamma, const MegaScratch* scratch, float* out,
     void* stream) {
@@ -539,7 +581,7 @@ extern "C" int gamd_mega_forward(
   CUtensorMap map;
   const int err = mega_split_weights(weights, n_layers, scratch, &map, s);
   if (err != 0) return err;
-  return mega_forward_run(pos, idx, bmask, h0, weights, &map, r, n, k,
+  return mega_forward_run(pos, idx, bmask, bond, h0, weights, &map, r, n, k,
                           n_layers, n_rbf, use_ln, flip_dir, box, cutoff2,
                           length_mean, length_std, gamma, scratch, out, s);
 }

@@ -23,7 +23,8 @@
 // of the other pair); replica 0 draws what a single system draws.
 // gamd_tpu_torch/ops/philox.py draws the same numbers on the host. The
 // seed is read from device memory, so drawing a window's seed never waits
-// for the device.
+// for the device. The water model's bond channel, when given, is fixed for
+// the window, as the list is.
 //
 // What bounds it on this card: the window is the forward n_steps times.
 // At LJ-258 (N=258, K=48, widths 128, 4 layers) a step's forward needs,
@@ -160,14 +161,15 @@ baoab_close_kernel(float* __restrict__ vel, const float* __restrict__ force,
 }  // namespace
 
 // n_steps of the window for r replicas of n atoms on `stream` (state
-// arrays [r, n, 3]; masses and c2col [n], shared). pos0/vel0/f0 are read
+// arrays [r, n, 3]; masses and c2col [n], shared; bond [r, n, k] or null). pos0/vel0/f0 are read
 // once and copied into pos/vel/force, which then carry the state; ke gets
 // [r, n_steps] values. scratch is the forward's (see mega.cuh). Returns 0,
 // or the first non-zero error code seen after a copy, a launch or the
 // weight split (mega_split_weights).
 extern "C" int gamd_mega_md_steps(
     const float* pos0, const float* vel0, const float* f0, const int* idx,
-    const uint8_t* bmask, const float* h0, const MegaWeights* weights,
+    const uint8_t* bmask, const float* bond, const float* h0,
+    const MegaWeights* weights,
     const int* seed, const float* masses, const float* c2col, int r, int n,
     int k, int n_layers, int n_rbf, int use_ln, int flip_dir, float box,
     float cutoff2, float length_mean, float length_std, float gamma,
@@ -192,9 +194,9 @@ extern "C" int gamd_mega_md_steps(
         pos, vel, force, masses, c2col, seed, r, n, step, c1, hdt);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     const int fwd = mega_forward_run(
-        pos, idx, bmask, h0, weights, &map, r, n, k, n_layers, n_rbf, use_ln,
-        flip_dir, box, cutoff2, length_mean, length_std, gamma, scratch,
-        force, s);
+        pos, idx, bmask, bond, h0, weights, &map, r, n, k, n_layers, n_rbf,
+        use_ln, flip_dir, box, cutoff2, length_mean, length_std, gamma,
+        scratch, force, s);
     if (fwd != 0) return fwd;
     baoab_close_kernel<<<r, CLOSE_THREADS, 0, s>>>(vel, force, masses, n, hdt,
                                                    n_steps, step, ke);

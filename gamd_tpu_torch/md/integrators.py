@@ -7,9 +7,15 @@ nose_hoover_chain, nhc_bath_energies) and andersen).
 Units: angstrom, amu, kJ/mol, t0 = 0.1 ps (see core.units); dt is in t0.
 Random numbers come from an explicit torch.Generator on the state's device.
 Every factory returns (init_fn, step_fn); step_fn(state) is one full MD
-step. The step functions are elementwise in atoms, so a state with a
-leading replica axis ([R, N, 3]; NHC chains [R, M]) advances R replicas
-in lockstep, as the JAX package's run_replicas does. The NHC half-step
+step. Every factory takes an optional `constraint` (md.constraints.
+RigidWater: positions(x_ref, x_new) and velocities(x, v) projections): the
+drift is followed by the position projection, whose correction the
+velocity absorbs, and each kick by the velocity projection (RATTLE); BAOAB
+projects after every A and O sub-step (g-BAOAB, Leimkuhler and Matthews).
+With no constraint the steps are unchanged. The unconstrained step
+functions are elementwise in atoms, so a state with a leading replica axis
+([R, N, 3]; NHC chains [R, M]) advances R replicas in lockstep, as the
+JAX package's run_replicas does. The NHC half-step
 runs through ops.nhc.nhc_half_step: the CUDA kernel on a CUDA tensor,
 its plain version on the CPU.
 """
@@ -77,8 +83,22 @@ def maxwell_boltzmann_velocities(rng: torch.Generator, masses, temp_k,
                                device=masses.device, dtype=masses.dtype)
 
 
+def _drift_project(constraint, x0, v, dt):
+    """Drift x0 + dt v, then the position projection; the velocity absorbs
+    the correction (x_c - x_free) / dt (the RATTLE convention)."""
+    x_free = x0 + dt * v
+    if constraint is None:
+        return x_free, v
+    x_c = constraint.positions(x0, x_free)
+    return x_c, v + (x_c - x_free) / dt
+
+
+def _project_vel(constraint, x, v):
+    return v if constraint is None else constraint.velocities(x, v)
+
+
 def baoab_langevin(force_fn: Callable, dt: float, masses, temp_k: float,
-                   friction: float):
+                   friction: float, constraint=None):
     """BAOAB splitting of Langevin dynamics: (init_fn, step_fn).
 
     init_fn(pos, vel, rng) evaluates the first force. step_fn(state,
@@ -93,7 +113,8 @@ def baoab_langevin(force_fn: Callable, dt: float, masses, temp_k: float,
     hdt = 0.5 * dt
 
     def init_fn(pos, vel, rng):
-        return LangevinState(pos=pos, vel=vel, force=force_fn(pos), rng=rng)
+        return LangevinState(pos=pos, vel=_project_vel(constraint, pos, vel),
+                             force=force_fn(pos), rng=rng)
 
     def step_fn(state: LangevinState, noise=None) -> LangevinState:
         if noise is None:
@@ -101,11 +122,14 @@ def baoab_langevin(force_fn: Callable, dt: float, masses, temp_k: float,
                                 device=state.vel.device,
                                 dtype=state.vel.dtype)
         v = state.vel + hdt * state.force / m                  # B
-        x = state.pos + hdt * v                                # A
+        v = _project_vel(constraint, state.pos, v)
+        x, v = _drift_project(constraint, state.pos, v, hdt)   # A
         v = a * v + b * sigma * noise                          # O
-        x = x + hdt * v                                        # A
+        v = _project_vel(constraint, x, v)
+        x, v = _drift_project(constraint, x, v, hdt)           # A
         f = force_fn(x)
         v = v + hdt * f / m                                    # B
+        v = _project_vel(constraint, x, v)
         return LangevinState(pos=x, vel=v, force=f, rng=state.rng)
 
     return init_fn, step_fn
@@ -115,19 +139,21 @@ def baoab_langevin(force_fn: Callable, dt: float, masses, temp_k: float,
 # Velocity Verlet (NVE)
 # --------------------------------------------------------------------------
 
-def velocity_verlet(force_fn: Callable, dt: float, masses):
+def velocity_verlet(force_fn: Callable, dt: float, masses, constraint=None):
     """Plain velocity Verlet: (init_fn(pos, vel), step_fn(state))."""
     m = masses[:, None]
     hdt = 0.5 * dt
 
     def init_fn(pos, vel):
-        return NVEState(pos=pos, vel=vel, force=force_fn(pos))
+        return NVEState(pos=pos, vel=_project_vel(constraint, pos, vel),
+                        force=force_fn(pos))
 
     def step_fn(state: NVEState) -> NVEState:
         v = state.vel + hdt * state.force / m
-        x = state.pos + dt * v
+        x, v = _drift_project(constraint, state.pos, v, dt)
         f = force_fn(x)
         v = v + hdt * f / m
+        v = _project_vel(constraint, x, v)
         return NVEState(pos=x, vel=v, force=f)
 
     return init_fn, step_fn
@@ -188,7 +214,7 @@ def _nhc_propagate(vel, xi, vxi, g, masses, kt, ndf, q, dt, n_c, ys_weights,
 
 def nose_hoover_chain(force_fn: Callable, dt: float, masses, temp_k: float,
                       frequency: float, chain_length: int = 10, n_c: int = 5,
-                      n_ys: int = 5, ndf: int = None):
+                      n_ys: int = 5, ndf: int = None, constraint=None):
     """Nose-Hoover chain velocity Verlet: (init_fn(pos, vel),
     step_fn(state)).
 
@@ -197,13 +223,15 @@ def nose_hoover_chain(force_fn: Callable, dt: float, masses, temp_k: float,
 
     Args:
         frequency: thermostat collision frequency in 1/t0.
-        ndf: degrees of freedom (default 3N, unconstrained).
+        ndf: degrees of freedom (default 3N less the constraint's
+            n_constraints).
     """
     if n_ys not in _YS_WEIGHTS:
         raise ValueError(f"n_ys must be one of {sorted(_YS_WEIGHTS)}")
     m = masses[:, None]
     if ndf is None:
-        ndf = 3 * masses.shape[0]
+        ndf = 3 * masses.shape[0] - (constraint.n_constraints
+                                     if constraint is not None else 0)
     kt = units.KB * temp_k
     q, wdts = _chain_constants(kt, frequency, chain_length, ndf, dt, n_c,
                                n_ys, masses.device)
@@ -215,7 +243,8 @@ def nose_hoover_chain(force_fn: Callable, dt: float, masses, temp_k: float,
     def init_fn(pos, vel):
         dev = pos.device
         return NoseHooverState(
-            pos=pos, vel=vel, force=force_fn(pos),
+            pos=pos, vel=_project_vel(constraint, pos, vel),
+            force=force_fn(pos),
             xi=torch.zeros(chain_length, device=dev),
             vxi=torch.zeros(chain_length, device=dev),
             # G starts at -frequency^2, as the JAX package's.
@@ -224,9 +253,10 @@ def nose_hoover_chain(force_fn: Callable, dt: float, masses, temp_k: float,
     def step_fn(state: NoseHooverState) -> NoseHooverState:
         v, xi, vxi, g = half_step(state.vel, state.xi, state.vxi, state.g)
         v = v + hdt * state.force / m
-        x = state.pos + dt * v
+        x, v = _drift_project(constraint, state.pos, v, dt)
         f = force_fn(x)
         v = v + hdt * f / m
+        v = _project_vel(constraint, x, v)
         v, xi, vxi, g = half_step(v, xi, vxi, g)
         return NoseHooverState(pos=x, vel=v, force=f, xi=xi, vxi=vxi, g=g)
 
@@ -249,7 +279,7 @@ def nhc_bath_energies(state: NoseHooverState, temp_k, frequency, ndf):
 # --------------------------------------------------------------------------
 
 def andersen(force_fn: Callable, dt: float, masses, temp_k: float,
-             collision_rate: float):
+             collision_rate: float, constraint=None):
     """Velocity Verlet with per-DoF Andersen collisions: a DoF whose
     uniform draw is below dt * collision_rate is redrawn from
     Maxwell-Boltzmann before the step. (init_fn(pos, vel, rng),
@@ -262,7 +292,8 @@ def andersen(force_fn: Callable, dt: float, masses, temp_k: float,
     hdt = 0.5 * dt
 
     def init_fn(pos, vel, rng):
-        return AndersenState(pos=pos, vel=vel, force=force_fn(pos), rng=rng)
+        return AndersenState(pos=pos, vel=_project_vel(constraint, pos, vel),
+                             force=force_fn(pos), rng=rng)
 
     def step_fn(state: AndersenState, noise=None) -> AndersenState:
         if noise is None:
@@ -272,10 +303,12 @@ def andersen(force_fn: Callable, dt: float, masses, temp_k: float,
         else:
             u, xi = noise
         v = torch.where(u < p_collision, sigma * xi, state.vel)
+        v = _project_vel(constraint, state.pos, v)
         v = v + hdt * state.force / m
-        x = state.pos + dt * v
+        x, v = _drift_project(constraint, state.pos, v, dt)
         f = force_fn(x)
         v = v + hdt * f / m
+        v = _project_vel(constraint, x, v)
         return AndersenState(pos=x, vel=v, force=f, rng=state.rng)
 
     return init_fn, step_fn

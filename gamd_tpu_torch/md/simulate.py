@@ -1,6 +1,7 @@
 """GNN-driven MD loop on torch (port of gamd_tpu/md/simulate.py: Thermo,
 RunResult and Simulation for the nve, langevin, nose_hoover and andersen
-integrators, with run, run_segmented and run_recorded; independent
+integrators, with run, run_segmented and run_recorded, and holonomic
+constraints (md.constraints.RigidWater) in all of them; independent
 replicas with init_replicas and run_replicas; the one-call simulate()).
 
 A run is a loop over chunks: each chunk rebuilds the padded neighbour list
@@ -77,27 +78,27 @@ class Simulation:
             the initial force only.
         device: where the state lives; "cuda" unless the caller asks for
             the CPU.
-        constraint: rigid-water constraints (SETTLE, RATTLE) come with the
-            port's water slice (ROADMAP Queue 1 item 5): anything but None
-            raises NotImplementedError, constrained NHC replicas included.
+        constraint: holonomic constraints of one system, e.g.
+            md.constraints.RigidWater (SETTLE and RATTLE in every
+            integrator; the temperature counts 3N - n_constraints degrees
+            of freedom). A megastep_fn takes none, as in the JAX package;
+            constrained replicas raise NotImplementedError in
+            init_replicas and run_replicas.
     """
 
     def __init__(self, force_fn: Callable, system: SystemConfig,
                  md: MDConfig, nbr_method: str = "dense",
                  k_model: Optional[int] = None, megastep_fn=None,
                  device="cuda", constraint=None):
-        if constraint is not None:
-            raise NotImplementedError(
-                "constraints (and constrained NHC replicas, JAX's vmapped "
-                "run) come with the port's water slice: ROADMAP Queue 1 "
-                "item 5")
         if system.box is None:
             raise ValueError("Simulation requires a fixed box")
         if nbr_method not in ("dense", "cell"):
             raise ValueError(f"unknown neighbor method {nbr_method!r}")
-        if megastep_fn is not None and md.integrator != "langevin":
-            raise ValueError("megastep_fn supports the langevin integrator "
-                             f"only, not {md.integrator!r}")
+        if megastep_fn is not None and (md.integrator != "langevin"
+                                        or constraint is not None):
+            raise ValueError("megastep_fn supports the unconstrained "
+                             f"langevin integrator only (integrator "
+                             f"{md.integrator!r}, constraint {constraint!r})")
         if md.integrator not in INTEGRATORS:
             raise ValueError(f"unknown integrator {md.integrator!r}")
         self.device = resolve_device(device)
@@ -106,10 +107,12 @@ class Simulation:
         self.md = md
         self.nbr_method = nbr_method
         self.k_model = k_model
+        self.constraint = constraint
         self.masses = torch.as_tensor(system.atom_masses(),
                                       device=self.device)
         self.dt = md.dt_fs * units.FS
-        self.ndf = 3 * system.n_atoms
+        self.ndf = 3 * system.n_atoms - (
+            constraint.n_constraints if constraint is not None else 0)
         self.friction = md.friction_per_ps / units.PS
         self.megastep_fn = megastep_fn
         if megastep_fn is not None:
@@ -171,20 +174,29 @@ class Simulation:
         return force
 
     def _integrator(self, force):
-        md = self.md
+        md, cst = self.md, self.constraint
         if md.integrator == "nve":
-            return integ.velocity_verlet(force, self.dt, self.masses)
+            return integ.velocity_verlet(force, self.dt, self.masses,
+                                         constraint=cst)
         if md.integrator == "langevin":
             return integ.baoab_langevin(force, self.dt, self.masses,
                                         md.temperature,
-                                        friction=self.friction)
+                                        friction=self.friction,
+                                        constraint=cst)
         if md.integrator == "nose_hoover":
             return integ.nose_hoover_chain(
                 force, self.dt, self.masses, md.temperature,
                 frequency=self.friction, chain_length=md.chain_length,
-                n_c=md.chain_mts, n_ys=md.chain_ys, ndf=self.ndf)
+                n_c=md.chain_mts, n_ys=md.chain_ys, ndf=self.ndf,
+                constraint=cst)
         return integ.andersen(force, self.dt, self.masses, md.temperature,
-                              collision_rate=self.friction)
+                              collision_rate=self.friction, constraint=cst)
+
+    def _refuse_constrained_replicas(self):
+        if self.constraint is not None:
+            raise NotImplementedError(
+                "constrained replicas (JAX's vmapped run of SETTLE/RATTLE) "
+                "are not ported yet: ROADMAP Queue 1 item 5")
 
     def init_state(self, pos, vel=None, rng: torch.Generator = None):
         """Initial state; velocities default to Maxwell-Boltzmann drawn from
@@ -219,6 +231,7 @@ class Simulation:
         stream of all replicas under Langevin and Andersen; the start list
         is built once and shared, the forces taken in one batched call.
         """
+        self._refuse_constrained_replicas()
         if rng is None:
             rng = torch.Generator(device=self.device)
             rng.manual_seed(self.md.seed)
@@ -319,6 +332,7 @@ class Simulation:
         megakernel force and megastep window take all replicas in one
         call. Every RunResult field gains a leading replica axis: thermo
         [R, steps], positions [R, n_chunks, N, 3]."""
+        self._refuse_constrained_replicas()
         if states.pos.ndim != 3:
             raise ValueError("run_replicas takes a replica state [R, N, 3] "
                              "(init_replicas); use run for one system")

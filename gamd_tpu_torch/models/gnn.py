@@ -1,5 +1,6 @@
 """GAMD GNN force field over padded [N, K] neighbour lists, eval and train
-forward (port of gamd_tpu/models/gnn.py::GAMDNet for the LJ species).
+forward (port of gamd_tpu/models/gnn.py::GAMDNet: the LJ species, and the
+water species with its one-hot node encoder and its bond channel).
 
 Every tensor is a dense [B, N, K, F] block; padded neighbour slots point at
 the centre atom and are zeroed by the mask when messages are summed. Per
@@ -20,8 +21,12 @@ CUDA edge_encoder on the card) as in JAX (gamd_tpu/models/gnn.py:296-308):
 that encoder's gelu is the tanh form, and its live mask is the given mask
 passed through. In train mode (forward(..., train=True, generator=g)) BatchNorm
 uses and updates batch statistics as flax does, and edge dropout and
-drop_edge draw from `generator`. The water variant (one-hot node encoder,
-bond channel) comes with the water slice.
+drop_edge draw from `generator`. The water variant (species="water")
+encodes the one-hot species feature node_feat [B, N, F] through a dense
+layer `node_encoder` instead of the LJ embedding `node_emb`, and with
+use_bond the bond channel bond [B, N, K] is the encoder's last input
+column (gamd_tpu/models/gnn.py:316-344); JAX leaves the fused encoder off
+under use_bond, and so does the port.
 
 cfg.compute_dtype="bfloat16" is JAX's mixed-precision policy
 (gamd_tpu/models/gnn.py:273-363) on the plain path: the parameters stay
@@ -260,10 +265,8 @@ class GAMDNet(nn.Module):
     def __init__(self, cfg: ModelConfig, species: str = "lj",
                  use_bond: bool = False):
         super().__init__()
-        if species != "lj" or use_bond:
-            raise NotImplementedError(
-                "the water GAMDNet (one-hot node encoder, bond channel) "
-                "comes with the port's water slice")
+        if species not in ("lj", "water"):
+            raise ValueError(f"unknown species {species!r}")
         if cfg.update_edge or not cfg.expand_edge:
             raise NotImplementedError(
                 "update_edge / expand_edge=False are not ported")
@@ -276,15 +279,21 @@ class GAMDNet(nn.Module):
                 f"compute_dtype={cfg.compute_dtype!r} runs on the plain "
                 f"path only: {which} compute in float32")
         self.cfg = cfg
+        self.species = species
+        self.use_bond = use_bond
         h, e = cfg.hidden_dim, cfg.edge_embedding_dim
-        in_feats = 3 + 1 + cfg.n_rbf
+        in_feats = 3 + 1 + cfg.n_rbf + (1 if use_bond else 0)
         p = lambda *shape: nn.Parameter(torch.zeros(*shape))
         self.edge_encoder_w0, self.edge_encoder_b0 = p(in_feats, h), p(h)
         self.edge_encoder_w1, self.edge_encoder_b1 = p(h, h), p(h)
         self.edge_encoder_w2, self.edge_encoder_b2 = p(h, e), p(e)
         self.edge_ln_scale = nn.Parameter(torch.ones(e))
         self.edge_ln_bias = p(e)
-        self.node_emb = p(1, cfg.encoding_size)
+        if species == "lj":
+            self.node_emb = p(1, cfg.encoding_size)
+        else:
+            self.node_encoder = Dense(cfg.in_node_feats, cfg.encoding_size,
+                                      self.dtype)
         self.graph_conv = ConvBlock(cfg, self.dtype)
         self.graph_decoder = MLP(cfg.encoding_size, cfg.out_feats,
                                  hidden_dim=h, hidden_layer=2,
@@ -322,18 +331,24 @@ class GAMDNet(nn.Module):
         return params, batch_stats
 
     def encode_edges(self, pos, idx, box, length_mean, length_std,
-                     train: bool = False, generator=None):
+                     train: bool = False, generator=None, bond=None):
         """The encoded edges e [B,N,K,E] that every conv layer reads: the
-        encoder MLP over unit vector, standardised length and its RBF
-        expansion, the edge LayerNorm, and in train mode edge dropout
-        cfg.dropout (inverse-scaled, as flax) drawn from `generator`."""
+        encoder MLP over unit vector, standardised length, its RBF
+        expansion and (use_bond) the bond channel [B,N,K], the edge
+        LayerNorm, and in train mode edge dropout cfg.dropout
+        (inverse-scaled, as flax) drawn from `generator`."""
         cfg = self.cfg
         act = get_activation(cfg.mlp_activation, self.dtype)
         unit, dist = edge_geometry(pos, idx, box, flip_dir=cfg.flip_dir)
         std_dist = (dist - length_mean) / length_std
-        feats = torch.cat([unit, std_dist[..., None],
-                           rbf_expand(std_dist, cfg.rbf_low, cfg.rbf_high,
-                                      cfg.rbf_gap)], dim=-1)
+        feats = [unit, std_dist[..., None],
+                 rbf_expand(std_dist, cfg.rbf_low, cfg.rbf_high,
+                            cfg.rbf_gap)]
+        if self.use_bond:
+            if bond is None:
+                raise ValueError("use_bond=True requires a bond channel")
+            feats.append(bond[..., None].to(std_dist.dtype))
+        feats = torch.cat(feats, dim=-1)
         cd = _caster(self.dtype)
         z = act(cd(feats) @ cd(self.edge_encoder_w0)
                 + cd(self.edge_encoder_b0))
@@ -348,9 +363,12 @@ class GAMDNet(nn.Module):
         return e
 
     def forward(self, pos, idx, mask, box, length_mean, length_std,
-                train: bool = False, generator=None):
+                train: bool = False, generator=None, node_feat=None,
+                bond=None):
         """pos [B,N,3] wrapped, idx/mask [B,N,K], box float, length_mean/std
-        floats or 0-d tensors -> normalised forces [B,N,3].
+        floats or 0-d tensors -> normalised forces [B,N,3]. The water
+        species takes node_feat [B,N,F] (the one-hot species) and, with
+        use_bond, bond [B,N,K].
 
         train=True: BatchNorm on batch statistics (running stats updated),
         edge dropout and drop_edge, both drawn from `generator`."""
@@ -358,7 +376,7 @@ class GAMDNet(nn.Module):
         scalar_box = box.ndim == 0 if torch.is_tensor(box) \
             else np.ndim(box) == 0
         if cfg.use_pallas and cfg.use_pallas_encoder and not train \
-                and scalar_box:
+                and not self.use_bond and scalar_box:
             e, mask = fused_edge_encoder(
                 pos, idx, mask, box, None, length_mean, length_std,
                 self.edge_encoder_w0, self.edge_encoder_b0,
@@ -369,9 +387,14 @@ class GAMDNet(nn.Module):
                 flip_dir=cfg.flip_dir)
         else:
             e = self.encode_edges(pos, idx, box, length_mean, length_std,
-                                  train, generator)
+                                  train, generator, bond)
         b, n, _ = pos.shape
-        h = _caster(self.dtype)(
-            self.node_emb.expand(b, n, self.cfg.encoding_size))
+        if self.species == "lj":
+            h = _caster(self.dtype)(
+                self.node_emb.expand(b, n, self.cfg.encoding_size))
+        else:
+            if node_feat is None:
+                raise ValueError("water variants require node_feat one-hot")
+            h = _caster(self.dtype)(self.node_encoder(node_feat))
         h = self.graph_conv(h, e, idx, mask, train, generator)
         return _wide(self.graph_decoder(h))

@@ -350,8 +350,9 @@ def make_banded_force_fn(mp: MegaParams, box, cutoff, n_atoms, h0,
     """
     if use_bond:
         raise NotImplementedError(
-            "the banded path's water bond channel comes with the port's "
-            "water slice (ROADMAP Queue 1 item 5)")
+            "the banded path's water bond channel comes with a later water "
+            "slice of the port (ROADMAP Queue 2 item 6b, the banded bond); "
+            "water runs on force_fn and force_fn(megakernel=True)")
     if band is None:
         band = auto_band(n_atoms, box, cutoff, tile_n)
     band = min(band, _round_up(n_atoms, 16))

@@ -15,8 +15,8 @@ gamd_tpu/ops/pallas_model.py and the wrapper of its Hopper kernel.
   tensor (counted in `mega_layout.launches`) and live_edge_layout on a
   CPU tensor.
 * mega_forward runs csrc/mega_forward.cu on a CUDA tensor and the plain
-  version on a CPU tensor. It counts its kernel launches in
-  `mega_forward.launches`.
+  version on a CPU tensor, with water's bond channel or without. It
+  counts its kernel launches in `mega_forward.launches`.
 * md_steps_reference is the plain version of a whole BAOAB Langevin window
   with that forward inside (gamd_tpu/ops/pallas_model.py::mega_md_steps);
   mega_md_steps runs it as csrc/mega_md_steps.cu on a CUDA tensor, one
@@ -465,14 +465,15 @@ def declare(lib):
     weights = ctypes.POINTER(_MegaWeights)
     scratch = ctypes.POINTER(_MegaScratch)
     lib.gamd_mega_forward.argtypes = [
-        p, p, p, p, weights,                          # pos idx bmask h0 w
+        p, p, p, p, p, weights,                       # pos idx bm bond h0 w
         i, i, i, i, i, i, i,                          # r n k L n_rbf ln flip
         f, f, f, f, f,                                # box cut2 lm ls gamma
         scratch, p,                                   # scratch out
         p]                                            # stream
     lib.gamd_mega_forward.restype = ctypes.c_int
     lib.gamd_mega_md_steps.argtypes = [
-        p, p, p, p, p, p, weights,                    # pos vel f idx bm h0 w
+        p, p, p, p, p, p, p, weights,                 # pos vel f idx bm bond
+                                                      # h0 w
         p, p, p,                                      # seed masses c2col
         i, i, i, i, i, i, i,                          # r n k L n_rbf ln flip
         f, f, f, f, f,                                # box cut2 lm ls gamma
@@ -531,15 +532,15 @@ def _check_forward(fn, pos, idx, build_mask, h0, mp, bond, conv_act,
                    mlp_act):
     """The checks both kernels make of the forward's inputs on a CUDA
     device (one system [N, ...] or R replicas [R, N, ...], the same R on
-    pos, idx, build_mask and h0); returns the library's forward arguments
-    that follow from them as (r, n, k, n_layers, weights struct, RBF
-    rows)."""
+    pos, idx, build_mask, h0 and bond, if given); returns the library's
+    forward arguments that follow from them as (r, n, k, n_layers, weights
+    struct, RBF rows, bond pointer or None)."""
     if pos.device.type != "cuda":
         raise ValueError(f"{fn} runs on cuda or cpu, not {pos.device}")
-    if bond is not None or conv_act != "silu" or mlp_act != "gelu":
+    if conv_act != "silu" or mlp_act != "gelu":
         raise NotImplementedError(
-            f"the CUDA {fn} takes the LJ model: no bond channel, silu conv "
-            "and gelu MLP activations")
+            f"the CUDA {fn} takes silu conv and gelu MLP activations, not "
+            f"{conv_act!r} and {mlp_act!r}")
     dev = pos.device
     if pos.ndim not in (2, 3):
         raise ValueError(f"{fn}: pos must be [N, 3] or [R, N, 3], not "
@@ -552,11 +553,14 @@ def _check_forward(fn, pos, idx, build_mask, h0, mp, bond, conv_act,
     _check(fn, "idx", idx, dev, torch.int32, (*lead, n, k))
     _check(fn, "build_mask", build_mask, dev, torch.bool, (*lead, n, k))
     _check(fn, "h0", h0, dev, torch.float32, (*lead, n, KERNEL_WIDTH))
+    if bond is not None:
+        _check(fn, "bond", bond, dev, torch.float32, (*lead, n, k))
     r = lead[0] if lead else 1
     if r < 1:
         raise ValueError(f"{fn}: no replicas in pos {tuple(pos.shape)}")
     _check_slots(fn, k)
-    return (r, n, k, n_layers, *_weights(fn, mp, dev))
+    return (r, n, k, n_layers, *_weights(fn, mp, dev),
+            None if bond is None else bond.data_ptr())
 
 
 #: Per MegaParams (keyed by its first tensor): the identity and version of
@@ -632,7 +636,7 @@ def _scalars(box, cutoff, length_mean, length_std, rbf_gap):
 def mega_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
                  length_mean, length_std, bond=None, rbf_gap=0.025,
                  flip_dir=False, use_ln=True, conv_act="silu",
-                 mlp_act="gelu"):
+                 mlp_act="gelu", edge_hilo=False, f32_edges=False):
     """Forces [N, 3] (or [R, N, 3]) from wrapped positions.
 
     Args:
@@ -646,15 +650,26 @@ def mega_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
         h0:   [N, D] / [R, N, D] float32 initial node features.
         mp:   MegaParams from pack_params, on pos's device.
         box, cutoff, length_mean, length_std: Python floats.
+        bond: None, or [N, K] / [R, N, K] float32 bond channel (water's
+              O-H indicator, neighbors.topology.neighbor_bond_channel of
+              the build-time list), read at the live slots; each live edge
+              adds bond * w_geo[4] to its encoder input. All zeros gives
+              the bits of None.
+        edge_hilo, f32_edges: the JAX package's precision switches of the
+              edge products (single-pass bf16 by default there, bf16 hi +
+              lo with edge_hilo, fp32 with f32_edges). The kernel computes
+              every edge product as bf16 x 3 with fp32 sums, JAX's
+              edge_hilo arithmetic, whichever is set: that is within the
+              fp32 bar, 5e-3 std(F), of the fp32 forward.
 
     A CPU `pos` runs reference_forward. A CUDA `pos` launches the kernel
-    (LJ: no bond channel, silu conv / gelu MLP, every width 128) or raises.
+    (silu conv / gelu MLP, every width 128) or raises.
     """
     if pos.device.type == "cpu":
         return reference_forward(pos, idx, build_mask, h0, mp, box, cutoff,
                                  length_mean, length_std, bond, rbf_gap,
                                  flip_dir, use_ln, conv_act, mlp_act)
-    r, n, k, n_layers, weights, n_rbf = _check_forward(
+    r, n, k, n_layers, weights, n_rbf, bond_ptr = _check_forward(
         "mega_forward", pos, idx, build_mask, h0, mp, bond, conv_act,
         mlp_act)
 
@@ -664,7 +679,7 @@ def mega_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
     out = torch.empty(pos.shape, device=pos.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     err = lib.gamd_mega_forward(
-        pos.data_ptr(), idx.data_ptr(), build_mask.data_ptr(),
+        pos.data_ptr(), idx.data_ptr(), build_mask.data_ptr(), bond_ptr,
         h0.data_ptr(), ctypes.byref(weights),
         r, n, k, n_layers, n_rbf, int(use_ln), int(flip_dir),
         *_scalars(box, cutoff, length_mean, length_std, rbf_gap),
@@ -682,7 +697,7 @@ def mega_md_steps(pos, vel, force, idx, build_mask, h0, mp: MegaParams,
                   n_steps: int, c1, hdt, c2col, seed, bond=None,
                   rbf_gap=0.025, flip_dir=False, use_ln=True,
                   conv_act="silu", mlp_act="gelu", edge_hilo=False,
-                  ablate=()):
+                  f32_edges=False, ablate=()):
     """A whole BAOAB Langevin window of n_steps with the forward inside
     (gamd_tpu/ops/pallas_model.py::mega_md_steps).
 
@@ -690,8 +705,9 @@ def mega_md_steps(pos, vel, force, idx, build_mask, h0, mp: MegaParams,
         pos/vel/force: [N, 3] or [R, N, 3] float32 state (R independent
             replicas, one call); positions need not be wrapped (the
             forward takes minimum images) and are not wrapped here.
-        idx/build_mask/h0/mp/box/cutoff/length_mean/length_std: as
-            mega_forward; the list is fixed for the window.
+        idx/build_mask/h0/mp/box/cutoff/length_mean/length_std/bond/
+            edge_hilo/f32_edges: as mega_forward; the list and its bond
+            channel are fixed for the window.
         masses: [N] float32 (internal units).
         c1: exp(-gamma dt); hdt: dt / 2 (Python floats); c2col: [N] float32
             noise amplitude sigma * sqrt(1 - c1^2), zero for no noise.
@@ -701,13 +717,13 @@ def mega_md_steps(pos, vel, force, idx, build_mask, h0, mp: MegaParams,
 
     Returns (pos', vel', force', ke [n_steps] or [R, n_steps]). A CPU
     `pos` runs md_steps_reference. A CUDA `pos` makes one call of
-    csrc/mega_md_steps.cu (LJ as mega_forward) or raises. edge_hilo and
-    ablate are refused on both.
+    csrc/mega_md_steps.cu (as mega_forward) or raises. ablate is refused
+    on both.
     """
-    if edge_hilo or ablate:
+    if ablate:
         raise NotImplementedError(
-            "edge_hilo and ablate are TPU precision / benchmark switches "
-            "that the port's mega_md_steps does not take")
+            "mega_md_steps: ablate, the benchmark's stage switch, is not "
+            "ported yet (ROADMAP Queue 2 item 6d)")
     if pos.device.type == "cpu":
         return md_steps_reference(
             pos, vel, force, idx, build_mask, h0, mp, box, cutoff,
@@ -716,7 +732,7 @@ def mega_md_steps(pos, vel, force, idx, build_mask, h0, mp: MegaParams,
             flip_dir=flip_dir, use_ln=use_ln, conv_act=conv_act,
             mlp_act=mlp_act)
     fn = "mega_md_steps"
-    r, n, k, n_layers, weights, n_rbf = _check_forward(
+    r, n, k, n_layers, weights, n_rbf, bond_ptr = _check_forward(
         fn, pos, idx, build_mask, h0, mp, bond, conv_act, mlp_act)
     dev = pos.device
     _check(fn, "vel", vel, dev, torch.float32, tuple(pos.shape))
@@ -737,7 +753,8 @@ def mega_md_steps(pos, vel, force, idx, build_mask, h0, mp: MegaParams,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.gamd_mega_md_steps(
         pos.data_ptr(), vel.data_ptr(), force.data_ptr(), idx.data_ptr(),
-        build_mask.data_ptr(), h0.data_ptr(), ctypes.byref(weights),
+        build_mask.data_ptr(), bond_ptr, h0.data_ptr(),
+        ctypes.byref(weights),
         seed.data_ptr(), masses.data_ptr(), c2col.data_ptr(),
         r, n, k, n_layers, n_rbf, int(use_ln), int(flip_dir),
         *_scalars(box, cutoff, length_mean, length_std, rbf_gap),

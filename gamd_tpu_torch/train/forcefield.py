@@ -1,10 +1,15 @@
 """A GAMD model as a force provider for md.simulate.Simulation (port of
 gamd_tpu/train/forcefield.py::GNNForceField: the eager force_fn, the
 megakernel force path, the large-N banded force path, the fused MD window
-megastep_fn and the offline predict / predict_batch, LJ).
+megastep_fn and the offline predict / predict_batch; LJ and water).
 
-The analytic long-range channel comes with the water slice and raises
-NotImplementedError here.
+A water system (species "water") feeds the model its one-hot species
+feature, and with has_bonds the O-H bond channel of every list
+(neighbors.topology.neighbor_bond_channel), on every path; its megakernel
+forward runs with edge_hilo=True, as JAX's water deployment does. The
+analytic long-range channel (make_longrange_force_fn, the envelopes with
+`longrange` set) and the banded path's bond channel come with later
+slices and raise NotImplementedError.
 """
 
 import torch
@@ -15,6 +20,7 @@ from gamd_tpu_torch.core.device import resolve_device
 from gamd_tpu_torch.models.gnn import GAMDNet
 from gamd_tpu_torch.models.normalizer import denormalize
 from gamd_tpu_torch.neighbors.dense import dense_neighbor_list
+from gamd_tpu_torch.neighbors.topology import neighbor_bond_channel
 from gamd_tpu_torch.ops.banded import make_banded_force_fn
 from gamd_tpu_torch.ops.mega import mega_forward, mega_md_steps, pack_params
 from gamd_tpu_torch.train.loop import search_batch
@@ -35,31 +41,51 @@ class GNNForceField:
     def __init__(self, state: ForceFieldState, system: SystemConfig,
                  model_cfg: ModelConfig, device="cuda"):
         self.device = resolve_device(device)
-        if system.species != "lj" or system.has_bonds:
-            raise NotImplementedError("the port's water slice is not done "
-                                      "yet: GNNForceField takes LJ systems")
         if getattr(model_cfg, "longrange", ""):
-            raise NotImplementedError("the analytic long-range channel comes "
-                                      "with the port's water slice")
+            raise NotImplementedError(
+                "the analytic long-range channel (longrange="
+                f"{model_cfg.longrange!r}: physics/ewald.py, "
+                "make_longrange_force_fn) comes with the next water slice of "
+                "the port (ROADMAP Queue 1 item 5)")
+        if system.species not in ("lj", "water"):
+            raise ValueError(f"unknown species {system.species!r}")
         self.system = system
         self.model_cfg = model_cfg
         self.params = state.params
         self.batch_stats = state.batch_stats
         self.force_stat = state.force_stat
         self.length_stat = state.length_stat
-        self.model = GAMDNet(model_cfg).load_params(
+        self.species = system.species
+        self.use_bond = system.has_bonds
+        self.model = GAMDNet(model_cfg, self.species,
+                             self.use_bond).load_params(
             state.params, state.batch_stats).to(self.device).eval()
+        feat = system.species_onehot()
+        self._feat = None if feat is None else torch.as_tensor(
+            feat, device=self.device)[None]           # [1, N, F]
 
     def _length_scale(self):
         return (self.length_stat.safe_mean,
                 max(self.length_stat.std, 1e-12))
 
+    def _bond(self, idx):
+        """The bond channel of lists idx [..., N, K] (None without
+        has_bonds)."""
+        return neighbor_bond_channel(idx) if self.use_bond else None
+
+    def _model(self, pos, idx, mask, box):
+        """The model's normalised forces of frames pos [B, N, 3] with their
+        lists, with the water inputs (species feature, bond) added."""
+        mean, std = self._length_scale()
+        feat = None if self._feat is None else self._feat.expand(
+            pos.shape[0], -1, -1)
+        return self.model(pos, idx, mask, box, mean, std, node_feat=feat,
+                          bond=self._bond(idx))
+
     @torch.no_grad()
     def _forward(self, pos, idx, mask, box):
         """Normalised force prediction for one frame."""
-        mean, std = self._length_scale()
-        return self.model(pos[None], idx[None], mask[None], box, mean,
-                          std)[0]
+        return self._model(pos[None], idx[None], mask[None], box)[0]
 
     def force_fn(self, megakernel: bool = False):
         """(pos, idx, mask) -> force in kJ/mol/A, for md.simulate.Simulation.
@@ -81,11 +107,20 @@ class GNNForceField:
         return fn
 
     def _node_h0(self):
-        """Initial node features [N, D]: the LJ embedding on every atom."""
-        emb = torch.as_tensor(self.params["node_emb"], dtype=torch.float32,
-                              device=self.device)
-        return emb.expand(self.system.n_atoms,
-                          self.model_cfg.encoding_size).contiguous()
+        """Initial node features [N, D]: the LJ embedding on every atom, or
+        the water node encoder of the (constant) one-hot species, feat @
+        kernel + bias, as elementwise products and sums (F is 1: one
+        product a value, as the matmul's)."""
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                         device=self.device)
+        if self.species == "lj":
+            return as_t(self.params["node_emb"]).expand(
+                self.system.n_atoms,
+                self.model_cfg.encoding_size).contiguous()
+        enc = self.params["node_encoder"]
+        kernel, bias = as_t(enc["kernel"]), as_t(enc["bias"])
+        h = torch.sum(self._feat[0][:, :, None] * kernel[None], dim=1)
+        return (h + bias).contiguous()
 
     def _kernel_params(self, path):
         """MegaParams with the force denormalisation and the unit folded in,
@@ -130,13 +165,19 @@ class GNNForceField:
         h0_of = self._replica_h0()
         length_mean, length_std = self._length_scale()
 
+        # Water deployment takes the hi/lo edge stream, as JAX's
+        # (gamd_tpu/train/forcefield.py:159); the port's kernels compute it
+        # on every system.
+        edge_hilo = self.species == "water"
+
         @torch.no_grad()
         def fn(pos, idx, mask):
             return mega_forward(
                 pos, idx, mask, h0_of(pos), mp, system.box, system.cutoff,
-                length_mean, length_std, rbf_gap=cfg.rbf_gap,
-                flip_dir=cfg.flip_dir, use_ln=cfg.use_layer_norm,
-                conv_act=cfg.conv_activation, mlp_act=cfg.mlp_activation)
+                length_mean, length_std, bond=self._bond(idx),
+                rbf_gap=cfg.rbf_gap, flip_dir=cfg.flip_dir,
+                use_ln=cfg.use_layer_norm, conv_act=cfg.conv_activation,
+                mlp_act=cfg.mlp_activation, edge_hilo=edge_hilo)
 
         fn.handles_refresh = True     # true-cutoff mask redone in the kernel
         return fn
@@ -169,7 +210,8 @@ class GNNForceField:
                 pos, vel, force, idx, mask, h0_of(pos), mp, system.box,
                 system.cutoff, length_mean, length_std, masses,
                 n_steps=n_steps, c1=c1, hdt=hdt, c2col=c2col, seed=seed,
-                rbf_gap=cfg.rbf_gap, flip_dir=cfg.flip_dir,
+                bond=self._bond(idx), rbf_gap=cfg.rbf_gap,
+                flip_dir=cfg.flip_dir,
                 use_ln=cfg.use_layer_norm, conv_act=cfg.conv_activation,
                 mlp_act=cfg.mlp_activation)
 
@@ -190,7 +232,7 @@ class GNNForceField:
         fn0 = make_banded_force_fn(
             mp, system.box, system.cutoff, system.n_atoms, self._node_h0(),
             length_mean, length_std, band=band, tile_n=tile_n,
-            flip_dir=cfg.flip_dir, use_ln=cfg.use_layer_norm,
+            use_bond=self.use_bond, flip_dir=cfg.flip_dir, use_ln=cfg.use_layer_norm,
             mlp_act=cfg.mlp_activation)
 
         @torch.no_grad()
@@ -234,12 +276,11 @@ class GNNForceField:
         pad = -(-m // batch_size) * batch_size - m
         if pad:
             pos_all = torch.cat([pos_all, pos_all[-1:].expand(pad, -1, -1)])
-        mean, std = self._length_scale()
         out = []
         for batch in pos_all.split(batch_size):
             posw = space.wrap(batch, box)
             idx, mask, _ = search_batch(posw, box, self.system.cutoff,
                                         self.system.nbr_capacity)
-            pred = self.model(posw, idx, mask, box, mean, std)
+            pred = self._model(posw, idx, mask, box)
             out.append(denormalize(pred, self.force_stat))
         return torch.cat(out)[:m]

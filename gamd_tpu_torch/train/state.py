@@ -76,6 +76,10 @@ def create_train_state(model_cfg: ModelConfig, system: SystemConfig,
     CPU): init_params(seed) weights, Adam with the staircase schedule,
     empty scalers, and a generator on the device seeded with `seed`
     (train_cfg.seed when None)."""
+    if system.species != "lj" or system.has_bonds:
+        raise NotImplementedError(
+            "water training comes with a later water slice of the port "
+            "(ROADMAP Queue 1 item 5): the port trains LJ systems")
     dev = resolve_device(device)
     seed = train_cfg.seed if seed is None else seed
     weights = init_params(model_cfg, system, seed=seed)
@@ -105,23 +109,30 @@ def init_params(model_cfg: ModelConfig, system: SystemConfig,
                 seed: int = 0) -> ForceFieldState:
     """Untrained GAMDNet weights drawn from numpy with `seed` (the flax
     initialisers' distributions: lecun-normal kernels, zero biases, unit
-    LayerNorm scales, standard-normal node embedding)."""
-    if system.species != "lj" or system.has_bonds:
-        raise NotImplementedError("the port's water slice is not done yet")
+    LayerNorm scales, standard-normal node embedding). A water system
+    (species "water") gets the node encoder (a lecun-normal [F, D] kernel
+    and a zero bias) instead of the embedding, and with has_bonds the
+    encoder's bond row (edge_encoder_w0 is [4 + n_rbf + 1, H])."""
+    if system.species not in ("lj", "water"):
+        raise ValueError(f"unknown species {system.species!r}")
     cfg = model_cfg
     rng = np.random.default_rng(seed)
     d, h, e = cfg.encoding_size, cfg.hidden_dim, cfg.edge_embedding_dim
     zeros = lambda n: np.zeros((n,), np.float32)
     w = lambda i, o: _lecun_normal(rng, i, o)
     params = {
-        "edge_encoder_w0": w(3 + 1 + cfg.n_rbf, h),
+        "edge_encoder_w0": w(3 + 1 + cfg.n_rbf + int(system.has_bonds), h),
         "edge_encoder_b0": zeros(h),
         "edge_encoder_w1": w(h, h), "edge_encoder_b1": zeros(h),
         "edge_encoder_w2": w(h, e), "edge_encoder_b2": zeros(e),
         "edge_ln_scale": np.ones((e,), np.float32),
         "edge_ln_bias": zeros(e),
-        "node_emb": rng.standard_normal((1, d)).astype(np.float32),
     }
+    if system.species == "lj":
+        params["node_emb"] = rng.standard_normal((1, d)).astype(np.float32)
+    else:
+        params["node_encoder"] = {"kernel": w(cfg.in_node_feats, d),
+                                  "bias": zeros(d)}
     conv, batch_stats = {}, {}
     for layer in range(cfg.conv_layers):
         conv[f"norm_{layer}"] = {"scale": np.ones((d,), np.float32),

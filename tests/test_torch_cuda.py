@@ -7,7 +7,9 @@ op library's gather_agg, edge_mlp_agg, conv_msg and conv_layer, and the
 probes' mxu_loop (five bodies), onehot_gather (five forms), lane_gather
 (two widths), sublane_gather and transpose_probe against their plain
 PyTorch versions, on a Hopper card (capability 9.x); Simulation's replica
-path on the card.
+path on the card; mega_forward and mega_md_steps with the water model's
+bond channel, the eager water model through conv_msg_gather, and the
+rigid-water constraints with TF32 allowed.
 Without one every test here skips.
 
 On the card (which has no JAX) run this file without the JAX package's
@@ -16,6 +18,7 @@ tests/test_torch_cuda.py
 """
 
 import ctypes
+import dataclasses
 import os
 
 os.environ.setdefault("GAMD_XLA_CACHE", "off")
@@ -27,11 +30,15 @@ import torch
 from gamd_tpu_torch.core import units
 from gamd_tpu_torch.core.config import MDConfig, ModelConfig, get_preset
 from gamd_tpu_torch.md import integrators as integ
+from gamd_tpu_torch.md.constraints import RigidWater
 from gamd_tpu_torch.md.simulate import Simulation
 from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
-from gamd_tpu_torch.neighbors.dense import build_nbrs, dense_neighbor_list
+from gamd_tpu_torch.neighbors.dense import (build_nbrs, dense_neighbor_list,
+                                            refresh_mask)
+from gamd_tpu_torch.neighbors.topology import neighbor_bond_channel
 from gamd_tpu_torch.ops import (banded, edge_tiles, gather_probe, message,
                                 mxu_probe, nhc)
+from gamd_tpu_torch.ops import mega as mega_module
 from gamd_tpu_torch.ops.conv_gather import (batched_reference,
                                             fused_conv_gather_message)
 from gamd_tpu_torch.ops.encoder import (edge_encoder_reference,
@@ -43,6 +50,7 @@ from gamd_tpu_torch.ops.mega import (live_edge_layout, md_steps_reference,
                                      mega_md_steps, pack_params,
                                      reference_forward)
 from gamd_tpu_torch.physics.lennard_jones import lj_fluid_box
+from gamd_tpu_torch.physics.water import water_box
 from gamd_tpu_torch.tools import (bench_mxu, probe_gather, probe_nhc_kernel,
                                   profile_step)
 from gamd_tpu_torch.tools.bench_large import (banded_layer_inputs, lj_large,
@@ -140,9 +148,12 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         mega_forward(pos.t().contiguous().t(), idx, mask, h0, mp, *rest)
     with pytest.raises(ValueError, match="h0"):
         mega_forward(pos, idx, mask, h0[:, :64].contiguous(), mp, *rest)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="bond"):
         mega_forward(pos, idx, mask, h0, mp, *rest,
-                     bond=torch.zeros_like(mask, dtype=torch.float32))
+                     bond=torch.zeros(idx.shape[0], idx.shape[1] + 1,
+                                      device=cuda))
+    with pytest.raises(NotImplementedError):
+        mega_forward(pos, idx, mask, h0, mp, *rest, conv_act="gelu")
     assert mega_forward.launches == before
 
 
@@ -368,10 +379,13 @@ def test_window_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="idx"):
         mega_md_steps(pos, vel, vel, idx.long(), mask, h0, mp, *rest,
                       masses, **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="bond"):
         mega_md_steps(pos, vel, vel, idx, mask, h0, mp, *rest, masses,
-                      bond=torch.zeros_like(mask, dtype=torch.float32),
+                      bond=torch.zeros_like(mask, dtype=torch.float64),
                       **kw)
+    with pytest.raises(NotImplementedError, match="ablate"):
+        mega_md_steps(pos, vel, vel, idx, mask, h0, mp, *rest, masses,
+                      ablate=("noise",), **kw)
     assert mega_md_steps.launches == before
 
 
@@ -1814,3 +1828,159 @@ def test_run_replicas_on_the_card(cuda, integrator):
     assert res.thermo.temperature.shape == (4, 10)
     assert bool(torch.isfinite(res.state.pos).all())
     assert float((res.state.pos[0] - res.state.pos[1]).abs().max()) > 1e-3
+
+
+# -- the water model's bond channel (rows 1-2), the constraints --------------
+
+def _water_case(dev, layers=2):
+    """TIP3P-774 with tip3p_final's weights cut to its first `layers` conv
+    layers, at the water start without FIRE (water_box snapped onto the
+    constraints), the K=96 list at 4.2 + 0.7 A and its bond channel:
+    (forward args, bond, force field)."""
+    state, model_cfg, system = load_self_describing(os.path.join(
+        REPO, "results", "ckpts", "tip3p_final.msgpack"))
+    ff = GNNForceField(state, system, model_cfg, device=dev)
+    pos = RigidWater(system.n_atoms // 3, system.box).project_initial(
+        torch.as_tensor(water_box(system.n_atoms // 3, system.box, seed=0),
+                        device=dev))
+    pos = torch.remainder(pos, system.box).contiguous()
+    idx, mask, ovf = build_nbrs(pos, system)
+    assert not bool(ovf)
+    mp = ff._kernel_params("megakernel")
+    mp = mp._replace(**{name: getattr(mp, name)[:layers].contiguous()
+                        for name in mp._fields
+                        if getattr(mp, name).shape[0] == model_cfg.conv_layers
+                        and getattr(mp, name).ndim == 3})
+    args = (pos, idx, mask, ff._node_h0(), mp, system.box, system.cutoff,
+            *ff._length_scale())
+    return args, neighbor_bond_channel(idx), ff
+
+
+def test_forward_with_bond_matches_plain_version(cuda):
+    """mega_forward with the bond channel on TIP3P-774 (tip3p_final's
+    weights, 2 of its 4 layers, K=96): one launch, within 5e-3 std(F) of
+    reference_forward with the bond; a bond of zeros gives the bits of no
+    bond; the bond changes the forces; edge_hilo and f32_edges give the
+    same bits."""
+    args, bond, _ = _water_case(cuda)
+    before = mega_forward.launches
+    out = mega_forward(*args, bond=bond)
+    torch.cuda.synchronize()
+    assert mega_forward.launches == before + 1
+    ref = reference_forward(*args, bond=bond)
+    assert float((out - ref).abs().max()) < TOLERANCE * float(
+        ref.abs().std())
+    none = mega_forward(*args)
+    assert torch.equal(mega_forward(*args, bond=torch.zeros_like(bond)),
+                       none)
+    assert float((out - none).abs().max()) > 1e-3 * float(ref.abs().std())
+    for kw in (dict(edge_hilo=True), dict(f32_edges=True)):
+        assert torch.equal(mega_forward(*args, bond=bond, **kw), out)
+
+
+def test_forward_with_bond_replicas_match_single_calls(cuda):
+    """R=2 water frames (the start and a shifted copy, each with its own
+    list and bond channel) in one launch: each replica bit for bit its own
+    single launch."""
+    (pos, idx, mask, h0, mp, box, *rest), bond, ff = _water_case(cuda)
+    system = ff.system
+    frames = torch.stack([pos, torch.remainder(pos + 3.1, box)])
+    idx2, mask2, _ = build_nbrs(frames, system)
+    bond2 = neighbor_bond_channel(idx2)
+    h02 = h0.expand(2, -1, -1).contiguous()
+    out = mega_forward(frames, idx2, mask2, h02, mp, box, *rest, bond=bond2)
+    for r in range(2):
+        one = mega_forward(frames[r], idx2[r], mask2[r], h0, mp, box, *rest,
+                           bond=bond2[r])
+        assert torch.equal(out[r], one), r
+
+
+def test_window_with_bond_matches_plain_version(cuda, monkeypatch):
+    """A 20-step window with the bond channel and c2col = 0 on TIP3P-774
+    (2 layers of tip3p_final, K=96): pos within 2e-4 of the plain window,
+    ke within rtol 1e-4, vel within 2e-4 or, if larger, twice the distance
+    between the plain window and the plain window with the kernel's bf16
+    x 3 edge products (ops.mega.split_bf16_matmul): at hydrogen's mass the
+    forward's 1e-5 std(F) moves velocities some 5e-4 A/t0 over a
+    window."""
+    args, bond, ff = _water_case(cuda)
+    system = ff.system
+    md = MDConfig(integrator="langevin", temperature=300.0,
+                  friction_per_ps=1.0)
+    sim = Simulation(lambda p, i, m: p, system, md, device=cuda)
+    c1, hdt, _ = sim._baoab_constants()
+    vel = integ.maxwell_boltzmann_velocities(
+        torch.Generator(cuda).manual_seed(3), sim.masses, 300.0)
+    pos, idx, mask, h0, mp, box, cutoff, lm, ls = args
+    force = mega_forward(*args, bond=bond)
+    kw = dict(n_steps=20, c1=c1, hdt=hdt, c2col=torch.zeros_like(sim.masses),
+              seed=torch.tensor([5], dtype=torch.int32, device=cuda),
+              bond=bond)
+    before = mega_md_steps.launches
+    out = mega_md_steps(pos, vel, force, idx, mask, h0, mp, box, cutoff, lm,
+                        ls, sim.masses, **kw)
+    torch.cuda.synchronize()
+    assert mega_md_steps.launches == before + 1
+    plain = lambda: md_steps_reference(pos, vel, force, idx, mask, h0, mp,
+                                       box, cutoff, lm, ls, sim.masses, **kw)
+    ref = plain()
+    monkeypatch.setattr(mega_module, "_edge_mm", mega_module.split_bf16_matmul)
+    spread = float((plain()[1] - ref[1]).abs().max())
+    assert float((out[0] - ref[0]).abs().max()) <= WINDOW_ATOL
+    assert float((out[1] - ref[1]).abs().max()) <= max(WINDOW_ATOL,
+                                                       2.0 * spread)
+    torch.testing.assert_close(out[3], ref[3], rtol=1e-4, atol=0)
+
+
+def test_eager_water_model_with_conv_kernel_matches_plain(cuda):
+    """The water GAMDNet on TIP3P-774 (tip3p_final, all 4 layers) with
+    use_pallas (every conv layer through conv_msg_gather, row 3) against
+    the plain model on the same frame: forces within 1e-4 std(F) (row 3
+    holds its messages within 1e-4 of max |agg|)."""
+    state, model_cfg, system = load_self_describing(os.path.join(
+        REPO, "results", "ckpts", "tip3p_final.msgpack"))
+    (pos, idx, mask, *_), _, ff = _water_case(cuda)
+    live = refresh_mask(pos, system.box, system.cutoff, idx, mask)
+    plain = ff.force_fn()(pos, idx, live)
+    kernel_ff = GNNForceField(state, system, dataclasses.replace(
+        model_cfg, use_pallas=True), device=cuda)
+    before = fused_conv_gather_message.launches
+    got = kernel_ff.force_fn()(pos, idx, live)
+    torch.cuda.synchronize()
+    assert fused_conv_gather_message.launches == before + 4
+    assert float((got - plain).abs().max()) < 1e-4 * float(plain.abs().std())
+
+
+def test_constraints_are_out_of_reach_of_tf32(cuda):
+    """SETTLE, SHAKE, RATTLE and the residual on TIP3P-774 give the same
+    bits with TF32 allowed for matmuls and convolutions as without, and
+    SETTLE is within 5e-6 A of its float64 evaluation: no product of the
+    constraints reaches a TF32 unit."""
+    n_mol, box = 258, 20.0
+    cst = RigidWater(n_mol, box)
+    pos = cst.project_initial(torch.as_tensor(
+        water_box(n_mol, box, seed=1), device=cuda))
+    gen = torch.Generator(cuda).manual_seed(2)
+    new = pos + 0.02 * torch.randn(pos.shape, device=cuda, generator=gen)
+    vel = torch.randn(pos.shape, device=cuda, generator=gen)
+
+    def run():
+        shake_cst = RigidWater(n_mol, box, method="shake")
+        return (cst.positions(pos, new), shake_cst.positions(pos, new),
+                cst.velocities(new, vel), cst.residual(new))
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        with_tf32 = run()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    without = run()
+    for a, b in zip(with_tf32, without):
+        assert torch.equal(a, b)
+    ref = RigidWater(n_mol, box).positions(pos.double(), new.double())
+    assert float((without[0].double() - ref).abs().max()) < 5e-6
+    assert float(cst.residual(without[0])) < 1e-5

@@ -11,8 +11,8 @@ import textwrap
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "ninja", "gamd_tpu")
 #: Modules of the later slices (large N; the integrators and the NHC
-#: kernel; the op library; the tensor-core probes), which the probe must
-#: have imported.
+#: kernel; the op library; the tensor-core probes; water), which the probe
+#: must have imported.
 NEW_IN_SLICES = ("gamd_tpu_torch.neighbors.cell_list",
                  "gamd_tpu_torch.neighbors.search",
                  "gamd_tpu_torch.ops.banded",
@@ -25,7 +25,10 @@ NEW_IN_SLICES = ("gamd_tpu_torch.neighbors.cell_list",
                  "gamd_tpu_torch.ops.mxu_probe",
                  "gamd_tpu_torch.ops.gather_probe",
                  "gamd_tpu_torch.tools.bench_mxu",
-                 "gamd_tpu_torch.tools.probe_gather")
+                 "gamd_tpu_torch.tools.probe_gather",
+                 "gamd_tpu_torch.neighbors.topology",
+                 "gamd_tpu_torch.physics.water",
+                 "gamd_tpu_torch.md.constraints")
 
 PROBE = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys

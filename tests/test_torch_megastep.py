@@ -299,8 +299,10 @@ def test_megastep_and_per_step_paths_agree():
 def test_megastep_refusals():
     """megastep_fn refuses a box that is not fixed, expand_edge=False,
     update_edge=True and a long-range channel; Simulation refuses a
-    megastep_fn under another integrator; mega_md_steps refuses edge_hilo
-    and ablate, and takes the replica axis it once refused: an R=2 window
+    megastep_fn under another integrator; mega_md_steps refuses ablate,
+    takes edge_hilo and f32_edges (the same window: the kernel's bf16 x 3
+    products stand for both), and takes the replica axis it once refused:
+    an R=2 window
     gives each replica its single-system window (pos, vel, force bit for
     bit on the CPU, ke [R, steps] within 1e-6)."""
     state = _port_state(_jax_state())
@@ -341,8 +343,11 @@ def test_megastep_refusals():
         torch.testing.assert_close(out_r[3][r], one[3], rtol=1e-6, atol=0.0)
     args = (_t(pos), _t(vel), _t(vel), _t(idx), _t(mask), _t(h0), tmp, BOX,
             CUTOFF, 4.0, 1.5, torch.full((N,), MASS))
-    with pytest.raises(NotImplementedError, match="edge_hilo"):
-        tmega.mega_md_steps(*args, **kw, edge_hilo=True)
+    plain = tmega.mega_md_steps(*args, **kw)
+    for switch in ("edge_hilo", "f32_edges"):
+        for got, ref in zip(tmega.mega_md_steps(*args, **kw, **{switch: True}),
+                            plain):
+            assert torch.equal(got, ref)
     with pytest.raises(NotImplementedError, match="ablate"):
         tmega.mega_md_steps(*args, **kw, ablate=("noise",))
     with pytest.raises(ValueError, match="cuda or cpu"):

@@ -33,6 +33,7 @@ from gamd_tpu.physics import lennard_jones as jlj
 from gamd_tpu_torch.core import config as tcfg
 from gamd_tpu_torch.core import units
 from gamd_tpu_torch.md import integrators as tinteg
+from gamd_tpu_torch.md.constraints import RigidWater
 from gamd_tpu_torch.md.simulate import Simulation, simulate
 from gamd_tpu_torch.neighbors import dense as tdense
 from gamd_tpu_torch.ops import mega as tmega
@@ -384,15 +385,22 @@ def test_simulate_matches_jax():
 
 
 def test_replica_refusals():
-    """run_replicas refuses a single-system state; a constraint (and so
-    constrained NHC replicas) is refused, naming the water item."""
+    """run_replicas refuses a single-system state; constrained replicas
+    (JAX's vmapped run, constrained NHC replicas included) are refused by
+    init_replicas and run_replicas, naming the water item; a constraint
+    of one system is taken."""
     jsys, tsys = _lj_systems()
     sim = Simulation(_lj_force_fns()[1], tsys, _md("nve")[1], device="cpu")
     with pytest.raises(ValueError, match="replica state"):
         sim.run_replicas(sim.init_state(LATTICE), 5)
+    states = sim.init_replicas(LATTICE, 2)
+    sim = Simulation(_lj_force_fns()[1], tsys, _md("nose_hoover")[1],
+                     device="cpu", constraint=RigidWater(1, 10.0))
+    assert sim.ndf == 3 * tsys.n_atoms - 3
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        Simulation(_lj_force_fns()[1], tsys, _md("nose_hoover")[1],
-                   device="cpu", constraint=object())
+        sim.init_replicas(LATTICE, 2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        sim.run_replicas(states, 5)
 
 
 def test_bench_replicas_cpu(capsys):
