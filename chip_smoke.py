@@ -263,7 +263,37 @@ more each:
      against the plain model on the water start (1e-4 std(F));
  45. run_md --system tip3p --megastep --no-rigid, 100 steps from phase
      41's start: steps/s, finite state, one mega_md_steps a window;
- 46. the kernels line (JSON; rows 1-2 with their water figures), then the
+ 46. the banded path with the bond channel on phase 41's water start:
+     live_edge_encoder with the sorted frame's bond (row 5's BOND form)
+     against its plain version on the live rows (1e-4 of max |e|), a bond
+     of zeros the bits of no bond there; GNNForceField.banded_force_fn
+     (one live_edge_encoder and four banded_msg launches a call) against
+     mega_forward with the bond on the same frame (5e-3 std(F)); row 5's
+     time, device time, bound and share with the bond; then run_md
+     --system tip3p --ckpt results/ckpts/tip3p_final.msgpack --banded
+     --friction 25 --steps 2000 in process (dense list, band 512) with
+     phase 43's checks, its steps/s and rows 5 and 6's launches a force
+     call;
+ 47. the benchmark's stage switches: mega_md_steps under each of the 14
+     `ablate` names (ops/mega.py::ABLATE_STAGES) against its plain
+     ablated window, phase 4's 20-step window at c2col = 0 (2e-4 in x and
+     v), and a one-step window's forces within 5e-3 std(F). ln's window
+     there blows up from its first step (velocities of 1e9 A/t0, where
+     the plain windows with fp32 and with the kernel's bf16 x 3 products
+     part by 9e3 A/t0): it is reported, and ln's window is held to 2e-4
+     on LN_WINDOW's case (LJ-64, two layers, 4 steps), where its plain
+     windows agree; each form's forces
+     unlike the full window's, and `noise` at a real amplitude the bits
+     of the full window at c2col = 0; then tools.bench_ablate in process
+     (--steps 400 --reps 1): each stage's us a step, device us, delta and
+     floor, the summary;
+ 48. the activation pairs: mega_forward under each of silu/gelu,
+     gelu/gelu, silu/silu and gelu/silu (conv/MLP) against its plain
+     version (5e-3 std(F)) on phase 2's frame, silu/gelu the bits of the
+     default call, and one 20-step window under gelu/silu against its
+     plain window at c2col = 0 (2e-4 in x and v);
+ 49. the kernels line (JSON; rows 1-2 with their water, ablate and
+     activation figures, row 5 with its water banded figures), then the
      result line (JSON) last.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
@@ -285,7 +315,7 @@ import numpy as np
 import torch
 
 from gamd_tpu_torch.core import space, units
-from gamd_tpu_torch.core.config import MDConfig
+from gamd_tpu_torch.core.config import MDConfig, ModelConfig, get_preset
 from gamd_tpu_torch.core.device import card_line
 from gamd_tpu_torch.md import integrators as integ
 from gamd_tpu_torch.md.integrators import maxwell_boltzmann_velocities
@@ -317,6 +347,9 @@ from gamd_tpu_torch.tools import (analyze_rollout, bench_large, bench_mxu,
 from gamd_tpu_torch.tools.bench_large import (LARGE_MD, banded_layer_inputs,
                                               lj_large, seeded_force_field)
 from gamd_tpu_torch.tools.bench_mxu import graph_ms
+from gamd_tpu_torch.tools.bounds import (BF16_FLOPS, FP32_FLOPS,
+                                         HBM_BYTES_PER_S, INT8_OPS,
+                                         forward_ops)
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
 from gamd_tpu_torch.tools.lj_train_slice import lj_train_slice
 from gamd_tpu_torch.tools.profile_step import (BANDED_KERNELS,
@@ -330,7 +363,7 @@ from gamd_tpu_torch.tools.time_probes import nhc_case, smem_bound
 from gamd_tpu_torch.train.checkpoint import load_self_describing
 from gamd_tpu_torch.train.forcefield import GNNForceField
 from gamd_tpu_torch.train.loop import make_train_step
-from gamd_tpu_torch.train.state import create_train_state
+from gamd_tpu_torch.train.state import create_train_state, init_params
 
 DEADLINE_S = 600          # the whole script, build included
 WARMUP_STEPS = 20
@@ -379,11 +412,6 @@ PROBE_CHECK_ITERS = 2     # phases 31, 33 and 34
 REPLICAS = 8              # phases 35-38
 REPLICA_STEPS = 200       # timed steps of each run_replicas path (phase 37)
 BENCH_REPLICAS_STEPS = 100  # phase 38's n_steps
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
-FP32_FLOPS = 67e12
-BF16_FLOPS = 989e12
-INT8_OPS = 1979e12
-HBM_BYTES_PER_S = 3.35e12
 
 
 def say(*parts):
@@ -433,23 +461,6 @@ def forward_flops(edges, n, n_rbf, model_cfg):
         + layers * (e * h + h * h + h * h + h * d + d)
     per_node = layers * (2 * d * h + 2 * d * h + h * d) + d * h + h * 3
     return 2.0 * (edges * per_edge + n * per_node)
-
-
-def forward_ops(edges, n, n_rbf, model_cfg, bond=False):
-    """(tensor-core FLOP, fp32 FLOP) of one forward as mega_forward computes
-    it over `edges` live edges and n atoms: the edge-level products (the
-    RBF over n_rbf rows, the encoder's two, four a layer) as three bf16
-    passes each (bf16 x 3, csrc/edge_tc.cuh), and on the CUDA cores the
-    rank-1 geometric terms (one more with the bond channel), the gated
-    product and the node-level products (2 operations per multiply-add)."""
-    d, h, e = (model_cfg.encoding_size, model_cfg.hidden_dim,
-               model_cfg.edge_embedding_dim)
-    layers = model_cfg.conv_layers
-    products = n_rbf * h + h * h + h * e \
-        + layers * (e * h + h * h + h * h + h * d)
-    per_node = layers * (2 * d * h + 2 * d * h + h * d) + d * h + h * 3
-    return (2.0 * 3 * edges * products,
-            2.0 * (edges * ((4 + bond) * h + layers * d) + n * per_node))
 
 
 def roofline(flops, nbytes, rate=FP32_FLOPS):
@@ -3151,7 +3162,8 @@ WATER_EAGER_RTOL = 1e-4     # use_pallas vs plain eager forces, / std(F)
 def water_phases(dev, card):
     """Phases 41-45 (module docstring). Returns ({"mega_forward": {...},
     "mega_md_steps": {...}} the water shape's entries, {path: {kernel:
-    launches}} of the water paths)."""
+    launches}} of the water paths, the start's force field, frame, list
+    and bond channel for phase 46)."""
     from gamd_tpu_torch.md.constraints import RigidWater
     from gamd_tpu_torch.neighbors.topology import neighbor_bond_channel
 
@@ -3384,8 +3396,356 @@ def water_phases(dev, card):
     require(launches["water_megastep"] == {"mega_forward": 1,
                                            "mega_md_steps": windows},
             f"megastep water launches {launches['water_megastep']}")
+    ctx = {"ff": ff, "pos": pos, "idx": idx, "mask": mask, "bond": bond}
     return ({"mega_forward": forward_entry, "mega_md_steps": window_entry},
-            launches)
+            launches, ctx)
+
+
+ABLATE_BENCH_ARGV = ["--steps", "400", "--reps", "1"]   # phase 47's pass
+# ln's window (phase 47): LJ-64, K=16, two layers, 4 steps, where its
+# plain windows with fp32 and bf16 x 3 products agree within 1.3e-7.
+LN_WINDOW = dict(n=64, k=16, layers=2, steps=4, box=12.0)
+ACT_PAIRS = (("silu", "gelu"), ("gelu", "gelu"), ("silu", "silu"),
+             ("gelu", "silu"))           # phase 48's (conv, MLP) pairs
+WINDOW_PAIR = ("gelu", "silu")           # phase 48's window
+
+
+def banded_water_phase(dev, card, ctx):
+    """Phase 46 (module docstring) on phase 41's start (ctx: water_phases'
+    force field, start frame and list). Returns (row 5's fields, its
+    launches and row 6's by path)."""
+    from gamd_tpu_torch.neighbors.topology import water_bond_mask
+
+    ff, pos, idx, mask = ctx["ff"], ctx["pos"], ctx["idx"], ctx["mask"]
+    system, cfg = ff.system, ff.model_cfg
+    n, k = idx.shape
+    mp = ff._kernel_params("banded")
+    length_mean, length_std = ff._length_scale()
+    perm, inv, idx_s = banded.sort_by_x(pos, idx)
+    pos_s, idx32 = pos[perm], idx_s.to(torch.int32)
+    bond_s = water_bond_mask(perm[:, None], perm[idx_s])
+    _, _, live = banded.banded_geometry(pos_s, idx_s, mask[perm],
+                                        system.box, system.cutoff)
+    layout = edge_tiles.mask_layout(live)
+    kw = dict(rbf_gap=cfg.rbf_gap, flip_dir=cfg.flip_dir,
+              mlp_act=cfg.mlp_activation)
+
+    def encode(bond=bond_s):
+        return live_edge_encoder(pos_s, idx32, layout, mp, system.box,
+                                 length_mean, length_std, n_rbf=cfg.n_rbf,
+                                 bond=bond, **kw)
+
+    before = live_edge_encoder.launches
+    e_bond = encode()
+    e_zero, e_none = encode(torch.zeros_like(bond_s)), encode(None)
+    torch.cuda.synchronize()
+    require(live_edge_encoder.launches == before + 3,
+            "live_edge_encoder (bond) did not launch")
+    ref = live_edge_encoder_reference(pos_s, idx32, layout, mp, system.box,
+                                      length_mean, length_std, bond=bond_s,
+                                      **kw)
+    err = float((e_bond[live] - ref[live]).abs().max())
+    scale = float(ref[live].abs().max())
+    same_zero = torch.equal(e_zero[live], e_none[live])
+    moved = float((e_bond[live] - e_none[live]).abs().max())
+    n_live = int(live.sum())
+    say(f"phase 46: live_edge_encoder with the sorted frame's bond channel "
+        f"(BOND form) vs plain on TIP3P-774's {n_live} live slots of "
+        f"{n * k} ({int(bond_s[live].sum())} bonds): max |de| {err:.3e}, "
+        f"max |e| {scale:.3e} (tolerance {ENCODER_RTOL} x max); a bond of "
+        f"zeros the bits of none {same_zero}; the bond moves e by "
+        f"{moved:.3e}")
+    require(bool(torch.isfinite(e_bond[live]).all()),
+            "non-finite live rows with the bond")
+    require(err <= ENCODER_RTOL * scale,
+            "live_edge_encoder with the bond disagrees")
+    require(same_zero, "a bond of zeros does not give the bits of none")
+    require(moved > 1e-3 * scale, "the bond channel does not reach e")
+
+    fn = ff.banded_force_fn()
+    live_edge_encoder.launches = banded.banded_conv_message.launches = 0
+    f_band = fn(pos, idx, mask)
+    torch.cuda.synchronize()
+    per_call = {"edge_encoder": live_edge_encoder.launches,
+                "banded_msg": banded.banded_conv_message.launches}
+    f_mega = mega_forward(pos, idx, mask, ff._node_h0(),
+                          ff._kernel_params("megakernel"), system.box,
+                          system.cutoff, length_mean, length_std,
+                          bond=ctx["bond"], rbf_gap=cfg.rbf_gap,
+                          flip_dir=cfg.flip_dir, use_ln=cfg.use_layer_norm,
+                          conv_act=cfg.conv_activation,
+                          mlp_act=cfg.mlp_activation)
+    f_err = float((f_band - f_mega).abs().max())
+    f_scale = float(f_mega.abs().std())
+    say(f"phase 46: banded_force_fn with the bond (band {fn.banded_band}) "
+        f"vs mega_forward with the bond on the water start: max |dF| "
+        f"{f_err:.3e}, std(F) {f_scale:.3e}, max/std {f_err / f_scale:.3e} "
+        f"(tolerance {TOLERANCE}); launches a call {per_call}")
+    require(bool(torch.isfinite(f_band).all()),
+            "non-finite banded water forces")
+    require(f_err < TOLERANCE * f_scale,
+            "the banded water forces disagree with mega_forward's")
+    require(per_call == {"edge_encoder": 1,
+                         "banded_msg": cfg.conv_layers},
+            f"banded water launches a call {per_call}")
+
+    with torch.no_grad():
+        ms = time_ms(encode)
+        plain_ms = time_ms(lambda: live_edge_encoder_reference(
+            pos_s, idx32, layout, mp, system.box, length_mean, length_std,
+            bond=bond_s, **kw))
+        dev_us, dev_kernels = device_us(encode)
+    # The bond adds a slot's 4 bytes and one rank-1 term (2 operations a
+    # column) a live row to the LJ encoder's count.
+    nbytes = live_encoder_bytes(n, n_live, cfg.n_rbf) + 4 * n_live
+    tc_flops, ep_flops = encoder_tc_ops(n_live, cfg.n_rbf)
+    ep_flops += 2.0 * 128 * n_live
+    t_ops = (tc_flops / BF16_FLOPS + ep_flops / FP32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes \
+        else (t_bytes, "bytes")
+    say(f"phase 46: live_edge_encoder with the bond {ms:.4f} ms/call, "
+        f"{dev_us:.2f} us of device time a call "
+        f"{json.dumps({key: round(v, 2) for key, v in dev_kernels.items()})}"
+        f", plain {plain_ms:.4f} ms/call; bound {bound_ms:.4f} ms "
+        f"({bound_by}; {tc_flops / 1e9:.4f} GFLOP bf16 x 3 and "
+        f"{ep_flops / 1e9:.4f} GFLOP fp32, {nbytes / 1e6:.2f} MB), device "
+        f"time at {bound_ms * 1e3 / dev_us:.2%} of it [{card}]")
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--system", "tip3p", "--ckpt", WATER_CKPT, "--banded",
+                "--friction", str(WATER_FRICTION), "--steps",
+                str(WATER_STEPS), "--log", os.path.join(tmp, "log.txt")]
+        live_edge_encoder.launches = banded.banded_conv_message.launches = 0
+        mega_forward.launches = 0
+        run = run_md.rollout(run_md.build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        launches["water_banded"] = {
+            "edge_encoder": live_edge_encoder.launches,
+            "banded_msg": banded.banded_conv_message.launches,
+            "mega_forward": mega_forward.launches}
+    res, rcst = run["result"], run["constraint"]
+    temps = res.thermo.temperature
+    second = float(temps[WATER_STEPS // 2:].mean())
+    residual = float(rcst.residual(res.state.pos))
+    frames = res.positions[res.positions.shape[0] // 2:]
+    is_o = np.arange(n) % 3 == 0
+    r_c, g = radial_distribution(frames, system.box, r_max=system.box / 2,
+                                 n_bins=200, species_a=is_o, species_b=is_o)
+    peak = float(r_c[int(np.argmax(g))])
+    sps = WATER_STEPS / run["seconds"]
+    calls = WATER_STEPS + 1
+    say(f"phase 46: run_md --system tip3p --ckpt {WATER_CKPT} --banded "
+        f"--friction {WATER_FRICTION:g} --steps {WATER_STEPS} (rigid, dense "
+        f"list K={k}, band {run['sim'].force_fn.banded_band}): {sps:.1f} "
+        f"steps/s on the host clock; mean T of the second half "
+        f"{second:.2f} K (band 300 +- {WATER_T_BAND}), residual "
+        f"{residual:.3e} A, O-O RDF first peak {peak:.3f} A, overflow "
+        f"{res.overflow}; launches {launches['water_banded']} for {calls} "
+        f"force calls ({launches['water_banded']['edge_encoder'] / calls:g}"
+        f" live_edge_encoder and "
+        f"{launches['water_banded']['banded_msg'] / calls:g} banded_msg a "
+        f"call) [{card}]")
+    require(bool(torch.isfinite(res.state.force).all())
+            and bool(torch.isfinite(res.state.pos).all())
+            and bool(torch.isfinite(temps).all()),
+            "non-finite banded water run")
+    require(not res.overflow, "neighbour overflow in the banded water run")
+    require(abs(second - 300.0) <= WATER_T_BAND,
+            f"banded water mean T {second} K outside 300 +- {WATER_T_BAND}")
+    require(residual < WATER_RESIDUAL, f"constraint residual {residual}")
+    require(WATER_OO_PEAK[0] <= peak <= WATER_OO_PEAK[1],
+            f"banded water O-O RDF peak at {peak} A")
+    require(launches["water_banded"] == {
+        "edge_encoder": calls, "banded_msg": cfg.conv_layers * calls,
+        "mega_forward": 0}, f"banded water launches "
+        f"{launches['water_banded']}")
+    del launches["water_banded"]["mega_forward"]
+    entry = {"water_live_slots": {
+        "n": n, "k": k, "live": n_live, "bond": True, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "device_us": dev_us,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "banded_force_rel_err": f_err / f_scale, "steps_per_s": sps}}
+    return entry, launches
+
+
+def ln_window(dev):
+    """ln's ablated window on LN_WINDOW's case: (kernel window, plain
+    window, the plain windows' fp32 to bf16 x 3 spread) at c2col = 0."""
+    n, k, box = LN_WINDOW["n"], LN_WINDOW["k"], LN_WINDOW["box"]
+    cfg = ModelConfig(conv_layers=LN_WINDOW["layers"])
+    system = get_preset("lj", n_atoms=n, box=box, cutoff=4.2,
+                        nbr_capacity=k, skin=0.8)
+    state = init_params(cfg, system, seed=0)
+    mp = pack_params(state.params, cfg, batch_stats=state.batch_stats,
+                     force_std=2.0, force_mean=0.1, unit=0.1, device=dev)
+    pos = torch.as_tensor(np.random.default_rng(1).uniform(
+        0, box, (n, 3)).astype(np.float32), device=dev)
+    idx, mask, _ = dense_neighbor_list(pos, box, 5.0, k)
+    h0 = torch.as_tensor(state.params["node_emb"], device=dev).expand(
+        n, cfg.encoding_size).contiguous()
+    args = (pos, idx, mask, h0, mp, box, 4.2, 4.0, 1.2)
+    vel = 0.1 * torch.randn((n, 3), device=dev,
+                            generator=torch.Generator(dev).manual_seed(3))
+    sim = Simulation(lambda p, i, m: p, system,
+                     MDConfig(integrator="langevin", temperature=100.0),
+                     device=dev)
+    c1, hdt, c2col = sim._baoab_constants()
+    wargs = (pos, vel, reference_forward(*args).contiguous(), idx, mask,
+             h0, mp, box, 4.2, 4.0, 1.2, sim.masses)
+    kw = dict(n_steps=LN_WINDOW["steps"], c1=c1, hdt=hdt,
+              c2col=torch.zeros_like(c2col),
+              seed=torch.tensor([7], dtype=torch.int32, device=dev))
+    out = mega_md_steps(*wargs, **kw, ablate=("ln",))
+    ref = md_steps_reference(*wargs, **kw, ablate=("ln",))
+    return out, ref, bf16_spread(wargs, kw, "ln", ref)
+
+
+def bf16_spread(wargs, kw, name, ref):
+    """max |x|, |v| gap of the plain ablated window with the kernel's bf16
+    x 3 edge products from the fp32 one (`ref`)."""
+    plain_mm = mega_module._edge_mm
+    mega_module._edge_mm = mega_module.split_bf16_matmul
+    try:
+        emu = md_steps_reference(*wargs, **kw, ablate=(name,))
+    finally:
+        mega_module._edge_mm = plain_mm
+    return max(float((emu[i] - ref[i]).abs().max()) for i in (0, 1))
+
+
+def ablate_phase(dev, card, window_args, wkw):
+    """Phase 47 (module docstring) on phase 4's window inputs. Returns
+    ({stage: its check's fields}, mega_md_steps's launches by path)."""
+    from gamd_tpu_torch.tools import bench_ablate
+
+    wkw = dict(wkw, c2col=torch.zeros_like(wkw["c2col"]))
+    full = mega_md_steps(*window_args, **wkw)
+    checks = {}
+    gap = lambda a, b, i: float((a[i] - b[i]).abs().max())
+    for name in mega_module.ABLATE_STAGES:
+        before = mega_md_steps.launches
+        out = mega_md_steps(*window_args, **wkw, ablate=(name,))
+        torch.cuda.synchronize()
+        require(mega_md_steps.launches == before + 1,
+                f"mega_md_steps ({name}) did not launch")
+        ref = md_steps_reference(*window_args, **wkw, ablate=(name,))
+        dx, dv = gap(out, ref, 0), gap(out, ref, 1)
+        unlike = not torch.equal(out[2], full[2])
+        # One step: the forces at the same first positions, whatever the
+        # form's dynamics do after them.
+        one = dict(wkw, n_steps=1)
+        f_one = mega_md_steps(*window_args, **one, ablate=(name,))[2]
+        f_ref = md_steps_reference(*window_args, **one, ablate=(name,))[2]
+        f_err = float((f_one - f_ref).abs().max())
+        f_scale = float(f_ref.abs().std())
+        check = {"dx": dx, "dv": dv, "one_step_rel_err": f_err / f_scale}
+        if name == "ln":
+            # Without the LayerNorms the seeded model's forces blow the
+            # window up from its first step, so this window is reported
+            # and ln's is held on LN_WINDOW's case.
+            spread = bf16_spread(window_args, wkw, name, ref)
+            ln_out, ln_ref, ln_spread = ln_window(dev)
+            ln_dx, ln_dv = gap(ln_out, ln_ref, 0), gap(ln_out, ln_ref, 1)
+            held = (f"reported: its plain windows with fp32 and bf16 x 3 "
+                    f"products are {spread:.3e} apart; on LJ-{LN_WINDOW['n']}"
+                    f" ({LN_WINDOW['layers']} layers, {LN_WINDOW['steps']} "
+                    f"steps) max |dx| {ln_dx:.3e} A, max |dv| {ln_dv:.3e} "
+                    f"A/t0, its plain windows {ln_spread:.3e} apart, held "
+                    f"to {WINDOW_ATOL}")
+            require(all(bool(torch.isfinite(t).all()) for t in ln_out),
+                    "non-finite ablated window (ln, LJ-64)")
+            require(ln_dx <= WINDOW_ATOL and ln_dv <= WINDOW_ATOL,
+                    f"the ablated window (ln, LJ-64) disagrees: {ln_dx}, "
+                    f"{ln_dv}")
+            check.update(plain_spread=spread, small_dx=ln_dx,
+                         small_dv=ln_dv, small_plain_spread=ln_spread)
+        else:
+            held = f"held to {WINDOW_ATOL}"
+            require(dx <= WINDOW_ATOL and dv <= WINDOW_ATOL,
+                    f"the ablated window ({name}) disagrees: {dx}, {dv}")
+        say(f"phase 47: mega_md_steps ablate=({name!r},) vs its plain window"
+            f" ({wkw['n_steps']} steps, c2col = 0): max |dx| {dx:.3e} A, "
+            f"max |dv| {dv:.3e} A/t0, max |v| "
+            f"{float(ref[1].abs().max()):.3e}, {held}; after one step max "
+            f"|dF|/std(F) {f_err / f_scale:.3e} (tolerance {TOLERANCE}); "
+            f"forces unlike the full window's {unlike}")
+        require(all(bool(torch.isfinite(t).all()) for t in out),
+                f"non-finite ablated window ({name})")
+        require(f_err <= TOLERANCE * f_scale,
+                f"the ablated forces ({name}) disagree after one step")
+        require(unlike or name == "noise",
+                f"ablate=({name!r},) left the forces unchanged")
+        checks[name] = check
+    noisy = dict(wkw, c2col=window_args[-1].new_full(
+        wkw["c2col"].shape, 0.1))
+    same_noise = torch.equal(
+        mega_md_steps(*window_args, **noisy, ablate=("noise",))[0], full[0])
+    say(f"phase 47: noise ablated at a real amplitude = the full window at "
+        f"c2col 0, bit for bit: {same_noise}")
+    require(same_noise, "the noise form still draws")
+
+    mega_md_steps.launches = 0
+    results = bench_ablate.main(ABLATE_BENCH_ARGV)
+    launches = {"bench_ablate": {"mega_md_steps": mega_md_steps.launches}}
+    require(set(results) == {name for name, _, _ in bench_ablate.STAGES},
+            f"bench_ablate ran {sorted(results)}")
+    require(all(math.isfinite(v) and v > 0 for v in results.values()),
+            "bench_ablate's times")
+    say(f"phase 47: tools.bench_ablate {' '.join(ABLATE_BENCH_ARGV)}: "
+        f"{len(results)} stages, {mega_md_steps.launches} mega_md_steps "
+        f"launches [{card}]")
+    checks["bench_ablate_us"] = results
+    return checks, launches
+
+
+def activation_phase(dev, card, args, kw, window_args, wkw):
+    """Phase 48 (module docstring) on phase 2's frame and phase 4's window
+    inputs. Returns ({"forward": {pair: fields}, "window": fields},
+    launches by path)."""
+    default = mega_forward(*args, **kw)
+    mega_forward.launches = mega_md_steps.launches = 0
+    fields = {}
+    for conv_act, mlp_act in ACT_PAIRS:
+        akw = dict(kw, conv_act=conv_act, mlp_act=mlp_act)
+        got = mega_forward(*args, **akw)
+        ref = reference_forward(*args, **akw)
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().std())
+        dev_us, _ = device_us(lambda: mega_forward(*args, **akw))
+        say(f"phase 48: mega_forward conv {conv_act} / MLP {mlp_act} vs "
+            f"plain: max |dF| {err:.3e}, std(F) {scale:.3e}, max/std "
+            f"{err / scale:.3e} (tolerance {TOLERANCE}); {dev_us:.2f} us of "
+            f"device time a call [{card}]")
+        require(bool(torch.isfinite(got).all()),
+                f"non-finite forces ({conv_act}/{mlp_act})")
+        require(err < TOLERANCE * scale,
+                f"mega_forward ({conv_act}/{mlp_act}) disagrees")
+        if (conv_act, mlp_act) == ("silu", "gelu"):
+            require(torch.equal(got, default),
+                    "silu/gelu is not the default call's bits")
+        else:
+            require(float((got - default).abs().max()) > 1e-3 * scale,
+                    f"{conv_act}/{mlp_act} gives the default forces")
+        fields[f"{conv_act}/{mlp_act}"] = {"rel_err": err / scale,
+                                           "device_us": dev_us}
+    conv_act, mlp_act = WINDOW_PAIR
+    akw = dict(wkw, c2col=torch.zeros_like(wkw["c2col"]), conv_act=conv_act,
+               mlp_act=mlp_act)
+    out = mega_md_steps(*window_args, **akw)
+    ref = md_steps_reference(*window_args, **akw)
+    dx = float((out[0] - ref[0]).abs().max())
+    dv = float((out[1] - ref[1]).abs().max())
+    say(f"phase 48: mega_md_steps conv {conv_act} / MLP {mlp_act}, one "
+        f"{akw['n_steps']}-step window at c2col = 0 vs plain: max |dx| "
+        f"{dx:.3e} A, max |dv| {dv:.3e} A/t0 (tolerance {WINDOW_ATOL})")
+    require(dx <= WINDOW_ATOL and dv <= WINDOW_ATOL,
+            f"the {conv_act}/{mlp_act} window disagrees")
+    launches = {"activation_pairs": {
+        "mega_forward": mega_forward.launches,
+        "mega_md_steps": mega_md_steps.launches}}
+    return {"forward": fields, "window": {"pair": f"{conv_act}/{mlp_act}",
+                                          "dx": dx, "dv": dv}}, launches
 
 
 def merge_launches(entries, runs):
@@ -3417,8 +3777,11 @@ def main():
         f"{torch.cuda.get_device_capability(0)}; nvcc: {nvcc_release()}")
 
     info = build.build()
+    by_source = {k: round(v, 2) for k, v in info["source_seconds"].items()}
     say(f"phase 1: kernels {'built' if info['built'] else 'reused'} in "
-        f"{info['seconds']:.1f} s -> {info['path']}")
+        f"{info['seconds']:.1f} s -> {info['path']}; each source's nvcc "
+        f"(s from the start, all started together): "
+        f"{json.dumps(by_source)}")
     for line in info["log"].splitlines():
         if "entry function" in line or "registers" in line \
                 or "spill" in line:
@@ -3659,9 +4022,15 @@ def main():
     forward_r8, window_r8, replica_launches = replica_phases(
         dev, card, kernel_ms, window_ms)
     stages = forward_stage_phases(dev, card)
-    water_entries, water_launches = water_phases(dev, card)
+    water_entries, water_launches, water_ctx = water_phases(dev, card)
+    water_banded, banded_launches = banded_water_phase(dev, card, water_ctx)
+    encoder_kernel.update(water_banded)
+    ablate_checks, ablate_launches = ablate_phase(
+        dev, card, window_args, windows["noise off"][2])
+    act_fields, act_launches = activation_phase(
+        dev, card, args, kw, window_args, windows["noise off"][2])
 
-    # -- phase 46: kernels line, result line ------------------------------
+    # -- phase 49: kernels line, result line ------------------------------
     by_path = {name: {"per_step": per_step_launches[name],
                       "megastep": mega_launches[name]}
                for name in per_step_launches}
@@ -3697,11 +4066,16 @@ def main():
         *op_kernels, *mxu_kernels, *gather_kernels, *form_kernels]
     for entry in kernels[:2]:
         entry["water"] = water_entries[entry["name"]]
+    kernels[0]["activations"] = act_fields["forward"]
+    kernels[1]["activations"] = act_fields["window"]
+    kernels[1]["ablate"] = ablate_checks
     merge_launches(kernels, {**deploy_launches, **integrator_launches,
-                             **replica_launches, **water_launches})
+                             **replica_launches, **water_launches,
+                             **banded_launches, **ablate_launches,
+                             **act_launches})
     say("kernels: " + json.dumps([k["name"] for k in kernels]))
     say(json.dumps({"kernels": kernels}))
-    say(f"phase 46: total {time.perf_counter() - t_start:.1f} s")
+    say(f"phase 49: total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

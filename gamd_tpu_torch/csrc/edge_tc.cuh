@@ -310,8 +310,8 @@ struct WeightRing {
   uint32_t bar;    // mbarrier of weight buffer 0; the others' follow
   int m0, period, n_products;
 
-  // Barrier setup and the first NBUF weights (n_products >= NBUF), by
-  // thread 0. The caller syncs before waiting on them.
+  // Barrier setup and the first NBUF weights (fewer when the block runs
+  // fewer products), by thread 0. The caller syncs before waiting on them.
   __device__ __forceinline__ WeightRing(uint8_t* smem, uint64_t* bars,
                                         const CUtensorMap* map, int first,
                                         int per_tile, int count)
@@ -327,7 +327,8 @@ struct WeightRing {
       mbar_init_fence();
 #pragma unroll
       for (int b = 0; b < NBUF; ++b)
-        load_split(w + b * SPLIT_BYTES, map, bar + 8 * b, m0 + b % period);
+        if (b < n_products)
+          load_split(w + b * SPLIT_BYTES, map, bar + 8 * b, m0 + b % period);
     }
   }
 

@@ -9,6 +9,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The benchmark's stage switches (tools/bench_ablate.py): stage s of
+// gamd_tpu_torch.ops.mega.ABLATE_STAGES is s's index + 1, 0 none. Each
+// neutralises its stage as the plain version (ops/mega.py) does: a
+// template form of each stage kernel it changes (mega_stages.cuh,
+// encode.cuh, node_fused.cuh), ABL_NOISE of baoab_open's
+// (mega_md_steps.cu).
+enum Ablate {
+  ABL_NONE = 0, ABL_ACTS, ABL_GATHER_POS, ABL_RBF, ABL_ENCMLP, ABL_LN,
+  ABL_NODEOPS, ABL_GATHER_CONV, ABL_SRCAFF, ABL_EMLP, ABL_REPEAT,
+  ABL_THETA, ABL_AGG, ABL_DECODER, ABL_NOISE
+};
+
 // One device pointer per field of gamd_tpu_torch.ops.mega.MegaParams, in
 // the same order (the ctypes Structure _MegaWeights mirrors it).
 struct MegaWeights {
@@ -48,12 +60,16 @@ int mega_split_weights(const MegaWeights* weights, int n_layers,
 // All launches of one forward of r replicas of n atoms on `stream`
 // (positions to forces `out`, every array replica-major; bond, the water
 // model's [r, n, k] bond channel, or null for none), reading the split
-// weights through `map`. Returns 0, or the first non-zero cudaError_t seen.
+// weights through `map`. conv_act and mlp_act are activation codes (Act,
+// encode.cuh); ablate a stage switch (Ablate): each stage it changes runs
+// its benchmark form (no bond channel with a switch). Returns 0, or the
+// first non-zero cudaError_t seen.
 int mega_forward_run(const float* pos, const int* idx, const uint8_t* bmask,
                      const float* bond, const float* h0,
                      const MegaWeights* weights,
                      const CUtensorMap* map, int r, int n, int k,
                      int n_layers, int n_rbf, int use_ln, int flip_dir,
+                     int conv_act, int mlp_act, int ablate,
                      float box, float cutoff2, float length_mean,
                      float length_std, float gamma, const MegaScratch* s,
                      float* out, cudaStream_t stream);

@@ -24,7 +24,10 @@
 // gamd_tpu_torch/ops/philox.py draws the same numbers on the host. The
 // seed is read from device memory, so drawing a window's seed never waits
 // for the device. The water model's bond channel, when given, is fixed for
-// the window, as the list is.
+// the window, as the list is. The activations (silu or tanh-gelu, conv and
+// MLP) and the benchmark's stage switch (`ablate`, JAX's; the `noise`
+// form here, the forward's in mega_ablate_{encode,edge,node}.cu) are the
+// caller's.
 //
 // What bounds it on this card: the window is the forward n_steps times.
 // At LJ-258 (N=258, K=48, widths 128, 4 layers) a step's forward needs,
@@ -90,6 +93,9 @@ __device__ __forceinline__ float half_open_unit(uint32_t w) {
 
 // B A O A of one step for every atom of every replica. grid
 // ceil(R*N/128), block 128: thread i takes atom i % N of replica i / N.
+// NOISE false is the benchmark's `noise` form (ABL_NOISE): zero draws, no
+// Philox and no Box-Muller.
+template <bool NOISE = true>
 __global__ void __launch_bounds__(OPEN_THREADS)
 baoab_open_kernel(float* __restrict__ pos, float* __restrict__ vel,
                   const float* __restrict__ force,
@@ -100,15 +106,20 @@ baoab_open_kernel(float* __restrict__ pos, float* __restrict__ vel,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= r * n) return;
   const int rep = i / n, a = i - rep * n;
-  const uint4 w = philox4x32_10(
-      make_uint4(static_cast<uint32_t>(a), static_cast<uint32_t>(step),
-                 static_cast<uint32_t>(rep), 0u),
-      make_uint2(static_cast<uint32_t>(seed[0]), 0u));
-  const float ra = sqrtf(-2.0f * logf(open_unit(w.x)));
-  const float rb = sqrtf(-2.0f * logf(open_unit(w.z)));
-  const float ta = TWO_PI * half_open_unit(w.y);
-  const float tb = TWO_PI * half_open_unit(w.w);
-  const float xi[3] = {ra * cosf(ta), ra * sinf(ta), rb * cosf(tb)};
+  float xi[3] = {0.f, 0.f, 0.f};
+  if constexpr (NOISE) {
+    const uint4 w = philox4x32_10(
+        make_uint4(static_cast<uint32_t>(a), static_cast<uint32_t>(step),
+                   static_cast<uint32_t>(rep), 0u),
+        make_uint2(static_cast<uint32_t>(seed[0]), 0u));
+    const float ra = sqrtf(-2.0f * logf(open_unit(w.x)));
+    const float rb = sqrtf(-2.0f * logf(open_unit(w.z)));
+    const float ta = TWO_PI * half_open_unit(w.y);
+    const float tb = TWO_PI * half_open_unit(w.w);
+    xi[0] = ra * cosf(ta);
+    xi[1] = ra * sinf(ta);
+    xi[2] = rb * cosf(tb);
+  }
 
   const float invm = 1.0f / masses[a];
   const float c2 = c2col[a];
@@ -161,20 +172,24 @@ baoab_close_kernel(float* __restrict__ vel, const float* __restrict__ force,
 }  // namespace
 
 // n_steps of the window for r replicas of n atoms on `stream` (state
-// arrays [r, n, 3]; masses and c2col [n], shared; bond [r, n, k] or null). pos0/vel0/f0 are read
-// once and copied into pos/vel/force, which then carry the state; ke gets
-// [r, n_steps] values. scratch is the forward's (see mega.cuh). Returns 0,
-// or the first non-zero error code seen after a copy, a launch or the
-// weight split (mega_split_weights).
+// arrays [r, n, 3]; masses and c2col [n], shared; bond [r, n, k] or null).
+// pos0/vel0/f0 are read once and copied into pos/vel/force, which then
+// carry the state; ke gets [r, n_steps] values. scratch is the forward's
+// (see mega.cuh); conv_act and mlp_act are activation codes (Act,
+// encode.cuh), ablate the benchmark's stage switch (Ablate, mega.cuh: the
+// forward's forms, or ABL_NOISE's zero draws). Returns 0, or the first
+// non-zero error code seen after a copy, a launch or the weight split
+// (mega_split_weights).
 extern "C" int gamd_mega_md_steps(
     const float* pos0, const float* vel0, const float* f0, const int* idx,
     const uint8_t* bmask, const float* bond, const float* h0,
     const MegaWeights* weights,
     const int* seed, const float* masses, const float* c2col, int r, int n,
-    int k, int n_layers, int n_rbf, int use_ln, int flip_dir, float box,
-    float cutoff2, float length_mean, float length_std, float gamma,
-    int n_steps, float c1, float hdt, const MegaScratch* scratch, float* pos,
-    float* vel, float* force, float* ke, void* stream) {
+    int k, int n_layers, int n_rbf, int use_ln, int flip_dir, int conv_act,
+    int mlp_act, int ablate, float box, float cutoff2, float length_mean,
+    float length_std, float gamma, int n_steps, float c1, float hdt,
+    const MegaScratch* scratch, float* pos, float* vel, float* force,
+    float* ke, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t state_bytes = sizeof(float) * 3 * r * n;
   const int open_blocks = (r * n + OPEN_THREADS - 1) / OPEN_THREADS;
@@ -190,13 +205,17 @@ extern "C" int gamd_mega_md_steps(
   const int split = mega_split_weights(weights, n_layers, scratch, &map, s);
   if (split != 0) return split;
   for (int step = 0; step < n_steps; ++step) {
-    baoab_open_kernel<<<open_blocks, OPEN_THREADS, 0, s>>>(
-        pos, vel, force, masses, c2col, seed, r, n, step, c1, hdt);
+    if (ablate == ABL_NOISE)
+      baoab_open_kernel<false><<<open_blocks, OPEN_THREADS, 0, s>>>(
+          pos, vel, force, masses, c2col, seed, r, n, step, c1, hdt);
+    else
+      baoab_open_kernel<<<open_blocks, OPEN_THREADS, 0, s>>>(
+          pos, vel, force, masses, c2col, seed, r, n, step, c1, hdt);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     const int fwd = mega_forward_run(
         pos, idx, bmask, bond, h0, weights, &map, r, n, k, n_layers, n_rbf,
-        use_ln, flip_dir, box, cutoff2, length_mean, length_std, gamma,
-        scratch, force, s);
+        use_ln, flip_dir, conv_act, mlp_act, ablate, box, cutoff2,
+        length_mean, length_std, gamma, scratch, force, s);
     if (fwd != 0) return fwd;
     baoab_close_kernel<<<r, CLOSE_THREADS, 0, s>>>(vel, force, masses, n, hdt,
                                                    n_steps, step, ke);

@@ -5,11 +5,18 @@
 //   layer -1 (prologue): h = h0
 //   layer l >= 0 (update): agg = sum of the atom's message rows, in their
 //     compacted order (the live-edge layout, mega_forward.cu)
-//     h = h + silu(hn @ Wpd + bpd + agg @ Wpe + bpe) @ Wp + bp
+//     h = h + cact(hn @ Wpd + bpd + agg @ Wpe + bpe) @ Wp + bp
 //   then, for l + 1 < L: hn = norm(h) * s + b (LayerNorm, eps 1e-6, or the
 //     folded BatchNorm affine alone), src = hn @ Wsrc + b, dst = hn @ Wdst
 //     + b of layer l + 1; for l = L - 1 the decoder,
-//     f = gelu(h @ Wd0 + bd0) @ Wd1[:, :3] + bd1[:3].
+//     f = mact(h @ Wd0 + bd0) @ Wd1[:, :3] + bd1[:3].
+// cact and mact are JAX's conv_act and mlp_act (silu or tanh-gelu), the
+// kernel's forms CACT and MACT (encode.cuh, Act), fixed at compile time.
+// ABL (mega.cuh, Ablate; the benchmark's forms) takes out the LayerNorm (the affine stays), the node products
+// (dst = hn, h = h + cact(hn + agg)), the source affine (src unwritten:
+// the edge stage reads b_src), the sum (an atom takes its first message
+// row), the decoder (f = h[:3]) or the activations (0.5 x); the weights
+// the form skips are not staged.
 //
 // The node products are fp32 FMAs on the CUDA cores, as JAX keeps them
 // fp32 (pallas_model.py:383-389, mmf): they are about 3% of a forward's
@@ -36,17 +43,6 @@
 #include "mega.cuh"
 #include "tile.cuh"
 
-namespace {
-
-constexpr int NODE_MAT_BYTES = W * W * 4;   // one fp32 weight matrix
-constexpr int NODE_MIN_B = 4, NODE_MAX_B = 16;
-
-// Bytes of dynamic shared memory of node_fused_kernel<B>: two weight
-// buffers and two activation tiles [W][B].
-constexpr int node_smem_bytes(int b) {
-  return 2 * NODE_MAT_BYTES + 2 * W * b * 4;
-}
-
 struct NodeArgs {
   MegaWeights p;
   const float* h0;      // [A, W], A = R * N atoms
@@ -56,7 +52,20 @@ struct NodeArgs {
   float *h, *hn, *src, *dst;   // [A, W]
   float* out;           // [A, 3]
   int atoms, n, cap, n_layers, use_ln;
+  int cact, mact;       // activation codes (Act): the host launches their
+                        // form
 };
+
+namespace {
+
+constexpr int NODE_MAT_BYTES = W * W * 4;   // one fp32 weight matrix
+constexpr int NODE_MIN_B = 4, NODE_MAX_B = 16;
+
+// Bytes of dynamic shared memory of node_fused_kernel<B, ..>: two weight
+// buffers and two activation tiles [W][B].
+constexpr int node_smem_bytes(int b) {
+  return 2 * NODE_MAT_BYTES + 2 * W * b * 4;
+}
 
 // acc[m] = bias + sum over j of x_s[j][m] * w_s[j][c], j in order, for the
 // calling thread's channel c (w_s [W][W] fp32 in shared memory, x_s
@@ -83,10 +92,13 @@ __device__ __forceinline__ void node_store(float* __restrict__ x_s,
   for (int m = 0; m < B; ++m) x_s[threadIdx.x * B + m] = v[m];
 }
 
-// grid ceil(A / B), block W, node_smem_bytes(B) of dynamic shared memory.
-template <int B>
+// grid ceil(A / B), block W, node_smem_bytes(B) of dynamic shared memory;
+// ABL the form (Ablate), CACT and MACT the conv and MLP activations (Act).
+template <int B, int ABL, int CACT, int MACT>
 __global__ void __launch_bounds__(W, 1)
 node_fused_kernel(NodeArgs a, int layer) {
+  constexpr bool NODEOPS = ABL != ABL_NODEOPS;
+  const auto cact = act_of<false, ABL, CACT>();
   extern __shared__ __align__(16) float node_smem[];
   float* wbuf = node_smem;                       // [2][W * W]
   float* x_s = node_smem + 2 * W * W;            // [W][B]
@@ -97,10 +109,11 @@ node_fused_kernel(NodeArgs a, int layer) {
   const MegaWeights& p = a.p;
   const int last = a.n_layers - 1;
 
-  // The weights in the order the products use them.
+  // The weights in the order the products use them (at least one in every
+  // form).
   const float* mats[5];
   int n_mats = 0;
-  if (layer >= 0) {
+  if (layer >= 0 && NODEOPS) {
     const size_t lw = (size_t)layer * W * W;
     mats[n_mats++] = p.w_pd + lw;
     mats[n_mats++] = p.w_pe + lw;
@@ -108,9 +121,9 @@ node_fused_kernel(NodeArgs a, int layer) {
   }
   if (layer < last) {
     const size_t nw = (size_t)(layer + 1) * W * W;
-    mats[n_mats++] = p.w_src + nw;
-    mats[n_mats++] = p.w_dst + nw;
-  } else {
+    if (ABL != ABL_SRCAFF) mats[n_mats++] = p.w_src + nw;
+    if (NODEOPS) mats[n_mats++] = p.w_dst + nw;
+  } else if (ABL != ABL_DECODER) {
     mats[n_mats++] = p.wd0;
   }
   const uint32_t buf0 = tc::smem_addr(wbuf);
@@ -169,39 +182,49 @@ node_fused_kernel(NodeArgs a, int layer) {
       }
       most = max(most, rows_n[m]);
     }
-    // Each atom's rows added in compacted order; the loads of U rows of
-    // every atom (64 a thread) in flight at once.
-    constexpr int U = 64 / B;
-    for (int q = 0; q < most; q += U) {
-      float v[B][U];
+    if constexpr (ABL == ABL_AGG) {   // the first message row alone
 #pragma unroll
-      for (int u = 0; u < U; ++u)
-#pragma unroll
-        for (int m = 0; m < B; ++m)
-          v[m][u] = q + u < rows_n[m] ? rows[m][(size_t)(q + u) * W] : 0.f;
-#pragma unroll
-      for (int m = 0; m < B; ++m)
+      for (int m = 0; m < B; ++m) g[m] = rows_n[m] > 0 ? rows[m][0] : 0.f;
+    } else {
+      // Each atom's rows added in compacted order; the loads of U rows of
+      // every atom (64 a thread) in flight at once.
+      constexpr int U = 64 / B;
+      for (int q = 0; q < most; q += U) {
+        float v[B][U];
 #pragma unroll
         for (int u = 0; u < U; ++u)
-          if (q + u < rows_n[m]) g[m] += v[m][u];
+#pragma unroll
+          for (int m = 0; m < B; ++m)
+            v[m][u] = q + u < rows_n[m] ? rows[m][(size_t)(q + u) * W] : 0.f;
+#pragma unroll
+        for (int m = 0; m < B; ++m)
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (q + u < rows_n[m]) g[m] += v[m][u];
+      }
     }
-    node_store<B>(x_s, hn);
-    node_store<B>(y_s, g);
-    __syncthreads();
-    const size_t lb = (size_t)layer * W;
-    float pre[B], pe[B], u[B];
-    node_product<B>(x_s, weights(), p.b_pd[lb + c], pre);
-    release();
-    node_product<B>(y_s, weights(), p.b_pe[lb + c], pe);
-    release();
+    if constexpr (!NODEOPS) {
 #pragma unroll
-    for (int m = 0; m < B; ++m) pre[m] = silu(pre[m] + pe[m]);
-    node_store<B>(x_s, pre);    // x_s was last read before release()
-    __syncthreads();
-    node_product<B>(x_s, weights(), p.b_p[lb + c], u);
-    release();
+      for (int m = 0; m < B; ++m) h[m] = h[m] + cact(hn[m] + g[m]);
+    } else {
+      node_store<B>(x_s, hn);
+      node_store<B>(y_s, g);
+      __syncthreads();
+      const size_t lb = (size_t)layer * W;
+      float pre[B], pe[B], u[B];
+      node_product<B>(x_s, weights(), p.b_pd[lb + c], pre);
+      release();
+      node_product<B>(y_s, weights(), p.b_pe[lb + c], pe);
+      release();
 #pragma unroll
-    for (int m = 0; m < B; ++m) h[m] = h[m] + u[m];
+      for (int m = 0; m < B; ++m) pre[m] = cact(pre[m] + pe[m]);
+      node_store<B>(x_s, pre);    // x_s was last read before release()
+      __syncthreads();
+      node_product<B>(x_s, weights(), p.b_p[lb + c], u);
+      release();
+#pragma unroll
+      for (int m = 0; m < B; ++m) h[m] = h[m] + u[m];
+    }
   }
 
   if (layer < last) {
@@ -212,7 +235,7 @@ node_fused_kernel(NodeArgs a, int layer) {
     float x[B];
 #pragma unroll
     for (int m = 0; m < B; ++m) x[m] = h[m];
-    if (a.use_ln) layer_norm<B>(x, red);
+    if (ABL != ABL_LN && a.use_ln) layer_norm<B>(x, red);
     const float s = p.nln_s[nb + c], b = p.nln_b[nb + c];
 #pragma unroll
     for (int m = 0; m < B; ++m) {
@@ -222,24 +245,38 @@ node_fused_kernel(NodeArgs a, int layer) {
     node_store<B>(x_s, x);      // x_s was last read before release()
     __syncthreads();
     float acc[B];
-    node_product<B>(x_s, weights(), p.b_src[nb + c], acc);
-    release();
+    if constexpr (ABL != ABL_SRCAFF) {
+      node_product<B>(x_s, weights(), p.b_src[nb + c], acc);
+      release();
 #pragma unroll
-    for (int m = 0; m < B; ++m)
-      if (a0 + m < a.atoms) a.src[(size_t)(a0 + m) * W + c] = acc[m];
-    node_product<B>(x_s, weights(), p.b_dst[nb + c], acc);
-    release();
+      for (int m = 0; m < B; ++m)
+        if (a0 + m < a.atoms) a.src[(size_t)(a0 + m) * W + c] = acc[m];
+    }
+    if constexpr (NODEOPS) {
+      node_product<B>(x_s, weights(), p.b_dst[nb + c], acc);
+      release();
+    } else {
+#pragma unroll
+      for (int m = 0; m < B; ++m) acc[m] = x[m];   // dst = hn
+    }
 #pragma unroll
     for (int m = 0; m < B; ++m)
       if (a0 + m < a.atoms) a.dst[(size_t)(a0 + m) * W + c] = acc[m];
+  } else if constexpr (ABL == ABL_DECODER) {
+    if (c < 3) {
+#pragma unroll
+      for (int m = 0; m < B; ++m)
+        if (a0 + m < a.atoms) a.out[(size_t)(a0 + m) * 3 + c] = h[m];
+    }
   } else {
     node_store<B>(x_s, h);
     __syncthreads();
     float z[B];
     node_product<B>(x_s, weights(), p.bd0[c], z);
     release();
+    const auto mact = act_of<false, ABL, MACT>();
 #pragma unroll
-    for (int m = 0; m < B; ++m) z[m] = gelu_tanh(z[m]);
+    for (int m = 0; m < B; ++m) z[m] = mact(z[m]);
     node_store<B>(y_s, z);
     __syncthreads();
     if (c < B * 3) {

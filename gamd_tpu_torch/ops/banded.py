@@ -22,12 +22,12 @@ from that band.
   conv_activation says, as JAX's do. On the card the live-edge layout of
   the mask is computed once a call (edge_tiles.mask_layout); the encoder
   runs over its live slots (ops.encoder.live_edge_encoder, where JAX
-  encodes every slot in XLA: the same rows) and every layer's message
-  reads it. The card takes the LJ encoder (no bond channel, gelu) and
-  refuses another.
+  encodes every slot in XLA: the same rows), with water's bond channel or
+  without, and every layer's message reads it.
 * make_banded_force_fn: (pos, idx, mask) -> (forces, overflow) with the
   per-call x-sort (sort_by_x), the neighbour-id remap into the sorted
-  frame and the unsort.
+  frame, the bond channel of the sorted frame (use_bond) and the
+  unsort.
 
 The TPU kernel's grid runs over whole tiles, so JAX pads e, idx_loc, mask
 and dst_code to a multiple of tile_n. The CUDA kernel runs over the live
@@ -40,10 +40,11 @@ import ctypes
 import torch
 
 from gamd_tpu_torch.core import space
+from gamd_tpu_torch.neighbors.topology import water_bond_mask
 from gamd_tpu_torch.ops import edge_tiles
 from gamd_tpu_torch.ops.conv_gather import conv_msg_gather_reference
 from gamd_tpu_torch.ops.encoder import live_edge_encoder
-from gamd_tpu_torch.ops.mega import (KERNEL_WIDTH, MegaParams, _check,
+from gamd_tpu_torch.ops.mega import (KERNEL_WIDTH, MegaParams, _act, _check,
                                      _silu, _weights, decode_nodes,
                                      encode_edges, layout_capacity,
                                      node_norm)
@@ -266,19 +267,21 @@ def banded_edges(pos_s, idx_s, mask, mp: MegaParams, box, cutoff,
     the layout (edge_tiles.mask_layout) is made once and the encoder runs
     as the kernel ops.encoder.live_edge_encoder over its live slots, into
     e_out if given: e's rows of dead slots are never written, and no layer
-    reads them. The kernel takes the LJ encoder (no bond channel, gelu):
-    another raises NotImplementedError there, before any work."""
-    if pos_s.is_cuda and (bond is not None or mlp_act != "gelu"):
-        raise NotImplementedError(
-            "the CUDA banded_edges takes the LJ encoder: no bond channel "
-            "and the gelu MLP activation")
+    reads them. bond: None or the sorted frame's [N, K] float32 channel,
+    on both."""
+    if pos_s.is_cuda:   # the encoder's refusals, before any work
+        _act(mlp_act)
+        if bond is not None:
+            _check("banded_edges", "bond", bond, pos_s.device,
+                   torch.float32, tuple(idx_s.shape))
     rel, dist, mask = banded_geometry(pos_s, idx_s, mask, box, cutoff)
     if pos_s.is_cuda:
         layout = edge_tiles.mask_layout(mask)
         e = live_edge_encoder(
             pos_s, idx_s.to(torch.int32), layout, mp, box, length_mean,
             length_std, rbf_gap=rbf_gap, flip_dir=flip_dir,
-            n_rbf=_weights("banded_edges", mp, pos_s.device)[1], out=e_out)
+            n_rbf=_weights("banded_edges", mp, pos_s.device)[1], out=e_out,
+            bond=bond, mlp_act=mlp_act)
     else:
         layout = None
         unit = rel / (dist[..., None] + 1e-8)
@@ -345,24 +348,23 @@ def make_banded_force_fn(mp: MegaParams, box, cutoff, n_atoms, h0,
 
     h0: [N, D] initial node features in ORIGINAL atom order. band defaults
     to auto_band(n_atoms, box, cutoff, tile_n) and is capped at
-    round_up(n_atoms, 16); the closure carries it as `banded_band`.
-    use_bond (the water O-H channel) raises NotImplementedError.
+    round_up(n_atoms, 16); the closure carries it as `banded_band`. With
+    use_bond the water O-H channel is computed in the sorted frame from
+    the original atom ids carried through the sort, as JAX's
+    (gamd_tpu/ops/banded.py:345-350).
     """
-    if use_bond:
-        raise NotImplementedError(
-            "the banded path's water bond channel comes with a later water "
-            "slice of the port (ROADMAP Queue 2 item 6b, the banded bond); "
-            "water runs on force_fn and force_fn(megakernel=True)")
     if band is None:
         band = auto_band(n_atoms, box, cutoff, tile_n)
     band = min(band, _round_up(n_atoms, 16))
 
     def fn(pos, idx, mask):
         perm, inv, idx_s = sort_by_x(pos, idx)
+        bond = water_bond_mask(perm[:, None], perm[idx_s]) if use_bond \
+            else None
         f_s, ovf = banded_forward(
             pos[perm], idx_s, mask[perm], h0[perm], mp, box, cutoff,
-            length_mean, length_std, band, tile_n, flip_dir=flip_dir,
-            use_ln=use_ln, mlp_act=mlp_act)
+            length_mean, length_std, band, tile_n, bond=bond,
+            flip_dir=flip_dir, use_ln=use_ln, mlp_act=mlp_act)
         return f_s[inv] * force_unit, ovf
 
     fn.banded_band = band

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -55,24 +56,40 @@ def library_path() -> Path:
 
 
 def _run_all(cmds):
-    """Run the commands at once; their (returncode, output) in order."""
+    """Run the commands at once; their (returncode, output, seconds from
+    the start to the command's end) in order."""
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
-    outs = [proc.communicate()[0] for proc in procs]
-    return [(proc.returncode, out) for proc, out in zip(procs, outs)]
+    results = [None] * len(procs)
+
+    def wait(i):
+        out = procs[i].communicate()[0]
+        results[i] = (procs[i].returncode, out, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=wait, args=(i,))
+               for i in range(len(procs))]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    return results
 
 
 def build() -> dict:
     """Compile the sources if the hashed library is missing: one nvcc per
     source, all at once, then one link.
 
-    Returns {"path", "seconds", "built", "log"}; `log` holds nvcc's
-    ptxas report (registers, shared memory, spills) when it built.
+    Returns {"path", "seconds", "built", "log", "source_seconds"}; `log`
+    holds nvcc's ptxas report (registers, shared memory, spills) when it
+    built, and source_seconds each source's compile time (its nvcc's end,
+    all started together).
     """
     path = library_path()
     if path.exists():
-        return {"path": str(path), "seconds": 0.0, "built": False, "log": ""}
+        return {"path": str(path), "seconds": 0.0, "built": False, "log": "",
+                "source_seconds": {}}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{path.stem}.{os.getpid()}"
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
@@ -85,9 +102,9 @@ def build() -> dict:
     t0 = time.perf_counter()
     try:
         results = _run_all(compiles)
-        if all(rc == 0 for rc, _ in results):
+        if all(rc == 0 for rc, _, _ in results):
             results += _run_all([link])
-        for cmd, (rc, out) in zip([*compiles, link], results):
+        for cmd, (rc, out, _) in zip([*compiles, link], results):
             if rc != 0:
                 raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
                                    f"{out}")
@@ -97,7 +114,9 @@ def build() -> dict:
         for obj in objs:
             obj.unlink(missing_ok=True)
     return {"path": str(path), "seconds": time.perf_counter() - t0,
-            "built": True, "log": "".join(out for _, out in results)}
+            "built": True, "log": "".join(out for _, out, _ in results),
+            "source_seconds": {src.name: sec for src, (_, _, sec)
+                               in zip(sources(), results)}}
 
 
 @functools.lru_cache(maxsize=None)

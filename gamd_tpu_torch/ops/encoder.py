@@ -15,9 +15,10 @@ wrapper of its Hopper kernel csrc/edge_encoder.cu.
 * live_edge_encoder is the same kernel over the live slots of a layout
   (ops/edge_tiles.py::mask_layout) of one frame, with its plain version
   live_edge_encoder_reference: e's rows of those slots at their slot
-  positions, the rest of e never written. The large-N banded force path
-  (ops/banded.py) encodes through it on the card. It counts its launches
-  in `live_edge_encoder.launches`.
+  positions, the rest of e never written; with water's bond channel or
+  without, under the gelu or silu MLP activation. The large-N banded
+  force path (ops/banded.py) encodes through it on the card. It counts
+  its launches in `live_edge_encoder.launches`.
 """
 
 import ctypes
@@ -30,8 +31,9 @@ import torch
 
 from gamd_tpu_torch.core import space
 from gamd_tpu_torch.ops import edge_tiles
-from gamd_tpu_torch.ops.mega import (KERNEL_WIDTH, LiveLayout, _check,
-                                     encode_edges, layout_capacity)
+from gamd_tpu_torch.ops.mega import (ACT_CODES, KERNEL_WIDTH, LiveLayout,
+                                     _act, _check, encode_edges,
+                                     layout_capacity)
 
 #: Slots a call may hold in all (B*N*K): the kernel's row ids, rounded up
 #: to its 64-row tiles, are int32.
@@ -119,8 +121,9 @@ def declare(lib):
         p, p, p]                                      # e live stream
     lib.gamd_edge_encoder.restype = ctypes.c_int
     lib.gamd_live_edge_encoder.argtypes = [
-        p, p, p, p, weights,                          # pos idx slot total w
-        i, i, i, i,                                   # n_rbf n k flip
+        p, p, p, p, p, weights,                       # pos idx slot total
+                                                      # bond w
+        i, i, i, i, i,                                # n_rbf n k flip act
         f, f, f, f,                                   # box lm ls gamma
         p, i, i, i, i,                                # wsplit, the plan
         p, p]                                         # e stream
@@ -224,13 +227,15 @@ fused_edge_encoder.launches = 0
 
 def live_edge_encoder_reference(pos, idx, layout: LiveLayout, params,
                                 box, length_mean, length_std, rbf_gap=0.025,
-                                flip_dir=False, out=None):
+                                flip_dir=False, out=None, bond=None,
+                                mlp_act="gelu"):
     """Plain version of live_edge_encoder: edge_encoder_reference's rows at
     the layout's live slots, with the geometry recomputed from pos and idx
     at those slots as the kernel does (in the package's remainder-form
     minimum image, as edge_encoder_reference; the kernel's round form
-    differs from it in the last bit at most). Returns e [N, K, E]: `out`
-    (or zeros) with those rows written."""
+    differs from it in the last bit at most), and the bond channel [N, K]
+    read at those slots. Returns e [N, K, E]: `out` (or zeros) with those
+    rows written."""
     n, k = idx.shape
     slots = layout.slot[0, :int(layout.total[0])].long()
     i, j = slots // k, idx.reshape(-1)[slots].long()
@@ -240,7 +245,9 @@ def live_edge_encoder_reference(pos, idx, layout: LiveLayout, params,
     if flip_dir:
         unit = -unit
     std = (dist - float(length_mean)) / float(length_std)
-    rows = encode_edges(params, unit, std, None, "gelu", rbf_gap)
+    rows = encode_edges(params, unit, std,
+                        None if bond is None else bond.reshape(-1)[slots],
+                        mlp_act, rbf_gap)
     if out is None:
         out = torch.zeros((n, k, rows.shape[-1]), device=pos.device,
                           dtype=torch.float32)
@@ -248,12 +255,14 @@ def live_edge_encoder_reference(pos, idx, layout: LiveLayout, params,
     return out
 
 
-def _check_live(pos, idx, layout, params, n_rbf, out):
+def _check_live(pos, idx, layout, params, n_rbf, out, bond, mlp_act):
     """live_edge_encoder's checks on a CUDA device: float32 pos [N, 3],
     int32 idx [N, K], a layout of one replica of N atoms of K slots,
     the encoder's weights at width 128 with at least n_rbf RBF rows and
-    centres (EncoderParams, or a MegaParams' first ten fields), an out of
-    [N, K, 128] float32; all contiguous, on one device."""
+    centres (EncoderParams, or a MegaParams' first ten fields, whose w_geo
+    holds the bond's row 4 when a bond is given), an out of [N, K, 128]
+    and a bond of [N, K] float32; all contiguous, on one device; silu or
+    gelu."""
     fn = "live_edge_encoder"
     if pos.device.type != "cuda":
         raise ValueError(f"{fn} runs on cuda or cpu, not {pos.device}")
@@ -267,8 +276,10 @@ def _check_live(pos, idx, layout, params, n_rbf, out):
         _check(fn, f"layout.{name}", t, dev, torch.int32, shape)
     if not 1 <= n_rbf <= w:
         raise ValueError(f"{fn}: n_rbf must lie in [1, {w}], not {n_rbf}")
+    _act(mlp_act)
+    geo_rows = 4 if bond is None else 5
     rows = dict(centers=(1, max(n_rbf, params.centers.shape[-1])),
-                w_geo=(max(4, params.w_geo.shape[0]), w),
+                w_geo=(max(geo_rows, params.w_geo.shape[0]), w),
                 w_rbf=(max(n_rbf, params.w_rbf.shape[0]), w),
                 w1=(w, w), w2=(w, w))
     for name in EncoderParams._fields:
@@ -277,12 +288,15 @@ def _check_live(pos, idx, layout, params, n_rbf, out):
                rows.get(name, (1, w)))
     if out is not None:
         _check(fn, "out", out, dev, torch.float32, (n, k, w))
+    if bond is not None:
+        _check(fn, "bond", bond, dev, torch.float32, (n, k))
     return n, k
 
 
 def live_edge_encoder(pos, idx, layout: LiveLayout, params, box,
                       length_mean, length_std, rbf_gap=0.025,
-                      flip_dir=False, n_rbf=None, out=None):
+                      flip_dir=False, n_rbf=None, out=None, bond=None,
+                      mlp_act="gelu"):
     """e [N, K, E] of one frame, whose rows at the layout's live slots are
     the encoder's (edge_encoder_reference's rows there) and whose other
     rows are never written.
@@ -301,6 +315,11 @@ def live_edge_encoder(pos, idx, layout: LiveLayout, params, box,
             of params.centers; a MegaParams passes ops.mega._rbf_rows).
         out: [N, K, 128] float32 to write into (default: a new
             torch.empty; zeros on the CPU).
+        bond: None, or [N, K] float32 (water's O-H channel), read at the
+            live slots; each live edge adds bond * w_geo[4] to its first
+            pre-activation (params.w_geo needs that row). All zeros gives
+            the bits of None.
+        mlp_act: "gelu" (tanh-gelu) or "silu", the encoder MLP's.
 
     A CPU `pos` runs live_edge_encoder_reference. A CUDA `pos` launches
     csrc/edge_encoder.cu over the layout (every width 128) or raises.
@@ -308,9 +327,9 @@ def live_edge_encoder(pos, idx, layout: LiveLayout, params, box,
     if pos.device.type == "cpu":
         return live_edge_encoder_reference(pos, idx, layout, params, box,
                                            length_mean, length_std, rbf_gap,
-                                           flip_dir, out)
+                                           flip_dir, out, bond, mlp_act)
     n_rbf = params.centers.shape[-1] if n_rbf is None else int(n_rbf)
-    n, k = _check_live(pos, idx, layout, params, n_rbf, out)
+    n, k = _check_live(pos, idx, layout, params, n_rbf, out, bond, mlp_act)
     dev = pos.device
     if out is None:
         out = torch.empty((n, k, KERNEL_WIDTH), device=dev,
@@ -321,8 +340,10 @@ def live_edge_encoder(pos, idx, layout: LiveLayout, params, box,
     from gamd_tpu_torch.ops.build import load_library
     err = load_library().gamd_live_edge_encoder(
         pos.data_ptr(), idx.data_ptr(), layout.slot.data_ptr(),
-        layout.total.data_ptr(), ctypes.byref(struct), n_rbf, n, k,
-        int(flip_dir), float(box), float(length_mean), float(length_std),
+        layout.total.data_ptr(), None if bond is None else bond.data_ptr(),
+        ctypes.byref(struct), n_rbf, n, k, int(flip_dir),
+        ACT_CODES[mlp_act], float(box), float(length_mean),
+        float(length_std),
         1.0 / rbf_gap, wsplit.data_ptr(), *plan[:4], out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     edge_tiles.raise_on("live_edge_encoder", err)

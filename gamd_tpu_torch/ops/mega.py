@@ -55,6 +55,49 @@ def _silu(x):
 
 _ACTS = {"gelu": _gelu_tanh, "silu": _silu}
 
+#: The library's activation codes (csrc/encode.cuh, Act) of the conv and
+#: MLP activations.
+ACT_CODES = {"silu": 0, "gelu": 1}
+
+#: The benchmark's stage switches, JAX's `ablate` names
+#: (gamd_tpu/ops/pallas_model.py:307-317), in the library's order: stage s
+#: is ABLATE_STAGES.index(s) + 1, 0 none (csrc/mega.cuh, Ablate). Each
+#: replaces a stage by a cheap stand-in of the same shape, so numerics
+#: under any of them are meant to be wrong: tools/bench_ablate.py prices a
+#: stage as the step time it saves.
+ABLATE_STAGES = ("acts", "gather_pos", "rbf", "encmlp", "ln", "nodeops",
+                 "gather_conv", "srcaff", "emlp", "repeat", "theta", "agg",
+                 "decoder", "noise")
+#: The forms the port defines for itself (JAX's depend on its TPU tiling
+#: or change the live set; ROADMAP Queue 3): gather_pos reads atom 0's
+#: position for every neighbour but keeps the live flags of the true list,
+#: repeat adds atom 0's dst to every edge, agg takes each atom's first live
+#: edge's message.
+PORT_DEFINED = ("gather_pos", "repeat", "agg")
+
+
+def ablate_set(ablate) -> frozenset:
+    """The stage names of `ablate` (a name or an iterable of names) as a
+    frozenset; ValueError for a name JAX's kernel does not know."""
+    names = frozenset((ablate,) if isinstance(ablate, str) else ablate)
+    unknown = sorted(names - set(ABLATE_STAGES))
+    if unknown:
+        raise ValueError(f"unknown ablate stage(s) {unknown}; the stages "
+                         f"are {list(ABLATE_STAGES)}")
+    return names
+
+
+def _half(x):
+    return 0.5 * x
+
+
+def _act(name, ablate=frozenset()):
+    """The activation `name` (silu or gelu), or 0.5 x under `acts`."""
+    if name not in _ACTS:
+        raise ValueError(f"unknown activation {name!r}; the kernels take "
+                         f"{sorted(_ACTS)}")
+    return _half if "acts" in ablate else _ACTS[name]
+
 
 def _edge_mm(a, w):
     """An edge-level product of the plain forward (the encoder's RBF and
@@ -221,18 +264,28 @@ def pack_params(params, cfg, batch_stats=None, force_std=None,
 # ---------------------------------------------------------------------------
 
 def encode_edges(mp: MegaParams, unit, std_dist, bond, mlp_act="gelu",
-                 rbf_gap=0.025):
-    """unit [..,3], std_dist [..], bond [..] or None -> e [.., E]."""
-    act = _ACTS[mlp_act]
+                 rbf_gap=0.025, ablate=frozenset()):
+    """unit [..,3], std_dist [..], bond [..] or None -> e [.., E]. ablate
+    (ablate_set) may hold rbf (std_dist in every column of the RBF
+    product), encmlp (no w1, w2 and their activations), ln (no
+    normalisation; the affine stays) and acts."""
+    act = _act(mlp_act, ablate)
     gamma = 1.0 / rbf_gap
-    diff = std_dist[..., None] - mp.centers[0]
-    z = _edge_mm(torch.exp(-gamma * diff * diff), mp.w_rbf)
+    if "rbf" in ablate:
+        z = std_dist[..., None].expand(*std_dist.shape, mp.w_rbf.shape[1])
+    else:
+        diff = std_dist[..., None] - mp.centers[0]
+        z = _edge_mm(torch.exp(-gamma * diff * diff), mp.w_rbf)
     z = (z + unit[..., 0:1] * mp.w_geo[0:1] + unit[..., 1:2] * mp.w_geo[1:2]
          + unit[..., 2:3] * mp.w_geo[2:3]
          + std_dist[..., None] * mp.w_geo[3:4] + mp.b0[0])
     if bond is not None:
         z = z + bond[..., None] * mp.w_geo[4:5]
-    z = _edge_mm(act(_edge_mm(act(z), mp.w1) + mp.b1[0]), mp.w2) + mp.b2[0]
+    if "encmlp" not in ablate:
+        z = _edge_mm(act(_edge_mm(act(z), mp.w1) + mp.b1[0]), mp.w2) \
+            + mp.b2[0]
+    if "ln" in ablate:
+        return z * mp.eln_s[0] + mp.eln_b[0]
     mean = torch.mean(z, dim=-1, keepdim=True)
     zc = z - mean
     var = torch.mean(zc * zc, dim=-1, keepdim=True)
@@ -249,26 +302,51 @@ def node_norm(mp: MegaParams, layer, h, use_ln=True):
 
 
 def conv_apply(mp: MegaParams, layer, h_own, hn_own, hn_env, e, idx, mask,
-               conv_act="silu"):
+               conv_act="silu", ablate=frozenset()):
     """One EdgeGatedConv over a padded list whose indices point into an
-    environment array (hn_env; equal to hn_own on one device)."""
-    act = _ACTS[conv_act]
+    environment array (hn_env; equal to hn_own on one device). ablate
+    (ablate_set) may hold gather_conv (every source is row 0 of the
+    environment), srcaff (the source code is b_src), emlp (z is e itself),
+    repeat (every edge adds row 0's dst), theta (no theta MLP), agg (each
+    atom takes its first live slot's message), nodeops (dst = hn, and h +
+    act(hn + agg)) and acts."""
+    act = _act(conv_act, ablate)
     idx = idx.long()
+    if "gather_conv" in ablate:
+        idx = torch.zeros_like(idx)
     src_env = hn_env @ mp.w_src[layer] + mp.b_src[layer, 0]
-    dst = hn_own @ mp.w_dst[layer] + mp.b_dst[layer, 0]
-    z = _edge_mm(act(_edge_mm(e, mp.w_e1[layer]) + mp.b_e1[layer, 0]),
-                 mp.w_e2[layer]) + mp.b_e2[layer, 0]
-    z = z + src_env[idx] + dst[:, None, :]
-    z = _edge_mm(act(_edge_mm(act(z), mp.w_t1[layer]) + mp.b_t1[layer, 0]),
-                 mp.w_t2[layer]) + mp.b_t2[layer, 0]
-    agg = torch.sum(torch.where(mask[..., None], hn_env[idx] * z, 0.0), dim=1)
+    dst = hn_own if "nodeops" in ablate else \
+        hn_own @ mp.w_dst[layer] + mp.b_dst[layer, 0]
+    if "emlp" in ablate:
+        z = e
+    else:
+        z = _edge_mm(act(_edge_mm(e, mp.w_e1[layer]) + mp.b_e1[layer, 0]),
+                     mp.w_e2[layer]) + mp.b_e2[layer, 0]
+    src = mp.b_src[layer, 0] if "srcaff" in ablate else src_env[idx]
+    z = z + src + (dst[0:1, None, :] if "repeat" in ablate
+                   else dst[:, None, :])
+    if "theta" not in ablate:
+        z = _edge_mm(act(_edge_mm(act(z), mp.w_t1[layer])
+                         + mp.b_t1[layer, 0]),
+                     mp.w_t2[layer]) + mp.b_t2[layer, 0]
+    msg = torch.where(mask[..., None], hn_env[idx] * z, 0.0)
+    if "agg" in ablate:
+        first = mask.to(torch.int32).argmax(dim=1)
+        agg = msg[torch.arange(msg.shape[0], device=msg.device), first]
+    else:
+        agg = torch.sum(msg, dim=1)
+    if "nodeops" in ablate:
+        return h_own + act(hn_own + agg)
     pre = hn_own @ mp.w_pd[layer] + mp.b_pd[layer, 0] \
         + agg @ mp.w_pe[layer] + mp.b_pe[layer, 0]
     return h_own + act(pre) @ mp.w_p[layer] + mp.b_p[layer, 0]
 
 
-def decode_nodes(mp: MegaParams, h, mlp_act="gelu"):
-    act = _ACTS[mlp_act]
+def decode_nodes(mp: MegaParams, h, mlp_act="gelu", ablate=frozenset()):
+    """Forces from node rows; under `decoder` h's first three columns."""
+    if "decoder" in ablate:
+        return h[..., :3]
+    act = _act(mlp_act, ablate)
     z = act(h @ mp.wd0 + mp.bd0[0])
     return (z @ mp.wd1 + mp.bd1[0])[..., :3]
 
@@ -276,46 +354,55 @@ def decode_nodes(mp: MegaParams, h, mlp_act="gelu"):
 def reference_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
                       length_mean, length_std, bond=None, rbf_gap=0.025,
                       flip_dir=False, use_ln=True, conv_act="silu",
-                      mlp_act="gelu", n_layers=None):
+                      mlp_act="gelu", n_layers=None, ablate=()):
     """Plain version of mega_forward (fp32, tanh-gelu; see models.gnn.
     GAMDNet for the erf-gelu model): one system [N, ...], or replicas
-    [R, N, ...], each replica on its own."""
+    [R, N, ...], each replica on its own. ablate: the benchmark's stage
+    switches (ABLATE_STAGES; gather_pos takes the geometry of every slot
+    from atom 0's position, the live mask still from the true list)."""
+    ablate = ablate_set(ablate)
     if pos.ndim == 3:
         return torch.stack([reference_forward(
             pos[r], idx[r], build_mask[r], h0[r], mp, box, cutoff,
             length_mean, length_std, None if bond is None else bond[r],
-            rbf_gap, flip_dir, use_ln, conv_act, mlp_act, n_layers)
+            rbf_gap, flip_dir, use_ln, conv_act, mlp_act, n_layers, ablate)
             for r in range(pos.shape[0])])
     nbr = pos[idx.long()]
     rel = space.min_image(nbr - pos[:, None, :], box)
     dist = torch.sqrt(torch.sum(rel * rel, dim=-1))
+    mask = build_mask if cutoff is None else (
+        build_mask & (dist * dist < cutoff * cutoff))
+    if "gather_pos" in ablate:
+        rel = space.min_image(pos[0] - pos[:, None, :], box).expand(
+            *idx.shape, 3)
+        dist = torch.sqrt(torch.sum(rel * rel, dim=-1))
     unit = rel / (dist[..., None] + 1e-8)
     if flip_dir:
         unit = -unit
     std = (dist - length_mean) / length_std
-    mask = build_mask if cutoff is None else (
-        build_mask & (dist * dist < cutoff * cutoff))
-    e = encode_edges(mp, unit, std, bond, mlp_act, rbf_gap)
+    e = encode_edges(mp, unit, std, bond, mlp_act, rbf_gap, ablate)
     h = h0
     n_layers = mp.w_src.shape[0] if n_layers is None else n_layers
     for layer in range(n_layers):
-        hn = node_norm(mp, layer, h, use_ln)
-        h = conv_apply(mp, layer, h, hn, hn, e, idx, mask, conv_act)
-    return decode_nodes(mp, h, mlp_act)
+        hn = node_norm(mp, layer, h, use_ln and "ln" not in ablate)
+        h = conv_apply(mp, layer, h, hn, hn, e, idx, mask, conv_act, ablate)
+    return decode_nodes(mp, h, mlp_act, ablate)
 
 
 def md_steps_reference(pos, vel, force, idx, build_mask, h0,
                        mp: MegaParams, box, cutoff, length_mean, length_std,
                        masses, *, n_steps: int, c1, hdt, c2col, seed,
                        bond=None, rbf_gap=0.025, flip_dir=False, use_ln=True,
-                       conv_act="silu", mlp_act="gelu"):
+                       conv_act="silu", mlp_act="gelu", ablate=()):
     """Plain version of a fused MD window: n_steps of BAOAB Langevin (B A
     O A, force, B) as gamd_tpu/ops/pallas_model.py:815-827, with the noise
-    of ops.philox.philox_normal(seed, step, N, replica=r) and the force of
-    reference_forward on the unwrapped positions (the window never wraps).
-    One system [N, 3] or replicas [R, N, 3] (masses and c2col [N] shared).
-    Returns (pos', vel', force', ke) with ke = 1/2 sum m v^2 after each
-    step, [n_steps] (or [R, n_steps])."""
+    of ops.philox.philox_normal(seed, step, N, replica=r) (zero under the
+    `noise` ablation) and the force of reference_forward on the unwrapped
+    positions (the window never wraps). One system [N, 3] or replicas
+    [R, N, 3] (masses and c2col [N] shared). Returns (pos', vel', force',
+    ke) with ke = 1/2 sum m v^2 after each step, [n_steps] (or
+    [R, n_steps])."""
+    ablate = ablate_set(ablate)
     n = pos.shape[-2]
     dev = pos.device
     reps = range(pos.shape[0]) if pos.ndim == 3 else None
@@ -329,14 +416,19 @@ def md_steps_reference(pos, vel, force, idx, build_mask, h0,
     for step in range(n_steps):
         v = v + hdt * invm * f                                   # B
         x = x + hdt * v                                          # A
-        xi = philox_normal(seed, step, n, device=dev) if reps is None \
-            else torch.stack([philox_normal(seed, step, n, device=dev,
+        if "noise" in ablate:
+            xi = torch.zeros_like(v)
+        elif reps is None:
+            xi = philox_normal(seed, step, n, device=dev)
+        else:
+            xi = torch.stack([philox_normal(seed, step, n, device=dev,
                                             replica=r) for r in reps])
         v = c1 * v + c2 * xi                                     # O
         x = x + hdt * v                                          # A
         f = reference_forward(x, idx, build_mask, h0, mp, box, cutoff,
                               length_mean, length_std, bond, rbf_gap,
-                              flip_dir, use_ln, conv_act, mlp_act)
+                              flip_dir, use_ln, conv_act, mlp_act,
+                              ablate=ablate)
         v = v + hdt * invm * f                                   # B
         kes.append(0.5 * torch.sum(m * v * v, dim=(-2, -1)))
     return x, v, f, torch.stack(kes, dim=-1)
@@ -467,6 +559,7 @@ def declare(lib):
     lib.gamd_mega_forward.argtypes = [
         p, p, p, p, p, weights,                       # pos idx bm bond h0 w
         i, i, i, i, i, i, i,                          # r n k L n_rbf ln flip
+        i, i,                                         # conv_act mlp_act
         f, f, f, f, f,                                # box cut2 lm ls gamma
         scratch, p,                                   # scratch out
         p]                                            # stream
@@ -476,6 +569,8 @@ def declare(lib):
                                                       # h0 w
         p, p, p,                                      # seed masses c2col
         i, i, i, i, i, i, i,                          # r n k L n_rbf ln flip
+        i, i, i,                                      # conv_act mlp_act
+                                                      # ablated stage
         f, f, f, f, f,                                # box cut2 lm ls gamma
         i, f, f,                                      # n_steps c1 hdt
         scratch,                                      # forward scratch
@@ -532,15 +627,14 @@ def _check_forward(fn, pos, idx, build_mask, h0, mp, bond, conv_act,
                    mlp_act):
     """The checks both kernels make of the forward's inputs on a CUDA
     device (one system [N, ...] or R replicas [R, N, ...], the same R on
-    pos, idx, build_mask, h0 and bond, if given); returns the library's
+    pos, idx, build_mask, h0 and bond, if given; silu or gelu for each
+    activation); returns the library's
     forward arguments that follow from them as (r, n, k, n_layers, weights
     struct, RBF rows, bond pointer or None)."""
     if pos.device.type != "cuda":
         raise ValueError(f"{fn} runs on cuda or cpu, not {pos.device}")
-    if conv_act != "silu" or mlp_act != "gelu":
-        raise NotImplementedError(
-            f"the CUDA {fn} takes silu conv and gelu MLP activations, not "
-            f"{conv_act!r} and {mlp_act!r}")
+    for act in (conv_act, mlp_act):
+        _act(act)
     dev = pos.device
     if pos.ndim not in (2, 3):
         raise ValueError(f"{fn}: pos must be [N, 3] or [R, N, 3], not "
@@ -662,8 +756,11 @@ def mega_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
               edge_hilo arithmetic, whichever is set: that is within the
               fp32 bar, 5e-3 std(F), of the fp32 forward.
 
+        conv_act, mlp_act: "silu" or "gelu" (tanh-gelu) each, the
+              conv layers' and the encoder and decoder MLPs' activations.
+
     A CPU `pos` runs reference_forward. A CUDA `pos` launches the kernel
-    (silu conv / gelu MLP, every width 128) or raises.
+    (every width 128) or raises.
     """
     if pos.device.type == "cpu":
         return reference_forward(pos, idx, build_mask, h0, mp, box, cutoff,
@@ -682,6 +779,7 @@ def mega_forward(pos, idx, build_mask, h0, mp: MegaParams, box, cutoff,
         pos.data_ptr(), idx.data_ptr(), build_mask.data_ptr(), bond_ptr,
         h0.data_ptr(), ctypes.byref(weights),
         r, n, k, n_layers, n_rbf, int(use_ln), int(flip_dir),
+        ACT_CODES[conv_act], ACT_CODES[mlp_act],
         *_scalars(box, cutoff, length_mean, length_std, rbf_gap),
         ctypes.byref(scratch), out.data_ptr(), stream)
     _raise_on("mega_forward", err)
@@ -715,26 +813,44 @@ def mega_md_steps(pos, vel, force, idx, build_mask, h0, mp: MegaParams,
             of the window's noise (replica r draws with counter word 2 =
             r); it is passed by pointer and never read on the host.
 
+        ablate: the benchmark's stage switches, names of ABLATE_STAGES
+            (JAX's), each neutralising its stage as md_steps_reference
+            does; the numerics are then meant to be wrong. Unknown names
+            raise ValueError. The card takes one name at a time, without a
+            bond channel, where the forward picks two weight buffers a
+            tile block and 4 atoms a node block (the forms
+            tools/bench_ablate.py runs: LJ-258 at R=1 and K up to 65 on an
+            H100), and raises NotImplementedError elsewhere.
+
     Returns (pos', vel', force', ke [n_steps] or [R, n_steps]). A CPU
     `pos` runs md_steps_reference. A CUDA `pos` makes one call of
-    csrc/mega_md_steps.cu (as mega_forward) or raises. ablate is refused
-    on both.
+    csrc/mega_md_steps.cu (as mega_forward) or raises.
     """
-    if ablate:
-        raise NotImplementedError(
-            "mega_md_steps: ablate, the benchmark's stage switch, is not "
-            "ported yet (ROADMAP Queue 2 item 6d)")
+    ablate = ablate_set(ablate)
     if pos.device.type == "cpu":
         return md_steps_reference(
             pos, vel, force, idx, build_mask, h0, mp, box, cutoff,
             length_mean, length_std, masses, n_steps=n_steps, c1=c1,
             hdt=hdt, c2col=c2col, seed=seed, bond=bond, rbf_gap=rbf_gap,
             flip_dir=flip_dir, use_ln=use_ln, conv_act=conv_act,
-            mlp_act=mlp_act)
+            mlp_act=mlp_act, ablate=ablate)
     fn = "mega_md_steps"
     r, n, k, n_layers, weights, n_rbf, bond_ptr = _check_forward(
         fn, pos, idx, build_mask, h0, mp, bond, conv_act, mlp_act)
+    if len(ablate) > 1 or (ablate and bond is not None):
+        raise NotImplementedError(
+            f"the CUDA {fn} takes one ablated stage at a time and no bond "
+            f"channel with it, not {sorted(ablate)} with bond="
+            f"{'given' if bond is not None else None}")
     dev = pos.device
+    if ablate and not _ablated_forms_fit(r, n, k, dev):
+        raise NotImplementedError(
+            f"the CUDA {fn}'s ablated forms hold two weight buffers a tile "
+            f"block and 4 atoms a node block (the forward's choices for "
+            f"LJ-258 at R=1); at R={r}, N={n}, K={k} the forward picks "
+            f"others, and a form would change its launches as well as its "
+            f"stage")
+    stage = ABLATE_STAGES.index(next(iter(ablate))) + 1 if ablate else 0
     _check(fn, "vel", vel, dev, torch.float32, tuple(pos.shape))
     _check(fn, "force", force, dev, torch.float32, tuple(pos.shape))
     _check(fn, "masses", masses, dev, torch.float32, (n,))
@@ -757,6 +873,7 @@ def mega_md_steps(pos, vel, force, idx, build_mask, h0, mp: MegaParams,
         ctypes.byref(weights),
         seed.data_ptr(), masses.data_ptr(), c2col.data_ptr(),
         r, n, k, n_layers, n_rbf, int(use_ln), int(flip_dir),
+        ACT_CODES[conv_act], ACT_CODES[mlp_act], stage,
         *_scalars(box, cutoff, length_mean, length_std, rbf_gap),
         int(n_steps), float(c1), float(hdt), ctypes.byref(scratch),
         *[t.data_ptr() for t in outs], ke.data_ptr(), stream)
@@ -766,6 +883,15 @@ def mega_md_steps(pos, vel, force, idx, build_mask, h0, mp: MegaParams,
 
 
 mega_md_steps.launches = 0
+
+
+def _ablated_forms_fit(r, n, k, dev) -> bool:
+    """Whether the forward of r replicas of n atoms of k slots on `dev`
+    picks the launch choices the ablated forms hold (csrc/mega_forward.cu:
+    tile_buffers two, node_width 4)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = r * -(-n * k // TILE_ROWS)
+    return tiles <= 2 * sms and -(-r * n // 4) <= sms
 
 
 def mega_layout(pos, idx, build_mask, box, cutoff):

@@ -3,7 +3,8 @@ serial, one nvcc over every source at once (how ops/build.py built before
 the kernels numbered four), and ops/build.py's build, one nvcc per source,
 all started together, then a link. It runs serial, parallel, parallel,
 serial, each into a fresh directory under build/build_times/, and prints
-the card line and one JSON line of seconds.
+the card line and one JSON line of seconds, with each source's compile
+time in the parallel builds (its nvcc's end, all started together).
 
     python3 -m gamd_tpu_torch.tools.build_times
 
@@ -31,11 +32,12 @@ def serial(out_dir) -> float:
     return time.perf_counter() - t0
 
 
-def parallel(out_dir) -> float:
+def parallel(out_dir, by_source) -> float:
     out_dir.mkdir(parents=True)
     build.BUILD_DIR = out_dir       # library_path() reads it at each call
     info = build.build()
     assert info["built"], info
+    by_source.append(info["source_seconds"])
     return info["seconds"]
 
 
@@ -44,16 +46,19 @@ def main():
     shutil.rmtree(ROOT, ignore_errors=True)
     saved = build.BUILD_DIR
     times = {"serial": [], "parallel": []}
+    by_source = []
     try:
         for i, way in enumerate(("serial", "parallel", "parallel",
                                  "serial")):
-            fn = serial if way == "serial" else parallel
-            times[way].append(fn(ROOT / f"{i}_{way}"))
+            out_dir = ROOT / f"{i}_{way}"
+            times[way].append(serial(out_dir) if way == "serial"
+                              else parallel(out_dir, by_source))
     finally:
         build.BUILD_DIR = saved
         shutil.rmtree(ROOT, ignore_errors=True)
     print(json.dumps({"sources": [s.name for s in build.sources()],
-                      "seconds": times}), flush=True)
+                      "seconds": times,
+                      "parallel_source_seconds": by_source}), flush=True)
 
 
 if __name__ == "__main__":

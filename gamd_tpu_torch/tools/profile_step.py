@@ -131,8 +131,9 @@ def short_name(kernel: str) -> str:
     """A readable name for a device kernel: this repo's kernels by their
     own name (the tile kernels with their source policy, and a stage
     policy other than the conv message's; node_fused_kernel and
-    conv_update_kernel with their atoms a block, B), PyTorch's by the
-    kernel template and the op it runs."""
+    conv_update_kernel with their atoms a block, B, whatever benchmark
+    form and activations node_fused_kernel takes), PyTorch's by the kernel template and
+    the op it runs."""
     name = kernel.replace("(anonymous namespace)::", "")
     name = name[5:] if name.startswith("void ") else name
     base = re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1].strip()
@@ -143,7 +144,7 @@ def short_name(kernel: str) -> str:
         stages = ",ThetaStages" if re.search(r"\bThetaStages\b", rest) \
             else ""
         return f"{base}[{rows.group(1)}{stages}]"
-    width = re.match(r"<(\d+)>", rest)
+    width = re.match(r"<(\d+)(?:, ?\d+)*>", rest)   # B, then form, acts
     if base in ("node_fused_kernel", "conv_update_kernel") and width:
         return f"{base}[B={width.group(1)}]"
     ops = re.findall(r"(\w+_kernel_cuda|\w+Functor|\w+_cuda_out)", rest)

@@ -16,9 +16,9 @@ physics.water.water_box relaxed by 1,500 FIRE steps on the flexible TIP3P
 forces and snapped onto the constraints, and runs rigid by default
 (SETTLE and RATTLE, md.constraints.RigidWater, in the integrator;
 `--no-rigid` runs it unconstrained, which `--megastep` needs); its model
-takes the O-H bond channel on every force path. DFT (`--system dft`), an
-envelope with a long-range channel and `--banded` with a bond channel
-raise NotImplementedError naming the slice of the port that brings them.
+takes the O-H bond channel on every force path, `--banded` included. DFT
+(`--system dft`) and an envelope with a long-range channel raise
+NotImplementedError naming the slice of the port that brings them.
 
 It runs on the CUDA card; `--cpu` runs the plain PyTorch versions on the
 CPU instead. Example:
@@ -29,6 +29,9 @@ CPU instead. Example:
     python3 -m gamd_tpu_torch.tools.run_md --system tip3p \\
         --ckpt results/ckpts/tip3p_final.msgpack --megakernel \\
         --steps 25000 --log log_nvt_gnn_langevin_tip3p.txt
+    python3 -m gamd_tpu_torch.tools.run_md --system tip3p \\
+        --ckpt results/ckpts/tip3p_final.msgpack --banded --friction 25 \\
+        --steps 2000 --log log_nvt_gnn_banded_tip3p.txt
 """
 
 import argparse

@@ -6,10 +6,10 @@ megastep_fn and the offline predict / predict_batch; LJ and water).
 A water system (species "water") feeds the model its one-hot species
 feature, and with has_bonds the O-H bond channel of every list
 (neighbors.topology.neighbor_bond_channel), on every path; its megakernel
-forward runs with edge_hilo=True, as JAX's water deployment does. The
+forward runs with edge_hilo=True, as JAX's water deployment does; its
+banded path takes the channel in the sorted frame (ops.banded). The
 analytic long-range channel (make_longrange_force_fn, the envelopes with
-`longrange` set) and the banded path's bond channel come with later
-slices and raise NotImplementedError.
+`longrange` set) comes with a later slice and raises NotImplementedError.
 """
 
 import torch
@@ -22,7 +22,8 @@ from gamd_tpu_torch.models.normalizer import denormalize
 from gamd_tpu_torch.neighbors.dense import dense_neighbor_list
 from gamd_tpu_torch.neighbors.topology import neighbor_bond_channel
 from gamd_tpu_torch.ops.banded import make_banded_force_fn
-from gamd_tpu_torch.ops.mega import mega_forward, mega_md_steps, pack_params
+from gamd_tpu_torch.ops.mega import (ablate_set, mega_forward, mega_md_steps,
+                                     pack_params)
 from gamd_tpu_torch.train.loop import search_batch
 from gamd_tpu_torch.train.state import ForceFieldState
 
@@ -182,7 +183,7 @@ class GNNForceField:
         fn.handles_refresh = True     # true-cutoff mask redone in the kernel
         return fn
 
-    def megastep_fn(self):
+    def megastep_fn(self, ablate=()):
         """Fused MD window for Simulation(megastep_fn=...): (pos, vel,
         force, idx, mask, seed, *, n_steps, c1, hdt, c2col, masses) ->
         (pos', vel', force', ke [n_steps]); a state with a leading replica
@@ -191,8 +192,11 @@ class GNNForceField:
         One call of ops.mega.mega_md_steps runs the whole neighbour-reuse
         window of BAOAB Langevin steps (one CUDA library call on the card,
         the plain version on the CPU), with the weights packed once here
-        and the force denormalisation folded into the decoder.
+        and the force denormalisation folded into the decoder. ablate
+        (tools/bench_ablate.py's stage switches, ops.mega.ABLATE_STAGES)
+        is passed on; an unknown name raises ValueError here.
         """
+        ablate = ablate_set(ablate)
         cfg = self.model_cfg
         system = self.system
         if getattr(cfg, "longrange", ""):
@@ -213,7 +217,7 @@ class GNNForceField:
                 bond=self._bond(idx), rbf_gap=cfg.rbf_gap,
                 flip_dir=cfg.flip_dir,
                 use_ln=cfg.use_layer_norm, conv_act=cfg.conv_activation,
-                mlp_act=cfg.mlp_activation)
+                mlp_act=cfg.mlp_activation, ablate=ablate)
 
         return fn
 

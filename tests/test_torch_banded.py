@@ -475,10 +475,19 @@ def test_band_overflow_poisons_the_forces_with_nan(banded_case):
 
 
 def test_banded_path_refusals():
+    """What the banded path still refuses: a [hn | src] pack whose node
+    and hidden widths differ, a box that is not fixed, an unknown
+    neighbour method. (The water bond channel, once refused here, runs
+    since: tests/test_torch_water.py::test_banded_water_matches_jax.)"""
     params, _ = _jax_params(w_layers=1)
-    with pytest.raises(NotImplementedError, match="water slice"):
-        banded.make_banded_force_fn(None, 20.0, 6.0, 64, None, *LENGTH,
-                                    use_bond=True)
+    mp = pack_params(params, tcfg.ModelConfig(conv_layers=1))
+    n, k = 16, 4
+    with pytest.raises(ValueError, match="equal node and hidden widths"):
+        banded.banded_conv_message(
+            torch.zeros((n, k, 128)), torch.zeros((n, k), dtype=torch.int32),
+            torch.ones((n, k), dtype=torch.bool),
+            torch.zeros((1,), dtype=torch.int32), torch.zeros((n + 16, 64)),
+            torch.zeros((n, 128)), 0, mp, 16, tile_n=64)
     _, state = _state_pair(params)
     ff = GNNForceField(state, tcfg.get_preset("lj", box=None),
                        tcfg.ModelConfig(conv_layers=1), device="cpu")

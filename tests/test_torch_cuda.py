@@ -9,7 +9,10 @@ probes' mxu_loop (five bodies), onehot_gather (five forms), lane_gather
 PyTorch versions, on a Hopper card (capability 9.x); Simulation's replica
 path on the card; mega_forward and mega_md_steps with the water model's
 bond channel, the eager water model through conv_msg_gather, and the
-rigid-water constraints with TF32 allowed.
+rigid-water constraints with TF32 allowed; the window under each of the
+benchmark's `ablate` stage switches, mega_forward and the window under
+the silu/gelu activation pairs, and the banded path's water bond channel
+(live_edge_encoder's BOND form, banded_force_fn against mega_forward).
 Without one every test here skips.
 
 On the card (which has no JAX) run this file without the JAX package's
@@ -152,8 +155,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         mega_forward(pos, idx, mask, h0, mp, *rest,
                      bond=torch.zeros(idx.shape[0], idx.shape[1] + 1,
                                       device=cuda))
-    with pytest.raises(NotImplementedError):
-        mega_forward(pos, idx, mask, h0, mp, *rest, conv_act="gelu")
+    with pytest.raises(ValueError, match="activation"):
+        mega_forward(pos, idx, mask, h0, mp, *rest, conv_act="relu")
     assert mega_forward.launches == before
 
 
@@ -383,9 +386,22 @@ def test_window_rejects_what_it_does_not_take(cuda):
         mega_md_steps(pos, vel, vel, idx, mask, h0, mp, *rest, masses,
                       bond=torch.zeros_like(mask, dtype=torch.float64),
                       **kw)
-    with pytest.raises(NotImplementedError, match="ablate"):
+    with pytest.raises(ValueError, match="unknown ablate stage"):
         mega_md_steps(pos, vel, vel, idx, mask, h0, mp, *rest, masses,
-                      ablate=("noise",), **kw)
+                      ablate=("tiles",), **kw)
+    with pytest.raises(NotImplementedError, match="one ablated stage"):
+        mega_md_steps(pos, vel, vel, idx, mask, h0, mp, *rest, masses,
+                      ablate=("noise", "agg"), **kw)
+    with pytest.raises(NotImplementedError, match="bond"):
+        mega_md_steps(pos, vel, vel, idx, mask, h0, mp, *rest, masses,
+                      ablate=("agg",), bond=torch.zeros_like(
+                          mask, dtype=torch.float32), **kw)
+    # 40 replicas: more tiles than two an SM and node blocks wider than 4
+    r40 = [t.expand(40, *t.shape).contiguous() for t in (pos, idx, mask, h0)]
+    with pytest.raises(NotImplementedError, match="4 atoms a node block"):
+        mega_md_steps(r40[0], torch.zeros_like(r40[0]),
+                      torch.zeros_like(r40[0]), *r40[1:], mp, *rest, masses,
+                      ablate=("agg",), **kw)
     assert mega_md_steps.launches == before
 
 
@@ -957,9 +973,10 @@ def test_banded_forces_through_the_encoder_route(cuda):
 
 
 def test_banded_edges_refuses_what_the_encoder_kernel_does_not_take(cuda):
-    """banded_edges on the card takes the LJ encoder: a bond channel or
-    the silu MLP activation raises NotImplementedError before any work
-    (no layout, no encoder launch)."""
+    """banded_edges on the card takes the bond channel and either MLP
+    activation since the encoder's live form does; an activation the
+    kernel does not know and a bond that is not [N, K] float32 raise
+    ValueError before any work (no layout, no encoder launch)."""
     pos, idx, mask, ff = _banded_case(cuda, 258, seed=3)
     system = ff.system
     mp = ff._kernel_params("banded")
@@ -967,11 +984,11 @@ def test_banded_edges_refuses_what_the_encoder_kernel_does_not_take(cuda):
     args = (pos[perm], idx_s, mask[perm], mp, system.box, system.cutoff,
             *ff._length_scale(), 272)
     before = (live_edge_encoder.launches, edge_tiles.mask_layout.launches)
-    with pytest.raises(NotImplementedError, match="gelu"):
-        banded.banded_edges(*args, mlp_act="silu")
-    with pytest.raises(NotImplementedError, match="bond"):
+    with pytest.raises(ValueError, match="activation"):
+        banded.banded_edges(*args, mlp_act="relu")
+    with pytest.raises(ValueError, match="bond"):
         banded.banded_edges(*args, bond=torch.zeros_like(mask[perm],
-                                                         dtype=torch.float32))
+                                                         dtype=torch.float64))
     assert (live_edge_encoder.launches,
             edge_tiles.mask_layout.launches) == before
 
@@ -1984,3 +2001,137 @@ def test_constraints_are_out_of_reach_of_tf32(cuda):
     ref = RigidWater(n_mol, box).positions(pos.double(), new.double())
     assert float((without[0].double() - ref).abs().max()) < 5e-6
     assert float(cst.residual(without[0])) < 1e-5
+
+
+# -- the benchmark's stage switches, the activation pairs, banded water ----
+
+@pytest.mark.parametrize("name", mega_module.ABLATE_STAGES)
+def test_ablated_window_matches_plain_version(cuda, name):
+    """mega_md_steps under each of the 14 `ablate` names against its plain
+    ablated window, 4 steps on LJ-64 (K=16, two layers) at c2col = 0: pos
+    and vel within 2e-4 (ln's plain windows with fp32 and with the
+    kernel's bf16 x 3 products, the form whose dynamics grow fastest, are
+    1.3e-7 apart here), and one step's forces within 5e-3 std(F); the
+    forces unlike the full window's (but for noise, at c2col = 0 the full
+    window's bits)."""
+    n = 64
+    args = _case(cuda, n, 16)
+    pos, idx, mask, h0, mp, box, cutoff, lm, ls = args
+    vel = 0.1 * torch.randn((n, 3), device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(3))
+    force = reference_forward(*args).contiguous()
+    c1, hdt, c2col, masses = _window_constants(cuda, n, 100.0)
+    kw = dict(n_steps=4, c1=c1, hdt=hdt, c2col=torch.zeros_like(c2col),
+              seed=torch.tensor([7], dtype=torch.int32, device=cuda))
+    wargs = (pos, vel, force, idx, mask, h0, mp, box, cutoff, lm, ls,
+             masses)
+    before = mega_md_steps.launches
+    out = mega_md_steps(*wargs, **kw, ablate=(name,))
+    torch.cuda.synchronize()
+    assert mega_md_steps.launches == before + 1
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    ref = md_steps_reference(*wargs, **kw, ablate=(name,))
+    for i in (0, 1):
+        assert float((out[i] - ref[i]).abs().max()) <= WINDOW_ATOL, i
+    one = dict(kw, n_steps=1)
+    f_one = mega_md_steps(*wargs, **one, ablate=(name,))[2]
+    f_ref = md_steps_reference(*wargs, **one, ablate=(name,))[2]
+    assert float((f_one - f_ref).abs().max()) \
+        <= TOLERANCE * float(f_ref.abs().std())
+    full = mega_md_steps(*wargs, **kw)
+    assert torch.equal(out[2], full[2]) == (name == "noise")
+
+
+def test_ablated_empty_set_is_the_production_window(cuda):
+    """ablate=() and the megastep closure's default give the bits of a
+    window without it, with noise on."""
+    n = 64
+    args = _case(cuda, n, 16)
+    pos, idx, mask, h0, mp, box, cutoff, lm, ls = args
+    force = reference_forward(*args).contiguous()
+    c1, hdt, c2col, masses = _window_constants(cuda, n, 100.0)
+    kw = dict(n_steps=4, c1=c1, hdt=hdt, c2col=c2col,
+              seed=torch.tensor([7], dtype=torch.int32, device=cuda))
+    wargs = (pos, torch.zeros_like(pos), force, idx, mask, h0, mp, box,
+             cutoff, lm, ls, masses)
+    for got, want in zip(mega_md_steps(*wargs, **kw, ablate=()),
+                         mega_md_steps(*wargs, **kw)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("conv_act,mlp_act", [("gelu", "gelu"),
+                                              ("silu", "silu"),
+                                              ("gelu", "silu")])
+def test_activation_pairs_match_plain_version(cuda, conv_act, mlp_act):
+    """mega_forward under a non-default activation pair within 5e-3
+    std(F) of its plain version (ragged N and K), unlike silu/gelu; and a
+    window under the pair within 2e-4 of its plain window at c2col = 0."""
+    n = 66
+    args = _case(cuda, n, 20)
+    kw = dict(conv_act=conv_act, mlp_act=mlp_act)
+    out = mega_forward(*args, **kw)
+    ref = reference_forward(*args, **kw)
+    scale = float(ref.abs().std())
+    assert float((out - ref).abs().max()) < TOLERANCE * scale
+    assert float((out - mega_forward(*args)).abs().max()) > 1e-3 * scale
+    vel = 0.1 * torch.randn((n, 3), device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(4))
+    c1, hdt, c2col, masses = _window_constants(cuda, n, 0.0)
+    pos, idx, mask, h0, mp, box, cutoff, lm, ls = args
+    wkw = dict(n_steps=8, c1=c1, hdt=hdt, c2col=c2col,
+               seed=torch.tensor([2], dtype=torch.int32, device=cuda), **kw)
+    wargs = (pos, vel, ref.contiguous(), idx, mask, h0, mp, box, cutoff, lm,
+             ls, masses)
+    got = mega_md_steps(*wargs, **wkw)
+    want = md_steps_reference(*wargs, **wkw)
+    for i in (0, 1):
+        assert float((got[i] - want[i]).abs().max()) <= WINDOW_ATOL
+
+
+def test_live_encoder_with_bond_and_silu_matches_plain_version(cuda):
+    """live_edge_encoder's BOND form on TIP3P-774's sorted frame (the
+    banded path's encode, tip3p_final's weights) against its plain version
+    on the live rows (1e-4 of max |e|), under gelu and silu; a bond of
+    zeros the bits of none."""
+    from gamd_tpu_torch.neighbors.topology import water_bond_mask
+    (pos, idx, mask, _, _, box, cutoff, lm, ls), _, ff = _water_case(cuda)
+    mp = ff._kernel_params("banded")
+    perm, _, idx_s = banded.sort_by_x(pos, idx)
+    pos_s, idx32 = pos[perm], idx_s.to(torch.int32)
+    bond = water_bond_mask(perm[:, None], perm[idx_s])
+    _, _, live = banded.banded_geometry(pos_s, idx_s, mask[perm], box,
+                                        cutoff)
+    layout = edge_tiles.mask_layout(live)
+    for act in ("gelu", "silu"):
+        kw = dict(rbf_gap=ff.model_cfg.rbf_gap, mlp_act=act)
+        got = live_edge_encoder(pos_s, idx32, layout, mp, box, lm, ls,
+                                n_rbf=ff.model_cfg.n_rbf, bond=bond, **kw)
+        ref = live_edge_encoder_reference(pos_s, idx32, layout, mp, box, lm,
+                                          ls, bond=bond, **kw)
+        scale = float(ref[live].abs().max())
+        assert float((got[live] - ref[live]).abs().max()) <= 1e-4 * scale
+    zero = live_edge_encoder(pos_s, idx32, layout, mp, box, lm, ls,
+                             n_rbf=ff.model_cfg.n_rbf,
+                             bond=torch.zeros_like(bond))
+    none = live_edge_encoder(pos_s, idx32, layout, mp, box, lm, ls,
+                             n_rbf=ff.model_cfg.n_rbf)
+    assert torch.equal(zero[live], none[live])
+
+
+def test_banded_water_force_matches_mega_forward(cuda):
+    """GNNForceField.banded_force_fn with the bond channel on TIP3P-774
+    (tip3p_final, the K=96 list, band 512) against mega_forward with the
+    bond on the same frame: within 5e-3 std(F); one live_edge_encoder and
+    four banded_msg launches a call."""
+    (pos, idx, mask, *_), bond, ff = _water_case(cuda, layers=4)
+    fn = ff.banded_force_fn()
+    assert fn.banded_band == 512
+    live_edge_encoder.launches = banded.banded_conv_message.launches = 0
+    got = fn(pos, idx, mask)
+    torch.cuda.synchronize()
+    assert (live_edge_encoder.launches,
+            banded.banded_conv_message.launches) == (1, 4)
+    want = ff.force_fn(megakernel=True)(pos, idx, mask)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) < TOLERANCE * float(
+        want.abs().std())

@@ -299,8 +299,9 @@ def test_megastep_and_per_step_paths_agree():
 def test_megastep_refusals():
     """megastep_fn refuses a box that is not fixed, expand_edge=False,
     update_edge=True and a long-range channel; Simulation refuses a
-    megastep_fn under another integrator; mega_md_steps refuses ablate,
-    takes edge_hilo and f32_edges (the same window: the kernel's bf16 x 3
+    megastep_fn under another integrator; mega_md_steps and megastep_fn
+    refuse an ablate name JAX's kernel does not know, mega_md_steps takes
+    edge_hilo and f32_edges (the same window: the kernel's bf16 x 3
     products stand for both), and takes the replica axis it once refused:
     an R=2 window
     gives each replica its single-system window (pos, vel, force bit for
@@ -348,8 +349,10 @@ def test_megastep_refusals():
         for got, ref in zip(tmega.mega_md_steps(*args, **kw, **{switch: True}),
                             plain):
             assert torch.equal(got, ref)
-    with pytest.raises(NotImplementedError, match="ablate"):
-        tmega.mega_md_steps(*args, **kw, ablate=("noise",))
+    with pytest.raises(ValueError, match="unknown ablate stage"):
+        tmega.mega_md_steps(*args, **kw, ablate=("noise", "tiles"))
+    with pytest.raises(ValueError, match="unknown ablate stage"):
+        ff.megastep_fn(ablate=("tiles",))
     with pytest.raises(ValueError, match="cuda or cpu"):
         tmega.mega_md_steps(torch.zeros((N, 3), device="meta"), *args[1:],
                             **kw)

@@ -29,7 +29,7 @@ from gamd_tpu.ops import pallas_model as jmega
 
 from gamd_tpu_torch.core import config as tcfg
 from gamd_tpu_torch.ops import mega as tmega
-from gamd_tpu_torch.tools import profile_step
+from gamd_tpu_torch.tools import profile_step, sass_diff
 from gamd_tpu_torch.train.state import params_from_jax
 
 BOX = 12.0
@@ -288,6 +288,19 @@ def test_rbf_rows_are_the_rows_pack_params_filled():
 @pytest.mark.parametrize("kernel,name", [
     ("void (anonymous namespace)::node_fused_kernel<16>((anonymous "
      "namespace)::NodeArgs, int)", "node_fused_kernel[B=16]"),
+    ("void (anonymous namespace)::node_fused_kernel<4, 0>((anonymous "
+     "namespace)::NodeArgs, int)", "node_fused_kernel[B=4]"),
+    ("void (anonymous namespace)::node_fused_kernel<4, 12>((anonymous "
+     "namespace)::NodeArgs, int)", "node_fused_kernel[B=4]"),
+    ("void (anonymous namespace)::node_fused_kernel<16, 0, 0, 1>((anonymous "
+     "namespace)::NodeArgs, int)", "node_fused_kernel[B=16]"),
+    ("void (anonymous namespace)::node_fused_kernel<4, 12, 1, 0>((anonymous "
+     "namespace)::NodeArgs, int)", "node_fused_kernel[B=4]"),
+    ("void (anonymous namespace)::edge_tile_kernel<2, 11>(CUtensorMap_st, "
+     "(anonymous namespace)::EdgeArgs, int)", "edge_tile_kernel"),
+    ("void (anonymous namespace)::encode_tile_kernel<2, false, 3>("
+     "CUtensorMap_st, (anonymous namespace)::EncArgs)",
+     "encode_tile_kernel"),
     ("void (anonymous namespace)::edge_tile_kernel<1>(CUtensorMap_st, "
      "(anonymous namespace)::EdgeArgs, int)", "edge_tile_kernel"),
     ("void (anonymous namespace)::encode_tile_kernel<2>(CUtensorMap_st, "
@@ -302,9 +315,43 @@ def test_rbf_rows_are_the_rows_pack_params_filled():
 ])
 def test_profile_step_names_the_forward_kernels(kernel, name):
     """Each kernel of the forward gets a short name, and every short name
-    a stage of FORWARD_STAGES."""
+    a stage of FORWARD_STAGES; the benchmark's forms of a stage kernel
+    (their second template argument) and its activation forms are named
+    as its production form."""
     assert profile_step.short_name(kernel) == name
     assert name in profile_step.FORWARD_STAGES
+
+
+def test_sass_diff_pairs_kernels_and_masks_parameter_offsets():
+    """tools/sass_diff reads a cuobjdump listing by kernel, masks the
+    offsets of the kernel's parameters (constant bank 0) and no other
+    operand, and pairs kernels by name or by a pair of patterns."""
+    dump = (
+        "\tFunction : _Za\n"
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;"
+        "          /* 0x00000a00ff017b82 */\n"
+        "        /*0010*/                   FADD R2, R3, c[0x3][0x10] ;\n"
+        "\tFunction : _Zb\n"
+        "        /*0000*/                   LDC R1, c[0x0][0x30] ;\n"
+        "        /*0010*/                   FADD R2, R3, c[0x3][0x14] ;\n")
+    names = {"_Za": "void (anonymous namespace)::k<(int)4, (bool)0>(int)",
+             "_Zb": "void <unnamed>::k<4, false, 1>(int)"}
+    fns = sass_diff.sass_functions(dump, names)
+    assert fns == {
+        "k<4, false>(int)": ["LDC R1, c[0x0][X]", "FADD R2, R3, c[0x3][0x10]"],
+        "k<4, false, 1>(int)": ["LDC R1, c[0x0][X]",
+                                "FADD R2, R3, c[0x3][0x14]"]}
+    parent = {"k<4, false>(int)": fns["k<4, false>(int)"]}
+    change = {"k<4, false, 1>(int)": fns["k<4, false, 1>(int)"][:1]
+              + ["FADD R2, R3, c[0x3][0x10]"]}
+    rec, = sass_diff.compare(parent, change,
+                             [(r"k<4, false>\(", r"k<4, false, 1>\(")])
+    assert (rec["parent_instructions"], rec["change_instructions"],
+            rec["differ"]) == (2, 2, 0)
+    rec, = sass_diff.compare(fns, {"k<4, false>(int)": ["NOP"]})
+    assert rec["differ"] == 2
+    rec, = sass_diff.compare(parent, change, [("absent", "k<")])
+    assert rec["differ"] is None and rec["parent"] == "absent"
 
 
 def test_exclusive_times_partition_overlapping_spans():

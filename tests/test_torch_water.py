@@ -41,6 +41,7 @@ from gamd_tpu_torch.md.constraints import RigidWater
 from gamd_tpu_torch.md.simulate import Simulation
 from gamd_tpu_torch.models.gnn import GAMDNet
 from gamd_tpu_torch.neighbors import topology as ttopo
+from gamd_tpu_torch.ops import banded
 from gamd_tpu_torch.ops import mega as tmega
 from gamd_tpu_torch.physics import water as tw
 from gamd_tpu_torch.tools import run_md
@@ -396,12 +397,101 @@ def test_predict_and_predict_batch_match_jax(trained):
     assert _rel(got, want) < MODEL_RTOL
 
 
+# -- the banded path with the bond channel ---------------------------------
+
+#: TIP3P-774 in the preset's 20 A box: the auto band (512) is narrower
+#: than the 784 padded rows, as on the deployment (a box of a few cutoffs
+#: overflows any band and poisons the forces).
+BANDED_MOL, BANDED_BOX = 258, 20.0
+
+
+@pytest.fixture(scope="module")
+def banded_frame():
+    """(system kwargs, pos, idx, mask) of the port's water_box at 258
+    molecules with a seeded jitter, the JAX dense list at 4.2 + 0.5 A,
+    K=64."""
+    n = 3 * BANDED_MOL
+    kw = dict(n_atoms=n, box=BANDED_BOX, cutoff=CUTOFF, nbr_capacity=K,
+              skin=0.5)
+    rng = np.random.RandomState(7)
+    pos = tw.water_box(BANDED_MOL, BANDED_BOX, seed=7)
+    pos = np.mod(pos + rng.normal(0.0, 0.05, pos.shape), BANDED_BOX)
+    pos = pos.astype(np.float32)
+    idx, mask, ovf = jdense(jnp.asarray(pos), BANDED_BOX, CUTOFF + 0.5, K)
+    assert not bool(ovf)
+    return kw, pos, np.asarray(idx), np.asarray(mask)
+
+
+def test_banded_water_matches_jax(seeded, banded_frame):
+    """GNNForceField.banded_force_fn with the bond channel (computed in the
+    sorted frame from the original ids) on TIP3P-774 of the port's
+    water_box, seeded weights 2 x 32, K=64, band 512, against JAX: its fp32
+    reference_forward with the bond on the unsorted frame within the LJ
+    banded test's 1e-4 std(F), and its banded force fn in interpret mode,
+    whose edge products run in single-pass bf16. On water that kernel is
+    6.98e-3 (relative MAE) from JAX's own fp32 forward, above the LJ bar
+    of 6e-3, so the port is held no farther from it than that (5% over,
+    cosine > 0.9999). Without the bond the forces differ."""
+    jstate, jcfg_, _, state, cfg, _ = seeded
+    kw, pos, idx, mask = banded_frame
+    jsys = jcfg.get_preset("tip3p", **kw)
+    jff = JForceField(jstate, jsys, jcfg_)
+    ff = GNNForceField(state, tcfg.get_preset("tip3p", **kw), cfg,
+                       device="cpu")
+    fn = ff.banded_force_fn()
+    assert fn.handles_refresh and fn.banded_band == 512
+    got = fn(_t(pos), _t(idx), _t(mask)).numpy()
+    assert np.isfinite(got).all()
+    jmp = jmega.pack_params(jstate.params, jcfg_,
+                            force_std=jnp.maximum(jstate.force_stat.std,
+                                                  1e-12),
+                            force_mean=jstate.force_stat.safe_mean,
+                            unit=jsys.force_unit_to_internal)
+    ls = jstate.length_stat
+    ref = np.asarray(jmega.reference_forward(
+        jnp.asarray(pos), jnp.asarray(idx), jnp.asarray(mask),
+        jnp.asarray(jff._node_h0()), jmp, kw["box"], CUTOFF, ls.safe_mean,
+        jnp.maximum(ls.std, 1e-12),
+        bond=jtopo.neighbor_bond_channel(jnp.asarray(idx)),
+        rbf_gap=jcfg_.rbf_gap))
+    assert np.abs(got - ref).max() < 1e-4 * ref.std()
+    jband = np.asarray(jff.banded_force_fn(interpret=True)(
+        jnp.asarray(pos), jnp.asarray(idx), jnp.asarray(mask)))
+    rel_mae = lambda a, b: np.abs(a - b).mean() / np.abs(b).mean()
+    assert rel_mae(got, jband) < 1.05 * rel_mae(ref, jband)
+    cos = (got * jband).sum() / (np.linalg.norm(got)
+                                 * np.linalg.norm(jband))
+    assert cos > 0.9999, cos
+    no_bond = banded.make_banded_force_fn(
+        ff._kernel_params("banded"), kw["box"], CUTOFF, kw["n_atoms"],
+        ff._node_h0(), *ff._length_scale())(
+            _t(pos), _t(idx), _t(mask))[0].numpy()
+    assert np.isfinite(no_bond).all()
+    assert np.abs(got - no_bond).max() > 1e-3 * ref.std()
+
+
+def test_banded_force_fn_takes_tip3p_final(trained, banded_frame):
+    """tip3p_final's weights (4 x 128) on the banded path on the CPU, at
+    TIP3P-774: the same forces as the megakernel path's plain forward on
+    the same list (1e-4 std(F)), both with the bond channel."""
+    kw, pos, idx, mask = banded_frame
+    state, cfg, system = trained[3:]
+    ff = GNNForceField(state, dataclasses.replace(system, **kw), cfg,
+                       device="cpu")
+    got = ff.banded_force_fn()(_t(pos), _t(idx), _t(mask)).numpy()
+    want = ff.force_fn(megakernel=True)(_t(pos), _t(idx), _t(mask)).numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() < 1e-4 * want.std()
+
+
 # -- refusals -----------------------------------------------------------------
 
 def test_refusals_raise_before_any_work(seeded, tmp_path):
-    """The long-range envelopes (GNNForceField, run_md), --system dft, the
-    banded path with a bond channel, megastep with a constraint,
-    constrained replicas and ablate raise, each naming what brings it."""
+    """The long-range envelopes (GNNForceField, run_md), --system dft,
+    megastep with a constraint and constrained replicas raise, each naming
+    what brings it, and an ablate name JAX's kernel does not know raises
+    ValueError before any work (the banded path with a bond channel, once
+    refused here, runs since: test_banded_water_matches_jax)."""
     _, _, _, state, cfg, system = seeded
     for name in ("tip3p_lr_latest", "tip3p_rj_best"):
         lr_state, lr_cfg, lr_sys = tckpt.load_self_describing(
@@ -416,11 +506,6 @@ def test_refusals_raise_before_any_work(seeded, tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         run_md.main(["--system", "dft", "--cpu"])
     ff = GNNForceField(state, system, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="banded"):
-        ff.banded_force_fn()
-    with pytest.raises(NotImplementedError, match="banded"):
-        run_md.main(["--system", "tip3p", "--banded", "--cpu", "--steps",
-                     "2", "--log", str(tmp_path / "log.txt")])
     cst = RigidWater(N_MOL, BOX)
     md = tcfg.MDConfig(integrator="langevin")
     with pytest.raises(ValueError, match="unconstrained"):
@@ -433,9 +518,9 @@ def test_refusals_raise_before_any_work(seeded, tmp_path):
                      device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         sim.init_replicas(_frames(1, seed=0)[0], 2)
-    with pytest.raises(NotImplementedError, match="6d"):
+    with pytest.raises(ValueError, match="unknown ablate stage"):
         tmega.mega_md_steps(*[None] * 12, n_steps=1, c1=1.0, hdt=0.1,
-                            c2col=None, seed=None, ablate=("noise",))
+                            c2col=None, seed=None, ablate=("bond",))
 
 
 # -- run_md --system tip3p ----------------------------------------------------
@@ -477,6 +562,37 @@ def test_run_md_water_cli_on_cpu(tmp_path, monkeypatch, water_ckpt, flags):
     assert bool(torch.isfinite(res.state.force).all())
     if rigid:
         assert float(run["constraint"].residual(res.state.pos)) < 1e-5
+
+
+def test_run_md_water_banded_cli_on_cpu(tmp_path, monkeypatch,
+                                       banded_frame):
+    """run_md --system tip3p --banded --cpu on a JAX-written checkpoint of
+    the seeded 2 x 32 model on the preset's TIP3P-774 box (a small box
+    overflows any band), from the water_box frame (--init_pos, so that
+    the FIRE start is not rerun): the banded force path with the bond
+    channel (band 512), rigid, a few steps with every force finite and
+    the residual under 1e-5 A."""
+    jstate, jcfg_, _ = _jax_seeded_state()
+    ckpt = jckpt.save_checkpoint(str(tmp_path / "w774.msgpack"), jstate,
+                                 jcfg_, jcfg.get_preset("tip3p"))
+    init = tmp_path / "start.npy"
+    np.save(init, banded_frame[1])
+    runs = []
+    rollout = run_md.rollout
+    monkeypatch.setattr(run_md, "rollout",
+                        lambda *a: runs.append(rollout(*a)) or runs[-1])
+    log = tmp_path / "log.txt"
+    run_md.main(["--system", "tip3p", "--ckpt", ckpt, "--banded", "--cpu",
+                 "--init_pos", str(init), "--steps", "4", "--report_every",
+                 "2", "--log", str(log)])
+    assert len(log.read_text().splitlines()) == 3
+    (run,) = runs
+    assert run["sim"].force_fn.banded_band == 512
+    assert run["system"].n_atoms == 774 and run["constraint"] is not None
+    res = run["result"]
+    assert not res.overflow
+    assert bool(torch.isfinite(res.state.force).all())
+    assert float(run["constraint"].residual(res.state.pos)) < 1e-5
 
 
 def test_run_md_tip4p_seeded_weights_on_cpu(tmp_path):
