@@ -41,8 +41,11 @@ tools/bench_replicas.py. Then its water deployment on the committed
 checkpoint results/ckpts/tip3p_final.msgpack (TIP3P-774, 4 x 128, cutoff
 4.2 A, K=96): mega_forward and mega_md_steps with the O-H bond channel,
 and `run_md --system tip3p --megakernel`, rigid water under SETTLE/RATTLE
-with every force call one mega_forward launch. Phases, one flushed line or
-more each:
+with every force call one mega_forward launch. Then its LJ data
+generation (physics.generate.generate_lj_dataset: FIRE, then NHC frames
+with every chain half-step one nhc_half_step launch) and the dataset's
+pack cache through the native packer. Phases, one flushed line or more
+each:
 
   0. card (nvidia-smi name and power limit), torch and nvcc versions;
   1. build the CUDA sources with nvcc (or reuse the hashed library);
@@ -159,14 +162,19 @@ more each:
  27. gather_agg, edge_mlp_agg, conv_msg and conv_layer against their plain
      versions on phase 6's two layers' real inputs (h_src = hn[idx],
      src_code = src[idx], edge_pre = edge_affine(e) + src_code + dst, the
-     gate theta(edge_pre)); conv_msg equal to conv_msg_gather bit for bit
+     gate theta(edge_pre)), gather_agg within 1e-6 of max |out| (fp32
+     re-association over at most K terms; the others 1e-4); conv_msg
+     equal to conv_msg_gather bit for bit
      (the same live-edge tiles on equal rows), edge_mlp_agg(edge_pre) (on
      the same tiles with theta_edge's two products) and gather_agg(hn,
      gate) within 1e-5 of conv_msg's plain agg (fp32, on the card), two
      calls of edge_mlp_agg bit for bit, conv_layer equal to GAMDNet's own
      layer on the plain path and to its plain version with a bf16 e and
      with ids out of range (negative, N and past it) in live and masked
-     slots;
+     slots; gather_agg on layer 0's inputs with such ids and NaN in every
+     masked gate, an all-masked row (exactly 0), D = 96 and 130, a table
+     off 16-byte alignment (the aligned call's bits) and a repeat bit for
+     bit, each within 1e-6 of max |out| of its plain version;
  28. the gradients of edge_mlp_agg, conv_msg and conv_layer (autograd
      Functions whose backward recomputes through the plain version, as
      JAX's custom_vjp) against autograd through the plain version, with a
@@ -292,9 +300,20 @@ more each:
      version (5e-3 std(F)) on phase 2's frame, silu/gelu the bits of the
      default call, and one 20-step window under gelu/silu against its
      plain window at c2col = 0 (2e-4 in x and v);
- 49. the kernels line (JSON; rows 1-2 with their water, ablate and
-     activation figures, row 5 with its water banded figures), then the
-     result line (JSON) last.
+ 49. LJ data generation, `generate_data --system lj`'s protocol through
+     physics.generate.generate_lj_dataset on the card: 1 seed, 2,000 FIRE
+     steps, 20 frames every 50 NHC steps (chain 10/5/5, 100 K, every
+     chain half-step one nhc_half_step launch): its seconds and frames/s,
+     and FIRE's seconds alone (timed again on the same start);
+     the npz layout (pos, vel, forces float32 [258, 3]), each frame's
+     forces within 1e-4 of max |F| of lj_forces_dense of its pos on the
+     card, the mean T of the frames within 100 +- 15 K, the launches;
+     TrajectoryDataset's pack cache, the native packer's pack
+     (train/native_io.py, built with g++) and the numpy pack bit for bit,
+     the 90/10 split's sizes;
+ 50. the kernels line (JSON; rows 1-2 with their water, ablate and
+     activation figures, row 5 with its water banded figures, row 10 with
+     its cases), then the result line (JSON) last.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 card; without one it exits non-zero and prints no result. Any failed check
@@ -306,6 +325,7 @@ import faulthandler
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -405,6 +425,11 @@ RECORD_FRAMES, RECORD_INTERVAL = 10, 20  # phase 25
 OP_FORCE_RTOL = 1e-4      # op-library forms vs the plain forward, / std(F)
 OP_AGG_RTOL = 1e-5        # staged forms vs conv_msg's plain agg, / max
 OP_GRAD_RTOL = 1e-5       # per grad: max |d| / max |grad|, Function vs plain
+GATHER_RTOL = 1e-6        # gather_agg vs plain, / max |out|: fp32 re-association
+GATHER_WIDTHS = (96, 130)  # gather_agg's other widths (float4 lanes; scalar)
+GEN_FRAMES, GEN_INTERVAL, GEN_FIRE = 20, 50, 2000   # phase 49's protocol
+GEN_FORCE_RTOL = 1e-4     # recorded forces vs recomputed, / max |F|
+GEN_T_BAND = 15.0         # |mean T of the frames - 100 K|, phase 49
 THERMO_HEADER = ('#"Step"\t"Time (ps)"\t"Kinetic Energy (kJ/mole)"\t'
                  '"Temperature (K)"')
 PROBE_CARRY_RTOL = 1e-5   # one-hot carry vs plain, / (iters sum |T[idx]|)
@@ -2185,11 +2210,12 @@ def op_library_phases(dev, card):
             kind = "std" if name == "conv_layer" else "max |out|"
             scale = float(ref.std() if name == "conv_layer"
                           else ref.abs().max())
+            rtol = GATHER_RTOL if name == "gather_agg" else CONV_RTOL
             say(f"phase 27: {name} vs plain at N={n} K={k} width 128, "
                 f"layer {layer} ({case.live} live edges): max |d| "
-                f"{err:.3e}, {kind} {scale:.3e} (tolerance {CONV_RTOL} x "
+                f"{err:.3e}, {kind} {scale:.3e} (tolerance {rtol} x "
                 f"{kind})")
-            require(err <= CONV_RTOL * scale, f"{name} disagrees: {err} vs "
+            require(err <= rtol * scale, f"{name} disagrees: {err} vs "
                     f"{scale}")
             errs[name] = max(errs[name], err)
             outs[name], refs[name] = out, ref
@@ -2249,6 +2275,7 @@ def op_library_phases(dev, card):
                 and wild_err <= CONV_RTOL * wild_std,
                 "conv_layer disagrees with its plain version on ids out of "
                 "range")
+    gather_cases = gather_agg_cases(op_inputs(cases[0])["gather_agg"][0])
 
     # -- phase 28: gradients through the three autograd Functions ------------
     for layer, case in enumerate(cases):
@@ -2322,7 +2349,68 @@ def op_library_phases(dev, card):
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "device_us": dev_us, "fp32_bound_ms": fp32_ms})
+    kernels[0]["cases"] = gather_cases
     return kernels
+
+
+def gather_agg_cases(inputs):
+    """Phase 27's further cases of gather_agg on (h, gate, idx, mask) of
+    layer 0: ids out of range (negative, N and past it, far past either
+    end) in every masked slot and in the live slots whose flat index is a
+    multiple of 5, with NaN in every masked gate; the last row all masked
+    (exactly 0); widths GATHER_WIDTHS (the first channels of each); the
+    table at an address off 16 bytes (one float a lane), bit for bit the
+    aligned call; a repeat bit for bit. Each within GATHER_RTOL x max |out|
+    of the plain version. Returns {case: max |d| / max |out|}."""
+    h, gate, idx, mask = inputs
+    n = h.shape[0]
+    dev = h.device
+    wild = torch.tensor([-1, -n, -n - 1, n, n + 7, 10 ** 6, -10 ** 6],
+                        dtype=torch.int32, device=dev)
+    flat = torch.arange(idx.numel(), device=dev).reshape(idx.shape)
+    pick = ~mask | (flat % 5 == 0)
+    fill = wild[torch.arange(int(pick.sum()), device=dev) % wild.numel()]
+    empty = mask.clone()
+    empty[-1] = False
+    shifted = torch.empty(h.numel() + 1, device=dev)[1:].view(h.shape)
+    shifted.copy_(h)
+    cases = {
+        "wild ids, NaN masked": (h, torch.where(mask[..., None], gate,
+                                                float("nan")),
+                                 idx.masked_scatter(pick, fill), mask),
+        "last row masked": (h, gate, idx, empty),
+        **{f"D={d}": (h[:, :d].contiguous(), gate[..., :d].contiguous(), idx,
+                      mask) for d in GATHER_WIDTHS},
+        "misaligned table": (shifted, gate, idx, mask)}
+    kernel = message.pallas_gather_multiply_aggregate
+    errs = {}
+    with torch.no_grad():
+        base = kernel(*inputs)
+        again = kernel(*inputs)
+        for name, args in cases.items():
+            out = kernel(*args)
+            ref = message.gather_multiply_aggregate(*args)
+            torch.cuda.synchronize()
+            scale = float(ref.abs().max())
+            errs[name] = float((out - ref).abs().max()) / scale
+            require(bool(torch.isfinite(out).all())
+                    and out.shape == ref.shape
+                    and errs[name] <= GATHER_RTOL,
+                    f"gather_agg disagrees with its plain version ({name}): "
+                    f"{errs[name]:.3e} of max |out|")
+            if name == "last row masked":
+                require(bool((out[-1] == 0).all()),
+                        "gather_agg: an all-masked row is not 0")
+            if name == "misaligned table":
+                require(torch.equal(out, base), "gather_agg: the one-float "
+                        "lanes differ from the float4 lanes")
+    require(torch.equal(base, again), "gather_agg does not repeat bit for bit")
+    say("phase 27: gather_agg on layer 0's inputs, max |d| / max |out| "
+        "against its plain version: " + ", ".join(
+            f"{name} {err:.3e}" for name, err in errs.items())
+        + f" (tolerance {GATHER_RTOL}); the all-masked row exactly 0, the "
+        "misaligned table the aligned bits, a repeat bit for bit")
+    return errs
 
 
 def tensor_bytes(*tensors):
@@ -3748,6 +3836,105 @@ def activation_phase(dev, card, args, kw, window_args, wkw):
                                           "dx": dx, "dv": dv}}, launches
 
 
+def generation_phase(dev, card):
+    """Phase 49 (module docstring). Returns the launches of its path."""
+    from gamd_tpu_torch.physics.generate import (generate_lj_dataset,
+                                                 lj_protocol, lj_start)
+    from gamd_tpu_torch.train import native_io
+    from gamd_tpu_torch.train.data import TrajectoryDataset, pack_numpy
+
+    out = tempfile.mkdtemp(prefix="gamd_lj_data_")
+    try:
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate_lj_dataset(out, seeds=1, frames_per_seed=GEN_FRAMES,
+                            record_interval=GEN_INTERVAL,
+                            minimize_steps=GEN_FIRE, log_every_frames=0,
+                            device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = count_launches()
+        names = sorted(os.listdir(out))
+        require(names == sorted(f"data_0_{t}.npz" for t in range(GEN_FRAMES)),
+                f"generate_lj_dataset wrote {names}")
+        proto = lj_protocol(device=dev)
+        start = torch.as_tensor(lj_start(0, proto.lattice, proto.box),
+                                device=dev)
+        t0 = time.perf_counter()
+        fire_minimize(proto.record_force, start, n_steps=GEN_FIRE)
+        torch.cuda.synchronize()
+        fire_s = time.perf_counter() - t0
+        n = proto.sim.system.n_atoms
+        masses = proto.sim.masses
+        temps, force_err, mean_f = [], 0.0, []
+        for name in names:
+            with np.load(os.path.join(out, name)) as z:
+                require(sorted(z) == ["forces", "pos", "vel"]
+                        and all(z[k].dtype == np.float32
+                                and z[k].shape == (n, 3)
+                                and np.isfinite(z[k]).all() for k in z),
+                        f"{name}: keys, dtypes, shapes or values wrong")
+                pos = torch.as_tensor(z["pos"], device=dev)
+                want = proto.record_force(pos) / units.KJ_MOL_NM_TO_INTERNAL
+                got = torch.as_tensor(z["forces"], device=dev)
+                force_err = max(force_err, float((got - want).abs().max())
+                                / float(want.abs().max()))
+                mean_f.append(float(got.norm(dim=-1).mean()))
+                vel = torch.as_tensor(z["vel"], device=dev) \
+                    * units.M_PER_S_TO_INTERNAL
+                ke2 = float((masses[:, None] * vel * vel).sum())
+                temps.append(ke2 / (3 * n * units.KB))
+        mean_t = sum(temps) / len(temps)
+        cache = os.path.join(out, "pack.npz")
+        train = TrajectoryDataset(out, sample_num=GEN_FRAMES, seed_num=1,
+                                  pack_cache=cache)
+        test = TrajectoryDataset(out, sample_num=GEN_FRAMES, seed_num=1,
+                                 mode="test", pack_cache=cache)
+        plain = pack_numpy(TrajectoryDataset(out, sample_num=GEN_FRAMES,
+                                             seed_num=1), GEN_FRAMES)
+        native_ok = native_io.available()
+        native = (native_io.pack_trajectory(out, 1, GEN_FRAMES, n)
+                  if native_ok else None)
+        with np.load(cache) as z:
+            cached = (z["pos"], z["forces"])
+        same = native_ok and all(
+            np.array_equal(a, b) and np.array_equal(a, c)
+            for a, b, c in zip(native, plain, cached))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    say(f"phase 49: generate_lj_dataset on the card, 1 seed, {GEN_FIRE} "
+        f"FIRE steps, {GEN_FRAMES} frames every {GEN_INTERVAL} NHC steps "
+        f"(chain 10/5/5, 100 K): {seconds:.2f} s from the lattice to the "
+        f"last file, {GEN_FRAMES / seconds:.2f} frames/s; FIRE alone, timed "
+        f"again on the same start, {fire_s:.2f} s "
+        f"({fire_s / GEN_FIRE * 1e3:.3f} ms a step), so the NHC frames and "
+        f"files {seconds - fire_s:.2f} s "
+        f"({GEN_FRAMES * GEN_INTERVAL / (seconds - fire_s):.1f} MD steps/s "
+        f"with the recording) [{card}]")
+    say(f"phase 49: {len(names)} files (pos, vel, forces float32 [{n}, 3]); "
+        f"recorded forces against lj_forces_dense of each frame's pos on the "
+        f"card: max |d| / max |F| {force_err:.3e} (tolerance "
+        f"{GEN_FORCE_RTOL}); mean |F| {sum(mean_f) / len(mean_f):.2f} "
+        f"kJ/mol/nm; T of the frames {min(temps):.1f}-{max(temps):.1f} K, "
+        f"mean {mean_t:.2f} K (band 100 +- {GEN_T_BAND} K); launches "
+        f"{counts}; native packer built {native_ok}, its pack, the numpy "
+        f"pack and the cache bit for bit: {same}; split {len(train)} train "
+        f"/ {len(test)} test")
+    require(force_err <= GEN_FORCE_RTOL, "recorded forces disagree")
+    require(abs(mean_t - 100.0) <= GEN_T_BAND,
+            f"mean T of the frames {mean_t:.2f} K")
+    require(counts == {**{k: 0 for k in counts},
+                       "nhc_half_step": 2 * GEN_FRAMES * GEN_INTERVAL},
+            f"launches {counts}: want two nhc_half_step a step and nothing "
+            "else")
+    require(same, "the native pack differs from the numpy pack")
+    require((len(train), len(test)) == (GEN_FRAMES * 9 // 10,
+                                        GEN_FRAMES - GEN_FRAMES * 9 // 10),
+            "the 90/10 split")
+    return {"generate_lj": counts}
+
+
 def merge_launches(entries, runs):
     """Adds each run's non-zero counts ({path: {kernel name: count}}) to
     the entries' launches_by_path, keeping a path an entry already has,
@@ -4030,7 +4217,9 @@ def main():
     act_fields, act_launches = activation_phase(
         dev, card, args, kw, window_args, windows["noise off"][2])
 
-    # -- phase 49: kernels line, result line ------------------------------
+    gen_launches = generation_phase(dev, card)
+
+    # -- phase 50: kernels line, result line ------------------------------
     by_path = {name: {"per_step": per_step_launches[name],
                       "megastep": mega_launches[name]}
                for name in per_step_launches}
@@ -4072,10 +4261,10 @@ def main():
     merge_launches(kernels, {**deploy_launches, **integrator_launches,
                              **replica_launches, **water_launches,
                              **banded_launches, **ablate_launches,
-                             **act_launches})
+                             **act_launches, **gen_launches})
     say("kernels: " + json.dumps([k["name"] for k in kernels]))
     say(json.dumps({"kernels": kernels}))
-    say(f"phase 49: total {time.perf_counter() - t_start:.1f} s")
+    say(f"phase 50: total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

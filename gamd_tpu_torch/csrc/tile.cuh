@@ -1,7 +1,7 @@
-// Device helpers shared by the port's CUDA-core kernels (the encoder's, the
-// node stages of mega_forward.cu, the op library's gather_agg.cu and
-// conv_layer.cu): one thread per output channel of a 128-wide layer, fp32
-// arithmetic, fixed summation order.
+// Device helpers of the port's CUDA-core kernels (the node stages of
+// mega_forward.cu, through node_fused.cuh): one thread per
+// output channel of a 128-wide layer, fp32 arithmetic, fixed summation
+// order.
 
 #pragma once
 

@@ -1229,6 +1229,68 @@ def test_op_kernels_match_plain_version(cuda, op, n, k, d):
     assert torch.equal(again, out)
 
 
+#: Row 10 against its plain version, / max |out|: the kernel adds each
+#: warp's run of live slots and then the four runs, the plain version sums
+#: over K in torch's order; fp32 re-association over at most K terms.
+GATHER_RTOL = 1e-6
+
+
+@pytest.mark.parametrize("n,k,d", [(258, 96, 128), (258, 96, 96),
+                                   (66, 20, 130), (40, 600, 128),
+                                   (33, 300, 7)])
+def test_gather_agg_matches_plain_version(cuda, n, k, d):
+    """csrc/gather_agg.cu (live slots compacted by ballot, 256 slots a
+    window, four warps a row, float4 lanes where D % 4 == 0 and one float
+    a lane else) within GATHER_RTOL of its plain version at the op
+    library's shape, D = 96 and 130, K past one window (600, 300) and a
+    D of 7; with ids out of range in live slots (read as JAX reads them)
+    and in masked ones, NaN in every masked gate, the last row all masked
+    (exactly 0); one launch a call, a repeat bit for bit."""
+    x, _ = _op_inputs(cuda, n, k, seed=n + k + d, d=d)
+    mask = x["mask"].clone()
+    mask[-1] = False
+    masked = ~mask
+    wild = torch.tensor([-1, -n, -n - 1, n, n + 7, 10 ** 6, -10 ** 6],
+                        dtype=torch.int32, device=cuda)
+    flat = torch.arange(mask.numel(), device=cuda).reshape(mask.shape)
+    pick = masked | (flat % 5 == 0)
+    fill = wild[torch.arange(int(pick.sum()), device=cuda) % wild.numel()]
+    idx = x["idx"].masked_scatter(pick, fill)
+    gate = torch.where(masked[..., None], float("nan"), x["gate"])
+    args = (x["table"], gate, idx, mask)
+    before = message.pallas_gather_multiply_aggregate.launches
+    with torch.no_grad():
+        out = message.pallas_gather_multiply_aggregate(*args)
+        again = message.pallas_gather_multiply_aggregate(*args)
+        ref = message.gather_multiply_aggregate(*args)
+    torch.cuda.synchronize()
+    assert message.pallas_gather_multiply_aggregate.launches == before + 2
+    assert out.shape == ref.shape == (n, d)
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, again)
+    assert bool((out[-1] == 0).all())
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= GATHER_RTOL * scale
+
+
+def test_gather_agg_float_lanes_give_the_float4_bits(cuda):
+    """A table 4 bytes off 16-byte alignment takes the one-float lanes,
+    whose sum order per channel is the float4 lanes': the same bits."""
+    x, _ = _op_inputs(cuda, 258, 96, seed=9)
+    table = x["table"]
+    shifted = torch.empty(table.numel() + 1, device=cuda)[1:].view(
+        table.shape)
+    shifted.copy_(table)
+    assert shifted.data_ptr() % 16 != 0
+    with torch.no_grad():
+        aligned = message.pallas_gather_multiply_aggregate(
+            table, x["gate"], x["idx"], x["mask"])
+        off = message.pallas_gather_multiply_aggregate(
+            shifted, x["gate"], x["idx"], x["mask"])
+    torch.cuda.synchronize()
+    assert torch.equal(aligned, off)
+
+
 def test_conv_message_equals_conv_gather_bit_for_bit(cuda):
     """fused_conv_message on rows gathered at idx (row 8) and
     fused_conv_gather_message (row 3) run the same live-edge tiles

@@ -12,7 +12,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "ninja", "gamd_tpu")
 #: Modules of the later slices (large N; the integrators and the NHC
 #: kernel; the op library; the tensor-core probes; water; the stage
-#: decomposition), which the probe must have imported.
+#: decomposition; data generation, the dataset and its packer), which the
+#: probe must have imported.
 NEW_IN_SLICES = ("gamd_tpu_torch.neighbors.cell_list",
                  "gamd_tpu_torch.neighbors.search",
                  "gamd_tpu_torch.ops.banded",
@@ -31,7 +32,11 @@ NEW_IN_SLICES = ("gamd_tpu_torch.neighbors.cell_list",
                  "gamd_tpu_torch.md.constraints",
                  "gamd_tpu_torch.tools.bench_ablate",
                  "gamd_tpu_torch.tools.bounds",
-                 "gamd_tpu_torch.tools.sass_diff")
+                 "gamd_tpu_torch.tools.sass_diff",
+                 "gamd_tpu_torch.train.data",
+                 "gamd_tpu_torch.train.native_io",
+                 "gamd_tpu_torch.physics.generate",
+                 "gamd_tpu_torch.tools.generate_data")
 
 PROBE = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
