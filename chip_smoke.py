@@ -44,8 +44,12 @@ and `run_md --system tip3p --megakernel`, rigid water under SETTLE/RATTLE
 with every force call one mega_forward launch. Then its LJ data
 generation (physics.generate.generate_lj_dataset: FIRE, then NHC frames
 with every chain half-step one nhc_half_step launch) and the dataset's
-pack cache through the native packer. Phases, one flushed line or more
-each:
+pack cache through the native packer. Then the repository's verify loop on
+that set: tools.train_gamd (the epoch loop, every conv layer through the
+conv_msg_gather pair), tools.evaluate and tools.run_md --megakernel on the
+checkpoint it wrote; and water training at tip3p_final's shape through the
+same pair, rolled out rigidly through mega_forward. Phases, one flushed
+line or more each:
 
   0. card (nvidia-smi name and power limit), torch and nvcc versions;
   1. build the CUDA sources with nvcc (or reuse the hashed library);
@@ -310,10 +314,38 @@ each:
      card, the mean T of the frames within 100 +- 15 K, the launches;
      TrajectoryDataset's pack cache, the native packer's pack
      (train/native_io.py, built with g++) and the numpy pack bit for bit,
-     the 90/10 split's sizes;
- 50. the kernels line (JSON; rows 1-2 with their water, ablate and
-     activation figures, row 5 with its water banded figures, row 10 with
-     its cases), then the result line (JSON) last.
+     the 90/10 split's sizes; the set stays for phase 50;
+ 50. the verify loop on phase 49's set, at GAMD-small's full width
+     (128/128/128, 4 conv layers, LayerNorm, K=96): tools.train_gamd
+     --system lj --use_pallas --use_layer_norm --relabel (18 train and 2
+     test frames, 3 epochs at batch 2, a checkpoint every epoch): finite
+     metrics every epoch, the checkpoint files, the ms a step of the epoch
+     loop, rows 3-4's launches (four of each a step, four forward a
+     validation batch); the last checkpoint reloaded (load_self_describing,
+     GNNForceField with use_pallas) against the trained module's eval
+     forces on a test frame (1e-4 of max |F|: row 3's 1e-4 of max |agg|
+     carried to forces); a resume from checkpoint_1 at --start_epoch 2:
+     epoch 2's metrics bit for bit and its checkpoint byte for byte the
+     straight run's; tools.evaluate --use_pallas on the last checkpoint
+     (finite metrics, four conv_msg_gather launches) and tools.run_md
+     --megakernel 200 steps on it (finite T, one mega_forward a force
+     call); the launches of rows 1-5 on each part of the path;
+ 51. water training at tip3p_final's shape (TIP3P-774, 4.2 A, K=96, widths
+     128, 4 layers, LayerNorm, drop_edge, the bond channel): six frames
+     (phase 41's relaxed start and copies displaced by 0.01 A, labelled by
+     the flexible TIP3P forces in kJ/mol/nm) written as data_0_{t}.npz;
+     one training step of the CLI's configuration on its first training
+     frame through rows 3-4 against the plain path from the same seed
+     (phase 8's bars: the same augmented positions, the loss within 1e-4,
+     each grad within 1e-3 x its max, the parameters after Adam within
+     1e-5 for 99.9% and 2 lr for all; four launches of each of rows 3-4);
+     tools.train_gamd --system tip3p --use_pallas, 2 epochs of 5 steps,
+     through rows 3-4; then tools.run_md --system tip3p --megakernel
+     --friction 25 100 steps on the result from phase 41's start: finite
+     losses and T, the constraint residual under 1e-5 A, the launches;
+then the kernels line (JSON; rows 1-2 with their water, ablate and
+activation figures, row 5 with its water banded figures, row 10 with its
+cases), and the result line (JSON) last.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 card; without one it exits non-zero and prints no result. Any failed check
@@ -648,6 +680,47 @@ def train_steps(dev, use_pallas, n_steps):
     return state, metrics, time.perf_counter() - t0, sl
 
 
+def step_agreement(kernel, plain, lr):
+    """One training step on the kernel path against the plain path from
+    the same state, batch and generator, each given as (state, metrics):
+    requires the same augmented positions, the losses within 1e-4
+    (relative), each parameter's grad within CONV_GRAD_RTOL x its max
+    |grad|, and the parameters after Adam within PARAM_ATOL for a share
+    PARAM_SHARE of them and within 2 lr all. Returns the line that says
+    so."""
+    (sk, mk), (sp, mp_) = kernel, plain
+    require(torch.equal(mk["pos"], mp_["pos"]),
+            "the two paths drew different augmentations")
+    loss_rel = abs(float(mk["loss"]) - float(mp_["loss"])) \
+        / abs(float(mp_["loss"]))
+    grad_rel, worst = 0.0, None
+    for (name, a), b in zip(sk.model.named_parameters(),
+                            sp.model.parameters()):
+        require(a.grad is not None and b.grad is not None,
+                f"no grad for {name}")
+        require(bool(torch.isfinite(a.grad).all()), f"non-finite grad {name}")
+        err = float((a.grad - b.grad).abs().max())
+        mx = float(b.grad.abs().max())
+        require(err <= CONV_GRAD_RTOL * mx,
+                f"the two paths' grads of {name} disagree: max |d| {err} "
+                f"vs max |grad| {mx}")
+        if mx and err / mx >= grad_rel:
+            grad_rel, worst = err / mx, name
+    diffs = torch.cat([(a - b).detach().abs().reshape(-1) for a, b in
+                       zip(sk.model.parameters(), sp.model.parameters())])
+    share = float((diffs <= PARAM_ATOL).float().mean())
+    line = (f"augmented positions identical; loss {float(mk['loss']):.6f} "
+            f"vs {float(mp_['loss']):.6f} (rel {loss_rel:.3e}, tolerance "
+            f"1e-4); worst grad max |d| / max |grad| {grad_rel:.3e} "
+            f"({worst}; tolerance {CONV_GRAD_RTOL} per grad); params after "
+            f"Adam: {share:.5%} within {PARAM_ATOL}, max |d| "
+            f"{float(diffs.max()):.3e} (bound 2 lr = {2 * lr})")
+    require(loss_rel <= 1e-4, "the two paths' losses disagree")
+    require(share >= PARAM_SHARE and float(diffs.max()) <= 2 * lr,
+            "the two paths' parameters disagree")
+    return line
+
+
 def training_phases(dev, card):
     """Phases 6-9 (module docstring). Returns the two kernels' entries of
     the kernels line."""
@@ -781,27 +854,8 @@ def training_phases(dev, card):
     # -- phase 8: one training step, kernel path against plain path ------
     runs = {flag: train_steps(dev, flag, 1) for flag in (True, False)}
     (sk, mk, _, sl), (sp, mp_, _, _) = runs[True], runs[False]
-    mk, mp_ = mk[0], mp_[0]
-    require(torch.equal(mk["pos"], mp_["pos"]),
-            "the two paths drew different augmentations")
-    loss_rel = abs(float(mk["loss"]) - float(mp_["loss"])) \
-        / abs(float(mp_["loss"]))
-    grad_rel = max(
-        float((a.grad - b.grad).abs().max()) / float(b.grad.abs().max())
-        for a, b in zip(sk.model.parameters(), sp.model.parameters()))
-    diffs = torch.cat([(a - b).detach().abs().reshape(-1) for a, b in
-                       zip(sk.model.parameters(), sp.model.parameters())])
-    share = float((diffs <= PARAM_ATOL).float().mean())
-    say(f"phase 8: one training step, kernel vs plain path, same seed: "
-        f"augmented positions identical; loss {float(mk['loss']):.6f} vs "
-        f"{float(mp_['loss']):.6f} (rel {loss_rel:.3e}); worst grad max |d| "
-        f"/ max |grad| {grad_rel:.3e}; params after Adam: "
-        f"{share:.5%} within {PARAM_ATOL}, max |d| "
-        f"{float(diffs.max()):.3e} (bound 2 lr = {2 * sl.train_cfg.lr})")
-    require(loss_rel <= 1e-4, "the two paths' losses disagree")
-    require(grad_rel <= CONV_GRAD_RTOL, "the two paths' grads disagree")
-    require(share >= PARAM_SHARE and float(diffs.max())
-            <= 2 * sl.train_cfg.lr, "the two paths' parameters disagree")
+    say("phase 8: one training step, kernel vs plain path, same seed: "
+        + step_agreement((sk, mk[0]), (sp, mp_[0]), sl.train_cfg.lr))
     del runs, sk, sp
 
     # -- phase 9: the training path --------------------------------------
@@ -1820,16 +1874,22 @@ class RunSpy:
 
 
 def count_launches():
-    """The launch counts of every kernel on the integrator paths."""
+    """The launch counts of every kernel that the integrators, the
+    training loop and the CLIs can reach (rows 1-5 and the NHC step)."""
+    fused = fused_conv_gather_message
     return {"mega_forward": mega_forward.launches,
+            "mega_md_steps": mega_md_steps.launches,
             "edge_encoder": fused_edge_encoder.launches,
-            "conv_msg_gather": fused_conv_gather_message.launches,
+            "conv_msg_gather": fused.launches,
+            "conv_msg_gather_bwd": fused.backward_launches,
             "nhc_half_step": nhc.nhc_half_step.launches}
 
 
 def zero_launches():
-    mega_forward.launches = fused_edge_encoder.launches = 0
-    fused_conv_gather_message.launches = nhc.nhc_half_step.launches = 0
+    mega_forward.launches = mega_md_steps.launches = 0
+    fused_edge_encoder.launches = nhc.nhc_half_step.launches = 0
+    fused_conv_gather_message.launches = 0
+    fused_conv_gather_message.backward_launches = 0
 
 
 def integrator_phases(dev, card, traj, langevin_sps):
@@ -3836,73 +3896,72 @@ def activation_phase(dev, card, args, kw, window_args, wkw):
                                           "dx": dx, "dv": dv}}, launches
 
 
-def generation_phase(dev, card):
-    """Phase 49 (module docstring). Returns the launches of its path."""
+def generation_phase(dev, card, root):
+    """Phase 49 (module docstring): the set goes to root/lj_data, which
+    phase 50 trains on. Returns the launches of its path."""
     from gamd_tpu_torch.physics.generate import (generate_lj_dataset,
                                                  lj_protocol, lj_start)
     from gamd_tpu_torch.train import native_io
     from gamd_tpu_torch.train.data import TrajectoryDataset, pack_numpy
 
-    out = tempfile.mkdtemp(prefix="gamd_lj_data_")
-    try:
-        zero_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        generate_lj_dataset(out, seeds=1, frames_per_seed=GEN_FRAMES,
-                            record_interval=GEN_INTERVAL,
-                            minimize_steps=GEN_FIRE, log_every_frames=0,
+    out = os.path.join(root, "lj_data")
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate_lj_dataset(out, seeds=1, frames_per_seed=GEN_FRAMES,
+                        record_interval=GEN_INTERVAL,
+                        minimize_steps=GEN_FIRE, log_every_frames=0,
+                        device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = count_launches()
+    names = sorted(os.listdir(out))
+    require(names == sorted(f"data_0_{t}.npz" for t in range(GEN_FRAMES)),
+            f"generate_lj_dataset wrote {names}")
+    proto = lj_protocol(device=dev)
+    start = torch.as_tensor(lj_start(0, proto.lattice, proto.box),
                             device=dev)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = count_launches()
-        names = sorted(os.listdir(out))
-        require(names == sorted(f"data_0_{t}.npz" for t in range(GEN_FRAMES)),
-                f"generate_lj_dataset wrote {names}")
-        proto = lj_protocol(device=dev)
-        start = torch.as_tensor(lj_start(0, proto.lattice, proto.box),
-                                device=dev)
-        t0 = time.perf_counter()
-        fire_minimize(proto.record_force, start, n_steps=GEN_FIRE)
-        torch.cuda.synchronize()
-        fire_s = time.perf_counter() - t0
-        n = proto.sim.system.n_atoms
-        masses = proto.sim.masses
-        temps, force_err, mean_f = [], 0.0, []
-        for name in names:
-            with np.load(os.path.join(out, name)) as z:
-                require(sorted(z) == ["forces", "pos", "vel"]
-                        and all(z[k].dtype == np.float32
-                                and z[k].shape == (n, 3)
-                                and np.isfinite(z[k]).all() for k in z),
-                        f"{name}: keys, dtypes, shapes or values wrong")
-                pos = torch.as_tensor(z["pos"], device=dev)
-                want = proto.record_force(pos) / units.KJ_MOL_NM_TO_INTERNAL
-                got = torch.as_tensor(z["forces"], device=dev)
-                force_err = max(force_err, float((got - want).abs().max())
-                                / float(want.abs().max()))
-                mean_f.append(float(got.norm(dim=-1).mean()))
-                vel = torch.as_tensor(z["vel"], device=dev) \
-                    * units.M_PER_S_TO_INTERNAL
-                ke2 = float((masses[:, None] * vel * vel).sum())
-                temps.append(ke2 / (3 * n * units.KB))
-        mean_t = sum(temps) / len(temps)
-        cache = os.path.join(out, "pack.npz")
-        train = TrajectoryDataset(out, sample_num=GEN_FRAMES, seed_num=1,
-                                  pack_cache=cache)
-        test = TrajectoryDataset(out, sample_num=GEN_FRAMES, seed_num=1,
-                                 mode="test", pack_cache=cache)
-        plain = pack_numpy(TrajectoryDataset(out, sample_num=GEN_FRAMES,
-                                             seed_num=1), GEN_FRAMES)
-        native_ok = native_io.available()
-        native = (native_io.pack_trajectory(out, 1, GEN_FRAMES, n)
-                  if native_ok else None)
-        with np.load(cache) as z:
-            cached = (z["pos"], z["forces"])
-        same = native_ok and all(
-            np.array_equal(a, b) and np.array_equal(a, c)
-            for a, b, c in zip(native, plain, cached))
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    fire_minimize(proto.record_force, start, n_steps=GEN_FIRE)
+    torch.cuda.synchronize()
+    fire_s = time.perf_counter() - t0
+    n = proto.sim.system.n_atoms
+    masses = proto.sim.masses
+    temps, force_err, mean_f = [], 0.0, []
+    for name in names:
+        with np.load(os.path.join(out, name)) as z:
+            require(sorted(z) == ["forces", "pos", "vel"]
+                    and all(z[k].dtype == np.float32
+                            and z[k].shape == (n, 3)
+                            and np.isfinite(z[k]).all() for k in z),
+                    f"{name}: keys, dtypes, shapes or values wrong")
+            pos = torch.as_tensor(z["pos"], device=dev)
+            want = proto.record_force(pos) / units.KJ_MOL_NM_TO_INTERNAL
+            got = torch.as_tensor(z["forces"], device=dev)
+            force_err = max(force_err, float((got - want).abs().max())
+                            / float(want.abs().max()))
+            mean_f.append(float(got.norm(dim=-1).mean()))
+            vel = torch.as_tensor(z["vel"], device=dev) \
+                * units.M_PER_S_TO_INTERNAL
+            ke2 = float((masses[:, None] * vel * vel).sum())
+            temps.append(ke2 / (3 * n * units.KB))
+    mean_t = sum(temps) / len(temps)
+    cache = os.path.join(out, "pack.npz")
+    train = TrajectoryDataset(out, sample_num=GEN_FRAMES, seed_num=1,
+                              pack_cache=cache)
+    test = TrajectoryDataset(out, sample_num=GEN_FRAMES, seed_num=1,
+                             mode="test", pack_cache=cache)
+    plain = pack_numpy(TrajectoryDataset(out, sample_num=GEN_FRAMES,
+                                         seed_num=1), GEN_FRAMES)
+    native_ok = native_io.available()
+    native = (native_io.pack_trajectory(out, 1, GEN_FRAMES, n)
+              if native_ok else None)
+    with np.load(cache) as z:
+        cached = (z["pos"], z["forces"])
+    same = native_ok and all(
+        np.array_equal(a, b) and np.array_equal(a, c)
+        for a, b, c in zip(native, plain, cached))
+    os.remove(cache)
     say(f"phase 49: generate_lj_dataset on the card, 1 seed, {GEN_FIRE} "
         f"FIRE steps, {GEN_FRAMES} frames every {GEN_INTERVAL} NHC steps "
         f"(chain 10/5/5, 100 K): {seconds:.2f} s from the lattice to the "
@@ -3933,6 +3992,288 @@ def generation_phase(dev, card):
                                         GEN_FRAMES - GEN_FRAMES * 9 // 10),
             "the 90/10 split")
     return {"generate_lj": counts}
+
+
+# -- the verify loop and water training (phases 50-51) ------------------------
+
+VERIFY_EPOCHS, VERIFY_BATCH = 3, 2      # phase 50's run: 18 frames, 9 steps
+VERIFY_MD_STEPS = 200                   # phase 50's run_md --megakernel
+WATER_TRAIN_FRAMES = 6                  # phase 51: the start and 5 copies
+WATER_TRAIN_SIGMA = 0.01                # their displacement (A)
+WATER_TRAIN_EPOCHS = 2
+WATER_TRAIN_MD_STEPS = 100
+RELOAD_RTOL = 1e-4        # reloaded force field vs the trained module,
+                          # / max |F|: row 3's bar (1e-4 max |agg|)
+
+
+def run_path(label, runs, fn):
+    """fn() with every kernel's count set to 0 just before and read just
+    after into runs[label]; returns fn's result."""
+    zero_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    runs[label] = count_launches()
+    return out
+
+
+def epoch_losses(history):
+    return [r["loss"] for r in history]
+
+
+def verify_loop_phase(dev, card, root):
+    """Phase 50 (module docstring). Returns {path: {kernel: launches}}."""
+    from gamd_tpu_torch.models.normalizer import denormalize
+    from gamd_tpu_torch.tools import evaluate, train_gamd
+    from gamd_tpu_torch.train.data import TrajectoryDataset
+
+    ck, ck2 = os.path.join(root, "ck"), os.path.join(root, "ck_resume")
+    flags = ["--system", "lj", "--data_dir", root, "--sample_num",
+             str(GEN_FRAMES), "--seed_num", "1", "--max_epoch",
+             str(VERIFY_EPOCHS), "--batch_size", str(VERIFY_BATCH),
+             "--use_pallas", "--use_layer_norm", "--relabel",
+             "--checkpoint_every", "1"]
+    runs, logs, history = {}, [], []
+    t0 = time.perf_counter()
+    state = run_path("verify_train", runs, lambda: train_gamd.main(
+        flags + ["--cp_dir", ck], log_fn=logs.append, history=history))
+    train_s = time.perf_counter() - t0
+    names = sorted(os.listdir(ck))
+    want_names = sorted(
+        ["best.msgpack", "best_val.txt", "scaler_best.npz"]
+        + [f"checkpoint_{e}.msgpack" for e in range(VERIFY_EPOCHS)]
+        + [f"scaler_{e}.npz" for e in range(VERIFY_EPOCHS)])
+    losses = epoch_losses(history)
+    n_train = GEN_FRAMES * 9 // 10
+    steps = n_train // VERIFY_BATCH
+    step_ms = [r["seconds"] * 1e3 / steps for r in history]
+    layers = state.model.cfg.conv_layers
+    n_val_batches = (GEN_FRAMES - n_train) // VERIFY_BATCH
+    want_train = {"conv_msg_gather": layers * VERIFY_EPOCHS
+                  * (steps + n_val_batches),
+                  "conv_msg_gather_bwd": layers * VERIFY_EPOCHS * steps}
+    say(f"phase 50: train_gamd --system lj --use_pallas --use_layer_norm "
+        f"--relabel on phase 49's {GEN_FRAMES} frames ({n_train} train, "
+        f"{GEN_FRAMES - n_train} test; GAMD-small 128/128/128, 4 layers, "
+        f"K=96), {VERIFY_EPOCHS} epochs of {steps} steps at batch "
+        f"{VERIFY_BATCH}: {train_s:.2f} s in all (datasets, packing, "
+        f"evaluation, checkpoints); the epoch loop "
+        f"{', '.join(f'{x:.3f}' for x in step_ms)} ms a step by epoch "
+        f"(epoch 0 with the first calls' set-up); epoch losses "
+        f"{', '.join(f'{x:.6f}' for x in losses)}; launches "
+        f"{runs['verify_train']} [{card}]")
+    say("phase 50: " + " | ".join(logs))
+    require(len(losses) == VERIFY_EPOCHS and all(
+        np.isfinite(v) for r in history for k, v in r.items()),
+        "non-finite epoch metrics")
+    require(names == want_names, f"checkpoint files {names}")
+    require(all(runs["verify_train"][k] == v for k, v in want_train.items()),
+            f"launches {runs['verify_train']}: want {want_train}")
+
+    # The force field reloaded from the last checkpoint against the
+    # trained module's eval forces.
+    path = os.path.join(ck, f"checkpoint_{VERIFY_EPOCHS - 1}.msgpack")
+    ff_state, cfg, system = load_self_describing(path, use_pallas=True)
+    ff = GNNForceField(ff_state, system, cfg, device=dev)
+    test = TrajectoryDataset(os.path.join(root, "lj_data"), mode="test",
+                             sample_num=GEN_FRAMES, seed_num=1)
+    pos = space.wrap(torch.as_tensor(test[0]["pos"], device=dev),
+                     system.box)
+    idx, mask, _ = dense_neighbor_list(pos, system.box, system.cutoff,
+                                       system.nbr_capacity)
+    got = ff.force_fn()(pos, idx, mask)
+    with torch.no_grad():
+        pred = state.model(pos[None], idx[None], mask[None], system.box,
+                           state.length_stat.safe_mean,
+                           state.length_stat.std)[0]
+    want = denormalize(pred, state.force_stat) \
+        * system.force_unit_to_internal
+    reload_err = float((got - want).abs().max()) / float(want.abs().max())
+    say(f"phase 50: {os.path.basename(path)} reloaded (load_self_describing,"
+        f" GNNForceField use_pallas) against the trained module's eval "
+        f"forces on a test frame: max |dF| / max |F| {reload_err:.3e} "
+        f"(tolerance {RELOAD_RTOL})")
+    require(reload_err <= RELOAD_RTOL, "the reloaded force field disagrees")
+
+    # Resume from checkpoint_1: epoch 2 bit for bit.
+    resumed = []
+    run_path("verify_resume", runs, lambda: train_gamd.main(
+        flags + ["--cp_dir", ck2, "--state_ckpt_dir",
+                 os.path.join(ck, "checkpoint_1.msgpack"), "--start_epoch",
+                 str(VERIFY_EPOCHS - 1)],
+        log_fn=lambda _: None, history=resumed))
+    last = f"checkpoint_{VERIFY_EPOCHS - 1}.msgpack"
+    with open(os.path.join(ck, last), "rb") as f:
+        straight_bytes = f.read()
+    with open(os.path.join(ck2, last), "rb") as f:
+        same_file = f.read() == straight_bytes
+    strip = lambda r: {k: v for k, v in r.items() if k != "seconds"}
+    same_metrics = len(resumed) == 1 and strip(resumed[0]) == strip(
+        history[-1])
+    say(f"phase 50: resumed from checkpoint_1 at --start_epoch "
+        f"{VERIFY_EPOCHS - 1}: epoch loss {resumed[0]['loss']!r} against "
+        f"the straight run's {history[-1]['loss']!r}, every epoch metric "
+        f"bit for bit {same_metrics}, {last} (weights, Adam moments and "
+        f"counts, scalers, step) byte for byte {same_file}; launches "
+        f"{runs['verify_resume']}")
+    require(same_metrics and same_file, "the resumed run differs")
+
+    # evaluate --use_pallas, then run_md --megakernel on the checkpoint.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        metrics = run_path("verify_evaluate", runs, lambda: evaluate.main([
+            "--system", "lj", "--ckpt", path, "--data_dir",
+            os.path.join(root, "lj_data"), "--sample_num", str(GEN_FRAMES),
+            "--seed_num", "1", "--use_pallas", "--json_out",
+            os.path.join(tmp, "m.json")]))
+        eval_s = time.perf_counter() - t0
+        argv = ["--system", "lj", "--ckpt", path, "--megakernel", "--steps",
+                str(VERIFY_MD_STEPS), "--log", os.path.join(tmp, "log.txt")]
+        run = run_path("verify_run_md", runs, lambda: run_md.rollout(
+            run_md.build_parser().parse_args(argv)))
+    scalars = {k: v for k, v in metrics.items() if not isinstance(v, list)}
+    temps = run["result"].thermo.temperature
+    finite = all(np.isfinite(np.asarray(v)).all() for v in metrics.values())
+    say(f"phase 50: evaluate --use_pallas in {eval_s:.2f} s: "
+        f"{json.dumps(scalars)}; launches {runs['verify_evaluate']}")
+    say(f"phase 50: run_md --megakernel --steps {VERIFY_MD_STEPS} on it: "
+        f"{VERIFY_MD_STEPS / run['seconds']:.1f} steps/s, mean T "
+        f"{float(temps.mean()):.2f} K (a 3-epoch model: no band); launches "
+        f"{runs['verify_run_md']} [{card}]")
+    require(finite and metrics["frames"] == GEN_FRAMES - n_train,
+            "evaluate's metrics")
+    require(runs["verify_evaluate"]["conv_msg_gather"] == layers,
+            f"evaluate launches {runs['verify_evaluate']}")
+    require(bool(torch.isfinite(temps).all())
+            and bool(torch.isfinite(run["result"].state.pos).all()),
+            "non-finite run_md on the trained checkpoint")
+    require(runs["verify_run_md"]["mega_forward"] == VERIFY_MD_STEPS + 1,
+            f"run_md launches {runs['verify_run_md']}")
+    return runs
+
+
+def water_step_agreement(dev, flags):
+    """One training step of train_gamd's configuration for `flags` on the
+    first frame of its training set, on the kernel pair (--use_pallas,
+    one forward and one backward launch a conv layer, required) against
+    the plain path, both from create_train_state at the train seed:
+    step_agreement's line."""
+    from gamd_tpu_torch.tools import train_gamd
+    from gamd_tpu_torch.train.loop import stack_dataset
+
+    pairs = {}
+    for use_pallas in (True, False):
+        args = train_gamd.build_parser().parse_args(
+            flags + (["--use_pallas"] if use_pallas else []))
+        system, model_cfg, train_cfg = train_gamd.configs(args)
+        train_data, _ = train_gamd.datasets(args)
+        pos, forces, feat = stack_dataset(train_data, dev)
+        batch = {"pos": pos[:1], "forces": forces[:1], "feat": feat[:1]}
+        state = create_train_state(model_cfg, system, train_cfg,
+                                   len(train_data), device=dev)
+        step = make_train_step(state.model, system, train_cfg)
+        zero_launches()
+        pairs[use_pallas] = step(state, batch)
+        torch.cuda.synchronize()
+        counts = count_launches()
+        layers = model_cfg.conv_layers if use_pallas else 0
+        require(counts["conv_msg_gather"] == counts["conv_msg_gather_bwd"]
+                == layers, f"launches {counts}: want {layers} of each of "
+                "the conv pair")
+    return step_agreement(pairs[True], pairs[False], train_cfg.lr)
+
+
+def water_training_phase(dev, card, ctx):
+    """Phase 51 (module docstring). Returns {path: {kernel: launches}}."""
+    from gamd_tpu_torch.md.constraints import RigidWater
+    from gamd_tpu_torch.physics import water as w
+    from gamd_tpu_torch.tools import train_gamd
+
+    system = get_preset("tip3p")
+    start = ctx["pos"]
+    params = w.TIP3PParams(cutoff=min(9.0, system.box / 2 - 0.01))
+    gen = torch.Generator(device=dev).manual_seed(51)
+    root = tempfile.mkdtemp(prefix="gamd_water_train_")
+    runs, logs, history = {}, [], []
+    try:
+        out = os.path.join(root, "water_data")
+        os.makedirs(out)
+        for t in range(WATER_TRAIN_FRAMES):
+            noise = torch.randn(start.shape, generator=gen, device=dev)
+            pos = space.wrap(start + (WATER_TRAIN_SIGMA * noise if t else 0),
+                             system.box)
+            forces = w.tip3p_forces(pos, system.box, params) \
+                / units.KJ_MOL_NM_TO_INTERNAL
+            np.savez(os.path.join(out, f"data_0_{t}.npz"),
+                     pos=pos.cpu().numpy(),
+                     vel=np.zeros((system.n_atoms, 3), np.float32),
+                     forces=forces.detach().cpu().numpy())
+        flags = ["--system", "tip3p", "--data_dir", root, "--sample_num",
+                 str(WATER_TRAIN_FRAMES), "--seed_num", "1", "--max_epoch",
+                 str(WATER_TRAIN_EPOCHS), "--use_layer_norm", "--drop_edge"]
+        say("phase 51: one training step of the CLI's TIP3P-774 "
+            "configuration on its first training frame (4.2 A, K=96, 4 x "
+            "128, the bond channel, edge dropout, rotation and jitter), "
+            "kernel pair vs plain path, same seed: "
+            + water_step_agreement(dev, flags) + f" [{card}]")
+        ck = os.path.join(root, "ck")
+        t0 = time.perf_counter()
+        run_path("water_train", runs, lambda: train_gamd.main(
+            flags + ["--use_pallas", "--cp_dir", ck], log_fn=logs.append,
+            history=history))
+        train_s = time.perf_counter() - t0
+        init = os.path.join(root, "start.npy")
+        np.save(init, start.cpu().numpy())
+        path = os.path.join(ck, f"checkpoint_{WATER_TRAIN_EPOCHS - 1}"
+                            ".msgpack")
+        argv = ["--system", "tip3p", "--ckpt", path, "--megakernel",
+                "--friction", str(WATER_FRICTION), "--init_pos", init,
+                "--steps", str(WATER_TRAIN_MD_STEPS), "--log",
+                os.path.join(root, "log.txt")]
+        run = run_path("water_train_run_md", runs, lambda: run_md.rollout(
+            run_md.build_parser().parse_args(argv)))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_train = WATER_TRAIN_FRAMES * 9 // 10
+    steps = n_train           # batch 1
+    losses = epoch_losses(history)
+    step_ms = [r["seconds"] * 1e3 / steps for r in history]
+    res = run["result"]
+    temps = res.thermo.temperature
+    residual = float(RigidWater(system.n_atoms // 3, system.box).residual(
+        res.state.pos))
+    layers = 4
+    want_train = {"conv_msg_gather": layers * WATER_TRAIN_EPOCHS
+                  * (steps + WATER_TRAIN_FRAMES - n_train),
+                  "conv_msg_gather_bwd": layers * WATER_TRAIN_EPOCHS * steps}
+    say(f"phase 51: train_gamd --system tip3p --use_pallas --use_layer_norm "
+        f"--drop_edge on {WATER_TRAIN_FRAMES} TIP3P-774 frames (water_box's "
+        f"relaxed start and copies displaced by {WATER_TRAIN_SIGMA} A, "
+        f"labelled by the flexible TIP3P forces; 4.2 A, K=96, 4 x 128, the "
+        f"bond channel), {WATER_TRAIN_EPOCHS} epochs of {steps} steps: "
+        f"{train_s:.2f} s in all; the epoch loop "
+        f"{', '.join(f'{x:.3f}' for x in step_ms)} ms a step by epoch; "
+        f"epoch losses {', '.join(f'{x:.6f}' for x in losses)}; launches "
+        f"{runs['water_train']} [{card}]")
+    say("phase 51: " + " | ".join(logs))
+    say(f"phase 51: run_md --system tip3p --megakernel --friction "
+        f"{WATER_FRICTION:g} --steps {WATER_TRAIN_MD_STEPS} on the result "
+        f"(rigid, from phase 41's start): "
+        f"{WATER_TRAIN_MD_STEPS / run['seconds']:.1f} steps/s, mean T "
+        f"{float(temps.mean()):.2f} K (a 2-epoch model: no band), residual "
+        f"{residual:.3e} A (under {WATER_RESIDUAL}); launches "
+        f"{runs['water_train_run_md']} [{card}]")
+    require(len(losses) == WATER_TRAIN_EPOCHS
+            and all(np.isfinite(x) for x in losses), "non-finite losses")
+    require(all(runs["water_train"][k] == v for k, v in want_train.items()),
+            f"launches {runs['water_train']}: want {want_train}")
+    require(bool(torch.isfinite(temps).all())
+            and bool(torch.isfinite(res.state.pos).all()),
+            "non-finite water run on the trained model")
+    require(residual < WATER_RESIDUAL, f"constraint residual {residual}")
+    require(runs["water_train_run_md"]["mega_forward"]
+            == WATER_TRAIN_MD_STEPS + 1,
+            f"run_md launches {runs['water_train_run_md']}")
+    return runs
 
 
 def merge_launches(entries, runs):
@@ -4217,9 +4558,15 @@ def main():
     act_fields, act_launches = activation_phase(
         dev, card, args, kw, window_args, windows["noise off"][2])
 
-    gen_launches = generation_phase(dev, card)
+    root = tempfile.mkdtemp(prefix="gamd_verify_")
+    try:
+        gen_launches = generation_phase(dev, card, root)
+        verify_launches = verify_loop_phase(dev, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    water_train_launches = water_training_phase(dev, card, water_ctx)
 
-    # -- phase 50: kernels line, result line ------------------------------
+    # -- the kernels line, the result line ---------------------------------
     by_path = {name: {"per_step": per_step_launches[name],
                       "megastep": mega_launches[name]}
                for name in per_step_launches}
@@ -4261,10 +4608,11 @@ def main():
     merge_launches(kernels, {**deploy_launches, **integrator_launches,
                              **replica_launches, **water_launches,
                              **banded_launches, **ablate_launches,
-                             **act_launches, **gen_launches})
+                             **act_launches, **gen_launches,
+                             **verify_launches, **water_train_launches})
     say("kernels: " + json.dumps([k["name"] for k in kernels]))
     say(json.dumps({"kernels": kernels}))
-    say(f"phase 50: total {time.perf_counter() - t_start:.1f} s")
+    say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

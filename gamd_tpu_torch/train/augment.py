@@ -66,8 +66,8 @@ def rotate_sample(pos, forces, box, r, rotate_box: bool = False,
     Returns (pos', forces')."""
     if rotate_box or box_vec is not None:
         raise NotImplementedError(
-            "per-sample boxes (rotate_box) come with the port's water / DFT "
-            "slice")
+            "per-sample boxes (rotate_box) come with the DFT slice of the "
+            "port (ROADMAP Queue 1 item 5)")
     p = torch.remainder(pos, box)
     offset = torch.mean(p, dim=-2, keepdim=True)
     rot = lambda x: torch.sum(x[..., :, :, None] * r[..., None, :, :],

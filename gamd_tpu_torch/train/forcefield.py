@@ -17,7 +17,6 @@ import torch
 from gamd_tpu_torch.core import space
 from gamd_tpu_torch.core.config import ModelConfig, SystemConfig
 from gamd_tpu_torch.core.device import resolve_device
-from gamd_tpu_torch.models.gnn import GAMDNet
 from gamd_tpu_torch.models.normalizer import denormalize
 from gamd_tpu_torch.neighbors.dense import dense_neighbor_list
 from gamd_tpu_torch.neighbors.topology import neighbor_bond_channel
@@ -25,7 +24,7 @@ from gamd_tpu_torch.ops.banded import make_banded_force_fn
 from gamd_tpu_torch.ops.mega import (ablate_set, mega_forward, mega_md_steps,
                                      pack_params)
 from gamd_tpu_torch.train.loop import search_batch
-from gamd_tpu_torch.train.state import ForceFieldState
+from gamd_tpu_torch.train.state import ForceFieldState, build_model
 
 
 class GNNForceField:
@@ -58,8 +57,7 @@ class GNNForceField:
         self.length_stat = state.length_stat
         self.species = system.species
         self.use_bond = system.has_bonds
-        self.model = GAMDNet(model_cfg, self.species,
-                             self.use_bond).load_params(
+        self.model = build_model(model_cfg, system).load_params(
             state.params, state.batch_stats).to(self.device).eval()
         feat = system.species_onehot()
         self._feat = None if feat is None else torch.as_tensor(

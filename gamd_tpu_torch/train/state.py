@@ -6,7 +6,8 @@
 * TrainState is what a train step updates: the GAMDNet module, its Adam
   optimizer and staircase lr schedule, the streaming force and edge-length
   stats (0-d tensors on the device), a torch.Generator on the device for
-  every random draw of a step, and the step count.
+  every random draw of a step, the step count, and the seed that
+  create_train_state drew the weights with (a checkpoint's `rng` words).
 """
 
 from typing import Any, NamedTuple, Optional
@@ -36,6 +37,7 @@ class TrainState(NamedTuple):
     length_stat: RunningStat         # streaming edge-length scaler
     generator: torch.Generator       # every random draw of a step
     step: int
+    seed: int = 0                    # of create_train_state
 
     def to_forcefield_state(self) -> ForceFieldState:
         """The trained weights, BatchNorm running stats and scalers as a
@@ -68,22 +70,33 @@ def make_optimizer(params, train_cfg: TrainConfig, steps_per_epoch: int):
     return optimizer, scheduler
 
 
+def build_model(model_cfg: ModelConfig, system: SystemConfig) -> GAMDNet:
+    """The GAMDNet of a system (gamd_tpu/train/state.py::build_model): the
+    LJ embedding for species "lj", else the water node encoder, with the
+    bond channel where the system has bonds."""
+    species = "lj" if system.species == "lj" else "water"
+    return GAMDNet(model_cfg, species=species, use_bond=system.has_bonds)
+
+
 def create_train_state(model_cfg: ModelConfig, system: SystemConfig,
                        train_cfg: TrainConfig, steps_per_epoch: int,
                        seed: Optional[int] = None, device="cuda"
                        ) -> TrainState:
     """A fresh TrainState on `device` (CUDA unless the caller asks for the
-    CPU): init_params(seed) weights, Adam with the staircase schedule,
+    CPU): build_model with init_params(seed) weights (LJ, or water with
+    its node encoder and bond row), Adam with the staircase schedule,
     empty scalers, and a generator on the device seeded with `seed`
-    (train_cfg.seed when None)."""
-    if system.species != "lj" or system.has_bonds:
+    (train_cfg.seed when None). A system with per-sample boxes (box None:
+    the DFT set) raises NotImplementedError."""
+    if system.box is None:
         raise NotImplementedError(
-            "water training comes with a later water slice of the port "
-            "(ROADMAP Queue 1 item 5): the port trains LJ systems")
+            "per-sample boxes (box=None, the DFT system) come with the DFT "
+            "slice of the port (ROADMAP Queue 1 item 5): the port trains "
+            "fixed-box systems")
     dev = resolve_device(device)
     seed = train_cfg.seed if seed is None else seed
     weights = init_params(model_cfg, system, seed=seed)
-    model = GAMDNet(model_cfg).load_params(
+    model = build_model(model_cfg, system).load_params(
         weights.params, weights.batch_stats).to(dev)
     optimizer, scheduler = make_optimizer(model.parameters(), train_cfg,
                                           steps_per_epoch)
@@ -91,7 +104,7 @@ def create_train_state(model_cfg: ModelConfig, system: SystemConfig,
     generator.manual_seed(seed)
     return TrainState(model=model, optimizer=optimizer, scheduler=scheduler,
                       force_stat=init_stat(dev), length_stat=init_stat(dev),
-                      generator=generator, step=0)
+                      generator=generator, step=0, seed=seed)
 
 
 def _lecun_normal(rng, fan_in, fan_out):

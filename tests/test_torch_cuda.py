@@ -12,7 +12,9 @@ bond channel, the eager water model through conv_msg_gather, and the
 rigid-water constraints with TF32 allowed; the window under each of the
 benchmark's `ablate` stage switches, mega_forward and the window under
 the silu/gelu activation pairs, and the banded path's water bond channel
-(live_edge_encoder's BOND form, banded_force_fn against mega_forward).
+(live_edge_encoder's BOND form, banded_force_fn against mega_forward); the
+epoch loop's use_pallas steps (the conv-message pair) against the plain
+path for one epoch, and a checkpoint written and read back on the card.
 Without one every test here skips.
 
 On the card (which has no JAX) run this file without the JAX package's
@@ -2197,3 +2199,86 @@ def test_banded_water_force_matches_mega_forward(cuda):
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) < TOLERANCE * float(
         want.abs().std())
+
+
+# -- the training loop (slice 21) ---------------------------------------------
+
+def _train_epoch(dev, use_pallas, ckpt_dir=None, max_epoch=1):
+    """train() over the training slice's four relabelled LJ-258 frames
+    (GAMD-small, LayerNorm, K=96; batch 2, augmentations and dropout on,
+    seed 0), on the kernel pair or the plain path; returns (state,
+    history)."""
+    from gamd_tpu_torch.tools.lj_train_slice import lj_train_slice
+    from gamd_tpu_torch.train.loop import train
+
+    sl = lj_train_slice(dev, use_pallas=use_pallas)
+    frames = [{"pos": b["pos"][0].cpu().numpy(),
+               "forces": b["forces"][0].cpu().numpy()} for b in sl.batches]
+    train_cfg = dataclasses.replace(sl.train_cfg, batch_size=2,
+                                    max_epoch=max_epoch)
+    history = []
+    state = train(sl.system, sl.model_cfg, train_cfg, frames,
+                  ckpt_dir=ckpt_dir, log_fn=lambda _: None,
+                  relabel_fn=sl.relabel_fn, device=dev, history=history)
+    return state, history
+
+
+def test_train_epoch_kernel_path_matches_plain_path(cuda):
+    """One epoch of train() (two steps) through the conv_msg_gather pair
+    (four forward and four backward launches a step) against the plain
+    path from the same seed: the epoch's loss within 1e-4 (relative, phase
+    8's bar), at least 99.9% of the parameters within 1e-5 and all within
+    2 lr a step."""
+    fused_conv_gather_message.launches = 0
+    fused_conv_gather_message.backward_launches = 0
+    kernel, k_hist = _train_epoch(cuda, True)
+    assert (fused_conv_gather_message.launches,
+            fused_conv_gather_message.backward_launches) == (8, 8)
+    plain, p_hist = _train_epoch(cuda, False)
+    assert np.isfinite(k_hist[0]["loss"])
+    assert abs(k_hist[0]["loss"] - p_hist[0]["loss"]) <= 1e-4 * abs(
+        p_hist[0]["loss"])
+    diffs = torch.cat([(a - b).detach().abs().reshape(-1) for a, b in zip(
+        kernel.model.parameters(), plain.model.parameters())])
+    assert float((diffs <= 1e-5).float().mean()) >= 0.999
+    assert float(diffs.max()) <= 2 * 3e-4 * 2
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A state trained for one epoch on the card, written by save_checkpoint
+    and read by load_checkpoint into a fresh template on the card: the
+    weights, Adam moments and steps, lr and scalers equal; one more epoch
+    from each gives the same checkpoint bytes."""
+    from gamd_tpu_torch.core.config import TrainConfig
+    from gamd_tpu_torch.tools.lj_train_slice import lj_train_slice
+    from gamd_tpu_torch.train.checkpoint import load_checkpoint
+    from gamd_tpu_torch.train.state import create_train_state
+
+    straight = str(tmp_path / "s")
+    _train_epoch(cuda, True, ckpt_dir=straight, max_epoch=2)
+    sl = lj_train_slice(cuda)
+    template = create_train_state(
+        sl.model_cfg, sl.system,
+        dataclasses.replace(sl.train_cfg, batch_size=2, max_epoch=2), 2,
+        device=cuda)
+    state = load_checkpoint(os.path.join(straight, "checkpoint_0.msgpack"),
+                            template)
+    assert state.step == 2 and state.scheduler.last_epoch == 2
+    assert state.force_stat.count.device.type == "cuda"
+    for p in state.model.parameters():
+        st = state.optimizer.state[p]
+        assert p.device.type == st["exp_avg"].device.type == "cuda"
+        assert int(st["step"]) == 2
+    from gamd_tpu_torch.train.loop import train
+    frames = [{"pos": b["pos"][0].cpu().numpy(),
+               "forces": b["forces"][0].cpu().numpy()} for b in sl.batches]
+    resumed = str(tmp_path / "r")
+    train(sl.system, sl.model_cfg,
+          dataclasses.replace(sl.train_cfg, batch_size=2, max_epoch=2,
+                              start_epoch=1), frames, ckpt_dir=resumed,
+          log_fn=lambda _: None, state=state, relabel_fn=sl.relabel_fn,
+          device=cuda)
+    with open(os.path.join(straight, "checkpoint_1.msgpack"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(resumed, "checkpoint_1.msgpack"), "rb") as f:
+        assert f.read() == want

@@ -12,8 +12,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "ninja", "gamd_tpu")
 #: Modules of the later slices (large N; the integrators and the NHC
 #: kernel; the op library; the tensor-core probes; water; the stage
-#: decomposition; data generation, the dataset and its packer), which the
-#: probe must have imported.
+#: decomposition; data generation, the dataset and its packer; the train
+#: and evaluate CLIs), which the probe must have imported.
 NEW_IN_SLICES = ("gamd_tpu_torch.neighbors.cell_list",
                  "gamd_tpu_torch.neighbors.search",
                  "gamd_tpu_torch.ops.banded",
@@ -36,7 +36,9 @@ NEW_IN_SLICES = ("gamd_tpu_torch.neighbors.cell_list",
                  "gamd_tpu_torch.train.data",
                  "gamd_tpu_torch.train.native_io",
                  "gamd_tpu_torch.physics.generate",
-                 "gamd_tpu_torch.tools.generate_data")
+                 "gamd_tpu_torch.tools.generate_data",
+                 "gamd_tpu_torch.tools.train_gamd",
+                 "gamd_tpu_torch.tools.evaluate")
 
 PROBE = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
