@@ -48,8 +48,14 @@ pack cache through the native packer. Then the repository's verify loop on
 that set: tools.train_gamd (the epoch loop, every conv layer through the
 conv_msg_gather pair), tools.evaluate and tools.run_md --megakernel on the
 checkpoint it wrote; and water training at tip3p_final's shape through the
-same pair, rolled out rigidly through mega_forward. Phases, one flushed
-line or more each:
+same pair, rolled out rigidly through mega_forward. Then the reference
+protocol's water: the Ewald physics on the card, tools.generate_data
+--system tip3p (constrained replicas under full Ewald), tools.
+train_gamd --longrange --relabel --rigid_jitter through the
+conv_msg_gather pair, and the committed long-range checkpoint
+results/ckpts/tip3p_rj_best.msgpack through mega_forward plus the
+analytic k-space term in tools.run_md and tools.analyze_rollout (NHC:
+nhc_half_step). Phases, one flushed line or more each:
 
   0. card (nvidia-smi name and power limit), torch and nvcc versions;
   1. build the CUDA sources with nvcc (or reuse the hashed library);
@@ -343,6 +349,38 @@ line or more each:
      through rows 3-4; then tools.run_md --system tip3p --megakernel
      --friction 25 100 steps on the result from phase 41's start: finite
      losses and T, the constraint residual under 1e-5 A, the launches;
+ 52. reference-protocol water, the Ewald physics: TIP3P-774 and TIP4P-753
+     (water_box starts jittered by 0.05 A, box 20 A) rigid Ewald energy,
+     forces and the k-space force (make_longrange_force_fn) in float32 on
+     the card with TF32 switched on globally, against the same functions
+     in float64 on the CPU (energy 1e-5 relative, forces 1e-4 of max
+     |F|), the same phases as one TF32 matmul as the control that TF32
+     was live; the force call's and the k-space force's times;
+ 53. tools.generate_data --system tip3p (2 seeds as constrained replicas
+     of one Langevin run, 300 FIRE steps a start, the 5,000
+     thermalisation steps, 6 frames every 20 steps): the files, the
+     frames' mean T within 300 +- 20 K, the SETTLE residual under 1e-5 A,
+     the recorded forces within 1e-4 of the rigid Ewald forces of their
+     positions, no kernel launched; the seconds, frames/s and a lockstep
+     step of the two replicas timed alone (--system tip4p, the same
+     protocol at 1 seed, runs as tests/test_torch_cuda.py::
+     test_tip4p_generation_on_the_card);
+ 54. one training step of train_gamd --system tip3p --longrange --relabel
+     --rigid_jitter --use_layer_norm on phase 53's first training frame
+     through rows 3-4 against the plain path (phase 51's bars), then the
+     CLI with --use_pallas, 2 epochs at batch 1: finite losses, the
+     checkpoint's longrange, the launches of rows 3-4;
+ 55. results/ckpts/tip3p_rj_best.msgpack (4 x 128, longrange) on a phase
+     53 frame: force_fn(megakernel=True), row 1 plus the k-space term,
+     against its plain version (5e-3 std(F)), its long-range term alone
+     the channel's (1e-6 of max |F|), the use_pallas force_fn (row 3)
+     against the plain force_fn (1e-4 std(F)), times with and without the
+     term; tools.run_md --system tip3p --megakernel --friction 25 200
+     steps from the frame (steps/s, the term's share, mean T of the
+     second half 300 +- 20 K, residual, 201 launches of row 1); then
+     tools.analyze_rollout --system tip3p --megakernel
+     --classical_baseline --pe, 400 NHC steps on phase 53's frames (row
+     1 and row 18's launches, finite report);
 then the kernels line (JSON; rows 1-2 with their water, ablate and
 activation figures, row 5 with its water banded figures, row 10 with its
 cases), and the result line (JSON) last.
@@ -417,7 +455,7 @@ from gamd_tpu_torch.train.forcefield import GNNForceField
 from gamd_tpu_torch.train.loop import make_train_step
 from gamd_tpu_torch.train.state import create_train_state, init_params
 
-DEADLINE_S = 600          # the whole script, build included
+DEADLINE_S = 1100         # the whole script, build included
 WARMUP_STEPS = 20
 PER_STEP_STEPS, MEGASTEP_STEPS = 200, 400     # timed steps of each path
 TOLERANCE = 5e-3          # max |F_kernel - F_plain| / std(F_plain)
@@ -4153,10 +4191,11 @@ def verify_loop_phase(dev, card, root):
 
 def water_step_agreement(dev, flags):
     """One training step of train_gamd's configuration for `flags` on the
-    first frame of its training set, on the kernel pair (--use_pallas,
-    one forward and one backward launch a conv layer, required) against
-    the plain path, both from create_train_state at the train seed:
-    step_agreement's line."""
+    first frame of its training set (with --longrange its labels less the
+    k-space term, with --relabel the CLI's oracle), on the kernel pair
+    (--use_pallas, one forward and one backward launch a conv layer,
+    required) against the plain path, both from create_train_state at the
+    train seed: step_agreement's line."""
     from gamd_tpu_torch.tools import train_gamd
     from gamd_tpu_torch.train.loop import stack_dataset
 
@@ -4166,11 +4205,16 @@ def water_step_agreement(dev, flags):
             flags + (["--use_pallas"] if use_pallas else []))
         system, model_cfg, train_cfg = train_gamd.configs(args)
         train_data, _ = train_gamd.datasets(args)
+        if args.longrange:
+            train_gamd.subtract_longrange(system, (train_data,), dev)
+        relabel_fn = (train_gamd.make_relabel_fn(system, args.longrange)
+                      if args.relabel else None)
         pos, forces, feat = stack_dataset(train_data, dev)
         batch = {"pos": pos[:1], "forces": forces[:1], "feat": feat[:1]}
         state = create_train_state(model_cfg, system, train_cfg,
                                    len(train_data), device=dev)
-        step = make_train_step(state.model, system, train_cfg)
+        step = make_train_step(state.model, system, train_cfg,
+                               relabel_fn=relabel_fn)
         zero_launches()
         pairs[use_pallas] = step(state, batch)
         torch.cuda.synchronize()
@@ -4273,6 +4317,375 @@ def water_training_phase(dev, card, ctx):
     require(runs["water_train_run_md"]["mega_forward"]
             == WATER_TRAIN_MD_STEPS + 1,
             f"run_md launches {runs['water_train_run_md']}")
+    return runs
+
+
+# -- reference-protocol water (phases 52-55) ----------------------------------
+
+EWALD_E_RTOL = 1e-5       # |E_fp32 card - E_fp64 CPU| / |E_fp64|
+EWALD_F_RTOL = 1e-4       # max |F_fp32 card - F_fp64 CPU| / max |F_fp64|
+WGEN_SEEDS, WGEN_FRAMES, WGEN_INTERVAL = 2, 6, 20   # phase 53's set
+WGEN_FIRE = 300           # FIRE steps a start (the generator's 3,000 cut)
+WGEN_STEP_TIMED = 100     # replica steps timed after the generation
+WTRAIN_EPOCHS = 2         # phase 54
+RJ_CKPT = os.path.join("results", "ckpts", "tip3p_rj_best.msgpack")
+RJ_MD_STEPS = 200         # phase 55's run_md
+RJ_ANALYZE_STEPS = 400    # phase 55's analyze_rollout (NHC, the default)
+TERM_RTOL = 1e-6          # the long-range term of row 1's path against
+                          # make_longrange_force_fn, / max |F|
+
+
+def ewald_phase(dev, card):
+    """Phase 52 (module docstring)."""
+    from gamd_tpu_torch.physics import ewald
+    from gamd_tpu_torch.physics import water as w
+    from gamd_tpu_torch.train.forcefield import make_longrange_force_fn
+
+    for model, n_mol in (("tip3p", 258), ("tip4p", 251)):
+        tip4p = model == "tip4p"
+        system = get_preset(model)
+        box = system.box
+        params = w.TIP4PEwParams() if tip4p else w.TIP3PParams()
+        monomer = w.TIP3PParams(r_oh=params.r_oh, theta0=params.theta0)
+        start = w.water_box(n_mol, box, monomer, seed=52)
+        rng = np.random.RandomState(52)
+        start = np.mod(start + rng.normal(0.0, 0.05, start.shape),
+                       box).astype(np.float32)
+        ew = ewald.make_ewald_params(box)
+        energy = (w.tip4pew_energy_rigid_ewald if tip4p
+                  else w.tip3p_energy_rigid_ewald)
+        lr = make_longrange_force_fn(system)
+        force = lambda p: ewald.neg_grad(energy, p, box, ew)
+        p64 = torch.as_tensor(start, dtype=torch.float64)
+        e64, f64, lr64 = float(energy(p64, box, ew)), force(p64), lr(p64)
+        pos = torch.as_tensor(start, device=dev)
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            e32, f32, lr32 = float(energy(pos, box, ew)), force(pos), lr(pos)
+            force_ms = time_ms(lambda: force(pos))
+            lr_ms = time_ms(lambda: lr(pos))
+            # The same phases k . r as one matmul under the same setting:
+            # TF32 was live, and would have rounded them.
+            kv = torch.as_tensor(ew.kvecs, dtype=torch.float32, device=dev)
+            tf32_phase = (kv @ pos.T).double().cpu()
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        exact_phase = torch.as_tensor(ew.kvecs) @ p64.T
+        phase_err = float((tf32_phase - exact_phase).abs().max())
+        rel = lambda a, b: float((a.double().cpu() - b).abs().max()
+                                 / b.abs().max())
+        e_err, f_err, lr_err = (abs(e32 - e64) / abs(e64), rel(f32, f64),
+                                rel(lr32, lr64))
+        say(f"phase 52: {model.upper()}-{3 * n_mol} rigid Ewald energy and "
+            f"forces (box {box} A, cutoff 10 A, {len(ew.kfac)} k-vectors) "
+            f"in float32 on the card with TF32 switched on globally, against "
+            f"the same functions in float64 on the CPU: energy {e32:.4f} vs "
+            f"{e64:.4f} kJ/mol (rel {e_err:.3e}, tolerance {EWALD_E_RTOL}), "
+            f"forces max |d| / max |F| {f_err:.3e}, the k-space force "
+            f"(make_longrange_force_fn) {lr_err:.3e} (tolerance "
+            f"{EWALD_F_RTOL}); the phases k.r as one TF32 matmul would be "
+            f"off by {phase_err:.3e} rad; the Ewald force call "
+            f"{force_ms:.4f} ms, the k-space force alone {lr_ms:.4f} ms "
+            f"(CUDA events, median of 20) [{card}]")
+        require(e_err <= EWALD_E_RTOL and f_err <= EWALD_F_RTOL
+                and lr_err <= EWALD_F_RTOL,
+                f"{model} Ewald on the card disagrees with float64")
+        require(phase_err > 1e-3, "TF32 was not live for the control matmul")
+
+
+def frame_temperature(vel_m_s, masses, n_constraints):
+    ke2 = float((masses[:, None] * (vel_m_s * units.M_PER_S_TO_INTERNAL)
+                 ** 2).sum())
+    return ke2 / ((3 * masses.shape[0] - n_constraints) * units.KB)
+
+
+def water_generation_phase(dev, card, root):
+    """Phase 53 (module docstring): the TIP3P set goes to
+    root/water_data. Returns {path: launches}. TIP4P's
+    generation (the same protocol, 1 seed, about 90 s on the card) runs in
+    tests/test_torch_cuda.py::test_tip4p_generation_on_the_card, to keep
+    phases 52-55 near 120 s."""
+    from gamd_tpu_torch.md.constraints import RigidWater
+    from gamd_tpu_torch.md.simulate import stack_states
+    from gamd_tpu_torch.physics import ewald
+    from gamd_tpu_torch.physics import water as w
+    from gamd_tpu_torch.physics.generate import water_protocol
+    from gamd_tpu_torch.tools import generate_data
+
+    runs = {}
+    out = os.path.join(root, "water_data")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_path("generate_tip3p", runs, lambda: generate_data.main(
+        ["--system", "tip3p", "--seeds", str(WGEN_SEEDS), "--out", out,
+         "--frames", str(WGEN_FRAMES), "--interval", str(WGEN_INTERVAL),
+         "--minimize_steps", str(WGEN_FIRE), "--dispatch_frames",
+         str(WGEN_FRAMES)]))
+    seconds = time.perf_counter() - t0
+    names = sorted(os.listdir(out))
+    require(names == sorted(f"data_{s}_{t}.npz" for s in range(WGEN_SEEDS)
+                            for t in range(WGEN_FRAMES)),
+            f"generate_data --system tip3p wrote {names}")
+    system = get_preset("tip3p")
+    box, n = system.box, system.n_atoms
+    cst = RigidWater(n // 3, box)
+    masses = torch.as_tensor(system.atom_masses(), device=dev)
+    ew = ewald.make_ewald_params(box)
+    temps, residual, f_err = [], 0.0, 0.0
+    for name in names:
+        with np.load(os.path.join(out, name)) as z:
+            arrays = {k: torch.as_tensor(z[k], device=dev)
+                      for k in ("pos", "vel", "forces")}
+        require(all(a.dtype == torch.float32 and a.shape == (n, 3)
+                    and bool(torch.isfinite(a).all())
+                    for a in arrays.values()),
+                f"{name}: dtypes, shapes or values wrong")
+        pos = arrays["pos"]
+        want = ewald.neg_grad(w.tip3p_energy_rigid_ewald, pos, box, ew) \
+            / units.KJ_MOL_NM_TO_INTERNAL
+        f_err = max(f_err, float((arrays["forces"] - want).abs().max())
+                    / float(want.abs().max()))
+        residual = max(residual, float(cst.residual(pos)))
+        temps.append(frame_temperature(arrays["vel"], masses,
+                                       cst.n_constraints))
+    mean_t = sum(temps) / len(temps)
+    frames = WGEN_SEEDS * WGEN_FRAMES
+    say(f"phase 53: generate_data --system tip3p on the card, {WGEN_SEEDS} "
+        f"seeds as constrained replicas of one Langevin run (rigid, Ewald, "
+        f"300 K, 2/ps, dt 2 fs), {WGEN_FIRE} FIRE steps a start, 5,000 "
+        f"thermalisation steps, {WGEN_FRAMES} frames every {WGEN_INTERVAL} "
+        f"steps: {seconds:.2f} s, {frames / seconds:.3f} frames/s; T of the "
+        f"frames {min(temps):.1f}-{max(temps):.1f} K, mean {mean_t:.2f} K "
+        f"(band 300 +- {WATER_T_BAND}); SETTLE residual {residual:.3e} A "
+        f"(under {WATER_RESIDUAL}); recorded forces against the rigid Ewald "
+        f"forces of each frame's pos {f_err:.3e} of max |F| (tolerance "
+        f"{GEN_FORCE_RTOL}); launches {runs['generate_tip3p']} [{card}]")
+    require(abs(mean_t - 300.0) <= WATER_T_BAND,
+            f"mean T of the frames {mean_t:.2f} K")
+    require(residual < WATER_RESIDUAL, f"residual {residual}")
+    require(f_err <= GEN_FORCE_RTOL, "recorded forces disagree")
+    require(not any(runs["generate_tip3p"].values()),
+            "a kernel launched on the generation path")
+
+    # The lockstep step of two replicas alone, from two recorded frames.
+    proto = water_protocol("tip3p", 258, device=dev)
+    starts = []
+    for s in range(WGEN_SEEDS):
+        with np.load(os.path.join(root, "water_data",
+                                  f"data_{s}_{WGEN_FRAMES - 1}.npz")) as z:
+            starts.append(proto.sim.init_state(
+                z["pos"], vel=z["vel"] * units.M_PER_S_TO_INTERNAL,
+                rng=torch.Generator(dev).manual_seed(s)))
+    states = stack_states(starts)
+    proto.sim.run(states, 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proto.sim.run(states, WGEN_STEP_TIMED)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / WGEN_STEP_TIMED
+    say(f"phase 53: the generator's Langevin step of {WGEN_SEEDS} rigid "
+        f"TIP3P-774 Ewald replicas in lockstep, timed alone: {step_ms:.3f} ms "
+        f"a step on the host clock ({WGEN_STEP_TIMED} steps) [{card}]")
+    return runs
+
+
+def water_lr_training_phase(dev, card, root):
+    """Phase 54 (module docstring). Returns {path: launches}."""
+    from gamd_tpu_torch.tools import train_gamd
+
+    flags = ["--system", "tip3p", "--data_dir", root, "--sample_num",
+             str(WGEN_FRAMES), "--seed_num", str(WGEN_SEEDS), "--max_epoch",
+             str(WTRAIN_EPOCHS), "--use_layer_norm", "--longrange",
+             "--relabel", "--rigid_jitter"]
+    say("phase 54: one training step of train_gamd --system tip3p "
+        "--longrange --relabel --rigid_jitter --use_layer_norm on its first "
+        "training frame (TIP3P-774, 4.2 A, K=96, 4 x 128, the bond channel; "
+        "the labels less the k-space term, relabelled by the rigid Ewald "
+        "oracle at the rigidly jittered positions), kernel pair vs plain "
+        "path, same seed: " + water_step_agreement(dev, flags)
+        + f" [{card}]")
+    runs, logs, history = {}, [], []
+    ck = os.path.join(root, "ck_lr")
+    t0 = time.perf_counter()
+    run_path("water_lr_train", runs, lambda: train_gamd.main(
+        flags + ["--use_pallas", "--cp_dir", ck], log_fn=logs.append,
+        history=history))
+    train_s = time.perf_counter() - t0
+    args = train_gamd.build_parser().parse_args(flags)
+    train_data, val_data = train_gamd.datasets(args)
+    steps, n_val = len(train_data), len(val_data)
+    losses = epoch_losses(history)
+    step_ms = [r["seconds"] * 1e3 / steps for r in history]
+    want = {"conv_msg_gather": 4 * WTRAIN_EPOCHS * (steps + n_val),
+            "conv_msg_gather_bwd": 4 * WTRAIN_EPOCHS * steps}
+    _, cfg, _ = load_self_describing(os.path.join(
+        ck, f"checkpoint_{WTRAIN_EPOCHS - 1}.msgpack"))
+    say(f"phase 54: train_gamd --system tip3p --longrange --relabel "
+        f"--rigid_jitter --use_pallas --use_layer_norm on phase 53's "
+        f"{steps + n_val} frames ({steps} train, {n_val} test), "
+        f"{WTRAIN_EPOCHS} epochs of {steps} steps at batch 1: {train_s:.2f} s "
+        f"in all; the epoch loop {', '.join(f'{x:.3f}' for x in step_ms)} ms "
+        f"a step by epoch (epoch 0 with the first calls' set-up); epoch "
+        f"losses {', '.join(f'{x:.6f}' for x in losses)}; the checkpoint's "
+        f"longrange {cfg.longrange!r}; launches {runs['water_lr_train']} "
+        f"[{card}]")
+    say("phase 54: " + " | ".join(logs))
+    require(len(losses) == WTRAIN_EPOCHS and all(
+        np.isfinite(x) for x in losses), "non-finite losses")
+    require(cfg.longrange == "ewald_recip", "the checkpoint lost longrange")
+    require(all(runs["water_lr_train"][k] == v for k, v in want.items()),
+            f"launches {runs['water_lr_train']}: want {want}")
+    return runs
+
+
+def mega_plain(ff, pos, idx, mask):
+    """The plain version of ff.force_fn(megakernel=True) without the
+    long-range term: reference_forward with the path's arguments."""
+    cfg, system = ff.model_cfg, ff.system
+    return reference_forward(
+        pos, idx, mask, ff._node_h0(), ff._kernel_params("megakernel"),
+        system.box, system.cutoff, *ff._length_scale(), bond=ff._bond(idx),
+        rbf_gap=cfg.rbf_gap, flip_dir=cfg.flip_dir, use_ln=cfg.use_layer_norm,
+        conv_act=cfg.conv_activation, mlp_act=cfg.mlp_activation)
+
+
+def rj_deployment_phase(dev, card, root):
+    """Phase 55 (module docstring). Returns {path: launches}."""
+    from gamd_tpu_torch.md.constraints import RigidWater
+    from gamd_tpu_torch.train.forcefield import make_longrange_force_fn
+
+    state, cfg, system = load_self_describing(RJ_CKPT)
+    require(cfg.longrange == "ewald_recip", "tip3p_rj_best without longrange")
+    ff = GNNForceField(state, system, cfg, device=dev)
+    ff_short = GNNForceField(state, system,
+                             dataclasses.replace(cfg, longrange=""),
+                             device=dev)
+    ff_pallas = GNNForceField(state, system,
+                              dataclasses.replace(cfg, use_pallas=True),
+                              device=dev)
+    water = os.path.join(root, "water_data")
+    with np.load(os.path.join(water, f"data_0_{WGEN_FRAMES - 1}.npz")) as z:
+        frame = z["pos"]
+    pos = space.wrap(torch.as_tensor(frame, device=dev), system.box)
+    idx, mask, ovf = build_nbrs(pos, system)
+    require(not bool(ovf), "neighbour overflow at the generated frame")
+    live = refresh_mask(pos, system.box, system.cutoff, idx, mask)
+    lr = make_longrange_force_fn(system)
+    f_lr = lr(pos)
+    runs = {}
+    fn_mk = ff.force_fn(megakernel=True)
+    require(fn_mk.handles_refresh, "the long-range megakernel closure lost "
+            "handles_refresh")
+    f_mk = run_path("rj_force_megakernel", runs,
+                    lambda: fn_mk(pos, idx, mask))
+    f_mk_plain = mega_plain(ff, pos, idx, mask) + f_lr
+    mk_err = float((f_mk - f_mk_plain).abs().max())
+    scale = float(f_mk_plain.std())
+    term = f_mk - ff_short.force_fn(megakernel=True)(pos, idx, mask)
+    term_err = float((term - f_lr).abs().max()) / float(f_mk.abs().max())
+    f_pl = run_path("rj_force_use_pallas", runs,
+                    lambda: ff_pallas.force_fn()(pos, idx, live))
+    f_plain = ff.force_fn()(pos, idx, live)
+    pl_err = float((f_pl - f_plain).abs().max()) / float(f_plain.std())
+    gap = float((f_mk - f_plain).abs().max()) / float(f_plain.std())
+    mk_ms = time_ms(lambda: fn_mk(pos, idx, mask))
+    short_ms = time_ms(lambda: ff_short.force_fn(megakernel=True)(
+        pos, idx, mask))
+    lr_ms = time_ms(lambda: lr(pos))
+    say(f"phase 55: tip3p_rj_best (4 x 128, LayerNorm, the bond channel, "
+        f"longrange 'ewald_recip') on a phase-53 frame: force_fn(megakernel"
+        f"=True), row 1 plus the k-space term, against its plain version "
+        f"(reference_forward plus the term) max |dF| / std(F) "
+        f"{mk_err / scale:.3e} (tolerance {TOLERANCE}); its long-range term "
+        f"alone (less the same weights' closure without the channel) "
+        f"against make_longrange_force_fn {term_err:.3e} of max |F| "
+        f"(tolerance {TERM_RTOL}); the use_pallas force_fn (row 3) against "
+        f"the plain force_fn {pl_err:.3e} std(F) (tolerance "
+        f"{WATER_EAGER_RTOL}); row 1's path against the plain eager model "
+        f"{gap:.3e} std(F) (two functions: tanh- against erf-gelu; no bar); "
+        f"the force call {mk_ms:.4f} ms, without the term {short_ms:.4f}, "
+        f"the term alone {lr_ms:.4f} ms (CUDA events, median of 20); "
+        f"launches {runs['rj_force_megakernel']}, "
+        f"{runs['rj_force_use_pallas']} [{card}]")
+    require(bool(torch.isfinite(f_mk).all()), "non-finite rj_best forces")
+    require(mk_err < TOLERANCE * scale, "row 1's long-range path disagrees")
+    require(term_err <= TERM_RTOL, "the long-range term is not the channel's")
+    require(pl_err <= WATER_EAGER_RTOL, "the use_pallas path disagrees")
+    require(runs["rj_force_megakernel"]["mega_forward"] == 1
+            and runs["rj_force_use_pallas"]["conv_msg_gather"] == 4,
+            "row 1 or row 3 did not launch on the long-range paths")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init = os.path.join(tmp, "start.npy")
+        np.save(init, frame)
+        argv = ["--system", "tip3p", "--ckpt", RJ_CKPT, "--megakernel",
+                "--friction", str(WATER_FRICTION), "--init_pos", init,
+                "--steps", str(RJ_MD_STEPS), "--log",
+                os.path.join(tmp, "log.txt")]
+        run = run_path("rj_run_md", runs, lambda: run_md.rollout(
+            run_md.build_parser().parse_args(argv)))
+        t0 = time.perf_counter()
+        report = run_path("rj_analyze_rollout", runs,
+                          lambda: analyze_rollout.main([
+                              "--system", "tip3p", "--ckpt", RJ_CKPT,
+                              "--data_dir", water, "--megakernel",
+                              "--steps", str(RJ_ANALYZE_STEPS),
+                              "--classical_baseline", "--pe", "--json_out",
+                              os.path.join(tmp, "r.json")]))
+        analyze_s = time.perf_counter() - t0
+    res = run["result"]
+    temps = res.thermo.temperature
+    mean_t = float(temps[RJ_MD_STEPS // 2:].mean())
+    residual = float(RigidWater(system.n_atoms // 3, system.box).residual(
+        res.state.pos))
+    sps = RJ_MD_STEPS / run["seconds"]
+    share = lr_ms / (1e3 / sps)
+    say(f"phase 55: run_md --system tip3p --ckpt tip3p_rj_best --megakernel "
+        f"--friction {WATER_FRICTION:g} --steps {RJ_MD_STEPS} (rigid, from "
+        f"the phase-53 frame): {sps:.1f} steps/s, the k-space term "
+        f"{share:.2%} of a step by its events time; mean T of the second "
+        f"half {mean_t:.2f} K (band 300 +- {WATER_T_BAND}), residual "
+        f"{residual:.3e} A (under {WATER_RESIDUAL}); launches "
+        f"{runs['rj_run_md']} [{card}]")
+    scalars = {k: v for k, v in report.items() if not isinstance(v, list)}
+    say(f"phase 55: analyze_rollout --system tip3p --ckpt tip3p_rj_best "
+        f"--megakernel --classical_baseline --pe (NHC, rigid, "
+        f"{RJ_ANALYZE_STEPS} steps, the Ewald classical rollout, phase 53's "
+        f"{WGEN_SEEDS * WGEN_FRAMES} frames as ground truth) in "
+        f"{analyze_s:.2f} s: {json.dumps(scalars)}; launches "
+        f"{runs['rj_analyze_rollout']} [{card}]")
+    require(bool(torch.isfinite(temps).all())
+            and bool(torch.isfinite(res.state.pos).all()),
+            "non-finite rj_best rollout")
+    require(abs(mean_t - 300.0) <= WATER_T_BAND,
+            f"rj_best rollout mean T {mean_t:.2f} K")
+    require(residual < WATER_RESIDUAL, f"rj_best residual {residual}")
+    require(runs["rj_run_md"]["mega_forward"] == RJ_MD_STEPS + 1,
+            f"run_md launches {runs['rj_run_md']}")
+    require(all(np.isfinite(v) for v in scalars.values()
+                if isinstance(v, float)), "non-finite analyze_rollout report")
+    require(runs["rj_analyze_rollout"]["mega_forward"]
+            == RJ_ANALYZE_STEPS + 1
+            and runs["rj_analyze_rollout"]["nhc_half_step"]
+            == 4 * RJ_ANALYZE_STEPS,
+            f"analyze_rollout launches {runs['rj_analyze_rollout']}")
+    return runs
+
+
+def water_protocol_phases(dev, card):
+    """Phases 52-55 in a temporary directory. Returns {path: launches}."""
+    ewald_phase(dev, card)
+    root = tempfile.mkdtemp(prefix="gamd_water_protocol_")
+    try:
+        runs = water_generation_phase(dev, card, root)
+        runs.update(water_lr_training_phase(dev, card, root))
+        runs.update(rj_deployment_phase(dev, card, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return runs
 
 
@@ -4565,6 +4978,7 @@ def main():
     finally:
         shutil.rmtree(root, ignore_errors=True)
     water_train_launches = water_training_phase(dev, card, water_ctx)
+    protocol_launches = water_protocol_phases(dev, card)
 
     # -- the kernels line, the result line ---------------------------------
     by_path = {name: {"per_step": per_step_launches[name],
@@ -4609,7 +5023,8 @@ def main():
                              **replica_launches, **water_launches,
                              **banded_launches, **ablate_launches,
                              **act_launches, **gen_launches,
-                             **verify_launches, **water_train_launches})
+                             **verify_launches, **water_train_launches,
+                             **protocol_launches})
     say("kernels: " + json.dumps([k["name"] for k in kernels]))
     say(json.dumps({"kernels": kernels}))
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -84,7 +84,10 @@ class RigidWater:
     The integrators (md.integrators) call
         positions(x_ref [N, 3], x_new [N, 3]) -> constrained x [N, 3]
         velocities(x [N, 3], v [N, 3]) -> constrained v [N, 3]
-    and read n_constraints (3 a molecule) for the degrees of freedom.
+    and read n_constraints (3 a molecule of one system) for the degrees of
+    freedom. Every projection also takes a leading replica axis, [R, N, 3]
+    (the molecules of all replicas in one batch), as the JAX package
+    vmaps its single-system projections over replicas.
     method="settle" (the default) projects positions in closed form;
     "shake" by 60 SHAKE sweeps.
     """
@@ -110,23 +113,23 @@ class RigidWater:
             out = shake(ref, new, self.params)
         # The caller's unwrapped frame is kept: only the correction is
         # applied to x_new.
-        return (x_new.reshape(-1, 3, 3) + (out - new)).reshape(-1, 3)
+        return (x_new.reshape(-1, 3, 3) + (out - new)).reshape(x_new.shape)
 
     def velocities(self, x, v):
         pos = _unwrap_molecules(x.reshape(-1, 3, 3), self.box)
         return rattle_velocities(pos, v.reshape(-1, 3, 3),
-                                 self.params).reshape(-1, 3)
+                                 self.params).reshape(v.shape)
 
     def project_initial(self, x):
         """Snap an almost rigid configuration onto the constraints (200
         SHAKE sweeps; once, after minimisation)."""
         pos = _unwrap_molecules(x.reshape(-1, 3, 3), self.box)
         out = shake(pos, pos, self.params, iters=200)
-        return (x.reshape(-1, 3, 3) + (out - pos)).reshape(-1, 3)
+        return (x.reshape(-1, 3, 3) + (out - pos)).reshape(x.shape)
 
     def residual(self, x):
-        """Largest constraint violation |d - d0| of the system [A], a 0-d
-        tensor on x's device."""
+        """Largest constraint violation |d - d0| of the system (of all
+        replicas) [A], a 0-d tensor on x's device."""
         pos = _unwrap_molecules(x.reshape(-1, 3, 3), self.box)
         p = self.params
         d_oh1 = _norm(pos[:, 1] - pos[:, 0])

@@ -2,7 +2,8 @@
 RunResult and Simulation for the nve, langevin, nose_hoover and andersen
 integrators, with run, run_segmented and run_recorded, and holonomic
 constraints (md.constraints.RigidWater) in all of them; independent
-replicas with init_replicas and run_replicas; the one-call simulate()).
+replicas with init_replicas, stack_states and run_replicas, constrained or
+not, and run_recorded over replicas; the one-call simulate()).
 
 A run is a loop over chunks: each chunk rebuilds the padded neighbour list
 at cutoff + skin (the dense search, or the cell list for large N), draws
@@ -20,8 +21,9 @@ Replicas are R independent copies of the system stepped in lockstep: every
 state tensor carries a leading replica axis ([R, N, 3]; NHC chains
 [R, M]), each replica has its own neighbour list, and a chunk's noise is
 one block (n_steps, R, N, 3) for all of them. A force function that
-`handles_refresh` (the megakernel) gets the whole [R, N, 3] stack in one
-call; any other is called once per replica.
+`handles_refresh` (the megakernel, the dense classical water closures)
+gets the whole [R, N, 3] stack in one call; any other is called once per
+replica. A constraint projects the molecules of all replicas at once.
 """
 
 import math
@@ -80,10 +82,9 @@ class Simulation:
             the CPU.
         constraint: holonomic constraints of one system, e.g.
             md.constraints.RigidWater (SETTLE and RATTLE in every
-            integrator; the temperature counts 3N - n_constraints degrees
-            of freedom). A megastep_fn takes none, as in the JAX package;
-            constrained replicas raise NotImplementedError in
-            init_replicas and run_replicas.
+            integrator, of one system or of replicas; the temperature
+            counts 3N - n_constraints degrees of freedom a replica). A
+            megastep_fn takes none, as in the JAX package.
     """
 
     def __init__(self, force_fn: Callable, system: SystemConfig,
@@ -192,12 +193,6 @@ class Simulation:
         return integ.andersen(force, self.dt, self.masses, md.temperature,
                               collision_rate=self.friction, constraint=cst)
 
-    def _refuse_constrained_replicas(self):
-        if self.constraint is not None:
-            raise NotImplementedError(
-                "constrained replicas (JAX's vmapped run of SETTLE/RATTLE) "
-                "are not ported yet: ROADMAP Queue 1 item 5")
-
     def init_state(self, pos, vel=None, rng: torch.Generator = None):
         """Initial state; velocities default to Maxwell-Boltzmann drawn from
         `rng` (default: a generator on the device seeded with md.seed).
@@ -230,8 +225,9 @@ class Simulation:
         on the device seeded with md.seed), which then carries the noise
         stream of all replicas under Langevin and Andersen; the start list
         is built once and shared, the forces taken in one batched call.
+        With a constraint the velocities are projected, as init_state
+        projects them.
         """
-        self._refuse_constrained_replicas()
         if rng is None:
             rng = torch.Generator(device=self.device)
             rng.manual_seed(self.md.seed)
@@ -247,6 +243,8 @@ class Simulation:
         vel = integ.maxwell_boltzmann_velocities(
             rng, self.masses, self.md.temperature, n_replicas=r)
         pos_r = pos.expand(r, -1, -1).contiguous()
+        if self.constraint is not None:
+            vel = self.constraint.velocities(pos_r, vel)
         idx, mask, _ = self._build_nbrs(space.wrap(pos, self.system.box))
         force = self._batched_force(
             idx.expand(r, -1, -1).contiguous(),
@@ -332,7 +330,6 @@ class Simulation:
         megakernel force and megastep window take all replicas in one
         call. Every RunResult field gains a leading replica axis: thermo
         [R, steps], positions [R, n_chunks, N, 3]."""
-        self._refuse_constrained_replicas()
         if states.pos.ndim != 3:
             raise ValueError("run_replicas takes a replica state [R, N, 3] "
                              "(init_replicas); use run for one system")
@@ -376,6 +373,12 @@ class Simulation:
         (e.g. the classical dense potential). Returns (final state,
         overflow, pos [F, N, 3] wrapped, vel [F, N, 3], force [F, N, 3],
         temperature [F] at the last step before each next frame).
+
+        A replica state (stack_states of R starts) advances all replicas in
+        lockstep, as JAX's vmap of its recorded run
+        (gamd_tpu/physics/generate.py:49-111): record_force then takes the
+        stack [R, N, 3], and every output gains a leading replica axis
+        (pos [R, F, N, 3], temperature [R, F]).
         """
         rebuild = max(1, min(self.md.rebuild_every, record_interval))
         while record_interval % rebuild:
@@ -394,8 +397,20 @@ class Simulation:
                 any_ovf |= ovf
             ke.append(chunk_ke[-1])
         temp = 2.0 * torch.stack(ke) / (self.ndf * units.KB)
-        return (state, bool(any_ovf.item()), torch.stack(pos),
-                torch.stack(vel), torch.stack(force), temp)
+        lead = lambda t: t.movedim(0, 1) if state.pos.ndim == 3 else t
+        return (state, bool(any_ovf.item()),
+                *(lead(torch.stack(t)) for t in (pos, vel, force)),
+                lead(temp))
+
+
+def stack_states(states):
+    """One replica state of single-system states of different starts
+    (JAX's _stack_states): every tensor field stacked on a new leading
+    axis. A Langevin or Andersen replica state carries one generator for
+    the noise of all replicas: the first state's (JAX stacks one key per
+    replica; the port draws a replica state's noise in one block)."""
+    return type(states[0])(*[f[0] if isinstance(f[0], torch.Generator)
+                             else torch.stack(f) for f in zip(*states)])
 
 
 def simulate(force_fn, system: SystemConfig, md: MDConfig, pos, vel=None,

@@ -1,6 +1,8 @@
-"""Classical ground-truth dataset generation for the LJ fluid (port of the
-LJ part of gamd_tpu/physics/generate.py: random_rotation_matrix,
-_record_seed, generate_lj_dataset).
+"""Classical ground-truth dataset generation (port of
+gamd_tpu/physics/generate.py: random_rotation_matrix, _record_seed,
+generate_lj_dataset, _record_seeds_batched, generate_water_dataset and
+generate_tip4p_dataset; the stacking of seeds, JAX's _stack_states, is
+md.simulate.stack_states).
 
 Per seed: the FCC lattice rotated and jittered from
 np.random.RandomState(seed) and wrapped into the box, FIRE on the dense
@@ -17,8 +19,23 @@ Velocities are Maxwell-Boltzmann from a torch.Generator seeded with
 which torch cannot reproduce, so the trajectories differ from JAX's from
 the first step (the start lattice and FIRE do not).
 
-The water, TIP4P and RPBE generators come with ROADMAP Queue 1 item 5 and
-raise NotImplementedError here.
+Water (TIP3P and TIP4P-Ew) is rigid by default, SETTLE and RATTLE at
+2 fs (md.constraints.RigidWater), under the reference protocol's full
+Ewald electrostatics: per seed, physics.water.water_box, FIRE on the
+flexible Ewald potential (trust radius 0.05 A), the snap onto the
+constraints (project_initial) and Maxwell-Boltzmann velocities from a
+torch.Generator seeded 2000 + seed (TIP4P: 3000 + seed); then all seeds
+advance in lockstep as constrained replicas of one BAOAB Langevin
+Simulation (300 K, 2/ps, rebuild every 10 steps): 5,000 thermalisation
+steps, then the recorded frames, the forces the rigid Ewald ones
+(nonbonded only, as OpenMM's rigid water). A replica state draws its
+noise in one block from one generator (the first seed's), where JAX keeps
+a key per seed, so the trajectories differ from JAX's. TIP4P frames are
+written in the 4-site layout (O, H, H, M; physics.water.
+expand_with_m_sites), which TrajectoryDataset reads without the M rows.
+
+The RPBE surrogate is the DFT system's and raises NotImplementedError
+(ROADMAP Queue 1 item 5, the DFT slice).
 """
 
 import os
@@ -29,12 +46,19 @@ import torch
 
 from gamd_tpu_torch.core import space, units
 from gamd_tpu_torch.core.config import MDConfig, get_preset
-from gamd_tpu_torch.md.simulate import Simulation
+from gamd_tpu_torch.md.constraints import RigidWater, tip3p_rigid_params
+from gamd_tpu_torch.md.simulate import Simulation, stack_states
+from gamd_tpu_torch.physics import ewald
 from gamd_tpu_torch.physics import lennard_jones as lj
+from gamd_tpu_torch.physics import water as w
 from gamd_tpu_torch.physics.minimize import fire_minimize
 
 #: The refusal names the ROADMAP item (Queue 1) of the slice that ports it.
-UNPORTED = "the water, TIP4P and RPBE generators (ROADMAP Queue 1 item 5)"
+UNPORTED = ("the RPBE surrogate, with the DFT slice of the port (ROADMAP "
+            "Queue 1 item 5)")
+#: Steps every seed runs before the first recorded frame (the grid starts
+#: begin far colder than a liquid).
+THERMALIZE_STEPS = 5000
 
 
 def random_rotation_matrix(rng: np.random.RandomState):
@@ -96,6 +120,27 @@ def lj_start(seed, lattice, box):
     return space.wrap(torch.as_tensor(pos), box).numpy()
 
 
+def _npz_units(pos, vel, force):
+    """Recorded tensors as float32 numpy in the npz units: pos A, vel m/s,
+    forces kJ/mol/nm."""
+    as_np = lambda t: t.detach().cpu().numpy().astype(np.float32)
+    return (as_np(pos), as_np(vel) / units.M_PER_S_TO_INTERNAL,
+            as_np(force) / units.KJ_MOL_NM_TO_INTERNAL)
+
+
+def _write_frames(out_dir, seed, t0, pos_np, vel_np, force_np,
+                  postprocess=None):
+    """data_{seed}_{t0 + i}.npz of [F, N, 3] numpy frames (pos A, vel m/s,
+    forces kJ/mol/nm), each through postprocess(p, v, f) if given."""
+    for i in range(pos_np.shape[0]):
+        p, v, f = pos_np[i], vel_np[i], force_np[i]
+        if postprocess is not None:
+            p, v, f = postprocess(p, v, f)
+        np.savez(os.path.join(out_dir, f"data_{seed}_{t0 + i}.npz"),
+                 pos=np.ascontiguousarray(p), vel=np.ascontiguousarray(v),
+                 forces=np.ascontiguousarray(f))
+
+
 def _record_seed(sim: Simulation, state, out_dir: str, seed: int,
                  frames_per_seed: int, record_interval: int, record_force,
                  frames_per_dispatch: int, log_every_frames: int,
@@ -112,19 +157,8 @@ def _record_seed(sim: Simulation, state, out_dir: str, seed: int,
             raise RuntimeError(
                 "neighbor capacity overflow during generation; "
                 "increase SystemConfig.nbr_capacity")
-        pos_np = pos_f.cpu().numpy().astype(np.float32)
-        vel_np = (vel_f.cpu().numpy().astype(np.float32)
-                  / units.M_PER_S_TO_INTERNAL)
-        force_np = (force_f.cpu().numpy().astype(np.float32)
-                    / units.KJ_MOL_NM_TO_INTERNAL)
-        for i in range(n_f):
-            p, v, f = pos_np[i], vel_np[i], force_np[i]
-            if postprocess is not None:
-                p, v, f = postprocess(p, v, f)
-            np.savez(os.path.join(out_dir, f"data_{seed}_{t + i}.npz"),
-                     pos=np.ascontiguousarray(p),
-                     vel=np.ascontiguousarray(v),
-                     forces=np.ascontiguousarray(f))
+        _write_frames(out_dir, seed, t, *_npz_units(pos_f, vel_f, force_f),
+                      postprocess)
         t += n_f
         if log_every_frames:
             print(f"seed {seed}: frame {t}/{frames_per_seed} "
@@ -160,13 +194,170 @@ def generate_lj_dataset(out_dir, seeds=10, frames_per_seed=1000,
     return out_dir
 
 
-def generate_water_dataset(*args, **kwargs):
-    raise NotImplementedError(f"generate_water_dataset: {UNPORTED}")
+def _record_seeds_batched(sim: Simulation, states, out_dir: str, seeds,
+                          frames_per_seed: int, record_interval: int,
+                          record_force, frames_per_dispatch: int,
+                          log_every_frames: int, postprocess=None):
+    """Advance all seeds' trajectories in lockstep, the replica state
+    `states` (stack_states, one replica a seed), frames_per_dispatch frames
+    a run_recorded call, and write each seed's frames on the host.
+    record_force takes the stack [R, N, 3]. Returns the final state; a
+    neighbour overflow raises RuntimeError."""
+    t = 0
+    while t < frames_per_seed:
+        n_f = min(frames_per_dispatch, frames_per_seed - t)
+        states, ovf, pos_f, vel_f, force_f, temp = sim.run_recorded(
+            states, n_f, record_interval, record_force)
+        if ovf:
+            raise RuntimeError(
+                "neighbor capacity overflow during generation; "
+                "increase SystemConfig.nbr_capacity")
+        pos_np, vel_np, force_np = _npz_units(pos_f, vel_f, force_f)
+        for s_i, seed in enumerate(seeds):
+            _write_frames(out_dir, seed, t, pos_np[s_i], vel_np[s_i],
+                          force_np[s_i], postprocess)
+        t += n_f
+        if log_every_frames:
+            temps = " ".join(f"{x:.0f}" for x in temp[:, -1].tolist())
+            print(f"frames {t}/{frames_per_seed} x {len(seeds)} seeds "
+                  f"T=[{temps}]K", flush=True)
+    return states
+
+
+class WaterProtocol(NamedTuple):
+    """A water generator's pieces: the Langevin Simulation (constrained
+    when rigid), the recorded force (-grad of the rigid or flexible
+    energy), the FIRE force (the flexible one) and the parameters."""
+    sim: Simulation
+    record_force: Callable
+    minimize_force: Callable
+    params: NamedTuple
+    box: float
+
+
+def water_protocol(model="tip3p", n_molecules=258, dt_fs=None, rigid=True,
+                   electrostatics="ewald", device="cuda") -> WaterProtocol:
+    """The TIP3P or TIP4P-Ew generator's protocol on `device`: the preset
+    at 3 n_molecules atoms (box 20 A), BAOAB Langevin at 300 K, 2/ps,
+    dt 2 fs rigid (0.5 fs flexible), rebuild every 10 steps, and the
+    potential of `electrostatics` ("ewald": make_ewald_params(box),
+    cutoff 10 A; "dsf": the damped-shifted-force cutoff)."""
+    if dt_fs is None:
+        dt_fs = 2.0 if rigid else 0.5
+    tip4p = model == "tip4p"
+    system = get_preset(model, n_atoms=3 * n_molecules)
+    params = w.TIP4PEwParams() if tip4p else w.TIP3PParams()
+    box = system.box
+    constraint = RigidWater(n_molecules, box,
+                            tip3p_rigid_params(params.r_oh, params.theta0)) \
+        if rigid else None
+    md = MDConfig(integrator="langevin", temperature=300.0, dt_fs=dt_fs,
+                  friction_per_ps=2.0, rebuild_every=10)
+    force_fn = (w.tip4pew_force_fn if tip4p else w.tip3p_force_fn)(
+        box, params, rigid=rigid, electrostatics=electrostatics)
+    sim = Simulation(force_fn, system, md, constraint=constraint,
+                     device=device)
+    if electrostatics == "ewald":
+        ew = ewald.make_ewald_params(box)
+        flexible = w.tip4pew_energy_ewald if tip4p else w.tip3p_energy_ewald
+        rigid_e = (w.tip4pew_energy_rigid_ewald if tip4p
+                   else w.tip3p_energy_rigid_ewald)
+        rec_energy = rigid_e if rigid else flexible
+        record_force = lambda p: ewald.neg_grad(rec_energy, p, box, ew,
+                                                params)
+        minimize_force = lambda p: ewald.neg_grad(flexible, p, box, ew,
+                                                  params)
+    else:
+        fwd = ((w.tip4pew_forces_rigid if rigid else w.tip4pew_forces)
+               if tip4p else
+               (w.tip3p_forces_rigid if rigid else w.tip3p_forces))
+        flexible = w.tip4pew_forces if tip4p else w.tip3p_forces
+        record_force = lambda p: fwd(p, box, params)
+        minimize_force = lambda p: flexible(p, box, params)
+    return WaterProtocol(sim, record_force, minimize_force, params, box)
+
+
+def water_start(proto: WaterProtocol, seed, n_molecules, minimize_steps,
+                rng_seed):
+    """One seed's start state: water_box (TIP4P-Ew's monomer for tip4p)
+    relaxed by FIRE (trust radius 0.05 A) on the flexible potential,
+    snapped onto the constraints, velocities from a generator seeded
+    rng_seed."""
+    sim, params = proto.sim, proto.params
+    monomer = w.TIP3PParams(r_oh=params.r_oh, theta0=params.theta0)
+    pos = torch.as_tensor(w.water_box(n_molecules, proto.box, monomer,
+                                      seed=seed), device=sim.device)
+    pos, _ = fire_minimize(proto.minimize_force, pos,
+                           n_steps=minimize_steps, max_step=0.05)
+    if sim.constraint is not None:
+        pos = sim.constraint.project_initial(pos)
+    rng = torch.Generator(device=sim.device)
+    rng.manual_seed(rng_seed)
+    return sim.init_state(pos, rng=rng)
+
+
+def _generate_water(model, out_dir, seeds, frames_per_seed, record_interval,
+                    n_molecules, minimize_steps, dt_fs, rigid,
+                    log_every_frames, frames_per_dispatch, electrostatics,
+                    seed_start, device, thermalize_steps, rng_base,
+                    postprocess=None):
+    os.makedirs(out_dir, exist_ok=True)
+    proto = water_protocol(model, n_molecules, dt_fs, rigid, electrostatics,
+                           device)
+    seed_list = list(range(seed_start, seed_start + seeds))
+    states = stack_states([
+        water_start(proto, seed, n_molecules, minimize_steps,
+                    rng_base + seed) for seed in seed_list])
+    states = proto.sim.run(states, thermalize_steps).state
+    _record_seeds_batched(proto.sim, states, out_dir, seed_list,
+                          frames_per_seed, record_interval,
+                          proto.record_force, frames_per_dispatch,
+                          log_every_frames, postprocess)
+    return out_dir
+
+
+def generate_water_dataset(out_dir, seeds=10, frames_per_seed=1000,
+                           record_interval=50, n_molecules=258,
+                           minimize_steps=3000, dt_fs=None, rigid=True,
+                           log_every_frames=250, frames_per_dispatch=250,
+                           electrostatics="ewald", seed_start=0,
+                           device="cuda",
+                           thermalize_steps=THERMALIZE_STEPS):
+    """TIP3P water ground truth (the reference's WaterBox 2 nm at 300 K,
+    rigid, dt 2 fs; the module docstring has the protocol) for seeds
+    seed_start .. seed_start + seeds - 1 on `device`; returns out_dir."""
+    return _generate_water(
+        "tip3p", out_dir, seeds, frames_per_seed, record_interval,
+        n_molecules, minimize_steps, dt_fs, rigid, log_every_frames,
+        frames_per_dispatch, electrostatics, seed_start, device,
+        thermalize_steps, rng_base=2000)
 
 
 def generate_rpbe_surrogate(*args, **kwargs):
     raise NotImplementedError(f"generate_rpbe_surrogate: {UNPORTED}")
 
 
-def generate_tip4p_dataset(*args, **kwargs):
-    raise NotImplementedError(f"generate_tip4p_dataset: {UNPORTED}")
+def generate_tip4p_dataset(out_dir, seeds=10, frames_per_seed=1000,
+                           record_interval=50, n_molecules=251,
+                           minimize_steps=3000, dt_fs=None, rigid=True,
+                           log_every_frames=250, frames_per_dispatch=250,
+                           electrostatics="ewald", seed_start=0,
+                           device="cuda",
+                           thermalize_steps=THERMALIZE_STEPS):
+    """TIP4P-Ew ground truth (the reference's WaterBox model='tip4pew', 251
+    molecules, rigid, dt 2 fs) in the 4-site frame layout, O, H, H, M per
+    molecule (the M rows the derived position, zero force; the velocity
+    rows through the same map, as the JAX generator writes them)."""
+    params = w.TIP4PEwParams()
+    box = get_preset("tip4p").box
+
+    def to_4site(p, v, f):
+        pos4, f4 = w.expand_with_m_sites(p, f, box, params)
+        vel4, _ = w.expand_with_m_sites(v, np.zeros_like(v), box, params)
+        return pos4, vel4, f4
+
+    return _generate_water(
+        "tip4p", out_dir, seeds, frames_per_seed, record_interval,
+        n_molecules, minimize_steps, dt_fs, rigid, log_every_frames,
+        frames_per_dispatch, electrostatics, seed_start, device,
+        thermalize_steps, rng_base=3000, postprocess=to_4site)

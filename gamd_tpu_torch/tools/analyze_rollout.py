@@ -7,11 +7,19 @@ ground-truth frame and compares the radial distribution function,
 temperature, self-diffusion and (with --pe) the classical potential
 energy along the trajectory with the ground truth and, with
 --classical_baseline, with a classical rollout of the same length from the
-same start (the port's LJ forces). The port runs LJ with any integrator
-(the default, as the JAX CLI's, is nose_hoover, whose chain half-steps go
-through the CUDA nhc_half_step kernel; the water systems raise
-NotImplementedError) on the eager, `--use_pallas` and `--megakernel`
-force paths, and with `--integrator langevin` on `--megastep`.
+same start (the port's LJ forces, or the TIP3P / TIP4P-Ew force closure
+with `--electrostatics`, the full Ewald sum by default). It runs LJ and
+water with any integrator (the default, as the JAX CLI's, is nose_hoover,
+whose chain half-steps go through the CUDA nhc_half_step kernel) on the
+eager, `--use_pallas` and `--megakernel` force paths, and with
+`--integrator langevin` on `--megastep` (unconstrained only). Water
+(`--system tip3p`, `tip4p`) rolls out rigid by default (SETTLE and RATTLE;
+`--no-rigid` unconstrained) from the last ground-truth frame snapped onto
+the constraints, compares the O-O RDF and the oxygens' diffusion, and its
+`--pe` oracle is the rigid nonbonded energy (Ewald or DSF as
+`--electrostatics`); TIP4P frames are read without their M rows. A
+checkpoint with the long-range channel adds the k-space term on every
+force path.
 
 It runs on the CUDA card; `--cpu` runs the plain PyTorch versions on the
 CPU instead. Example:
@@ -21,6 +29,10 @@ CPU instead. Example:
         --data_dir md_dataset/lj_data --megakernel --steps 10000 \\
         --classical_baseline --pe \\
         --json_out rdf_report.json
+    python3 -m gamd_tpu_torch.tools.analyze_rollout --system tip3p \\
+        --ckpt results/ckpts/tip3p_rj_best.msgpack \\
+        --data_dir /tmp/wds/water_data --megakernel --integrator langevin \\
+        --friction 25 --steps 4000 --classical_baseline --pe
 """
 
 import argparse
@@ -75,15 +87,16 @@ def build_parser():
                              " (langevin only)")
     parser.add_argument("--rigid", default=True,
                         action=argparse.BooleanOptionalAction,
-                        help="water: SETTLE-constrained rollout (not "
-                             "ported yet)")
+                        help="water: SETTLE-constrained rollout (the "
+                             "reference protocol)")
     parser.add_argument("--classical_baseline", action="store_true",
                         help="also run a classical rollout of the same "
                              "length from the same start")
     parser.add_argument("--electrostatics", default="ewald",
                         choices=["ewald", "dsf"],
-                        help="water classical-baseline Coulomb treatment "
-                             "(not ported yet)")
+                        help="water classical-baseline and PE Coulomb "
+                             "treatment; must match how the dataset was "
+                             "generated")
     parser.add_argument("--pe", action="store_true",
                         help="the classical potential energy along the GNN "
                              "trajectory (and the classical baseline's), "
@@ -96,10 +109,11 @@ def build_parser():
     return parser
 
 
-def ground_truth_frames(data_dir, gt_max_seed, max_frames):
+def ground_truth_frames(data_dir, gt_max_seed, max_frames, system="lj"):
     """[T, N, 3] float32 frames sampled evenly over the seeds <= gt_max_seed
     and the equilibrated times (t >= 200, when there are any) of the
-    data_{seed}_{t}.npz files in data_dir."""
+    data_{seed}_{t}.npz files in data_dir; tip4p frames without their M
+    rows (every 4th)."""
     files = sorted(glob.glob(os.path.join(data_dir, "data_*.npz")))
     if not files:
         raise SystemExit(f"no frames in {data_dir}")
@@ -117,8 +131,41 @@ def ground_truth_frames(data_dir, gt_max_seed, max_frames):
     frames = []
     for f in [equilibrated[i] for i in sel][:max_frames]:
         with np.load(f) as z:
-            frames.append(z["pos"].astype(np.float32))
+            pos = z["pos"].astype(np.float32)
+        if system == "tip4p":
+            pos = pos[np.mod(np.arange(pos.shape[0]), 4) < 3]
+        frames.append(pos)
     return np.stack(frames)
+
+
+def classical_force_fn(args, box):
+    """The classical baseline's force closure of --system."""
+    from gamd_tpu_torch.physics import lennard_jones as lj
+    from gamd_tpu_torch.physics import water as w
+
+    if args.system == "lj":
+        return lj.lj_force_fn(box)
+    make = w.tip3p_force_fn if args.system == "tip3p" else w.tip4pew_force_fn
+    return make(box, rigid=args.rigid, electrostatics=args.electrostatics)
+
+
+def pe_function(args, box):
+    """The --pe oracle, positions [N, 3] -> energy (kJ/mol): the LJ energy,
+    or the rigid water energy with the Ewald sum or the DSF cutoff."""
+    from gamd_tpu_torch.physics import ewald
+    from gamd_tpu_torch.physics import lennard_jones as lj
+    from gamd_tpu_torch.physics import water as w
+
+    if args.system == "lj":
+        return lambda p: lj.lj_energy_dense(p, box)
+    tip3p = args.system == "tip3p"
+    if args.electrostatics == "ewald":
+        ew = ewald.make_ewald_params(box)
+        energy = (w.tip3p_energy_rigid_ewald if tip3p
+                  else w.tip4pew_energy_rigid_ewald)
+        return lambda p: energy(p, box, ew)
+    energy = w.tip3p_energy_rigid if tip3p else w.tip4pew_energy_rigid
+    return lambda p: energy(p, box)
 
 
 def write_pe_tsv(path, pe_gnn, pe_cl, n_equil, sample_ps):
@@ -141,13 +188,16 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(args.system)
-    if args.megastep and args.integrator != "langevin":
-        parser.error("--megastep requires --integrator langevin")
+    water = args.system in ("tip3p", "tip4p")
+    if args.megastep and (args.integrator != "langevin"
+                          or (water and args.rigid)):
+        parser.error("--megastep requires --integrator langevin and an "
+                     "unconstrained system")
 
     from gamd_tpu_torch.core.config import MDConfig
     from gamd_tpu_torch.core.device import resolve_device
+    from gamd_tpu_torch.md.constraints import RigidWater
     from gamd_tpu_torch.md.simulate import Simulation
-    from gamd_tpu_torch.physics import lennard_jones as lj
     from gamd_tpu_torch.physics.rdf import (diffusion_coefficient,
                                             mean_squared_displacement,
                                             radial_distribution, rdf_l2)
@@ -157,7 +207,9 @@ def main(argv=None):
     pin_fp32()
     ff, system = load_force_field(args, device, use_pallas=args.use_pallas)
     gt_frames = ground_truth_frames(args.data_dir, args.gt_max_seed,
-                                    args.max_gt_frames)
+                                    args.max_gt_frames, args.system)
+    constraint = (RigidWater(system.n_atoms // 3, system.box)
+                  if water and args.rigid else None)
 
     # GNN rollout from the last ground-truth frame.
     md = MDConfig(integrator=args.integrator, n_steps=args.steps,
@@ -166,8 +218,11 @@ def main(argv=None):
                   rebuild_every=20)
     megastep_fn = ff.megastep_fn() if args.megastep else None
     sim = Simulation(ff.force_fn(megakernel=args.megakernel or args.megastep),
-                     system, md, megastep_fn=megastep_fn, device=device)
+                     system, md, megastep_fn=megastep_fn, device=device,
+                     constraint=constraint)
     start_pos = torch.as_tensor(gt_frames[-1], device=device)
+    if constraint is not None:
+        start_pos = constraint.project_initial(start_pos)
 
     def generator(seed):
         rng = torch.Generator(device=device)
@@ -181,25 +236,28 @@ def main(argv=None):
     rollout_s = time.perf_counter() - t0
     print(f"GNN rollout: {args.steps} steps in {rollout_s:.1f} s "
           f"({args.steps / rollout_s:.1f} steps/s; "
-          f"integrator={args.integrator}, on {device})")
+          f"integrator={args.integrator}, rigid={constraint is not None}, "
+          f"on {device})")
     if result.overflow:
         print("WARNING: neighbor overflow during rollout")
 
     n_equil = int(len(result.positions) * args.equil_fraction)
     frames = result.positions[n_equil:]
     gt = torch.as_tensor(gt_frames, device=device)
-    r, g_gnn = radial_distribution(frames, system.box, n_bins=args.n_bins)
-    _, g_gt = radial_distribution(gt, system.box, n_bins=args.n_bins)
+    species = (np.arange(system.n_atoms) % 3 == 0) if water else None
+    rdf = lambda x: radial_distribution(x, system.box, n_bins=args.n_bins,
+                                        species_a=species, species_b=species)
+    r, g_gnn = rdf(frames)
+    _, g_gt = rdf(gt)
     extra = {}
     frames_cl = None
     if args.classical_baseline:
-        sim_cl = Simulation(lj.lj_force_fn(system.box), system, md,
-                            device=device)
+        sim_cl = Simulation(classical_force_fn(args, system.box), system, md,
+                            device=device, constraint=constraint)
         res_cl = sim_cl.run_segmented(
             sim_cl.init_state(start_pos, rng=generator(1)), args.steps)
         frames_cl = res_cl.positions[n_equil:]
-        _, g_cl = radial_distribution(frames_cl, system.box,
-                                      n_bins=args.n_bins)
+        _, g_cl = rdf(frames_cl)
         temps_cl = res_cl.thermo.temperature.cpu().numpy()
         extra = {
             "rdf_l2_vs_classical_rollout": rdf_l2(g_gnn, g_cl),
@@ -213,11 +271,11 @@ def main(argv=None):
     dt_sample_ps = md.rebuild_every * md.dt_fs * 1e-3
     if frames.shape[0] >= 20:
         t_ps, msd = mean_squared_displacement(frames, system.box,
-                                              dt_sample_ps)
+                                              dt_sample_ps, species=species)
         extra["diffusion_m2_s"] = diffusion_coefficient(t_ps, msd)
         if frames_cl is not None and frames_cl.shape[0] >= 20:
-            t_cl, msd_cl = mean_squared_displacement(frames_cl, system.box,
-                                                     dt_sample_ps)
+            t_cl, msd_cl = mean_squared_displacement(
+                frames_cl, system.box, dt_sample_ps, species=species)
             extra["classical_diffusion_m2_s"] = diffusion_coefficient(
                 t_cl, msd_cl)
 
@@ -225,9 +283,11 @@ def main(argv=None):
         # The classical potential energy along the GNN trajectory (and the
         # classical one): a drifting or heating rollout shows as a PE
         # offset or trend.
+        pe_fn = pe_function(args, system.box)
+
         def pe_series(traj):
-            return np.array([float(lj.lj_energy_dense(p, system.box))
-                             for p in traj])
+            with torch.no_grad():
+                return np.array([float(pe_fn(p)) for p in traj])
 
         pe_gnn = pe_series(frames)
         pe_cl = pe_series(frames_cl) if frames_cl is not None else None

@@ -10,9 +10,11 @@ predictions with the labels in eV/A: cosine similarity, MAE, RMSE,
 relative MAE (by the mean label norm, and by the mean |component|), the
 outlier ratio, the per-sample MAE's spread, and the cosine and MAE by
 decile of the label's magnitude. `--use_pallas` runs every conv layer
-through the CUDA kernel conv_msg_gather. `--system lj|tip3p|tip4p`;
-`--system dft` (RealLargeDataset) raises NotImplementedError before any
-work.
+through the CUDA kernel conv_msg_gather. `--system lj|tip3p|tip4p`; a
+checkpoint with the long-range channel predicts the model's short-range
+part plus the analytic k-space Ewald force, so it is scored against the
+full labels. `--system dft` (RealLargeDataset) raises NotImplementedError
+before any work.
 
 It runs on the CUDA card; `--cpu` runs the plain PyTorch versions on the
 CPU instead. Example (the verify loop's step 3):

@@ -16,9 +16,13 @@ physics.water.water_box relaxed by 1,500 FIRE steps on the flexible TIP3P
 forces and snapped onto the constraints, and runs rigid by default
 (SETTLE and RATTLE, md.constraints.RigidWater, in the integrator;
 `--no-rigid` runs it unconstrained, which `--megastep` needs); its model
-takes the O-H bond channel on every force path, `--banded` included. DFT
-(`--system dft`) and an envelope with a long-range channel raise
-NotImplementedError naming the slice of the port that brings them.
+takes the O-H bond channel on every force path, `--banded` included. A
+checkpoint with the long-range channel (longrange="ewald_recip", e.g.
+results/ckpts/tip3p_rj_best.msgpack) adds the analytic k-space Ewald
+force to every per-step force call, eager, `--use_pallas` or
+`--megakernel`; `--megastep` and `--banded` refuse it (ValueError), as the
+JAX package's do. DFT (`--system dft`) raises NotImplementedError naming
+the slice of the port that brings it.
 
 It runs on the CUDA card; `--cpu` runs the plain PyTorch versions on the
 CPU instead. Example:

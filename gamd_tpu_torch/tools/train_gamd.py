@@ -10,16 +10,23 @@ and best_val.txt whenever the validation MAE improves, all under
 `--cp_dir`, in the JAX package's checkpoint layout (either package reads
 them). `--use_pallas` runs every conv layer's edge pipeline through the
 CUDA kernel pair conv_msg_gather (forward) and conv_msg_gather_bwd
-(backward). `--relabel` (LJ) recomputes the labels at the augmented
-positions with the classical LJ forces. `--state_ckpt_dir` (a checkpoint
-file) with `--start_epoch` resumes a run: the resumed epochs equal the
-straight run's bit for bit.
+(backward). `--relabel` recomputes the labels at the augmented positions
+with the classical oracle: the LJ forces, or for tip3p the rigid TIP3P
+forces with full Ewald electrostatics (the set must be Ewald-generated).
+`--rigid_jitter` (water, with `--relabel`) moves each molecule rigidly in
+place of the per-atom jitter. `--longrange` (tip3p, tip4p) trains the
+model on the short-range residual: the analytic k-space Ewald force
+(train.forcefield.make_longrange_force_fn) is subtracted from the packed
+labels and from the relabelled forces, and the checkpoint records
+longrange="ewald_recip", so every deployment adds it back.
+`--state_ckpt_dir` (a checkpoint file) with `--start_epoch` resumes a run:
+the resumed epochs equal the straight run's bit for bit.
 
 Refused with NotImplementedError before any work, naming the ROADMAP item
-(Queue 1) that brings it: `--system dft`, `--relabel` on water (Ewald),
-`--longrange`, `--rigid_jitter`, `--update_edge`, `--disable_expand_edge`
-and `--num_device` above 1. The port always trains in fp32 with TF32 off;
-`--matmul_precision` is read so that JAX command lines run unchanged.
+(Queue 1) that brings it: `--system dft`, `--update_edge`,
+`--disable_expand_edge` and `--num_device` above 1. The port always trains
+in fp32 with TF32 off; `--matmul_precision` is read so that JAX command
+lines run unchanged.
 
 It runs on the CUDA card; `--cpu` runs the plain PyTorch versions on the
 CPU instead. Example (the verify loop's step 2):
@@ -27,12 +34,16 @@ CPU instead. Example (the verify loop's step 2):
     python3 -m gamd_tpu_torch.tools.train_gamd --system lj \\
         --data_dir /tmp/vds --sample_num 60 --seed_num 1 --max_epoch 3 \\
         --batch_size 6 --use_layer_norm --use_pallas --cp_dir /tmp/vck
+    python3 -m gamd_tpu_torch.tools.train_gamd --system tip3p \
+        --data_dir /tmp/wds --longrange --relabel --rigid_jitter \
+        --use_pallas --use_layer_norm --cp_dir /tmp/wck
 """
 
 import argparse
 import os
 
-WATER_ITEM = "the water slice of the port (ROADMAP Queue 1 item 5)"
+import torch
+
 DFT_ITEM = "the DFT slice of the port (ROADMAP Queue 1 item 5)"
 MULTI_DEVICE = "multi-device training (ROADMAP Queue 1 item 7)"
 #: --system -> the dataset's subdirectory (scripts/train_gamd.py).
@@ -102,15 +113,22 @@ def build_parser():
                         help="devices for data parallelism (-1 = all); the "
                              "port trains on one")
     parser.add_argument("--relabel", action="store_true",
-                        help="lj: recompute the labels at the augmented "
-                             "positions with the classical LJ forces each "
-                             "step (water's Ewald oracle is not ported)")
+                        help="recompute the labels at the augmented "
+                             "positions with the classical oracle each step "
+                             "(lj: dense LJ; tip3p: rigid Ewald, the "
+                             "dataset must be Ewald-generated)")
     parser.add_argument("--jitter_sigma", default=None, type=float,
                         help="override position-jitter sigma (A)")
     parser.add_argument("--rigid_jitter", action="store_true",
-                        help="not ported (water slice)")
+                        help="rigid per-molecule jitter (translation and a "
+                             "small rotation about each molecule's "
+                             "centroid) in place of per-atom noise; "
+                             "requires --relabel")
     parser.add_argument("--longrange", action="store_true",
-                        help="not ported (water slice: physics/ewald.py)")
+                        help="tip3p/tip4p: train on the short-range "
+                             "residual (labels less the analytic k-space "
+                             "Ewald force); the checkpoint records it and "
+                             "every deployment adds it back")
     parser.add_argument("--cpu", action="store_true",
                         help="run the plain PyTorch versions on the CPU")
     parser.add_argument("--matmul_precision", default="high",
@@ -125,13 +143,7 @@ def refuse_unported(args):
     """NotImplementedError for what the port does not train yet."""
     if args.system == "dft":
         raise NotImplementedError(f"--system dft: comes with {DFT_ITEM}")
-    if args.relabel and args.system != "lj":
-        raise NotImplementedError(
-            f"--relabel on {args.system} (the rigid Ewald oracle, "
-            f"physics/ewald.py): comes with {WATER_ITEM}")
-    for flag, on, item in (("--longrange", args.longrange, WATER_ITEM),
-                           ("--rigid_jitter", args.rigid_jitter, WATER_ITEM),
-                           ("--update_edge", args.update_edge, DFT_ITEM),
+    for flag, on, item in (("--update_edge", args.update_edge, DFT_ITEM),
                            ("--disable_expand_edge", not args.expand_edge,
                             DFT_ITEM)):
         if on:
@@ -139,6 +151,66 @@ def refuse_unported(args):
     if args.num_device > 1:
         raise NotImplementedError(f"--num_device {args.num_device}: comes "
                                   f"with {MULTI_DEVICE}")
+
+
+def check_flags(parser, args):
+    """The JAX CLI's parser errors on the water flags
+    (scripts/train_gamd.py:147-156 and its --relabel branch)."""
+    water = args.system in ("tip3p", "tip4p")
+    if args.longrange and not water:
+        parser.error("--longrange supports tip3p and tip4p (fixed-box "
+                     "water presets) only")
+    if args.longrange and args.no_pack:
+        parser.error("--longrange requires the packed dataset cache")
+    if args.rigid_jitter and not args.relabel:
+        parser.error("--rigid_jitter requires --relabel (stored labels are "
+                     "wrong at rigidly displaced positions)")
+    if args.rigid_jitter and not water:
+        parser.error("--rigid_jitter supports rigid-water systems only")
+    if args.relabel and args.system not in ("lj", "tip3p"):
+        parser.error("--relabel supports lj and tip3p only")
+
+
+def make_relabel_fn(system, longrange: bool):
+    """The --relabel oracle, pos [B, N, 3] -> forces [B, N, 3] in the
+    dataset's kJ/mol/nm: the LJ forces at the generation box, or the rigid
+    TIP3P forces with full Ewald electrostatics at the preset's box
+    (make_ewald_params(box): cutoff 10 A); with longrange, less the
+    analytic k-space force (the labels' own subtraction)."""
+    from gamd_tpu_torch.core import units
+    from gamd_tpu_torch.physics import ewald, water
+    from gamd_tpu_torch.tools.lj_train_slice import lj_relabel_fn
+    from gamd_tpu_torch.train.forcefield import make_longrange_force_fn
+
+    if system.name == "lj":
+        return lj_relabel_fn(system.n_atoms)
+    to_ds = 1.0 / units.KJ_MOL_NM_TO_INTERNAL
+    box = system.box
+    ew = ewald.make_ewald_params(box)
+    params = water.TIP3PParams()
+    lr = make_longrange_force_fn(system) if longrange else None
+
+    def relabel(pos):
+        f = ewald.neg_grad(water.tip3p_energy_rigid_ewald, pos, box, ew,
+                           params)
+        return (f if lr is None else f - lr(pos)) * to_ds
+    return relabel
+
+
+def subtract_longrange(system, datasets, device, chunk=8):
+    """Each dataset's packed labels less the analytic k-space force of its
+    positions in kJ/mol/nm, `chunk` frames a call on `device`."""
+    from gamd_tpu_torch.core import units
+    from gamd_tpu_torch.train.forcefield import make_longrange_force_fn
+
+    lr = make_longrange_force_fn(system)
+    to_ds = 1.0 / units.KJ_MOL_NM_TO_INTERNAL
+
+    def offset(pos):
+        p = torch.as_tensor(pos, dtype=torch.float32, device=device)
+        return (lr(p) * to_ds).cpu().numpy()
+    for ds in datasets:
+        ds.subtract_from_labels(offset, chunk=chunk)
 
 
 def configs(args):
@@ -155,7 +227,8 @@ def configs(args):
         conv_layers=args.conv_layer, drop_edge=args.drop_edge,
         use_layer_norm=args.use_layer_norm, update_edge=args.update_edge,
         expand_edge=args.expand_edge, flip_dir=False,
-        use_pallas=args.use_pallas, longrange="")
+        use_pallas=args.use_pallas,
+        longrange="ewald_recip" if args.longrange else "")
     train_cfg = TrainConfig(
         lr=args.lr, min_epoch=args.min_epoch, max_epoch=args.max_epoch,
         lr_total_decay=args.lr_decay, batch_size=args.batch_size,
@@ -163,7 +236,7 @@ def configs(args):
         lambda_cosine=args.lambda_cosine, rotate_aug=args.rotate_aug,
         jitter_sigma=(args.jitter_sigma if args.jitter_sigma is not None
                       else 0.005),
-        rigid_jitter=False,
+        rigid_jitter=args.rigid_jitter,
         checkpoint_every=(args.checkpoint_every
                           if args.checkpoint_every is not None else 5),
         precompute_nbrs=args.precompute_nbrs, start_epoch=args.start_epoch)
@@ -193,8 +266,10 @@ def main(argv=None, log_fn=print, history=None):
     """Train as the flags say; returns the final TrainState. log_fn gets
     every line the run logs; `history`, if given, each epoch's record
     (train.loop.train)."""
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     refuse_unported(args)
+    check_flags(parser, args)
 
     from gamd_tpu_torch.core.device import resolve_device
     from gamd_tpu_torch.tools.run_md import pin_fp32
@@ -216,10 +291,14 @@ def main(argv=None, log_fn=print, history=None):
 
     relabel_fn = None
     if args.relabel:
-        from gamd_tpu_torch.tools.lj_train_slice import lj_relabel_fn
-        relabel_fn = lj_relabel_fn(system.n_atoms)
+        relabel_fn = make_relabel_fn(system, args.longrange)
         log_fn("Exact-relabel augmentation: classical oracle labels at "
                f"jittered positions (sigma={train_cfg.jitter_sigma} A)")
+    if args.longrange:
+        log_fn("Long-range split: subtracting the analytic k-space Ewald "
+               "force from the labels (GNN learns the short-range residual; "
+               "deployment adds the analytic term back)")
+        subtract_longrange(system, (train_data, val_data), device)
 
     return train(system, model_cfg, train_cfg, train_data, val_data,
                  ckpt_dir=args.cp_dir, log_fn=log_fn, state=state,

@@ -1,15 +1,18 @@
 """Data augmentation inside the train step (port of
 gamd_tpu/train/augment.py: random_flip_rotation, rotate_sample with a
-scalar box, jitter_positions).
+scalar box, jitter_positions, rigid_jitter_positions).
 
   * with probability 0.3 a frame's positions AND forces are rotated by a
     composition Rz @ Ry @ Rx of axis rotations by k*pi, k in {-2,-1,0,1};
   * the rotation acts about the frame centroid after wrapping;
   * independent Gaussian position jitter is added after the neighbour
-    search.
+    search, or for rigid water each molecule is moved rigidly (a random
+    translation and a small rotation about its centroid), which keeps
+    the O-H and H-H distances.
 
-The draw (draw_flip_ks) is apart from the matrix (rotation_from_ks), so a
-test can hand both packages the same k. Rotations are computed as
+The draws (draw_flip_ks, draw_rigid_jitter) are apart from the transforms
+(rotation_from_ks, rigid_transform), so a test can hand both packages the
+same draws. Rotations are computed as
 elementwise products and sums in float32, never as a matmul that TF32
 could round: on the TPU the bf16 default of a matmul rounded the rotated
 coordinates to 20x the jitter (gamd_tpu/train/augment.py:49-53).
@@ -82,6 +85,71 @@ def jitter_positions(generator, pos, sigma: float = 0.005):
                                      device=pos.device, dtype=pos.dtype)
 
 
-def rigid_jitter_positions(*args, **kwargs):
-    raise NotImplementedError("rigid_jitter_positions (rigid per-molecule "
-                              "jitter) comes with the port's water slice")
+def draw_rigid_jitter(generator, pos, sigma_t: float, group_size: int = 3,
+                      sigma_rot: float = None):
+    """(dt, omega), each [..., M, 1, 3] for pos [..., M * group_size, 3]:
+    translations of standard deviation sigma_t (A) and rotation vectors of
+    sigma_rot (rad; default sigma_t / 0.65, so that an H atom 0.65 A from
+    its TIP3P centroid moves about sigma_t), drawn in that order."""
+    if sigma_rot is None:
+        sigma_rot = sigma_t / 0.65
+    shape = (*pos.shape[:-2], pos.shape[-2] // group_size, 1, 3)
+    draw = lambda: torch.randn(shape, generator=generator, device=pos.device,
+                               dtype=pos.dtype)
+    dt = sigma_t * draw()
+    return dt, sigma_rot * draw()
+
+
+def _group_box(box, pos):
+    """A scalar, [3], [B] or [B, 3] box shaped against molecules
+    [..., M, G, 3] of pos (gamd_tpu/train/loop.py::_broadcast_box's rule:
+    for frames [B, N, 3] a 1-d box is one edge a frame; for one frame
+    [N, 3] it is the three edges)."""
+    if isinstance(box, (int, float)):
+        return box
+    b = torch.as_tensor(box, dtype=pos.dtype, device=pos.device)
+    if b.ndim == 0 or pos.ndim == 2:
+        return b
+    if b.ndim == 1:
+        return b[:, None, None, None]
+    return b[:, None, None, :]
+
+
+def rigid_transform(pos, dt, omega, box=None, group_size: int = 3):
+    """pos [..., N, 3] with each molecule (group_size consecutive atoms)
+    rotated by the vector omega (Rodrigues' formula, series near 0) about
+    its centroid and translated by dt (both [..., M, 1, 3]).
+
+    With box given (a scalar, [3], [B] or [B, 3]), a molecule is first
+    made whole under the minimum image from its first atom: stored frames
+    wrap each atom into the box, and a molecule straddling the boundary
+    would otherwise be rotated about a centroid between its images (the
+    JAX docstring records force_std blowing up 286 times that way)."""
+    m = pos.shape[-2] // group_size
+    p = pos.reshape(*pos.shape[:-2], m, group_size, 3)
+    if box is not None:
+        b = _group_box(box, pos)
+        anchor = p[..., :1, :]
+        dv = p - anchor
+        p = anchor + (dv - b * torch.round(dv / b))
+    c = torch.mean(p, dim=-2, keepdim=True)
+    v = p - c
+    t2 = torch.sum(omega * omega, dim=-1, keepdim=True)
+    t = torch.sqrt(torch.clamp(t2, min=1e-24))
+    small = t2 < 1e-8
+    a = torch.where(small, 1.0 - t2 / 6.0, torch.sin(t) / t)
+    b = torch.where(small, 0.5 - t2 / 24.0, (1.0 - torch.cos(t)) / t2)
+    wxv = torch.linalg.cross(omega, v)
+    wxwxv = torch.linalg.cross(omega, wxv)
+    return (c + (v + a * wxv + b * wxwxv) + dt).reshape(pos.shape)
+
+
+def rigid_jitter_positions(generator, pos, sigma_t: float, box=None,
+                           group_size: int = 3, sigma_rot: float = None):
+    """Rigid per-molecule jitter: draw_rigid_jitter's draws applied by
+    rigid_transform. Augmented frames stay on the rigid-water constraint
+    manifold that the validation frames and every rollout state live on,
+    where per-atom jitter would move them off it."""
+    dt, omega = draw_rigid_jitter(generator, pos, sigma_t, group_size,
+                                  sigma_rot)
+    return rigid_transform(pos, dt, omega, box, group_size)

@@ -1,15 +1,21 @@
 """A GAMD model as a force provider for md.simulate.Simulation (port of
 gamd_tpu/train/forcefield.py::GNNForceField: the eager force_fn, the
 megakernel force path, the large-N banded force path, the fused MD window
-megastep_fn and the offline predict / predict_batch; LJ and water).
+megastep_fn and the offline predict / predict_batch; LJ and water; and
+make_longrange_force_fn).
 
 A water system (species "water") feeds the model its one-hot species
 feature, and with has_bonds the O-H bond channel of every list
 (neighbors.topology.neighbor_bond_channel), on every path; its megakernel
 forward runs with edge_hilo=True, as JAX's water deployment does; its
-banded path takes the channel in the sorted frame (ops.banded). The
-analytic long-range channel (make_longrange_force_fn, the envelopes with
-`longrange` set) comes with a later slice and raises NotImplementedError.
+banded path takes the channel in the sorted frame (ops.banded).
+
+A checkpoint trained with ModelConfig.longrange ("ewald_recip") learned
+the short-range residual of Ewald labels; the analytic k-space Ewald force
+(make_longrange_force_fn, the same function training subtracts) is added
+back on force_fn (plain, use_pallas and megakernel) and on predict /
+predict_batch, in each one's unit. The megastep window and the banded
+path cannot add it and refuse such a checkpoint, as the JAX package's do.
 """
 
 import torch
@@ -23,8 +29,28 @@ from gamd_tpu_torch.neighbors.topology import neighbor_bond_channel
 from gamd_tpu_torch.ops.banded import make_banded_force_fn
 from gamd_tpu_torch.ops.mega import (ablate_set, mega_forward, mega_md_steps,
                                      pack_params)
+from gamd_tpu_torch.physics import water
+from gamd_tpu_torch.physics.ewald import make_recip_force_fn
 from gamd_tpu_torch.train.loop import search_batch
 from gamd_tpu_torch.train.state import ForceFieldState, build_model
+
+
+def make_longrange_force_fn(system: SystemConfig, kind: str = "ewald_recip"):
+    """The analytic long-range force of a system preset, pos [..., N, 3]
+    (A) -> [..., N, 3] (kJ/mol/A): the k-space Ewald force of the TIP3P
+    charges on the atoms, or of TIP4P-Ew's M, H sites carried onto the
+    atoms. The one function that training subtracts from the labels and
+    GNNForceField adds back. Fixed-box tip3p and tip4p only."""
+    if kind != "ewald_recip":
+        raise ValueError(f"unknown longrange channel {kind!r}")
+    if system.name not in ("tip3p", "tip4p") or system.box is None:
+        raise ValueError("longrange='ewald_recip' supports the fixed-box "
+                         "tip3p / tip4p presets only")
+    box = float(system.box)
+    if system.name == "tip4p":
+        return water.make_tip4p_recip_force_fn(box, system.n_atoms)
+    q = water.atom_charges(system.n_atoms // 3, water.TIP3PParams())
+    return make_recip_force_fn(box, q.numpy())
 
 
 class GNNForceField:
@@ -41,12 +67,6 @@ class GNNForceField:
     def __init__(self, state: ForceFieldState, system: SystemConfig,
                  model_cfg: ModelConfig, device="cuda"):
         self.device = resolve_device(device)
-        if getattr(model_cfg, "longrange", ""):
-            raise NotImplementedError(
-                "the analytic long-range channel (longrange="
-                f"{model_cfg.longrange!r}: physics/ewald.py, "
-                "make_longrange_force_fn) comes with the next water slice of "
-                "the port (ROADMAP Queue 1 item 5)")
         if system.species not in ("lj", "water"):
             raise ValueError(f"unknown species {system.species!r}")
         self.system = system
@@ -62,6 +82,9 @@ class GNNForceField:
         feat = system.species_onehot()
         self._feat = None if feat is None else torch.as_tensor(
             feat, device=self.device)[None]           # [1, N, F]
+        self._longrange_fn = (
+            make_longrange_force_fn(system, model_cfg.longrange)
+            if getattr(model_cfg, "longrange", "") else None)
 
     def _length_scale(self):
         return (self.length_stat.safe_mean,
@@ -94,15 +117,27 @@ class GNNForceField:
         [R, N, 3] replicas with [R, N, K] lists), with the true-cutoff
         mask refresh inside (the closure carries handles_refresh=True, so
         Simulation passes the build-time mask) and the force
-        denormalisation folded into the decoder weights.
+        denormalisation folded into the decoder weights. A long-range
+        checkpoint adds make_longrange_force_fn of the positions the closure
+        is given (Simulation gives the wrapped ones) on either path; the
+        megakernel closure keeps handles_refresh.
         """
+        lr = self._longrange_fn
         if megakernel:
-            return self._megakernel_force_fn()
+            base = self._megakernel_force_fn()
+            if lr is None:
+                return base
+
+            def fn_mk(pos, idx, mask):
+                return base(pos, idx, mask) + lr(pos)
+            fn_mk.handles_refresh = base.handles_refresh
+            return fn_mk
         unit = self.system.force_unit_to_internal
 
         def fn(pos, idx, mask):
             pred = self._forward(pos, idx, mask, self.system.box)
-            return denormalize(pred, self.force_stat) * unit
+            out = denormalize(pred, self.force_stat) * unit
+            return out if lr is None else out + lr(pos)
         return fn
 
     def _node_h0(self):
@@ -226,7 +261,10 @@ class GNNForceField:
         The true-cutoff mask refresh is inside (handles_refresh) and the
         force denormalisation and unit are folded into the decoder, as on
         the megakernel path. The closure carries the band as
-        `banded_band`."""
+        `banded_band`. A long-range checkpoint raises ValueError."""
+        if self._longrange_fn is not None:
+            raise ValueError("banded path does not compose the analytic "
+                             "longrange channel; use force_fn()")
         cfg = self.model_cfg
         system = self.system
         mp = self._kernel_params("banded")
@@ -254,14 +292,25 @@ class GNNForceField:
         """Forces [N, 3] of one frame in DATASET units (kJ/mol/nm for LJ):
         positions wrapped, the dense list at the system's cutoff (no skin),
         the model forward and the force denormalisation, with no unit
-        conversion (force_fn returns kJ/mol/A)."""
+        conversion (force_fn returns kJ/mol/A); a long-range checkpoint
+        adds the analytic term of the wrapped positions, over
+        force_unit_to_internal."""
         box = self.system.box if box is None else box
         pos = space.wrap(torch.as_tensor(pos, dtype=torch.float32,
                                          device=self.device), box)
         idx, mask, _ = dense_neighbor_list(pos, box, self.system.cutoff,
                                            self.system.nbr_capacity)
-        return denormalize(self._forward(pos, idx, mask, box),
-                           self.force_stat)
+        return self._with_longrange(
+            denormalize(self._forward(pos, idx, mask, box), self.force_stat),
+            pos)
+
+    def _with_longrange(self, out, posw):
+        """Dataset-unit forces out plus, for a long-range checkpoint, the
+        analytic term of posw in dataset units."""
+        if self._longrange_fn is None:
+            return out
+        return out + self._longrange_fn(posw) \
+            / self.system.force_unit_to_internal
 
     @torch.no_grad()
     def predict_batch(self, pos_all, batch_size: int = 16):
@@ -284,5 +333,7 @@ class GNNForceField:
             idx, mask, _ = search_batch(posw, box, self.system.cutoff,
                                         self.system.nbr_capacity)
             pred = self._model(posw, idx, mask, box)
-            out.append(denormalize(pred, self.force_stat))
+            out.append(self._with_longrange(denormalize(pred,
+                                                        self.force_stat),
+                                            posw))
         return torch.cat(out)[:m]

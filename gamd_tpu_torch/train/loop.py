@@ -4,8 +4,9 @@ _best_val_tracker, _stack_dataset, _precompute_nbrs).
 
 One step, in the JAX step's order: rotation augmentation (positions and
 forces), wrap, the dense neighbour search per frame (skipped when the batch
-carries idx and mask), jitter after the search, optional relabelling at the
-augmented positions, the streaming edge-length and force scalers, the
+carries idx and mask), jitter after the search (per atom, or with
+TrainConfig.rigid_jitter per molecule, rigidly), optional relabelling at
+the augmented positions, the streaming edge-length and force scalers, the
 normalised labels, the GNN forward in train mode (a water model also takes
 the one-hot species feature and the bond channel of the lists), the loss,
 backward and an Adam step. Metrics stay tensors on the device: nothing is
@@ -102,7 +103,10 @@ def make_train_step(model: GAMDNet, system: SystemConfig,
     "idx"/"mask" [B, N, K]. relabel_fn: pos
     [B, N, 3] -> forces [B, N, 3] (dataset units), recomputing the labels
     at the augmented positions (e.g. physics.lennard_jones.lj_forces_dense
-    with the box bound).
+    with the box bound, or a water Ewald oracle, tools/train_gamd.py::
+    make_relabel_fn). train_cfg.rigid_jitter moves each molecule rigidly
+    (augment.rigid_jitter_positions at the system's box) in place of the
+    per-atom jitter.
 
     The module and optimizer are updated in place; the returned state
     carries the new scalers and step. metrics: loss, data_loss, net_force,
@@ -112,8 +116,6 @@ def make_train_step(model: GAMDNet, system: SystemConfig,
         raise NotImplementedError("per-sample boxes come with the DFT "
                                   "slice of the port (ROADMAP Queue 1 "
                                   "item 5)")
-    if train_cfg.rigid_jitter:
-        augment.rigid_jitter_positions()      # raises: the water slice
     box = system.box
 
     def train_step(state: TrainState, batch):
@@ -131,7 +133,12 @@ def make_train_step(model: GAMDNet, system: SystemConfig,
         else:
             idx, mask, overflow = search_batch(pos, box, system.cutoff,
                                                system.nbr_capacity)
-        pos = augment.jitter_positions(gen, pos, train_cfg.jitter_sigma)
+        if train_cfg.rigid_jitter:
+            pos = augment.rigid_jitter_positions(gen, pos,
+                                                 train_cfg.jitter_sigma,
+                                                 box=box)
+        else:
+            pos = augment.jitter_positions(gen, pos, train_cfg.jitter_sigma)
         if relabel_fn is not None:
             gt = relabel_fn(pos)
 

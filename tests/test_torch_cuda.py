@@ -14,7 +14,9 @@ benchmark's `ablate` stage switches, mega_forward and the window under
 the silu/gelu activation pairs, and the banded path's water bond channel
 (live_edge_encoder's BOND form, banded_force_fn against mega_forward); the
 epoch loop's use_pallas steps (the conv-message pair) against the plain
-path for one epoch, and a checkpoint written and read back on the card.
+path for one epoch, and a checkpoint written and read back on the card;
+the TIP4P-Ew generator's protocol on the card (PyTorch and no kernel:
+it is here for its 90 s, which chip_smoke.py's phases leave out).
 Without one every test here skips.
 
 On the card (which has no JAX) run this file without the JAX package's
@@ -2282,3 +2284,46 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
         want = f.read()
     with open(os.path.join(resumed, "checkpoint_1.msgpack"), "rb") as f:
         assert f.read() == want
+
+
+def test_tip4p_generation_on_the_card(cuda, tmp_path):
+    """tools.generate_data --system tip4p (1 seed, 300 FIRE steps, the
+    5,000 thermalisation steps, 4 frames every 20 steps; rigid, full
+    Ewald) on the card: O, H, H, M rows, M where tip4pew_m_sites puts it
+    (1e-5 A) with zero force, the frames' mean T within 300 +- 20 K,
+    SETTLE's residual under 1e-5 A, the recorded forces within 1e-4 of
+    max |F| of the rigid Ewald forces of their positions."""
+    from gamd_tpu_torch.physics import ewald
+    from gamd_tpu_torch.physics import water as w
+    from gamd_tpu_torch.tools import generate_data
+
+    out = tmp_path / "tip4p_data"
+    generate_data.main(["--system", "tip4p", "--seeds", "1", "--frames",
+                        "4", "--interval", "20", "--minimize_steps", "300",
+                        "--out", str(out)])
+    assert sorted(os.listdir(out)) == [f"data_0_{t}.npz" for t in range(4)]
+    system = get_preset("tip4p")
+    box, n = system.box, system.n_atoms
+    cst = RigidWater(n // 3, box)
+    ew = ewald.make_ewald_params(box)
+    masses = torch.as_tensor(system.atom_masses(), device=cuda)
+    real = torch.arange(4 * n // 3, device=cuda) % 4 < 3
+    temps = []
+    for t in range(4):
+        with np.load(out / f"data_0_{t}.npz") as z:
+            pos4, vel4, f4 = (torch.as_tensor(z[k], device=cuda)
+                              for k in ("pos", "vel", "forces"))
+        assert pos4.shape == (4 * n // 3, 3) and not bool(f4[3::4].any())
+        pos, vel, forces = pos4[real], vel4[real], f4[real]
+        site = w.tip4pew_m_sites(pos[0::3], pos[1::3], pos[2::3], box,
+                                 w.TIP4PEwParams())
+        assert float((site - pos4[3::4]).abs().max()) <= 1e-5
+        assert float(cst.residual(pos)) < 1e-5
+        want = ewald.neg_grad(w.tip4pew_energy_rigid_ewald, pos, box, ew) \
+            / units.KJ_MOL_NM_TO_INTERNAL
+        assert float((forces - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+        v = vel * units.M_PER_S_TO_INTERNAL
+        temps.append(float((masses[:, None] * v * v).sum())
+                     / ((3 * n - cst.n_constraints) * units.KB))
+    assert abs(sum(temps) / 4 - 300.0) <= 20.0

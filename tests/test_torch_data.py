@@ -350,9 +350,12 @@ def test_generate_lj_dataset_writes_the_layout(tmp_path):
 
 def test_generate_data_cli_on_cpu(tmp_path, monkeypatch, capsys):
     """`generate_data --system lj --cpu` writes the npz layout (FIRE cut
-    to FIRE_STEPS here to keep the test short) and reports frames/s;
-    tip3p, tip4p and rpbe raise NotImplementedError before any work, as do
-    the water generators and an LJ system of other than 258 atoms."""
+    to FIRE_STEPS here to keep the test short) and reports frames/s; rpbe
+    raises NotImplementedError before any work, as do the RPBE generator
+    and an LJ system of other than 258 atoms. tip3p and tip4p, refused
+    until the water slice, reach the water generators with the JAX CLI's
+    arguments (recorded here; their runs: tests/
+    test_torch_water_generate.py)."""
     steps = []
 
     def short_fire(force_fn, pos, n_steps):
@@ -371,16 +374,28 @@ def test_generate_data_cli_on_cpu(tmp_path, monkeypatch, capsys):
         assert all(z[k].dtype == np.float32 and z[k].shape == (258, 3)
                    for k in z)
     assert "frames/s" in capsys.readouterr().out
-    for system in ("tip3p", "tip4p", "rpbe"):
-        target = tmp_path / system
-        with pytest.raises(NotImplementedError, match="item 5"):
-            generate_data.main(["--cpu", "--system", system, "--out",
-                                str(target)])
-        assert not target.exists()
-    for fn in (tgen.generate_water_dataset, tgen.generate_rpbe_surrogate,
-               tgen.generate_tip4p_dataset):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fn(str(tmp_path / "w"))
+    target = tmp_path / "rpbe"
+    with pytest.raises(NotImplementedError, match="item 5"):
+        generate_data.main(["--cpu", "--system", "rpbe", "--out",
+                            str(target)])
+    assert not target.exists()
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tgen.generate_rpbe_surrogate(str(tmp_path / "w"))
+    calls = {}
+    for name in ("generate_water_dataset", "generate_tip4p_dataset"):
+        monkeypatch.setattr(tgen, name, lambda out_dir, _n=name, **kw:
+                            calls.setdefault(_n, (out_dir, kw)))
+    for system in ("tip3p", "tip4p"):
+        generate_data.main(["--cpu", "--system", system, "--out",
+                            str(tmp_path / system), "--seeds", "2",
+                            "--flexible", "--electrostatics", "dsf",
+                            "--seed_start", "4", "--particles", "27"])
+    w3, w4 = calls["generate_water_dataset"], calls["generate_tip4p_dataset"]
+    assert w3[0] == str(tmp_path / "tip3p") and w3[1]["n_molecules"] == 27
+    assert "n_molecules" not in w4[1]          # 251, as the JAX CLI
+    for _, kw in (w3, w4):
+        assert (kw["seeds"], kw["seed_start"], kw["rigid"],
+                kw["electrostatics"]) == (2, 4, False, "dsf")
     with pytest.raises(ValueError, match="258"):
         tgen.generate_lj_dataset(str(tmp_path / "n100"), n_particles=100,
                                  device="cpu")

@@ -13,7 +13,8 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "ninja", "gamd_tpu")
 #: Modules of the later slices (large N; the integrators and the NHC
 #: kernel; the op library; the tensor-core probes; water; the stage
 #: decomposition; data generation, the dataset and its packer; the train
-#: and evaluate CLIs), which the probe must have imported.
+#: and evaluate CLIs; Ewald electrostatics), which the probe must have
+#: imported.
 NEW_IN_SLICES = ("gamd_tpu_torch.neighbors.cell_list",
                  "gamd_tpu_torch.neighbors.search",
                  "gamd_tpu_torch.ops.banded",
@@ -38,7 +39,8 @@ NEW_IN_SLICES = ("gamd_tpu_torch.neighbors.cell_list",
                  "gamd_tpu_torch.physics.generate",
                  "gamd_tpu_torch.tools.generate_data",
                  "gamd_tpu_torch.tools.train_gamd",
-                 "gamd_tpu_torch.tools.evaluate")
+                 "gamd_tpu_torch.tools.evaluate",
+                 "gamd_tpu_torch.physics.ewald")
 
 PROBE = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys

@@ -385,22 +385,32 @@ def test_simulate_matches_jax():
 
 
 def test_replica_refusals():
-    """run_replicas refuses a single-system state; constrained replicas
-    (JAX's vmapped run, constrained NHC replicas included) are refused by
-    init_replicas and run_replicas, naming the water item; a constraint
-    of one system is taken."""
+    """run_replicas refuses a single-system state; a constraint of one
+    system is taken, and constrained replicas (JAX's vmapped run,
+    constrained NHC replicas included), refused until the water slice, run:
+    rigid TIP3P-81 NHC replicas from init_replicas, 5 lockstep steps on the
+    constraints."""
     jsys, tsys = _lj_systems()
     sim = Simulation(_lj_force_fns()[1], tsys, _md("nve")[1], device="cpu")
     with pytest.raises(ValueError, match="replica state"):
         sim.run_replicas(sim.init_state(LATTICE), 5)
-    states = sim.init_replicas(LATTICE, 2)
     sim = Simulation(_lj_force_fns()[1], tsys, _md("nose_hoover")[1],
                      device="cpu", constraint=RigidWater(1, 10.0))
     assert sim.ndf == 3 * tsys.n_atoms - 3
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        sim.init_replicas(LATTICE, 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        sim.run_replicas(states, 5)
+    from gamd_tpu_torch.physics import water as tw
+    n_mol, box = 27, 9.4
+    cst = RigidWater(n_mol, box)
+    wsys = tcfg.get_preset("tip3p", n_atoms=3 * n_mol, box=box, cutoff=4.2,
+                           nbr_capacity=64, skin=0.5)
+    sim = Simulation(tw.tip3p_force_fn(box, tw.TIP3PParams(cutoff=4.5),
+                                       rigid=True), wsys,
+                     _md("nose_hoover")[1], device="cpu", constraint=cst)
+    start = cst.project_initial(torch.as_tensor(tw.water_box(n_mol, box)))
+    states = sim.init_replicas(start, 2)
+    assert states.pos.shape == (2, 3 * n_mol, 3) and states.xi.ndim == 2
+    res = sim.run_replicas(states, 5)
+    assert res.thermo.temperature.shape == (2, 5)
+    assert float(cst.residual(res.state.pos)) < 1e-5
 
 
 def test_bench_replicas_cpu(capsys):

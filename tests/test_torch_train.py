@@ -430,7 +430,8 @@ def test_rotation_from_ks_matches_jax_for_all_64_triples():
 
 def test_rotate_sample_matches_jax():
     """rotate_sample with JAX's drawn matrix (seeds chosen so some frames
-    rotate): positions and forces within 1e-5 of JAX's rotate_sample."""
+    rotate): positions and forces within 1e-5 of JAX's rotate_sample; and
+    rigid_jitter_positions on 3-site groups (below)."""
     box, pos = _lattice_frames(1, seed=4)
     forces = np.random.RandomState(4).randn(*pos[0].shape).astype(np.float32)
     rotated = 0
@@ -446,8 +447,23 @@ def test_rotate_sample_matches_jax():
         np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-5,
                                    atol=1e-5)
     assert rotated >= 1
-    with pytest.raises(NotImplementedError, match="water"):
-        taug.rigid_jitter_positions(None, _t(pos[0]), 0.01)
+    # rigid_jitter_positions, ported since: the first 30 sites as ten
+    # 3-site groups, JAX's draws through the port's transform (1e-5), and
+    # the port's own draws keep each group's minimum-image distances.
+    key, sites = jax.random.PRNGKey(9), pos[0][:30]
+    k_t, k_r = jax.random.split(key)
+    dt = 0.01 * np.asarray(jax.random.normal(k_t, (10, 1, 3)))
+    om = 0.01 / 0.65 * np.asarray(jax.random.normal(k_r, (10, 1, 3)))
+    np.testing.assert_allclose(
+        taug.rigid_transform(_t(sites), _t(dt), _t(om), box).numpy(),
+        np.asarray(jaug.rigid_jitter_positions(key, jnp.asarray(sites), 0.01,
+                                               box=box)), rtol=0, atol=1e-5)
+    moved = taug.rigid_jitter_positions(torch.Generator().manual_seed(0),
+                                        _t(sites), 0.01, box=box).numpy()
+    gap = lambda x: np.linalg.norm(np.remainder(
+        x.reshape(10, 3, 1, 3) - x.reshape(10, 1, 3, 3) + box / 2, box)
+        - box / 2, axis=-1)
+    np.testing.assert_allclose(gap(moved), gap(sites), rtol=0, atol=1e-5)
 
 
 def test_adam_schedule_and_updates_match_optax():

@@ -199,8 +199,21 @@ def test_tip3p_energy_and_forces_match_jax(rigid):
 
 
 def test_tip3p_force_fn_refuses_ewald():
-    with pytest.raises(NotImplementedError, match="next water slice"):
-        tw.tip3p_force_fn(BOX, electrostatics="ewald")
+    """Refused until the water slice brought physics/ewald.py: the Ewald
+    force closure (rigid and flexible) against JAX's on a jittered box
+    (make_ewald_params(box): cutoff 10 A), 1e-4 of the largest |F| (the
+    Ewald bar of tests/test_torch_ewald.py), with handles_refresh; an
+    unknown electrostatics raises ValueError."""
+    pos = _frames(1, seed=1, sigma=0.15)[0]
+    for rigid in (True, False):
+        want = np.asarray(jw.tip3p_force_fn(BOX, rigid=rigid,
+                                            electrostatics="ewald")(
+            jnp.asarray(pos), None, None))
+        fn = tw.tip3p_force_fn(BOX, rigid=rigid, electrostatics="ewald")
+        assert fn.handles_refresh
+        assert _rel(fn(_t(pos), None, None), want) < 1e-4
+    with pytest.raises(ValueError, match="electrostatics"):
+        tw.tip3p_force_fn(BOX, electrostatics="pme")
 
 
 # -- the water GAMDNet --------------------------------------------------------
@@ -487,22 +500,26 @@ def test_banded_force_fn_takes_tip3p_final(trained, banded_frame):
 # -- refusals -----------------------------------------------------------------
 
 def test_refusals_raise_before_any_work(seeded, tmp_path):
-    """The long-range envelopes (GNNForceField, run_md), --system dft,
-    megastep with a constraint and constrained replicas raise, each naming
-    what brings it, and an ablate name JAX's kernel does not know raises
-    ValueError before any work (the banded path with a bond channel, once
-    refused here, runs since: test_banded_water_matches_jax)."""
+    """--system dft and megastep with a constraint raise, each naming what
+    brings it, and an ablate name JAX's kernel does not know raises
+    ValueError before any work. The long-range envelopes, refused until
+    the water slice, now load (the megastep window and the banded path
+    refuse them with ValueError, run_md --megastep too), and constrained
+    replicas run (the banded path with a bond channel, once refused here,
+    runs since: test_banded_water_matches_jax)."""
     _, _, _, state, cfg, system = seeded
     for name in ("tip3p_lr_latest", "tip3p_rj_best"):
         lr_state, lr_cfg, lr_sys = tckpt.load_self_describing(
             os.path.join(CKPTS, f"{name}.msgpack"))
         assert lr_cfg.longrange == "ewald_recip"
-        with pytest.raises(NotImplementedError, match="next water slice"):
-            GNNForceField(lr_state, lr_sys, lr_cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="next water slice"):
+        lr_ff = GNNForceField(lr_state, lr_sys, lr_cfg, device="cpu")
+        for fn in (lr_ff.megastep_fn, lr_ff.banded_force_fn):
+            with pytest.raises(ValueError, match="long-?range"):
+                fn()
+    with pytest.raises(ValueError, match="long-?range"):
         run_md.main(["--system", "tip3p", "--ckpt",
                      os.path.join(CKPTS, "tip3p_lr_latest.msgpack"),
-                     "--cpu", "--steps", "2"])
+                     "--megastep", "--no-rigid", "--cpu", "--steps", "2"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         run_md.main(["--system", "dft", "--cpu"])
     ff = GNNForceField(state, system, cfg, device="cpu")
@@ -516,8 +533,8 @@ def test_refusals_raise_before_any_work(seeded, tmp_path):
         run_md.main(["--system", "tip3p", "--megastep", "--cpu"])
     sim = Simulation(ff.force_fn(), system, md, constraint=cst,
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        sim.init_replicas(_frames(1, seed=0)[0], 2)
+    states = sim.init_replicas(_frames(1, seed=0)[0], 2)
+    assert states.pos.shape == (2, N, 3)
     with pytest.raises(ValueError, match="unknown ablate stage"):
         tmega.mega_md_steps(*[None] * 12, n_steps=1, c1=1.0, hdt=0.1,
                             c2col=None, seed=None, ablate=("bond",))
