@@ -55,7 +55,12 @@ train_gamd --longrange --relabel --rigid_jitter through the
 conv_msg_gather pair, and the committed long-range checkpoint
 results/ckpts/tip3p_rj_best.msgpack through mega_forward plus the
 analytic k-space term in tools.run_md and tools.analyze_rollout (NHC:
-nhc_half_step). Phases, one flushed line or more each:
+nhc_half_step). Then the DFT system: rows 3-4 at the DFT model's widths
+(256 / 128 / 256) on surrogate frames, tools.train_gamd --system dft
+--use_pallas through them and tools.run_md --system dft on the result,
+and the committed results/ckpts/dftlarge_final.msgpack through
+tools.evaluate --system dft and tools.run_md --system dft. Phases, one
+flushed line or more each:
 
   0. card (nvidia-smi name and power limit), torch and nvcc versions;
   1. build the CUDA sources with nvcc (or reuse the hashed library);
@@ -381,9 +386,37 @@ nhc_half_step). Phases, one flushed line or more each:
      tools.analyze_rollout --system tip3p --megakernel
      --classical_baseline --pe, 400 NHC steps on phase 53's frames (row
      1 and row 18's launches, finite report);
+ 56. rows 3-4 at E = D = 256, H = 128 (tools/time_conv.py::dft_inputs:
+     layer 0 of the seeded DFT model on the first 1 and 4 training frames
+     of md_dataset/RPBE-surrogate.npz, each at its own box, K=192 at 9.5
+     bohr): the forward within 1e-4 of max |agg| of batched_reference
+     and bit for bit from run to run, each of the 12 grads within 1e-3
+     of its max of autograd through it; the events and device times, the
+     bound (six 128 x 128 blocks a live edge, three bf16 passes) and its
+     share, the live edges; then the LJ slice's 128-wide layer 0 through
+     the wide instance with zero second blocks, its first 128 columns bit
+     for bit the 128-wide call's;
+ 57. one training step of train_gamd --system dft --use_layer_norm's
+     configuration (256 / 128 / 256, 5 layers) on the first training
+     frame of a 24 + 8 frame cut of the surrogate at its own box, rows
+     3-4 against the plain path (phase 51's bars, five launches of each);
+     the CLI with --use_pallas, 2 epochs at batch 1 (finite losses, the
+     launches, the checkpoint's DFT system); run_md's DFT closure on it
+     at the start with --use_pallas against the plain path (1e-4
+     std(F)); tools.run_md --system dft --use_pallas 100 rigid steps on
+     it (finite, residual under 1e-5 A, 505 launches of row 3), from the
+     CLI's FIRE start, computed once for phases 57 and 58;
+ 58. tools.evaluate --system dft on dftlarge_final, all 300 test frames:
+     cosine, MAE and RMSE beside JAX's recorded ones (results/
+     dftlarge_eval_r4.json, a TPU run; no bar); the card's predict
+     against the port's plain path on the CPU at 4 frames (1e-4 std(F));
+     tools.run_md --system dft on dftlarge_final, 200 rigid steps at
+     25/ps (finite, residual under 1e-5 A; steps/s and the second half's
+     mean T reported); each phase's seconds;
 then the kernels line (JSON; rows 1-2 with their water, ablate and
-activation figures, row 5 with its water banded figures, row 10 with its
-cases), and the result line (JSON) last.
+activation figures, rows 3-4 with their DFT-width figures, row 5 with its
+water banded figures, row 10 with its cases), and the result line (JSON)
+last.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 card; without one it exits non-zero and prints no result. Any failed check
@@ -4189,15 +4222,16 @@ def verify_loop_phase(dev, card, root):
     return runs
 
 
-def water_step_agreement(dev, flags):
-    """One training step of train_gamd's configuration for `flags` on the
-    first frame of its training set (with --longrange its labels less the
-    k-space term, with --relabel the CLI's oracle), on the kernel pair
-    (--use_pallas, one forward and one backward launch a conv layer,
-    required) against the plain path, both from create_train_state at the
-    train seed: step_agreement's line."""
+def cli_step_agreement(dev, flags):
+    """One training step of train_gamd's configuration for `flags` (water
+    or DFT) on the first frame of its training set (with --longrange its
+    labels less the k-space term, with --relabel the CLI's oracle; a DFT
+    frame with its own box), on the kernel pair (--use_pallas, one forward
+    and one backward launch a conv layer, required) against the plain
+    path, both from create_train_state at the train seed: step_agreement's
+    line."""
     from gamd_tpu_torch.tools import train_gamd
-    from gamd_tpu_torch.train.loop import stack_dataset
+    from gamd_tpu_torch.train.loop import stack_boxes, stack_dataset
 
     pairs = {}
     for use_pallas in (True, False):
@@ -4211,6 +4245,9 @@ def water_step_agreement(dev, flags):
                       if args.relabel else None)
         pos, forces, feat = stack_dataset(train_data, dev)
         batch = {"pos": pos[:1], "forces": forces[:1], "feat": feat[:1]}
+        boxes = stack_boxes(train_data, dev)
+        if boxes is not None:
+            batch["box_size"] = boxes[:1]
         state = create_train_state(model_cfg, system, train_cfg,
                                    len(train_data), device=dev)
         step = make_train_step(state.model, system, train_cfg,
@@ -4258,7 +4295,7 @@ def water_training_phase(dev, card, ctx):
             "configuration on its first training frame (4.2 A, K=96, 4 x "
             "128, the bond channel, edge dropout, rotation and jitter), "
             "kernel pair vs plain path, same seed: "
-            + water_step_agreement(dev, flags) + f" [{card}]")
+            + cli_step_agreement(dev, flags) + f" [{card}]")
         ck = os.path.join(root, "ck")
         t0 = time.perf_counter()
         run_path("water_train", runs, lambda: train_gamd.main(
@@ -4506,7 +4543,7 @@ def water_lr_training_phase(dev, card, root):
         "training frame (TIP3P-774, 4.2 A, K=96, 4 x 128, the bond channel; "
         "the labels less the k-space term, relabelled by the rigid Ewald "
         "oracle at the rigidly jittered positions), kernel pair vs plain "
-        "path, same seed: " + water_step_agreement(dev, flags)
+        "path, same seed: " + cli_step_agreement(dev, flags)
         + f" [{card}]")
     runs, logs, history = {}, [], []
     ck = os.path.join(root, "ck_lr")
@@ -4687,6 +4724,362 @@ def water_protocol_phases(dev, card):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return runs
+
+
+# -- the DFT system (phases 56-58) ---------------------------------------------
+
+RPBE = os.path.join("md_dataset", "RPBE-surrogate.npz")
+DFT_CKPT = os.path.join("results", "ckpts", "dftlarge_final.msgpack")
+DFT_JAX_EVAL = os.path.join("results", "dftlarge_eval_r4.json")
+DFT_FLAGS = ["--system", "dft", "--cutoff", "9.5", "--conv_layer", "5",
+             "--encoding_size", "256", "--edge_embedding_dim", "256",
+             "--use_layer_norm"]     # train_gamd's DFT run (hidden 128)
+DFT_CUT = (24, 8)         # phase 57's training and test frames
+DFT_EPOCHS = 2
+DFT_MD_STEPS = 100        # phase 57's run_md on the trained model
+DFT_DEPLOY_STEPS = 200    # phase 58's run_md on dftlarge_final
+DFT_CPU_FRAMES = 4        # phase 58's CPU control frames
+DFT_CPU_RTOL = 1e-4       # the card's forces vs the port's CPU, / std(F)
+
+
+def wide_conv_ops(live_edges, e_w, d_w, backward=False):
+    """(tensor-core FLOP, fp32 FLOP) of rows 3 (or 4) at e width e_w and
+    message width d_w (hidden 128), as the tiles run them: the split
+    table's e_w/128 + 2 + d_w/128 blocks of 128 x 128 a live edge (once
+    forward; the recompute, the sweep and the weight gradients backward)
+    as three bf16 passes each; the epilogues as at width 128 with the last
+    layer's columns at d_w (conv_tc_ops, conv_bwd_tc_ops at 128)."""
+    blocks = e_w // 128 + 2 + d_w // 128
+    if backward:
+        return (3.0 * 3 * blocks * 2 * 128 * 128 * live_edges,
+                float((BWD_EPILOGUE_OPS - 6) * 128 + 6 * d_w) * live_edges)
+    return (3.0 * blocks * 2 * 128 * 128 * live_edges,
+            float((EPILOGUE_OPS - 3) * 128 + 3 * d_w) * live_edges)
+
+
+def wide_conv_bytes(n, k, live_edges, e_w, d_w, backward=False):
+    """Bytes rows 3 (or 4) must move at e width e_w and message width d_w
+    (hidden 128): e's live rows, the ids at the live slots and the whole
+    mask, hn, src, dst and the weights in, agg out; the backward also the
+    cotangent in, ge at every slot, the node grads and the weight grads
+    out (conv_bytes with live_rows_only at 128)."""
+    weights = 4 * (e_w * 128 + 2 * 128 * 128 + 128 * d_w + 3 * 128 + d_w)
+    nodes = 4 * n * (d_w + 2 * 128)
+    io = 4 * live_edges * e_w + 4 * live_edges + n * k + nodes + weights \
+        + 4 * n * d_w
+    if backward:
+        return io + 4 * n * d_w + 4 * n * k * e_w + nodes + weights
+    return io
+
+
+def wide_bound(live_edges, n, k, e_w, d_w, backward=False):
+    """(least ms, "operations" or "bytes") of rows 3 or 4 at the widths:
+    wide_conv_ops against the bf16 tensor and fp32 peaks (their times
+    add), wide_conv_bytes against HBM; the larger."""
+    tc, fp = wide_conv_ops(live_edges, e_w, d_w, backward)
+    t_ops = (tc / BF16_FLOPS + fp / FP32_FLOPS) * 1e3
+    t_bytes = wide_conv_bytes(n, k, live_edges, e_w, d_w, backward) \
+        / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def dft_kernel_phase(dev, card):
+    """Phase 56 (module docstring). Returns {"conv_msg_gather": fields,
+    "conv_msg_gather_bwd": fields} at the DFT widths."""
+    from gamd_tpu_torch.tools.time_conv import dft_inputs
+
+    fused = fused_conv_gather_message
+    fields = {"conv_msg_gather": {}, "conv_msg_gather_bwd": {}}
+    for b in (1, 4):
+        args, live = dft_inputs(dev, b)
+        n, k = args[1].shape[1] * b, args[1].shape[2]
+        e_w, d_w = args[0].shape[-1], args[3].shape[-1]
+        with torch.no_grad():
+            before = fused.launches
+            agg = fused(*args)
+            torch.cuda.synchronize()
+            require(fused.launches == before + 1,
+                    "conv_msg_gather did not launch at the DFT widths")
+            ref = batched_reference(*args)
+            same = torch.equal(agg, fused(*args))
+        err, scale = float((agg - ref).abs().max()), float(ref.abs().max())
+        require(bool(torch.isfinite(agg).all()) and agg.shape == ref.shape
+                == (b, n // b, d_w), "non-finite or misshapen DFT agg")
+        require(err <= CONV_RTOL * scale,
+                f"conv_msg_gather disagrees at the DFT widths: {err} vs "
+                f"{scale}")
+        require(same, "conv_msg_gather differs from run to run (DFT)")
+        g = torch.randn(agg.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(56))
+        before = fused.backward_launches
+        out_k, leaves_k, grads_k = grads_of(fused, args, g)
+        torch.cuda.synchronize()
+        require(fused.backward_launches == before + 1,
+                "conv_msg_gather_bwd did not launch at the DFT widths")
+        out_p, leaves_p, grads_p = grads_of(batched_reference, args, g)
+        worst, gerr = None, 0.0
+        for name, a, r in zip(GRAD_NAMES, grads_k, grads_p):
+            e_, mx = float((a - r).abs().max()), float(r.abs().max())
+            require(bool(torch.isfinite(a).all()) and a.shape == r.shape,
+                    f"non-finite or misshapen DFT grad {name}")
+            require(e_ <= CONV_GRAD_RTOL * mx,
+                    f"conv_msg_gather_bwd disagrees on {name} at the DFT "
+                    f"widths: {e_} vs {mx}")
+            if mx and e_ / mx >= gerr:
+                gerr, worst = e_ / mx, name
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: fused(*args))
+            fwd_plain_ms = time_ms(lambda: batched_reference(*args))
+            fwd_us, fwd_kernels = device_us(lambda: fused(*args))
+        bwd_call = lambda: torch.autograd.grad(out_k, leaves_k, g,
+                                               retain_graph=True)
+        bwd_ms = time_ms(bwd_call)
+        bwd_plain_ms = time_ms(lambda: torch.autograd.grad(
+            out_p, leaves_p, g, retain_graph=True))
+        bwd_us, bwd_kernels = device_us(bwd_call)
+        fb, fby = wide_bound(live, n, k, e_w, d_w)
+        bb, bby = wide_bound(live, n, k, e_w, d_w, backward=True)
+        f_tc, f_fp = wide_conv_ops(live, e_w, d_w)
+        b_tc, b_fp = wide_conv_ops(live, e_w, d_w, backward=True)
+        say(f"phase 56: rows 3-4 at E={e_w}, H=128, D={d_w} on {b} RPBE "
+            f"training frame(s) (layer 0 of the seeded DFT model, 192 atoms "
+            f"a frame, K={k} at 9.5 bohr, {live} live edges of {n * k} "
+            f"slots): forward max |d agg| {err:.3e} of max {scale:.3e} "
+            f"(tolerance {CONV_RTOL} x max), two calls bit for bit {same}; "
+            f"backward worst grad {gerr:.3e} of its max ({worst}; tolerance "
+            f"{CONV_GRAD_RTOL}) [{card}]")
+        say(f"phase 56: conv_msg_gather B={b} {fwd_ms:.4f} ms/call, "
+            f"{fwd_us:.2f} us of device time "
+            f"{json.dumps({key: round(v, 2) for key, v in fwd_kernels.items()})}"
+            f", plain {fwd_plain_ms:.4f} ms; bound {fb:.5f} ms ({fby}; "
+            f"{f_tc / 1e9:.4f} GFLOP bf16 x 3 of six 128 x 128 blocks an "
+            f"edge at {BF16_FLOPS / 1e12:.0f} TFLOP/s, {f_fp / 1e9:.4f} GFLOP "
+            f"fp32 at {FP32_FLOPS / 1e12:.0f}), device time at "
+            f"{fb * 1e3 / fwd_us:.2%} of it; conv_msg_gather_bwd "
+            f"{bwd_ms:.4f} ms/call, {bwd_us:.2f} us of device time "
+            f"{json.dumps({key: round(v, 2) for key, v in bwd_kernels.items()})}"
+            f", plain autograd {bwd_plain_ms:.4f} ms; bound {bb:.5f} ms ({bby}; "
+            f"{b_tc / 1e9:.4f} GFLOP bf16 x 3, {b_fp / 1e9:.4f} GFLOP fp32), "
+            f"device time at {bb * 1e3 / bwd_us:.2%} of it; CUDA events, "
+            f"median of 20 [{card}]")
+        for name, vals in (("conv_msg_gather", dict(
+                max_abs_err=err, ms=fwd_ms, plain_ms=fwd_plain_ms,
+                device_us=fwd_us, bound_ms=fb, bound_by=fby)),
+                ("conv_msg_gather_bwd", dict(
+                    max_abs_err=gerr, ms=bwd_ms, plain_ms=bwd_plain_ms,
+                    device_us=bwd_us, bound_ms=bb, bound_by=bby))):
+            fields[name][f"dft_b{b}"] = {"live": live, "widths": [e_w, 128,
+                                                                  d_w],
+                                         **vals}
+        del out_k, out_p, leaves_k, leaves_p, grads_k, grads_p
+
+    # Width 128 inside the wide kernels: zero second blocks give the 128
+    # call's bits (tests/test_torch_cuda.py has the gradients too).
+    (case, *_), _ = conv_inputs(dev)
+    e, idx, mask, hn, src, dst, *ws = case
+    pad = lambda t, dim: torch.nn.functional.pad(
+        t, [0, 0] * (t.ndim - 1 - dim) + [0, 128])
+    with torch.no_grad():
+        narrow = fused(*case)
+        wide = fused(pad(e, 3), idx, mask, pad(hn, 2), src, dst,
+                     pad(ws[0], 0), *ws[1:6], pad(ws[6], 1), pad(ws[7], 0))
+        torch.cuda.synchronize()
+    padded_same = torch.equal(wide[..., :128], narrow) \
+        and not bool(wide[..., 128:].any())
+    say(f"phase 56: the LJ training slice's layer 0 at width 128 through "
+        f"the 256 / 128 / 256 instance with zero second blocks: the first "
+        f"128 columns bit for bit the 128-wide call's {padded_same} (the "
+        f"parent tree's bits: tools/time_conv.py --save on both trees)")
+    require(padded_same, "the wide kernel's first block differs from the "
+            "128-wide call")
+    return fields
+
+
+def dft_rollout_line(label, run, steps, card):
+    """Checks of a run_md --system dft rollout (finite, the constraint
+    residual under WATER_RESIDUAL) and its line: steps/s, mean T of the
+    second half, residual. Returns (line, mean T)."""
+    from gamd_tpu_torch.md.constraints import RigidWater
+
+    res, system = run["result"], run["system"]
+    temps = res.thermo.temperature
+    mean_t = float(temps[steps // 2:].mean())
+    residual = float(RigidWater(system.n_atoms // 3, system.box).residual(
+        res.state.pos))
+    require(bool(torch.isfinite(temps).all())
+            and bool(torch.isfinite(res.state.pos).all()),
+            f"non-finite {label} rollout")
+    require(residual < WATER_RESIDUAL, f"{label} residual {residual}")
+    return (f"{steps / run['seconds']:.1f} steps/s, mean T of the second "
+            f"half {mean_t:.2f} K, residual {residual:.3e} A (under "
+            f"{WATER_RESIDUAL}) [{card}]"), mean_t
+
+
+def dft_start(dev, root):
+    """run_md --system dft's start (water_start: water_box relaxed by FIRE
+    on the flexible TIP3P forces, 774 atoms in the 20 A box) saved as an
+    .npy under root for --init_pos, and the MD system; phases 57 and 58
+    share it."""
+    args = run_md.build_parser().parse_args(["--system", "dft"])
+    _, _, md_system = run_md.load_force_field(args, dev)
+    pos = run_md.water_start(md_system, dev)
+    path = os.path.join(root, "dft_start.npy")
+    np.save(path, pos.cpu().numpy())
+    return path, pos, md_system
+
+
+def dft_training_phase(dev, card, root, start):
+    """Phase 57 (module docstring). Returns {path: launches}."""
+    from gamd_tpu_torch.tools import train_gamd
+
+    with np.load(RPBE) as z:
+        train_idx, test_idx = z["train_idx"], z["test_idx"]
+        picks = np.concatenate([train_idx[:DFT_CUT[0]],
+                                test_idx[:DFT_CUT[1]]])
+        cut = {k: z[k][picks] for k in ("pos", "force", "box", "atom_type")}
+    npz = os.path.join(root, "rpbe_cut.npz")
+    np.savez(npz, **cut, train_idx=np.arange(DFT_CUT[0]),
+             test_idx=np.arange(DFT_CUT[0], sum(DFT_CUT)))
+    flags = DFT_FLAGS + ["--data_dir", npz]
+    say("phase 57: one training step of train_gamd --system dft "
+        "--use_layer_norm's configuration (256 / 128 / 256, 5 layers, "
+        "flip_dir, edge dropout 0.1, rotation with the frame's box, jitter "
+        "0.00025 bohr) on its first training frame at its own box, kernel "
+        "pair vs plain path, same seed: " + cli_step_agreement(dev, flags)
+        + f" [{card}]")
+    runs, logs, history = {}, [], []
+    ck = os.path.join(root, "dft_ck")
+    t0 = time.perf_counter()
+    run_path("dft_train", runs, lambda: train_gamd.main(
+        flags + ["--use_pallas", "--max_epoch", str(DFT_EPOCHS), "--cp_dir",
+                 ck], log_fn=logs.append, history=history))
+    train_s = time.perf_counter() - t0
+    losses = epoch_losses(history)
+    step_ms = [r["seconds"] * 1e3 / DFT_CUT[0] for r in history]
+    layers = 5
+    want = {"conv_msg_gather": layers * DFT_EPOCHS * sum(DFT_CUT),
+            "conv_msg_gather_bwd": layers * DFT_EPOCHS * DFT_CUT[0]}
+    say(f"phase 57: train_gamd --system dft --use_pallas --use_layer_norm "
+        f"(256 / 128 / 256, 5 layers) on {DFT_CUT[0]} training and "
+        f"{DFT_CUT[1]} test frames of the surrogate (an npz of its layout "
+        f"in a temporary directory), {DFT_EPOCHS} epochs at batch 1: "
+        f"{train_s:.2f} s in all; the epoch loop "
+        f"{', '.join(f'{x:.3f}' for x in step_ms)} ms a step by epoch; "
+        f"epoch losses {', '.join(f'{x:.6f}' for x in losses)}; launches "
+        f"{runs['dft_train']} [{card}]")
+    say("phase 57: " + " | ".join(logs))
+    require(len(losses) == DFT_EPOCHS and all(np.isfinite(x) for x in losses),
+            "non-finite DFT losses")
+    require(all(runs["dft_train"][k] == v for k, v in want.items()),
+            f"launches {runs['dft_train']}: want {want}")
+    path = os.path.join(ck, f"checkpoint_{DFT_EPOCHS - 1}.msgpack")
+    _, cfg, system = load_self_describing(path)
+    require(system.box is None and cfg.flip_dir and not cfg.update_edge,
+            "the DFT checkpoint does not describe the DFT system")
+    init, pos, md_system = start
+    idx, mask, _ = dense_neighbor_list(pos, md_system.box, md_system.cutoff,
+                                       md_system.nbr_capacity)
+    forces = {}
+    for use_pallas in (True, False):
+        args = run_md.build_parser().parse_args(["--system", "dft", "--ckpt",
+                                                 path])
+        _, fn, _ = run_md.load_force_field(args, dev, use_pallas=use_pallas)
+        forces[use_pallas] = fn(pos, idx, mask)
+    closure_err = float((forces[True] - forces[False]).abs().max()
+                        / forces[False].std())
+    argv = ["--system", "dft", "--ckpt", path, "--use_pallas", "--init_pos",
+            init, "--steps", str(DFT_MD_STEPS), "--log",
+            os.path.join(root, "dft_md.txt")]
+    run = run_path("dft_run_md", runs, lambda: run_md.rollout(
+        run_md.build_parser().parse_args(argv)))
+    line, _ = dft_rollout_line("DFT trained", run, DFT_MD_STEPS, card)
+    say(f"phase 57: run_md's DFT closure on the result at the start, "
+        f"--use_pallas (rows 3-4 at 256 / 128 / 256) against the plain "
+        f"path: max |dF| / std(F) {closure_err:.3e} (tolerance "
+        f"{DFT_CPU_RTOL}); run_md --system dft --use_pallas --steps "
+        f"{DFT_MD_STEPS} on it from the shared FIRE start (774 rigid atoms "
+        f"in the 20 A box, the model in bohr, K=128; a 2-epoch model: no "
+        f"band on T): {line}; launches {runs['dft_run_md']}")
+    require(closure_err <= DFT_CPU_RTOL, "the DFT closure's use_pallas "
+            "forces disagree with the plain ones")
+    require(runs["dft_run_md"]["conv_msg_gather"]
+            == layers * (DFT_MD_STEPS + 1),
+            f"run_md launches {runs['dft_run_md']}")
+    return runs
+
+
+def dft_deployment_phase(dev, card, init):
+    """Phase 58 (module docstring). Returns {path: launches}."""
+    from gamd_tpu_torch.tools import evaluate
+    from gamd_tpu_torch.train.data import RealLargeDataset
+
+    runs = {}
+    t0 = time.perf_counter()
+    metrics = run_path("dft_evaluate", runs, lambda: evaluate.main([
+        "--system", "dft", "--ckpt", DFT_CKPT, "--data_dir", RPBE]))
+    eval_s = time.perf_counter() - t0
+    with open(DFT_JAX_EVAL) as f:
+        jax_eval = json.load(f)
+    keys = ("force_cosine_similarity", "force_mae_ev_a", "force_rmse_ev_a")
+    say(f"phase 58: evaluate --system dft on dftlarge_final, all "
+        f"{metrics['frames']} test frames (each predicted alone at its own "
+        f"box; update_edge: the plain edge pipeline, as in JAX) in "
+        f"{eval_s:.2f} s: " + ", ".join(
+            f"{key} {metrics[key]:.5f} (JAX on a TPU: {jax_eval[key]:.5f})"
+            for key in keys) + f"; launches {runs['dft_evaluate']} [{card}]")
+    require(metrics["frames"] == 300
+            and all(np.isfinite(metrics[key]) for key in keys),
+            "evaluate --system dft failed")
+    state, cfg, system = load_self_describing(DFT_CKPT)
+    ff = GNNForceField(state, system, cfg, device=dev)
+    ff_cpu = GNNForceField(state, system, cfg, device="cpu")
+    items = [RealLargeDataset(RPBE, mode="test")[i]
+             for i in range(DFT_CPU_FRAMES)]
+    worst = 0.0
+    t0 = time.perf_counter()
+    for it in items:
+        got = ff.predict(it["pos"], box=it["box_size"]).cpu()
+        want = ff_cpu.predict(it["pos"], box=it["box_size"])
+        worst = max(worst, float((got - want).abs().max() / want.std()))
+    cpu_s = time.perf_counter() - t0
+    say(f"phase 58: the card's predict against the port's plain path on the "
+        f"CPU at {DFT_CPU_FRAMES} test frames: max |dF| / std(F) "
+        f"{worst:.3e} (tolerance {DFT_CPU_RTOL}; {cpu_s:.2f} s)")
+    require(worst <= DFT_CPU_RTOL, "the card's DFT forces disagree with "
+            "the CPU's")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--system", "dft", "--ckpt", DFT_CKPT, "--init_pos", init,
+                "--steps", str(DFT_DEPLOY_STEPS), "--log",
+                os.path.join(tmp, "log.txt")]
+        run = run_path("dft_deploy_run_md", runs, lambda: run_md.rollout(
+            run_md.build_parser().parse_args(argv)))
+    line, _ = dft_rollout_line("dftlarge_final", run, DFT_DEPLOY_STEPS,
+                               card)
+    say(f"phase 58: run_md --system dft on dftlarge_final --steps "
+        f"{DFT_DEPLOY_STEPS} (774 rigid atoms, 20 A box, 25/ps, from the "
+        f"shared FIRE start; the mean T reported, no band): {line}; "
+        f"launches {runs['dft_deploy_run_md']}")
+    return runs
+
+
+def dft_phases(dev, card):
+    """Phases 56-58, each one's seconds printed. Returns (row 3 and 4's
+    DFT fields, {path: launches})."""
+    t0 = time.perf_counter()
+    fields = dft_kernel_phase(dev, card)
+    t1 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="gamd_dft_")
+    try:
+        start = dft_start(dev, root)
+        t2 = time.perf_counter()
+        runs = dft_training_phase(dev, card, root, start)
+        t3 = time.perf_counter()
+        runs.update(dft_deployment_phase(dev, card, start[0]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say(f"phases 56-58: {t1 - t0:.1f}, {t3 - t2:.1f} and "
+        f"{time.perf_counter() - t3:.1f} s, the shared start {t2 - t1:.1f} s")
+    return fields, runs
 
 
 def merge_launches(entries, runs):
@@ -4979,6 +5372,7 @@ def main():
         shutil.rmtree(root, ignore_errors=True)
     water_train_launches = water_training_phase(dev, card, water_ctx)
     protocol_launches = water_protocol_phases(dev, card)
+    dft_fields, dft_launches = dft_phases(dev, card)
 
     # -- the kernels line, the result line ---------------------------------
     by_path = {name: {"per_step": per_step_launches[name],
@@ -5016,6 +5410,8 @@ def main():
         *op_kernels, *mxu_kernels, *gather_kernels, *form_kernels]
     for entry in kernels[:2]:
         entry["water"] = water_entries[entry["name"]]
+    for entry in conv_kernels:
+        entry["dft"] = dft_fields[entry["name"]]
     kernels[0]["activations"] = act_fields["forward"]
     kernels[1]["activations"] = act_fields["window"]
     kernels[1]["ablate"] = ablate_checks
@@ -5024,7 +5420,7 @@ def main():
                              **banded_launches, **ablate_launches,
                              **act_launches, **gen_launches,
                              **verify_launches, **water_train_launches,
-                             **protocol_launches})
+                             **protocol_launches, **dft_launches})
     say("kernels: " + json.dumps([k["name"] for k in kernels]))
     say(json.dumps({"kernels": kernels}))
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,9 +1,11 @@
 """Periodic-space math on torch tensors: minimum image and box wrapping.
 
 Port of gamd_tpu/core/space.py (min_image, wrap). The box is a float or a
-tensor broadcastable against the displacement.
+tensor broadcastable against the displacement; frame_box shapes a box a
+frame ([B] or [B, 3]) so.
 """
 
+import numpy as np
 import torch
 
 
@@ -11,6 +13,29 @@ def min_image(dr, box):
     """Map displacement vectors to their minimum-image representative, each
     component in [-L/2, L/2) (remainder form, as the JAX package)."""
     return torch.remainder(dr + 0.5 * box, box) - 0.5 * box
+
+
+def one_box(box):
+    """Whether box is one box for every frame (a number or a 0-d tensor),
+    not one a frame."""
+    return box.ndim == 0 if torch.is_tensor(box) else np.ndim(box) == 0
+
+
+def frame_box(box, x):
+    """box shaped to broadcast against frames x [B, ..., 3]: one box for
+    all (a number or 0-d tensor) as it is; one a frame, [B] as
+    [B, 1, ..., 1] and [B, 3] as [B, 1, ..., 3], in x's dtype and device
+    (gamd_tpu/models/gnn.py::_box_for_edges, gamd_tpu/train/loop.py::
+    _broadcast_box)."""
+    if one_box(box):
+        return box
+    b = torch.as_tensor(box, dtype=x.dtype, device=x.device)
+    if b.ndim == 1:
+        return b.reshape(-1, *[1] * (x.ndim - 1))
+    if b.ndim == 2:
+        return b.reshape(b.shape[0], *[1] * (x.ndim - 2), b.shape[1])
+    raise ValueError(f"box must be scalar, [B], or [B,3]; got "
+                     f"{tuple(b.shape)}")
 
 
 def wrap(pos, box):

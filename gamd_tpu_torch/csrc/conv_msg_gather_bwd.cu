@@ -4,7 +4,9 @@
 //
 // Replaces gamd_tpu/ops/pallas_mp.py::_conv_msg_gather_bwd_kernel (line 530,
 // pallas_call at line 658; wrapper _conv_msg_gather_backward, line 624; the
-// VJP at lines 713-724). Per live edge (i, k) with source j = idx[i, k] it
+// VJP at lines 713-724), which reads every width from its refs: here E
+// = D, 128 or 256, and H 128, as in the forward
+// (conv_msg_gather.cu). Per live edge (i, k) with source j = idx[i, k] it
 // recomputes the forward (s1 = e W1 + b1, z1 = silu(s1), z2 = z1 W2 + b2 +
 // src[j] + dst[i], a2 = silu(z2), s3 = a2 W3 + b3, z3 = silu(s3), m = z3
 // W4 + b4) and sweeps back:
@@ -59,6 +61,14 @@
 // Launches 2-6 use programmatic dependent launch. No atomics anywhere: two
 // runs give the same bits.
 //
+// At E or D = 256 every 128 x 128 block of the split table is a product of
+// its own (the forward's six blocks at 256 / 128 / 256, so twelve products
+// a tile): W1 runs over e's two column blocks into one accumulator and
+// W4^T over g_m's two, each staged into the activations in turn; W4 and
+// W1^T run a column block at a time with their own epilogues. The
+// activation tile and the shared memory stay width 128's; the planes grow
+// to e's and g_m's blocks (10), and the weight gradients to six blocks.
+//
 // Measured against this design on the H100 and dropped (PERF.md row 4):
 // the first transcription (a block of one thread a channel on every
 // chunk of 16 slots, dead ones included, fp32 FMAs against shared-memory
@@ -79,11 +89,13 @@
 
 namespace {
 
-// N_PLANES and N_RANGE size the host's scratch: gamd_tpu_torch/ops/
-// conv_gather.py mirrors them (BWD_PLANES, WGRAD_RANGES).
-constexpr int N_PLANES = 8;        // e, z1, a2, z3, then g_s1, g_z2, g_s3, g_m
+// N_RANGE and the planes size the host's scratch: gamd_tpu_torch/ops/
+// conv_gather.py mirrors them (WGRAD_RANGES, bwd_planes). At e width 128
+// EB and message width 128 DB the compact planes of a tile are e's EB
+// column blocks, z1, a2, z3, then g_s1, g_z2, g_s3 and g_m's DB column
+// blocks (8 at width 128, 10 at 256 / 128 / 256), and the weight blocks
+// (split_blocks' order) EB + 2 + DB.
 constexpr int N_RANGE = 32;        // tile ranges of the weight-gradient sums
-constexpr int BWD_PRODUCTS = 8;    // a tile's: W1..W4, then W4^T..W1^T
 constexpr int KSTEP_BYTES = 16 * 128;   // 16 rows of an MN-major operand
 // Dynamic shared memory of a tile block (ops/edge_tiles.py BACKWARD_SMEM):
 // two weight buffers, the activations and the fp32 g_z2 tile.
@@ -133,16 +145,18 @@ __device__ __forceinline__ void wgmma_t(float (&d)[2 * tc::PAIRS],
       : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
 }
 
-// acc = A W^T for the calling warpgroup's 64 output columns, bf16 x 3 as
-// tc::product_x3: A the activation buffer (K-major), B the split weight's
-// W^T [out][in] read MN-major, K = out down its rows: the warpgroup's
-// columns are the half [64 wg, 64 wg + 64) of each part, k-step kk its
-// rows 16 kk .. 16 kk + 15.
+// acc = A W^T (acc += A W^T if not `zero`) for the calling warpgroup's 64
+// output columns, bf16 x 3 as tc::product_x3: A the activation buffer
+// (K-major), B the split weight's W^T [out][in] read MN-major, K = out
+// down its rows: the warpgroup's columns are the half [64 wg, 64 wg + 64)
+// of each part, k-step kk its rows 16 kk .. 16 kk + 15.
 __device__ __forceinline__ void product_x3_t(float (&acc)[2 * tc::PAIRS],
-                                             uint32_t a, uint32_t w,
-                                             int wg) {
+                                             uint32_t a, uint32_t w, int wg,
+                                             bool zero) {
+  if (zero) {
 #pragma unroll
-  for (int i = 0; i < 2 * tc::PAIRS; ++i) acc[i] = 0.f;
+    for (int i = 0; i < 2 * tc::PAIRS; ++i) acc[i] = 0.f;
+  }
   tc::fence_acc(acc);
   tc::wgmma_fence();
 #pragma unroll
@@ -219,28 +233,39 @@ __device__ __forceinline__ void bulk_wait() {
 // 1. The dead rows of ge
 // ---------------------------------------------------------------------------
 
-// A warp a slot, grid-stride: ge's row of every masked slot set to 0.
+// A warp a slot, grid-stride: ge's row (`width` floats) of every masked
+// slot set to 0.
 __global__ void __launch_bounds__(32 * DEAD_WARPS)
 dead_rows_kernel(const uint8_t* __restrict__ mask, long long slots,
-                 float* __restrict__ ge) {
+                 float* __restrict__ ge, int width) {
   tc::let_next_start();
   const int lane = threadIdx.x & 31;
   const long long step = (long long)gridDim.x * DEAD_WARPS;
   for (long long s = (long long)blockIdx.x * DEAD_WARPS + (threadIdx.x >> 5);
        s < slots; s += step)
     if (!mask[s])
-      reinterpret_cast<float4*>(ge + s * CW)[lane] =
-          make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int c = lane; c < width / 4; c += 32)
+        reinterpret_cast<float4*>(ge + s * width)[c] =
+            make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 // ---------------------------------------------------------------------------
 // 2. The edge tiles
 // ---------------------------------------------------------------------------
 
-// Product p's weight: W1..W4, then W4..W1 (read as W^T).
+// Product p's weight block (split_blocks' order: W1's EB row blocks, W2,
+// W3, W4's DB column blocks): the NB blocks in order, then W4's blocks
+// from the last, W3, W2 and W1's blocks (read as W^T): W1..W4, W4..W1 at
+// width 128.
+template <int EB, int DB>
 __device__ __forceinline__ int bwd_weight(int p) {
-  const int q = p % BWD_PRODUCTS;
-  return q < N_WEIGHTS ? q : BWD_PRODUCTS - 1 - q;
+  constexpr int NB = EB + 2 + DB;
+  const int q = p % (2 * NB);
+  if (q < NB) return q;
+  const int r = q - NB;
+  if (r < DB) return EB + 2 + DB - 1 - r;
+  if (r < DB + 2) return EB + 1 - (r - DB);
+  return r - DB - 2;
 }
 
 // silu(x) as the forward computes it (tc::silu_fast) and silu'(x) =
@@ -258,15 +283,17 @@ __device__ __forceinline__ void st2(float* p, float x, float y) {
 struct BwdArgs {
   TileArgs t;         // layout, e, dst, biases; agg = gdst, part its partials
   const float* g;     // [M, 128] the cotangent of agg
-  float* ge;          // [M*K, 128]
-  float *ghs, *gz2;   // [M*K, 128] g_hsrc and g_z2 at the live slots
-  uint8_t* planes;    // [N_PLANES][cap_tiles][A_BYTES] compact tiles
+  float* ge;          // [M*K, E]
+  float *ghs, *gz2;   // [M*K, D], [M*K, 128]: g_hsrc and g_z2 at the live
+                      // slots
+  uint8_t* planes;    // [planes][cap_tiles][A_BYTES] compact tiles
   int cap_tiles;      // ceil(M*K / 64)
 };
 
 // The tile block's shared memory (BWD_SMEM, 1024-byte aligned): two
 // weight buffers, the activation buffer, the fp32 g_z2 tile `red`; and the
 // ring of split weights in bwd_weight's order, as tc::WeightRing<2>.
+template <int EB, int DB>
 struct BwdRing {
   uint32_t w, a_s, bar;
   uint8_t* a;
@@ -291,20 +318,22 @@ struct BwdRing {
 #pragma unroll
       for (int b = 0; b < 2; ++b)
         tc::load_split(w + b * tc::SPLIT_BYTES, map, bar + 8 * b,
-                       bwd_weight(b));
+                       bwd_weight<EB, DB>(b));
     }
   }
 
   // Product p of the calling warpgroup once its weight has landed: with W
-  // (the forward's) or, if `transposed`, with W^T.
+  // (the forward's) or, if `transposed`, with W^T; added to acc if not
+  // `zero`.
   __device__ __forceinline__ void product(float (&acc)[2 * tc::PAIRS], int p,
-                                          int wg, bool transposed) const {
+                                          int wg, bool transposed,
+                                          bool zero = true) const {
     tc::mbar_wait(bar + 8 * (p & 1), (p >> 1) & 1);
     const uint32_t wb = w + (p & 1) * tc::SPLIT_BYTES;
     if (transposed)
-      product_x3_t(acc, a_s, wb, wg);
+      product_x3_t(acc, a_s, wb, wg, zero);
     else
-      tc::product_x3(acc, a_s, wb, wg);
+      tc::product_x3(acc, a_s, wb, wg, 8, zero);
   }
 
   // After product p: the copy of the activations out has read them, both
@@ -316,7 +345,7 @@ struct BwdRing {
     __syncthreads();
     if (threadIdx.x == 0 && p + 2 < n_products)
       tc::load_split(w + (p & 1) * tc::SPLIT_BYTES, map, bar + 8 * (p & 1),
-                     bwd_weight(p + 2));
+                     bwd_weight<EB, DB>(p + 2));
   }
 };
 
@@ -329,14 +358,25 @@ __device__ __forceinline__ void store_plane(const BwdArgs& a, int plane,
                a_s, tc::A_BYTES);
 }
 
-// The persistent backward tile kernel. grid plan.grid (at most one block
-// an SM), block 256 (one tile at a time, its columns split between the two
-// warpgroups), BWD_SMEM of dynamic shared memory; block b takes tiles b,
-// b + grid, ... of the layout's ceil(total / 64).
-template <class Src>
+// The persistent backward tile kernel at e width 128 EB and message width
+// 128 DB. grid plan.grid (at most one block an SM), block 256 (one tile at
+// a time, its columns split between the two warpgroups), BWD_SMEM of
+// dynamic shared memory; block b takes tiles b, b + grid, ... of the
+// layout's ceil(total / 64). A product over a K wider than 128 (W1 over
+// e's column blocks, W4^T over g_m's) stages its blocks into the
+// activations in turn and adds them into one accumulator; a product with
+// an output wider than 128 (W4, W1^T) runs a column block at a time, each
+// with its own epilogue.
+template <class Src, int EB, int DB>
 __global__ void __launch_bounds__(tc::THREADS, 1)
 conv_bwd_tile_kernel(const __grid_constant__ CUtensorMap wmap, BwdArgs a,
                      Src src) {
+  constexpr int NP = 2 * (EB + 2 + DB);   // products a tile
+  constexpr int EW = EB * CW, DW = DB * CW;
+  // The planes (see N_RANGE above): z1, a2, z3 after e's blocks, then the
+  // gradients.
+  constexpr int Z1 = EB, GS1 = EB + 3, GZ2 = EB + 4, GS3 = EB + 5,
+                GM = EB + 6;
   tc::let_next_start();
   tc::grid_wait();
   const TileArgs& ta = a.t;
@@ -348,7 +388,8 @@ conv_bwd_tile_kernel(const __grid_constant__ CUtensorMap wmap, BwdArgs a,
   __shared__ __align__(8) uint64_t bars[2];
   __shared__ int atom_s[tc::TILE];     // each row's atom, -1 past total
   __shared__ uint8_t first_s[tc::TILE], last_s[tc::TILE];   // of its atom
-  const BwdRing ring(tile_smem, bars, &wmap, BWD_PRODUCTS * mine);
+  const CUtensorMap* map = &wmap;
+  const BwdRing<EB, DB> ring(tile_smem, bars, map, NP * mine);
   float* red = ring.red;
   const tc::Frag f;
   // silu' of s1, z2 and s3 at the thread's fragment, from the recompute to
@@ -374,13 +415,18 @@ conv_bwd_tile_kernel(const __grid_constant__ CUtensorMap wmap, BwdArgs a,
       row_off = ta.lay.off[row_atom];
       row_cnt = ta.lay.cnt[row_atom];
     }
+    // e's column block eb of the tile's rows into the activations.
+    auto stage_e = [&](int eb) {
 #pragma unroll
-    for (int q = 0; q < tc::PAIRS; ++q) {
-      const int s = q & 1;
-      const float2 v = live[s] ? ld2(ta.e + (size_t)sl[s] * CW + f.col(q))
-                               : make_float2(0.f, 0.f);
-      tc::store_pair(ring.a, f, q, v.x, v.y);
-    }
+      for (int q = 0; q < tc::PAIRS; ++q) {
+        const int s = q & 1;
+        const float2 v =
+            live[s] ? ld2(ta.e + (size_t)sl[s] * EW + eb * CW + f.col(q))
+                    : make_float2(0.f, 0.f);
+        tc::store_pair(ring.a, f, q, v.x, v.y);
+      }
+    };
+    stage_e(0);
     if (threadIdx.x < tc::TILE) {
       atom_s[threadIdx.x] = row_atom;
       first_s[threadIdx.x] = row_off == g;
@@ -389,69 +435,133 @@ conv_bwd_tile_kernel(const __grid_constant__ CUtensorMap wmap, BwdArgs a,
     tc::activations_ready();
     store_plane(a, 0, t, ring.a_s);
 
-    // The eight products, each followed by its epilogue; the epilogue's
-    // tile (but the last's) goes into the activations and out to its
-    // plane: z1, a2, z3 (planes 1-3), then g_m, g_s3, g_z2, g_s1 (7-4).
+    // The products, each followed by its epilogue; an epilogue's tile that
+    // a later product reads goes into the activations and out to its
+    // plane. release's barrier (after the copy out has read the
+    // activations) puts both warpgroups past their reads first.
     float acc[2 * tc::PAIRS];
-#pragma unroll
-    for (int m = 0; m < BWD_PRODUCTS; ++m, ++p) {
-      ring.product(acc, p, f.wg, m >= N_WEIGHTS);
-      ring.release(&wmap, p);
+    auto step = [&](bool transposed, bool zero = true) {
+      ring.product(acc, p, f.wg, transposed, zero);
+      ring.release(map, p);
+      ++p;
+    };
+    // The tile in the activations is written: make it visible and copy it
+    // out to its plane.
+    auto ready = [&](int plane) {
+      tc::activations_ready();
+      store_plane(a, plane, t, ring.a_s);
+    };
+    // The recompute's hidden layers: s1 (l = 0), z2 (1, + src[j] +
+    // dst[i]), s3 (2) from acc, their silu into the activations and
+    // silu' into d.
+    auto hidden = [&](int l, float (&d)[2 * tc::PAIRS]) {
+      const float* bias = l == 0 ? ta.b1 : l == 1 ? ta.b2 : ta.b3;
 #pragma unroll
       for (int q = 0; q < tc::PAIRS; ++q) {
         const int s = q & 1, c = f.col(q);
-        const float x0 = acc[2 * q], x1 = acc[2 * q + 1];
-        float2 out = make_float2(0.f, 0.f);
-        if (m < N_WEIGHTS) {
-          const float* bias = m == 0 ? ta.b1 : m == 1 ? ta.b2
-                              : m == 2 ? ta.b3 : ta.b4;
-          float2 x = ld2(bias + c);
-          x.x += x0;
-          x.y += x1;
-          if (m == 1) {
-            const float2 sv = ld2(src.src_row(j[s]) + c);
-            const float2 dv = ld2(ta.dst + (size_t)i[s] * CW + c);
-            x.x += sv.x + dv.x;
-            x.y += sv.y + dv.y;
-          }
-          if (m < N_WEIGHTS - 1) {
-            const float2 u = silu_and_grad(x.x), v = silu_and_grad(x.y);
-            if (m == 0) {
-              d1[2 * q] = u.y;
-              d1[2 * q + 1] = v.y;
-            } else if (m == 1) {
-              d2[2 * q] = u.y;
-              d2[2 * q + 1] = v.y;
-            } else {
-              d3[2 * q] = u.y;
-              d3[2 * q + 1] = v.y;
-            }
-            out = make_float2(u.x, v.x);
-          } else {   // x is m: g_hsrc = g[i] m, g_m = g[i] hn[j]
-            float2 gi = make_float2(0.f, 0.f);
-            if (live[s]) {
-              gi = ld2(a.g + (size_t)i[s] * CW + c);
-              st2(a.ghs + (size_t)sl[s] * CW + c, gi.x * x.x, gi.y * x.y);
-            }
-            const float2 hv = ld2(src.hn_row(j[s]) + c);
-            out = make_float2(gi.x * hv.x, gi.y * hv.y);
-          }
-        } else if (m == 4) {
-          out = make_float2(x0 * d3[2 * q], x1 * d3[2 * q + 1]);   // g_s3
-        } else if (m == 5) {
-          out = make_float2(x0 * d2[2 * q], x1 * d2[2 * q + 1]);   // g_z2
+        float2 x = ld2(bias + c);
+        x.x += acc[2 * q];
+        x.y += acc[2 * q + 1];
+        if (l == 1) {
+          const float2 sv = ld2(src.src_row(j[s]) + c);
+          const float2 dv = ld2(ta.dst + (size_t)i[s] * CW + c);
+          x.x += sv.x + dv.x;
+          x.y += sv.y + dv.y;
+        }
+        const float2 u = silu_and_grad(x.x), v = silu_and_grad(x.y);
+        d[2 * q] = u.y;
+        d[2 * q + 1] = v.y;
+        tc::store_pair(ring.a, f, q, u.x, v.x);
+      }
+      ready(Z1 + l);
+    };
+    // acc times silu' (a gradient of the sweep) into the activations.
+    auto sweep = [&](const float (&d)[2 * tc::PAIRS], int plane,
+                     bool keep_red) {
+#pragma unroll
+      for (int q = 0; q < tc::PAIRS; ++q) {
+        const int s = q & 1, c = f.col(q);
+        const float2 out = make_float2(acc[2 * q] * d[2 * q],
+                                       acc[2 * q + 1] * d[2 * q + 1]);
+        if (keep_red) {   // g_z2: also the atom sums' tile and its rows
           *reinterpret_cast<float2*>(red + red_at(f.row(q), c)) = out;
           if (live[s]) st2(a.gz2 + (size_t)sl[s] * CW + c, out.x, out.y);
-        } else if (m == 6) {
-          out = make_float2(x0 * d1[2 * q], x1 * d1[2 * q + 1]);   // g_s1
-        } else if (live[s]) {
-          st2(a.ge + (size_t)sl[s] * CW + c, x0, x1);              // ge
         }
-        if (m < BWD_PRODUCTS - 1) tc::store_pair(ring.a, f, q, out.x, out.y);
+        tc::store_pair(ring.a, f, q, out.x, out.y);
       }
-      if (m < BWD_PRODUCTS - 1) {
-        tc::activations_ready();
-        store_plane(a, m < 3 ? m + 1 : 10 - m, t, ring.a_s);
+      ready(plane);
+    };
+
+    // The recompute: W1 over e's column blocks, W2, W3.
+#pragma unroll
+    for (int eb = 0; eb < EB; ++eb) {
+      if (eb > 0) {
+        stage_e(eb);
+        ready(eb);
+      }
+      step(false, eb == 0);
+    }
+    hidden(0, d1);
+    step(false);
+    hidden(1, d2);
+    step(false);
+    hidden(2, d3);
+    // g_m = g[i] hn[j] of column block d into the activations.
+    auto stage_gm = [&](int d, int q, float2 gi) {
+      const float2 hv = ld2(src.hn_row(j[q & 1]) + d * CW + f.col(q));
+      tc::store_pair(ring.a, f, q, gi.x * hv.x, gi.y * hv.y);
+    };
+    // W4 a column block at a time: m's block d and g_hsrc = g[i] m there;
+    // after the last block (z3 read for good) g_m's last block goes into
+    // the activations with the same g[i].
+#pragma unroll
+    for (int d = 0; d < DB; ++d) {
+      step(false);
+#pragma unroll
+      for (int q = 0; q < tc::PAIRS; ++q) {
+        const int s = q & 1, c = d * CW + f.col(q);
+        float2 x = ld2(ta.b4 + c);
+        x.x += acc[2 * q];
+        x.y += acc[2 * q + 1];
+        float2 gi = make_float2(0.f, 0.f);
+        if (live[s]) {
+          gi = ld2(a.g + (size_t)i[s] * DW + c);
+          st2(a.ghs + (size_t)sl[s] * DW + c, gi.x * x.x, gi.y * x.y);
+        }
+        if (d == DB - 1) stage_gm(d, q, gi);
+      }
+    }
+    // The sweep: g_m through W4^T a column block at a time, from the last,
+    // into one accumulator, then g_s3, g_z2, g_s1.
+#pragma unroll
+    for (int k = 0; k < DB; ++k) {
+      const int d = DB - 1 - k;
+      if (k > 0) {
+#pragma unroll
+        for (int q = 0; q < tc::PAIRS; ++q) {
+          float2 gi = make_float2(0.f, 0.f);
+          if (live[q & 1])
+            gi = ld2(a.g + (size_t)i[q & 1] * DW + d * CW + f.col(q));
+          stage_gm(d, q, gi);
+        }
+      }
+      ready(GM + d);
+      step(true, k == 0);
+    }
+    sweep(d3, GS3, false);
+    step(true);
+    sweep(d2, GZ2, true);
+    step(true);
+    sweep(d1, GS1, false);
+    // ge = g_s1 W1^T, a column block of e at a time.
+#pragma unroll
+    for (int eb = 0; eb < EB; ++eb) {
+      step(true);
+#pragma unroll
+      for (int q = 0; q < tc::PAIRS; ++q) {
+        const int s = q & 1, c = eb * CW + f.col(q);
+        if (live[s])
+          st2(a.ge + (size_t)sl[s] * EW + c, acc[2 * q], acc[2 * q + 1]);
       }
     }
 
@@ -495,11 +605,11 @@ __device__ __forceinline__ void key_run(const Key* __restrict__ keys, int n,
   }
 }
 
-// grid M, block 128: ghn[j] and gsrc[j], the sums of the g_hsrc and g_z2
-// rows of the live edges whose source is node j, in the order of `order`
-// over the run of keys equal to j (keys: the n = M*K slots' sources,
-// sorted; a masked slot's key is M).
-template <class Key>
+// grid M, block 128: ghn[j] ([128 DB]) and gsrc[j], the sums of the
+// g_hsrc and g_z2 rows of the live edges whose source is node j, in the
+// order of `order` over the run of keys equal to j (keys: the n = M*K
+// slots' sources, sorted; a masked slot's key is M).
+template <class Key, int DB>
 __global__ void __launch_bounds__(CW)
 source_sum_kernel(const long long* __restrict__ order,
                   const Key* __restrict__ keys, int n,
@@ -511,13 +621,15 @@ source_sum_kernel(const long long* __restrict__ order,
   const int j = blockIdx.x, c = threadIdx.x;
   int q0, q1;
   key_run(keys, n, j, q0, q1);
-  float sh = 0.f, ss = 0.f;
+  float sh[DB] = {}, ss = 0.f;
   for (int q = q0; q < q1; ++q) {
-    const size_t r = (size_t)order[q] * CW + c;
-    sh += ghs[r];
-    ss += gz2[r];
+    const size_t r = (size_t)order[q];
+#pragma unroll
+    for (int d = 0; d < DB; ++d) sh[d] += ghs[(r * DB + d) * CW + c];
+    ss += gz2[r * CW + c];
   }
-  ghn[(size_t)j * CW + c] = sh;
+#pragma unroll
+  for (int d = 0; d < DB; ++d) ghn[((size_t)j * DB + d) * CW + c] = sh[d];
   gsrc[(size_t)j * CW + c] = ss;
 }
 
@@ -525,17 +637,19 @@ source_sum_kernel(const long long* __restrict__ order,
 // 5-6. The weight gradients
 // ---------------------------------------------------------------------------
 
-// grid (N_RANGE, 4), block 256, WG_SMEM of dynamic shared memory. Block
-// (q, w) takes range q of the live tiles (ceil(tiles / N_RANGE) each, in
-// order) and adds, over their rows, act^T grad of weight w (planes w and
-// 4 + w; warpgroup h the weight rows [64 h, 64 h + 64)) and the bias sums
-// of grad (hi + lo, in row order); partials to wpart [4, N_RANGE, 128,
-// 128] and bpart [4, N_RANGE, 128]. Tiles stream through two stages by
-// bulk copies.
+// grid (N_RANGE, blocks), block 256, WG_SMEM of dynamic shared memory.
+// Block (q, w) takes range q of the live tiles (ceil(tiles / N_RANGE)
+// each, in order) and adds, over their rows, act^T grad of weight block w
+// (warpgroup h the block's rows [64 h, 64 h + 64)) and the bias sums of
+// grad (hi + lo, in row order); partials to wpart [blocks, N_RANGE, 128,
+// 128] and bpart [blocks, N_RANGE, 128]. For eb = EB: block w < eb (W1's
+// row blocks) is e's block w against g_s1; W2 z1 against g_z2; W3 a2
+// against g_s3; W4's block d z3 against g_m's block d (planes w and 4 + w
+// at width 128). Tiles stream through two stages by bulk copies.
 __global__ void __launch_bounds__(tc::THREADS, 1)
 wgrad_tc_kernel(const uint8_t* __restrict__ planes, int cap_tiles,
                 const int* __restrict__ total, float* __restrict__ wpart,
-                float* __restrict__ bpart) {
+                float* __restrict__ bpart, int eb) {
   tc::let_next_start();
   tc::grid_wait();
   const int q = blockIdx.x, w = blockIdx.y;
@@ -548,9 +662,10 @@ wgrad_tc_kernel(const uint8_t* __restrict__ planes, int cap_tiles,
   const uint32_t buf = (base + 1023u) & ~1023u;
   const uint8_t* buf_g = wg_smem + (buf - base);
   const uint32_t bar = tc::smem_addr(bars);
-  const uint8_t* act = planes + (size_t)w * cap_tiles * tc::A_BYTES;
-  const uint8_t* grad =
-      planes + (size_t)(N_WEIGHTS + w) * cap_tiles * tc::A_BYTES;
+  const int act_plane = min(w, eb + 2);
+  const int grad_plane = w < eb ? eb + 3 : w + 4;
+  const uint8_t* act = planes + (size_t)act_plane * cap_tiles * tc::A_BYTES;
+  const uint8_t* grad = planes + (size_t)grad_plane * cap_tiles * tc::A_BYTES;
   auto load = [&](int t, int s) {
     const uint32_t dst = buf + s * 2 * tc::A_BYTES;
     tc::mbar_expect(bar + 8 * s, 2 * tc::A_BYTES);
@@ -610,8 +725,9 @@ wgrad_tc_kernel(const uint8_t* __restrict__ planes, int cap_tiles,
   if (c < CW) bpart[(size_t)(w * N_RANGE + q) * CW + c] = bsum;
 }
 
-// grid (4, 129), block 128: gw[t][a][c] = sum over ranges q in order of
-// wpart[t][q][a][c]; the last row of the grid does the biases into gb[t].
+// grid (blocks, 129), block 128: gw[t][a][c] = sum over ranges q in order
+// of wpart[t][q][a][c]; the last row of the grid does the biases into
+// gb[t].
 __global__ void __launch_bounds__(CW)
 wgrad_sum_kernel(const float* __restrict__ wpart,
                  const float* __restrict__ bpart, float* __restrict__ gw,
@@ -632,15 +748,17 @@ wgrad_sum_kernel(const float* __restrict__ wpart,
 }
 
 // Dynamic shared memory above 48 KB for the two tensor-core kernels, once
-// per process.
+// per process and widths.
+template <int EB, int DB>
 cudaError_t configure_backward() {
   static bool done = false;
   if (done) return cudaSuccess;
   const cudaFuncAttribute max_smem =
       cudaFuncAttributeMaxDynamicSharedMemorySize;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(conv_bwd_tile_kernel<GatherSrc>, max_smem,
-                                  BWD_SMEM)) != cudaSuccess ||
+  if ((err = cudaFuncSetAttribute(
+           conv_bwd_tile_kernel<GatherSrc<DB * CW>, EB, DB>, max_smem,
+           BWD_SMEM)) != cudaSuccess ||
       (err = cudaFuncSetAttribute(wgrad_tc_kernel, max_smem, WG_SMEM)) !=
           cudaSuccess)
     return err;
@@ -648,83 +766,126 @@ cudaError_t configure_backward() {
   return cudaSuccess;
 }
 
+// Pointers and sizes of a backward call, as the C entry takes them.
+struct BwdCall {
+  const float *g, *e;
+  const int* idx;
+  const uint8_t* mask;
+  const float *hn, *src, *dst, *b1, *b2, *b3, *b4;
+  int m, k;
+  const SlotLayout* lay;
+  void* wsplit;
+  float* part;
+  const long long* order;
+  const void* keys;
+  int key_bytes;
+  void* planes;
+  float *rows, *wpart, *bpart;
+  int grid;
+  float *ge, *ghn, *gsrc, *gdst, *gw, *gb;
+  cudaStream_t s;
+};
+
+// Launches 1-6 at e width 128 EB and message width 128 DB.
+template <int EB, int DB>
+int backward_at(const BwdCall& c) {
+  constexpr int BLOCKS = EB + 2 + DB;
+  cudaError_t err = configure_backward<EB, DB>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long slots = (long long)c.m * c.k;
+  const long long cap = tc::tile_capacity(c.m, c.k);
+  const long long dead_blocks = (slots + DEAD_WARPS - 1) / DEAD_WARPS;
+  const int dead_grid = static_cast<int>(
+      dead_blocks < 8LL * tc::sm_count() ? dead_blocks
+                                         : 8LL * tc::sm_count());
+  dead_rows_kernel<<<dead_grid, 32 * DEAD_WARPS, 0, c.s>>>(c.mask, slots,
+                                                          c.ge, EB * CW);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map;
+  const int map_err = tc::encode_split_map(c.wsplit, BLOCKS, &map);
+  if (map_err != 0) return map_err;
+  float* ghs = c.rows;
+  float* gz2 = c.rows + slots * DB * CW;
+  const BwdArgs a{TileArgs{*c.lay, c.e, c.dst, c.b1, c.b2, c.b3, c.b4, c.gdst,
+                           c.part, c.k},
+                  c.g, c.ge, ghs, gz2, static_cast<uint8_t*>(c.planes),
+                  static_cast<int>(cap)};
+  if ((err = launch_pdl(conv_bwd_tile_kernel<GatherSrc<DB * CW>, EB, DB>,
+                        dim3(c.grid), dim3(tc::THREADS), BWD_SMEM, c.s, map,
+                        a, GatherSrc<DB * CW>{c.idx, c.hn, c.src})) !=
+          cudaSuccess ||
+      (err = c.key_bytes == 2
+                 ? launch_pdl(source_sum_kernel<short, DB>, dim3(c.m),
+                              dim3(CW), 0, c.s, c.order,
+                              static_cast<const short*>(c.keys),
+                              static_cast<int>(slots),
+                              static_cast<const float*>(ghs),
+                              static_cast<const float*>(gz2), c.ghn, c.gsrc)
+                 : launch_pdl(source_sum_kernel<int, DB>, dim3(c.m),
+                              dim3(CW), 0, c.s, c.order,
+                              static_cast<const int*>(c.keys),
+                              static_cast<int>(slots),
+                              static_cast<const float*>(ghs),
+                              static_cast<const float*>(gz2), c.ghn,
+                              c.gsrc)) != cudaSuccess ||
+      (err = launch_pdl(tile_fixup_kernel,
+                        dim3((c.m + FIX_ATOMS - 1) / FIX_ATOMS),
+                        dim3(32 * FIX_ATOMS), 0, c.s, *c.lay,
+                        static_cast<const float*>(c.part), c.m, c.gdst,
+                        CW)) != cudaSuccess ||
+      (err = launch_pdl(wgrad_tc_kernel, dim3(N_RANGE, BLOCKS),
+                        dim3(tc::THREADS), WG_SMEM, c.s,
+                        static_cast<const uint8_t*>(c.planes),
+                        static_cast<int>(cap),
+                        static_cast<const int*>(c.lay->total), c.wpart,
+                        c.bpart, EB)) != cudaSuccess ||
+      (err = launch_pdl(wgrad_sum_kernel, dim3(BLOCKS, CW + 1), dim3(CW), 0,
+                        c.s, static_cast<const float*>(c.wpart),
+                        static_cast<const float*>(c.bpart), c.gw, c.gb)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  return 0;
+}
+
 }  // namespace
 
-// Gradients of agg = conv_msg_gather(...) for the cotangent g [M, 128]:
-// ge [M*K, 128], ghn/gsrc/gdst [M, 128], gw [4, 128, 128] (W1..W4) and gb
-// [4, 128] (b1..b4). lay, wsplit and part are the forward call's layout,
-// split weights and partials buffer (ops/edge_tiles.py::call_scratch), the
-// first two as the forward left them. order [M*K] (int64) and keys [M*K]
-// (int16 or int32, key_bytes 2 or 4) list the slots stably sorted by
-// source, M for a masked one (ops/conv_gather.py::source_order).
-// Scratch: planes [N_PLANES, ceil(M*K / 64), 32 KB], rows [2, M*K, 128],
-// wpart [4, N_RANGE, 128, 128], bpart [4, N_RANGE, 128]. The plan is
-// ops/edge_tiles.py::backward_plan's. Returns 0, a cudaError_t
-// (cudaErrorInvalidValue for a shape or plan it does not take), or 100000
-// + the CUresult of the TMA map's encoding.
+// Gradients of agg = conv_msg_gather(...) for the cotangent g [M, D]: ge
+// [M*K, E], ghn [M, D], gsrc/gdst [M, 128], gw [blocks, 128, 128] and gb
+// [blocks, 128] in split_blocks' order (W1's E/128 row blocks, W2, W3,
+// W4's D/128 column blocks; the bias sums of W1's blocks are b1's, of W4's
+// blocks b4's columns), E = D, 128 or 256. lay, wsplit and part are
+// the forward call's layout, split weights and partials buffer
+// (ops/edge_tiles.py::call_scratch), the first two as the forward left
+// them. order [M*K] (int64) and keys [M*K] (int16 or int32, key_bytes 2 or
+// 4) list the slots stably sorted by source, M for a masked one
+// (ops/conv_gather.py::source_order). Scratch: planes [E/128 + D/128 + 6,
+// ceil(M*K / 64), 32 KB], rows (g_hsrc [M*K, D] then g_z2 [M*K, 128]),
+// wpart [blocks, N_RANGE, 128, 128], bpart [blocks, N_RANGE, 128]. The
+// plan is ops/edge_tiles.py::backward_plan's. Returns 0, a cudaError_t
+// (cudaErrorInvalidValue for a shape, width or plan it does not take), or
+// 100000 + the CUresult of the TMA map's encoding.
 extern "C" int gamd_conv_msg_gather_bwd(
     const float* g, const float* e, const int* idx, const uint8_t* mask,
     const float* hn, const float* src, const float* dst, const float* b1,
     const float* b2, const float* b3, const float* b4, int m, int k,
-    const SlotLayout* lay, void* wsplit, float* part, const long long* order,
-    const void* keys, int key_bytes, void* planes, float* rows, float* wpart,
-    float* bpart, int grid, int threads, int smem, float* ge, float* ghn,
-    float* gsrc, float* gdst, float* gw, float* gb, void* stream) {
+    int e_width, int d_width, const SlotLayout* lay, void* wsplit,
+    float* part, const long long* order, const void* keys, int key_bytes,
+    void* planes, float* rows, float* wpart, float* bpart, int grid,
+    int threads, int smem, float* ge, float* ghn, float* gsrc, float* gdst,
+    float* gw, float* gb, void* stream) {
   if (m <= 0 || k <= 0 || (long long)m * k >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  if (e_width != d_width || (d_width != CW && d_width != 2 * CW))
     return cudaErrorInvalidValue;
   const long long cap = tc::tile_capacity(m, k);
   const long long most = cap < tc::sm_count() ? cap : tc::sm_count();
   if (threads != tc::THREADS || smem != BWD_SMEM || grid < 1 || grid > most
       || (key_bytes != 2 && key_bytes != 4))
     return cudaErrorInvalidValue;
-  cudaError_t err = configure_backward();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long slots = (long long)m * k;
-  const long long dead_blocks = (slots + DEAD_WARPS - 1) / DEAD_WARPS;
-  const int dead_grid = static_cast<int>(
-      dead_blocks < 8LL * tc::sm_count() ? dead_blocks
-                                         : 8LL * tc::sm_count());
-  dead_rows_kernel<<<dead_grid, 32 * DEAD_WARPS, 0, s>>>(mask, slots, ge);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  CUtensorMap map;
-  const int map_err = tc::encode_split_map(wsplit, N_WEIGHTS, &map);
-  if (map_err != 0) return map_err;
-  float* ghs = rows;
-  float* gz2 = rows + slots * CW;
-  const BwdArgs a{TileArgs{*lay, e, dst, b1, b2, b3, b4, gdst, part, k}, g,
-                  ge, ghs, gz2, static_cast<uint8_t*>(planes),
-                  static_cast<int>(cap)};
-  if ((err = launch_pdl(conv_bwd_tile_kernel<GatherSrc>, dim3(grid),
-                        dim3(tc::THREADS), BWD_SMEM, s, map, a,
-                        GatherSrc{idx, hn, src})) != cudaSuccess ||
-      (err = key_bytes == 2
-                 ? launch_pdl(source_sum_kernel<short>, dim3(m), dim3(CW), 0,
-                              s, order, static_cast<const short*>(keys),
-                              static_cast<int>(slots),
-                              static_cast<const float*>(ghs),
-                              static_cast<const float*>(gz2), ghn, gsrc)
-                 : launch_pdl(source_sum_kernel<int>, dim3(m), dim3(CW), 0,
-                              s, order, static_cast<const int*>(keys),
-                              static_cast<int>(slots),
-                              static_cast<const float*>(ghs),
-                              static_cast<const float*>(gz2), ghn, gsrc)) !=
-          cudaSuccess ||
-      (err = launch_pdl(tile_fixup_kernel,
-                        dim3((m + FIX_ATOMS - 1) / FIX_ATOMS),
-                        dim3(32 * FIX_ATOMS), 0, s, *lay,
-                        static_cast<const float*>(part), m, gdst)) !=
-          cudaSuccess ||
-      (err = launch_pdl(wgrad_tc_kernel, dim3(N_RANGE, N_WEIGHTS),
-                        dim3(tc::THREADS), WG_SMEM, s,
-                        static_cast<const uint8_t*>(planes),
-                        static_cast<int>(cap),
-                        static_cast<const int*>(lay->total), wpart, bpart)) !=
-          cudaSuccess ||
-      (err = launch_pdl(wgrad_sum_kernel, dim3(N_WEIGHTS, CW + 1), dim3(CW),
-                        0, s, static_cast<const float*>(wpart),
-                        static_cast<const float*>(bpart), gw, gb)) !=
-          cudaSuccess)
-    return static_cast<int>(err);
-  return 0;
+  const BwdCall c{g,      e,     idx,    mask,   hn,    src,  dst,
+                  b1,     b2,    b3,     b4,     m,     k,    lay,
+                  wsplit, part,  order,  keys,   key_bytes,   planes,
+                  rows,   wpart, bpart,  grid,   ge,    ghn,  gsrc,
+                  gdst,   gw,    gb,     static_cast<cudaStream_t>(stream)};
+  return d_width == CW ? backward_at<1, 1>(c) : backward_at<2, 2>(c);
 }

@@ -16,7 +16,14 @@
 // then, for both,
 //   agg[i] = sum over the live slots of hn[j] * m
 // A masked slot is never read: it costs a byte of the layout and nothing
-// else.
+// else. Every width is 128, except that the conv message of GatherSrc also
+// takes e and the message at 256 (E = D in {128, 256}, H = 128: the DFT
+// model's 256 / 128 / 256): W1 [E, 128] is then E / 128 row blocks, run
+// one after another into one accumulator over e's column blocks, and W4
+// [128, D] D / 128 column blocks, each with its own gated product and
+// per-atom sums into agg's columns of that block; each block is a 128 x
+// 128 weight of the split table (SplitBlocks: six at 256 / 128 / 256), so
+// no accumulator and no buffer grows past width 128's.
 //
 // The design, launch by launch:
 // 1. mask_count_kernel (a warp an atom, 8 a block): per-atom live counts
@@ -103,15 +110,27 @@ using tc::silu_fast;
 using tc::sm_count;
 using tc::TilePlan;
 
-constexpr int CW = tc::WIDTH;             // every width of the message
+constexpr int CW = tc::WIDTH;             // a block of every width: 128
 constexpr int COUNT_ATOMS = 8;            // atoms a count block, a warp each
 constexpr int FIX_ATOMS = 8;              // atoms a fix-up block, a warp each
 constexpr int N_WEIGHTS = 4;              // W1, W2, W3, W4 of the conv message
+constexpr int MAX_BLOCKS = 6;             // split weights of the widest message
 
 // The edge stage's weights, [in][out] row-major fp32, and biases: the
 // first Stages::WEIGHTS of them (the others null).
 struct EdgeWeights {
   const float *w[N_WEIGHTS], *b[N_WEIGHTS];
+};
+
+// The weights as the split table's 128 x 128 blocks, each [in][out]
+// row-major fp32 at w[b] with rows ld floats apart. The conv message at
+// E = D in {128, 256} and H = 128 has E / 128 blocks of W1 (its row
+// blocks, one a K-block of e), W2, W3, and D / 128 of W4 (its column
+// blocks, one an output block of the message): four at width 128, six at
+// 256 / 128 / 256.
+struct SplitBlocks {
+  const float* w[MAX_BLOCKS];
+  int ld[MAX_BLOCKS];
 };
 
 // The stage policies: the products a tile runs, how an e row is staged
@@ -133,7 +152,9 @@ struct ThetaStages {
   }
 };
 
-// Source rows by node id: hn, src [M, 128] and idx [M*K] (global ids).
+// Source rows by node id: hn [M, DW], src [M, 128] and idx [M*K] (global
+// ids).
+template <int DW = CW>
 struct GatherSrc {
   const int* idx;
   const float *hn, *src;
@@ -141,7 +162,7 @@ struct GatherSrc {
     return idx[slot];
   }
   __device__ __forceinline__ const float* hn_row(int j) const {
-    return hn + (size_t)j * CW;
+    return hn + (size_t)j * DW;
   }
   __device__ __forceinline__ const float* src_row(int j) const {
     return src + (size_t)j * CW;
@@ -299,18 +320,19 @@ cudaError_t launch_mask_layout(const uint8_t* mask, int m, int k,
 // 2. The weight split
 // ---------------------------------------------------------------------------
 
-// grid (weights, 16), block 256: 8 output rows of weight m as W^T hi and lo
-// bf16 ([2m] and [2m+1] of the table, each [128 out][128 in]), x = hi +
-// lo, lo = bf16(x - hi); the transpose goes through shared memory.
+// grid (blocks, 16), block 256: 8 output rows of weight block m as W^T hi
+// and lo bf16 ([2m] and [2m+1] of the table, each [128 out][128 in]), x =
+// hi + lo, lo = bf16(x - hi); the transpose goes through shared memory.
 __global__ void __launch_bounds__(256)
-split_conv_weights_kernel(EdgeWeights p, __nv_bfloat16* __restrict__ out) {
+split_conv_weights_kernel(SplitBlocks p, __nv_bfloat16* __restrict__ out) {
   constexpr int ROWS = 8;
   __shared__ float tile[CW][ROWS + 1];
   const int m = blockIdx.x, o0 = ROWS * blockIdx.y, t = threadIdx.x;
   const float* w = p.w[m];
+  const int ld = p.ld[m];
 #pragma unroll
   for (int q = t; q < CW * ROWS; q += 256)
-    tile[q / ROWS][q % ROWS] = w[(q / ROWS) * CW + o0 + q % ROWS];
+    tile[q / ROWS][q % ROWS] = w[(q / ROWS) * ld + o0 + q % ROWS];
   __syncthreads();
   __nv_bfloat16* hi = out + (size_t)(2 * m) * CW * CW;
   __nv_bfloat16* lo = hi + CW * CW;
@@ -332,8 +354,8 @@ struct TileArgs {
   SlotLayout lay;
   const float *e, *dst;
   const float *b1, *b2, *b3, *b4;
-  float* agg;    // [M, 128]
-  float* part;   // [tiles, 2, 128]: each tile's head and tail partials
+  float* agg;    // [M, D]
+  float* part;   // [tiles, 2, D]: each tile's head and tail partials
   int k;
 };
 
@@ -347,27 +369,39 @@ __device__ __forceinline__ int red_at(int row, int col) {
 
 // The sum s of column c of an atom's rows in tile t into agg if the
 // atom's rows all lie in the tile (it starts and ends there), else into
-// the tile's head (rows from before the tile) or tail partial.
+// the tile's head (rows from before the tile) or tail partial; agg and
+// the partials `width` columns wide.
 __device__ __forceinline__ void emit_run(const TileArgs& a, int t, int atom,
                                          bool starts, bool ends, int c,
-                                         float s) {
+                                         float s, int width = CW) {
   if (starts && ends)
-    a.agg[(size_t)atom * CW + c] = s;
+    a.agg[(size_t)atom * width + c] = s;
   else
-    a.part[((size_t)2 * t + (starts ? 1 : 0)) * CW + c] = s;
+    a.part[((size_t)2 * t + (starts ? 1 : 0)) * width + c] = s;
 }
 
 // The persistent edge-tile kernel. grid plan.grid, block 256 (one tile at
 // a time, its columns split between the two warpgroups), tc::smem_bytes(
 // NBUF) of dynamic shared memory (NBUF weight buffers, the activations);
 // block b takes tiles b, b + grid, ... of the layout's ceil(total / 64).
-// With as many buffers as the policy has weights, the weights stay
+// With as many buffers as the tile has products, the weights stay
 // resident: every product of the block reads its own buffer, loaded once.
-template <int NBUF, class Src, class Stages = ConvStages>
+//
+// ConvStages at E = 128 EB and D = 128 DB (H = 128): W1 runs over e's EB
+// K-blocks into one accumulator, each block staged into the activations
+// in turn; W4 over its DB column blocks, each block's messages summed per
+// atom into agg's columns [128 d, 128 d + 128). At EB = DB = 1 these are
+// the four products of width 128, in the same arithmetic as every other
+// conv_tc caller.
+template <int NBUF, class Src, class Stages = ConvStages, int EB = 1,
+          int DB = 1>
 __global__ void __launch_bounds__(tc::THREADS, 3 - NBUF)
 conv_tile_kernel(const __grid_constant__ CUtensorMap wmap, TileArgs a,
                  Src src) {
-  constexpr int NW = Stages::WEIGHTS;
+  static_assert(Stages::ADD_SRC_DST || (EB == 1 && DB == 1),
+                "wide e or messages are the conv message's only");
+  constexpr int NW = Stages::WEIGHTS + EB + DB - 2;   // products a tile
+  constexpr int EW = EB * CW, DW = DB * CW;
   constexpr bool RESIDENT = NBUF == NW;
   tc::let_next_start();
   tc::grid_wait();
@@ -405,13 +439,20 @@ conv_tile_kernel(const __grid_constant__ CUtensorMap wmap, TileArgs a,
       row_off = a.lay.off[row_atom];
       row_cnt = a.lay.cnt[row_atom];
     }
+    // e's columns [128 eb, 128 eb + 128) of the tile's rows into the
+    // activations.
+    auto stage_e = [&](int eb) {
 #pragma unroll
-    for (int q = 0; q < tc::PAIRS; ++q) {
-      const int s = q & 1;
-      const float2 v = live[s] ? ld2(a.e + (size_t)sl[s] * CW + f.col(q))
-                               : make_float2(0.f, 0.f);
-      tc::store_pair(ring.a, f, q, Stages::stage(v.x), Stages::stage(v.y));
-    }
+      for (int q = 0; q < tc::PAIRS; ++q) {
+        const int s = q & 1;
+        const float2 v =
+            live[s] ? ld2(a.e + (size_t)sl[s] * EW + eb * CW + f.col(q))
+                    : make_float2(0.f, 0.f);
+        tc::store_pair(ring.a, f, q, Stages::stage(v.x),
+                       Stages::stage(v.y));
+      }
+    };
+    stage_e(0);
     if (threadIdx.x < tc::TILE) {
       atom_s[threadIdx.x] = row_atom;
       first_s[threadIdx.x] = row_off == g;
@@ -424,61 +465,100 @@ conv_tile_kernel(const __grid_constant__ CUtensorMap wmap, TileArgs a,
     // second of ConvStages, + src[j] + dst[i]) and silu into the
     // activations; after the last, the message hn[j] * m (0 on a dead row)
     // into the shared buffer. release's barrier puts both warpgroups past
-    // their reads of the activations first.
-    float acc[2 * tc::PAIRS];
-#pragma unroll
-    for (int m = 0; m < NW; ++m, ++p) {
-      const int q = RESIDENT ? m : p;   // the ring's product: its buffer
-      ring.product(acc, q, f.wg);
-      ring.release(&wmap, q);
-      const float* bias = m == 0 ? a.b1 : m == 1 ? a.b2 : m == 2 ? a.b3
-                                                                 : a.b4;
+    // their reads of the activations first. Product p of the ring reads
+    // its buffer in turn, or with the weights resident the tile's m-th.
+    auto hidden = [&](const float (&acc)[2 * tc::PAIRS], int l) {
+      const float* bias = l == 0 ? a.b1 : l == 1 ? a.b2 : a.b3;
 #pragma unroll
       for (int q = 0; q < tc::PAIRS; ++q) {
         const int s = q & 1, c = f.col(q);
         float2 x = ld2(bias + c);
         x.x += acc[2 * q];
         x.y += acc[2 * q + 1];
-        if (Stages::ADD_SRC_DST && m == 1) {
+        if (Stages::ADD_SRC_DST && l == 1) {
           const float2 sv = ld2(src.src_row(j[s]) + c);
           const float2 dv = ld2(a.dst + (size_t)i[s] * CW + c);
           x.x += sv.x + dv.x;
           x.y += sv.y + dv.y;
         }
-        if (m + 1 < NW) {
-          tc::store_pair(ring.a, f, q, silu_fast(x.x), silu_fast(x.y));
-        } else {
-          float2 v = make_float2(0.f, 0.f);
-          if (live[s]) {
-            const float2 hv = ld2(src.hn_row(j[s]) + c);
-            v = make_float2(hv.x * x.x, hv.y * x.y);
-          }
-          *reinterpret_cast<float2*>(red + red_at(f.row(q), c)) = v;
-        }
+        tc::store_pair(ring.a, f, q, silu_fast(x.x), silu_fast(x.y));
       }
-      if (m + 1 < NW) tc::proxy_fence();
+      tc::proxy_fence();
       __syncthreads();
-    }
-
-    // Each atom's rows of the tile, summed in row order by the column's
-    // thread of the first warpgroup.
-    if (threadIdx.x < CW) {
-      const int c = threadIdx.x, rows = min(tc::TILE, total - row0);
-      int cur = atom_s[0], start = 0;
-      float s = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        const int at = atom_s[r];
-        if (at != cur) {
-          emit_run(a, t, cur, first_s[start], last_s[r - 1], c, s);
-          cur = at;
-          start = r;
-          s = 0.f;
+    };
+    // Column block d of the last weight's output: the messages into `red`,
+    // then each atom's rows of the tile summed in row order by the
+    // column's thread of the first warpgroup.
+    auto messages = [&](const float (&acc)[2 * tc::PAIRS], int d) {
+      const float* bias = (Stages::WEIGHTS == 2 ? a.b2 : a.b4) + d * CW;
+#pragma unroll
+      for (int q = 0; q < tc::PAIRS; ++q) {
+        const int s = q & 1, c = f.col(q);
+        float2 x = ld2(bias + c);
+        x.x += acc[2 * q];
+        x.y += acc[2 * q + 1];
+        float2 v = make_float2(0.f, 0.f);
+        if (live[s]) {
+          const float2 hv = ld2(src.hn_row(j[s]) + d * CW + c);
+          v = make_float2(hv.x * x.x, hv.y * x.y);
         }
-        s += red[red_at(r, c)];
+        *reinterpret_cast<float2*>(red + red_at(f.row(q), c)) = v;
       }
-      emit_run(a, t, cur, first_s[start], last_s[rows - 1], c, s);
+      __syncthreads();
+      if (threadIdx.x < CW) {
+        const int c = threadIdx.x, rows = min(tc::TILE, total - row0);
+        int cur = atom_s[0], start = 0;
+        float s = 0.f;
+        for (int r = 0; r < rows; ++r) {
+          const int at = atom_s[r];
+          if (at != cur) {
+            emit_run(a, t, cur, first_s[start], last_s[r - 1], d * CW + c, s,
+                     DW);
+            cur = at;
+            start = r;
+            s = 0.f;
+          }
+          s += red[red_at(r, c)];
+        }
+        emit_run(a, t, cur, first_s[start], last_s[rows - 1], d * CW + c, s,
+                 DW);
+      }
+      __syncthreads();   // red and the row flags are rewritten next
+    };
+
+    float acc[2 * tc::PAIRS];
+#pragma unroll
+    for (int eb = 0; eb < EB; ++eb, ++p) {   // W1 over e's K-blocks
+      if (eb > 0) {
+        stage_e(eb);
+        tc::activations_ready();
+      }
+      const int q = RESIDENT ? eb : p;
+      ring.product(acc, q, f.wg, 8, eb == 0);
+      ring.release(&wmap, q);
     }
-    __syncthreads();   // red and the row flags are rewritten by the next tile
+    hidden(acc, 0);
+#pragma unroll
+    for (int l = 1; l + 1 < Stages::WEIGHTS; ++l, ++p) {   // W2, W3
+      const int q = RESIDENT ? EB + l - 1 : p;
+      ring.product(acc, q, f.wg);
+      ring.release(&wmap, q);
+      hidden(acc, l);
+    }
+    // The last weight's column blocks: every product before the first
+    // message, whose buffer is the activations the products read.
+    float held[2 * tc::PAIRS];
+    if constexpr (DB > 1) {
+      ring.product(held, p, f.wg);
+      ring.release(&wmap, p);
+      ++p;
+    }
+    const int q_last = RESIDENT ? NW - 1 : p;
+    ring.product(acc, q_last, f.wg);
+    ring.release(&wmap, q_last);
+    ++p;
+    if constexpr (DB > 1) messages(held, 0);
+    messages(acc, DB - 1);
   }
 }
 
@@ -490,48 +570,50 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-// grid ceil(M / 8), block 256: a warp an atom, 4 columns a lane. An atom
-// over tiles t0 < t1 gets tail[t0] + head[t0 + 1] + ... + head[t1]; an atom
-// with no live edge 0; the tile kernel wrote the others.
+// grid ceil(M / 8), block 256: a warp an atom, 4 columns a lane in each
+// block of 128 of agg's `width` (128 or 256; the partials as wide). An
+// atom over tiles t0 < t1 gets tail[t0] + head[t0 + 1] + ... + head[t1];
+// an atom with no live edge 0; the tile kernel wrote the others.
 __global__ void __launch_bounds__(32 * FIX_ATOMS)
 tile_fixup_kernel(SlotLayout lay, const float* __restrict__ part, int m,
-                  float* __restrict__ agg) {
+                  float* __restrict__ agg, int width) {
   tc::let_next_start();
   tc::grid_wait();
   const int i = blockIdx.x * FIX_ATOMS + (threadIdx.x >> 5);
   if (i >= m) return;
-  const int c = 4 * (threadIdx.x & 31);
   const int n = lay.cnt[i], o = lay.off[i];
-  float4* out = reinterpret_cast<float4*>(agg + (size_t)i * CW + c);
-  if (n == 0) {
-    *out = make_float4(0.f, 0.f, 0.f, 0.f);
-    return;
-  }
   const int t0 = o / tc::TILE, t1 = (o + n - 1) / tc::TILE;
-  if (t0 == t1) return;
-  const float4* head = reinterpret_cast<const float4*>(part + c);
-  float4 s = head[(2 * t0 + 1) * (CW / 4)];
-  for (int t = t0 + 1; t <= t1; ++t) s = add4(s, head[2 * t * (CW / 4)]);
-  *out = s;
+  for (int c = 4 * (threadIdx.x & 31); c < width; c += CW) {
+    float4* out = reinterpret_cast<float4*>(agg + (size_t)i * width + c);
+    if (n == 0) {
+      *out = make_float4(0.f, 0.f, 0.f, 0.f);
+      continue;
+    }
+    if (t0 == t1) return;
+    const float4* head = reinterpret_cast<const float4*>(part + c);
+    float4 s = head[(2 * t0 + 1) * (width / 4)];
+    for (int t = t0 + 1; t <= t1; ++t) s = add4(s, head[2 * t * (width / 4)]);
+    *out = s;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
-// Dynamic shared memory above 48 KB for the tile kernels of Src and
-// Stages, once per process.
-template <class Src, class Stages>
+// Dynamic shared memory above 48 KB for the tile kernels of Src, Stages
+// and the widths, once per process.
+template <class Src, class Stages, int EB, int DB>
 cudaError_t configure_tiles() {
   static bool done = false;
   if (done) return cudaSuccess;
   const cudaFuncAttribute max_smem =
       cudaFuncAttributeMaxDynamicSharedMemorySize;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(conv_tile_kernel<1, Src, Stages>,
+  if ((err = cudaFuncSetAttribute(conv_tile_kernel<1, Src, Stages, EB, DB>,
                                   max_smem, tc::smem_bytes(1)))
           != cudaSuccess ||
-      (err = cudaFuncSetAttribute(conv_tile_kernel<2, Src, Stages>,
+      (err = cudaFuncSetAttribute(conv_tile_kernel<2, Src, Stages, EB, DB>,
                                   max_smem, tc::smem_bytes(2)))
           != cudaSuccess)
     return err;
@@ -539,37 +621,64 @@ cudaError_t configure_tiles() {
   return cudaSuccess;
 }
 
+// The split table's blocks of Stages' weights at E = 128 EB and D = 128
+// DB, in the order of a tile's products: W1's row blocks, W2, W3, W4's
+// column blocks (SplitBlocks).
+template <class Stages, int EB, int DB>
+SplitBlocks split_blocks(const EdgeWeights& w) {
+  constexpr int LAST = Stages::WEIGHTS - 1;
+  SplitBlocks b{};
+  int n = 0;
+  for (int e = 0; e < EB; ++e, ++n) {
+    b.w[n] = w.w[0] + (size_t)e * CW * CW;
+    b.ld[n] = CW;
+  }
+  for (int l = 1; l < LAST; ++l, ++n) {
+    b.w[n] = w.w[l];
+    b.ld[n] = CW;
+  }
+  for (int d = 0; d < DB; ++d, ++n) {
+    b.w[n] = w.w[LAST] + d * CW;
+    b.ld[n] = DB * CW;
+  }
+  return b;
+}
+
 // Launches 2-4 of a call on `s` over a layout already on the stream: the
 // split (ordered after the stream's earlier work), the tile kernel and the
-// fix-up, for the stage policy Stages. wsplit is the split table's
-// scratch (2 * Stages::WEIGHTS * 128 * 128 bf16), part the partials'
-// [ceil(M*K / 64), 2, 128] fp32. Returns 0, a cudaError_t
-// (cudaErrorInvalidValue for a plan the shape does not take), or 100000 +
-// the CUresult of the TMA map's encoding.
-template <class Src, class Stages = ConvStages>
+// fix-up, for the stage policy Stages at e width 128 EB and message width
+// 128 DB. wsplit is the split table's scratch (2 * blocks * 128 * 128
+// bf16, split_blocks' blocks), part the partials' [ceil(M*K / 64), 2, 128
+// DB] fp32. Returns 0, a cudaError_t (cudaErrorInvalidValue for a plan
+// the shape does not take), or 100000 + the CUresult of the TMA map's
+// encoding.
+template <class Src, class Stages = ConvStages, int EB = 1, int DB = 1>
 int run_conv_tiles(const float* e, const float* dst, const EdgeWeights& w,
                    const Src& src, const SlotLayout& lay, void* wsplit,
                    float* part, int m, int k, const TilePlan& plan,
                    float* agg, cudaStream_t s) {
+  constexpr int BLOCKS = Stages::WEIGHTS + EB + DB - 2;
   if (!plan_ok(plan, m, k)) return cudaErrorInvalidValue;
-  cudaError_t err = configure_tiles<Src, Stages>();
+  cudaError_t err = configure_tiles<Src, Stages, EB, DB>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  split_conv_weights_kernel<<<dim3(Stages::WEIGHTS, CW / 8), 256, 0, s>>>(
-      w, static_cast<__nv_bfloat16*>(wsplit));
+  split_conv_weights_kernel<<<dim3(BLOCKS, CW / 8), 256, 0, s>>>(
+      split_blocks<Stages, EB, DB>(w), static_cast<__nv_bfloat16*>(wsplit));
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   CUtensorMap map;
-  const int map_err = tc::encode_split_map(wsplit, Stages::WEIGHTS, &map);
+  const int map_err = tc::encode_split_map(wsplit, BLOCKS, &map);
   if (map_err != 0) return map_err;
   const TileArgs a{lay, e, dst, w.b[0], w.b[1], w.b[2], w.b[3], agg, part, k};
   err = plan.nbuf == 2
-            ? launch_pdl(conv_tile_kernel<2, Src, Stages>, dim3(plan.grid),
-                         dim3(tc::THREADS), plan.smem, s, map, a, src)
-            : launch_pdl(conv_tile_kernel<1, Src, Stages>, dim3(plan.grid),
-                         dim3(tc::THREADS), plan.smem, s, map, a, src);
+            ? launch_pdl(conv_tile_kernel<2, Src, Stages, EB, DB>,
+                         dim3(plan.grid), dim3(tc::THREADS), plan.smem, s,
+                         map, a, src)
+            : launch_pdl(conv_tile_kernel<1, Src, Stages, EB, DB>,
+                         dim3(plan.grid), dim3(tc::THREADS), plan.smem, s,
+                         map, a, src);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_pdl(tile_fixup_kernel, dim3((m + FIX_ATOMS - 1) / FIX_ATOMS),
                    dim3(32 * FIX_ATOMS), 0, s, lay,
-                   static_cast<const float*>(part), m, agg);
+                   static_cast<const float*>(part), m, agg, DB * CW);
   return static_cast<int>(err);
 }
 

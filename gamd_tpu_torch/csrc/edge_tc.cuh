@@ -248,15 +248,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[2 * PAIRS], uint64_t da,
 
 // acc = A W for the calling warpgroup's 64 output columns over `ksteps`
 // k-steps (16 deep each, at most 8), bf16 x 3: a_hi w_hi, then a_hi w_lo,
-// then a_lo w_hi, all into one fp32 accumulator. `a` is the activation
-// buffer, `w` the buffer of a split weight ([hi | lo]), both shared-memory
-// addresses; the activations must be written and fenced (proxy_fence,
-// then a barrier) before. ksteps is the same in every thread.
+// then a_lo w_hi, all into one fp32 accumulator (acc += A W if not
+// `zero`: a product over a K wider than 128, one 128-deep block at a
+// time). `a` is the activation buffer, `w` the buffer of a split weight
+// ([hi | lo]), both shared-memory addresses; the activations must be
+// written and fenced (proxy_fence, then a barrier) before. ksteps and
+// zero are the same in every thread.
 __device__ __forceinline__ void product_x3(float (&acc)[2 * PAIRS],
                                            uint32_t a, uint32_t w, int wg,
-                                           int ksteps = 8) {
+                                           int ksteps = 8, bool zero = true) {
+  if (zero) {
 #pragma unroll
-  for (int i = 0; i < 2 * PAIRS; ++i) acc[i] = 0.f;
+    for (int i = 0; i < 2 * PAIRS; ++i) acc[i] = 0.f;
+  }
   fence_acc(acc);
   wgmma_fence();
 #pragma unroll
@@ -332,11 +336,13 @@ struct WeightRing {
     }
   }
 
-  // Product p of the calling warpgroup, once its weight has landed.
+  // Product p of the calling warpgroup, once its weight has landed (added
+  // to acc if not `zero`).
   __device__ __forceinline__ void product(float (&acc)[2 * PAIRS], int p,
-                                          int wg, int ksteps = 8) const {
+                                          int wg, int ksteps = 8,
+                                          bool zero = true) const {
     mbar_wait(bar + 8 * (p % NBUF), (p / NBUF) & 1);
-    product_x3(acc, a_s, w + (p % NBUF) * SPLIT_BYTES, wg, ksteps);
+    product_x3(acc, a_s, w + (p % NBUF) * SPLIT_BYTES, wg, ksteps, zero);
   }
 
   // After product p: both warpgroups are done with the activations and

@@ -1,6 +1,7 @@
 """GAMD GNN force field over padded [N, K] neighbour lists, eval and train
-forward (port of gamd_tpu/models/gnn.py::GAMDNet: the LJ species, and the
-water species with its one-hot node encoder and its bond channel).
+forward (port of gamd_tpu/models/gnn.py::GAMDNet: the LJ species, the
+water species with its one-hot node encoder and its bond channel, and the
+DFT model's switches update_edge and expand_edge=False).
 
 Every tensor is a dense [B, N, K, F] block; padded neighbour slots point at
 the centre atom and are zeroed by the mask when messages are summed. Per
@@ -26,7 +27,15 @@ encodes the one-hot species feature node_feat [B, N, F] through a dense
 layer `node_encoder` instead of the LJ embedding `node_emb`, and with
 use_bond the bond channel bond [B, N, K] is the encoder's last input
 column (gamd_tpu/models/gnn.py:316-344); JAX leaves the fused encoder off
-under use_bond, and so does the port.
+under use_bond, and so does the port. With cfg.update_edge every conv
+layer also returns its edge embedding normalised by its own LayerNorm
+`edge_layer_norm` (gamd_tpu/models/gnn.py:191-192), which the next layer
+reads as its e (an edge width of D after the first layer); such a layer
+runs the plain edge pipeline under use_pallas too, as in JAX
+(gnn.py:168). With cfg.expand_edge False the encoder reads the unit
+vector and the standardised length without their RBF expansion (4
+inputs, 5 with the bond), and the fused encoder stays off, as in JAX.
+Both are the DFT model's (dftlarge_final).
 
 cfg.compute_dtype="bfloat16" is JAX's mixed-precision policy
 (gamd_tpu/models/gnn.py:273-363) on the plain path: the parameters stay
@@ -98,10 +107,18 @@ def gather_nodes(h, idx):
     return h[b, idx.long()]
 
 
+def encoder_inputs(cfg: ModelConfig, use_bond: bool = False):
+    """The edge encoder's input width: unit vector and length (4), the RBF
+    expansion with cfg.expand_edge, and the bond channel."""
+    return 4 + (cfg.n_rbf if cfg.expand_edge else 0) + int(use_bond)
+
+
 def edge_geometry(pos, idx, box, flip_dir=False):
     """(unit_dir [B,N,K,3], dist [B,N,K]) from centre i to neighbour
-    idx[i, k] under the minimum image; unit is negated when flip_dir."""
-    rel = space.min_image(gather_nodes(pos, idx) - pos[:, :, None, :], box)
+    idx[i, k] under the minimum image (box a scalar, or a frame's own, [B]
+    or [B, 3]); unit is negated when flip_dir."""
+    rel = gather_nodes(pos, idx) - pos[:, :, None, :]
+    rel = space.min_image(rel, space.frame_box(box, rel))
     dist = torch.sqrt(torch.sum(rel * rel, dim=-1))
     unit = rel / (dist[..., None] + 1e-8)
     return (-unit if flip_dir else unit), dist
@@ -163,16 +180,21 @@ def _bernoulli(shape, keep_prob, device, generator):
 
 
 class EdgeGatedConv(nn.Module):
-    """One message-passing layer; parameter names as the flax module."""
+    """One message-passing layer; parameter names as the flax module. With
+    update_edge the layer owns `edge_layer_norm` (LayerNorm over D), and
+    forward(..., return_edges=True) returns the normalised edge embedding
+    beside h', as the flax module's (h', e') pair."""
 
     def __init__(self, node_dim: int, hidden_dim: int, edge_dim: int,
                  activation: str = "silu", drop_edge: bool = False,
-                 use_pallas: bool = False, dtype=None):
+                 use_pallas: bool = False, dtype=None,
+                 update_edge: bool = False):
         super().__init__()
         self.act = get_activation(activation, dtype)
         self.drop_edge = drop_edge
         self.use_pallas = use_pallas
         self.dtype = dtype
+        self.update_edge = update_edge
         p = lambda *shape: nn.Parameter(torch.zeros(*shape))
         nd, hd = node_dim, hidden_dim
         self.edge_affine_w1, self.edge_affine_b1 = p(edge_dim, hd), p(hd)
@@ -184,13 +206,16 @@ class EdgeGatedConv(nn.Module):
         self.phi_w, self.phi_b = p(hd, nd), p(nd)
         self.src_affine = Dense(nd, hd, dtype)
         self.dst_affine = Dense(nd, hd, dtype)
+        if update_edge:
+            self.edge_layer_norm = LayerNorm(nd)
 
     def forward(self, h_raw, hn, e, idx, mask, train: bool = False,
-                generator=None):
+                generator=None, return_edges: bool = False):
         """h_raw [B,N,D] residual input, hn [B,N,D] normalised, e [B,N,K,E],
-        idx/mask [B,N,K] -> h' [B,N,D]. In train mode with drop_edge, a
-        Bernoulli keep of 0.8 drawn from `generator` is ANDed into the
-        aggregation mask."""
+        idx/mask [B,N,K] -> h' [B,N,D]; with return_edges (h', e'), e'
+        [B,N,K,D] the normalised edge embedding under update_edge, else
+        None. In train mode with drop_edge, a Bernoulli keep of 0.8 drawn
+        from `generator` is ANDed into the aggregation mask."""
         act = self.act
         src_nodes = self.src_affine(hn)
         dst_code = self.dst_affine(hn)
@@ -198,7 +223,8 @@ class EdgeGatedConv(nn.Module):
             mask = mask & _bernoulli(mask.shape, DROP_EDGE_KEEP, mask.device,
                                      generator)
         cd = _caster(self.dtype)
-        if self.use_pallas:
+        new_e = None
+        if self.use_pallas and not self.update_edge:
             agg = fused_conv_gather_message(
                 e, idx, mask, hn, src_nodes, dst_code,
                 self.edge_affine_w1, self.edge_affine_b1,
@@ -214,32 +240,43 @@ class EdgeGatedConv(nn.Module):
             e_emb = act(act(pre) @ cd(self.theta_edge_w1)
                         + cd(self.theta_edge_b1)) \
                 @ cd(self.theta_edge_w2) + cd(self.theta_edge_b2)
+            if self.update_edge:
+                new_e = self.edge_layer_norm(e_emb)
             msg = gather_nodes(hn, idx) * e_emb
             agg = torch.sum(torch.where(mask[..., None], msg, 0.0), dim=2)
         delta = act(cd(hn) @ cd(self.phi_dst_w) + cd(self.phi_dst_b)
                     + cd(agg) @ cd(self.phi_edge_w) + cd(self.phi_edge_b)) \
             @ cd(self.phi_w) + cd(self.phi_b)
-        if self.dtype is None:
-            return h_raw + delta
-        # Unrounded: ConvBlock rounds it for the residual stream.
-        return h_raw.float() + delta.float()
+        # Unrounded under bf16: ConvBlock rounds it for the residual stream.
+        out = h_raw + delta if self.dtype is None \
+            else h_raw.float() + delta.float()
+        return (out, new_e) if return_edges else out
+
+
+def conv_edge_dims(cfg: ModelConfig):
+    """The edge width each conv layer reads: edge_embedding_dim, and with
+    update_edge encoding_size past the first layer (each layer's e' is its
+    normalised [.., D] edge embedding)."""
+    return [cfg.encoding_size if cfg.update_edge and layer > 0
+            else cfg.edge_embedding_dim for layer in range(cfg.conv_layers)]
 
 
 class ConvBlock(nn.Module):
     """Pre-norm residual stack: h = conv(norm(h)) + h, per layer; children
-    named norm_{l} and conv_{l} as in flax."""
+    named norm_{l} and conv_{l} as in flax. With update_edge each layer's
+    e' is the next layer's e."""
 
     def __init__(self, cfg: ModelConfig, dtype=None):
         super().__init__()
         self.n_layers = cfg.conv_layers
         d = cfg.encoding_size
-        for layer in range(cfg.conv_layers):
+        for layer, edge_dim in enumerate(conv_edge_dims(cfg)):
             norm = LayerNorm(d) if cfg.use_layer_norm else BatchNorm(d)
             self.add_module(f"norm_{layer}", norm)
             self.add_module(f"conv_{layer}", EdgeGatedConv(
-                d, cfg.hidden_dim, cfg.edge_embedding_dim,
-                cfg.conv_activation, drop_edge=cfg.drop_edge,
-                use_pallas=cfg.use_pallas, dtype=dtype))
+                d, cfg.hidden_dim, edge_dim, cfg.conv_activation,
+                drop_edge=cfg.drop_edge, use_pallas=cfg.use_pallas,
+                dtype=dtype, update_edge=cfg.update_edge))
 
     def forward(self, h, e, idx, mask, train: bool = False, generator=None):
         """Under a bf16 compute dtype each layer's sum h + delta reaches the
@@ -249,9 +286,11 @@ class ConvBlock(nn.Module):
         norm_in = h
         for layer in range(self.n_layers):
             hn = getattr(self, f"norm_{layer}")(norm_in, train)
-            norm_in = getattr(self, f"conv_{layer}")(h, hn, e, idx, mask,
-                                                     train, generator)
+            norm_in, new_e = getattr(self, f"conv_{layer}")(
+                h, hn, e, idx, mask, train, generator, return_edges=True)
             h = norm_in.to(h.dtype)
+            if new_e is not None:
+                e = new_e
         return h
 
 
@@ -267,9 +306,6 @@ class GAMDNet(nn.Module):
         super().__init__()
         if species not in ("lj", "water"):
             raise ValueError(f"unknown species {species!r}")
-        if cfg.update_edge or not cfg.expand_edge:
-            raise NotImplementedError(
-                "update_edge / expand_edge=False are not ported")
         self.dtype = compute_dtype(cfg)
         if self.dtype is not None and cfg.use_pallas:
             which = ("use_pallas and use_pallas_encoder (the conv kernel "
@@ -282,7 +318,7 @@ class GAMDNet(nn.Module):
         self.species = species
         self.use_bond = use_bond
         h, e = cfg.hidden_dim, cfg.edge_embedding_dim
-        in_feats = 3 + 1 + cfg.n_rbf + (1 if use_bond else 0)
+        in_feats = encoder_inputs(cfg, use_bond)
         p = lambda *shape: nn.Parameter(torch.zeros(*shape))
         self.edge_encoder_w0, self.edge_encoder_b0 = p(in_feats, h), p(h)
         self.edge_encoder_w1, self.edge_encoder_b1 = p(h, h), p(h)
@@ -332,18 +368,20 @@ class GAMDNet(nn.Module):
 
     def encode_edges(self, pos, idx, box, length_mean, length_std,
                      train: bool = False, generator=None, bond=None):
-        """The encoded edges e [B,N,K,E] that every conv layer reads: the
-        encoder MLP over unit vector, standardised length, its RBF
-        expansion and (use_bond) the bond channel [B,N,K], the edge
-        LayerNorm, and in train mode edge dropout cfg.dropout
-        (inverse-scaled, as flax) drawn from `generator`."""
+        """The encoded edges e [B,N,K,E] that the first conv layer reads:
+        the encoder MLP over unit vector, standardised length, its RBF
+        expansion (with cfg.expand_edge) and (use_bond) the bond channel
+        [B,N,K], the edge LayerNorm, and in train mode edge dropout
+        cfg.dropout (inverse-scaled, as flax) drawn from `generator`. box
+        is a scalar, or per frame [B] or [B, 3]."""
         cfg = self.cfg
         act = get_activation(cfg.mlp_activation, self.dtype)
         unit, dist = edge_geometry(pos, idx, box, flip_dir=cfg.flip_dir)
         std_dist = (dist - length_mean) / length_std
-        feats = [unit, std_dist[..., None],
-                 rbf_expand(std_dist, cfg.rbf_low, cfg.rbf_high,
-                            cfg.rbf_gap)]
+        feats = [unit, std_dist[..., None]]
+        if cfg.expand_edge:
+            feats.append(rbf_expand(std_dist, cfg.rbf_low, cfg.rbf_high,
+                                    cfg.rbf_gap))
         if self.use_bond:
             if bond is None:
                 raise ValueError("use_bond=True requires a bond channel")
@@ -373,10 +411,9 @@ class GAMDNet(nn.Module):
         train=True: BatchNorm on batch statistics (running stats updated),
         edge dropout and drop_edge, both drawn from `generator`."""
         cfg = self.cfg
-        scalar_box = box.ndim == 0 if torch.is_tensor(box) \
-            else np.ndim(box) == 0
         if cfg.use_pallas and cfg.use_pallas_encoder and not train \
-                and not self.use_bond and scalar_box:
+                and not self.use_bond and cfg.expand_edge \
+                and space.one_box(box):
             e, mask = fused_edge_encoder(
                 pos, idx, mask, box, None, length_mean, length_std,
                 self.edge_encoder_w0, self.edge_encoder_b0,

@@ -19,7 +19,11 @@ ops/edge_tiles.py).
   live-edge layout and split weights over.
 * fused_conv_gather_message is the entry point, in the JAX entry's argument
   order, on [B, N, K, .] batches: a CPU tensor runs the plain version, a
-  CUDA tensor launches the kernels or raises. It counts its forward and
+  CUDA tensor launches the kernels or raises. The kernels take e's width E
+  equal to the message's D, 128 or 256, and the hidden H 128
+  (check_widths): width 128 everywhere, and the DFT model's 256 / 128 /
+  256, whose weights the split table holds as six 128 x 128 blocks
+  (split_blocks). It counts its forward and
   backward launches in `fused_conv_gather_message.launches` and
   `.backward_launches`.
 """
@@ -34,13 +38,30 @@ from gamd_tpu_torch.ops.mega import (KERNEL_WIDTH, TILE_ROWS, _check,
                                      live_slot_layout)
 from gamd_tpu_torch.ops.mxu_probe import sm_count
 
-#: The backward's compact planes, a tile each (e, z1, a2, z3, then g_s1,
-#: g_z2, g_s3, g_m; csrc/conv_msg_gather_bwd.cu N_PLANES), the bytes of a
-#: tile of one (64 rows of 128 bf16 hi and lo), and the tile ranges of its
-#: weight-gradient sums (N_RANGE).
-BWD_PLANES = 8
+#: The bytes of a tile of one of the backward's compact planes (64 rows of
+#: 128 bf16 hi and lo) and the tile ranges of its weight-gradient sums
+#: (csrc/conv_msg_gather_bwd.cu N_RANGE).
 PLANE_BYTES = edge_tiles.ACTIVATION_BYTES
 WGRAD_RANGES = 32
+#: The widths the kernels take: e's (E) equal to the message's (D), one of
+#: WIDE_WIDTHS, and the hidden (H) 128.
+WIDE_WIDTHS = (KERNEL_WIDTH, 2 * KERNEL_WIDTH)
+
+
+def split_blocks(e_width=KERNEL_WIDTH, d_width=KERNEL_WIDTH):
+    """The 128 x 128 weight blocks of the kernels' split table at e width E
+    and message width D (csrc/conv_tc.cuh::split_blocks): W1's E/128 row
+    blocks, W2, W3 and W4's D/128 column blocks; 4 at width 128, 6 at the
+    DFT model's 256 / 128 / 256."""
+    return e_width // KERNEL_WIDTH + 2 + d_width // KERNEL_WIDTH
+
+
+def bwd_planes(e_width=KERNEL_WIDTH, d_width=KERNEL_WIDTH):
+    """The backward's compact planes, a tile each: e's E/128 column blocks,
+    z1, a2, z3, then g_s1, g_z2, g_s3 and g_m's D/128 column blocks
+    (csrc/conv_msg_gather_bwd.cu); 8 at width 128, 10 at 256 / 128 /
+    256."""
+    return e_width // KERNEL_WIDTH + d_width // KERNEL_WIDTH + 6
 
 
 def _edge_mm(a, w):
@@ -93,14 +114,14 @@ def conv_msg_gather_backward_reference(g, e, idx, mask, hn, src_nodes,
                                        b4):
     """The backward of conv_msg_gather_reference as the kernels compute it,
     on one graph of M nodes (g [M, D], e [M, K, E], idx [M, K] node ids,
-    mask [M, K] bool, the rest as the forward's): the live edges in the
-    layout's order (live_slot_layout: atom-major, slot order within an
-    atom), their forward recomputed and swept back (pallas_mp.py:588-621)
-    with the twelve products through `_edge_mm`; ge 0 at the masked slots;
-    gdst, ghn and gsrc summed over the live edges in that order; each
-    weight's gradient and bias sum over the tiles of each of wgrad_ranges'
-    ranges, the partials added in range order. Returns (ge, ghn, gsrc,
-    gdst, gw1, gb1, gw2, gb2, gw3, gb3, gw4, gb4)."""
+    mask [M, K] bool, the rest as the forward's; any widths): the live
+    edges in the layout's order (live_slot_layout: atom-major, slot order
+    within an atom), their forward recomputed and swept back
+    (pallas_mp.py:588-621) with the twelve products through `_edge_mm`; ge
+    0 at the masked slots; gdst, ghn and gsrc summed over the live edges in
+    that order; each weight's gradient and bias sum over the tiles of each
+    of wgrad_ranges' ranges, the partials added in range order. Returns
+    (ge, ghn, gsrc, gdst, gw1, gb1, gw2, gb2, gw3, gb3, gw4, gb4)."""
     m, k, w = e.shape
     lay = live_slot_layout(mask.reshape(m, k).cpu())
     total = int(lay.total[0])
@@ -120,14 +141,14 @@ def conv_msg_gather_backward_reference(g, e, idx, mask, hn, src_nodes,
     g_s1 = _edge_mm(g_z2, w2.t()) * _dsilu(s1)
     ge = torch.zeros((m * k, w), dtype=e.dtype, device=e.device)
     ge[slots] = _edge_mm(g_s1, w1.t())
-    zeros = lambda: torch.zeros((m, w), dtype=e.dtype, device=e.device)
-    gdst = zeros().index_add_(0, i, g_z2)
-    ghn = zeros().index_add_(0, j, g[i] * msg)
-    gsrc = zeros().index_add_(0, j, g_z2)
+    zeros = lambda *shape: torch.zeros(shape, dtype=e.dtype, device=e.device)
+    gdst = zeros(m, g_z2.shape[1]).index_add_(0, i, g_z2)
+    ghn = zeros(m, g.shape[1]).index_add_(0, j, g[i] * msg)
+    gsrc = zeros(m, g_z2.shape[1]).index_add_(0, j, g_z2)
     grads = []
     for act, grad in ((x, g_s1), (z1, g_z2), (a2, g_s3), (z3, g_m)):
-        gw = torch.zeros((w, w), dtype=e.dtype, device=e.device)
-        gb = torch.zeros((w,), dtype=e.dtype, device=e.device)
+        gw = zeros(act.shape[1], grad.shape[1])
+        gb = zeros(grad.shape[1])
         for first, end in wgrad_ranges(total):
             rows = slice(first * TILE_ROWS, min(end * TILE_ROWS, total))
             gw = gw + _edge_mm(act[rows].t(), grad[rows])
@@ -136,19 +157,24 @@ def conv_msg_gather_backward_reference(g, e, idx, mask, hn, src_nodes,
     return (ge.reshape(m, k, w), ghn, gsrc, gdst, *grads)
 
 
-def backward_scratch(m, k, plan, device):
-    """The backward call's scratch in edge_tiles.one_buffer: the compact
-    planes [BWD_PLANES, plan.tiles, PLANE_BYTES] uint8 (the live tiles
-    written), g_hsrc and g_z2 at every slot [2, M*K, 128] float32 (the live
-    slots written), and the weight-gradient and bias partials [4,
-    WGRAD_RANGES, 128, 128] and [4, WGRAD_RANGES, 128] float32. Returns
-    (planes, rows, wpart, bpart), which keep the buffer alive."""
+def backward_scratch(m, k, plan, device, e_width=KERNEL_WIDTH,
+                     d_width=KERNEL_WIDTH):
+    """The backward call's scratch in edge_tiles.one_buffer at e width E
+    and message width D: the compact planes [bwd_planes, plan.tiles,
+    PLANE_BYTES] uint8 (the live tiles written), g_hsrc [M*K, D] then g_z2
+    [M*K, 128] at every slot as rows [(D + 128) / 128, M*K, 128] float32
+    (the live slots written; [2, M*K, 128] at width 128), and the
+    weight-gradient and bias partials [split_blocks, WGRAD_RANGES, 128,
+    128] and [split_blocks, WGRAD_RANGES, 128] float32. Returns (planes,
+    rows, wpart, bpart), which keep the buffer alive."""
     w, f32 = KERNEL_WIDTH, torch.float32
+    blocks = split_blocks(e_width, d_width)
     _, v = edge_tiles.one_buffer({
-        "planes": ((BWD_PLANES, plan.tiles, PLANE_BYTES), torch.uint8),
-        "rows": ((2, m * k, w), f32),
-        "wpart": ((4, WGRAD_RANGES, w, w), f32),
-        "bpart": ((4, WGRAD_RANGES, w), f32)}, device)
+        "planes": ((bwd_planes(e_width, d_width), plan.tiles, PLANE_BYTES),
+                   torch.uint8),
+        "rows": (((d_width + w) // w, m * k, w), f32),
+        "wpart": ((blocks, WGRAD_RANGES, w, w), f32),
+        "bpart": ((blocks, WGRAD_RANGES, w), f32)}, device)
     return v["planes"], v["rows"], v["wpart"], v["bpart"]
 
 
@@ -158,7 +184,8 @@ def declare(lib):
     lib.gamd_conv_msg_gather.argtypes = [
         p, p, p, p, p, p,                             # e idx mask hn src dst
         p, p, p, p, p, p, p, p,                       # w1 b1 ... w4 b4
-        i, i, ctypes.POINTER(edge_tiles._SlotLayout),  # m k layout
+        i, i, i, i,                                   # m k E D
+        ctypes.POINTER(edge_tiles._SlotLayout),       # layout
         p, p,                                         # wsplit part
         i, i, i, i,                                   # the plan
         p, p]                                         # agg stream
@@ -166,7 +193,8 @@ def declare(lib):
     lib.gamd_conv_msg_gather_bwd.argtypes = [
         p, p, p, p, p, p, p,                          # g e idx mask hn src dst
         p, p, p, p,                                   # b1 ... b4
-        i, i, ctypes.POINTER(edge_tiles._SlotLayout),  # m k layout
+        i, i, i, i,                                   # m k E D
+        ctypes.POINTER(edge_tiles._SlotLayout),       # layout
         p, p, p, p, i,                                # wsplit part order keys
         p, p, p, p,                                   # planes rows wpart bpart
         i, i, i,                                      # the plan
@@ -208,20 +236,22 @@ class ConvMsgGather(torch.autograd.Function):
     """The kernel pair on one graph of M nodes: forward
     csrc/conv_msg_gather.cu, backward csrc/conv_msg_gather_bwd.cu. Inputs
     as fused_conv_gather_message's after its checks (e [M, K, E], idx
-    [M, K] int32 global ids, mask [M, K] bool, all contiguous on one CUDA
-    device); idx and mask get no gradient."""
+    [M, K] int32 global ids, mask [M, K] bool, hn [M, D], all contiguous on
+    one CUDA device; E = D, 128 or 256, H 128); idx and mask get no
+    gradient."""
 
     @staticmethod
     def forward(ctx, e, idx, mask, hn, src_nodes, dst_code, *weights):
-        m, k, _ = e.shape
+        m, k, e_w = e.shape
+        d_w = hn.shape[1]
         dev = e.device
         plan = edge_tiles.launch_plan(m, k, sm_count(dev))
         buf, layout, block_sum, wsplit, part = edge_tiles.call_scratch(
-            m, k, plan, dev)
-        agg = torch.empty((m, KERNEL_WIDTH), device=dev, dtype=torch.float32)
+            m, k, plan, dev, n_weights=split_blocks(e_w, d_w), width=d_w)
+        agg = torch.empty((m, d_w), device=dev, dtype=torch.float32)
         err = _library().gamd_conv_msg_gather(
             *_ptrs(e, idx, mask, hn, src_nodes, dst_code, *weights), m, k,
-            ctypes.byref(edge_tiles.slot_struct(layout, block_sum)),
+            e_w, d_w, ctypes.byref(edge_tiles.slot_struct(layout, block_sum)),
             *_ptrs(wsplit, part), *plan[:4], agg.data_ptr(), _stream(dev))
         edge_tiles.raise_on("conv_msg_gather", err)
         fused_conv_gather_message.launches += 1
@@ -238,49 +268,84 @@ class ConvMsgGather(torch.autograd.Function):
     def backward(ctx, g):
         e, idx, mask, hn, src_nodes, dst_code, *weights = ctx.saved_tensors
         layout, wsplit, part = ctx.scratch
-        m, k, _ = e.shape
+        m, k, e_w = e.shape
+        d_w = hn.shape[1]
         dev = e.device
         w = KERNEL_WIDTH
         f32 = dict(device=dev, dtype=torch.float32)
         g = g.contiguous()
         plan = edge_tiles.backward_plan(m, k, sm_count(dev))
         order, keys = source_order(idx, mask, m)
-        planes, rows, wpart, bpart = backward_scratch(m, k, plan, dev)
-        ge = torch.empty((m, k, w), **f32)
-        ghn, gsrc, gdst = (torch.empty((m, w), **f32) for _ in range(3))
-        gw = torch.empty((4, w, w), **f32)
-        gb = torch.empty((4, w), **f32)
+        planes, rows, wpart, bpart = backward_scratch(m, k, plan, dev, e_w,
+                                                      d_w)
+        ge = torch.empty((m, k, e_w), **f32)
+        ghn = torch.empty((m, d_w), **f32)
+        gsrc, gdst = (torch.empty((m, w), **f32) for _ in range(2))
+        blocks = split_blocks(e_w, d_w)
+        gw = torch.empty((blocks, w, w), **f32)
+        gb = torch.empty((blocks, w), **f32)
         err = _library().gamd_conv_msg_gather_bwd(
             *_ptrs(g, e, idx, mask, hn, src_nodes, dst_code, *weights[1::2]),
-            m, k, ctypes.byref(edge_tiles.slot_struct(layout)),
+            m, k, e_w, d_w, ctypes.byref(edge_tiles.slot_struct(layout)),
             *_ptrs(wsplit, part, order, keys), keys.element_size(),
             *_ptrs(planes, rows, wpart, bpart),
             plan.grid, plan.threads, plan.smem,
             *_ptrs(ge, ghn, gsrc, gdst, gw, gb), _stream(dev))
         edge_tiles.raise_on("conv_msg_gather_bwd", err)
         fused_conv_gather_message.backward_launches += 1
-        weight_grads = [t for pair in zip(gw, gb) for t in pair]
-        return (ge, None, None, ghn, gsrc, gdst, *weight_grads)
+        return (ge, None, None, ghn, gsrc, gdst,
+                *weight_grads(gw, gb, e_w // w))
+
+
+def weight_grads(gw, gb, e_blocks):
+    """(gw1, gb1, gw2, gb2, gw3, gb3, gw4, gb4) from the backward's
+    gradients of the split table's blocks, gw [blocks, 128, 128] and gb
+    [blocks, 128] (split_blocks' order): gw1 W1's row blocks stacked, gw4
+    W4's column blocks side by side; W1's blocks share one bias sum, b1's,
+    and W4's are b4's column blocks."""
+    eb = e_blocks
+    return (gw[:eb].reshape(-1, gw.shape[2]), gb[0], gw[eb], gb[eb],
+            gw[eb + 1], gb[eb + 1], torch.cat(tuple(gw[eb + 2:]), dim=1),
+            gb[eb + 2:].reshape(-1))
+
+
+def check_widths(w1, w4):
+    """(E, H, D) of the edge weights w1 [E, H] and w4 [H, D]; ValueError,
+    naming the widths the kernels take, unless E = D, 128 or 256, and H is
+    128 (JAX's kernel reads any width from its refs: the others are a gap
+    of the port, ROADMAP)."""
+    fn = "fused_conv_gather_message"
+    if w1.ndim != 2 or w4.ndim != 2 or w1.shape[1] != w4.shape[0]:
+        raise ValueError(f"{fn}: w1 [E, H] and w4 [H, D] expected, got "
+                         f"{tuple(w1.shape)} and {tuple(w4.shape)}")
+    (e_w, h_w), d_w = w1.shape, w4.shape[1]
+    if e_w != d_w or d_w not in WIDE_WIDTHS or h_w != KERNEL_WIDTH:
+        raise ValueError(
+            f"{fn}: widths E={e_w}, H={h_w}, D={d_w}: the kernels take E "
+            f"= D in {WIDE_WIDTHS} and H = {KERNEL_WIDTH}")
+    return e_w, h_w, d_w
 
 
 def _check_inputs(e, idx, mask, hn, src_nodes, dst_code, weights):
-    """The kernels' checks of a [B, N, K, .] batch on a CUDA device: every
-    width 128, float32 (idx int32, mask bool), contiguous, one device."""
+    """The kernels' checks of a [B, N, K, .] batch on a CUDA device: the
+    widths (check_widths, from w1 and w4), float32 (idx int32, mask bool),
+    contiguous, one device."""
     fn = "fused_conv_gather_message"
     if e.device.type != "cuda":
         raise ValueError(f"{fn} runs on cuda or cpu, not {e.device}")
+    e_w, h_w, d_w = check_widths(weights[0], weights[6])
     dev = e.device
     b, n, k = idx.shape
-    w = KERNEL_WIDTH
-    _check(fn, "e", e, dev, torch.float32, (b, n, k, w))
+    _check(fn, "e", e, dev, torch.float32, (b, n, k, e_w))
     _check(fn, "idx", idx, dev, torch.int32, (b, n, k))
     _check(fn, "mask", mask, dev, torch.bool, (b, n, k))
-    for name, t in (("hn", hn), ("src_nodes", src_nodes),
-                    ("dst_code", dst_code)):
-        _check(fn, name, t, dev, torch.float32, (b, n, w))
+    for name, t, width in (("hn", hn, d_w), ("src_nodes", src_nodes, h_w),
+                           ("dst_code", dst_code, h_w)):
+        _check(fn, name, t, dev, torch.float32, (b, n, width))
     names = ("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4")
-    for name, t in zip(names, weights):
-        shape = (w,) if name.startswith("b") else (w, w)
+    shapes = ((e_w, h_w), (h_w,), (h_w, h_w), (h_w,), (h_w, h_w), (h_w,),
+              (h_w, d_w), (d_w,))
+    for name, t, shape in zip(names, weights, shapes):
         _check(fn, name, t, dev, torch.float32, shape)
 
 
@@ -296,9 +361,11 @@ def fused_conv_gather_message(e, idx, mask, hn, src_nodes, dst_code,
         w1 [E, H], b1 [H], w2 [H, H], b2, w3 [H, H], b3, w4 [H, D], b4 [D].
 
     A CPU `e` runs batched_reference (autograd gives the plain
-    backward). A CUDA `e` runs ConvMsgGather on one graph of B*N
-    nodes with idx offset by b*N, so weight gradients come summed over the
-    batch, as under JAX's vmap; every width must be 128, or it raises.
+    backward) at any widths. A CUDA `e` runs ConvMsgGather on one graph of
+    B*N nodes with idx offset by b*N, so weight gradients come summed over
+    the batch, as under JAX's vmap; E = D must be 128 or 256 and H 128
+    (the DFT model's 256 / 128 / 256 among them), or it raises
+    ValueError before any launch.
     """
     weights = (w1, b1, w2, b2, w3, b3, w4, b4)
     if e.device.type == "cpu":

@@ -153,16 +153,19 @@ def one_buffer(specs, device):
                  for name, (shape, dtype) in specs.items()}
 
 
-def call_scratch(m, k, plan, device, layout=True, n_weights=N_WEIGHTS):
+def call_scratch(m, k, plan, device, layout=True, n_weights=N_WEIGHTS,
+                 width=KERNEL_WIDTH):
     """A call's scratch in one_buffer: with `layout`, the live-edge layout
     (slot [1, cap], offset and count [1, M], total [1]) and the layout
-    kernels' per-block sums; `n_weights` split weights (bf16 hi and lo:
-    the conv message's four, theta_edge's two); each tile's head and tail
-    partials [tiles, 2, 128] fp32. Returns (buffer, LiveLayout or None,
-    block sums or None, split weights, partials)."""
+    kernels' per-block sums; `n_weights` split 128 x 128 weight blocks
+    (bf16 hi and lo: the conv message's four, six at the DFT widths,
+    ops/conv_gather.py::split_blocks; theta_edge's two); each tile's head
+    and tail partials [tiles, 2, width] fp32 (width the message's, 128 or
+    256). Returns (buffer, LiveLayout or None, block sums or None, split
+    weights, partials)."""
     i32 = torch.int32
     specs = {"wsplit": ((n_weights * SPLIT_BYTES,), torch.uint8),
-             "part": ((plan.tiles, 2, KERNEL_WIDTH), torch.float32)}
+             "part": ((plan.tiles, 2, width), torch.float32)}
     if layout:
         specs.update(slot=((1, layout_capacity(m, k)), i32),
                      offset=((1, m), i32), count=((1, m), i32),

@@ -34,8 +34,14 @@ a key per seed, so the trajectories differ from JAX's. TIP4P frames are
 written in the 4-site layout (O, H, H, M; physics.water.
 expand_with_m_sites), which TrajectoryDataset reads without the M rows.
 
-The RPBE surrogate is the DFT system's and raises NotImplementedError
-(ROADMAP Queue 1 item 5, the DFT slice).
+The RPBE surrogate (generate_rpbe_surrogate) is the DFT system's data:
+64 rigid TIP3P molecules at three densities (liquid density, -3% and +3%
+in box edge), each box FIRE-relaxed on the flexible potential, snapped
+onto the constraints, given velocities from a torch.Generator seeded
+4000 + its index (JAX: PRNGKey(4000 + index)), run 2,000 steps of
+Langevin (300 K, 2/ps, 2 fs; the damped-shifted-force TIP3P at a cutoff of
+min(6 A, box/2)) and recorded; one npz in bohr and Ha/bohr with a box a
+frame and a 90/10 split, the layout train.data.RealLargeDataset reads.
 """
 
 import os
@@ -53,9 +59,6 @@ from gamd_tpu_torch.physics import lennard_jones as lj
 from gamd_tpu_torch.physics import water as w
 from gamd_tpu_torch.physics.minimize import fire_minimize
 
-#: The refusal names the ROADMAP item (Queue 1) of the slice that ports it.
-UNPORTED = ("the RPBE surrogate, with the DFT slice of the port (ROADMAP "
-            "Queue 1 item 5)")
 #: Steps every seed runs before the first recorded frame (the grid starts
 #: begin far colder than a liquid).
 THERMALIZE_STEPS = 5000
@@ -333,8 +336,122 @@ def generate_water_dataset(out_dir, seeds=10, frames_per_seed=1000,
         thermalize_steps, rng_base=2000)
 
 
-def generate_rpbe_surrogate(*args, **kwargs):
-    raise NotImplementedError(f"generate_rpbe_surrogate: {UNPORTED}")
+def rpbe_box_sizes(n_molecules=64):
+    """The surrogate's three box edges (A): liquid water's at 0.998 g/cm^3
+    (V = n M_w / (rho N_A)) times 0.97, 1 and 1.03."""
+    base = (n_molecules * 18.015 / (0.998 * 6.02214e23)) ** (1 / 3) * 1e8
+    return [base * 0.97, base * 1.0, base * 1.03]
+
+
+def rpbe_protocol(box, n_molecules=64, rigid=True, friction_per_ps=2.0,
+                  device="cuda") -> WaterProtocol:
+    """One box of the RPBE surrogate on `device`: the TIP3P preset at 3
+    n_molecules atoms in `box` with cutoff min(6 A, box/2 - 0.01) and K=176
+    (about 126 atoms lie within the cutoff and skin at liquid density),
+    Langevin at 300 K and friction_per_ps (2/ps in the generator), dt 2 fs
+    rigid (0.5 fs flexible), rebuild every 10 steps, on the damped-
+    shifted-force TIP3P forces at that cutoff; the recorded force is the
+    rigid one (the flexible one without constraints), FIRE's the
+    flexible one."""
+    box = float(box)
+    cutoff = min(6.0, box / 2 - 0.01)
+    params = w.TIP3PParams(cutoff=cutoff)
+    system = get_preset("tip3p", n_atoms=3 * n_molecules, box=box,
+                        cutoff=cutoff, nbr_capacity=176)
+    constraint = RigidWater(n_molecules, box,
+                            tip3p_rigid_params(params.r_oh, params.theta0)) \
+        if rigid else None
+    md = MDConfig(integrator="langevin", temperature=300.0,
+                  dt_fs=2.0 if rigid else 0.5,
+                  friction_per_ps=friction_per_ps, rebuild_every=10)
+    sim = Simulation(w.tip3p_force_fn(box, params, rigid=rigid), system, md,
+                     constraint=constraint, device=device)
+    fwd = w.tip3p_forces_rigid if rigid else w.tip3p_forces
+    return WaterProtocol(sim, lambda p: fwd(p, box, params),
+                         lambda p: w.tip3p_forces(p, box, params), params,
+                         box)
+
+
+def rpbe_start(proto: WaterProtocol, n_molecules, minimize_steps, seed):
+    """A box's start positions: water_box(seed) relaxed by FIRE (trust
+    radius 0.05 A) on the flexible forces, snapped onto the constraints
+    when rigid."""
+    sim = proto.sim
+    pos = torch.as_tensor(w.water_box(n_molecules, proto.box, proto.params,
+                                      seed=seed), device=sim.device)
+    pos, _ = fire_minimize(proto.minimize_force, pos,
+                           n_steps=minimize_steps, max_step=0.05)
+    if sim.constraint is not None:
+        pos = sim.constraint.project_initial(pos)
+    return pos
+
+
+def write_rpbe_npz(out_path, pos, force, box, n_molecules, test_fraction=0.1,
+                   seed=0):
+    """The surrogate's npz from recorded frames in A and kJ/mol/A (pos,
+    force [M, N, 3], box [M] numpy): pos in bohr, force in Ha/bohr and box
+    in bohr (float32), atom_type [M, N] int32 (1 O, 2 H), and the split of a
+    RandomState(seed) permutation, its first max(1, int(M test_fraction))
+    frames test_idx and the rest train_idx."""
+    pos = pos / units.BOHR_TO_ANGSTROM
+    force = force * (units.BOHR_TO_ANGSTROM / units.HARTREE_TO_KJ_MOL)
+    box = box / units.BOHR_TO_ANGSTROM
+    m = pos.shape[0]
+    atom_type = np.tile(np.tile([1, 2, 2], n_molecules)[None, :],
+                        (m, 1)).astype(np.int32)
+    order = np.random.RandomState(seed).permutation(m)
+    n_test = max(1, int(m * test_fraction))
+    np.savez(out_path, pos=pos.astype(np.float32),
+             force=force.astype(np.float32), box=box, atom_type=atom_type,
+             train_idx=order[n_test:], test_idx=order[:n_test])
+    return out_path
+
+
+def generate_rpbe_surrogate(out_path, n_molecules=64, frames_per_box=1000,
+                            record_interval=50, box_sizes=None,
+                            equil_steps=2000, minimize_steps=2000,
+                            test_fraction=0.1, seed=0, rigid=True,
+                            frames_per_dispatch=250, log_every_frames=250,
+                            device="cuda"):
+    """The RPBE/DFT surrogate (gamd_tpu/physics/generate.py:265-345) on
+    `device`: for each box of box_sizes (rpbe_box_sizes by default), box
+    index b, rpbe_protocol's Simulation from rpbe_start(seed + b) with
+    velocities from a generator seeded 4000 + b, equil_steps steps, then
+    frames_per_box frames every record_interval steps by run_recorded
+    (frames_per_dispatch a call); write_rpbe_npz of all frames. Returns
+    out_path; a neighbour overflow raises RuntimeError. The frames are a
+    classical stand-in with the published set's layout, not RPBE data."""
+    if box_sizes is None:
+        box_sizes = rpbe_box_sizes(n_molecules)
+    all_pos, all_force, all_box = [], [], []
+    for b_i, box in enumerate(box_sizes):
+        proto = rpbe_protocol(box, n_molecules, rigid, device=device)
+        sim = proto.sim
+        rng = torch.Generator(device=sim.device)
+        rng.manual_seed(4000 + b_i)
+        state = sim.init_state(rpbe_start(proto, n_molecules,
+                                          minimize_steps, seed + b_i),
+                               rng=rng)
+        if equil_steps:
+            state = sim.run(state, equil_steps).state
+        t = 0
+        while t < frames_per_box:
+            n_f = min(frames_per_dispatch, frames_per_box - t)
+            state, ovf, pos_f, _, force_f, temp = sim.run_recorded(
+                state, n_f, record_interval, proto.record_force)
+            if ovf:
+                raise RuntimeError("neighbor capacity overflow")
+            all_pos.append(pos_f.detach().cpu().numpy().astype(np.float32))
+            all_force.append(
+                force_f.detach().cpu().numpy().astype(np.float32))
+            all_box.append(np.full((n_f,), proto.box, np.float32))
+            t += n_f
+            if log_every_frames:
+                print(f"box {proto.box:.2f} A: frame {t}/{frames_per_box} "
+                      f"T={float(temp[-1]):.1f}K", flush=True)
+    return write_rpbe_npz(out_path, np.concatenate(all_pos),
+                          np.concatenate(all_force), np.concatenate(all_box),
+                          n_molecules, test_fraction, seed)
 
 
 def generate_tip4p_dataset(out_dir, seeds=10, frames_per_seed=1000,

@@ -44,7 +44,7 @@ import time
 import numpy as np
 import torch
 
-from gamd_tpu_torch.tools.run_md import pin_fp32, refuse_unported, synchronize
+from gamd_tpu_torch.tools.run_md import pin_fp32, synchronize
 
 
 def build_parser():
@@ -187,7 +187,6 @@ def write_pe_tsv(path, pe_gnn, pe_cl, n_equil, sample_ps):
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(args.system)
     water = args.system in ("tip3p", "tip4p")
     if args.megastep and (args.integrator != "langevin"
                           or (water and args.rigid)):
@@ -205,7 +204,8 @@ def main(argv=None):
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     pin_fp32()
-    ff, system = load_force_field(args, device, use_pallas=args.use_pallas)
+    ff, force_fn, system = load_force_field(args, device,
+                                            use_pallas=args.use_pallas)
     gt_frames = ground_truth_frames(args.data_dir, args.gt_max_seed,
                                     args.max_gt_frames, args.system)
     constraint = (RigidWater(system.n_atoms // 3, system.box)
@@ -217,9 +217,8 @@ def main(argv=None):
                   friction_per_ps=args.friction or system.friction_per_ps,
                   rebuild_every=20)
     megastep_fn = ff.megastep_fn() if args.megastep else None
-    sim = Simulation(ff.force_fn(megakernel=args.megakernel or args.megastep),
-                     system, md, megastep_fn=megastep_fn, device=device,
-                     constraint=constraint)
+    sim = Simulation(force_fn, system, md, megastep_fn=megastep_fn,
+                     device=device, constraint=constraint)
     start_pos = torch.as_tensor(gt_frames[-1], device=device)
     if constraint is not None:
         start_pos = constraint.project_initial(start_pos)

@@ -13,8 +13,10 @@ decile of the label's magnitude. `--use_pallas` runs every conv layer
 through the CUDA kernel conv_msg_gather. `--system lj|tip3p|tip4p`; a
 checkpoint with the long-range channel predicts the model's short-range
 part plus the analytic k-space Ewald force, so it is scored against the
-full labels. `--system dft` (RealLargeDataset) raises NotImplementedError
-before any work.
+full labels. `--system dft` scores the RPBE set's test frames
+(train.data.RealLargeDataset of the npz `--data_dir`), each predicted
+alone at its own box by GNNForceField.predict, from Ha/bohr into eV/A
+(scripts/evaluate.py:75-91).
 
 It runs on the CUDA card; `--cpu` runs the plain PyTorch versions on the
 CPU instead. Example (the verify loop's step 3):
@@ -22,16 +24,15 @@ CPU instead. Example (the verify loop's step 3):
     python3 -m gamd_tpu_torch.tools.evaluate --system lj \\
         --ckpt /tmp/vck/checkpoint_2.msgpack --data_dir /tmp/vds/lj_data \\
         --sample_num 60 --seed_num 1 --use_pallas
+    python3 -m gamd_tpu_torch.tools.evaluate --system dft \\
+        --ckpt results/ckpts/dftlarge_final.msgpack \\
+        --data_dir md_dataset/RPBE-surrogate.npz
 """
 
 import argparse
 import json
 
 import numpy as np
-
-DFT_ITEM = ("the DFT slice of the port (RealLargeDataset, ROADMAP Queue 1 "
-            "item 5)")
-
 
 def build_parser():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -101,15 +102,13 @@ def force_metrics(pred, gt):
 def main(argv=None):
     """Evaluate as the flags say; prints the metrics and returns them."""
     args = build_parser().parse_args(argv)
-    if args.system == "dft":
-        raise NotImplementedError(f"--system dft: comes with {DFT_ITEM}")
 
     from gamd_tpu_torch.core import units
     from gamd_tpu_torch.core.config import ModelConfig, get_preset
     from gamd_tpu_torch.core.device import resolve_device
     from gamd_tpu_torch.tools.run_md import pin_fp32
     from gamd_tpu_torch.train.checkpoint import load_self_describing
-    from gamd_tpu_torch.train.data import TrajectoryDataset
+    from gamd_tpu_torch.train.data import RealLargeDataset, TrajectoryDataset
     from gamd_tpu_torch.train.forcefield import GNNForceField
 
     device = resolve_device("cpu" if args.cpu else "cuda")
@@ -117,21 +116,34 @@ def main(argv=None):
     fallback_cfg = ModelConfig(
         encoding_size=args.encoding_size, hidden_dim=args.hidden_dim,
         edge_embedding_dim=args.edge_embedding_dim,
-        conv_layers=args.conv_layer, use_layer_norm=args.use_layer_norm)
+        conv_layers=args.conv_layer, use_layer_norm=args.use_layer_norm,
+        flip_dir=args.system == "dft")
     state, model_cfg, system = load_self_describing(
         args.ckpt, fallback_model_cfg=fallback_cfg,
         fallback_system=get_preset(args.system), use_pallas=args.use_pallas)
     ff = GNNForceField(state, system, model_cfg, device=device)
 
-    ds = TrajectoryDataset(args.data_dir, mode="test", data_type=args.system,
-                           sample_num=args.sample_num, seed_num=args.seed_num)
+    dft = args.system == "dft"
+    if dft:
+        ds = RealLargeDataset(args.data_dir, mode="test")
+        to_ev_a = units.HARTREE_TO_KJ_MOL / units.BOHR_TO_ANGSTROM \
+            * units.KJ_MOL_NM_TO_EV_A * 10.0     # Ha/bohr -> eV/A
+    else:
+        ds = TrajectoryDataset(args.data_dir, mode="test",
+                               data_type=args.system,
+                               sample_num=args.sample_num,
+                               seed_num=args.seed_num)
+        to_ev_a = units.KJ_MOL_NM_TO_EV_A
     n = len(ds) if args.max_frames is None else min(len(ds),
                                                      args.max_frames)
     items = [ds[i] for i in range(n)]
-    to_ev_a = units.KJ_MOL_NM_TO_EV_A
     gt = np.stack([it["forces"] for it in items]) * to_ev_a
-    pos_all = np.stack([it["pos"] for it in items])
-    pred = ff.predict_batch(pos_all).cpu().numpy() * to_ev_a
+    if dft:      # a box a frame: one frame a prediction
+        pred = np.stack([ff.predict(it["pos"], box=it["box_size"])
+                         .cpu().numpy() for it in items]) * to_ev_a
+    else:
+        pos_all = np.stack([it["pos"] for it in items])
+        pred = ff.predict_batch(pos_all).cpu().numpy() * to_ev_a
     metrics = force_metrics(pred, gt)
     for k, v in metrics.items():
         print(f"{k}: {v}")

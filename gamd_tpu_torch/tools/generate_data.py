@@ -18,7 +18,12 @@ constrained replicas of one Langevin run; TIP4P frames hold O, H, H, M
 rows. `--minimize_steps` and `--thermalize_steps` cut the start's FIRE
 and the thermalisation (default: the generators' own, 2,000 LJ and 3,000
 water FIRE steps, 5,000 water steps); the JAX CLI has neither. `--system
-rpbe` (the DFT system) raises NotImplementedError before any work.
+rpbe` runs physics.generate.generate_rpbe_surrogate, the DFT system's
+data: `--frames` frames a box every `--interval` steps in three boxes of
+64 rigid molecules (`--flexible` unconstrained at 0.5 fs), written as one
+npz at `--out` in bohr and Ha/bohr (train.data.RealLargeDataset's
+layout); `--minimize_steps` and `--thermalize_steps` cut its FIRE and its
+equilibration (2,000 steps each by default).
 
 It runs on the CUDA card; `--cpu` runs the plain PyTorch versions on the
 CPU instead. Example (the verify loop's step 1):
@@ -27,6 +32,8 @@ CPU instead. Example (the verify loop's step 1):
         --seeds 1 --frames 60 --interval 10
     python3 -m gamd_tpu_torch.tools.generate_data --system tip3p \\
         --out /tmp/wds/water_data --seeds 2 --frames 100
+    python3 -m gamd_tpu_torch.tools.generate_data --system rpbe \\
+        --out /tmp/rpbe.npz --frames 100
 """
 
 import argparse
@@ -65,7 +72,7 @@ def build_parser():
                              "generator's, 2000 LJ, 3000 water)")
     parser.add_argument("--thermalize_steps", default=None, type=int,
                         help="water: steps before the first frame "
-                             "(default 5000)")
+                             "(default 5000; rpbe 2000)")
     parser.add_argument("--cpu", action="store_true",
                         help="run the plain PyTorch versions on the CPU")
     return parser
@@ -73,10 +80,10 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.system == "rpbe":
-        raise NotImplementedError(f"--system rpbe: {generate.UNPORTED}")
     device = resolve_device("cpu" if args.cpu else "cuda")
     pin_fp32()
+    if args.system == "rpbe":
+        return rpbe(args, device)
     common = dict(seeds=args.seeds, frames_per_seed=args.frames,
                   record_interval=args.interval,
                   frames_per_dispatch=args.dispatch_frames,
@@ -102,6 +109,24 @@ def main(argv=None):
     frames = args.seeds * args.frames
     print(f"Wrote {frames} frames to {args.out} in {seconds:.2f} s "
           f"({frames / seconds:.2f} frames/s)")
+
+
+def rpbe(args, device):
+    """--system rpbe: the surrogate npz at --out (scripts/generate_data.py
+    :50-52), timed."""
+    cuts = {}
+    if args.minimize_steps is not None:
+        cuts["minimize_steps"] = args.minimize_steps
+    if args.thermalize_steps is not None:
+        cuts["equil_steps"] = args.thermalize_steps
+    t0 = time.perf_counter()
+    generate.generate_rpbe_surrogate(
+        args.out, frames_per_box=args.frames, record_interval=args.interval,
+        rigid=not args.flexible, frames_per_dispatch=args.dispatch_frames,
+        device=device, **cuts)
+    synchronize(device)
+    seconds = time.perf_counter() - t0
+    print(f"Wrote RPBE surrogate npz to {args.out} in {seconds:.2f} s")
 
 
 if __name__ == "__main__":

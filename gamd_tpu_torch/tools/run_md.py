@@ -21,8 +21,17 @@ checkpoint with the long-range channel (longrange="ewald_recip", e.g.
 results/ckpts/tip3p_rj_best.msgpack) adds the analytic k-space Ewald
 force to every per-step force call, eager, `--use_pallas` or
 `--megakernel`; `--megastep` and `--banded` refuse it (ValueError), as the
-JAX package's do. DFT (`--system dft`) raises NotImplementedError naming
-the slice of the port that brings it.
+JAX package's do. `--system dft` drives rigid water with the dynamic-box
+model as the JAX CLI does (scripts/run_md.py:111-137): a box of
+`--n_atoms` (774) atoms at a fixed 20 A edge, the TIP3P preset's masses
+and start with the model's cutoff (9.5 bohr) in A, K=128 and 25/ps; the
+model works in bohr, so the force closure hands GNNForceField.force_fn()
+of the model system (the same atoms in a box of 20 A / BOHR_TO_ANGSTROM)
+the positions in bohr, and the preset's unit carries its Ha/bohr into
+kJ/mol/A. `--use_pallas` runs its conv layers through the conv kernel
+pair at the model's widths (256 / 128 / 256 for the DFT model; a model
+with update_edge runs them plain, as JAX's); `--megakernel` is ignored
+there and `--banded` is a parser error, as in JAX.
 
 It runs on the CUDA card; `--cpu` runs the plain PyTorch versions on the
 CPU instead. Example:
@@ -36,6 +45,9 @@ CPU instead. Example:
     python3 -m gamd_tpu_torch.tools.run_md --system tip3p \\
         --ckpt results/ckpts/tip3p_final.msgpack --banded --friction 25 \\
         --steps 2000 --log log_nvt_gnn_banded_tip3p.txt
+    python3 -m gamd_tpu_torch.tools.run_md --system dft \\
+        --ckpt results/ckpts/dftlarge_final.msgpack --steps 2000 \\
+        --log log_nvt_gnn_langevin_dft.txt
 """
 
 import argparse
@@ -45,9 +57,10 @@ import time
 import numpy as np
 import torch
 
-#: The refusal names the ROADMAP item (Queue 1) of the slice that ports it.
-DFT = "the DFT deployment (ROADMAP Queue 1 item 5)"
 WATER = ("tip3p", "tip4p")
+#: The DFT deployment's rigid water box (scripts/run_md.py:118-137): its
+#: edge (A), its atoms by default, the list's K and the friction (1/ps).
+DFT_BOX_A, DFT_ATOMS, DFT_K, DFT_FRICTION = 20.0, 774, 128, 25.0
 #: FIRE of the water start (scripts/run_md.py:158-161).
 WATER_FIRE_STEPS, WATER_FIRE_MAX_STEP = 1500, 0.05
 
@@ -112,16 +125,14 @@ def build_parser():
     return parser
 
 
-def refuse_unported(system):
-    """NotImplementedError for what the port does not run yet."""
-    if system not in ("lj",) + WATER:
-        raise NotImplementedError(f"--system {system}: comes with {DFT}")
-
-
 def load_force_field(args, device, **model_overrides):
-    """(GNNForceField, SystemConfig) from --ckpt, or seeded weights
-    (init_params(seed=0)) with the fallback architecture on the LJ preset;
-    `model_overrides` (runtime switches such as use_pallas) apply to both."""
+    """(GNNForceField, force function, MD SystemConfig) from --ckpt, or
+    seeded weights (init_params(seed=0)) with the fallback architecture on
+    the LJ preset; `model_overrides` (runtime switches such as use_pallas)
+    apply to both. The force function is the one the rollout takes:
+    --system dft's closure (dft_force_field), --banded's
+    banded_force_fn(), else force_fn(megakernel=--megakernel or
+    --megastep)."""
     from gamd_tpu_torch.core.config import ModelConfig, get_preset
     from gamd_tpu_torch.train.checkpoint import load_self_describing
     from gamd_tpu_torch.train.forcefield import GNNForceField
@@ -140,7 +151,38 @@ def load_force_field(args, device, **model_overrides):
         system = get_preset(args.system)
         model_cfg = dataclasses.replace(fallback_cfg, **model_overrides)
         state = init_params(model_cfg, system, seed=0)
-    return GNNForceField(state, system, model_cfg, device=device), system
+    if args.system == "dft":
+        return dft_force_field(args, state, system, model_cfg, device)
+    ff = GNNForceField(state, system, model_cfg, device=device)
+    if getattr(args, "banded", False):
+        return ff, ff.banded_force_fn(), system
+    return ff, ff.force_fn(megakernel=args.megakernel or args.megastep), \
+        system
+
+
+def dft_force_field(args, state, system, model_cfg, device):
+    """(GNNForceField of the model system, force function, MD system) of
+    the DFT deployment: the model system is the checkpoint's with n atoms
+    in a box of DFT_BOX_A / BOHR_TO_ANGSTROM (bohr); the force function
+    is its force_fn() on positions in A; the MD system the TIP3P preset
+    at n atoms, DFT_BOX_A, the model's cutoff in A, K=DFT_K and
+    DFT_FRICTION."""
+    from gamd_tpu_torch.core import units
+    from gamd_tpu_torch.core.config import get_preset
+    from gamd_tpu_torch.train.forcefield import GNNForceField
+
+    n = args.n_atoms or DFT_ATOMS
+    model_system = dataclasses.replace(
+        system, n_atoms=n, box=DFT_BOX_A / units.BOHR_TO_ANGSTROM)
+    ff = GNNForceField(state, model_system, model_cfg, device=device)
+    fn_bohr = ff.force_fn()
+    a2b = 1.0 / units.BOHR_TO_ANGSTROM
+    force_fn = lambda pos, idx, mask: fn_bohr(pos * a2b, idx, mask)
+    md_system = get_preset(
+        "tip3p", n_atoms=n, box=DFT_BOX_A,
+        cutoff=float(model_system.cutoff) * units.BOHR_TO_ANGSTROM,
+        nbr_capacity=DFT_K, friction_per_ps=DFT_FRICTION)
+    return ff, force_fn, md_system
 
 
 def pin_fp32():
@@ -178,11 +220,14 @@ def rollout(args, parser=None):
     rigid water), the RunResult `result` and the `seconds` the steps took
     on the host clock (synchronised). Refusals raise before any work."""
     parser = build_parser() if parser is None else parser
-    refuse_unported(args.system)
     if args.banded and (args.megakernel or args.megastep):
         parser.error("--banded is an alternative force path to "
                      "--megakernel/--megastep")
-    rigid = args.system in WATER and args.rigid
+    dft = args.system == "dft"
+    if args.banded and dft:
+        parser.error("--banded does not support the dft deployment "
+                     "closure")
+    rigid = (args.system in WATER or dft) and args.rigid
     if args.megastep and (args.integrator != "langevin" or rigid):
         parser.error("--megastep requires --integrator langevin and an "
                      "unconstrained system (use --no-rigid for water)")
@@ -196,7 +241,8 @@ def rollout(args, parser=None):
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     pin_fp32()
-    ff, system = load_force_field(args, device, use_pallas=args.use_pallas)
+    ff, force_fn, system = load_force_field(args, device,
+                                            use_pallas=args.use_pallas)
     megastep_fn = ff.megastep_fn() if args.megastep else None
     nbr_method = "dense"
     if args.banded:
@@ -204,19 +250,16 @@ def rollout(args, parser=None):
             # Thermal LJ at rho* = 0.5 peaks near 66 in-radius neighbours
             # at the preset skin: 64 saturates.
             system = dataclasses.replace(system, nbr_capacity=96)
-        force_fn = ff.banded_force_fn()
         # The cell list only where the box is at least 4 cells wide; dense
         # top-K is the right search at small N anyway.
         nbr_method = "cell" if system.n_atoms > 1024 else "dense"
-    else:
-        force_fn = ff.force_fn(megakernel=args.megakernel or args.megastep)
     constraint = RigidWater(system.n_atoms // 3, system.box) if rigid \
         else None
 
     if args.init_pos:
         pos = torch.as_tensor(np.load(args.init_pos).astype(np.float32),
                               device=device)
-    elif args.system in WATER:
+    elif args.system in WATER or dft:
         pos = water_start(system, device, args.seed)
     else:
         _, lattice = lj.lj_fluid_box(system.n_atoms, 0.5)

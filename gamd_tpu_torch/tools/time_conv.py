@@ -20,9 +20,14 @@ gather_agg, rows 7-10) are timed at chip_smoke.py phase 29's inputs
 (conv_inputs and op_inputs: layer 0 of the seeded GAMD-small on the
 training slice's start frame, K=96), with conv_msg_gather on the same
 inputs beside them as row 8's edge work by node id (events ms, device us
-a call and by kernel, exclusive). It uses only names that the package
-has had since these kernels were ported, so it can time another tree's
-package: put that tree first on PYTHONPATH and run this file by its path.
+a call and by kernel, exclusive). Rows 3-4 at the DFT model's widths
+(256/128/256; keys conv_msg_gather_dft_b1, _b4 and their _bwd_ twins)
+run on layer 0 of a seeded DFT model (dft_inputs) over the first
+training frames of md_dataset/RPBE-surrogate.npz, each at its own box,
+K=192 at 9.5 bohr; a tree whose package predates those widths skips
+them. It uses only names that the package has had since these kernels
+were ported, so it can time another tree's package: put that tree first
+on PYTHONPATH and run this file by its path.
 
     python3 -m gamd_tpu_torch.tools.time_conv [--save PATH]
 
@@ -41,11 +46,12 @@ import torch
 import torch.nn.functional as F
 
 from gamd_tpu_torch.core import space
+from gamd_tpu_torch.core.config import get_preset
 from gamd_tpu_torch.core.device import card_line
 from gamd_tpu_torch.models.normalizer import init_stat, update_stat
 from gamd_tpu_torch.neighbors.cell_list import cell_list_neighbor_list
 from gamd_tpu_torch.neighbors.dense import dense_neighbor_list
-from gamd_tpu_torch.ops import banded, message
+from gamd_tpu_torch.ops import banded, conv_gather, message
 from gamd_tpu_torch.ops.conv_gather import fused_conv_gather_message
 from gamd_tpu_torch.tools.bench_large import (banded_layer_inputs, lj_large,
                                               seeded_force_field)
@@ -59,6 +65,8 @@ from gamd_tpu_torch.train.state import create_train_state
 WIDTH, K = 128, 96
 DEPLOY_CUTOFF = 7.5           # the LJ checkpoint's cutoff (A)
 BANDED_SIZES = (258, 4096, 10_000)
+RPBE = "md_dataset/RPBE-surrogate.npz"
+DFT_BATCHES = (1, 4)          # frames of the DFT-width calls
 
 
 def kernel_us(fn, calls=20):
@@ -149,6 +157,45 @@ def conv_inputs(dev):
                               int(mask.sum()), h, phi,
                               (pos, stat.safe_mean, stat.std)))
     return cases
+
+
+def dft_inputs(dev, b, seed=0):
+    """Rows 3-4's real inputs at the DFT model's widths: layer 0 of
+    train_gamd --system dft's model (dft_model_config: 256/128/256, 5
+    layers, flip_dir; init_params(seed)) on the first b training frames of
+    md_dataset/RPBE-surrogate.npz, each wrapped into its own box, the
+    dense lists at 9.5 bohr with K=192, the edge-length scaler fitted on
+    the frames: (e, idx, mask, hn, src, dst and the 8 edge weights, the
+    live edges)."""
+    from gamd_tpu_torch.core.config import dft_model_config
+    from gamd_tpu_torch.train.data import RealLargeDataset
+    from gamd_tpu_torch.train.state import build_model, init_params
+
+    system = get_preset("dft")
+    cfg = dft_model_config()
+    items = [RealLargeDataset(RPBE, mode="train")[i] for i in range(b)]
+    t = lambda key: torch.as_tensor(np.stack([it[key] for it in items]),
+                                    device=dev)
+    box = t("box_size")
+    pos = space.wrap(t("pos"), space.frame_box(box, t("pos")))
+    idx, mask, ovf = search_batch(pos, box, system.cutoff,
+                                  system.nbr_capacity)
+    if bool(ovf):
+        raise RuntimeError("neighbour overflow at the DFT frames")
+    stat = update_stat(init_stat(dev), edge_distances(pos, idx, box),
+                       mask=mask)
+    weights = init_params(cfg, system, seed=seed)
+    model = build_model(cfg, system).load_params(weights.params).to(dev)
+    with torch.no_grad():
+        e = model.encode_edges(pos, idx, box, stat.safe_mean, stat.std)
+        hn = model.graph_conv.norm_0(model.node_encoder(t("feat")))
+        conv = model.graph_conv.conv_0
+        src, dst = conv.src_affine(hn), conv.dst_affine(hn)
+    ws = [p.detach() for p in (
+        conv.edge_affine_w1, conv.edge_affine_b1, conv.edge_affine_w2,
+        conv.edge_affine_b2, conv.theta_edge_w1, conv.theta_edge_b1,
+        conv.theta_edge_w2, conv.theta_edge_b2)]
+    return (e, idx, mask, hn, src, dst, *ws), int(mask.sum())
 
 
 def op_inputs(case):
@@ -252,6 +299,19 @@ def main(argv=None):
                 line[f"conv_msg_gather_bwd_b{b}"] = {
                     "live": live, **backward_entry(
                         args, dev, outputs, f"conv_msg_gather_bwd_b{b}")}
+        if hasattr(conv_gather, "check_widths"):   # trees with the widths
+            for b in DFT_BATCHES:
+                args, live = dft_inputs(dev, b)
+                call = lambda: fused_conv_gather_message(*args)
+                line[f"conv_msg_gather_dft_b{b}"] = {
+                    "live": live, "ms": median_ms(call, 20),
+                    "device_us": device_us(call)}
+                outputs[f"conv_msg_gather_dft_b{b}"] = call().cpu()
+                with torch.enable_grad():
+                    line[f"conv_msg_gather_bwd_dft_b{b}"] = {
+                        "live": live, **backward_entry(
+                            args, dev, outputs,
+                            f"conv_msg_gather_bwd_dft_b{b}")}
         given = "layout" in inspect.signature(
             banded.banded_conv_message).parameters
         for n in BANDED_SIZES:

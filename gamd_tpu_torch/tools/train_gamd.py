@@ -22,9 +22,20 @@ longrange="ewald_recip", so every deployment adds it back.
 `--state_ckpt_dir` (a checkpoint file) with `--start_epoch` resumes a run:
 the resumed epochs equal the straight run's bit for bit.
 
+`--system dft` trains the dynamic-box model on the RPBE set: `--data_dir`
+is the npz itself (md_dataset/RPBE-surrogate.npz, train.data.
+RealLargeDataset; `--use_part` its first 1,500 training frames), each
+frame with its own box, flip_dir, lambda_net_force 0.5e-2, jitter 0.00025
+bohr and a checkpoint every 50 epochs by default, as the JAX CLI
+(scripts/train_gamd.py:133-176); `--update_edge` (each conv layer's
+normalised edge embedding feeds the next; its conv layers run the plain
+edge pipeline under `--use_pallas`, as JAX's) and `--disable_expand_edge`
+(no RBF channel) are the DFT model's switches and train on any system.
+At the DFT widths (`--encoding_size 256 --edge_embedding_dim 256`, hidden
+128) `--use_pallas` runs the conv kernel pair at E = D = 256.
+
 Refused with NotImplementedError before any work, naming the ROADMAP item
-(Queue 1) that brings it: `--system dft`, `--update_edge`,
-`--disable_expand_edge` and `--num_device` above 1. The port always trains
+(Queue 1) that brings it: `--num_device` above 1. The port always trains
 in fp32 with TF32 off; `--matmul_precision` is read so that JAX command
 lines run unchanged.
 
@@ -34,9 +45,13 @@ CPU instead. Example (the verify loop's step 2):
     python3 -m gamd_tpu_torch.tools.train_gamd --system lj \\
         --data_dir /tmp/vds --sample_num 60 --seed_num 1 --max_epoch 3 \\
         --batch_size 6 --use_layer_norm --use_pallas --cp_dir /tmp/vck
-    python3 -m gamd_tpu_torch.tools.train_gamd --system tip3p \
-        --data_dir /tmp/wds --longrange --relabel --rigid_jitter \
+    python3 -m gamd_tpu_torch.tools.train_gamd --system tip3p \\
+        --data_dir /tmp/wds --longrange --relabel --rigid_jitter \\
         --use_pallas --use_layer_norm --cp_dir /tmp/wck
+    python3 -m gamd_tpu_torch.tools.train_gamd --system dft \\
+        --data_dir md_dataset/RPBE-surrogate.npz --cutoff 9.5 \\
+        --conv_layer 5 --encoding_size 256 --edge_embedding_dim 256 \\
+        --use_layer_norm --use_pallas --cp_dir /tmp/dck
 """
 
 import argparse
@@ -44,7 +59,6 @@ import os
 
 import torch
 
-DFT_ITEM = "the DFT slice of the port (ROADMAP Queue 1 item 5)"
 MULTI_DEVICE = "multi-device training (ROADMAP Queue 1 item 7)"
 #: --system -> the dataset's subdirectory (scripts/train_gamd.py).
 SUBDIRS = {"lj": "lj_data", "tip3p": "water_data", "tip4p": "tip4p_data"}
@@ -75,17 +89,18 @@ def build_parser():
     parser.add_argument("--drop_edge", action="store_true")
     parser.add_argument("--use_layer_norm", action="store_true")
     parser.add_argument("--update_edge", action="store_true",
-                        help="not ported (DFT slice)")
+                        help="each conv layer's normalised edge embedding "
+                             "is the next layer's edges (DFT model)")
     parser.add_argument("--use_pallas", action="store_true",
                         help="every conv layer through the CUDA kernel pair "
                              "conv_msg_gather (forward and backward)")
     parser.add_argument("--disable_expand_edge", dest="expand_edge",
                         default=True, action="store_false",
-                        help="not ported (DFT slice)")
+                        help="no RBF expansion of the edge length")
     parser.add_argument("--disable_rotate_aug", dest="rotate_aug",
                         default=True, action="store_false")
     parser.add_argument("--use_part", action="store_true",
-                        help="dft only (not ported)")
+                        help="dft: the first 1,500 training frames")
     parser.add_argument("--data_dir", default="./md_dataset")
     parser.add_argument("--sample_num", default=1000, type=int,
                         help="frames per seed in the dataset")
@@ -141,13 +156,6 @@ def build_parser():
 
 def refuse_unported(args):
     """NotImplementedError for what the port does not train yet."""
-    if args.system == "dft":
-        raise NotImplementedError(f"--system dft: comes with {DFT_ITEM}")
-    for flag, on, item in (("--update_edge", args.update_edge, DFT_ITEM),
-                           ("--disable_expand_edge", not args.expand_edge,
-                            DFT_ITEM)):
-        if on:
-            raise NotImplementedError(f"{flag}: comes with {item}")
     if args.num_device > 1:
         raise NotImplementedError(f"--num_device {args.num_device}: comes "
                                   f"with {MULTI_DEVICE}")
@@ -221,32 +229,43 @@ def configs(args):
     system = get_preset(args.system)
     if args.cutoff is not None:
         system = get_preset(args.system, cutoff=args.cutoff)
+    dft = args.system == "dft"
     model_cfg = ModelConfig(
         encoding_size=args.encoding_size, hidden_dim=args.hidden_dim,
         edge_embedding_dim=args.edge_embedding_dim,
         conv_layers=args.conv_layer, drop_edge=args.drop_edge,
         use_layer_norm=args.use_layer_norm, update_edge=args.update_edge,
-        expand_edge=args.expand_edge, flip_dir=False,
+        expand_edge=args.expand_edge, flip_dir=dft,
         use_pallas=args.use_pallas,
         longrange="ewald_recip" if args.longrange else "")
+    # The DFT run's LAMBDA2, jitter (bohr) and cadence
+    # (scripts/train_gamd.py:162-176).
     train_cfg = TrainConfig(
         lr=args.lr, min_epoch=args.min_epoch, max_epoch=args.max_epoch,
         lr_total_decay=args.lr_decay, batch_size=args.batch_size,
-        loss=args.loss, lambda_net_force=1e-3,
+        loss=args.loss, lambda_net_force=0.5e-2 if dft else 1e-3,
         lambda_cosine=args.lambda_cosine, rotate_aug=args.rotate_aug,
         jitter_sigma=(args.jitter_sigma if args.jitter_sigma is not None
-                      else 0.005),
+                      else 0.00025 if dft else 0.005),
         rigid_jitter=args.rigid_jitter,
         checkpoint_every=(args.checkpoint_every
-                          if args.checkpoint_every is not None else 5),
+                          if args.checkpoint_every is not None
+                          else 50 if dft else 5),
         precompute_nbrs=args.precompute_nbrs, start_epoch=args.start_epoch)
     return system, model_cfg, train_cfg
 
 
 def datasets(args):
-    """(train, test) TrajectoryDatasets of the CLI's flags, with the pack
-    cache under the data directory unless --no_pack."""
-    from gamd_tpu_torch.train.data import TrajectoryDataset
+    """(train, test) datasets of the CLI's flags: for dft RealLargeDataset
+    of the npz --data_dir (--use_part on the training one), else
+    TrajectoryDatasets with the pack cache under the data directory unless
+    --no_pack."""
+    from gamd_tpu_torch.train.data import RealLargeDataset, TrajectoryDataset
+
+    if args.system == "dft":
+        return (RealLargeDataset(args.data_dir, mode="train",
+                                 use_part=args.use_part),
+                RealLargeDataset(args.data_dir, mode="test"))
 
     sub = SUBDIRS[args.system]
     path = (args.data_dir if os.path.basename(args.data_dir) == sub

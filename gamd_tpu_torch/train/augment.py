@@ -1,6 +1,6 @@
 """Data augmentation inside the train step (port of
 gamd_tpu/train/augment.py: random_flip_rotation, rotate_sample with a
-scalar box, jitter_positions, rigid_jitter_positions).
+fixed box or a per-frame box, jitter_positions, rigid_jitter_positions).
 
   * with probability 0.3 a frame's positions AND forces are rotated by a
     composition Rz @ Ry @ Rx of axis rotations by k*pi, k in {-2,-1,0,1};
@@ -64,18 +64,23 @@ def random_flip_rotation(generator, batch: int, prob: float = 0.3,
 
 def rotate_sample(pos, forces, box, r, rotate_box: bool = False,
                   box_vec=None):
-    """Rotate frames about their wrapped centroid: pos and forces [..., N, 3]
-    by r [..., 3, 3] (row vectors times r), box a scalar wrap modulus.
-    Returns (pos', forces')."""
-    if rotate_box or box_vec is not None:
-        raise NotImplementedError(
-            "per-sample boxes (rotate_box) come with the DFT slice of the "
-            "port (ROADMAP Queue 1 item 5)")
-    p = torch.remainder(pos, box)
+    """Rotate frames about their centroid: pos and forces [..., N, 3] by r
+    [..., 3, 3] (row vectors times r), positions wrapped by the scalar box
+    first (box None: the DFT set's per-frame boxes, not wrapped, as JAX).
+    Returns (pos', forces', box_vec'): with rotate_box, a per-frame
+    3-vector box_vec ([..., 3] beside pos [..., N, 3]) rotated and made
+    positive, |box_vec r|, and a scalar one per frame ([...]) unchanged,
+    since the k*pi flips only negate axes
+    (gamd_tpu/train/augment.py:38-63); else box_vec as given."""
+    p = pos if box is None else torch.remainder(pos, box)
     offset = torch.mean(p, dim=-2, keepdim=True)
     rot = lambda x: torch.sum(x[..., :, :, None] * r[..., None, :, :],
                               dim=-2)
-    return rot(p - offset) + offset, rot(forces)
+    if rotate_box and box_vec is not None:
+        b = torch.as_tensor(box_vec, dtype=pos.dtype, device=pos.device)
+        if b.ndim == pos.ndim - 1:      # a 3-vector a frame
+            box_vec = torch.abs(torch.sum(b[..., :, None] * r, dim=-2))
+    return rot(p - offset) + offset, rot(forces), box_vec
 
 
 def jitter_positions(generator, pos, sigma: float = 0.005):

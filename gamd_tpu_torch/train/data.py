@@ -11,8 +11,8 @@ arrays. An optional pack cache concatenates the per-frame files into one
 .npz for fast epoch iteration, built by the port's native packer
 (train/native_io.py) where g++ can build it, else by numpy.
 
-RealLargeDataset (the RPBE/DFT single-npz set) comes with the DFT slice
-(ROADMAP Queue 1 item 5).
+RealLargeDataset is the RPBE/DFT single-npz set (md_dataset/
+RPBE-surrogate.npz's layout): every frame in one file, with its own box.
 """
 
 import os
@@ -155,6 +155,43 @@ class TrajectoryDataset:
         if self.particle_type_one_hot is not None:
             frame["feat"] = self.particle_type_one_hot
         return frame
+
+
+class RealLargeDataset:
+    """The RPBE/DFT set in one npz (gamd_tpu/train/data.py:173-205): pos
+    [M, N, 3] (bohr), force [M, N, 3] (Ha/bohr), box [M] (or [M, 3]) a
+    frame, atom_type [M, N] (1 = O), and the split train_idx / test_idx.
+    mode "train" takes train_idx (its first 1,500 with use_part), "test"
+    test_idx. An item: pos and forces float32, feat [N, 1] float32 (1 on
+    oxygen), box_size float32 (0-d, or [3])."""
+
+    def __init__(self, dataset_path, mode="train", use_part=False):
+        if mode not in ("train", "test"):
+            raise ValueError(f"mode must be 'train' or 'test', not {mode!r}")
+        with np.load(dataset_path, allow_pickle=True) as z:
+            train_idx = z["train_idx"]
+            test_idx = z["test_idx"]
+            self.pos = z["pos"]
+            self.forces = z["force"]
+            self.box_size = z["box"]
+            self.atom_type = z["atom_type"]
+        if mode == "train":
+            self.idx = train_idx[:1500] if use_part else train_idx
+        else:
+            self.idx = test_idx
+
+    def __len__(self):
+        return len(self.idx)
+
+    def __getitem__(self, i):
+        j = self.idx[i]
+        atom_type = np.asarray(self.atom_type[j]).reshape(-1)
+        return {
+            "pos": self.pos[j].astype(np.float32),
+            "forces": self.forces[j].astype(np.float32),
+            "feat": (atom_type == 1).astype(np.float32).reshape(-1, 1),
+            "box_size": np.asarray(self.box_size[j], np.float32),
+        }
 
 
 def pack_numpy(dataset, n_frames):

@@ -18,6 +18,7 @@ predict_batch, in each one's unit. The megastep window and the banded
 path cannot add it and refuse such a checkpoint, as the JAX package's do.
 """
 
+import numpy as np
 import torch
 
 from gamd_tpu_torch.core import space
@@ -289,13 +290,17 @@ class GNNForceField:
 
     @torch.no_grad()
     def predict(self, pos, box=None):
-        """Forces [N, 3] of one frame in DATASET units (kJ/mol/nm for LJ):
-        positions wrapped, the dense list at the system's cutoff (no skin),
-        the model forward and the force denormalisation, with no unit
-        conversion (force_fn returns kJ/mol/A); a long-range checkpoint
-        adds the analytic term of the wrapped positions, over
-        force_unit_to_internal."""
+        """Forces [N, 3] of one frame in DATASET units (kJ/mol/nm for LJ,
+        Ha/bohr for DFT): positions wrapped, the dense list at the system's
+        cutoff (no skin), the model forward and the force denormalisation,
+        with no unit conversion (force_fn returns kJ/mol/A); a long-range
+        checkpoint adds the analytic term of the wrapped positions, over
+        force_unit_to_internal. box: the system's, or the frame's own (the
+        DFT set's box_size, a number or 0-d array; JAX forcefield.py:
+        264-267)."""
         box = self.system.box if box is None else box
+        if not torch.is_tensor(box) and np.ndim(box) == 0:
+            box = float(box)
         pos = space.wrap(torch.as_tensor(pos, dtype=torch.float32,
                                          device=self.device), box)
         idx, mask, _ = dense_neighbor_list(pos, box, self.system.cutoff,

@@ -1,6 +1,7 @@
 """Training: the step, the evaluation step and the epoch loop (port of
 gamd_tpu/train/loop.py: make_train_step, make_eval_step, train,
-_best_val_tracker, _stack_dataset, _precompute_nbrs).
+_best_val_tracker, _stack_dataset, _precompute_nbrs, _batch_box;
+_broadcast_box is core.space.frame_box).
 
 One step, in the JAX step's order: rotation augmentation (positions and
 forces), wrap, the dense neighbour search per frame (skipped when the batch
@@ -10,7 +11,12 @@ the augmented positions, the streaming edge-length and force scalers, the
 normalised labels, the GNN forward in train mode (a water model also takes
 the one-hot species feature and the bond channel of the lists), the loss,
 backward and an Adam step. Metrics stay tensors on the device: nothing is
-read on the host inside a step.
+read on the host inside a step. A system without a fixed box (box None:
+the DFT set) takes each frame's box from the batch, batch["box_size"] [B]
+or [B, 3], as JAX's step does (loop.py:40-77): the rotation rotates a
+3-vector box with the frame and leaves a scalar one as it is, the wrap,
+the list search, the edge lengths and the model each take the frame's
+own box.
 
 The epoch loop ports the computation, not the TPU's workarounds: JAX
 runs an epoch as one lax.scan program (a host dispatch cost hundreds of ms
@@ -47,18 +53,31 @@ MULTI_DEVICE = "multi-device training (ROADMAP Queue 1 item 7)"
 PRECOMPUTE_CHUNK = 64
 
 
+def batch_box(system: SystemConfig, batch):
+    """(box, per_sample): the system's fixed box, or with box None the
+    batch's per-frame boxes batch["box_size"], [B] or [B, 3]."""
+    if system.box is not None:
+        return system.box, False
+    return batch["box_size"], True
+
+
 def search_batch(pos, box, cutoff, k_max):
-    """Dense neighbour lists of every frame of pos [B, N, 3]: idx [B, N, K]
+    """Dense neighbour lists of every frame of pos [B, N, 3], under one box
+    (a scalar) or each frame's own (box [B] or [B, 3]): idx [B, N, K]
     int32, mask [B, N, K] bool, and whether any frame overflowed (0-d bool
     tensor)."""
-    lists = [dense_neighbor_list(p, box, cutoff, k_max) for p in pos]
+    boxes = [box] * len(pos) if space.one_box(box) else box
+    lists = [dense_neighbor_list(p, b, cutoff, k_max)
+             for p, b in zip(pos, boxes)]
     idx, mask, ovf = (torch.stack(t) for t in zip(*lists))
     return idx, mask, torch.any(ovf)
 
 
 def edge_distances(pos, idx, box):
-    """[B, N, K] minimum-image distances from atom i to idx[i, k]."""
-    rel = space.min_image(gather_nodes(pos, idx) - pos[:, :, None, :], box)
+    """[B, N, K] minimum-image distances from atom i to idx[i, k] (box a
+    scalar, [B] or [B, 3])."""
+    rel = gather_nodes(pos, idx) - pos[:, :, None, :]
+    rel = space.min_image(rel, space.frame_box(box, rel))
     return torch.sqrt(torch.sum(rel * rel, dim=-1))
 
 
@@ -99,7 +118,8 @@ def make_train_step(model: GAMDNet, system: SystemConfig,
     whose module is `model`.
 
     batch: {"pos": [B, N, 3], "forces": [B, N, 3]} on the state's device,
-    with "feat" [B, N, F] for a water model, optionally with precomputed
+    with "feat" [B, N, F] for a water model, "box_size" [B] or [B, 3] for
+    a system without a fixed box, optionally with precomputed
     "idx"/"mask" [B, N, K]. relabel_fn: pos
     [B, N, 3] -> forces [B, N, 3] (dataset units), recomputing the labels
     at the augmented positions (e.g. physics.lennard_jones.lj_forces_dense
@@ -112,21 +132,20 @@ def make_train_step(model: GAMDNet, system: SystemConfig,
     carries the new scalers and step. metrics: loss, data_loss, net_force,
     force_std, nbr_overflow (tensors) and pos, the positions the model saw.
     """
-    if system.box is None:
-        raise NotImplementedError("per-sample boxes come with the DFT "
-                                  "slice of the port (ROADMAP Queue 1 "
-                                  "item 5)")
-    box = system.box
-
     def train_step(state: TrainState, batch):
         gen = state.generator
         pos, gt = batch["pos"], batch["forces"]
+        box, per_sample = batch_box(system, batch)
         if train_cfg.rotate_aug:
             r = augment.random_flip_rotation(gen, pos.shape[0],
                                              train_cfg.rotate_prob,
                                              pos.device)
-            pos, gt = augment.rotate_sample(pos, gt, box, r)
-        pos = space.wrap(pos, box)
+            if per_sample:
+                pos, gt, box = augment.rotate_sample(
+                    pos, gt, None, r, rotate_box=True, box_vec=box)
+            else:
+                pos, gt, _ = augment.rotate_sample(pos, gt, box, r)
+        pos = space.wrap(pos, space.frame_box(box, pos))
         if "idx" in batch:
             idx, mask = batch["idx"], batch["mask"]
             overflow = torch.zeros((), dtype=torch.bool, device=pos.device)
@@ -172,12 +191,12 @@ def make_eval_step(model: GAMDNet, system: SystemConfig):
     (searched unless the batch carries them), the labels normalised by the
     state's force scaler, and the outlier share of |err| / (|pred| + 1e-8)
     > 10, the prediction in the denominator as the reference's
-    (gamd_tpu/train/loop.py:312-347)."""
-    box = system.box
+    (gamd_tpu/train/loop.py:312-347). The boxes as make_train_step's."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
-        pos = space.wrap(batch["pos"], box)
+        box, _ = batch_box(system, batch)
+        pos = space.wrap(batch["pos"], space.frame_box(box, batch["pos"]))
         if "idx" in batch:
             idx, mask = batch["idx"], batch["mask"]
         else:
@@ -211,6 +230,16 @@ def epoch_seed(seed: int, epoch: int) -> int:
     """The seed of the step generator at the start of an epoch."""
     return int(np.random.SeedSequence([seed, epoch, 1]).generate_state(
         1, np.uint64)[0])
+
+
+def stack_boxes(dataset, device):
+    """Every frame's box [M] (or [M, 3]) float32 on `device`, for a dataset
+    whose items carry "box_size" (RealLargeDataset); else None."""
+    if not len(dataset) or "box_size" not in dataset[0]:
+        return None
+    return torch.as_tensor(np.stack([dataset[i]["box_size"]
+                                     for i in range(len(dataset))]),
+                           dtype=torch.float32, device=device)
 
 
 def stack_dataset(dataset, device):
@@ -273,12 +302,15 @@ def best_val_tracker(ckpt_dir, log_fn=print):
     return update
 
 
-def _frames(stacked, nbrs, ids):
-    """The batch of frames `ids` (a device tensor) of the stacked set."""
+def _frames(stacked, nbrs, ids, boxes=None):
+    """The batch of frames `ids` (a device tensor) of the stacked set, with
+    their boxes where the set has its own a frame."""
     pos, forces, feat = stacked
     batch = {"pos": pos[ids], "forces": forces[ids]}
     if feat is not None:
         batch["feat"] = feat[ids]
+    if boxes is not None:
+        batch["box_size"] = boxes[ids]
     if nbrs[0] is not None:
         batch["idx"], batch["mask"] = nbrs[0][ids], nbrs[1][ids]
     return batch
@@ -327,7 +359,10 @@ def train(system: SystemConfig, model_cfg: ModelConfig,
     at the last. `history`, if given, gets each epoch's {"epoch", metric:
     float, "seconds"} dict, "seconds" the host time from the epoch's start
     to the read of its metrics (which waits for the device). `mesh` (data
-    parallelism) raises NotImplementedError.
+    parallelism) raises NotImplementedError. A set whose frames carry their
+    own boxes (box None) has them stacked beside its frames and handed to
+    each step (JAX's per-batch loop for box None, loop.py:369-372); JAX
+    precomputes lists on its fixed-box path only, and so does the port.
     """
     if mesh is not None:
         raise NotImplementedError(f"mesh: comes with {MULTI_DEVICE}")
@@ -343,8 +378,9 @@ def train(system: SystemConfig, model_cfg: ModelConfig,
     eval_step = make_eval_step(model, system)
 
     stacked = stack_dataset(train_data, dev)
+    boxes = stack_boxes(train_data, dev)
     nbrs = (None, None)
-    if train_cfg.precompute_nbrs:
+    if train_cfg.precompute_nbrs and system.box is not None:
         nbrs = precompute_nbrs(system, stacked[0], log_fn)
     val = None
     if val_data is not None and len(val_data) >= b:
@@ -354,7 +390,8 @@ def train(system: SystemConfig, model_cfg: ModelConfig,
             val_nbrs = precompute_nbrs(system, val_stacked[0], log_fn)
         n_val = len(val_data) // b
         val = (val_stacked, val_nbrs,
-               torch.arange(n_val * b, device=dev).reshape(n_val, b))
+               torch.arange(n_val * b, device=dev).reshape(n_val, b),
+               stack_boxes(val_data, dev))
 
     track_best = best_val_tracker(ckpt_dir, log_fn)
     n_frames = stacked[0].shape[0]
@@ -365,18 +402,19 @@ def train(system: SystemConfig, model_cfg: ModelConfig,
                                          b), device=dev)
         sums = {}
         for ids in order:
-            state, metrics = train_step(state, _frames(stacked, nbrs, ids))
+            state, metrics = train_step(state, _frames(stacked, nbrs, ids,
+                                                       boxes))
             _add(sums, metrics)
         record = {"epoch": epoch, **_means(sums, order.shape[0], log_fn,
                                            f"epoch {epoch}: ")}
         seconds = time.perf_counter() - t0
 
         if val is not None:
-            val_stacked, val_nbrs, val_order = val
+            val_stacked, val_nbrs, val_order, val_boxes = val
             sums = {}
             for ids in val_order:
                 _add(sums, eval_step(state, _frames(val_stacked, val_nbrs,
-                                                    ids)))
+                                                    ids, val_boxes)))
             vmeans = _means(sums, val_order.shape[0], log_fn,
                             f"epoch {epoch} val: ")
             record.update(vmeans)

@@ -17,7 +17,7 @@ import torch
 
 from gamd_tpu_torch.core.config import ModelConfig, SystemConfig, TrainConfig
 from gamd_tpu_torch.core.device import resolve_device
-from gamd_tpu_torch.models.gnn import GAMDNet
+from gamd_tpu_torch.models.gnn import GAMDNet, conv_edge_dims, encoder_inputs
 from gamd_tpu_torch.models.normalizer import (RunningStat, as_floats,
                                               init_stat)
 
@@ -80,19 +80,16 @@ def build_model(model_cfg: ModelConfig, system: SystemConfig) -> GAMDNet:
 
 def create_train_state(model_cfg: ModelConfig, system: SystemConfig,
                        train_cfg: TrainConfig, steps_per_epoch: int,
-                       seed: Optional[int] = None, device="cuda"
-                       ) -> TrainState:
+                       seed: Optional[int] = None,
+                       device="cuda") -> TrainState:
     """A fresh TrainState on `device` (CUDA unless the caller asks for the
     CPU): build_model with init_params(seed) weights (LJ, or water with
     its node encoder and bond row), Adam with the staircase schedule,
     empty scalers, and a generator on the device seeded with `seed`
     (train_cfg.seed when None). A system with per-sample boxes (box None:
-    the DFT set) raises NotImplementedError."""
-    if system.box is None:
-        raise NotImplementedError(
-            "per-sample boxes (box=None, the DFT system) come with the DFT "
-            "slice of the port (ROADMAP Queue 1 item 5): the port trains "
-            "fixed-box systems")
+    the DFT set) trains as any other: the weights are drawn from their
+    shapes alone, so no sample box is needed, unlike JAX's initialisation
+    call (gamd_tpu/train/state.py:56-66)."""
     dev = resolve_device(device)
     seed = train_cfg.seed if seed is None else seed
     weights = init_params(model_cfg, system, seed=seed)
@@ -125,7 +122,10 @@ def init_params(model_cfg: ModelConfig, system: SystemConfig,
     LayerNorm scales, standard-normal node embedding). A water system
     (species "water") gets the node encoder (a lecun-normal [F, D] kernel
     and a zero bias) instead of the embedding, and with has_bonds the
-    encoder's bond row (edge_encoder_w0 is [4 + n_rbf + 1, H])."""
+    encoder's bond row (edge_encoder_w0 is [4 + n_rbf + 1, H]). Without
+    cfg.expand_edge the encoder has no RBF rows; with cfg.update_edge each
+    conv layer has its edge_layer_norm (unit scale, zero bias) and the
+    layers past the first read edges of width D (edge_affine_w1 [D, H])."""
     if system.species not in ("lj", "water"):
         raise ValueError(f"unknown species {system.species!r}")
     cfg = model_cfg
@@ -134,7 +134,7 @@ def init_params(model_cfg: ModelConfig, system: SystemConfig,
     zeros = lambda n: np.zeros((n,), np.float32)
     w = lambda i, o: _lecun_normal(rng, i, o)
     params = {
-        "edge_encoder_w0": w(3 + 1 + cfg.n_rbf + int(system.has_bonds), h),
+        "edge_encoder_w0": w(encoder_inputs(cfg, system.has_bonds), h),
         "edge_encoder_b0": zeros(h),
         "edge_encoder_w1": w(h, h), "edge_encoder_b1": zeros(h),
         "edge_encoder_w2": w(h, e), "edge_encoder_b2": zeros(e),
@@ -147,7 +147,7 @@ def init_params(model_cfg: ModelConfig, system: SystemConfig,
         params["node_encoder"] = {"kernel": w(cfg.in_node_feats, d),
                                   "bias": zeros(d)}
     conv, batch_stats = {}, {}
-    for layer in range(cfg.conv_layers):
+    for layer, e in enumerate(conv_edge_dims(cfg)):
         conv[f"norm_{layer}"] = {"scale": np.ones((d,), np.float32),
                                  "bias": zeros(d)}
         if not cfg.use_layer_norm:
@@ -164,6 +164,9 @@ def init_params(model_cfg: ModelConfig, system: SystemConfig,
             "src_affine": {"kernel": w(d, h), "bias": zeros(h)},
             "dst_affine": {"kernel": w(d, h), "bias": zeros(h)},
         }
+        if cfg.update_edge:
+            conv[f"conv_{layer}"]["edge_layer_norm"] = {
+                "scale": np.ones((d,), np.float32), "bias": zeros(d)}
     params["graph_conv"] = conv
     params["graph_decoder"] = {
         "Dense_0": {"kernel": w(d, h), "bias": zeros(h)},

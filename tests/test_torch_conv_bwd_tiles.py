@@ -43,20 +43,22 @@ PALLAS_TOL = 4e-2
 CONV_GRAD_RTOL = 1e-3
 
 
-def _inputs(rng, b, n, k, p_live=0.5):
-    """A batch of b graphs of n nodes, K=k, widths 128 (numpy, seeded);
-    node 3 of graph 0 has no live edge, node 1 of the last all K."""
-    e = (rng.standard_normal((b, n, k, W)) * 0.3).astype(np.float32)
+def _inputs(rng, b, n, k, p_live=0.5, e_w=W, d_w=W):
+    """A batch of b graphs of n nodes, K=k, e width e_w, message width d_w
+    and hidden 128 (numpy, seeded); node 3 of graph 0 has no live edge,
+    node 1 of the last all K."""
+    e = (rng.standard_normal((b, n, k, e_w)) * 0.3).astype(np.float32)
     idx = rng.integers(0, n, (b, n, k)).astype(np.int32)
     mask = rng.random((b, n, k)) < p_live
     mask[0, 3] = False
     mask[-1, 1] = True
-    hn, src = ((rng.standard_normal((b, n, W)) * 0.5).astype(np.float32)
-               for _ in range(2))
+    hn, src = ((rng.standard_normal((b, n, w)) * 0.5).astype(np.float32)
+               for w in (d_w, W))
     dst = (rng.standard_normal((b, n, W)) * 0.3).astype(np.float32)
     ws = [(rng.standard_normal(s) * 0.08).astype(np.float32)
-          for s in [(W, W), (W,)] * 4]
-    g = rng.standard_normal((b, n, W)).astype(np.float32)
+          for s in [(e_w, W), (W,), (W, W), (W,), (W, W), (W,), (W, d_w),
+                    (d_w,)]]
+    g = rng.standard_normal((b, n, d_w)).astype(np.float32)
     return (e, idx, mask, hn, src, dst), ws, g
 
 
@@ -78,8 +80,9 @@ def _plain(args, ws, g):
     b, n, k = args[1].shape
     ge, ghn, gsrc, gdst, *wg = conv_gather.conv_msg_gather_backward_reference(
         gf, *flat, *(torch.as_tensor(w) for w in ws))
-    node = lambda t: t.reshape(b, n, W)
-    return [ge.reshape(b, n, k, W), node(ghn), node(gsrc), node(gdst), *wg]
+    node = lambda t: t.reshape(b, n, -1)
+    return [ge.reshape(b, n, k, -1), node(ghn), node(gsrc), node(gdst),
+            *wg]
 
 
 def _autograd(args, ws, g):
@@ -189,6 +192,55 @@ def test_backward_in_kernel_arithmetic(monkeypatch, b, n, k):
         assert err * 100 < float((o - r).abs().max()), name
 
 
+@pytest.mark.parametrize("e_w,d_w", [(256, 256), (128, 256), (256, 128)])
+def test_backward_at_the_dft_widths(monkeypatch, e_w, d_w):
+    """E or D at 256 (H 128; the DFT model's 256/128/256 first), B=2
+    graphs of 37 nodes, K=13: the kernel-form backward within 1e-5 of
+    autograd through the plain forward, and with its products in the
+    kernels' bf16 x 3 arithmetic within CONV_GRAD_RTOL of it; each grad
+    of its input's shape."""
+    args, ws, g = _inputs(np.random.default_rng(e_w + d_w), 2, 37, 13,
+                          e_w=e_w, d_w=d_w)
+    fp32 = _plain(args, ws, g)
+    want = _autograd(args, ws, g)
+    shapes = [args[0].shape, args[3].shape, args[4].shape, args[5].shape,
+              *(w.shape for w in ws)]
+    for name, a, r, shape in zip(GRAD_NAMES, fp32, want, shapes):
+        assert tuple(a.shape) == tuple(shape), name
+        _assert_rel(a.numpy(), r.numpy(), FP32_RTOL, name)
+    monkeypatch.setattr(conv_gather, "_edge_mm", mega.split_bf16_matmul)
+    for name, a, r in zip(GRAD_NAMES, _plain(args, ws, g), fp32):
+        _assert_rel(a.numpy(), r.numpy(), CONV_GRAD_RTOL, name)
+
+
+def test_weight_grads_place_the_blocks():
+    """weight_grads of the backward's six blocks at 256/128/256 (W1's two
+    row blocks, W2, W3, W4's two column blocks): gw1 [256, 128] the row
+    blocks stacked, gw4 [128, 256] the column blocks side by side, gb1
+    block 0's bias sum and gb4 the two column blocks' sums; at width 128
+    the four blocks as they are."""
+    blocks = conv_gather.split_blocks(256, 256)
+    assert blocks == 6 and conv_gather.split_blocks() == 4
+    gw = torch.arange(blocks, dtype=torch.float32)[:, None, None].expand(
+        blocks, W, W).contiguous()
+    gb = 10 + torch.arange(blocks, dtype=torch.float32)[:, None].expand(
+        blocks, W).contiguous()
+    gw1, gb1, gw2, gb2, gw3, gb3, gw4, gb4 = conv_gather.weight_grads(
+        gw, gb, 2)
+    assert gw1.shape == (256, W) and gw4.shape == (W, 256)
+    assert bool((gw1[:W] == 0).all() and (gw1[W:] == 1).all())
+    assert bool((gw2 == 2).all() and (gw3 == 3).all())
+    assert bool((gw4[:, :W] == 4).all() and (gw4[:, W:] == 5).all())
+    assert bool((gb1 == 10).all() and (gb2 == 12).all()
+                and (gb3 == 13).all())
+    assert gb4.shape == (256,) and bool((gb4[:W] == 14).all()
+                                        and (gb4[W:] == 15).all())
+    narrow = conv_gather.weight_grads(gw[:4], gb[:4], 1)
+    for got, want in zip(narrow, [t for pair in zip(gw[:4], gb[:4])
+                                  for t in pair]):
+        assert torch.equal(got, want)
+
+
 # -- the compact tiles, the ranges and the scratch ----------------------------
 
 @pytest.mark.parametrize("m,k,total", [
@@ -243,6 +295,31 @@ def test_backward_plan_and_scratch(m, k):
         assert (view.data_ptr() - base) % 256 == 0
     assert storage.nbytes() >= planes.numel() + 4 * (
         rows.numel() + wpart.numel() + bpart.numel())
+
+
+@pytest.mark.parametrize("e_w,d_w,planes", [(256, 256, 10), (128, 256, 9),
+                                            (256, 128, 9)])
+def test_backward_scratch_at_the_dft_widths(e_w, d_w, planes):
+    """The scratch at E or D = 256: E/128 + D/128 + 6 compact planes (e's
+    and g_m's column blocks, ten at 256/128/256), g_hsrc at width D and
+    g_z2 at 128 as rows [(D + 128) / 128, M*K, 128], the partials of the
+    E/128 + 2 + D/128 weight blocks; the plan and its shared memory those
+    of width 128 (the activation tile stays 64 x 128: wide products run a
+    128-wide block at a time), one block an SM within MAX_SMEM."""
+    m, k = 192, 192
+    plan = edge_tiles.backward_plan(m, k)
+    assert plan.smem == edge_tiles.BACKWARD_SMEM <= edge_tiles.MAX_SMEM
+    p, rows, wpart, bpart = conv_gather.backward_scratch(m, k, plan, "cpu",
+                                                         e_w, d_w)
+    assert conv_gather.bwd_planes(e_w, d_w) == planes
+    assert p.shape == (planes, plan.tiles, conv_gather.PLANE_BYTES)
+    assert rows.shape == ((d_w + W) // W, m * k, W)
+    blocks = conv_gather.split_blocks(e_w, d_w)
+    assert wpart.shape == (blocks, conv_gather.WGRAD_RANGES, W, W)
+    assert bpart.shape == (blocks, conv_gather.WGRAD_RANGES, W)
+    base = p.untyped_storage().data_ptr()
+    for view in (rows, wpart, bpart):
+        assert (view.data_ptr() - base) % 256 == 0
 
 
 @pytest.mark.parametrize("kernel,name", [

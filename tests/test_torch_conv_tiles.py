@@ -249,6 +249,39 @@ def test_inconsistent_plan_is_refused(plan, why):
 
 # -- the profiler's reading of the kernels ------------------------------------
 
+@pytest.mark.parametrize("e_w,d_w", [(256, 256), (128, 256), (256, 128)])
+def test_call_scratch_and_plan_at_the_dft_widths(e_w, d_w):
+    """The forward's scratch at E or D = 256: the split table's
+    E/128 + 2 + D/128 blocks of 64 KB (six at 256/128/256) and the
+    partials [tiles, 2, D]; the launch plan and its shared memory are width
+    128's (a tile's products run 128-wide blocks through the same ring and
+    activation buffer), within MAX_SMEM."""
+    m, k = 4 * 192, 192
+    plan = edge_tiles.launch_plan(m, k)
+    assert plan.smem == edge_tiles.tile_smem(plan.nbuf) <= edge_tiles.MAX_SMEM
+    blocks = conv_gather.split_blocks(e_w, d_w)
+    _, lay, _, wsplit, part = edge_tiles.call_scratch(
+        m, k, plan, "cpu", n_weights=blocks, width=d_w)
+    assert wsplit.numel() == blocks * edge_tiles.SPLIT_BYTES
+    assert part.shape == (plan.tiles, 2, d_w)
+    assert lay.slot.shape == (1, mega.layout_capacity(m, k))
+
+
+def test_unsupported_widths_raise_before_any_work():
+    """check_widths, the kernels' first check on the card: E and D unequal
+    or other than 128 and 256, or H other than 128, raise ValueError naming
+    the widths taken; the widths taken come back as (E, H, D)."""
+    z = lambda *s: torch.zeros(s)
+    assert conv_gather.check_widths(z(256, 128), z(128, 256)) == (256, 128,
+                                                                  256)
+    for w1, w4 in ((z(192, 128), z(128, 128)), (z(128, 128), z(128, 64)),
+                   (z(256, 256), z(256, 256)), (z(128, 128), z(64, 128)),
+                   (z(128, 128), z(128, 256)), (z(256, 128), z(128, 128))):
+        with pytest.raises(ValueError, match="E = D in .128, 256. and H "
+                                             "= 128|w1 .E, H. and w4"):
+            conv_gather.check_widths(w1, w4)
+
+
 @pytest.mark.parametrize("kernel,name", [
     ("void (anonymous namespace)::conv_tile_kernel<1, (anonymous namespace)"
      "::BandSrc>(CUtensorMap_st, (anonymous namespace)::TileArgs, "

@@ -33,6 +33,7 @@ os.environ.setdefault("GAMD_XLA_CACHE", "off")
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from gamd_tpu_torch.core import units
 from gamd_tpu_torch.core.config import MDConfig, ModelConfig, get_preset
@@ -409,20 +410,22 @@ def test_window_rejects_what_it_does_not_take(cuda):
     assert mega_md_steps.launches == before
 
 
-def _conv_inputs(dev, b, n, k, seed=0):
+def _conv_inputs(dev, b, n, k, seed=0, e_w=128, d_w=128):
     """e, idx, mask, hn, src_nodes, dst_code [B, N, ...] and the 8 weights
-    at width 128 on `dev`, drawn as tests/test_ops.py draws them."""
+    on `dev` at e width e_w, message width d_w and hidden 128, drawn as
+    tests/test_ops.py draws them."""
     rng = np.random.RandomState(seed)
     w = 128
     t = lambda a: torch.as_tensor(a, device=dev)
     f32 = lambda *s, scale: t(rng.randn(*s).astype(np.float32) * scale)
-    inputs = [f32(b, n, k, w, scale=0.3),
+    inputs = [f32(b, n, k, e_w, scale=0.3),
               t(rng.randint(0, n, (b, n, k)).astype(np.int32)),
               t(rng.rand(b, n, k) > 0.3),
-              f32(b, n, w, scale=0.5), f32(b, n, w, scale=0.5),
+              f32(b, n, d_w, scale=0.5), f32(b, n, w, scale=0.5),
               f32(b, n, w, scale=0.3)]
     weights = [f32(*s, scale=0.08) for s in
-               [(w, w), (w,), (w, w), (w,), (w, w), (w,), (w, w), (w,)]]
+               [(e_w, w), (w,), (w, w), (w,), (w, w), (w,), (w, d_w),
+                (d_w,)]]
     return inputs, weights
 
 
@@ -472,6 +475,93 @@ def test_conv_gather_kernels_are_run_to_run_identical(cuda):
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0])
     assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+
+
+#: (E, D) of the DFT model.
+WIDE = [(256, 256)]
+
+
+@pytest.mark.parametrize("e_w,d_w", WIDE)
+@pytest.mark.parametrize("b,n,k", [(1, 66, 20), (2, 66, 20), (1, 192, 192)])
+def test_conv_gather_kernels_at_the_dft_widths(cuda, b, n, k, e_w, d_w):
+    """E = D = 256 (H 128): the forward within 1e-4 of max |agg| and each
+    of the 12 grads within 1e-3 of its tensor's max, against autograd
+    through the plain version on the same card (the 128 case's bars); one
+    forward and one backward launch; a second run gives the same bits."""
+    inputs, weights = _conv_inputs(cuda, b, n, k, seed=n + k + b + e_w,
+                                   e_w=e_w, d_w=d_w)
+    g = torch.randn((b, n, d_w), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    launches = (fused_conv_gather_message.launches,
+                fused_conv_gather_message.backward_launches)
+    out, grads = _conv_run(fused_conv_gather_message, inputs, weights, g)
+    assert (fused_conv_gather_message.launches - launches[0],
+            fused_conv_gather_message.backward_launches - launches[1]) \
+        == (1, 1)
+    again = _conv_run(fused_conv_gather_message, inputs, weights, g)
+    ref, ref_grads = _conv_run(batched_reference, inputs, weights, g)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    _grads_close(grads, ref_grads)
+    assert torch.equal(out, again[0])
+    assert all(torch.equal(a, r) for a, r in zip(grads, again[1]))
+
+
+def test_conv_gather_wide_with_zero_blocks_gives_the_128_bits(cuda):
+    """At E = D = 256 with e's, hn's, the cotangent's and the weights'
+    second blocks 0, the forward's first 128 columns, every gradient's
+    blocks of width 128 and the first row and column blocks of the weight
+    gradients are bit for bit the 128-wide call's on the first blocks, and
+    the rest is 0: W1's second row block adds exact zeros to the one
+    accumulator, W4's first column block runs the 128 case's epilogue, and
+    width 128 keeps its products and sums."""
+    (e, idx, mask, hn, src, dst), ws = _conv_inputs(cuda, 2, 66, 20, seed=9)
+    g = torch.randn((2, 66, 128), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(4))
+    pad = lambda t, dims: F.pad(t, [x for d in reversed(range(t.ndim))
+                                    for x in ((0, 128) if d in dims
+                                              else (0, 0))])
+    wide_in = [pad(e, {3}), idx, mask, pad(hn, {2}), src, dst]
+    wide_ws = [pad(ws[0], {0}), *ws[1:6], pad(ws[6], {1}), pad(ws[7], {0})]
+    out, grads = _conv_run(fused_conv_gather_message, [e, idx, mask, hn, src,
+                                                       dst], ws, g)
+    wout, wgrads = _conv_run(fused_conv_gather_message, wide_in, wide_ws,
+                             pad(g, {2}))
+    torch.cuda.synchronize()
+    assert torch.equal(wout[..., :128], out)
+    assert not bool(wout[..., 128:].any())
+    firsts = [(slice(None),) * (t.ndim - 1) + (slice(0, 128),)
+              for t in grads]
+    firsts[4] = (slice(0, 128), slice(None))            # gW1's rows
+    for name, a, r, sl in zip(["ge", "ghn", "gsrc", "gdst", "gw1", "gb1",
+                               "gw2", "gb2", "gw3", "gb3", "gw4", "gb4"],
+                              wgrads, grads, firsts):
+        assert torch.equal(a[sl], r), name
+        rest = a.clone()
+        rest[sl] = 0
+        assert not bool(rest.any()), name
+
+
+def test_conv_gather_refuses_the_widths_it_does_not_take(cuda):
+    """E and D unequal or other than 128 and 256, or H other than 128:
+    ValueError naming the widths taken, before any launch."""
+    before = (fused_conv_gather_message.launches,
+              fused_conv_gather_message.backward_launches)
+    for e_w, d_w, h_w in ((192, 128, 128), (128, 384, 128),
+                          (256, 256, 64), (128, 256, 128), (256, 128, 128)):
+        inputs, ws = _conv_inputs(cuda, 1, 32, 16, e_w=e_w, d_w=d_w)
+        if h_w != 128:
+            inputs[4], inputs[5] = inputs[4][..., :h_w], inputs[5][..., :h_w]
+            ws = [ws[0][:, :h_w], ws[1][:h_w], ws[2][:h_w, :h_w],
+                  ws[3][:h_w], ws[4][:h_w, :h_w], ws[5][:h_w],
+                  ws[6][:h_w], ws[7]]
+            ws = [w.contiguous() for w in ws]
+            inputs = [x.contiguous() for x in inputs]
+        with pytest.raises(ValueError, match="E = D in .128, 256. and "
+                                             "H = 128"):
+            fused_conv_gather_message(*inputs, *ws)
+    assert (fused_conv_gather_message.launches,
+            fused_conv_gather_message.backward_launches) == before
 
 
 def _bwd_case(dev, b, n, k, seed, p_live=0.5):
@@ -903,7 +993,8 @@ def test_conv_message_kernels_are_run_to_run_identical_at_scale(cuda):
 def test_conv_entries_refuse_an_inconsistent_plan(cuda):
     """The C entries check the plan (csrc/conv_tc.cuh::plan_ok): a grid of
     0 or past the tiles, 128 threads, or shared bytes off by 16 returns
-    cudaErrorInvalidValue and launches nothing."""
+    cudaErrorInvalidValue and launches nothing; so do widths (E, D) other
+    than (128, 128) and (256, 256) under a good plan."""
     from gamd_tpu_torch.ops.build import load_library
     lib = load_library()
     (e, idx, mask, hn, src, dst), ws = _conv_inputs(cuda, 1, 66, 20, seed=2)
@@ -913,15 +1004,19 @@ def test_conv_entries_refuse_an_inconsistent_plan(cuda):
                                                                 cuda)
     agg = torch.full((m, 128), 7.0, device=cuda)
     stream = torch.cuda.current_stream(cuda).cuda_stream
-    for bad in (good._replace(grid=0), good._replace(grid=good.tiles + 1),
-                good._replace(threads=128),
-                good._replace(smem=good.smem + 16)):
+    for bad, widths in ((good._replace(grid=0), (128, 128)),
+                        (good._replace(grid=good.tiles + 1), (128, 128)),
+                        (good._replace(threads=128), (128, 128)),
+                        (good._replace(smem=good.smem + 16), (128, 128)),
+                        (good, (192, 128)), (good, (128, 64)),
+                        (good, (128, 256)), (good, (256, 128))):
         err = lib.gamd_conv_msg_gather(
             *[t.data_ptr() for t in (e, idx, mask, hn, src, dst, *ws)],
-            m, k, ctypes.byref(edge_tiles.slot_struct(lay, block_sum)),
+            m, k, *widths,
+            ctypes.byref(edge_tiles.slot_struct(lay, block_sum)),
             wsplit.data_ptr(), part.data_ptr(), *bad[:4], agg.data_ptr(),
             stream)
-        assert err != 0, bad
+        assert err != 0, (bad, widths)
     torch.cuda.synchronize()
     assert bool((agg == 7.0).all())
 
@@ -2284,6 +2379,43 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
         want = f.read()
     with open(os.path.join(resumed, "checkpoint_1.msgpack"), "rb") as f:
         assert f.read() == want
+
+
+def test_rpbe_generation_on_the_card(cuda, tmp_path, capsys):
+    """generate_rpbe_surrogate on the card at a reduced size (the three
+    boxes x 6 frames every 20 steps, 200 FIRE and 200 equilibration
+    steps; rigid, damped-shifted-force TIP3P): the npz contract (pos and
+    force [18, 192, 3] float32 in bohr and Ha/bohr, a box a frame, O, H,
+    H types, the 90/10 split), SETTLE's residual under 1e-5 A, the
+    recorded forces within 1e-4 of max |F| of tip3p_forces_rigid at their
+    positions in each box, and the mean of the boxes' last-frame T (the
+    generator's log) near 300 K: within 100 K, since 320 steps at 2/ps
+    are under one friction time from the relaxed start."""
+    from gamd_tpu_torch.physics import generate as tgen
+    from gamd_tpu_torch.physics import water as w
+
+    out = tgen.generate_rpbe_surrogate(
+        str(tmp_path / "r.npz"), frames_per_box=6, record_interval=20,
+        equil_steps=200, minimize_steps=200)
+    temps = [float(line.split("T=")[1].rstrip("K")) for line in
+             capsys.readouterr().out.splitlines() if "T=" in line]
+    assert len(temps) == 3 and abs(sum(temps) / 3 - 300.0) <= 100.0
+    bohr = units.BOHR_TO_ANGSTROM
+    ha_bohr = units.HARTREE_TO_KJ_MOL / bohr          # -> kJ/mol/A
+    with np.load(out) as z:
+        assert z["pos"].shape == z["force"].shape == (18, 192, 3)
+        assert z["pos"].dtype == z["force"].dtype == np.float32
+        assert z["box"].shape == (18,) and z["atom_type"].shape == (18, 192)
+        assert len(z["test_idx"]) == 1 and len(z["train_idx"]) == 17
+        frames = [(torch.as_tensor(z["pos"][i] * bohr, device=cuda),
+                   torch.as_tensor(z["force"][i] * ha_bohr, device=cuda),
+                   float(z["box"][i]) * bohr) for i in range(18)]
+    for pos, force, box in frames:
+        params = w.TIP3PParams(cutoff=min(6.0, box / 2 - 0.01))
+        assert float(RigidWater(64, box).residual(pos)) < 1e-5
+        want = w.tip3p_forces_rigid(pos, box, params)
+        assert float((force - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
 
 
 def test_tip4p_generation_on_the_card(cuda, tmp_path):

@@ -350,12 +350,12 @@ def test_generate_lj_dataset_writes_the_layout(tmp_path):
 
 def test_generate_data_cli_on_cpu(tmp_path, monkeypatch, capsys):
     """`generate_data --system lj --cpu` writes the npz layout (FIRE cut
-    to FIRE_STEPS here to keep the test short) and reports frames/s; rpbe
-    raises NotImplementedError before any work, as do the RPBE generator
-    and an LJ system of other than 258 atoms. tip3p and tip4p, refused
-    until the water slice, reach the water generators with the JAX CLI's
-    arguments (recorded here; their runs: tests/
-    test_torch_water_generate.py)."""
+    to FIRE_STEPS here to keep the test short) and reports frames/s; an
+    LJ system of other than 258 atoms raises before any work. rpbe,
+    refused until the DFT slice, tip3p and tip4p, refused until the water
+    slice, reach their generators with the JAX CLI's arguments and the
+    port's cuts (recorded here; their runs: tests/test_torch_dft.py and
+    tests/test_torch_water_generate.py)."""
     steps = []
 
     def short_fire(force_fn, pos, n_steps):
@@ -375,12 +375,18 @@ def test_generate_data_cli_on_cpu(tmp_path, monkeypatch, capsys):
                    for k in z)
     assert "frames/s" in capsys.readouterr().out
     target = tmp_path / "rpbe"
-    with pytest.raises(NotImplementedError, match="item 5"):
-        generate_data.main(["--cpu", "--system", "rpbe", "--out",
-                            str(target)])
+    rpbe = {}
+    monkeypatch.setattr(tgen, "generate_rpbe_surrogate",
+                        lambda out, **kw: rpbe.update(out=out, **kw))
+    generate_data.main(["--cpu", "--system", "rpbe", "--out", str(target),
+                        "--frames", "7", "--interval", "3",
+                        "--minimize_steps", "11", "--thermalize_steps", "13",
+                        "--flexible"])
+    assert rpbe == dict(out=str(target), frames_per_box=7,
+                        record_interval=3, rigid=False,
+                        frames_per_dispatch=250, device=torch.device("cpu"),
+                        minimize_steps=11, equil_steps=13)
     assert not target.exists()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tgen.generate_rpbe_surrogate(str(tmp_path / "w"))
     calls = {}
     for name in ("generate_water_dataset", "generate_tip4p_dataset"):
         monkeypatch.setattr(tgen, name, lambda out_dir, _n=name, **kw:

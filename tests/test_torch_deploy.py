@@ -592,9 +592,21 @@ def test_run_md_cli_seeded_weights_and_fire_start(tmp_path):
 @pytest.mark.parametrize("argv,names", [
     (["--system", "dft"], "Queue 1 item 5"),
 ])
-def test_run_md_cli_refuses_what_later_slices_bring(argv, names):
-    with pytest.raises(NotImplementedError, match=names):
-        run_md.main(argv + ["--cpu"])
+def test_run_md_cli_refuses_what_later_slices_bring(argv, names, tmp_path,
+                                                    capsys):
+    """What a later slice brought runs: --system dft, refused until the
+    DFT slice (`names`), drives rigid water with seeded weights (81 atoms,
+    4 steps: finite, the constraint residual under 1e-5 A; its full runs:
+    tests/test_torch_dft.py)."""
+    log = tmp_path / "log.txt"
+    run_md.main(argv + ["--cpu", "--steps", "4", "--report_every", "2",
+                        "--n_atoms", "81", "--encoding_size", "16",
+                        "--hidden_dim", "16", "--edge_embedding_dim", "16",
+                        "--conv_layer", "1", "--log", str(log)])
+    out = capsys.readouterr().out
+    assert names not in out
+    assert float(out.split("constraint residual ")[1].split()[0]) < 1e-5
+    assert len(log.read_text().splitlines()) == 3
 
 
 @pytest.mark.parametrize("integrator", ["nose_hoover", "nve", "andersen"])

@@ -198,7 +198,7 @@ def test_cli_loader_takes_the_longrange_envelopes(name):
     path = os.path.join(CKPTS, f"{name}.msgpack")
     args = run_md.build_parser().parse_args(["--system", "tip3p", "--ckpt",
                                              path, "--cpu"])
-    ff, system = run_md.load_force_field(args, torch.device("cpu"))
+    ff, _, system = run_md.load_force_field(args, torch.device("cpu"))
     assert ff.model_cfg.longrange == "ewald_recip"
     short = GNNForceField(*tckpt.load_self_describing(path)[:1], system,
                           dataclasses.replace(ff.model_cfg, longrange=""),

@@ -57,19 +57,29 @@ def _t(a, dtype=None):
     return torch.as_tensor(np.array(a), dtype=dtype)
 
 
-def _msg_inputs(rng, n, k):
+def _msg_inputs(rng, n, k, widths=(WIDTH, WIDTH, WIDTH)):
     """e, idx, mask, hn, src_nodes, dst_code and the 8 weights, numpy, as
-    tests/test_ops.py::_gather_msg_inputs draws them."""
-    w = WIDTH
-    e = rng.randn(n, k, w).astype(np.float32) * 0.3
+    tests/test_ops.py::_gather_msg_inputs draws them, at widths (E, H,
+    D)."""
+    ew, w, dw = widths
+    e = rng.randn(n, k, ew).astype(np.float32) * 0.3
     idx = rng.randint(0, n, (n, k)).astype(np.int32)
     mask = rng.rand(n, k) > 0.3
-    hn = rng.randn(n, w).astype(np.float32) * 0.5
+    hn = rng.randn(n, dw).astype(np.float32) * 0.5
     src = rng.randn(n, w).astype(np.float32) * 0.5
     dst = rng.randn(n, w).astype(np.float32) * 0.3
     ws = [rng.randn(*s).astype(np.float32) * 0.08
-          for s in [(w, w), (w,), (w, w), (w,), (w, w), (w,), (w, w), (w,)]]
+          for s in [(ew, w), (w,), (w, w), (w,), (w, w), (w,), (w, dw),
+                    (dw,)]]
     return e, idx, mask, hn, src, dst, ws
+
+
+#: (E, H, D) of the DFT model, and the widest the JAX Pallas kernels take
+#: in interpret mode: they gather [hn | src] as one table 2 D wide
+#: (gamd_tpu/ops/pallas_mp.py:447-450), so they need H = D; at the DFT
+#: model's 256/128/256 only JAX's reference computes.
+DFT_WIDTHS = (256, WIDTH, 256)
+PALLAS_WIDE = (256, 256, 256)
 
 
 def _assert_rel(actual, expected, rel, name="", floor=1e-30):
@@ -110,13 +120,20 @@ def _off_symmetric_point(params, seed):
 
 # -- the conv-message function --------------------------------------------
 
-@pytest.mark.parametrize("against", ["reference", "pallas_interpret"])
-def test_conv_gather_forward_matches_jax(against):
-    """The plain forward at n=20, k=8, widths 128: within 1e-5 of JAX's
-    fp32 reference; within the JAX kernel's own 0.05 of its interpret-mode
-    Pallas kernel (bf16 operands, tests/test_ops.py:170-190)."""
+@pytest.mark.parametrize("against,widths", [
+    pytest.param("reference", (WIDTH,) * 3, id="reference"),
+    pytest.param("pallas_interpret", (WIDTH,) * 3, id="pallas_interpret"),
+    pytest.param("reference", DFT_WIDTHS, id="reference-256_128_256"),
+    pytest.param("pallas_interpret", PALLAS_WIDE,
+                 id="pallas_interpret-256_256_256")])
+def test_conv_gather_forward_matches_jax(against, widths):
+    """The plain forward at n=20, k=8, widths (E, H, D) 128 or the DFT
+    model's 256/128/256: within 1e-5 of JAX's fp32 reference; within the
+    JAX kernel's own 0.05 of its interpret-mode Pallas kernel (bf16
+    operands, tests/test_ops.py:170-190), at 128 and at 256/256/256
+    (PALLAS_WIDE: that kernel needs H = D)."""
     e, idx, mask, hn, src, dst, ws = _msg_inputs(np.random.RandomState(6),
-                                                 20, 8)
+                                                 20, 8, widths)
     out = conv_msg_gather_reference(_t(e), _t(idx), _t(mask), _t(hn),
                                     _t(src), _t(dst), *map(_t, ws)).numpy()
     jargs = [jnp.asarray(a) for a in (e, idx, mask, hn, src, dst, *ws)]
@@ -141,15 +158,21 @@ def _torch_grads(e, idx, mask, hn, src, dst, ws):
     return [t.grad.numpy() for t in leaves]
 
 
-@pytest.mark.parametrize("against,rel", [("reference", 1e-5),
-                                         ("pallas_interpret", 4e-2)])
-def test_conv_gather_backward_matches_jax(against, rel):
-    """The plain backward (autograd) for all 12 grads, against jax.grad of
-    the reference at 1e-5 of each tensor's max, and against the JAX
-    backward kernel in interpret mode at its own 4e-2
-    (tests/test_ops.py:336-366)."""
+@pytest.mark.parametrize("against,rel,widths", [
+    pytest.param("reference", 1e-5, (WIDTH,) * 3, id="reference-1e-05"),
+    pytest.param("pallas_interpret", 4e-2, (WIDTH,) * 3,
+                 id="pallas_interpret-0.04"),
+    pytest.param("reference", 1e-5, DFT_WIDTHS,
+                 id="reference-1e-05-256_128_256")])
+def test_conv_gather_backward_matches_jax(against, rel, widths):
+    """The plain backward (autograd) for all 12 grads at widths (E, H, D)
+    128 or 256/128/256, against jax.grad of the reference at 1e-5 of each
+    tensor's max, and at 128 against the JAX backward kernel in interpret
+    mode at its own 4e-2 (tests/test_ops.py:336-366). That kernel cannot
+    take 256/128/256 (PALLAS_WIDE), and at 256/256/256 its single-pass
+    bf16 products leave a few of w4's gradients past its own 4e-2."""
     e, idx, mask, hn, src, dst, ws = _msg_inputs(np.random.RandomState(12),
-                                                 20, 8)
+                                                 20, 8, widths)
     got = _torch_grads(e, idx, mask, hn, src, dst, ws)
     jidx, jmask = jnp.asarray(idx), jnp.asarray(mask)
 
@@ -441,7 +464,8 @@ def test_rotate_sample_matches_jax():
         rotated += not np.allclose(r, np.eye(3))
         jp, jf, _ = jaug.rotate_sample(key, jnp.asarray(pos[0]),
                                        jnp.asarray(forces), box, prob=0.5)
-        tp, tf = taug.rotate_sample(_t(pos[0]), _t(forces), box, _t(r))
+        tp, tf, _ = taug.rotate_sample(_t(pos[0]), _t(forces), box,
+                                       _t(r))
         np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-5,
                                    atol=1e-5)
         np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-5,

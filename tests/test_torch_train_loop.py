@@ -647,20 +647,24 @@ def test_water_cli_trains_on_cpu(tmp_path):
 
 
 def test_refusals_raise_before_any_work(tmp_path):
-    """Each unported flag raises NotImplementedError naming its ROADMAP
-    item before a file is read (the data directory does not exist), as do
-    a mesh, a per-sample box and evaluate --system dft. The water flags,
-    refused until the water slice, are ported: a misuse of them is the
-    JAX CLI's parser error, also before a file is read (their runs:
+    """The one unported flag, --num_device above 1, raises
+    NotImplementedError naming its ROADMAP item before a file is read (the
+    data directory does not exist), as does a mesh. The DFT flags, refused
+    until the DFT slice, are ported: --system dft, --update_edge and
+    --disable_expand_edge reach the data (the missing set's
+    FileNotFoundError, no checkpoint written), evaluate --system dft
+    reaches the checkpoint, and a per-sample-box system (the DFT preset)
+    gets a train state (their runs: tests/test_torch_dft.py). The water
+    flags, refused until the water slice, are ported: a misuse of them is
+    the JAX CLI's parser error, also before a file is read (their runs:
     tests/test_torch_water_generate.py)."""
     base = ["--data_dir", str(tmp_path / "none"), "--cpu", "--cp_dir",
             str(tmp_path / "ck")]
-    cases = [(["--system", "dft"], "item 5"),
-             (["--update_edge"], "item 5"),
-             (["--disable_expand_edge"], "item 5"),
-             (["--num_device", "2"], "item 7")]
-    for flags, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 7"):
+        train_gamd.main(["--num_device", "2"] + base)
+    for flags in (["--system", "dft"], ["--update_edge"],
+                  ["--disable_expand_edge"]):
+        with pytest.raises(FileNotFoundError):
             train_gamd.main(flags + base)
     for flags in (["--system", "tip3p", "--longrange", "--no_pack"],
                   ["--system", "tip3p", "--rigid_jitter"],
@@ -668,7 +672,7 @@ def test_refusals_raise_before_any_work(tmp_path):
         with pytest.raises(SystemExit):
             train_gamd.main(flags + base)
     assert not os.path.exists(tmp_path / "ck")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(FileNotFoundError):
         evaluate.main(["--system", "dft", "--ckpt", "none", "--data_dir",
                        "none", "--cpu"])
     sys_kw, _ = lj_frames()
@@ -676,7 +680,7 @@ def test_refusals_raise_before_any_work(tmp_path):
     with pytest.raises(NotImplementedError, match="item 7"):
         tloop.train(system, tcfg.ModelConfig(**TINY), tcfg.TrainConfig(),
                     ListDataset([]), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        create_train_state(tcfg.ModelConfig(**TINY),
-                           tcfg.get_preset("dft"), tcfg.TrainConfig(), 1,
-                           device="cpu")
+    dft_state = create_train_state(tcfg.ModelConfig(**TINY),
+                                   tcfg.get_preset("dft"),
+                                   tcfg.TrainConfig(), 1, device="cpu")
+    assert dft_state.model.species == "water"

@@ -500,9 +500,11 @@ def test_banded_force_fn_takes_tip3p_final(trained, banded_frame):
 # -- refusals -----------------------------------------------------------------
 
 def test_refusals_raise_before_any_work(seeded, tmp_path):
-    """--system dft and megastep with a constraint raise, each naming what
-    brings it, and an ablate name JAX's kernel does not know raises
-    ValueError before any work. The long-range envelopes, refused until
+    """run_md --system dft with --banded or with --megastep on rigid water
+    is the JAX CLI's parser error (--system dft itself runs since the DFT
+    slice), megastep with a constraint raises, naming what it needs, and
+    an ablate name JAX's kernel does not know raises ValueError before any
+    work. The long-range envelopes, refused until
     the water slice, now load (the megastep window and the banded path
     refuse them with ValueError, run_md --megastep too), and constrained
     replicas run (the banded path with a bond channel, once refused here,
@@ -520,8 +522,9 @@ def test_refusals_raise_before_any_work(seeded, tmp_path):
         run_md.main(["--system", "tip3p", "--ckpt",
                      os.path.join(CKPTS, "tip3p_lr_latest.msgpack"),
                      "--megastep", "--no-rigid", "--cpu", "--steps", "2"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        run_md.main(["--system", "dft", "--cpu"])
+    for flag in ("--banded", "--megastep"):
+        with pytest.raises(SystemExit):
+            run_md.main(["--system", "dft", flag, "--cpu"])
     ff = GNNForceField(state, system, cfg, device="cpu")
     cst = RigidWater(N_MOL, BOX)
     md = tcfg.MDConfig(integrator="langevin")
