@@ -59,8 +59,12 @@ nhc_half_step). Then the DFT system: rows 3-4 at the DFT model's widths
 (256 / 128 / 256) on surrogate frames, tools.train_gamd --system dft
 --use_pallas through them and tools.run_md --system dft on the result,
 and the committed results/ckpts/dftlarge_final.msgpack through
-tools.evaluate --system dft and tools.run_md --system dft. Phases, one
-flushed line or more each:
+tools.evaluate --system dft and tools.run_md --system dft. Then
+data-parallel training (parallel.mesh: two ranks, each with its share of
+every batch, through the conv_msg_gather pair), and the profiling and
+distillation tools (tools.trace_force through conv_msg_gather,
+tools.profile_md, and tools.distill_rollout through nhc_half_step).
+Phases, one flushed line or more each:
 
   0. card (nvidia-smi name and power limit), torch and nvcc versions;
   1. build the CUDA sources with nvcc (or reuse the hashed library);
@@ -413,6 +417,30 @@ flushed line or more each:
      tools.run_md --system dft on dftlarge_final, 200 rigid steps at
      25/ps (finite, residual under 1e-5 A; steps/s and the second half's
      mean T reported); each phase's seconds;
+ 59. data-parallel training on the card: two gloo ranks spawned on cuda:0
+     (NCCL takes one rank a card), each holding one frame of every batch
+     of 2 of the training slice (LJ-258 GAMD-small, 128/128/128, 4 layers,
+     LayerNorm, use_pallas, dropout, rotation, jitter and the LJ relabel)
+     from create_train_state(seed=0) broadcast from rank 0; three steps
+     (make_train_step with the mesh: draws at the global batch's shape,
+     the scalers, the loss and the gradients all-reduced) against the
+     one-process steps at batch 2 on the same batches: rank 0's loss each
+     step within 1e-5 (relative), its parameters within 1e-5 x max |p|,
+     both ranks' parameters equal bit for bit, rows 3-4 launched on each
+     rank (counts set to 0 in the rank just before its steps); ms a step
+     of one process and of the ranks over ten more steps, and the share of
+     rank 0's step spent inside all_reduce (host clock);
+ 60. tools.trace_force float32 pallas in process: 200 force calls traced
+     with utils.profiling.profile_trace, the device time a step and the
+     top kernels, row 3's tile kernel among them and launched;
+ 61. tools.profile_md float32 in process (500 steps a body, one run): its
+     six lines, finite;
+ 62. tools.distill_rollout --system lj on results/ckpts/
+     lj_distill_best.msgpack: 2 seeds as NHC replicas (each chain
+     half-step one nhc_half_step launch), 20 thermalisation steps, 4 frames
+     every 10 steps: finite frames, labels within 1e-5 of max |F| of
+     lj_forces_dense of the written positions on the card, row 18
+     launched (and row 3, were the checkpoint use_pallas);
 then the kernels line (JSON; rows 1-2 with their water, ablate and
 activation figures, rows 3-4 with their DFT-width figures, row 5 with its
 water banded figures, row 10 with its cases), and the result line (JSON)
@@ -4106,7 +4134,8 @@ def verify_loop_phase(dev, card, root):
     runs, logs, history = {}, [], []
     t0 = time.perf_counter()
     state = run_path("verify_train", runs, lambda: train_gamd.main(
-        flags + ["--cp_dir", ck], log_fn=logs.append, history=history))
+        flags + ["--num_device", "1", "--cp_dir", ck], log_fn=logs.append,
+        history=history))
     train_s = time.perf_counter() - t0
     names = sorted(os.listdir(ck))
     want_names = sorted(
@@ -4168,7 +4197,7 @@ def verify_loop_phase(dev, card, root):
     # Resume from checkpoint_1: epoch 2 bit for bit.
     resumed = []
     run_path("verify_resume", runs, lambda: train_gamd.main(
-        flags + ["--cp_dir", ck2, "--state_ckpt_dir",
+        flags + ["--num_device", "1", "--cp_dir", ck2, "--state_ckpt_dir",
                  os.path.join(ck, "checkpoint_1.msgpack"), "--start_epoch",
                  str(VERIFY_EPOCHS - 1)],
         log_fn=lambda _: None, history=resumed))
@@ -4299,8 +4328,8 @@ def water_training_phase(dev, card, ctx):
         ck = os.path.join(root, "ck")
         t0 = time.perf_counter()
         run_path("water_train", runs, lambda: train_gamd.main(
-            flags + ["--use_pallas", "--cp_dir", ck], log_fn=logs.append,
-            history=history))
+            flags + ["--use_pallas", "--num_device", "1", "--cp_dir", ck],
+            log_fn=logs.append, history=history))
         train_s = time.perf_counter() - t0
         init = os.path.join(root, "start.npy")
         np.save(init, start.cpu().numpy())
@@ -4549,8 +4578,8 @@ def water_lr_training_phase(dev, card, root):
     ck = os.path.join(root, "ck_lr")
     t0 = time.perf_counter()
     run_path("water_lr_train", runs, lambda: train_gamd.main(
-        flags + ["--use_pallas", "--cp_dir", ck], log_fn=logs.append,
-        history=history))
+        flags + ["--use_pallas", "--num_device", "1", "--cp_dir", ck],
+        log_fn=logs.append, history=history))
     train_s = time.perf_counter() - t0
     args = train_gamd.build_parser().parse_args(flags)
     train_data, val_data = train_gamd.datasets(args)
@@ -4951,8 +4980,9 @@ def dft_training_phase(dev, card, root, start):
     ck = os.path.join(root, "dft_ck")
     t0 = time.perf_counter()
     run_path("dft_train", runs, lambda: train_gamd.main(
-        flags + ["--use_pallas", "--max_epoch", str(DFT_EPOCHS), "--cp_dir",
-                 ck], log_fn=logs.append, history=history))
+        flags + ["--use_pallas", "--max_epoch", str(DFT_EPOCHS),
+                 "--num_device", "1", "--cp_dir", ck], log_fn=logs.append,
+        history=history))
     train_s = time.perf_counter() - t0
     losses = epoch_losses(history)
     step_ms = [r["seconds"] * 1e3 / DFT_CUT[0] for r in history]
@@ -5080,6 +5110,251 @@ def dft_phases(dev, card):
     say(f"phases 56-58: {t1 - t0:.1f}, {t3 - t2:.1f} and "
         f"{time.perf_counter() - t3:.1f} s, the shared start {t2 - t1:.1f} s")
     return fields, runs
+
+
+# -- phases 59-62: data-parallel training and the item 8 tools ------------
+
+DP_RANKS = 2              # phase 59's gloo ranks, both on cuda:0
+DP_STEPS = 3              # its checked steps
+DP_TIMED_STEPS = 10       # and the steps timed after them
+DP_LOSS_RTOL = 1e-5       # rank 0's loss each step vs one process
+DP_PARAM_RTOL = 1e-5      # its parameters after, / max |p|
+TRACE_CALLS = 200         # phase 60's force calls (trace_force's default)
+PROFILE_MD_ARGV = ["float32", "--steps", "500", "--reps", "1"]   # phase 61
+DISTILL_SEEDS, DISTILL_FRAMES = 2, 4                              # phase 62
+DISTILL_ARGV = ["--system", "lj", "--seeds", str(DISTILL_SEEDS),
+                "--frames", str(DISTILL_FRAMES), "--interval", "10",
+                "--thermalize", "20"]
+DISTILL_CKPT = os.path.join("results", "ckpts", "lj_distill_best.msgpack")
+DISTILL_LABEL_RTOL = 1e-5  # written labels vs lj_forces_dense, / max |F|
+
+
+def dp_batches(dev):
+    """(training slice, its 4 frames as 2 batches of 2): phase 59's data."""
+    sl = lj_train_slice(dev, use_pallas=True)
+    frames = sl.batches
+    return sl, [{k: torch.cat([frames[i][k], frames[i + 1][k]])
+                 for k in ("pos", "forces")} for i in (0, 2)]
+
+
+def dp_steps(step, state, batches, n, shard=lambda x: x):
+    """n steps cycling over the batches (each cut by shard); returns
+    (state, [loss a step])."""
+    losses = []
+    for i in range(n):
+        b = batches[i % len(batches)]
+        state, m = step(state, {k: shard(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    return state, losses
+
+
+def flat_params(model):
+    return torch.cat([p.detach().reshape(-1).cpu() for _, p in
+                      sorted(model.named_parameters())])
+
+
+def dp_rank(rank, world, init_method, out_dir):
+    """One gloo rank of phase 59 on cuda:0: the training slice at batch 2
+    from create_train_state(seed=0), replicated from rank 0, DP_STEPS
+    steps on its share with rows 3-4's counts set to 0 just before and
+    read just after, then DP_TIMED_STEPS steps timed with the host time
+    inside all_reduce summed; saves its results to out_dir/rank{rank}.pt."""
+    import torch.distributed as dist
+    from gamd_tpu_torch.parallel.mesh import (dp_sharding, init_rank,
+                                              make_mesh, replicated)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    init_rank(rank, world, "gloo", init_method)
+    try:
+        mesh = make_mesh(device=dev)
+        sl, batches = dp_batches(dev)
+        state = create_train_state(sl.model_cfg, sl.system, sl.train_cfg,
+                                   len(batches), seed=0, device=dev)
+        replicated(mesh)(state)
+        step = make_train_step(state.model, sl.system, sl.train_cfg,
+                               relabel_fn=sl.relabel_fn, mesh=mesh)
+        shard = dp_sharding(mesh)
+        fused = fused_conv_gather_message
+        fused.launches = fused.backward_launches = 0
+        state, losses = dp_steps(step, state, batches, DP_STEPS, shard)
+        torch.cuda.synchronize()
+        launches = {"conv_msg_gather": fused.launches,
+                    "conv_msg_gather_bwd": fused.backward_launches}
+        params = flat_params(state.model)
+
+        inside = [0.0, 0]
+        all_reduce = dist.all_reduce
+
+        def timed_all_reduce(*args, **kwargs):
+            t = time.perf_counter()
+            out = all_reduce(*args, **kwargs)
+            inside[0] += time.perf_counter() - t
+            inside[1] += 1
+            return out
+        dist.barrier()
+        torch.cuda.synchronize()
+        dist.all_reduce = timed_all_reduce
+        t0 = time.perf_counter()
+        try:
+            state, _ = dp_steps(step, state, batches, DP_TIMED_STEPS, shard)
+            torch.cuda.synchronize()
+        finally:
+            dist.all_reduce = all_reduce
+        wall = time.perf_counter() - t0
+        torch.save({"losses": losses, "params": params,
+                    "launches": launches,
+                    "ms_per_step": wall * 1e3 / DP_TIMED_STEPS,
+                    "all_reduce_share": inside[0] / wall,
+                    "all_reduces_per_step": inside[1] / DP_TIMED_STEPS},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def data_parallel_phase(dev, card):
+    """Phase 59 (module docstring). Returns {path: {kernel: launches}}."""
+    import torch.multiprocessing as mp
+
+    sl, batches = dp_batches(dev)
+    state = create_train_state(sl.model_cfg, sl.system, sl.train_cfg,
+                               len(batches), seed=0, device=dev)
+    step = make_train_step(state.model, sl.system, sl.train_cfg,
+                           relabel_fn=sl.relabel_fn)
+    state, want = dp_steps(step, state, batches, DP_STEPS)
+    params = flat_params(state.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = dp_steps(step, state, batches, DP_TIMED_STEPS)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3 / DP_TIMED_STEPS
+
+    root = tempfile.mkdtemp(prefix="gamd_dp_")
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(dp_rank, nprocs=DP_RANKS, join=True,
+                 args=(DP_RANKS, f"file://{os.path.join(root, 'pg')}",
+                       root))
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_RANKS)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    got = ranks[0]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want))
+    scale = float(params.abs().max())
+    param_err = float((got["params"] - params).abs().max())
+    say(f"phase 59: two gloo ranks on cuda:0, LJ-258 GAMD-small "
+        f"(128/128/128, 4 layers, LayerNorm, use_pallas), batch 2 (a frame "
+        f"a rank), {DP_STEPS} steps from one seeded state: losses "
+        f"{got['losses']} against one process's {want} (max rel "
+        f"{loss_err:.3e}, tolerance {DP_LOSS_RTOL}); parameters max |d| "
+        f"{param_err:.3e} of max |p| {scale:.3e} (tolerance "
+        f"{DP_PARAM_RTOL} x max |p|); ranks' parameters equal bit for bit: "
+        f"{bool(torch.equal(got['params'], ranks[1]['params']))}; rows 3-4 "
+        f"launches by rank {[r['launches'] for r in ranks]}")
+    require(loss_err <= DP_LOSS_RTOL,
+            "two-rank losses disagree with one process")
+    require(param_err <= DP_PARAM_RTOL * scale,
+            "two-rank parameters disagree with one process")
+    require(all(torch.equal(r["params"], got["params"]) for r in ranks),
+            "the ranks' parameters differ")
+    require(all(n > 0 for r in ranks for n in r["launches"].values()),
+            "a rank did not launch rows 3-4")
+    say(f"phase 59: ms a step (host clock, {DP_TIMED_STEPS} steps after the "
+        f"checked ones): one process at batch 2 {one_ms:.2f}, two ranks "
+        f"(rank 0) {got['ms_per_step']:.2f} (rank 1 "
+        f"{ranks[1]['ms_per_step']:.2f}); host time inside all_reduce "
+        f"{got['all_reduce_share']:.2%} of rank 0's step "
+        f"({got['all_reduces_per_step']:.0f} calls a step; gloo copies "
+        f"through the host, and a call waits for the device work before "
+        f"it and for the other rank); spawning and running the ranks "
+        f"{spawn_s:.1f} s [{card}]")
+    runs = {}
+    for r, res in enumerate(ranks):
+        runs[f"data_parallel_rank{r}"] = res["launches"]
+    return runs
+
+
+def item8_phases(dev, card):
+    """Phases 60-62 (module docstring). Returns {path: {kernel:
+    launches}}."""
+    from gamd_tpu_torch.tools import distill_rollout, profile_md, trace_force
+
+    runs = {}
+    t0 = time.perf_counter()
+    logdir = tempfile.mkdtemp(prefix="gamd_trace_")
+    try:
+        traced = run_path("trace_force", runs, lambda: trace_force.main(
+            ["float32", "pallas", "--calls", str(TRACE_CALLS), "--logdir",
+             logdir]))
+        trace_bytes = os.path.getsize(os.path.join(logdir, "trace.json"))
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    row3 = [k for k in traced["kernels"] if k.startswith("conv_tile_kernel")]
+    say(f"phase 60: trace_force float32 pallas, {TRACE_CALLS} force calls: "
+        f"{traced['us_per_step']:.1f} us of device time a step over "
+        f"{len(traced['kernels'])} kernels listed, row 3's {row3}; "
+        f"conv_msg_gather launches {runs['trace_force']['conv_msg_gather']};"
+        f" Chrome trace {trace_bytes} bytes [{card}]")
+    require(traced["where"] == "device" and row3,
+            "trace_force lists no row 3 kernel")
+    require(runs["trace_force"]["conv_msg_gather"] > 0,
+            "trace_force did not launch row 3")
+    t1 = time.perf_counter()
+
+    profiled = profile_md.main(PROFILE_MD_ARGV)
+    say(f"phase 61: profile_md {' '.join(PROFILE_MD_ARGV)}: "
+        f"{json.dumps({k: round(v, 1) for k, v in profiled.items()})} us a "
+        f"step (host clock) [{card}]")
+    require(len(profiled) == 6 and all(math.isfinite(v) and v > 0
+                                       for v in profiled.values()),
+            "profile_md did not time its six bodies")
+    t2 = time.perf_counter()
+
+    out = tempfile.mkdtemp(prefix="gamd_distill_")
+    try:
+        seeds = run_path("distill_rollout", runs,
+                         lambda: distill_rollout.main(
+                             DISTILL_ARGV + ["--ckpt", DISTILL_CKPT,
+                                             "--out", out]))
+        params = LJParams()
+        box, _ = lj_fluid_box(258, 0.5, params)
+        worst, n_files = 0.0, 0
+        for seed in seeds:
+            for t in range(DISTILL_FRAMES):
+                f = np.load(os.path.join(out, f"data_{seed}_{t}.npz"))
+                n_files += 1
+                require(all(np.isfinite(f[k]).all() for k in f.files),
+                        f"non-finite distilled frame {seed}/{t}")
+                want = (lj_forces_dense(torch.as_tensor(f["pos"],
+                                                        device=dev),
+                                        box, params)
+                        / units.KJ_MOL_NM_TO_INTERNAL).cpu().numpy()
+                worst = max(worst, float(np.abs(f["forces"] - want).max()
+                                         / np.abs(want).max()))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    _, ckpt_cfg, _ = load_self_describing(DISTILL_CKPT)
+    counts = runs["distill_rollout"]
+    say(f"phase 62: distill_rollout {' '.join(DISTILL_ARGV)} on "
+        f"{DISTILL_CKPT}: {n_files} frames, labels vs lj_forces_dense of "
+        f"the written positions max |d| / max |F| {worst:.3e} (tolerance "
+        f"{DISTILL_LABEL_RTOL}); launches {counts} (use_pallas "
+        f"{ckpt_cfg.use_pallas}) [{card}]")
+    require(n_files == DISTILL_SEEDS * DISTILL_FRAMES
+            and worst <= DISTILL_LABEL_RTOL,
+            "distilled labels disagree with the LJ oracle")
+    require(counts["nhc_half_step"] > 0, "distill_rollout did not launch "
+            "row 18")
+    if ckpt_cfg.use_pallas:
+        require(counts["conv_msg_gather"] > 0,
+                "distill_rollout did not launch row 3")
+    say(f"phases 60-62: {t1 - t0:.1f}, {t2 - t1:.1f} and "
+        f"{time.perf_counter() - t2:.1f} s")
+    return runs
 
 
 def merge_launches(entries, runs):
@@ -5373,6 +5648,10 @@ def main():
     water_train_launches = water_training_phase(dev, card, water_ctx)
     protocol_launches = water_protocol_phases(dev, card)
     dft_fields, dft_launches = dft_phases(dev, card)
+    t_dp = time.perf_counter()
+    dp_launches = data_parallel_phase(dev, card)
+    item8_launches = item8_phases(dev, card)
+    say(f"phases 59-62: {time.perf_counter() - t_dp:.1f} s")
 
     # -- the kernels line, the result line ---------------------------------
     by_path = {name: {"per_step": per_step_launches[name],
@@ -5420,7 +5699,8 @@ def main():
                              **banded_launches, **ablate_launches,
                              **act_launches, **gen_launches,
                              **verify_launches, **water_train_launches,
-                             **protocol_launches, **dft_launches})
+                             **protocol_launches, **dft_launches,
+                             **dp_launches, **item8_launches})
     say("kernels: " + json.dumps([k["name"] for k in kernels]))
     say(json.dumps({"kernels": kernels}))
     say(f"total {time.perf_counter() - t_start:.1f} s")

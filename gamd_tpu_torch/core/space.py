@@ -1,8 +1,10 @@
 """Periodic-space math on torch tensors: minimum image and box wrapping.
 
-Port of gamd_tpu/core/space.py (min_image, wrap). The box is a float or a
-tensor broadcastable against the displacement; frame_box shapes a box a
-frame ([B] or [B, 3]) so.
+Port of gamd_tpu/core/space.py (min_image, wrap, displacement, distance2,
+distance, pairwise_displacement, pairwise_distance2, center_positions,
+pairwise_displacement_two_system). The box is a float or a tensor
+broadcastable against the displacement (a scalar or [3] for one frame);
+frame_box shapes a box a frame ([B] or [B, 3]) so.
 """
 
 import numpy as np
@@ -43,8 +45,44 @@ def wrap(pos, box):
     return torch.remainder(pos, box)
 
 
+def displacement(p_i, p_j, box):
+    """Minimum-image displacement from particle i to particle j,
+    pos_j - pos_i."""
+    return min_image(p_j - p_i, box)
+
+
+def distance2(p_i, p_j, box):
+    """Squared minimum-image distance."""
+    d = displacement(p_i, p_j, box)
+    return torch.sum(d * d, dim=-1)
+
+
+def distance(p_i, p_j, box):
+    """Minimum-image distance."""
+    return torch.sqrt(distance2(p_i, p_j, box))
+
+
+def pairwise_displacement(pos, box):
+    """All-pairs minimum-image displacements [..., N, N, 3] of pos
+    [..., N, 3]: dr[i, j] = min_image(pos[j] - pos[i]), row i from particle
+    i to every other."""
+    return min_image(pos[..., None, :, :] - pos[..., :, None, :], box)
+
+
 def pairwise_distance2(pos, box):
     """All-pairs squared minimum-image distances [..., N, N] of pos
     [..., N, 3]; row i holds the displacements pos[j] - pos[i]."""
-    dr = min_image(pos[..., None, :, :] - pos[..., :, None, :], box)
+    dr = pairwise_displacement(pos, box)
     return torch.sum(dr * dr, dim=-1)
+
+
+def center_positions(pos):
+    """(pos less its centroid, the centroid [..., 3]) of pos [..., N, 3]."""
+    offset = torch.mean(pos, dim=-2)
+    return pos - offset[..., None, :], offset
+
+
+def pairwise_displacement_two_system(pos1, pos2, box):
+    """Minimum-image displacements [N2, N1, 3] between two sets:
+    dr[i, j] = min_image(pos1[j] - pos2[i])."""
+    return min_image(pos1[None, :, :] - pos2[:, None, :], box)

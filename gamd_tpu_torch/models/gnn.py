@@ -1,7 +1,8 @@
 """GAMD GNN force field over padded [N, K] neighbour lists, eval and train
 forward (port of gamd_tpu/models/gnn.py::GAMDNet: the LJ species, the
 water species with its one-hot node encoder and its bond channel, and the
-DFT model's switches update_edge and expand_edge=False).
+DFT model's switches update_edge and expand_edge=False; and of its
+cubic_kernel and RBFExpansion, which the models do not use).
 
 Every tensor is a dense [B, N, K, F] block; padded neighbour slots point at
 the centre atom and are zeroed by the mask when messages are summed. Per
@@ -54,6 +55,7 @@ megakernel, megastep and banded force paths in train.forcefield.
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -62,6 +64,7 @@ from gamd_tpu_torch.core.config import ModelConfig
 from gamd_tpu_torch.models.mlp import MLP, Dense, get_activation
 from gamd_tpu_torch.ops.conv_gather import fused_conv_gather_message
 from gamd_tpu_torch.ops.encoder import fused_edge_encoder
+from gamd_tpu_torch.parallel.mesh import all_reduce_sum, global_rows
 
 LN_EPS = 1e-6     # flax nn.LayerNorm default
 BN_EPS = 1e-5     # torch BatchNorm1d default, as the JAX model
@@ -92,6 +95,14 @@ def _wide(x):
     return x.float() if x.dtype == torch.bfloat16 else x
 
 
+def cubic_kernel(r, re, eps=1e-3):
+    """Smoothing kernel relu((1 - (r/re)^2)^3), with r <= eps mapped to re
+    first; unused by the models, part of the reference's surface
+    (gamd_tpu/models/gnn.py:46)."""
+    r = torch.where(r <= eps, re, r)
+    return F.relu((1.0 - (r / re) ** 2) ** 3)
+
+
 def rbf_expand(d, low=0.0, high=1.0, gap=0.025):
     """Gaussian radial basis exp(-(1/gap) * (d - mu)^2) with centres
     linspace(low, high, ceil((high-low)/gap))."""
@@ -99,6 +110,19 @@ def rbf_expand(d, low=0.0, high=1.0, gap=0.025):
     centers = torch.linspace(low, high, num_centers, dtype=d.dtype,
                              device=d.device)
     return torch.exp(-(1.0 / gap) * (d[..., None] - centers) ** 2)
+
+
+class RBFExpansion(nn.Module):
+    """rbf_expand as a module, its centres fixed (not parameters); the JAX
+    module's fields and defaults (gamd_tpu/models/gnn.py:64)."""
+
+    def __init__(self, low: float = 0.0, high: float = 30.0,
+                 gap: float = 0.1):
+        super().__init__()
+        self.low, self.high, self.gap = low, high, gap
+
+    def forward(self, d):
+        return rbf_expand(d, self.low, self.high, self.gap)
 
 
 def gather_nodes(h, idx):
@@ -133,7 +157,7 @@ class LayerNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, group=None):
         return F.layer_norm(_wide(x), x.shape[-1:], self.scale, self.bias,
                             LN_EPS)
 
@@ -146,8 +170,12 @@ class BatchNorm(nn.Module):
     biased variance over every axis but the last (E[x^2] - E[x]^2, clipped
     at 0: flax's use_fast_variance) and updates the running stats to
     0.9 * old + 0.1 * batch, variance biased (F.batch_norm would store the
-    unbiased one). A bf16 input is normalised in float32 and the output is
-    float32, as flax's."""
+    unbiased one). Under a process group (data-parallel ranks) the batch
+    is the global one: the sums of x and x^2 are all-reduced over the
+    group (differentiably) and divided by the global count, as JAX's
+    sharded step normalises, so every rank's running stats move alike. A
+    bf16 input is normalised in float32 and the output is float32, as
+    flax's."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -156,13 +184,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(dim))
         self.register_buffer("var", torch.ones(dim))
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, group=None):
         x = _wide(x)
         if train:
             axes = tuple(range(x.ndim - 1))
-            mean = torch.mean(x, dim=axes)
-            var = torch.clamp(torch.mean(x * x, dim=axes) - mean * mean,
-                              min=0.0)
+            if group is None:
+                mean = torch.mean(x, dim=axes)
+                mean_sq = torch.mean(x * x, dim=axes)
+            else:
+                count = x.numel() // x.shape[-1] * dist.get_world_size(
+                    group)
+                sums = all_reduce_sum(torch.stack(
+                    [torch.sum(x, dim=axes), torch.sum(x * x, dim=axes)]),
+                    group) / count
+                mean, mean_sq = sums[0], sums[1]
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean
                                 + (1.0 - BN_MOMENTUM) * mean)
@@ -174,9 +210,13 @@ class BatchNorm(nn.Module):
             + self.bias
 
 
-def _bernoulli(shape, keep_prob, device, generator):
-    """Keep mask: uniform [0, 1) < keep_prob, as jax.random.bernoulli."""
-    return torch.rand(shape, generator=generator, device=device) < keep_prob
+def _bernoulli(shape, keep_prob, device, generator, group=None):
+    """Keep mask: uniform [0, 1) < keep_prob, as jax.random.bernoulli;
+    under a process group drawn at the global batch's shape, this rank's
+    rows kept (parallel.mesh.global_rows)."""
+    return global_rows(lambda s: torch.rand(s, generator=generator,
+                                            device=device) < keep_prob,
+                       shape, group)
 
 
 class EdgeGatedConv(nn.Module):
@@ -210,18 +250,19 @@ class EdgeGatedConv(nn.Module):
             self.edge_layer_norm = LayerNorm(nd)
 
     def forward(self, h_raw, hn, e, idx, mask, train: bool = False,
-                generator=None, return_edges: bool = False):
+                generator=None, return_edges: bool = False, group=None):
         """h_raw [B,N,D] residual input, hn [B,N,D] normalised, e [B,N,K,E],
         idx/mask [B,N,K] -> h' [B,N,D]; with return_edges (h', e'), e'
         [B,N,K,D] the normalised edge embedding under update_edge, else
         None. In train mode with drop_edge, a Bernoulli keep of 0.8 drawn
-        from `generator` is ANDed into the aggregation mask."""
+        from `generator` (at the global batch's shape under a process
+        group) is ANDed into the aggregation mask."""
         act = self.act
         src_nodes = self.src_affine(hn)
         dst_code = self.dst_affine(hn)
         if self.drop_edge and train:
             mask = mask & _bernoulli(mask.shape, DROP_EDGE_KEEP, mask.device,
-                                     generator)
+                                     generator, group)
         cd = _caster(self.dtype)
         new_e = None
         if self.use_pallas and not self.update_edge:
@@ -278,16 +319,19 @@ class ConvBlock(nn.Module):
                 drop_edge=cfg.drop_edge, use_pallas=cfg.use_pallas,
                 dtype=dtype, update_edge=cfg.update_edge))
 
-    def forward(self, h, e, idx, mask, train: bool = False, generator=None):
+    def forward(self, h, e, idx, mask, train: bool = False, generator=None,
+                group=None):
         """Under a bf16 compute dtype each layer's sum h + delta reaches the
         next norm in float32 and the residual stream in bf16, as in the
         jitted JAX model, where XLA keeps the sum in float32 inside the
-        fusion that feeds the norm."""
+        fusion that feeds the norm. `group`: the data-parallel ranks, for
+        BatchNorm's batch moments and drop_edge's draws."""
         norm_in = h
         for layer in range(self.n_layers):
-            hn = getattr(self, f"norm_{layer}")(norm_in, train)
+            hn = getattr(self, f"norm_{layer}")(norm_in, train, group)
             norm_in, new_e = getattr(self, f"conv_{layer}")(
-                h, hn, e, idx, mask, train, generator, return_edges=True)
+                h, hn, e, idx, mask, train, generator, return_edges=True,
+                group=group)
             h = norm_in.to(h.dtype)
             if new_e is not None:
                 e = new_e
@@ -367,13 +411,15 @@ class GAMDNet(nn.Module):
         return params, batch_stats
 
     def encode_edges(self, pos, idx, box, length_mean, length_std,
-                     train: bool = False, generator=None, bond=None):
+                     train: bool = False, generator=None, bond=None,
+                     group=None):
         """The encoded edges e [B,N,K,E] that the first conv layer reads:
         the encoder MLP over unit vector, standardised length, its RBF
         expansion (with cfg.expand_edge) and (use_bond) the bond channel
         [B,N,K], the edge LayerNorm, and in train mode edge dropout
-        cfg.dropout (inverse-scaled, as flax) drawn from `generator`. box
-        is a scalar, or per frame [B] or [B, 3]."""
+        cfg.dropout (inverse-scaled, as flax) drawn from `generator`, at
+        the global batch's shape under a process group `group`. box is a
+        scalar, or per frame [B] or [B, 3]."""
         cfg = self.cfg
         act = get_activation(cfg.mlp_activation, self.dtype)
         unit, dist = edge_geometry(pos, idx, box, flip_dir=cfg.flip_dir)
@@ -396,20 +442,24 @@ class GAMDNet(nn.Module):
             * self.edge_ln_scale + self.edge_ln_bias
         if train and cfg.dropout > 0.0:
             keep_prob = 1.0 - cfg.dropout
-            keep = _bernoulli(e.shape, keep_prob, e.device, generator)
+            keep = _bernoulli(e.shape, keep_prob, e.device, generator,
+                              group)
             e = torch.where(keep, e / keep_prob, 0.0)
         return e
 
     def forward(self, pos, idx, mask, box, length_mean, length_std,
                 train: bool = False, generator=None, node_feat=None,
-                bond=None):
+                bond=None, group=None):
         """pos [B,N,3] wrapped, idx/mask [B,N,K], box float, length_mean/std
         floats or 0-d tensors -> normalised forces [B,N,3]. The water
         species takes node_feat [B,N,F] (the one-hot species) and, with
         use_bond, bond [B,N,K].
 
         train=True: BatchNorm on batch statistics (running stats updated),
-        edge dropout and drop_edge, both drawn from `generator`."""
+        edge dropout and drop_edge, both drawn from `generator`. `group`,
+        a process group of data-parallel ranks each holding its share of
+        the batch: BatchNorm's moments are the global batch's and the
+        draws are made at its shape (parallel.mesh)."""
         cfg = self.cfg
         if cfg.use_pallas and cfg.use_pallas_encoder and not train \
                 and not self.use_bond and cfg.expand_edge \
@@ -424,7 +474,7 @@ class GAMDNet(nn.Module):
                 flip_dir=cfg.flip_dir)
         else:
             e = self.encode_edges(pos, idx, box, length_mean, length_std,
-                                  train, generator, bond)
+                                  train, generator, bond, group)
         b, n, _ = pos.shape
         if self.species == "lj":
             h = _caster(self.dtype)(
@@ -433,5 +483,5 @@ class GAMDNet(nn.Module):
             if node_feat is None:
                 raise ValueError("water variants require node_feat one-hot")
             h = _caster(self.dtype)(self.node_encoder(node_feat))
-        h = self.graph_conv(h, e, idx, mask, train, generator)
+        h = self.graph_conv(h, e, idx, mask, train, generator, group)
         return _wide(self.graph_decoder(h))

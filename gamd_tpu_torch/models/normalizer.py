@@ -1,6 +1,7 @@
 """Streaming normalisation statistics (port of
 gamd_tpu/models/normalizer.py: RunningStat, init_stat, stat_from_values,
-update_stat, merge_stats, normalize, denormalize).
+update_stat with its reduction over data-parallel ranks, merge_stats,
+normalize, denormalize).
 
 The moments are either plain Python floats (a force field reads them once,
 when it is built) or 0-d float32 tensors on the training state's device
@@ -14,6 +15,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 class RunningStat(NamedTuple):
@@ -79,9 +81,16 @@ def merge_stats(a: RunningStat, b: RunningStat) -> RunningStat:
     return RunningStat(count=n, mean=torch.where(n > 0, mean, 0.0), m2=m2)
 
 
-def update_stat(stat: RunningStat, values, mask=None) -> RunningStat:
+def update_stat(stat: RunningStat, values, mask=None,
+                group=None) -> RunningStat:
     """partial_fit: fold a batch of values (any shape; with `mask`, of the
-    same shape, only the set entries) into the tensor stat."""
+    same shape, only the set entries) into the tensor stat.
+
+    With a process group (JAX's axis_name), each rank's values are one
+    partition of the global batch: the counts and sums are all-reduced,
+    then the M2s with the between-partition term n_r (mean_r - mean)^2,
+    so every rank folds in the global batch's moments (the counts are
+    each rank's own: masked shares may differ)."""
     values = values.to(torch.float32)
     if mask is None:
         n_b = torch.tensor(float(values.numel()), dtype=torch.float32,
@@ -93,6 +102,14 @@ def update_stat(stat: RunningStat, values, mask=None) -> RunningStat:
         n_b = torch.sum(m)
         mean_b = torch.sum(values * m) / torch.clamp(n_b, min=1.0)
         m2_b = torch.sum(m * (values - mean_b) ** 2)
+    if group is not None:
+        n_sum = torch.stack([n_b, mean_b * n_b])
+        dist.all_reduce(n_sum, group=group)
+        n_all = n_sum[0]
+        mean_all = n_sum[1] / torch.clamp(n_all, min=1.0)
+        m2_all = m2_b + n_b * (mean_b - mean_all) ** 2
+        dist.all_reduce(m2_all, group=group)
+        n_b, mean_b, m2_b = n_all, mean_all, m2_all
     return merge_stats(stat, RunningStat(count=n_b, mean=mean_b, m2=m2_b))
 
 

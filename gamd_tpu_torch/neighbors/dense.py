@@ -1,6 +1,6 @@
 """Dense O(N^2) neighbour search into fixed-capacity padded [N, K] lists
-(port of gamd_tpu/neighbors/dense.py: dense_neighbor_list, refresh_mask;
-build_nbrs is the k_model rule of gamd_tpu/md/simulate.py:94-112).
+(port of gamd_tpu/neighbors/dense.py: dense_neighbor_list, refresh_mask,
+all_pairs_edges; build_nbrs is the k_model rule of gamd_tpu/md/simulate.py:94-112).
 
 Row i holds up to K neighbours of atom i, nearest first; padded slots point
 at atom i itself so gathers stay in bounds, and the mask zeroes them. When a
@@ -15,8 +15,10 @@ import torch
 from gamd_tpu_torch.core import space
 
 
-def dense_neighbor_list(pos, box, cutoff, k_max):
-    """Padded neighbour list from all-pairs minimum-image distances.
+def dense_neighbor_list(pos, box, cutoff, k_max, include_self=False):
+    """Padded neighbour list from all-pairs minimum-image distances, i == j
+    pairs kept only with include_self (the reference's add_self_loop is a
+    silent no-op, so the models never set it).
 
     Returns idx [N, K] int32 (padded slots hold the row index), mask [N, K]
     bool, and overflow, a 0-d bool tensor on pos's device (read it on the
@@ -27,9 +29,9 @@ def dense_neighbor_list(pos, box, cutoff, k_max):
     n = pos.shape[-2]
     lead = tuple(pos.shape[:-2])
     d2 = space.pairwise_distance2(pos, box)
-    # No self edges: the reference's add_self_loop is a silent no-op.
-    within = (d2 < cutoff * cutoff) & ~torch.eye(n, dtype=torch.bool,
-                                                  device=pos.device)
+    within = d2 < cutoff * cutoff
+    if not include_self:
+        within = within & ~torch.eye(n, dtype=torch.bool, device=pos.device)
     overflow = torch.any(torch.sum(within, dim=-1) > k_max)
 
     d2_masked = torch.where(within, d2, torch.inf)
@@ -80,3 +82,15 @@ def refresh_mask(pos, box, cutoff, idx, mask):
     (built at cutoff + skin) is kept, only the true-cutoff mask is redone."""
     rel = space.min_image(pos[idx.long()] - pos[:, None, :], box)
     return mask & (torch.sum(rel * rel, dim=-1) < cutoff * cutoff)
+
+
+def all_pairs_edges(pos, box, cutoff):
+    """Every ordered pair as an edge slot, the reference's get_neighbor set
+    with static shapes: disp [N, N, 3] (min-image pos[j] - pos[i]), dist
+    [N, N] and mask [N, N] bool (dist <= cutoff, i != j)."""
+    disp = space.pairwise_displacement(pos, box)
+    dist = torch.sqrt(torch.sum(disp * disp, dim=-1))
+    n = pos.shape[-2]
+    mask = (dist <= cutoff) & ~torch.eye(n, dtype=torch.bool,
+                                         device=pos.device)
+    return disp, dist, mask

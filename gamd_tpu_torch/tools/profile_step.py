@@ -56,7 +56,6 @@ without one.
 
 import dataclasses
 import json
-import re
 import sys
 import time
 
@@ -75,6 +74,11 @@ from gamd_tpu_torch.tools.bench_large import (LARGE_MD, lj_large,
 from gamd_tpu_torch.tools.lj_slice import K_MODEL, lj_slice
 from gamd_tpu_torch.train.checkpoint import load_self_describing
 from gamd_tpu_torch.train.forcefield import GNNForceField
+# The parse of a profiler run lives in utils.profiling; short_name,
+# traced_spans and on_device stay importable from here.
+from gamd_tpu_torch.utils.profiling import (device_spans, exclusive_times,
+                                            kernel_times, on_device,
+                                            short_name, traced_spans)
 
 STEPS = 40    # steps per window: two neighbour-rebuild chunks
 PATHS = ("per_step", "megastep", "deploy", "banded", "nhc", "replicas")
@@ -127,30 +131,6 @@ ENCODER_KERNELS = ("split_encoder_weights_kernel",
                    "encoder_tile_kernel[LiveSlots]")
 
 
-def short_name(kernel: str) -> str:
-    """A readable name for a device kernel: this repo's kernels by their
-    own name (the tile kernels with their source policy, and a stage
-    policy other than the conv message's; node_fused_kernel and
-    conv_update_kernel with their atoms a block, B, whatever benchmark
-    form and activations node_fused_kernel takes), PyTorch's by the kernel template and
-    the op it runs."""
-    name = kernel.replace("(anonymous namespace)::", "")
-    name = name[5:] if name.startswith("void ") else name
-    base = re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1].strip()
-    rest = name[len(name.split("<", 1)[0]):]
-    rows = re.search(r"\b(ClampedSrc|PreSrc|GatherSrc|BandSrc|AllSlots|"
-                     r"LiveSlots)\b", rest)
-    if rows:   # conv_tile_kernel's, encoder_tile_kernel's
-        stages = ",ThetaStages" if re.search(r"\bThetaStages\b", rest) \
-            else ""
-        return f"{base}[{rows.group(1)}{stages}]"
-    width = re.match(r"<(\d+)(?:, ?\d+)*>", rest)   # B, then form, acts
-    if base in ("node_fused_kernel", "conv_update_kernel") and width:
-        return f"{base}[B={width.group(1)}]"
-    ops = re.findall(r"(\w+_kernel_cuda|\w+Functor|\w+_cuda_out)", rest)
-    return f"{base}[{ops[-1]}]" if ops else (base or kernel[:60])
-
-
 def forward_stages(kernels: dict, calls: int) -> dict:
     """Device us per call of each stage of the whole-model forward
     (FORWARD_STAGES), from kernel_times' {short name: {"us", "count"}}."""
@@ -159,76 +139,6 @@ def forward_stages(kernels: dict, calls: int) -> dict:
         if name in kernels:
             stages[stage] = stages.get(stage, 0.0) + kernels[name]["us"]
     return {k: round(v / calls, 3) for k, v in stages.items()}
-
-
-def on_device(evt) -> bool:
-    """A device activity of a profiler run (a kernel, copy or memset); user
-    annotations such as Optimizer.step's, which span other kernels and the
-    gaps between them, are not."""
-    return evt.device_type == torch.autograd.DeviceType.CUDA \
-        and not getattr(evt, "is_user_annotation", False)
-
-
-def device_spans(prof) -> list:
-    """(start us, end us, short name) of every device activity, by start."""
-    return sorted((e.time_range.start, e.time_range.end, short_name(e.name))
-                  for e in prof.events() if on_device(e))
-
-
-def traced_spans(fn, calls, tries=3) -> list:
-    """device_spans of `calls` calls of fn in one torch.profiler session
-    (device activity only), after an untraced call. Now and then a
-    session delivers no device activity at all; such a session is run
-    again, up to `tries` sessions. [] if none saw any."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        spans = device_spans(prof)
-        if spans:
-            return spans
-    return []
-
-
-def exclusive_times(spans) -> tuple:
-    """Device time as a partition of the busy time: each activity gets what
-    it adds beyond the latest end before it (the running frontier), so
-    overlapping spans (a kernel started early by programmatic dependent
-    launch, waiting for the one before it) are not counted twice. Returns
-    ({short name: {"us", "count"}}, [(gap us, name before, name after)]
-    between an activity and the frontier before it)."""
-    kernels, gaps = {}, []
-    frontier, last = None, None
-    for start, end, name in spans:
-        if frontier is not None:
-            gaps.append((max(0.0, start - frontier), last, name))
-        entry = kernels.setdefault(name, {"us": 0.0, "count": 0})
-        entry["us"] += max(0.0, end - (start if frontier is None
-                                       else max(start, frontier)))
-        entry["count"] += 1
-        if frontier is None or end >= frontier:
-            frontier, last = end, name
-    return kernels, gaps
-
-
-def kernel_times(prof) -> dict:
-    """{short name: {"us": device time summed, "count": launches}} of the
-    device activities a torch.profiler run saw."""
-    kernels = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.cuda_time_total
-        if on_device(evt) and dev_us > 0:
-            entry = kernels.setdefault(short_name(evt.key),
-                                       {"us": 0.0, "count": 0})
-            entry["us"] += dev_us
-            entry["count"] += evt.count
-    return kernels
 
 
 def _simulation(dev, path: str):

@@ -10,7 +10,7 @@ profiler, then traces 20 more with torch.profiler. Prints the card line,
 then one JSON line per path: wall ms per step (untraced and traced),
 device time per step and per kernel name (with launch counts), and the
 device's idle share (1 - device time / wall time). Device time is each
-kernel's exclusive time (profile_step.exclusive_times): a kernel that
+kernel's exclusive time (utils.profiling.exclusive_times): a kernel that
 programmatic dependent launch starts early, waiting for the one before
 it, adds only what runs past that one's end.
 
@@ -27,7 +27,7 @@ import torch
 from gamd_tpu_torch.core.device import card_line
 from gamd_tpu_torch.ops.conv_gather import fused_conv_gather_message
 from gamd_tpu_torch.tools.lj_train_slice import lj_train_slice
-from gamd_tpu_torch.tools.profile_step import device_spans, exclusive_times
+from gamd_tpu_torch.utils.profiling import device_spans, exclusive_times
 from gamd_tpu_torch.train.loop import make_train_step
 from gamd_tpu_torch.train.state import create_train_state
 

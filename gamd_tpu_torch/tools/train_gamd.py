@@ -34,10 +34,17 @@ edge pipeline under `--use_pallas`, as JAX's) and `--disable_expand_edge`
 At the DFT widths (`--encoding_size 256 --edge_embedding_dim 256`, hidden
 128) `--use_pallas` runs the conv kernel pair at E = D = 256.
 
-Refused with NotImplementedError before any work, naming the ROADMAP item
-(Queue 1) that brings it: `--num_device` above 1. The port always trains
-in fp32 with TF32 off; `--matmul_precision` is read so that JAX command
-lines run unchanged.
+`--num_device N` above 1 trains data-parallel over N ranks
+(parallel.mesh): N processes spawned with torch.multiprocessing, one card
+each with the nccl backend, or with `--cpu` N CPU processes with gloo;
+each rank takes a contiguous share of every batch and rank 0 logs and
+writes the checkpoints (main then returns None: the state lives in the
+ranks). The default, -1, is every visible card (one process with
+`--cpu`). As the JAX CLI (scripts/train_gamd.py:204-207), an N that does
+not divide `--batch_size` trains in one process, and says so; an N above
+the visible cards raises before any work (JAX would run on the devices it
+has). The port always trains in fp32 with TF32 off; `--matmul_precision`
+is read so that JAX command lines run unchanged.
 
 It runs on the CUDA card; `--cpu` runs the plain PyTorch versions on the
 CPU instead. Example (the verify loop's step 2):
@@ -52,14 +59,17 @@ CPU instead. Example (the verify loop's step 2):
         --data_dir md_dataset/RPBE-surrogate.npz --cutoff 9.5 \\
         --conv_layer 5 --encoding_size 256 --edge_embedding_dim 256 \\
         --use_layer_norm --use_pallas --cp_dir /tmp/dck
+    python3 -m gamd_tpu_torch.tools.train_gamd --system lj \\
+        --data_dir /tmp/vds --batch_size 4 --num_device 2 --cpu \\
+        --cp_dir /tmp/vck2
 """
 
 import argparse
 import os
+import tempfile
 
 import torch
 
-MULTI_DEVICE = "multi-device training (ROADMAP Queue 1 item 7)"
 #: --system -> the dataset's subdirectory (scripts/train_gamd.py).
 SUBDIRS = {"lj": "lj_data", "tip3p": "water_data", "tip4p": "tip4p_data"}
 
@@ -125,8 +135,8 @@ def build_parser():
                         help="weight of the 1-cos angular fine-tune term "
                              "(0 = exact reference loss)")
     parser.add_argument("--num_device", default=-1, type=int,
-                        help="devices for data parallelism (-1 = all); the "
-                             "port trains on one")
+                        help="ranks for data parallelism (-1 = every "
+                             "visible card; one process with --cpu)")
     parser.add_argument("--relabel", action="store_true",
                         help="recompute the labels at the augmented "
                              "positions with the classical oracle each step "
@@ -154,11 +164,23 @@ def build_parser():
     return parser
 
 
-def refuse_unported(args):
-    """NotImplementedError for what the port does not train yet."""
-    if args.num_device > 1:
-        raise NotImplementedError(f"--num_device {args.num_device}: comes "
-                                  f"with {MULTI_DEVICE}")
+def n_ranks(args, log_fn=print) -> int:
+    """The data-parallel ranks of --num_device: -1 is every visible card
+    (1 with --cpu); 1 where the count does not divide --batch_size (as the
+    JAX CLI, said in the log); a count above 1 and above the visible cards
+    raises RuntimeError (without --cpu)."""
+    cards = torch.cuda.device_count()
+    n = args.num_device
+    if n == -1:
+        n = 1 if args.cpu else max(cards, 1)
+    if not args.cpu and n > 1 and n > cards:
+        raise RuntimeError(f"--num_device {n} asks for {n} cards; torch "
+                           f"finds {cards} (add --cpu for CPU ranks)")
+    if n > 1 and args.batch_size % n:
+        log_fn(f"--num_device {n} does not divide --batch_size "
+               f"{args.batch_size}: training in one process")
+        return 1
+    return max(n, 1)
 
 
 def check_flags(parser, args):
@@ -282,21 +304,58 @@ def datasets(args):
 
 
 def main(argv=None, log_fn=print, history=None):
-    """Train as the flags say; returns the final TrainState. log_fn gets
-    every line the run logs; `history`, if given, each epoch's record
-    (train.loop.train)."""
+    """Train as the flags say; returns the final TrainState, or None after
+    a data-parallel run (--num_device above 1: the ranks print the log and
+    write the checkpoints). log_fn gets every line the run logs; `history`,
+    if given, each epoch's record (train.loop.train); both serve the
+    one-process run only."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(args)
     check_flags(parser, args)
+    n = n_ranks(args, log_fn)
+    if n == 1:
+        return run(args, log_fn, history)
+    datasets(args)       # read (and pack) once, before the ranks start
+    backend = "gloo" if args.cpu else "nccl"
+    log_fn(f"Data-parallel over {n} ranks ({backend})")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.multiprocessing.spawn(
+            rank_main, nprocs=n, join=True,
+            args=(n, args, backend, f"file://{os.path.join(tmp, 'pg')}"))
+    return None
 
+
+def rank_main(rank, n, args, backend, init_method):
+    """One rank of a data-parallel run: join the group, take card `rank`
+    (nccl) or the CPU, and train on this rank's shares; rank 0 prints."""
+    from gamd_tpu_torch.parallel.mesh import init_rank, make_mesh
+
+    device = "cpu"
+    if args.cpu:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    else:
+        torch.cuda.set_device(rank)
+        device = f"cuda:{rank}"
+    init_rank(rank, n, backend, init_method)
+    try:
+        log_fn = (lambda line: print(line, flush=True)) if rank == 0 \
+            else (lambda line: None)
+        run(args, log_fn, None, make_mesh(device=device))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run(args, log_fn=print, history=None, mesh=None):
+    """The training of parsed flags in this process: alone, or as one rank
+    of `mesh` (parallel.mesh.Mesh) on its device."""
     from gamd_tpu_torch.core.device import resolve_device
     from gamd_tpu_torch.tools.run_md import pin_fp32
     from gamd_tpu_torch.train.checkpoint import load_checkpoint
     from gamd_tpu_torch.train.loop import train
     from gamd_tpu_torch.train.state import create_train_state
 
-    device = resolve_device("cpu" if args.cpu else "cuda")
+    device = (mesh.device if mesh is not None
+              else resolve_device("cpu" if args.cpu else "cuda"))
     pin_fp32()
     system, model_cfg, train_cfg = configs(args)
     train_data, val_data = datasets(args)
@@ -320,7 +379,7 @@ def main(argv=None, log_fn=print, history=None):
         subtract_longrange(system, (train_data, val_data), device)
 
     return train(system, model_cfg, train_cfg, train_data, val_data,
-                 ckpt_dir=args.cp_dir, log_fn=log_fn, state=state,
+                 ckpt_dir=args.cp_dir, mesh=mesh, log_fn=log_fn, state=state,
                  relabel_fn=relabel_fn, device=device, history=history)
 
 

@@ -12,7 +12,10 @@ fixed box or a per-frame box, jitter_positions, rigid_jitter_positions).
 
 The draws (draw_flip_ks, draw_rigid_jitter) are apart from the transforms
 (rotation_from_ks, rigid_transform), so a test can hand both packages the
-same draws. Rotations are computed as
+same draws. Under a process group of data-parallel ranks, each holding its
+share of a batch, the jitter is drawn at the global batch's shape and
+each rank keeps its rows (parallel.mesh.global_rows), so the ranks draw
+what one process draws. Rotations are computed as
 elementwise products and sums in float32, never as a matmul that TF32
 could round: on the TPU the bf16 default of a matmul rounded the rotated
 coordinates to 20x the jitter (gamd_tpu/train/augment.py:49-53).
@@ -22,6 +25,8 @@ Random numbers come from a torch.Generator, so they are not JAX's.
 import math
 
 import torch
+
+from gamd_tpu_torch.parallel.mesh import global_rows
 
 
 def draw_flip_ks(generator, batch: int, prob: float = 0.3, device="cpu"):
@@ -83,15 +88,16 @@ def rotate_sample(pos, forces, box, r, rotate_box: bool = False,
     return rot(p - offset) + offset, rot(forces), box_vec
 
 
-def jitter_positions(generator, pos, sigma: float = 0.005):
+def jitter_positions(generator, pos, sigma: float = 0.005, group=None):
     """Gaussian position noise of standard deviation sigma (always drawn,
     so a zero sigma keeps the stream of draws the same)."""
-    return pos + sigma * torch.randn(pos.shape, generator=generator,
-                                     device=pos.device, dtype=pos.dtype)
+    return pos + sigma * global_rows(
+        lambda s: torch.randn(s, generator=generator, device=pos.device,
+                              dtype=pos.dtype), pos.shape, group)
 
 
 def draw_rigid_jitter(generator, pos, sigma_t: float, group_size: int = 3,
-                      sigma_rot: float = None):
+                      sigma_rot: float = None, group=None):
     """(dt, omega), each [..., M, 1, 3] for pos [..., M * group_size, 3]:
     translations of standard deviation sigma_t (A) and rotation vectors of
     sigma_rot (rad; default sigma_t / 0.65, so that an H atom 0.65 A from
@@ -99,10 +105,13 @@ def draw_rigid_jitter(generator, pos, sigma_t: float, group_size: int = 3,
     if sigma_rot is None:
         sigma_rot = sigma_t / 0.65
     shape = (*pos.shape[:-2], pos.shape[-2] // group_size, 1, 3)
-    draw = lambda: torch.randn(shape, generator=generator, device=pos.device,
-                               dtype=pos.dtype)
-    dt = sigma_t * draw()
-    return dt, sigma_rot * draw()
+
+    def draw(s):
+        randn = lambda: torch.randn(s, generator=generator,
+                                    device=pos.device, dtype=pos.dtype)
+        return randn(), randn()
+    dt, omega = global_rows(draw, shape, group)
+    return sigma_t * dt, sigma_rot * omega
 
 
 def _group_box(box, pos):
@@ -150,11 +159,12 @@ def rigid_transform(pos, dt, omega, box=None, group_size: int = 3):
 
 
 def rigid_jitter_positions(generator, pos, sigma_t: float, box=None,
-                           group_size: int = 3, sigma_rot: float = None):
+                           group_size: int = 3, sigma_rot: float = None,
+                           group=None):
     """Rigid per-molecule jitter: draw_rigid_jitter's draws applied by
     rigid_transform. Augmented frames stay on the rigid-water constraint
     manifold that the validation frames and every rollout state live on,
     where per-atom jitter would move them off it."""
     dt, omega = draw_rigid_jitter(generator, pos, sigma_t, group_size,
-                                  sigma_rot)
+                                  sigma_rot, group)
     return rigid_transform(pos, dt, omega, box, group_size)

@@ -28,6 +28,17 @@ device and read once at its end. The permutation (epoch_order) and the
 seed of the step generator (epoch_seed) are functions of (train seed,
 epoch), so a run resumed at --start_epoch replays nothing and equals the
 straight run bit for bit. Neither stream is JAX's (ROADMAP Queue 3).
+
+Data parallelism (JAX's `mesh`, gamd_tpu/train/loop.py:352-386): with a
+parallel.mesh.Mesh each rank runs the same loop on its contiguous share
+of every batch (dp_sharding). The step's random draws are made at the
+global batch's shape and cut to the rank's rows; every reduction over the
+batch is global: the scalers (update_stat over the group), BatchNorm's
+moments, the loss and its terms (each rank's means of equal shares,
+all-reduced) and the overflow flag; and one flat all-reduce averages the
+gradients before Adam. So a step on R ranks computes what the step on one
+process computes, up to the order of its sums. Rank 0 alone logs and
+writes checkpoints.
 """
 
 import os
@@ -36,6 +47,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gamd_tpu_torch.core import space
 from gamd_tpu_torch.core.config import ModelConfig, SystemConfig, TrainConfig
@@ -43,12 +55,13 @@ from gamd_tpu_torch.models.gnn import GAMDNet, gather_nodes
 from gamd_tpu_torch.models.normalizer import normalize, update_stat
 from gamd_tpu_torch.neighbors.dense import dense_neighbor_list
 from gamd_tpu_torch.neighbors.topology import neighbor_bond_channel
+from gamd_tpu_torch.parallel.mesh import (all_reduce_sum, average_gradients,
+                                          dp_sharding, global_rows,
+                                          replicated)
 from gamd_tpu_torch.train import augment
 from gamd_tpu_torch.train.checkpoint import save_checkpoint, save_scaler
 from gamd_tpu_torch.train.state import TrainState, create_train_state
 
-#: What brings the data-parallel mesh (JAX's `mesh` argument).
-MULTI_DEVICE = "multi-device training (ROADMAP Queue 1 item 7)"
 #: Frames a call of the list search in precompute_nbrs.
 PRECOMPUTE_CHUNK = 64
 
@@ -81,8 +94,12 @@ def edge_distances(pos, idx, box):
     return torch.sqrt(torch.sum(rel * rel, dim=-1))
 
 
-def _loss(pred, gt_norm, train_cfg: TrainConfig):
-    """(loss, data_loss, net_force) of loop.py:184-221."""
+def _loss(pred, gt_norm, train_cfg: TrainConfig, group=None):
+    """(loss, data_loss, net_force) of loop.py:184-221. Under a process
+    group the three means (the data term, the mean prediction and the
+    cosine term) are the global batch's: each rank's means of its equal
+    share, all-reduced (differentiably) and divided by the ranks; the net
+    force is |global mean|, and every rank holds the same loss."""
     if train_cfg.loss == "mae":
         data_loss = torch.mean(torch.abs(pred - gt_norm))
     elif train_cfg.loss == "relmae":
@@ -94,15 +111,35 @@ def _loss(pred, gt_norm, train_cfg: TrainConfig):
     else:
         raise ValueError(f"unknown loss {train_cfg.loss!r}: mae, mse or "
                          "relmae")
-    net_force = torch.abs(torch.mean(pred))      # mean over every element
-    loss = data_loss + train_cfg.lambda_net_force * net_force
+    mean_pred = torch.mean(pred)                 # mean over every element
+    cos_term = None
     if train_cfg.lambda_cosine > 0.0:
         dot = torch.sum(pred * gt_norm, dim=-1)
         norms = (torch.linalg.vector_norm(pred, dim=-1)
                  * torch.linalg.vector_norm(gt_norm, dim=-1))
         cos = dot / (norms + 1e-3)
-        loss = loss + train_cfg.lambda_cosine * torch.mean(1.0 - cos)
+        cos_term = torch.mean(1.0 - cos)
+    if group is not None:
+        means = [data_loss, mean_pred] + ([cos_term] if cos_term is not None
+                                          else [])
+        means = all_reduce_sum(torch.stack(means), group) \
+            / dist.get_world_size(group)
+        data_loss, mean_pred = means[0], means[1]
+        cos_term = means[2] if cos_term is not None else None
+    net_force = torch.abs(mean_pred)
+    loss = data_loss + train_cfg.lambda_net_force * net_force
+    if cos_term is not None:
+        loss = loss + train_cfg.lambda_cosine * cos_term
     return loss, data_loss, net_force
+
+
+def _any(flag, group=None):
+    """A 0-d bool flag, or-ed over the group's ranks."""
+    if group is None:
+        return flag
+    f = flag.to(torch.float32)
+    dist.all_reduce(f, group=group)
+    return f > 0
 
 
 def _model_inputs(model: GAMDNet, batch, idx):
@@ -113,7 +150,7 @@ def _model_inputs(model: GAMDNet, batch, idx):
 
 
 def make_train_step(model: GAMDNet, system: SystemConfig,
-                    train_cfg: TrainConfig, relabel_fn=None):
+                    train_cfg: TrainConfig, relabel_fn=None, mesh=None):
     """train_step(state, batch) -> (state, metrics) for the TrainState
     whose module is `model`.
 
@@ -131,15 +168,22 @@ def make_train_step(model: GAMDNet, system: SystemConfig,
     The module and optimizer are updated in place; the returned state
     carries the new scalers and step. metrics: loss, data_loss, net_force,
     force_std, nbr_overflow (tensors) and pos, the positions the model saw.
+
+    With a parallel.mesh.Mesh the batch is this rank's share of a global
+    batch, the state's generator is seeded alike on every rank, and the
+    step is the global batch's (the module docstring says how); the
+    metrics but pos are the global batch's, the same on every rank.
     """
+    group = None if mesh is None else mesh.group
+
     def train_step(state: TrainState, batch):
         gen = state.generator
         pos, gt = batch["pos"], batch["forces"]
         box, per_sample = batch_box(system, batch)
         if train_cfg.rotate_aug:
-            r = augment.random_flip_rotation(gen, pos.shape[0],
-                                             train_cfg.rotate_prob,
-                                             pos.device)
+            r = global_rows(lambda s: augment.random_flip_rotation(
+                gen, s[0], train_cfg.rotate_prob, pos.device),
+                (pos.shape[0],), group)
             if per_sample:
                 pos, gt, box = augment.rotate_sample(
                     pos, gt, None, r, rotate_box=True, box_vec=box)
@@ -152,26 +196,32 @@ def make_train_step(model: GAMDNet, system: SystemConfig,
         else:
             idx, mask, overflow = search_batch(pos, box, system.cutoff,
                                                system.nbr_capacity)
+            overflow = _any(overflow, group)
         if train_cfg.rigid_jitter:
             pos = augment.rigid_jitter_positions(gen, pos,
                                                  train_cfg.jitter_sigma,
-                                                 box=box)
+                                                 box=box, group=group)
         else:
-            pos = augment.jitter_positions(gen, pos, train_cfg.jitter_sigma)
+            pos = augment.jitter_positions(gen, pos, train_cfg.jitter_sigma,
+                                           group)
         if relabel_fn is not None:
             gt = relabel_fn(pos)
 
         length_stat = update_stat(state.length_stat,
-                                  edge_distances(pos, idx, box), mask=mask)
-        force_stat = update_stat(state.force_stat, gt)
+                                  edge_distances(pos, idx, box), mask=mask,
+                                  group=group)
+        force_stat = update_stat(state.force_stat, gt, group=group)
         gt_norm = normalize(gt, force_stat)
 
         state.optimizer.zero_grad(set_to_none=True)
         pred = model(pos, idx, mask, box, length_stat.safe_mean,
                      torch.clamp(length_stat.std, min=1e-12), train=True,
-                     generator=gen, **_model_inputs(model, batch, idx))
-        loss, data_loss, net_force = _loss(pred, gt_norm, train_cfg)
+                     generator=gen, group=group,
+                     **_model_inputs(model, batch, idx))
+        loss, data_loss, net_force = _loss(pred, gt_norm, train_cfg, group)
         loss.backward()
+        if group is not None:
+            average_gradients(model.parameters(), group)
         state.optimizer.step()
         state.scheduler.step()
 
@@ -185,13 +235,16 @@ def make_train_step(model: GAMDNet, system: SystemConfig,
     return train_step
 
 
-def make_eval_step(model: GAMDNet, system: SystemConfig):
+def make_eval_step(model: GAMDNet, system: SystemConfig, mesh=None):
     """eval_step(state, batch) -> {val_mae, val_mse, val_outlier} (0-d
     tensors) on normalised forces, the model in eval mode: wrap, the lists
     (searched unless the batch carries them), the labels normalised by the
     state's force scaler, and the outlier share of |err| / (|pred| + 1e-8)
     > 10, the prediction in the denominator as the reference's
-    (gamd_tpu/train/loop.py:312-347). The boxes as make_train_step's."""
+    (gamd_tpu/train/loop.py:312-347). The boxes as make_train_step's. With
+    a parallel.mesh.Mesh the batch is this rank's equal share, and the
+    three means are the global batch's (all-reduced over the ranks)."""
+    group = None if mesh is None else mesh.group
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
@@ -209,9 +262,14 @@ def make_eval_step(model: GAMDNet, system: SystemConfig):
         err = pred - gt_norm
         ratio = torch.abs(err.reshape(-1)) / (torch.abs(pred.reshape(-1))
                                               + 1e-8)
-        return {"val_mae": torch.mean(torch.abs(err)),
-                "val_mse": torch.mean(err ** 2),
-                "val_outlier": torch.mean((ratio > 10.0).to(torch.float32))}
+        means = {"val_mae": torch.mean(torch.abs(err)),
+                 "val_mse": torch.mean(err ** 2),
+                 "val_outlier": torch.mean((ratio > 10.0).to(torch.float32))}
+        if group is None:
+            return means
+        flat = torch.stack(list(means.values()))
+        dist.all_reduce(flat, group=group)
+        return dict(zip(means, flat / dist.get_world_size(group)))
 
     return eval_step
 
@@ -358,24 +416,38 @@ def train(system: SystemConfig, model_cfg: ModelConfig,
     checkpoint_E.msgpack and scaler_E.npz every checkpoint_every epochs and
     at the last. `history`, if given, gets each epoch's {"epoch", metric:
     float, "seconds"} dict, "seconds" the host time from the epoch's start
-    to the read of its metrics (which waits for the device). `mesh` (data
-    parallelism) raises NotImplementedError. A set whose frames carry their
+    to the read of its metrics (which waits for the device). With `mesh`
+    (a parallel.mesh.Mesh; call it on every rank) each rank stacks the
+    frames on its device, the state (made or given) is broadcast from rank
+    0, every rank walks the same batches and takes its share of each
+    (make_train_step's mesh), and rank 0 alone logs and writes
+    checkpoints; a batch size that the ranks do not divide raises
+    ValueError before any work. A set whose frames carry their
     own boxes (box None) has them stacked beside its frames and handed to
     each step (JAX's per-batch loop for box None, loop.py:369-372); JAX
     precomputes lists on its fixed-box path only, and so does the port.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"mesh: comes with {MULTI_DEVICE}")
     b = train_cfg.batch_size
+    shard = lambda ids: ids
+    if mesh is not None:
+        if b % mesh.world_size:
+            raise ValueError(f"batch_size {b} does not split into "
+                             f"{mesh.world_size} equal shares")
+        shard = dp_sharding(mesh)
+        device = mesh.device
+        if mesh.rank != 0:
+            log_fn, ckpt_dir = (lambda line: None), None
     steps_per_epoch = max(len(train_data) // b, 1)
     if state is None:
         state = create_train_state(model_cfg, system, train_cfg,
                                    steps_per_epoch, device=device)
+    if mesh is not None:
+        replicated(mesh)(state)
     model = state.model
     dev = state.force_stat.count.device
     train_step = make_train_step(model, system, train_cfg,
-                                 relabel_fn=relabel_fn)
-    eval_step = make_eval_step(model, system)
+                                 relabel_fn=relabel_fn, mesh=mesh)
+    eval_step = make_eval_step(model, system, mesh)
 
     stacked = stack_dataset(train_data, dev)
     boxes = stack_boxes(train_data, dev)
@@ -402,8 +474,8 @@ def train(system: SystemConfig, model_cfg: ModelConfig,
                                          b), device=dev)
         sums = {}
         for ids in order:
-            state, metrics = train_step(state, _frames(stacked, nbrs, ids,
-                                                       boxes))
+            state, metrics = train_step(state, _frames(stacked, nbrs,
+                                                       shard(ids), boxes))
             _add(sums, metrics)
         record = {"epoch": epoch, **_means(sums, order.shape[0], log_fn,
                                            f"epoch {epoch}: ")}
@@ -414,7 +486,7 @@ def train(system: SystemConfig, model_cfg: ModelConfig,
             sums = {}
             for ids in val_order:
                 _add(sums, eval_step(state, _frames(val_stacked, val_nbrs,
-                                                    ids, val_boxes)))
+                                                    shard(ids), val_boxes)))
             vmeans = _means(sums, val_order.shape[0], log_fn,
                             f"epoch {epoch} val: ")
             record.update(vmeans)

@@ -16,7 +16,9 @@ the silu/gelu activation pairs, and the banded path's water bond channel
 epoch loop's use_pallas steps (the conv-message pair) against the plain
 path for one epoch, and a checkpoint written and read back on the card;
 the TIP4P-Ew generator's protocol on the card (PyTorch and no kernel:
-it is here for its 90 s, which chip_smoke.py's phases leave out).
+it is here for its 90 s, which chip_smoke.py's phases leave out); the
+tools nve_drift_probe (rigid TIP3P NVE at 27 molecules) and
+analyze_pair_bias (lj_distill_best on generated LJ frames).
 Without one every test here skips.
 
 On the card (which has no JAX) run this file without the JAX package's
@@ -2459,3 +2461,56 @@ def test_tip4p_generation_on_the_card(cuda, tmp_path):
         temps.append(float((masses[:, None] * v * v).sum())
                      / ((3 * n - cst.n_constraints) * units.KB))
     assert abs(sum(temps) / 4 - 300.0) <= 20.0
+
+
+def test_nve_drift_probe_on_the_card(cuda, capsys):
+    """tools.nve_drift_probe on the card at 27 molecules (box 10.0 A,
+    cutoff 4.2 A), 200 Langevin thermalisation steps then 400 NVE steps
+    of 2 fs, SHAKE and SETTLE: a leg each, finite drift, the constraint
+    residual under 1e-5 A at the end, and the force probe's line."""
+    from gamd_tpu_torch.tools import nve_drift_probe
+
+    legs = nve_drift_probe.main(["--sizes", "27", "--steps", "400",
+                                 "--thermalize", "200", "--force_probe"])
+    out = capsys.readouterr().out
+    assert out.startswith("backend: cuda")
+    assert [leg["method"] for leg in legs] == ["shake", "settle"]
+    for leg in legs:
+        assert np.isfinite(leg["drift_kj_mol_ps"])
+        assert leg["residual_a"] < 1e-5, leg
+    assert "n_mol=  27 force rms=" in out
+
+
+def test_analyze_pair_bias_on_lj_distill_best(cuda, tmp_path):
+    """tools.analyze_pair_bias on results/ckpts/lj_distill_best.msgpack
+    over classical LJ frames generated on the card (1 seed, 20 frames
+    every 20 NHC steps after 200 FIRE steps; the test split's 2 frames):
+    the JAX script's JSON, finite, ordered pairs in every bin past the
+    LJ core (r >= 3.3 A; the bins below may be empty at 100 K, their
+    profile 0), and, over the bins with pairs, the labels' projection
+    tracking the analytic LJ pair force: the rms of their difference under
+    half the pair force's own rms (the estimator's cross-term
+    contamination, the JAX module's docstring says, attenuates it)."""
+    from gamd_tpu_torch.physics.generate import generate_lj_dataset
+    from gamd_tpu_torch.tools import analyze_pair_bias
+
+    data = str(tmp_path / "lj_data")
+    generate_lj_dataset(data, seeds=1, frames_per_seed=20,
+                        record_interval=20, minimize_steps=200,
+                        log_every_frames=0)
+    out = analyze_pair_bias.main([
+        "--ckpt", os.path.join(REPO, "results", "ckpts",
+                               "lj_distill_best.msgpack"),
+        "--data_dir", data, "--sample_num", "20", "--seed_num", "1",
+        "--json_out", str(tmp_path / "bias.json")])
+    assert out["frames"] == 2
+    assert all(np.isfinite(np.asarray(v, np.float64)).all()
+               for v in out.values())
+    r = np.asarray(out["r_bins_a"])
+    count = np.asarray(out["pair_count"])
+    gt = np.asarray(out["gt_pair_projection_ev_a"])
+    assert (count[r >= 3.3] > 0).all()
+    assert (gt[count == 0] == 0.0).all()
+    f_lj = np.asarray(out["analytic_lj_pair_force_ev_a"])[count > 0]
+    miss = gt[count > 0] - f_lj
+    assert np.sqrt((miss ** 2).mean()) < 0.5 * np.sqrt((f_lj ** 2).mean())

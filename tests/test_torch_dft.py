@@ -419,8 +419,9 @@ def test_dft_clis_on_cpu(tmp_path, capsys):
     --system dft on it (its one test frame, finite metrics), and run_md
     --system
     dft on it (81 atoms, 10 rigid steps: finite, residual under 1e-5 A);
-    --banded with dft is JAX's parser error, and --num_device 2 still
-    names item 7."""
+    --banded with dft is JAX's parser error, and --num_device 2 (data
+    parallelism, ported since) asks for the cards it names before any
+    work."""
     npz = str(tmp_path / "r.npz")
     generate_data.main(["--system", "rpbe", "--cpu", "--out", npz,
                         "--frames", "2", "--interval", "2",
@@ -461,8 +462,8 @@ def test_dft_clis_on_cpu(tmp_path, capsys):
     assert len(log.read_text().splitlines()) == 3
     with pytest.raises(SystemExit):
         run_md.main(["--system", "dft", "--banded", "--cpu"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_gamd.main(["--system", "dft", "--data_dir", npz, "--cpu",
+    with pytest.raises(RuntimeError, match="--num_device 2 asks for 2"):
+        train_gamd.main(["--system", "dft", "--data_dir", npz,
                          "--num_device", "2"])
 
 

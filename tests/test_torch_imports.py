@@ -1,7 +1,8 @@
 """The card's installation has torch but no jax, jaxlib, flax, optax,
 msgpack or ninja. Every module of gamd_tpu_torch, and chip_smoke imported as
 a module (main not run), must import with those blocked, and without the
-JAX package gamd_tpu."""
+JAX package gamd_tpu, and importing them loads (so builds) no kernel
+library."""
 
 import os
 import subprocess
@@ -13,8 +14,8 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "ninja", "gamd_tpu")
 #: Modules of the later slices (large N; the integrators and the NHC
 #: kernel; the op library; the tensor-core probes; water; the stage
 #: decomposition; data generation, the dataset and its packer; the train
-#: and evaluate CLIs; Ewald electrostatics), which the probe must have
-#: imported.
+#: and evaluate CLIs; Ewald electrostatics; data parallelism, profiling,
+#: pair bias and the item 8 tools), which the probe must have imported.
 NEW_IN_SLICES = ("gamd_tpu_torch.neighbors.cell_list",
                  "gamd_tpu_torch.neighbors.search",
                  "gamd_tpu_torch.ops.banded",
@@ -40,7 +41,15 @@ NEW_IN_SLICES = ("gamd_tpu_torch.neighbors.cell_list",
                  "gamd_tpu_torch.tools.generate_data",
                  "gamd_tpu_torch.tools.train_gamd",
                  "gamd_tpu_torch.tools.evaluate",
-                 "gamd_tpu_torch.physics.ewald")
+                 "gamd_tpu_torch.physics.ewald",
+                 "gamd_tpu_torch.parallel.mesh",
+                 "gamd_tpu_torch.utils.profiling",
+                 "gamd_tpu_torch.physics.pair_bias",
+                 "gamd_tpu_torch.tools.profile_md",
+                 "gamd_tpu_torch.tools.trace_force",
+                 "gamd_tpu_torch.tools.analyze_pair_bias",
+                 "gamd_tpu_torch.tools.nve_drift_probe",
+                 "gamd_tpu_torch.tools.distill_rollout")
 
 PROBE = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
@@ -64,6 +73,8 @@ PROBE = textwrap.dedent("""
     assert callable(chip_smoke.main)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
+    from gamd_tpu_torch.ops import build
+    assert build.load_library.cache_info().currsize == 0, "a kernel built"
     print(len(names), "modules")
 """)
 

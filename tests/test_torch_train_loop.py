@@ -32,6 +32,7 @@ from gamd_tpu.train.state import make_optimizer as jmake_optimizer
 
 from gamd_tpu_torch.core import config as tcfg
 from gamd_tpu_torch.core import units
+from gamd_tpu_torch.parallel.mesh import Mesh
 from gamd_tpu_torch.physics import lennard_jones as tlj
 from gamd_tpu_torch.tools import evaluate, train_gamd
 from gamd_tpu_torch.train import checkpoint as tckpt
@@ -647,9 +648,11 @@ def test_water_cli_trains_on_cpu(tmp_path):
 
 
 def test_refusals_raise_before_any_work(tmp_path):
-    """The one unported flag, --num_device above 1, raises
-    NotImplementedError naming its ROADMAP item before a file is read (the
-    data directory does not exist), as does a mesh. The DFT flags, refused
+    """--num_device above the cards torch finds raises RuntimeError naming
+    the count before a file is read (the data directory does not exist),
+    and a mesh whose ranks do not split the batch equally raises
+    ValueError before any work (data parallelism is ported: its runs are
+    tests/test_torch_parallel.py). The DFT flags, refused
     until the DFT slice, are ported: --system dft, --update_edge and
     --disable_expand_edge reach the data (the missing set's
     FileNotFoundError, no checkpoint written), evaluate --system dft
@@ -660,8 +663,10 @@ def test_refusals_raise_before_any_work(tmp_path):
     tests/test_torch_water_generate.py)."""
     base = ["--data_dir", str(tmp_path / "none"), "--cpu", "--cp_dir",
             str(tmp_path / "ck")]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_gamd.main(["--num_device", "2"] + base)
+    with pytest.raises(RuntimeError, match="--num_device 2 asks for 2"):
+        train_gamd.main(["--num_device", "2", "--data_dir",
+                         str(tmp_path / "none"), "--cp_dir",
+                         str(tmp_path / "ck")])
     for flags in (["--system", "dft"], ["--update_edge"],
                   ["--disable_expand_edge"]):
         with pytest.raises(FileNotFoundError):
@@ -677,9 +682,11 @@ def test_refusals_raise_before_any_work(tmp_path):
                        "none", "--cpu"])
     sys_kw, _ = lj_frames()
     system = tcfg.SystemConfig(**sys_kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    mesh = Mesh(group=None, rank=0, world_size=2,
+                device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="2 equal shares"):
         tloop.train(system, tcfg.ModelConfig(**TINY), tcfg.TrainConfig(),
-                    ListDataset([]), mesh=object(), device="cpu")
+                    ListDataset([]), mesh=mesh, device="cpu")
     dft_state = create_train_state(tcfg.ModelConfig(**TINY),
                                    tcfg.get_preset("dft"),
                                    tcfg.TrainConfig(), 1, device="cpu")
